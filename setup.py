@@ -40,8 +40,14 @@ setup(
         "TPU-native detection framework: PAA/ATSS/FCOS/RetinaNet and "
         "Faster/Mask/Keypoint R-CNN in JAX/Flax with Pallas kernels"
     ),
-    packages=find_packages(include=["paa_tpu", "paa_tpu.*"]),
-    package_data={"paa_tpu": ["csrc/*.cpp", "csrc/*.so"]},
+    packages=find_packages(
+        include=["paa_tpu", "paa_tpu.*", "paa_tpu_torch", "paa_tpu_torch.*"]
+    ),
+    package_data={
+        "paa_tpu": ["csrc/*.cpp", "csrc/*.so"],
+        # the PyTorch port's CUDA sources, built with nvcc at first use
+        "paa_tpu_torch": ["csrc/*.cu"],
+    },
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "orbax-checkpoint", "numpy",
