@@ -21,37 +21,23 @@
 // holds is refused by the wrapper; a tiled path belongs to the
 // single-image kernel of two-stage heads.
 //
-// Bit-exactness: the IoU uses the JAX kernel's op order, every operation
-// rounded on its own (__fadd_rn/__fmul_rn/__fdiv_rn, and the build uses
-// -fmad=false), with the compare iou > thresh in float32. keep_idx and
-// keep_valid therefore equal the plain PyTorch version's, and keep_scores
-// are copies of input scores.
+// Bit-exactness: the area and IoU of nms_common.cuh, in the JAX kernel's
+// op order. keep_idx and keep_valid therefore equal the plain PyTorch
+// version's, and keep_scores are copies of input scores.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "nms_common.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using paa_nms::kNegInf;
+using paa_nms::warp_argmax;
+
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBytesPerCandidate = 28;
-
-__device__ __forceinline__ bool better(float s, int i, float bs, int bi) {
-  return s > bs || (s == bs && i < bi);
-}
-
-__device__ __forceinline__ void warp_argmax(float& bs, int& bi) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float os = __shfl_down_sync(0xffffffffu, bs, off);
-    const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-    if (better(os, oi, bs, bi)) {
-      bs = os;
-      bi = oi;
-    }
-  }
-}
 
 __global__ void __launch_bounds__(kThreads) nms_batched_kernel(
     const float* __restrict__ boxes, const float* __restrict__ scores,
@@ -84,8 +70,7 @@ __global__ void __launch_bounds__(kThreads) nms_batched_kernel(
     y1[j] = c;
     x2[j] = d;
     y2[j] = e;
-    area[j] = __fmul_rn(__fadd_rn(__fsub_rn(d, a), 1.0f),
-                        __fadd_rn(__fsub_rn(e, c), 1.0f));
+    area[j] = paa_nms::box_area(a, c, d, e);
     live[j] = valid[row + j] ? scores[row + j] : kNegInf;
     lab[j] = labels[row + j];
   }
@@ -137,16 +122,8 @@ __global__ void __launch_bounds__(kThreads) nms_batched_kernel(
     const float barea = area[idx];
     const int blab = lab[idx];
     for (int j = tid; j < n; j += kThreads) {
-      const float w = fmaxf(
-          __fadd_rn(__fsub_rn(fminf(bx2, x2[j]), fmaxf(bx1, x1[j])), 1.0f),
-          0.0f);
-      const float h = fmaxf(
-          __fadd_rn(__fsub_rn(fminf(by2, y2[j]), fmaxf(by1, y1[j])), 1.0f),
-          0.0f);
-      const float inter = __fmul_rn(w, h);
-      const float iou =
-          __fdiv_rn(inter, __fsub_rn(__fadd_rn(barea, area[j]), inter));
-      bool suppress = iou > thresh;
+      bool suppress = paa_nms::iou_gt(bx1, by1, bx2, by2, barea, x1[j],
+                                      y1[j], x2[j], y2[j], area[j], thresh);
       if (class_aware) suppress = suppress && (lab[j] == blab);
       if (suppress || j == idx) live[j] = kNegInf;
     }

@@ -1,4 +1,5 @@
-"""Model assembly (port of paa_tpu/modeling/detector.py, PAA only).
+"""Model assembly (port of paa_tpu/modeling/detector.py): PAA, and
+Faster R-CNN through two_stage.py.
 
 A ``DetectionModel`` bundles the ``DenseDetector`` module (backbone +
 PAA head) on its device with the anchor generator and the static-shape
@@ -83,9 +84,11 @@ class DetectionModel:
     def postprocess_config(self):
         return PostProcessConfig.from_cfg(self.cfg)
 
-    def postprocess(self, outputs, image_sizes, anchors, level_counts):
-        return paa_postprocess(outputs, image_sizes, anchors, level_counts,
-                               self.postprocess_config())
+    def detect(self, images, image_sizes):
+        """PAA detections of normalized NCHW ``images`` on the device."""
+        anchors, counts = self.anchors_for(images.shape[2:])
+        return paa_postprocess(self.module(images), image_sizes, anchors,
+                               counts, self.postprocess_config())
 
     def make_eval_fn(self, state=None):
         """eval_fn(images, image_sizes) -> {"boxes", "scores", "labels",
@@ -105,9 +108,8 @@ class DetectionModel:
             images = torch.as_tensor(images).to(self.device)
             image_sizes = torch.as_tensor(image_sizes).to(self.device)
             x = maybe_device_normalize(images, image_sizes, mean, std)
-            outputs = self.module(x.permute(0, 3, 1, 2).contiguous())
-            anchors, counts = self.anchors_for(x.shape[1:3])
-            return self.postprocess(outputs, image_sizes, anchors, counts)
+            return self.detect(x.permute(0, 3, 1, 2).contiguous(),
+                               image_sizes)
 
         return eval_fn
 
@@ -120,14 +122,17 @@ def _torch_dtype(name):
 
 
 def build_backbone(cfg, dtype=torch.float32):
+    """ResNet + FPN in the wiring the body names: *-FPN-RETINANET (P3-P7,
+    P6 from P5) or *-FPN (P2-P6, P6 pooled); no FPN GN or ReLU."""
     body = cfg.MODEL.BACKBONE.CONV_BODY
-    if not body.endswith("FPN-RETINANET") or cfg.MODEL.FPN.USE_GN or \
-            cfg.MODEL.FPN.USE_RELU or cfg.MODEL.RETINANET.USE_C5:
+    retina = body.endswith("FPN-RETINANET")
+    if not (retina or body.endswith("FPN")) or cfg.MODEL.FPN.USE_GN or \
+            cfg.MODEL.FPN.USE_RELU or (retina and cfg.MODEL.RETINANET.USE_C5):
         raise NotImplementedError(
-            f"paa_tpu_torch ports the *-FPN-RETINANET wiring of the PAA "
-            f"configs only (P6 from P5, no FPN GN or ReLU), not {body} "
-            f"with FPN.USE_GN={cfg.MODEL.FPN.USE_GN}, FPN.USE_RELU="
-            f"{cfg.MODEL.FPN.USE_RELU}, RETINANET.USE_C5="
+            f"paa_tpu_torch ports the *-FPN-RETINANET wiring (P6 from P5) "
+            f"and the *-FPN wiring (pooled P6), without FPN GN or ReLU, "
+            f"not {body} with FPN.USE_GN={cfg.MODEL.FPN.USE_GN}, "
+            f"FPN.USE_RELU={cfg.MODEL.FPN.USE_RELU}, RETINANET.USE_C5="
             f"{cfg.MODEL.RETINANET.USE_C5}"
         )
     r = cfg.MODEL.RESNETS
@@ -137,26 +142,40 @@ def build_backbone(cfg, dtype=torch.float32):
         in_channels_list,
         out_channels=r.BACKBONE_OUT_CHANNELS,
         dtype=dtype,
+        retina=retina,
     )
 
 
 def build_detection_model(cfg, device=None, seed=0):
-    """Build the PAA model of ``cfg`` on ``device`` (default: the card),
+    """Build the model of ``cfg`` on ``device`` (default: the card),
     computing in ``TPU.COMPUTE_DTYPE``, with weights initialised from
     ``seed`` as the JAX package initialises them (kaiming-uniform
-    backbone, normal(0.01) head, focal-prior cls bias, identity FrozenBN
-    and GroupNorm)."""
-    if not cfg.MODEL.PAA_ON:
-        raise NotImplementedError("paa_tpu_torch builds PAA models only")
+    backbone and box-head FCs, normal(0.01) heads and cls_score,
+    normal(0.001) bbox_pred, focal-prior PAA cls bias, identity FrozenBN
+    and GroupNorm).
+
+    PAA_ON builds the PAA detector; with no dense head and RPN_ONLY off
+    it is the Faster R-CNN of two_stage.py, as in the JAX package. Other
+    heads raise."""
+    m = cfg.MODEL
     device = resolve_device(device)
     dtype = _torch_dtype(cfg.TPU.COMPUTE_DTYPE)
-    module = DenseDetector(build_backbone(cfg, dtype=dtype),
-                           paa_head_from_cfg(cfg, dtype=dtype))
-    reset_parameters(module, torch.Generator().manual_seed(seed))
-    return DetectionModel(
-        cfg=cfg,
-        module=module.to(device),
-        anchor_generator=make_anchor_generator_paa(cfg),
-        strides=tuple(cfg.MODEL.PAA.ANCHOR_STRIDES),
-        device=device,
-    )
+    if m.PAA_ON:
+        model = DetectionModel(
+            cfg=cfg,
+            module=DenseDetector(build_backbone(cfg, dtype=dtype),
+                                 paa_head_from_cfg(cfg, dtype=dtype)),
+            anchor_generator=make_anchor_generator_paa(cfg),
+            strides=tuple(cfg.MODEL.PAA.ANCHOR_STRIDES),
+            device=device,
+        )
+    elif not (m.ATSS_ON or m.FCOS_ON or m.RETINANET_ON or m.RPN_ONLY):
+        from .two_stage import build_faster_rcnn  # two_stage imports this
+
+        model = build_faster_rcnn(cfg, device, dtype=dtype)
+    else:
+        raise NotImplementedError(
+            "paa_tpu_torch builds PAA and Faster R-CNN models only")
+    reset_parameters(model.module, torch.Generator().manual_seed(seed))
+    model.module.to(device)
+    return model

@@ -1,6 +1,15 @@
-"""FPN with RetinaNet-style P6/P7 (port of paa_tpu/modeling/fpn.py), in
-the "R-*-FPN-RETINANET" wiring every PAA config uses: the C2 lateral is
-skipped, P6 comes from P5 (RETINANET.USE_C5=False) and P7 from relu(P6).
+"""FPN (port of paa_tpu/modeling/fpn.py) in the two wirings the ported
+configs use:
+
+- "R-*-FPN-RETINANET" (every PAA config): the C2 lateral is skipped, P6
+  comes from P5 (RETINANET.USE_C5=False) and P7 from relu(P6); the
+  output is (P3, P4, P5, P6, P7);
+- "R-*-FPN" (Faster R-CNN): the C2 lateral is used and P6 is
+  ``LastLevelMaxPool``, a 1x1 max-pool of stride 2 of P5; the output is
+  (P2, P3, P4, P5, P6).
+
+Modules carry the flax names: ``fpn_inner{k}``/``fpn_layer{k}`` with k
+the index of C_k among C2..C5 counted from 1 (2..4 when C2 is skipped).
 """
 
 from __future__ import annotations
@@ -23,36 +32,45 @@ def _upsample_nearest(x, target_hw):
 
 
 class FPN(nn.Module):
-    """Takes [C2, C3, C4, C5]; returns (P3, P4, P5, P6, P7)."""
+    """Takes [C2, C3, C4, C5]; returns (P3, P4, P5, P6, P7) in the
+    ``retina`` wiring, else (P2, P3, P4, P5, P6) with the pooled P6."""
 
     def __init__(self, in_channels_list, out_channels=256,
-                 dtype=torch.float32):
+                 dtype=torch.float32, retina=True):
         super().__init__()
-        used = in_channels_list[1:]  # C2 skipped
+        self.start = 1 if retina else 0
+        used = in_channels_list[self.start:]
         for i, cin in enumerate(used):
-            self.add_module(f"fpn_inner{i + 2}", Conv(
+            k = self.start + i + 1
+            self.add_module(f"fpn_inner{k}", Conv(
                 cin, out_channels, 1, bias=True, dtype=dtype))
-            self.add_module(f"fpn_layer{i + 2}", Conv(
+            self.add_module(f"fpn_layer{k}", Conv(
                 out_channels, out_channels, 3, padding=1, bias=True,
                 dtype=dtype))
         self.num_used = len(used)
-        self.p6 = Conv(out_channels, out_channels, 3, stride=2, padding=1,
-                       bias=True, dtype=dtype)
-        self.p7 = Conv(out_channels, out_channels, 3, stride=2, padding=1,
-                       bias=True, dtype=dtype)
+        self.retina = retina
+        if retina:
+            self.p6 = Conv(out_channels, out_channels, 3, stride=2,
+                           padding=1, bias=True, dtype=dtype)
+            self.p7 = Conv(out_channels, out_channels, 3, stride=2,
+                           padding=1, bias=True, dtype=dtype)
 
     def forward(self, features):
-        used = list(features)[1:]
+        used = list(features)[self.start:]
         n = self.num_used
-        laterals = [getattr(self, f"fpn_inner{i + 2}")(f)
+        k0 = self.start + 1
+        laterals = [getattr(self, f"fpn_inner{k0 + i}")(f)
                     for i, f in enumerate(used)]
         merged = [None] * n
         merged[-1] = laterals[-1]
         for i in range(n - 2, -1, -1):
             top = _upsample_nearest(merged[i + 1], laterals[i].shape[2:])
             merged[i] = laterals[i] + top
-        results = [getattr(self, f"fpn_layer{i + 2}")(m)
+        results = [getattr(self, f"fpn_layer{k0 + i}")(m)
                    for i, m in enumerate(merged)]
+        if not self.retina:
+            # LastLevelMaxPool: max_pool2d(P5, 1, 2) keeps every other pixel
+            return (*results, results[-1][:, :, ::2, ::2])
         p6 = self.p6(results[-1])
         p7 = self.p7(F.relu(p6))
         return (*results, p6, p7)
@@ -62,10 +80,11 @@ class ResNetFPNBackbone(nn.Module):
     """body + fpn (reference backbone.py:49-73)."""
 
     def __init__(self, resnet, in_channels_list, out_channels=256,
-                 dtype=torch.float32):
+                 dtype=torch.float32, retina=True):
         super().__init__()
         self.resnet = resnet
-        self.fpn = FPN(in_channels_list, out_channels, dtype=dtype)
+        self.fpn = FPN(in_channels_list, out_channels, dtype=dtype,
+                       retina=retina)
 
     def forward(self, x):
         return self.fpn(self.resnet(x))

@@ -54,6 +54,32 @@ class Conv(nn.Module):
                         self.stride, self.padding)
 
 
+class Linear(nn.Module):
+    """Fully connected layer in float32 (flax ``nn.Dense`` with no dtype,
+    as the JAX package's box head uses it). Initialised as the JAX
+    package does: kaiming-uniform (a=1, bound sqrt(3 / in_features)) by
+    default, normal(std) when ``normal_std`` is given; bias zero."""
+
+    def __init__(self, in_features, out_features, normal_std=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+        self.normal_std = normal_std
+
+    def reset_parameters(self, generator):
+        with torch.no_grad():
+            if self.normal_std is None:
+                bound = math.sqrt(3.0 / self.weight.shape[1])
+                self.weight.uniform_(-bound, bound, generator=generator)
+            else:
+                self.weight.normal_(0.0, self.normal_std,
+                                    generator=generator)
+            self.bias.zero_()
+
+    def forward(self, x):
+        return F.linear(x.to(torch.float32), self.weight, self.bias)
+
+
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with fixed statistics: y = x * (weight * rsqrt(var)) +
     (bias - mean * scale), with NO epsilon, as the reference's
@@ -108,8 +134,9 @@ def max_pool_3x3_s2(x):
 
 
 def reset_parameters(module, generator):
-    """Initialise every ``Conv`` under ``module`` from ``generator``, in
-    module order; norms and scales keep their constructor values."""
+    """Initialise every ``Conv`` and ``Linear`` under ``module`` from
+    ``generator``, in module order; norms and scales keep their
+    constructor values."""
     for m in module.modules():
-        if isinstance(m, Conv):
+        if isinstance(m, (Conv, Linear)):
             m.reset_parameters(generator)

@@ -1,7 +1,8 @@
 """ResNet backbone (port of paa_tpu/modeling/resnet.py), cut to what
-the PAA R-50 and R-101 configs without DCN run: FrozenBatchNorm, stride
-in the 1x1, no groups, no dilation and no DCN. The space-to-depth stem is a TPU lowering and is
-not ported. Returns C2..C5 in NCHW.
+the PAA and Faster R-CNN R-50 and R-101 FPN configs without DCN run:
+FrozenBatchNorm, stride in the 1x1, no groups, no dilation and no DCN.
+The space-to-depth stem is a TPU lowering and is not ported. Returns
+C2..C5 in NCHW.
 """
 
 from __future__ import annotations
@@ -14,7 +15,9 @@ from .layers import Conv, FrozenBatchNorm, max_pool_3x3_s2
 
 # (block counts per stage, return_features per stage)
 STAGE_SPECS = {
+    "R-50-FPN": ((3, 4, 6, 3), (True, True, True, True)),
     "R-50-FPN-RETINANET": ((3, 4, 6, 3), (True, True, True, True)),
+    "R-101-FPN": ((3, 4, 23, 3), (True, True, True, True)),
     "R-101-FPN-RETINANET": ((3, 4, 23, 3), (True, True, True, True)),
 }
 
@@ -109,8 +112,9 @@ def resnet_from_cfg(cfg, dtype=torch.float32):
     bad = [k for k, v in unsupported.items() if v]
     if bad or cfg.MODEL.BACKBONE.CONV_BODY not in STAGE_SPECS:
         raise NotImplementedError(
-            "paa_tpu_torch ports the FrozenBN ResNet-FPN-RETINANET body "
-            f"only; unsupported: {bad or cfg.MODEL.BACKBONE.CONV_BODY}"
+            "paa_tpu_torch ports the FrozenBN ResNet FPN bodies "
+            f"{sorted(STAGE_SPECS)} only; unsupported: "
+            f"{bad or cfg.MODEL.BACKBONE.CONV_BODY}"
         )
     return ResNet(
         body=cfg.MODEL.BACKBONE.CONV_BODY,

@@ -1,0 +1,161 @@
+"""The Faster R-CNN box head at inference (port of
+paa_tpu/modeling/roi_box_head.py; reference
+paa_core/modeling/roi_heads/box_head/).
+
+- ``FPN2MLPBoxHead``: multilevel ROIAlign 7x7 (POOLER_SCALES 1/4..1/32,
+  sampling ratio 2) -> flatten in (7, 7, C) order -> FC + ReLU -> FC +
+  ReLU, then the FPNPredictor: ``cls_score`` (C classes with background)
+  and class-specific ``bbox_pred`` (C * 4). Float32 throughout, as the
+  JAX package's ``nn.Dense`` layers without a dtype compute.
+- ``roi_box_postprocess`` (one image) and ``roi_box_postprocess_batched``
+  (the eval path): softmax, per-class decode with BBOX_REG_WEIGHTS
+  (10, 10, 5, 5), clip, the SCORE_THRESH threshold, class-aware NMS at
+  ROI_HEADS.NMS capped at DETECTIONS_PER_IMG. With R rois and C classes
+  the NMS sees R * (C - 1) candidates per image (80,000 at R=1000,
+  C=81), more than K1 holds: ``nms_batched`` takes K2 there, and ``nms``
+  always does.
+
+Training (``subsample_proposals``, ``roi_box_loss``), the GN and Xconv
+heads and the C4 head are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.nms import nms, nms_batched
+from ..ops.roi_align import multilevel_roi_align
+from ..structures.boxes import clip_to_image
+from .box_coder import decode_box
+from .layers import Linear
+
+_REG_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
+
+
+class FPN2MLPBoxHead(nn.Module):
+    """Pooler + 2 FC + (cls, class-specific box deltas)."""
+
+    def __init__(self, num_classes, in_channels=256, mlp_dim=1024,
+                 resolution=7, scales=(0.25, 0.125, 0.0625, 0.03125),
+                 sampling_ratio=2):
+        super().__init__()
+        self.num_classes = num_classes  # INCLUDING background
+        self.resolution = resolution
+        self.scales = tuple(scales)
+        self.sampling_ratio = sampling_ratio
+        self.fc6 = Linear(in_channels * resolution * resolution, mlp_dim)
+        self.fc7 = Linear(mlp_dim, mlp_dim)
+        self.cls_score = Linear(mlp_dim, num_classes, normal_std=0.01)
+        self.bbox_pred = Linear(mlp_dim, num_classes * 4, normal_std=0.001)
+
+    def forward(self, features, proposals, proposal_batch_idx):
+        """features: the first len(scales) FPN maps (P2..P5), NCHW;
+        proposals: (R, 4); proposal_batch_idx: (R,). Returns cls_logits
+        (R, C) and box_deltas (R, C, 4), float32."""
+        x = multilevel_roi_align(
+            features, proposals, proposal_batch_idx,
+            (self.resolution, self.resolution), self.scales,
+            self.sampling_ratio,
+        )  # (R, 7, 7, C), the flatten order of the JAX package's fc6
+        r = x.shape[0]
+        x = F.relu(self.fc6(x.reshape(r, -1)))
+        x = F.relu(self.fc7(x))
+        return (self.cls_score(x),
+                self.bbox_pred(x).reshape(r, self.num_classes, 4))
+
+
+@dataclass(frozen=True)
+class ROIBoxConfig:
+    """The inference fields of the JAX package's ROIBoxConfig; the
+    sampling fields come with training."""
+
+    num_classes: int = 81
+    score_thresh: float = 0.05
+    nms_thresh: float = 0.5
+    detections_per_img: int = 100
+
+    @staticmethod
+    def from_cfg(cfg):
+        r = cfg.MODEL.ROI_HEADS
+        return ROIBoxConfig(
+            num_classes=cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES,
+            score_thresh=r.SCORE_THRESH,
+            nms_thresh=r.NMS,
+            detections_per_img=r.DETECTIONS_PER_IMG,
+        )
+
+
+def box_head_candidates(cls_logits, box_deltas, rois, roi_valid,
+                        image_sizes, bc):
+    """Batched NMS input: cls_logits (B, R, C), box_deltas (B, R, C, 4),
+    rois (B, R, 4), roi_valid (B, R), image_sizes (B, 2) -> boxes
+    (B, R*(C-1), 4), scores, labels (int32) and valid, background column
+    dropped, in (roi, class) order."""
+    bsz, r, c = cls_logits.shape
+    probs = torch.softmax(cls_logits.to(torch.float32), dim=-1)
+    boxes = decode_box(
+        box_deltas.to(torch.float32),
+        rois[:, :, None, :].expand(bsz, r, c, 4),
+        weights=_REG_WEIGHTS,
+    )  # (B, R, C, 4)
+    boxes = clip_to_image(boxes.reshape(bsz, -1, 4),
+                          image_sizes.to(torch.float32)).reshape(bsz, r, c, 4)
+    scores = probs[:, :, 1:].reshape(bsz, -1)
+    flat_boxes = boxes[:, :, 1:, :].reshape(bsz, -1, 4)
+    labels = torch.arange(1, c, dtype=torch.int32, device=scores.device
+                          ).repeat(bsz, r)
+    valid = (scores > bc.score_thresh) & roi_valid.repeat_interleave(
+        c - 1, dim=1)
+    return flat_boxes, scores, labels, valid
+
+
+def _detections(flat_boxes, labels, kidx, kscores, kvalid):
+    """Gather the kept candidates. Boxes of invalid slots are those of
+    candidate ``kidx`` (0) as in the JAX package; scores and labels of
+    invalid slots are 0."""
+    k = kidx.long()
+    return {
+        "boxes": flat_boxes.gather(1, k[..., None].expand(*k.shape, 4)),
+        "scores": torch.where(kvalid, kscores, 0.0),
+        "labels": torch.where(kvalid, labels.gather(1, k), 0),
+        "valid": kvalid,
+    }
+
+
+def roi_box_postprocess(cls_logits, box_deltas, rois, roi_valid,
+                        image_size, bc):
+    """PostProcessor for one image (box_head/inference.py): cls_logits
+    (R, C), box_deltas (R, C, 4), rois (R, 4), roi_valid (R,),
+    image_size (2,) -> (detections_per_img, ...) dict. NMS is ``nms``:
+    K2 on the card."""
+    cand = box_head_candidates(cls_logits[None], box_deltas[None],
+                               rois[None], roi_valid[None],
+                               image_size[None], bc)
+    flat_boxes, scores, labels, valid = (t[0] for t in cand)
+    kidx, kscores, kvalid = nms(flat_boxes, scores, labels, valid,
+                                bc.nms_thresh, bc.detections_per_img,
+                                class_aware=True)
+    det = _detections(flat_boxes[None], labels[None], kidx[None],
+                      kscores[None], kvalid[None])
+    return {k: v[0] for k, v in det.items()}
+
+
+def roi_box_postprocess_batched(cls_logits, box_deltas, rois, roi_valid,
+                                image_sizes, bc):
+    """Whole-batch PostProcessor, the same per image as
+    ``roi_box_postprocess``, with one ``nms_batched`` call (K2 on the
+    card at the head's 80,000 candidates per image).
+
+    cls_logits (B, R, C); box_deltas (B, R, C, 4); rois (B, R, 4);
+    roi_valid (B, R); image_sizes (B, 2)."""
+    flat_boxes, scores, labels, valid = box_head_candidates(
+        cls_logits, box_deltas, rois, roi_valid, image_sizes, bc)
+    kidx, kscores, kvalid = nms_batched(
+        flat_boxes, scores, labels, valid, bc.nms_thresh,
+        bc.detections_per_img, class_aware=True,
+    )
+    return _detections(flat_boxes, labels, kidx, kscores, kvalid)

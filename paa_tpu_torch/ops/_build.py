@@ -6,11 +6,12 @@ Each ``paa_tpu_torch/csrc/*.cu`` is compiled by its own ``nvcc`` process
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
          -shared -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edit
-rebuilds and an unchanged source is loaded from ``paa_tpu_torch/_build/``
-(listed in .gitignore). ``-fmad=false`` keeps every ``a*b+c`` as a
-rounded multiply and a rounded add: the NMS kernel's integer outputs must
-equal its plain PyTorch version, and a fused multiply-add moves a
+The library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edit rebuilds and an unchanged
+source is loaded from ``paa_tpu_torch/_build/`` (listed in
+.gitignore). ``-fmad=false`` keeps every ``a*b+c`` as a rounded
+multiply and a rounded add: the NMS kernels' integer outputs must equal
+their plain PyTorch version, and a fused multiply-add moves a
 borderline IoU across the threshold. No source includes PyTorch's
 headers, so a build takes seconds.
 """
@@ -48,9 +49,14 @@ def _nvcc():
 
 
 def _target(name):
+    """The source of ``name`` and its library, named by a hash of the
+    source, the shared headers (csrc/*.cuh) and the flags."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + [os.path.join(CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

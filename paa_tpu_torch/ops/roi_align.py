@@ -1,0 +1,148 @@
+"""ROIAlign and the FPN pooler (port of paa_tpu/ops/roi_align.py).
+
+The JAX package computes these in XLA, not in a Pallas kernel, so plain
+PyTorch is their port. Semantics are the legacy maskrcnn-benchmark
+ROIAlign (aligned=False: no -0.5 half-pixel offset, ``roi_w = max(end -
+start, 1)``, ``sampling_ratio`` samples per bin along each axis,
+averaged; reference ROIAlign_cuda.cu:24-90), with the JAX package's
+edge handling: a sample is kept when -1 <= y <= H and -1 <= x <= W,
+then clamped into the map, and ``y1 = min(y0 + 1, H - 1)``.
+
+Features are the port's NCHW maps; pooled features come out
+channels-last, (R, ph, pw, C), the JAX package's order, which the box
+head's fc6 flattens. The sample grid of a roi is separable, so the
+bilinear weights are built per axis and gathered as rows of a
+channels-last table of the maps. Bilinear sums are float32 whatever the
+features' dtype (bfloat16 rows times float32 weights promote, as in the
+JAX package).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _axis_samples(start, end, bins, sampling_ratio, size):
+    """Sample positions along one axis, per roi, and their bilinear
+    terms. start/end/size (R,) float32 -> lo, hi (R, S) int64 indices,
+    frac (R, S) and keep (R, S) with S = bins * sampling_ratio."""
+    extent = torch.clamp(end - start, min=1.0)
+    # The positions round as XLA compiles the JAX package's
+    # start + offs * (extent / bins): the division by a constant becomes
+    # a product with its float32 reciprocal, and the product and sum one
+    # fused multiply-add (exact here in float64, rounded once). An ulp
+    # off in a position moves a pooled feature by ~1e-5 through the
+    # bilinear weights.
+    bin_size = extent * (1.0 / bins)
+    s = bins * sampling_ratio
+    offs = (torch.arange(s, dtype=torch.float32, device=start.device)
+            + 0.5) / sampling_ratio
+    pos = (start[:, None].double() + offs[None, :].double()
+           * bin_size[:, None].double()).float()
+    size = size[:, None]
+    keep = (pos >= -1.0) & (pos <= size)
+    pos = torch.minimum(torch.clamp(pos, min=0.0), size - 1)
+    lo = torch.floor(pos)
+    hi = torch.minimum(lo + 1, size - 1)
+    return lo.long(), hi.long(), pos - lo, keep
+
+
+def _align(table, row0, height, width, rois, scale, output_size,
+           sampling_ratio):
+    """ROIAlign of R rois against rows of ``table`` (M, C), the
+    channels-last pixels of the maps: roi r samples the (height[r],
+    width[r]) map whose pixel (0, 0) is row ``row0[r]``, at coordinates
+    ``rois[r] * scale[r]``. Returns (R, ph, pw, C) float32."""
+    if sampling_ratio <= 0:
+        raise ValueError("adaptive sampling_ratio is not supported; set > 0")
+    ph, pw = output_size
+    rois = rois.to(torch.float32)
+    height = height.to(torch.float32)
+    width = width.to(torch.float32)
+    y0, y1, ly, keep_y = _axis_samples(rois[:, 1] * scale, rois[:, 3] * scale,
+                                       ph, sampling_ratio, height)
+    x0, x1, lx, keep_x = _axis_samples(rois[:, 0] * scale, rois[:, 2] * scale,
+                                       pw, sampling_ratio, width)
+    w = width.long()[:, None, None]
+    base = row0.long()[:, None, None]
+
+    def corner(yy, xx, weight):
+        rows = base + yy[:, :, None] * w + xx[:, None, :]  # (R, Sy, Sx)
+        return table[rows] * weight[..., None]
+
+    hy, hx = 1 - ly, 1 - lx
+    out = (corner(y0, x0, hy[:, :, None] * hx[:, None, :])
+           + corner(y0, x1, hy[:, :, None] * lx[:, None, :])
+           + corner(y1, x0, ly[:, :, None] * hx[:, None, :])
+           + corner(y1, x1, ly[:, :, None] * lx[:, None, :]))
+    keep = (keep_y[:, :, None] & keep_x[:, None, :]).to(out.dtype)
+    out = out * keep[..., None]
+    r, c = out.shape[0], out.shape[-1]
+    return out.reshape(r, ph, sampling_ratio, pw, sampling_ratio,
+                       c).mean(dim=(2, 4))
+
+
+def _channels_last_rows(feature):
+    b, c, h, w = feature.shape
+    return feature.permute(0, 2, 3, 1).reshape(b * h * w, c)
+
+
+def roi_align(features, rois, roi_batch_idx, output_size=(7, 7),
+              spatial_scale=1.0, sampling_ratio=2):
+    """Batched ROIAlign on one map.
+
+    features: (B, C, H, W); rois: (R, 4) xyxy in input coordinates;
+    roi_batch_idx: (R,) image index per roi. Returns (R, ph, pw, C)
+    float32."""
+    _, _, h, w = features.shape
+    r = rois.shape[0]
+    dev = features.device
+    return _align(
+        _channels_last_rows(features), roi_batch_idx.long() * (h * w),
+        torch.full((r,), h, device=dev), torch.full((r,), w, device=dev),
+        rois, torch.tensor(spatial_scale, dtype=torch.float32, device=dev),
+        output_size, sampling_ratio,
+    )
+
+
+def fpn_level_for_rois(rois, k_min=2, k_max=5, canonical_scale=224,
+                       canonical_level=4, eps=1e-6):
+    """LevelMapper (reference modeling/poolers.py:11-36): the pooler
+    level of each roi from its sqrt-area, +1 box convention, counted
+    from k_min."""
+    w = rois[:, 2] - rois[:, 0] + 1.0
+    h = rois[:, 3] - rois[:, 1] + 1.0
+    s = torch.sqrt(w * h)
+    # s / canonical_scale, as XLA compiles it (see _axis_samples)
+    lvl = torch.floor(canonical_level + torch.log2(
+        s * (1.0 / canonical_scale) + eps))
+    return torch.clamp(lvl, k_min, k_max).long() - k_min
+
+
+def multilevel_roi_align(features, rois, roi_batch_idx, output_size=(7, 7),
+                         scales=(0.25, 0.125, 0.0625, 0.03125),
+                         sampling_ratio=2):
+    """FPN Pooler (poolers.py:39-124): each roi pools from the level its
+    scale selects. The JAX package aligns every roi on every level and
+    keeps its own level by a one-hot sum; the other levels' finite
+    values are multiplied by 0 there, so aligning each roi on its own
+    level alone gives the same numbers with a quarter of the gathers.
+
+    features: one NCHW map per scale, same batch and channels."""
+    k_min = int(-math.log2(scales[0]))
+    k_max = int(-math.log2(scales[-1]))
+    rois = rois.to(torch.float32)
+    levels = fpn_level_for_rois(rois, k_min=k_min, k_max=k_max)
+    dev = rois.device
+    sizes = torch.tensor([tuple(f.shape[2:]) for f in features],
+                         device=dev)
+    pixels = sizes[:, 0] * sizes[:, 1]
+    offsets = torch.cumsum(pixels * features[0].shape[0], 0) - \
+        pixels * features[0].shape[0]
+    table = torch.cat([_channels_last_rows(f) for f in features])
+    row0 = offsets[levels] + roi_batch_idx.long() * pixels[levels]
+    scale = torch.tensor(scales, dtype=torch.float32, device=dev)[levels]
+    return _align(table, row0, sizes[levels, 0], sizes[levels, 1], rois,
+                  scale, output_size, sampling_ratio)

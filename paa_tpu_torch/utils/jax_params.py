@@ -9,6 +9,10 @@ mechanical; only the leaves change form:
 
 - a conv ``kernel`` (kh, kw, cin, cout) becomes ``weight``
   (cout, cin, kh, kw); ``bias`` stays ``bias``;
+- a dense ``kernel`` (in, out) becomes ``Linear.weight`` (out, in). The
+  box head's fc6 reads ROI features flattened in (7, 7, C) order in both
+  packages (ops/roi_align.py pools them channels-last), so its rows need
+  no other permutation;
 - GroupNorm's ``gn/scale`` and ``gn/bias`` become ``weight`` and ``bias``;
 - FrozenBatchNorm's ``weight``, ``bias``, ``running_mean`` and
   ``running_var`` fill the buffers of the same names;
@@ -25,7 +29,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from ..modeling.layers import Conv, FrozenBatchNorm, GroupNorm32, Scale
+from ..modeling.layers import (
+    Conv, FrozenBatchNorm, GroupNorm32, Linear, Scale)
 
 
 def _leaves(mod, tree, path):
@@ -42,6 +47,10 @@ def _leaves(mod, tree, path):
         if mod.bias is not None:
             out.append(("bias", tree["bias"]))
         return out
+    if isinstance(mod, Linear):
+        keys(["kernel", "bias"])
+        return [("weight", np.transpose(tree["kernel"])),
+                ("bias", tree["bias"])]
     if isinstance(mod, FrozenBatchNorm):
         names = ["weight", "bias", "running_mean", "running_var"]
         keys(names)

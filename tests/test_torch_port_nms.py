@@ -1,15 +1,18 @@
-"""Batched NMS of the PyTorch port (plain version, which CPU tensors take)
-against the JAX package's scan formulation and its Pallas kernel K1 in
-interpret mode. Integer outputs must be equal; scores within 1e-6
-(they are copies of the input scores, so in practice equal)."""
+"""NMS of the PyTorch port (plain version, which CPU tensors take) against
+the JAX package's scan formulation and its Pallas kernels in interpret
+mode: K1 (``nms_pallas_batched``) for ``nms_batched``, K2 (``nms_pallas``)
+for the single-image ``nms``. Integer outputs must be equal; scores
+within 1e-6 (they are copies of the input scores, so in practice
+equal)."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
+from paa_tpu.ops.nms import nms as jax_nms
 from paa_tpu.ops.nms import nms_batched_auto
-from paa_tpu.ops.nms_pallas import nms_pallas_batched
+from paa_tpu.ops.nms_pallas import nms_pallas, nms_pallas_batched
 from paa_tpu_torch.ops import nms as port_nms
 
 
@@ -76,10 +79,43 @@ def test_single_image_nms_is_a_batch_row():
             np.testing.assert_array_equal(np.asarray(g), w[row])
 
 
+@pytest.mark.parametrize("class_aware", [True, False])
+def test_single_image_nms_matches_jax_scan_and_pallas(class_aware):
+    """The counterpart of paa_tpu's ``nms_auto``: K2 on the card."""
+    args = [a[0] for a in _case(11 + class_aware, 2, 300)]
+    got = [np.asarray(x) for x in port_nms.nms(
+        *map(torch.from_numpy, args), 0.5, 64, class_aware=class_aware)]
+    assert got[2].sum() > 0
+    jargs = [jnp.asarray(a) for a in args]
+    _assert_same(got, jax_nms(*jargs, 0.5, 64, class_aware=class_aware))
+    _assert_same(got, nms_pallas(*jargs, 0.5, 64, class_aware=class_aware))
+
+
+def test_nms_batched_above_k1_capacity_matches_jax():
+    """N = 9000 is above what K1 holds on an H100 (8,265): on the card
+    ``nms_batched`` takes K2 there, as the JAX package chunks images by
+    its VMEM budget. On the CPU both entry points take the plain version,
+    which must agree with the JAX package at that size."""
+    args = _case(9, 2, 9000)
+    want = nms_batched_auto(*[jnp.asarray(a) for a in args], 0.5, 40,
+                            class_aware=True)
+    got = _port(args, 0.5, 40, True)
+    assert got[2][0].all()
+    _assert_same(got, want)
+    t = [torch.from_numpy(a) for a in args]
+    _assert_same([np.asarray(x) for x in port_nms._nms_global(
+        *t, 0.5, 40, class_aware=True)], want)
+
+
 def test_cpu_tensors_never_launch_the_kernel():
-    before = port_nms.nms_batched.launches
-    _port(_case(0, 2, 50), 0.6, 10, True)
-    assert port_nms.nms_batched.launches == before
+    before = (port_nms.nms_batched.launches, port_nms._nms_global.launches)
+    args = _case(0, 2, 50)
+    _port(args, 0.6, 10, True)
+    t = [torch.from_numpy(a) for a in args]
+    port_nms._nms_global(*t, 0.6, 10)
+    port_nms.nms(*(x[0] for x in t), 0.6, 10)
+    assert (port_nms.nms_batched.launches,
+            port_nms._nms_global.launches) == before
 
 
 def test_other_devices_raise():
@@ -89,3 +125,14 @@ def test_other_devices_raise():
             torch.zeros(1, 4, 4, device="meta"), t,
             t.to(torch.int32), t.to(torch.bool), 0.6, 2,
         )
+
+
+@pytest.mark.parametrize("entry", ["_nms_global", "nms"])
+def test_other_devices_raise_in_k2_entry_points(entry):
+    t = torch.zeros(1, 4, device="meta")
+    args = (torch.zeros(1, 4, 4, device="meta"), t, t.to(torch.int32),
+            t.to(torch.bool))
+    if entry == "nms":
+        args = tuple(a[0] for a in args)
+    with pytest.raises(ValueError, match="no kernel"):
+        getattr(port_nms, entry)(*args, 0.6, 2)
