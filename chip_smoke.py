@@ -7,7 +7,8 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. Build the CUDA kernels from paa_tpu_torch/csrc (one nvcc per source,
-   in parallel, sm_90a) and compile the Triton kernel.
+   in parallel, sm_90a): K1 nms_batched.cu, K2 nms_global.cu, K3
+   group_norm.cu.
 2. K1, the batched NMS kernel, against its plain PyTorch version on the
    card: B=8, N=5000 and 77, max_out=100, IoU 0.6, class-aware and
    class-agnostic, with exact score ties and all-invalid rows. keep_idx
@@ -16,10 +17,16 @@ and prints no result line):
    N=80,000, at K1's capacity + 1 (through ``nms_batched``, which must
    route there) and at N=300; the single-image ``nms`` at N=80,000;
    max_out 100 and 1000; class-aware and agnostic; exact score ties and
-   an all-invalid row. All three outputs bit-equal.
+   an all-invalid row. Then each route of K2 (clusters of 1, 2 and 16
+   CTAs, and the scratch kernel above 16 CTAs' capacity), score ties on
+   both sides of every boundary between CTA ranges, every valid
+   candidate in one CTA's range, fewer valid candidates than max_out,
+   and an all-invalid image. All three outputs bit-equal.
 4. K3, the GroupNorm+ReLU kernel, against its plain version at the five
-   tower shapes of an 8 x 800 x 1344 batch: float32 (TF32 off) within
-   1e-5, bfloat16 within one bf16 ulp (plus 1e-6 near zero).
+   tower shapes of an 8 x 800 x 1344 batch, at shapes whose launch takes
+   each cluster size from 1 to 4, 8 and 16 and the streaming
+   instantiation, and with groups that start off 16-byte boundaries: float32 (TF32 off) within 1e-5, bfloat16 within one bf16
+   ulp (plus 1e-6 near zero).
 5. The PAA main path: PAA-R50 (configs/paa/paa_R_50_FPN_1x.yaml, full
    width, 80 classes) in bfloat16 with weights from a seed serves three
    requests of 8 x 800 x 1344 uint8 images through ``make_eval_fn``.
@@ -39,7 +46,8 @@ and prints no result line):
 9. Timing on the card (CUDA events): end-to-end img/s of each path, and
    per forward each kernel's time at the path's own inputs beside its
    plain version's, its bound and, where one PyTorch call computes the
-   same function, that call's time.
+   same function, that call's time; for K2 and K3 the cluster size
+   chosen and cudaOccupancyMaxActiveClusters for it.
 10. A torch.profiler window of three requests of each path: device time
     per request by kernel class (the Faster R-CNN box head's kernels by
     a span around ``module.box``), and the device's idle share.
@@ -65,6 +73,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BATCH, HW, SIZE = 8, (800, 1344), (800.0, 1333.0)
 TOWER_HW = [(100, 168), (50, 84), (25, 42), (13, 21), (7, 11)]
+SLEEP_CYCLES = 35_000_000  # ~20 ms at the H100's 1.755 GHz boost clock
 GN_PER_LEVEL = 8  # 2 towers x 4 GroupNorm+ReLU
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PAA_CONFIG = os.path.join(ROOT, "configs", "paa", "paa_R_50_FPN_1x.yaml")
@@ -91,11 +100,16 @@ def card():
 
 
 def cuda_ms(fn, reps, warmup=2):
+    """Device ms per call of ``fn`` over ``reps`` calls. Where ``fn``
+    waits for the device itself, its waits count."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # queue the calls behind a device-side sleep (~20 ms), so that the
+    # host's launch time between them does not show in the device's time
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -200,13 +214,84 @@ def phase_nms_global(dev):
             check(not bool(got[2][-1].any()),
                   f"{what}: picks in the all-invalid row")
         done.append(what)
+    done += k2_route_cases(dev)
     print(json.dumps({"phase": "nms_global_vs_plain", "ok": True,
-                      "k1_capacity": limit, "B": BATCH, "cases": done}))
+                      "k1_capacity": limit,
+                      "k2_cluster_capacity": nms.k2_capacity(dev),
+                      "B": BATCH, "cases": done}))
+
+
+def _only_valid(args, idx):
+    valid = torch.zeros_like(args[3])
+    valid[:, torch.as_tensor(list(idx), dtype=torch.long,
+                             device=valid.device)] = True
+    return args[:3] + [valid]
+
+
+def k2_route_cases(dev):
+    """K2's routes and the cluster route's edges, each against the plain
+    version through ``_nms_global``."""
+    from paa_tpu_torch.ops import nms
+
+    cap = nms.k2_capacity(dev)
+    n = 80000
+    chunk = -(-n // nms.k2_plan(n, cap)[1])
+    cases = [(f"route N={m}", m, lambda a: a, 100, ("cluster", cs))
+             for m, cs in ((cap, 1), (cap + 1, 2), (16 * cap, 16))]
+    cases.append((f"route N={16 * cap + 1}", 16 * cap + 1, lambda a: a,
+                   100, ("scratch", 1)))
+
+    def ties(a):  # equal top scores either side of each range boundary
+        edges = [r * chunk + d for r in range(1, n // chunk + 1)
+                 for d in (-1, 0) if r * chunk + d < n]
+        for i, j in enumerate(edges):
+            a[0][:, j] = torch.tensor([1e4 * i, 0.0, 1e4 * i + 5, 5.0])
+        a[1][:, edges] = 2.0
+        a[3][:] = True
+        return a
+
+    cases += [
+        ("ties across CTA ranges, all valid", n, ties, 100, None),
+        ("all valid in one CTA's range", n,
+         lambda a: _only_valid(a, range(5 * chunk, 5 * chunk + 900)), 100,
+         None),
+        ("50 valid, max_out 100", n,
+         lambda a: _only_valid(a, range(7, n, n // 50)), 100, None),
+        ("all-invalid images", n, lambda a: _only_valid(a, []), 100, None),
+    ]
+    done = []
+    for what, m, prep, max_out, route in cases:
+        if route is not None:
+            check(nms.k2_plan(m, cap) == route,
+                  f"K2 {what}: route {nms.k2_plan(m, cap)}, not {route}")
+        args = prep(nms_case(m, BATCH, m, dev))
+        before = nms._nms_global.launches
+        got = nms._nms_global(*args, 0.5, max_out, True)
+        check(nms._nms_global.launches == before + 1,
+              f"K2 {what}: not launched once")
+        same_keeps(got, nms.nms_batched_plain(*args, 0.5, max_out, True),
+                   f"K2 {what}")
+        if what.startswith("ties"):
+            check(got[0][0, :2].tolist() == [chunk - 1, chunk],
+                  f"K2 {what}: first picks {got[0][0, :4].tolist()}")
+        done.append(f"K2 {what} ({nms.k2_plan(m, cap)})")
+    return done
 
 
 def _bf16_ulp(x):
     mag = x.abs().clamp(min=torch.finfo(torch.float32).tiny)
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+# K3 shapes beyond the towers (B, C, H, W): with them the launch takes
+# every cluster size from 1 to 4, 8 and 16, the streaming instantiation
+# (a group beyond 16 CTAs' share), one channel of 8 positions per group,
+# and groups off 16-byte boundaries (C=64 in 32 groups at odd H*W, once
+# with cs 3)
+GN_EXTRA_SHAPES = [
+    (2, 256, 48, 48), (1, 256, 72, 96), (1, 256, 192, 192),
+    (1, 256, 200, 200), (1, 32, 2, 4), (3, 64, 5, 7), (1, 64, 101, 199),
+]
 
 
 def phase_group_norm(dev):
@@ -215,26 +300,38 @@ def phase_group_norm(dev):
     torch.backends.cudnn.allow_tf32 = False  # f32 compare: no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(3)
-    worst = {}
-    for h, w in TOWER_HW:
-        x = (torch.randn(BATCH, 256, h, w, generator=gen) * 1.5 + 0.4).to(dev)
-        s = (torch.rand(256, generator=gen) + 0.5).to(dev)
-        b = (torch.randn(256, generator=gen) * 0.2).to(dev)
+    worst, plans = {}, set()
+    shapes = [(BATCH, 256, h, w) for h, w in TOWER_HW] + GN_EXTRA_SHAPES
+    for shape in shapes:
+        bsz, c, h, w = shape
+        what = "x".join(map(str, shape))
+        x = (torch.randn(*shape, generator=gen) * 1.5 + 0.4).to(dev)
+        s = (torch.rand(c, generator=gen) + 0.5).to(dev)
+        b = (torch.randn(c, generator=gen) * 0.2).to(dev)
         got = gn.group_norm_relu(x, s, b)
         err32 = float((got - gn.group_norm_relu_plain(x, s, b)).abs().max())
-        check(err32 <= 1e-5, f"group_norm_relu f32 {h}x{w}: err {err32}")
+        check(err32 <= 1e-5, f"group_norm_relu f32 {what}: err {err32}")
         xb = x.to(torch.bfloat16)
         got = gn.group_norm_relu(xb, s, b).float()
         want = gn.group_norm_relu_plain(xb, s, b).float()
         err = (got - want).abs()
         ulp = _bf16_ulp(torch.maximum(got.abs(), want.abs()))
         check(bool((err <= ulp + 1e-6).all()),
-              f"group_norm_relu bf16 {h}x{w}: beyond one ulp, max err "
+              f"group_norm_relu bf16 {what}: beyond one ulp, max err "
               f"{float(err.max())}")
-        worst[f"{h}x{w}"] = {"f32": err32, "bf16": float(err.max())}
+        worst[what] = {"f32": err32, "bf16": float(err.max())}
+        for size in (4, 2):
+            p = gn.gn_plan(bsz, c, h * w, 32, size)
+            plans.add((p.cs, p.resident))
+    cs_seen = sorted({p[0] for p in plans if p[1]})
+    check(set(range(1, 5)) | {8, 16} <= set(cs_seen)
+          and any(not p[1] for p in plans),
+          f"group_norm_relu: launches covered {sorted(plans)}")
     print(json.dumps({"phase": "group_norm_vs_plain", "ok": True,
+                      "resident_cluster_sizes": cs_seen,
+                      "plans_cs_resident": sorted(plans),
                       "max_abs_err": worst}))
-    return max(v["bf16"] for v in worst.values())
+    return max(worst[f"{BATCH}x256x{h}x{w}"]["bf16"] for h, w in TOWER_HW)
 
 
 def build_cfg(dtype, path):
@@ -514,16 +611,20 @@ def phase_timing(dev, model, eval_fn, launches, gn_err, name):
         lib = cuda_ms(lambda: F.relu(F.group_norm(x, 32, s.to(x.dtype),
                                                   b.to(x.dtype), 1e-5)), 50)
         nbytes = 2 * x.numel() * x.element_size() + 2 * 256 * 4
+        plan = gn.gn_plan(BATCH, 256, h * w, 32, x.element_size())
         per_level[f"{h}x{w}"] = {"ms": ms, "plain_ms": plain,
                                  "library_ms": lib,
-                                 "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+                                 "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                                 "cs": plan.cs, "threads": plan.threads,
+                                 "max_active_clusters":
+                                     gn.gn_max_active_clusters(x)}
         totals["ms"] += GN_PER_LEVEL * ms
         totals["plain_ms"] += GN_PER_LEVEL * plain
         totals["library_ms"] += GN_PER_LEVEL * lib
         totals["bytes"] += GN_PER_LEVEL * nbytes
     k3 = {
-        "name": "group_norm_relu", "route": "triton",
-        "source": "paa_tpu_torch/ops/group_norm.py",
+        "name": "group_norm_relu", "route": "cuda",
+        "source": "paa_tpu_torch/csrc/group_norm.cu",
         "replaces": "paa_tpu/ops/fused_gn.py:146",
         "launches": launches["group_norm_relu"], "max_abs_err": gn_err,
         "ms": totals["ms"], "plain_ms": totals["plain_ms"],
@@ -585,8 +686,12 @@ def phase_frcnn_timing(dev, model, eval_fn, launches, name):
         "replaces": "paa_tpu/ops/nms_pallas.py:238",
         "launches": launches["nms_global"], **timing,
     }
+    n = cand[1].shape[1]
     print(json.dumps({"kernel_detail": "nms_global", "path": "faster_rcnn",
-                      "B": BATCH, "N": cand[1].shape[1], "steps": steps,
+                      "B": BATCH, "N": n, "steps": steps,
+                      "route": nms.k2_plan(n, nms.k2_capacity(dev)),
+                      "max_active_clusters":
+                          nms.k2_max_active_clusters(dev, n),
                       "valid_picks": int(got[2].sum()),
                       "candidates_per_image": per_image,
                       "proposals_per_image": [int(v) for v in
@@ -617,7 +722,7 @@ def kernel_class(name):
     n = name.lower()
     classes = (
         ("nms_batched (K1)", ("nms_batched",)),
-        ("nms_global (K2)", ("nms_global",)),
+        ("nms_global (K2)", ("nms_global", "nms_cluster")),
         ("group_norm_relu (K3)", ("gn_relu",)),
         ("memcpy", ("memcpy", "memset")),
         ("layout transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
@@ -731,20 +836,13 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from paa_tpu_torch.ops import _build
-    from paa_tpu_torch.ops import group_norm
 
     dev = torch.device("cuda", 0)
     name = card()
     t0 = time.perf_counter()
     built = _build.build_all()
-    t1 = time.perf_counter()
-    x = torch.ones(1, 32, 2, 2, device=dev)
-    group_norm.group_norm_relu(x, torch.ones(32, device=dev),
-                               torch.zeros(32, device=dev))
-    torch.cuda.synchronize()
     print(json.dumps({"phase": "build", "nvcc_s": built,
-                      "build_s": t1 - t0,
-                      "triton_compile_s": time.perf_counter() - t1,
+                      "build_s": time.perf_counter() - t0,
                       "torch": torch.__version__,
                       "cuda": torch.version.cuda}))
     phase_nms(dev)

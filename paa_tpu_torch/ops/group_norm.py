@@ -9,35 +9,39 @@ into a = scale * rsqrt(var + eps) and b = bias - mean * a, and the output
 relu(x * a + b) is cast back to the input dtype.
 
 ``group_norm_relu`` dispatches on the tensor's device: the plain PyTorch
-version for CPU tensors, the Triton kernel for CUDA tensors. There is no
-fallback between the two, and no shape gate: the kernel serves every
-level down to P7 (7 x 11 positions at 800 x 1344).
-
-The Triton kernel. What bounds it on the card: bytes. It reads x and
-writes y, 2 * B * C * H * W * itemsize bytes, with about ten operations
-per element, far below the card's operations-per-byte balance. Its
-design: one program per (image, group) of an NCHW-contiguous tensor,
-where the group is one contiguous run of (C / G) * H * W elements, so
-every load is a coalesced stream. It walks that run three times (sum,
-centred sum of squares, normalise): simple, exact to the two-pass
-semantics, and up to four times the bound's bytes where the 50 MB L2
-cache cannot hold the re-reads (the P3 tower input is 69 MB in bf16 at
-B=8). The kernel takes only NCHW-contiguous input and the wrapper raises
-on any other layout.
+version for CPU tensors, the CUDA kernel K3 (csrc/group_norm.cu) for
+CUDA tensors. There is no fallback between the two, and no shape gate:
+the kernel serves every level down to P7 (7 x 11 positions at
+800 x 1344). The kernel's header says what bounds it and how it is
+built: each (image, group) is one contiguous run of an NCHW tensor,
+split over a thread-block cluster of ``cs`` CTAs that hold it in shared
+memory, read once from device memory. ``gn_plan`` makes the launch's
+choices from the shape alone. The wrapper raises on any layout other
+than NCHW-contiguous.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import functools
-import os
+from dataclasses import dataclass
 
 import torch
 
 from . import _build
 
-tl = None  # triton.language, bound at the first launch (see _kernel)
-
-_BLOCK = 1024
+# the dtype codes of csrc/group_norm.cu
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# A CTA's share of a group in shared memory. 36 KB lets six CTAs of 256
+# threads share an SM, so that one loads while another computes or
+# stores: on an H100 the P3 tower took 72 us per launch so, against 78 us
+# at 72 KB shares of 512 threads (kernel_ab.py --k3-sweep).
+CTA_BYTES = 36 * 1024
+CLUSTER_THREADS = 256  # per CTA of a cluster (cs > 1)
+MAX_CLUSTER = 16  # non-portable above 8
+MAX_THREADS = 512
+MIN_THREADS = 64
 
 
 def group_norm_relu_plain(x, weight, bias, num_groups=32, eps=1e-5):
@@ -53,69 +57,88 @@ def group_norm_relu_plain(x, weight, bias, num_groups=32, eps=1e-5):
     return torch.relu(out).to(x.dtype)
 
 
-def _gn_relu_kernel(x_ptr, w_ptr, b_ptr, y_ptr, hw, num_groups, cpg, eps,
-                    BLOCK: tl.constexpr):
-    """One program per (image, group); the group is the contiguous run
-    x[base : base + cpg * hw] of an NCHW tensor."""
-    pid = tl.program_id(0)
-    group_size = cpg * hw
-    base = pid.to(tl.int64) * group_size
-    offs = tl.arange(0, BLOCK)
+@dataclass(frozen=True)
+class GNPlan:
+    """One launch of K3: a cluster of ``cs`` CTAs of ``threads`` threads
+    per group, each CTA holding ``share`` elements of it. ``resident``:
+    the share sits in ``smem_bytes`` of shared memory (False: each pass
+    reads device memory, for groups beyond MAX_CLUSTER CTAs' share)."""
 
-    acc = tl.zeros([BLOCK], dtype=tl.float32)
-    for start in range(0, group_size, BLOCK):
-        m = start + offs < group_size
-        acc += tl.load(x_ptr + base + start + offs, mask=m,
-                       other=0.0).to(tl.float32)
-    mean = tl.sum(acc, axis=0) / group_size
+    cs: int
+    share: int
+    threads: int
+    resident: bool
+    smem_bytes: int
 
-    acc = tl.zeros([BLOCK], dtype=tl.float32)
-    for start in range(0, group_size, BLOCK):
-        m = start + offs < group_size
-        v = tl.load(x_ptr + base + start + offs, mask=m,
-                    other=0.0).to(tl.float32)
-        d = tl.where(m, v - mean, 0.0)
-        acc += d * d
-    rstd = 1.0 / tl.sqrt(tl.sum(acc, axis=0) / group_size + eps)
 
-    c0 = (pid % num_groups) * cpg
-    for ci in range(0, cpg):
-        a = tl.load(w_ptr + c0 + ci) * rstd
-        sh = tl.load(b_ptr + c0 + ci) - mean * a
-        row = base + ci * hw
-        for start in range(0, hw, BLOCK):
-            m = start + offs < hw
-            v = tl.load(x_ptr + row + start + offs, mask=m,
-                        other=0.0).to(tl.float32)
-            out = tl.maximum(v * a + sh, 0.0)
-            tl.store(y_ptr + row + start + offs,
-                     out.to(y_ptr.dtype.element_ty), mask=m)
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _pow2_at_least(v):
+    return 1 << max(0, v - 1).bit_length()
+
+
+@functools.lru_cache(maxsize=None)
+def gn_plan(batch, channels, hw, num_groups, itemsize):
+    """K3's launch for (B, C, H * W) in groups of ``num_groups`` at
+    ``itemsize`` bytes per element."""
+    vec = 16 // itemsize  # elements per 16-byte copy
+    ge = channels // num_groups * hw
+    gbytes = ge * itemsize
+    cs = max(1, _cdiv(gbytes, CTA_BYTES))
+    resident = cs <= MAX_CLUSTER
+    cs = min(cs, MAX_CLUSTER)
+    share = _cdiv(_cdiv(ge, cs), vec) * vec if cs > 1 else ge
+    vectors = _cdiv(share, vec) + 1  # one more for a misaligned start
+    # a lone CTA: about four vectors per thread (64 threads at P7, where
+    # two groups to a CTA of 128 measured no faster on an H100)
+    threads = CLUSTER_THREADS if cs > 1 else min(
+        MAX_THREADS, max(MIN_THREADS, _pow2_at_least(_cdiv(vectors, 4))))
+    return GNPlan(cs=cs, share=share, threads=threads,
+                  resident=resident,
+                  smem_bytes=16 * vectors if resident else 0)
 
 
 @functools.cache
-def _kernel():
-    """The jitted kernel. triton is imported here, at the first launch,
-    because hosts without a card have no triton; the kernel body reads
-    ``tl`` from this module's globals when Triton compiles it. Unless the
-    caller chose a Triton cache, compiled kernels go to the package's
-    build directory beside the nvcc libraries."""
-    os.environ.setdefault("TRITON_CACHE_DIR",
-                          os.path.join(_build.BUILD_DIR, "triton"))
-    import triton
-    import triton.language
-
-    globals()["tl"] = triton.language
-    return triton.jit(_gn_relu_kernel)
+def _lib():
+    lib = _build.load("group_norm")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.paa_group_norm_relu.argtypes = (
+        [vp] * 4 + [ci] * 11 + [ctypes.c_float, vp])
+    lib.paa_group_norm_relu.restype = ci
+    lib.paa_group_norm_max_active.argtypes = [ci] * 5
+    lib.paa_group_norm_max_active.restype = ci
+    return lib
 
 
-def _group_norm_relu_triton(x, weight, bias, num_groups, eps):
+def _on(device):
+    """``torch.cuda.device(device)`` unless it is the current device
+    already (the switch costs host time on every launch)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def gn_max_active_clusters(x, num_groups=32):
+    """cudaOccupancyMaxActiveClusters of K3's launch for ``x`` (a CUDA
+    tensor): how many clusters run at once."""
+    b, c, h, w = x.shape
+    plan = gn_plan(b, c, h * w, num_groups, x.element_size())
+    with _on(x.device):
+        return _lib().paa_group_norm_max_active(
+            _DTYPES[x.dtype], int(plan.resident), plan.cs, plan.threads,
+            plan.smem_bytes)
+
+
+def _group_norm_relu_cuda(x, weight, bias, num_groups, eps):
     b, c, h, w = x.shape
     if not x.is_contiguous():
         raise ValueError(
             "group_norm_relu kernel takes NCHW-contiguous input, got "
             f"strides {x.stride()} for shape {tuple(x.shape)}"
         )
-    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+    if x.dtype not in _DTYPES:
         raise TypeError(f"group_norm_relu kernel: no {x.dtype} path")
     for name, p in (("weight", weight), ("bias", bias)):
         if p.shape != (c,) or p.dtype != torch.float32 or \
@@ -124,14 +147,26 @@ def _group_norm_relu_triton(x, weight, bias, num_groups, eps):
                 f"{name}: {p.dtype} {tuple(p.shape)} on {p.device}, the "
                 f"kernel takes contiguous float32 ({c},) on {x.device}"
             )
+    ge = c // num_groups * h * w
+    if ge >= 2 ** 31 or b * num_groups >= 2 ** 31:
+        raise ValueError(f"group_norm_relu kernel: {ge} elements per group")
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    with torch.cuda.device(x.device):
-        _kernel()[(b * num_groups,)](
-            x, weight, bias, y, h * w, num_groups, c // num_groups, eps,
-            BLOCK=_BLOCK, num_warps=4,
+    if x.data_ptr() % 16:  # the kernel copies 16-byte vectors
+        x = x.clone()
+    plan = gn_plan(b, c, h * w, num_groups, x.element_size())
+    with _on(x.device):
+        err = _lib().paa_group_norm_relu(
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            _DTYPES[x.dtype], b * num_groups, ge, h * w, c // num_groups,
+            num_groups, plan.cs, plan.share, plan.threads,
+            int(plan.resident), plan.smem_bytes, float(eps),
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
+    if err != 0:
+        raise RuntimeError(
+            f"group_norm_relu kernel launch failed: CUDA error {err}")
     group_norm_relu.launches += 1
     return y
 
@@ -140,15 +175,16 @@ def group_norm_relu(x, weight, bias, num_groups=32, eps=1e-5):
     """relu(GroupNorm(x)) for x (B, C, H, W) in float32, bfloat16 or
     float16 and float32 weight, bias (C,); returns x's dtype.
 
-    CPU tensors take the plain version; CUDA tensors launch the Triton
-    kernel (counted in ``group_norm_relu.launches``) or raise."""
+    CPU tensors take the plain version; CUDA tensors launch K3
+    (csrc/group_norm.cu, counted in ``group_norm_relu.launches``) or
+    raise."""
     if x.shape[1] % num_groups:
         raise ValueError(f"{x.shape[1]} channels in {num_groups} groups")
     if x.device.type == "cpu":
         return group_norm_relu_plain(x, weight, bias, num_groups, eps)
     if x.device.type != "cuda":
         raise ValueError(f"group_norm_relu: no kernel for {x.device}")
-    return _group_norm_relu_triton(x, weight, bias, num_groups, eps)
+    return _group_norm_relu_cuda(x, weight, bias, num_groups, eps)
 
 
 group_norm_relu.launches = 0

@@ -13,8 +13,11 @@ fallback between the two:
 
 - K1, csrc/nms_batched.cu (``nms_pallas_batched``): one CTA per image
   with its candidates in shared memory, up to ``k1_max_candidates``;
-- K2, csrc/nms_global.cu (``nms_pallas``): one CTA per image over a
-  scratch buffer in device memory, any N.
+- K2, csrc/nms_global.cu (``nms_pallas``), any N, by one of two routes
+  that ``k2_plan`` picks from N alone: one thread-block cluster of cs
+  CTAs per image with the valid candidates in shared memory, up to 16
+  CTAs' capacity; above that, one CTA per image over a scratch buffer in
+  device memory.
 
 ``nms_batched`` takes K1 where the image fits and K2 otherwise; ``nms``
 (one image) always takes K2. The kernels share their argmax and IoU in
@@ -31,6 +34,9 @@ import torch
 from . import _build
 
 _NEG_INF = -1e30
+# K2's cluster route: at most 16 CTAs per image (a non-portable cluster
+# size; 8 is the portable one)
+K2_MAX_CLUSTER = 16
 
 
 def nms_batched_plain(boxes, scores, labels, valid, iou_threshold, max_out,
@@ -103,16 +109,17 @@ def _empty_keeps(bsz, max_out, device):
 
 
 def _launch(fn, name, boxes, scores, labels, valid, iou_threshold, max_out,
-            class_aware, *scratch):
+            class_aware, *extra):
     """Launch a kernel of the (boxes, scores, labels, valid, B, N, thresh,
-    max_out, class_aware, [scratch,] keeps..., stream) interface."""
+    max_out, class_aware, [extra,] keeps..., stream) interface; ``extra``
+    is K2's cluster size or scratch pointer, passed as given."""
     bsz, n = scores.shape
     keeps = _empty_keeps(bsz, max_out, scores.device)
     stream = torch.cuda.current_stream(scores.device).cuda_stream
     err = fn(
         boxes.data_ptr(), scores.data_ptr(), labels.data_ptr(),
         valid.data_ptr(), bsz, n, float(iou_threshold), max_out,
-        int(bool(class_aware)), *(t.data_ptr() for t in scratch),
+        int(bool(class_aware)), *extra,
         *(t.data_ptr() for t in keeps), stream,
     )
     if err != 0:
@@ -121,7 +128,8 @@ def _launch(fn, name, boxes, scores, labels, valid, iou_threshold, max_out,
 
 
 # boxes, scores, labels, valid, B, N, thresh, max_out, class_aware; then
-# (K2 only) the scratch buffer; then the three keeps and the stream
+# (K2 only) the cluster size or the scratch buffer; then the three keeps
+# and the stream
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _INPUT_ARGS = [_VP] * 4 + [_CI, _CI, ctypes.c_float, _CI, _CI]
 _OUTPUT_ARGS = [_VP] * 4
@@ -141,15 +149,49 @@ def _k1_lib():
 def _k2_lib():
     lib = _build.load("nms_global")
     lib.paa_nms_global.argtypes = _INPUT_ARGS + [_VP] + _OUTPUT_ARGS
-    lib.paa_nms_global.restype = _CI
+    lib.paa_nms_cluster.argtypes = _INPUT_ARGS + [_CI] + _OUTPUT_ARGS
+    lib.paa_nms_cluster_capacity.argtypes = []
+    lib.paa_nms_cluster_max_active.argtypes = [_CI, _CI]
+    for fn in (lib.paa_nms_global, lib.paa_nms_cluster,
+               lib.paa_nms_cluster_capacity, lib.paa_nms_cluster_max_active):
+        fn.restype = _CI
     return lib
 
 
+@functools.cache
 def k1_max_candidates(device):
     """The most candidates per image the batched kernel (K1) holds in one
     CTA's shared memory on ``device`` (8,265 on an H100)."""
     with torch.cuda.device(device):
         return _k1_lib().paa_nms_batched_max_candidates()
+
+
+@functools.cache
+def k2_capacity(device):
+    """The most candidates one CTA of K2's cluster route holds in shared
+    memory on ``device`` (8,900 on an H100: 26 bytes each)."""
+    with torch.cuda.device(device):
+        return _k2_lib().paa_nms_cluster_capacity()
+
+
+def k2_plan(n, capacity):
+    """K2's route for ``n`` candidates per image, from N alone:
+    ``("cluster", cs)`` with the smallest cluster size cs whose CTAs each
+    hold ceil(n / cs) candidates even if all are valid, or
+    ``("scratch", 1)`` when more than K2_MAX_CLUSTER CTAs would be
+    needed."""
+    cs = max(1, -(-n // capacity))
+    return ("cluster", cs) if cs <= K2_MAX_CLUSTER else ("scratch", 1)
+
+
+def k2_max_active_clusters(device, n):
+    """cudaOccupancyMaxActiveClusters of K2's cluster route at ``n``
+    candidates per image: how many images run at once."""
+    route, cs = k2_plan(n, k2_capacity(device))
+    if route != "cluster":
+        return 0
+    with torch.cuda.device(device):
+        return _k2_lib().paa_nms_cluster_max_active(cs, n)
 
 
 def _nms_batched_cuda(boxes, scores, labels, valid, iou_threshold, max_out,
@@ -186,9 +228,8 @@ def _device_type(scores, name):
 def _nms_global(boxes, scores, labels, valid, iou_threshold, max_out,
                 class_aware=True):
     """``nms_batched`` at any N per image: CPU tensors take the plain
-    version; CUDA tensors launch K2 (csrc/nms_global.cu, one CTA per
-    image over a (B, 7, N) scratch buffer in device memory; counted in
-    ``_nms_global.launches``) or raise."""
+    version; CUDA tensors launch K2 (csrc/nms_global.cu, by the route
+    ``k2_plan`` picks; counted in ``_nms_global.launches``) or raise."""
     if _device_type(scores, "nms") == "cpu":
         return nms_batched_plain(boxes, scores, labels, valid,
                                  iou_threshold, max_out, class_aware)
@@ -199,13 +240,18 @@ def _nms_global(boxes, scores, labels, valid, iou_threshold, max_out,
     boxes = boxes.contiguous()
     if boxes.data_ptr() % 16:  # the kernel loads a box as one float4
         boxes = boxes.clone()
-    scratch = torch.empty(bsz, 7, n, dtype=torch.float32,
-                          device=scores.device)
+    route, cs = k2_plan(n, k2_capacity(scores.device))
+    if route == "cluster":
+        fn, extra = _k2_lib().paa_nms_cluster, cs
+    else:
+        scratch = torch.empty(bsz, 7, n, dtype=torch.float32,
+                              device=scores.device)
+        fn, extra = _k2_lib().paa_nms_global, scratch.data_ptr()
     with torch.cuda.device(scores.device):
         keeps = _launch(
-            _k2_lib().paa_nms_global, "nms_global", boxes,
+            fn, "nms_global", boxes,
             *(t.contiguous() for t in (scores, labels, valid)),
-            iou_threshold, max_out, class_aware, scratch,
+            iou_threshold, max_out, class_aware, extra,
         )
     _nms_global.launches += 1
     return keeps

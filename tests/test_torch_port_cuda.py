@@ -131,31 +131,174 @@ def test_nms_global_takes_unaligned_boxes(dev):
         assert torch.equal(g, w)
 
 
+def _k2_route_case(n, dev):
+    cap = nms.k2_capacity(dev)
+    return {"cap": cap, "cap+1": cap + 1, "16cap": 16 * cap,
+            "16cap+1": 16 * cap + 1}[n]
+
+
+@pytest.mark.parametrize("n,route", [
+    ("cap", ("cluster", 1)), ("cap+1", ("cluster", 2)),
+    ("16cap", ("cluster", 16)), ("16cap+1", ("scratch", 1)),
+])
+def test_nms_global_routes_by_n(dev, n, route):
+    """cs = 1, 2 and the largest, and the scratch route above 16 CTAs'
+    capacity: each bit-equal to the plain version."""
+    n = _k2_route_case(n, dev)
+    assert nms.k2_plan(n, nms.k2_capacity(dev)) == route
+    args = _nms_case(n, 2, n, dev)
+    got = nms._nms_global(*args, 0.6, 100, True)
+    want = nms.nms_batched_plain(*args, 0.6, 100, True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(got[2][1].any())
+
+
+def _sparse_case(dev, n, valid_idx, seed=0):
+    """N candidates of which only ``valid_idx`` are valid (both rows)."""
+    args = _nms_case(seed, 2, n, dev)
+    valid = torch.zeros(2, n, dtype=torch.bool, device=dev)
+    valid[:, torch.as_tensor(valid_idx, dtype=torch.long, device=dev)] = True
+    return args[:3] + [valid]
+
+
+def test_nms_cluster_ties_across_ctas_go_to_the_lower_index(dev):
+    """Equal top scores on both sides of each boundary between CTA
+    ranges, with boxes that do not overlap: the lower index is picked
+    first, so the picks ascend across ranks."""
+    n = 80000
+    _, cs = nms.k2_plan(n, nms.k2_capacity(dev))
+    chunk = -(-n // cs)
+    edges = [r * chunk + d for r in range(1, cs) for d in (-1, 0)]
+    args = _nms_case(3, 2, n, dev)
+    for i, j in enumerate(edges):  # far apart, equal scores
+        args[0][:, j] = torch.tensor([10000.0 * i, 0, 10000.0 * i + 5, 5])
+    args[1][:, edges] = 2.0
+    args[3][:] = True
+    got = nms._nms_global(*args, 0.5, 100, True)
+    want = nms.nms_batched_plain(*args, 0.5, 100, True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[0][0, :len(edges)].tolist() == edges
+
+
+def test_nms_cluster_all_valid_in_one_cta(dev):
+    n = 80000
+    _, cs = nms.k2_plan(n, nms.k2_capacity(dev))
+    chunk = -(-n // cs)
+    args = _sparse_case(dev, n, range(5 * chunk, 5 * chunk + 900))
+    got = nms._nms_global(*args, 0.6, 100, True)
+    want = nms.nms_batched_plain(*args, 0.6, 100, True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(got[2].all())
+
+
+def test_nms_cluster_max_out_above_valid_count(dev):
+    """50 valid candidates, max_out 100: the tail slots hold (0, -1e30,
+    False) as in the plain version."""
+    n = 80000
+    args = _sparse_case(dev, n, range(7, n, n // 50))
+    got = nms._nms_global(*args, 0.6, 100, False)
+    want = nms.nms_batched_plain(*args, 0.6, 100, False)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not bool(got[2][:, -1].any()) and bool(got[2][:, 0].all())
+
+
+def test_nms_cluster_all_invalid_image(dev):
+    args = _sparse_case(dev, 80000, [])
+    got = nms._nms_global(*args, 0.6, 100, True)
+    assert not bool(got[2].any())
+    assert bool((got[1] == -1e30).all()) and bool((got[0] == 0).all())
+
+
 # One channel per group (C=32) at 8 positions is the smallest group here.
 # A group with (near) zero variance is left out: the folded affine
 # x * a + (b - mean * a) of the kernel, like the TPU kernel's, then
 # cancels two terms of size |x| * rsqrt(var + eps), a rounding effect.
-@pytest.mark.parametrize("shape", [
-    (1, 32, 2, 4), (2, 64, 3, 5), (2, 256, 7, 11), (1, 256, 40, 33),
-    (3, 96, 17, 9),
-])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_group_norm_kernel_matches_plain(dev, shape, dtype):
-    gen = torch.Generator().manual_seed(shape[2])
+def _gn_check(dev, shape, dtype, num_groups=32, seed=None):
+    gen = torch.Generator().manual_seed(shape[2] if seed is None else seed)
     x = (torch.randn(*shape, generator=gen) * 2 + 0.5).to(dev, dtype)
     c = shape[1]
     s = (torch.rand(c, generator=gen) + 0.5).to(dev)
     b = (torch.randn(c, generator=gen) * 0.3).to(dev)
     before = gn.group_norm_relu.launches
-    got = gn.group_norm_relu(x, s, b).float()
+    got = gn.group_norm_relu(x, s, b, num_groups).float()
     assert gn.group_norm_relu.launches == before + 1
-    want = gn.group_norm_relu_plain(x, s, b).float()
+    want = gn.group_norm_relu_plain(x, s, b, num_groups).float()
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     else:
         mag = torch.maximum(got.abs(), want.abs()).clamp(min=1e-30)
         ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
         assert bool(((got - want).abs() <= ulp + 1e-6).all())
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 32, 2, 4), (2, 64, 3, 5), (2, 256, 7, 11), (1, 256, 40, 33),
+    (3, 96, 17, 9),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_kernel_matches_plain(dev, shape, dtype):
+    _gn_check(dev, shape, dtype)
+
+
+# (shape, dtype) -> the plan's cluster size; 4.5 KB of bf16 per 256
+# channels' position, so H*W = 2304 k gives cs = k (36 KB shares);
+# 40,000 positions need 18 CTAs' shares and stream from device memory
+_CLUSTER_CASES = [
+    ((2, 256, 48, 48), torch.bfloat16, 1, True),
+    ((2, 256, 48, 96), torch.bfloat16, 2, True),
+    ((1, 256, 72, 96), torch.bfloat16, 3, True),
+    ((1, 256, 96, 96), torch.bfloat16, 4, True),
+    ((1, 256, 100, 168), torch.bfloat16, 8, True),
+    ((1, 256, 192, 192), torch.bfloat16, 16, True),
+    ((1, 256, 192, 192), torch.float32, 16, False),
+    ((1, 256, 200, 200), torch.bfloat16, 16, False),
+    ((1, 64, 101, 199), torch.bfloat16, 3, True),  # odd H*W, cs > 1
+]
+
+
+@pytest.mark.parametrize("shape,dtype,cs,resident", _CLUSTER_CASES)
+def test_group_norm_kernel_every_cluster_size(dev, shape, dtype, cs,
+                                               resident):
+    b, c, h, w = shape
+    plan = gn.gn_plan(b, c, h * w, 32, torch.finfo(dtype).bits // 8)
+    assert (plan.cs, plan.resident) == (cs, resident)
+    _gn_check(dev, shape, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_kernel_misaligned_groups(dev, dtype):
+    """C=64 in 32 groups at odd H*W: each group is 2 * 35 elements, so
+    group starts fall off 16-byte boundaries; and an input view that
+    itself starts off a boundary."""
+    _gn_check(dev, (3, 64, 5, 7), dtype)
+    flat = torch.randn(1 + 2 * 64 * 35, device=dev).to(dtype)
+    x = flat[1:].view(2, 64, 5, 7)
+    assert x.data_ptr() % 16 != 0
+    w = torch.linspace(0.5, 1.5, 64, device=dev)
+    got = gn.group_norm_relu(x, w, w - 1).float()
+    want = gn.group_norm_relu_plain(x, w, w - 1).float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp(min=1e-30)
+    tol = 1e-5 if dtype == torch.float32 else torch.exp2(
+        torch.floor(torch.log2(mag)) - 7) + 1e-6
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("hw", [(100, 168), (50, 84), (25, 42), (13, 21),
+                                (7, 11)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_kernel_tower_shapes(dev, hw, dtype):
+    _gn_check(dev, (8, 256, *hw), dtype)
+
+
+def test_group_norm_kernel_repeats_exactly(dev):
+    x = torch.randn(8, 256, 100, 168, device=dev, dtype=torch.bfloat16)
+    w = torch.ones(256, device=dev)
+    assert torch.equal(gn.group_norm_relu(x, w, w),
+                       gn.group_norm_relu(x, w, w))
 
 
 def test_group_norm_kernel_refuses_channels_last(dev):

@@ -86,3 +86,44 @@ def test_bad_group_count_and_device_raise():
         port_gn.group_norm_relu(torch.zeros(1, C, 2, 2), w, w, num_groups=30)
     with pytest.raises(ValueError, match="no kernel"):
         port_gn.group_norm_relu(torch.zeros(1, C, 2, 2, device="meta"), w, w)
+
+
+# K3's launch from the shape alone (ops/group_norm.py::gn_plan): the
+# five tower shapes of an 8 x 800 x 1344 batch in bf16 and f32
+@pytest.mark.parametrize("hw,itemsize,cs,threads", [
+    ((100, 168), 2, 8, 256), ((50, 84), 2, 2, 256), ((25, 42), 2, 1, 512),
+    ((13, 21), 2, 1, 128), ((7, 11), 2, 1, 64),
+    ((100, 168), 4, 15, 256), ((50, 84), 4, 4, 256), ((25, 42), 4, 1, 512),
+    ((13, 21), 4, 1, 256), ((7, 11), 4, 1, 64),
+])
+def test_gn_plan_tower_shapes(hw, itemsize, cs, threads):
+    plan = port_gn.gn_plan(8, 256, hw[0] * hw[1], 32, itemsize)
+    assert (plan.cs, plan.threads, plan.resident) == (cs, threads, True)
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 256, 100, 168), (8, 256, 7, 11), (1, 32, 2, 4), (3, 64, 5, 7),
+    (1, 64, 101, 199), (2, 96, 17, 9), (1, 256, 192, 192),
+    (1, 256, 200, 200), (5, 128, 1, 1), (1, 512, 64, 64),
+])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_gn_plan_covers_each_group_within_its_limits(shape, itemsize):
+    """The contract csrc/group_norm.cu relies on: the ranks' shares of a
+    group cover it in whole 16-byte vectors with no rank left empty, the
+    block is whole warps, and a resident share fits the shared memory it
+    is given (and six such CTAs an SM's 228 KB)."""
+    b, c, h, w = shape
+    vec = 16 // itemsize
+    ge = c // 32 * h * w
+    plan = port_gn.gn_plan(b, c, h * w, 32, itemsize)
+    assert 1 <= plan.cs <= port_gn.MAX_CLUSTER
+    assert plan.cs * plan.share >= ge > (plan.cs - 1) * plan.share
+    assert plan.cs == 1 or plan.share % vec == 0
+    assert plan.threads <= port_gn.MAX_THREADS and plan.threads % 32 == 0
+    assert plan.resident == (
+        -(-ge * itemsize // port_gn.CTA_BYTES) <= port_gn.MAX_CLUSTER)
+    if plan.resident:
+        assert plan.smem_bytes >= 16 * (-(-plan.share // vec) + 1)
+        assert 6 * (plan.smem_bytes + 1024) <= 228 * 1024
+    else:
+        assert plan.smem_bytes == 0

@@ -136,3 +136,28 @@ def test_other_devices_raise_in_k2_entry_points(entry):
         args = tuple(a[0] for a in args)
     with pytest.raises(ValueError, match="no kernel"):
         getattr(port_nms, entry)(*args, 0.6, 2)
+
+
+# K2's route from N alone (ops/nms.py::k2_plan), at the H100's 8,900
+# candidates per CTA of the cluster route
+@pytest.mark.parametrize("n,route", [
+    (0, ("cluster", 1)), (1, ("cluster", 1)), (8900, ("cluster", 1)),
+    (8901, ("cluster", 2)), (80000, ("cluster", 9)),
+    (142400, ("cluster", 16)), (142401, ("scratch", 1)),
+])
+def test_k2_plan_smallest_cluster_that_holds_n(n, route):
+    assert port_nms.k2_plan(n, 8900) == route
+
+
+@pytest.mark.parametrize("n", [77, 5000, 8266, 33333, 80000, 99999, 130001,
+                               10 ** 6])
+@pytest.mark.parametrize("capacity", [1000, 7232, 8900])
+def test_k2_plan_holds_every_candidate_with_the_fewest_ctas(n, capacity):
+    route, cs = port_nms.k2_plan(n, capacity)
+    need = -(-n // capacity)
+    if need > port_nms.K2_MAX_CLUSTER:
+        assert (route, cs) == ("scratch", 1)
+        return
+    assert route == "cluster" and cs == need
+    assert -(-n // cs) <= capacity  # each CTA's range fits, all valid
+    assert cs == 1 or -(-n // (cs - 1)) > capacity  # and no fewer do
