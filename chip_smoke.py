@@ -11,8 +11,11 @@ and prints no result line):
    group_norm.cu.
 2. K1, the batched NMS kernel, against its plain PyTorch version on the
    card: B=8, N=5000 and 77, max_out=100, IoU 0.6, class-aware and
-   class-agnostic, with exact score ties and all-invalid rows. keep_idx
-   and keep_valid equal, keep_scores bit-equal.
+   class-agnostic, with exact score ties and all-invalid rows; the RPN's
+   shape (40 rows of N=1000, max_out 1000, class-agnostic, IoU 0.7);
+   equal top scores over three of K1's sweep tiles, with duplicate boxes
+   across both tile boundaries; and a row with a valid NaN score (no
+   picks). keep_idx and keep_valid equal, keep_scores bit-equal.
 3. K2, the NMS kernel for any N, against its plain version: B=8 at
    N=80,000, at K1's capacity + 1 (through ``nms_batched``, which must
    route there) and at N=300; the single-image ``nms`` at N=80,000;
@@ -46,8 +49,9 @@ and prints no result line):
 9. Timing on the card (CUDA events): end-to-end img/s of each path, and
    per forward each kernel's time at the path's own inputs beside its
    plain version's, its bound and, where one PyTorch call computes the
-   same function, that call's time; for K2 and K3 the cluster size
-   chosen and cudaOccupancyMaxActiveClusters for it.
+   same function, that call's time; for K1 the tiles its sweep ran and
+   the most picks in a row; for K2 and K3 the cluster size chosen and
+   cudaOccupancyMaxActiveClusters for it.
 10. A torch.profiler window of three requests of each path: device time
     per request by kernel class (the Faster R-CNN box head's kernels by
     a span around ``module.box``), and the device's idle share.
@@ -79,7 +83,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PAA_CONFIG = os.path.join(ROOT, "configs", "paa", "paa_R_50_FPN_1x.yaml")
 FRCNN_CONFIG = os.path.join(ROOT, "configs",
                             "e2e_faster_rcnn_R_50_FPN_1x.yaml")
-NMS_OPS = 18  # per valid candidate per step: argmax compare, IoU, suppress
+# an IoU and its compare: 2 x (min, max, sub, add, max), mul, add, sub,
+# div, compare; and a label compare
+NMS_IOU_OPS, NMS_LABEL_OPS = 15, 1
 # bytes read of every candidate (score, valid), of a valid one besides
 # (box, label), and written per output slot (idx, score, valid)
 NMS_BYTES_ALL, NMS_BYTES_VALID, NMS_BYTES_OUT = 4 + 1, 16 + 4, 4 + 4 + 1
@@ -142,39 +148,112 @@ def same_keeps(got, want, what):
               f"{what}: kernel != plain in {name}")
 
 
-def nms_bound(keep_valid, valid, max_out, real_n=None):
-    """Least time for the NMS of this input. Each row runs its picks plus
-    the step that finds it exhausted (at most max_out), and a step needs
-    an IoU only for the row's valid candidates: ops against the f32 peak.
-    Bytes against HBM: every real candidate's score and valid flag, the
-    box and label of the valid ones, the outputs. ``real_n`` (per row)
-    leaves out padding added to a row; invalid, it adds no operations."""
-    steps = torch.clamp(keep_valid.sum(dim=1) + 1, max=max_out).cpu()
-    n_valid = valid.sum(dim=1).cpu()
+def nms_bound(args, got, real_n=None):
+    """Least time for the NMS of this input, and the IoUs it needs.
+    Greedy's i-th pick is the i-th live candidate (valid, score > -5e29)
+    in (score desc, index asc) order that no earlier pick suppresses, so
+    the function needs no argmax: only, for each live candidate up to
+    the last pick of a row that fills max_out (every live candidate of a
+    row that ends short of it), a test against each kept box ranked
+    ahead of it: a label compare when class-aware, and an IoU for the
+    same label. A row with a valid NaN score needs none. Ops against the
+    f32 peak. Bytes against HBM: every real candidate's score and valid
+    flag, the box and label of the valid ones, the outputs. ``real_n``
+    (per row) leaves out padding added to a row; invalid, it adds no
+    operations."""
+    _, scores, labels, valid, _, max_out, aware = args
+    bsz, n = scores.shape
+    live = (valid & (scores > -5e29)
+            & ~(valid & scores.isnan()).any(dim=1, keepdim=True))
+    order = torch.where(live, scores, float("-inf")).sort(
+        dim=1, descending=True, stable=True).indices
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(n, device=scores.device).expand(bsz, n))
+    pairs = ious = 0
+    for b in range(bsz):
+        kept = got[0][b][got[2][b]].long()
+        kept_rank = rank[b, kept]
+        last = kept_rank[-1] if len(kept) == max_out else n
+        cand = live[b] & (rank[b] <= last)
+        ahead = kept_rank[None, :] < rank[b][cand][:, None]
+        pairs += int(ahead.sum())
+        if aware:
+            ahead &= labels[b][cand][:, None] == labels[b, kept][None, :]
+        ious += int(ahead.sum())
     if real_n is None:
-        real_n = [valid.shape[1]] * valid.shape[0]
-    nbytes = (sum(real_n) * NMS_BYTES_ALL + int(n_valid.sum())
-              * NMS_BYTES_VALID + valid.shape[0] * max_out * NMS_BYTES_OUT)
-    ops = int((steps * n_valid).sum()) * NMS_OPS
+        real_n = [n] * bsz
+    nbytes = (sum(real_n) * NMS_BYTES_ALL + int(valid.sum()) * NMS_BYTES_VALID
+              + bsz * max_out * NMS_BYTES_OUT)
+    ops = ious * NMS_IOU_OPS + (pairs * NMS_LABEL_OPS if aware else 0)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return int(steps.sum()), 1e3 * max(t_bytes, t_ops), (
-        "bytes" if t_bytes >= t_ops else "operations")
+    return 1e3 * max(t_bytes, t_ops), (
+        "bytes" if t_bytes >= t_ops else "operations"), ious
+
+
+def rpn_case(seed, dev, rows=5 * BATCH, n=1000):
+    """Rows shaped like the RPN's: five levels of BATCH images, N=1000
+    proposals per row sorted by objectness, the smallest level's rows
+    819 long (13 x 21 x 3 anchors at 800 x 1344), one label."""
+    boxes, scores, _, _ = nms_case(seed, rows, n, dev)
+    scores = scores.sort(dim=1, descending=True).values
+    valid = torch.ones(rows, n, dtype=torch.bool, device=dev)
+    valid[-BATCH:, 819:] = False
+    return [boxes, scores, torch.zeros_like(valid, dtype=torch.int32),
+            valid]
+
+
+def shared_cases():
+    """tests/nms_cases.py: the NMS inputs this script shares with the
+    tests (numpy only)."""
+    path = os.path.join(ROOT, "tests")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import nms_cases
+
+    return nms_cases
+
+
+def tie_case(dev):
+    """Equal top scores over three of K1's sweep tiles, with copies of
+    boxes across both tile boundaries (tests/nms_cases.py): the picks
+    must take them in index order and drop the copies."""
+    args = nms_case(9, BATCH, 300, "cpu")
+    shared_cases().with_ties(*(a.numpy() for a in args))
+    return [a.to(dev) for a in args]
 
 
 def phase_nms(dev):
     from paa_tpu_torch.ops import nms
 
-    for n in (5000, 77):
-        args = nms_case(n, BATCH, n, dev)
-        for class_aware in (True, False):
-            got = nms.nms_batched(*args, 0.6, 100, class_aware)
-            want = nms.nms_batched_plain(*args, 0.6, 100, class_aware)
-            same_keeps(got, want, f"nms_batched N={n} "
-                       f"class_aware={class_aware}")
-            check(bool(got[2][0].any()) and not bool(got[2][-1].any()),
-                  "nms_batched: unexpected valid pattern")
+    cases = [(f"N={n} class_aware={aware}", nms_case(n, BATCH, n, dev),
+              0.6, 100, aware) for n in (5000, 77) for aware in (True, False)]
+    cases.append(("RPN rows 40x1000 max_out=1000 agnostic IoU 0.7",
+                  rpn_case(11, dev), 0.7, 1000, False))
+    cases.append(("equal top scores over three tiles", tie_case(dev), 0.5,
+                  100, True))
+    nan = nms_case(13, BATCH, 5000, dev)
+    nan[1][2, 4321], nan[3][2, 4321] = float("nan"), True
+    cases.append(("a valid NaN score in row 2", nan, 0.6, 100, True))
+    for what, args, thresh, max_out, aware in cases:
+        before = nms.nms_batched.launches
+        got = nms.nms_batched(*args, thresh, max_out, aware)
+        check(nms.nms_batched.launches == before + 1,
+              f"nms_batched {what}: K1 not launched once")
+        same_keeps(got, nms.nms_batched_plain(*args, thresh, max_out, aware),
+                   f"nms_batched {what}")
+        # picks in every row with a valid score, unless one is NaN
+        rows = got[2].any(dim=1).tolist()
+        valid = args[3]
+        expect = (valid.any(dim=1)
+                  & ~(valid & args[1].isnan()).any(dim=1)).tolist()
+        check(rows == expect,
+              f"nms_batched {what}: rows with picks {rows}, not {expect}")
+        if what.startswith("equal"):
+            keep = shared_cases().tied_picks().tolist()
+            check(got[0][0, :len(keep)].tolist() == keep,
+                  f"nms_batched {what}: picks {got[0][0, :8].tolist()}")
     print(json.dumps({"phase": "nms_vs_plain", "ok": True,
-                      "cases": "B=8 N=5000,77 max_out=100 aware/agnostic"}))
+                      "cases": [c[0] for c in cases]}))
 
 
 def phase_nms_global(dev):
@@ -551,6 +630,21 @@ def e2e_rate(eval_fn, seed, what, name, dev):
     return images.to(dev), sizes.to(dev)
 
 
+def k1_tiles(args, got):
+    """The tiles of 32 sorted candidates K1's sweep ran on this input, as
+    the kernel counts them (summed over rows, and the most in a row), and
+    the most picks in a row. One more launch, outside the main path's
+    counted run."""
+    from paa_tpu_torch.ops import nms
+
+    tiles = torch.zeros(args[1].shape[0], dtype=torch.int32,
+                        device=args[1].device)
+    nms._nms_batched_cuda(*args, tiles=tiles)
+    return {"tiles_swept": int(tiles.sum()),
+            "most_tiles_in_a_row": int(tiles.max()),
+            "most_picks_in_a_row": int(got[2].sum(dim=1).max())}
+
+
 def time_nms(entry, args, kernel_reps, what, real_n=None):
     """A kernel against its plain version on one input: bit-equal, then
     both timed; returns the timing fields of a kernels entry."""
@@ -558,8 +652,8 @@ def time_nms(entry, args, kernel_reps, what, real_n=None):
 
     got = entry(*args)
     same_keeps(got, nms.nms_batched_plain(*args), what)
-    steps, bound, by = nms_bound(got[2], args[3], args[5], real_n)
-    return steps, got, {
+    bound, by, ious = nms_bound(args, got, real_n)
+    return ious, got, {
         "max_abs_err": 0.0,
         "ms": cuda_ms(lambda: entry(*args), kernel_reps),
         "plain_ms": cuda_ms(lambda: nms.nms_batched_plain(*args), 3, 1),
@@ -584,8 +678,8 @@ def phase_timing(dev, model, eval_fn, launches, gn_err, name):
         cand = paa_candidates(outputs, sizes, anchors, counts,
                               model.postprocess_config())
     args = (*cand, 0.6, 100, True)
-    steps, got, timing = time_nms(nms.nms_batched, args, 20,
-                                  "nms_batched on the PAA candidates")
+    ious, got, timing = time_nms(nms.nms_batched, args, 20,
+                                 "nms_batched on the PAA candidates")
     k1 = {
         "name": "nms_batched", "route": "cuda",
         "source": "paa_tpu_torch/csrc/nms_batched.cu",
@@ -594,7 +688,8 @@ def phase_timing(dev, model, eval_fn, launches, gn_err, name):
     }
     print(json.dumps({"kernel_detail": "nms_batched", "path": "paa",
                       "B": cand[1].shape[0], "N": cand[1].shape[1],
-                      "steps": steps, "valid_picks": int(got[2].sum()),
+                      "route": "sort + tile sweep", **k1_tiles(args, got),
+                      "ious_needed": ious, "valid_picks": int(got[2].sum()),
                       "card": name}))
 
     # GroupNorm+ReLU: per forward, 8 launches at each tower shape
@@ -674,9 +769,9 @@ def phase_frcnn_timing(dev, model, eval_fn, launches, name):
 
     before = (nms.nms_batched.launches, nms._nms_global.launches)
     args = (*cand, bc.nms_thresh, bc.detections_per_img, True)
-    steps, got, timing = time_nms(nms.nms_batched, args, 20,
-                                  "nms_batched (K2) on the box head's "
-                                  "candidates")
+    ious, got, timing = time_nms(nms.nms_batched, args, 20,
+                                 "nms_batched (K2) on the box head's "
+                                 "candidates")
     check(nms.nms_batched.launches == before[0]
           and nms._nms_global.launches > before[1],
           "box head NMS did not route to K2")
@@ -688,7 +783,9 @@ def phase_frcnn_timing(dev, model, eval_fn, launches, name):
     }
     n = cand[1].shape[1]
     print(json.dumps({"kernel_detail": "nms_global", "path": "faster_rcnn",
-                      "B": BATCH, "N": n, "steps": steps,
+                      "B": BATCH, "N": n,
+                      "steps": int((got[2].sum(dim=1) + 1).clamp(
+                          max=args[5]).sum()), "ious_needed": ious,
                       "route": nms.k2_plan(n, nms.k2_capacity(dev)),
                       "max_active_clusters":
                           nms.k2_max_active_clusters(dev, n),
@@ -702,11 +799,12 @@ def phase_frcnn_timing(dev, model, eval_fn, launches, name):
 
     rpn_args = (boxes, scores, labels, valid, rc.nms_thresh, max_out, False)
     real_n = [lb.shape[1] for lb in level_boxes for _ in range(BATCH)]
-    steps, got, k1_rpn = time_nms(nms.nms_batched, rpn_args, 10,
-                                  "nms_batched (K1) on the RPN rows", real_n)
+    ious, got, k1_rpn = time_nms(nms.nms_batched, rpn_args, 10,
+                                 "nms_batched (K1) on the RPN rows", real_n)
     print(json.dumps({"kernel_detail": "nms_batched", "path": "faster_rcnn",
                       "rows": scores.shape[0], "N": scores.shape[1],
-                      "max_out": max_out, "steps": steps,
+                      "max_out": max_out, "route": "sort + tile sweep",
+                      **k1_tiles(rpn_args, got), "ious_needed": ious,
                       "real_n_per_level": real_n[::BATCH],
                       "valid_per_row": [int(v) for v in valid.sum(dim=1)],
                       "valid_picks": int(got[2].sum()), **k1_rpn,

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's K2 (box-head NMS) and K3 (GroupNorm+ReLU) of
-one checkout on an NVIDIA GPU, to compare two designs on one card.
+"""Time the PyTorch port's K1 (batched NMS), K2 (box-head NMS) and K3
+(GroupNorm+ReLU) of one checkout on an NVIDIA GPU, to compare two
+designs on one card.
 
     python3 kernel_ab.py [--repo PATH] [--tag NAME]
 
@@ -10,6 +11,16 @@ calls queued behind a device-side sleep, so that host launch time does
 not show) on inputs made from fixed seeds, so two checkouts see the same
 data:
 
+- K1 through ``ops.nms._nms_batched_cuda`` at two batches, each checked
+  bit-equal to ``nms_batched_plain`` first: PAA-like, 8 images of 5
+  levels x 1,000 (location, class) candidates on one anchor per location
+  of P3-P7, 80 labels, 100 picks at IoU 0.6, class-aware; and RPN-like,
+  the 40 rows of 8 images x 5 levels (P2-P6, three anchors per
+  location, the smallest level's rows 819 long), 1,000 proposals per row
+  sorted by objectness, 1,000 picks at IoU 0.7, class-agnostic. Where
+  the candidates sit comes from a smooth random objectness over the
+  image, so they cluster as a random network's do (~410 picks per RPN
+  row; the RPN of ``chip_smoke.py``'s Faster R-CNN cell makes ~465).
 - K2 through ``ops.nms._nms_global``: a batch shaped like the Faster
   R-CNN box head's, 8 images of 1,000 rois x 80 classes = 80,000
   candidates, of which one class per roi is valid (1,000 per image),
@@ -42,6 +53,8 @@ import torch
 
 from chip_smoke import GN_PER_LEVEL, TOWER_HW, card, cuda_ms
 
+HW = (800, 1344)
+
 
 def box_head_batch(dev, bsz=8, rois=1000, classes=80, objects=100, seed=0):
     """(boxes, scores, labels, valid) of bsz images x rois * classes."""
@@ -65,6 +78,84 @@ def box_head_batch(dev, bsz=8, rois=1000, classes=80, objects=100, seed=0):
         (bsz, n, 4) if a is boxes else (bsz, n)).astype(t)).to(dev)
         for a, t in ((boxes, np.float32), (scores, np.float32),
                      (labels, np.int32), (valid, np.bool_))]
+
+
+def level_rows(rng, bsz, n, strides, ratios, per_anchor, blobs=8):
+    """Rows of one batch, level-major: for each level (stride s, anchors
+    of size 8 s in each of ``ratios``) and image, the n candidates (at
+    most the level's anchors times ``per_anchor``) with the highest
+    objectness (Gaussian blobs over the image plus noise), their anchor
+    boxes moved by small deltas and clipped, and a label per candidate
+    (0 when per_anchor is 1, else one of 80 drawn for each of the
+    anchor's per_anchor slots). Returns boxes, scores, labels, valid."""
+    out = [[], [], [], []]
+    for stride in strides:
+        size = 8.0 * stride
+        gh, gw = -(-HW[0] // stride), -(-HW[1] // stride)
+        a = np.arange(gh * gw * len(ratios))
+        cy = (a // len(ratios) // gw + 0.5) * stride
+        cx = (a // len(ratios) % gw + 0.5) * stride
+        r = np.asarray(ratios)[a % len(ratios)]
+        for _ in range(bsz):
+            c = rng.uniform(0, 1, (blobs, 2)) * (HW[1], HW[0])
+            rad = rng.uniform(40, 200, blobs)
+            obj = sum(np.exp(-((cx - x) ** 2 + (cy - y) ** 2) / (2 * q * q))
+                      for (x, y), q in zip(c, rad))
+            obj = np.repeat(obj, per_anchor) + rng.normal(
+                0, 0.05, a.size * per_anchor)
+            k = min(n, obj.size)
+            top = np.argsort(-obj, kind="stable")[:k]
+            anchor = top // per_anchor
+            w = size / np.sqrt(r[anchor])
+            h = size * np.sqrt(r[anchor])
+            d = rng.normal(0, 0.1, (a.size, 4))[anchor]
+            x, y = cx[anchor] + d[:, 0] * w, cy[anchor] + d[:, 1] * h
+            w, h = w * np.exp(d[:, 2]), h * np.exp(d[:, 3])
+            box = np.clip(np.stack([x - w / 2, y - h / 2, x + w / 2,
+                                    y + h / 2], -1), 0,
+                          (HW[1] - 1, HW[0] - 1) * 2)
+            label = (rng.randint(1, 81, (a.size, per_anchor)).reshape(-1)
+                     [top] if per_anchor > 1 else np.zeros(k, int))
+            for o, v in zip(out, (box, 1 / (1 + np.exp(-obj[top])), label,
+                                  np.ones(k, bool))):
+                o.append(np.pad(v, ((0, n - k),) + ((0, 0),) * (v.ndim - 1)))
+    return [np.stack(o) for o in out]
+
+
+def k1_batches(dev, seed=0):
+    """(what, args) of K1's PAA-like and RPN-like batches."""
+    rng = np.random.RandomState(seed)
+    # PAA: per image one row of 5 levels x 1000, 80 classes per anchor
+    boxes, scores, labels, valid = level_rows(
+        rng, 8, 1000, (8, 16, 32, 64, 128), (1.0,), 80)
+    paa = [np.concatenate(np.split(t, 5), axis=1)
+           for t in (boxes, scores, labels, valid)]
+    rpn = level_rows(rng, 8, 1000, (4, 8, 16, 32, 64), (0.5, 1.0, 2.0), 1)
+    rpn[1] = -np.sort(-rpn[1], axis=1)  # rows arrive sorted
+    out = []
+    for what, args, extra in (("paa", paa, (0.6, 100, True)),
+                              ("rpn", rpn, (0.7, 1000, False))):
+        t = [torch.from_numpy(np.ascontiguousarray(a).astype(dt)).to(dev)
+             for a, dt in zip(args, (np.float32, np.float32, np.int32,
+                                     np.bool_))]
+        out.append((what, (*t, *extra)))
+    return out
+
+
+def time_k1(nms, dev):
+    """K1's device ms at both batches, after a bit-equality check."""
+    res = {}
+    for what, args in k1_batches(dev):
+        got = nms._nms_batched_cuda(*args)
+        want = nms.nms_batched_plain(*args)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise RuntimeError(f"K1 differs from its plain version ({what})")
+        res[what] = {
+            "ms": cuda_ms(lambda: nms._nms_batched_cuda(*args), 30),
+            "rows": args[1].shape[0], "n": args[1].shape[1],
+            "valid_picks": int(got[2].sum()),
+            "most_picks_in_a_row": int(got[2].sum(dim=1).max())}
+    return res
 
 
 def k3_sweep(gn, dev, card):
@@ -131,6 +222,7 @@ def main():
                 for cs in range(1, nms.K2_MAX_CLUSTER + 1)}}))
         return 0
 
+    k1 = time_k1(nms, dev)
     cand = box_head_batch(dev)
     nms_args = (*cand, 0.5, 100, True)
     got = nms._nms_global(*nms_args)
@@ -158,7 +250,7 @@ def main():
     host_us = (time.perf_counter() - t0) / 200 * 1e6
     torch.cuda.synchronize()
     print(json.dumps({
-        "tag": args.tag, "repo": args.repo, "card": name,
+        "tag": args.tag, "repo": args.repo, "card": name, "k1": k1,
         "k2_ms": k2_ms, "k2_valid_picks": int(got[2].sum()),
         "k3_ms_per_forward": total, "k3_ms_per_launch": per_level,
         "copy_ms_per_launch": copy_ms,

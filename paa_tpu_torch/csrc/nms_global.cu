@@ -8,8 +8,9 @@
 // and every same-label candidate (every candidate when class_aware is 0)
 // with IoU > thresh, and records idx, score and valid in slot i. Invalid
 // candidates carry -1e30. An image stops once its best live score is
-// -1e30; its remaining slots keep (idx 0, score -1e30, valid 0), as in
-// the TPU kernel. A launch takes a batch of images.
+// -1e30, or at once if a valid score is NaN (the TPU kernel's max is
+// then NaN); its remaining slots keep (idx 0, score -1e30, valid 0). A
+// launch takes a batch of images.
 //
 // Where it runs: the two-stage box head, N = R * (C - 1) = 80,000
 // candidates per image (28 bytes each, 2.24 MB), ten times what one
@@ -120,7 +121,7 @@ struct __align__(16) Pick {
   float score;
   int idx;  // input index in the image; N when the CTA has none
   int label;
-  int pad;
+  int nan_seen;  // a valid NaN score in the CTA's range
   float4 box;
 };
 
@@ -161,6 +162,7 @@ __global__ void __launch_bounds__(kClusterThreads) nms_cluster_kernel(
   const float4* bx = reinterpret_cast<const float4*>(boxes + row * 4);
   int m = 0;
   int par = 0;
+  bool nan_seen = false;
   for (int base = start; base < end; base += kClusterThreads, par ^= 1) {
     const int j = base + tid;
     const bool v = j < end && valid[row + j];
@@ -182,13 +184,15 @@ __global__ void __launch_bounds__(kClusterThreads) nms_cluster_kernel(
       y1[pos] = b.y;
       x2[pos] = b.z;
       y2[pos] = b.w;
-      live[pos] = scores[row + j];
+      const float s = scores[row + j];
+      nan_seen |= s != s;
+      live[pos] = s;
       lab[pos] = labels[row + j];
       off[pos] = static_cast<unsigned short>(j - start);
     }
     m += total;
   }
-  __syncthreads();
+  nan_seen = __syncthreads_or(nan_seen);
 
   // each thread owns the slots j = tid (mod kClusterThreads); slot order
   // is input order, so (score, slot) ties break as (score, index)
@@ -214,6 +218,7 @@ __global__ void __launch_bounds__(kClusterThreads) nms_cluster_kernel(
     if (tid == 0) {  // publish; pub[p] is read after the barrier below
       Pick& q = pub[p];
       q.score = bs;
+      q.nan_seen = nan_seen;
       if (bi < m) {
         q.idx = start + off[bi];
         q.label = lab[bi];
@@ -231,6 +236,7 @@ __global__ void __launch_bounds__(kClusterThreads) nms_cluster_kernel(
     float ps = -CUDART_INF_F;
     int pi = INT_MAX;
     int plab = 0;
+    int pnan = 0;
     float4 pbox = make_float4(0.f, 0.f, 0.f, 0.f);
     if (lane < cs) {
       const Pick* r = cluster.map_shared_rank(&pub[p], lane);
@@ -239,6 +245,7 @@ __global__ void __launch_bounds__(kClusterThreads) nms_cluster_kernel(
       ps = __int_as_float(head.x);
       pi = head.y;
       plab = head.z;
+      pnan = head.w;
     }
     float best = ps;
     int idx = pi;
@@ -251,7 +258,8 @@ __global__ void __launch_bounds__(kClusterThreads) nms_cluster_kernel(
         idx = oi;
       }
     }
-    if (!(best > kNegInf / 2)) break;  // exhausted (uniform in cluster)
+    // exhausted, or a valid NaN in the image (uniform in cluster)
+    if (!(best > kNegInf / 2) || __any_sync(kFull, pnan != 0)) break;
     const int src = __ffs(__ballot_sync(kFull, lane < cs && pi == idx)) - 1;
     const float bx1 = __shfl_sync(kFull, pbox.x, src);
     const float by1 = __shfl_sync(kFull, pbox.y, src);
@@ -351,6 +359,7 @@ __global__ void __launch_bounds__(kThreads) nms_global_kernel(
   // prologue: structure-of-arrays copy, and the first pick
   float bs = -CUDART_INF_F;
   int bi = n;
+  bool nan_seen = false;
   const float* bx = boxes + row * 4;
   for (int j = tid; j < n; j += kThreads) {
     const float4 b = reinterpret_cast<const float4*>(bx)[j];
@@ -360,6 +369,7 @@ __global__ void __launch_bounds__(kThreads) nms_global_kernel(
     y2[j] = b.w;
     area[j] = paa_nms::box_area(b.x, b.y, b.z, b.w);
     const float s = valid[row + j] ? scores[row + j] : kNegInf;
+    nan_seen |= s != s;
     live[j] = s;
     lab[j] = labels[row + j];
     if (s > bs) {  // j ascends: the first maximum of this thread stays
@@ -373,8 +383,10 @@ __global__ void __launch_bounds__(kThreads) nms_global_kernel(
   unsigned char* out_valid =
       keep_valid + static_cast<size_t>(blockIdx.x) * max_out;
 
+  // a valid NaN: no picks in this image
+  const int steps = __syncthreads_or(nan_seen) ? 0 : max_out;
   int i = 0;
-  for (; i < max_out; ++i) {
+  for (; i < steps; ++i) {
     // the barrier inside also publishes the prologue's and the last
     // pass's scratch writes to the whole block
     block_argmax<kWarps>(bs, bi, part_s, part_i, i & 1);

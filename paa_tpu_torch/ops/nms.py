@@ -12,7 +12,8 @@ version below for CPU tensors, a CUDA kernel for CUDA tensors, with no
 fallback between the two:
 
 - K1, csrc/nms_batched.cu (``nms_pallas_batched``): one CTA per image
-  with its candidates in shared memory, up to ``k1_max_candidates``;
+  sorts the image's live candidates by (score desc, index asc) in shared
+  memory, then sweeps them in tiles of 32, up to ``k1_max_candidates``;
 - K2, csrc/nms_global.cu (``nms_pallas``), any N, by one of two routes
   that ``k2_plan`` picks from N alone: one thread-block cluster of cs
   CTAs per image with the valid candidates in shared memory, up to 16
@@ -20,8 +21,16 @@ fallback between the two:
   device memory.
 
 ``nms_batched`` takes K1 where the image fits and K2 otherwise; ``nms``
-(one image) always takes K2. The kernels share their argmax and IoU in
-csrc/nms_common.cuh; each kernel's header says what bounds it.
+(one image) always takes K2. The kernels share the bit-exact IoU in
+csrc/nms_common.cuh (with K2's argmax and K1's sort key); each kernel's
+header says what bounds it.
+
+A valid NaN score ends its image before the first pick, as in the JAX
+package, where the step's max is then NaN. Slots without a pick hold
+(idx 0, score -1e30, valid False) in every entry point; the JAX package
+writes other values there, and its scan and Pallas routes differ from
+each other (a NaN image gives idx 7 from one and 383 from the other at
+N=300, score NaN), so only valid slots carry meaning.
 """
 
 from __future__ import annotations
@@ -42,7 +51,8 @@ K2_MAX_CLUSTER = 16
 def nms_batched_plain(boxes, scores, labels, valid, iou_threshold, max_out,
                       class_aware=True):
     """The plain PyTorch version: ``max_out`` argmax/IoU/suppress steps
-    over the whole (B, N) batch, in the TPU kernel's op order.
+    over the whole (B, N) batch, in the TPU kernel's op order. A row
+    whose max is NaN (a valid NaN score) is exhausted from the start.
 
     boxes (B, N, 4); scores, labels, valid (B, N) -> keep_idx (int32),
     keep_scores (float32), keep_valid (bool), each (B, max_out).
@@ -66,7 +76,8 @@ def nms_batched_plain(boxes, scores, labels, valid, iou_threshold, max_out,
         best = live.max(dim=1, keepdim=True).values
         idx = torch.where(live == best, cols, n).min(dim=1,
                                                       keepdim=True).values
-        ok = best > _NEG_INF / 2
+        idx = idx.clamp(max=n - 1)  # a NaN best matches no column
+        ok = best > _NEG_INF / 2  # False for NaN
         if not bool(ok.any()):
             break  # every row exhausted: later slots keep their init
         pick = lambda t: t.gather(1, idx)  # noqa: E731
@@ -81,8 +92,8 @@ def nms_batched_plain(boxes, scores, labels, valid, iou_threshold, max_out,
             suppress = suppress & (labels == pick(labels))
         suppress = suppress | (cols == idx)
         live = torch.where(suppress & ok, neg_inf, live)
-        keep_idx[:, i] = idx[:, 0].to(torch.int32)
-        keep_scores[:, i] = best[:, 0]
+        keep_idx[:, i] = torch.where(ok, idx, 0)[:, 0].to(torch.int32)
+        keep_scores[:, i] = torch.where(ok, best, neg_inf)[:, 0]
         keep_valid[:, i] = ok[:, 0]
     return keep_idx, keep_scores, keep_valid
 
@@ -108,18 +119,26 @@ def _empty_keeps(bsz, max_out, device):
             torch.empty(bsz, max_out, dtype=torch.bool, device=device))
 
 
+def _aligned_boxes(boxes):
+    """``boxes``, contiguous and 16-byte aligned: both kernels load a box
+    as one float4."""
+    boxes = boxes.contiguous()
+    return boxes.clone() if boxes.data_ptr() % 16 else boxes
+
+
 def _launch(fn, name, boxes, scores, labels, valid, iou_threshold, max_out,
-            class_aware, *extra):
+            class_aware, extra):
     """Launch a kernel of the (boxes, scores, labels, valid, B, N, thresh,
-    max_out, class_aware, [extra,] keeps..., stream) interface; ``extra``
-    is K2's cluster size or scratch pointer, passed as given."""
+    max_out, class_aware, extra, keeps..., stream) interface; ``extra``
+    is K1's tiles pointer or K2's cluster size or scratch pointer, passed
+    as given."""
     bsz, n = scores.shape
     keeps = _empty_keeps(bsz, max_out, scores.device)
     stream = torch.cuda.current_stream(scores.device).cuda_stream
     err = fn(
         boxes.data_ptr(), scores.data_ptr(), labels.data_ptr(),
         valid.data_ptr(), bsz, n, float(iou_threshold), max_out,
-        int(bool(class_aware)), *extra,
+        int(bool(class_aware)), extra,
         *(t.data_ptr() for t in keeps), stream,
     )
     if err != 0:
@@ -128,8 +147,8 @@ def _launch(fn, name, boxes, scores, labels, valid, iou_threshold, max_out,
 
 
 # boxes, scores, labels, valid, B, N, thresh, max_out, class_aware; then
-# (K2 only) the cluster size or the scratch buffer; then the three keeps
-# and the stream
+# K1's tiles-swept buffer (or null), or K2's cluster size or scratch
+# buffer; then the three keeps and the stream
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _INPUT_ARGS = [_VP] * 4 + [_CI, _CI, ctypes.c_float, _CI, _CI]
 _OUTPUT_ARGS = [_VP] * 4
@@ -138,7 +157,7 @@ _OUTPUT_ARGS = [_VP] * 4
 @functools.cache
 def _k1_lib():
     lib = _build.load("nms_batched")
-    lib.paa_nms_batched.argtypes = _INPUT_ARGS + _OUTPUT_ARGS
+    lib.paa_nms_batched.argtypes = _INPUT_ARGS + [_VP] + _OUTPUT_ARGS
     lib.paa_nms_batched.restype = _CI
     lib.paa_nms_batched_max_candidates.argtypes = []
     lib.paa_nms_batched_max_candidates.restype = _CI
@@ -160,8 +179,9 @@ def _k2_lib():
 
 @functools.cache
 def k1_max_candidates(device):
-    """The most candidates per image the batched kernel (K1) holds in one
-    CTA's shared memory on ``device`` (8,265 on an H100)."""
+    """The most candidates per image the batched kernel (K1) takes on
+    ``device``: 8,192 on an H100, the capacity of its sort (8 keys per
+    thread), whose shared memory (28 bytes per candidate) fits."""
     with torch.cuda.device(device):
         return _k1_lib().paa_nms_batched_max_candidates()
 
@@ -195,11 +215,20 @@ def k2_max_active_clusters(device, n):
 
 
 def _nms_batched_cuda(boxes, scores, labels, valid, iou_threshold, max_out,
-                      class_aware):
-    """K1: csrc/nms_batched.cu, one CTA per image, candidates in shared
-    memory; raises for N above what it holds."""
+                      class_aware, tiles=None):
+    """K1: csrc/nms_batched.cu, one CTA per image, which sorts its live
+    candidates in shared memory and sweeps them in tiles; raises for N
+    above what it holds. ``tiles``, an int32 (B,) tensor on the same
+    device, receives the tiles each image swept."""
     _check_inputs(boxes, scores, labels, valid)
     bsz, n = scores.shape
+    if tiles is not None and (tiles.shape != (bsz,)
+                              or tiles.dtype != torch.int32
+                              or tiles.device != scores.device
+                              or not tiles.is_contiguous()):
+        raise TypeError(f"tiles: {tiles.dtype} {tuple(tiles.shape)} on "
+                        f"{tiles.device}, the kernel takes int32 ({bsz},) "
+                        f"on {scores.device}")
     if bsz == 0 or max_out == 0:
         return _empty_keeps(bsz, max_out, scores.device)
     limit = k1_max_candidates(scores.device)
@@ -210,9 +239,10 @@ def _nms_batched_cuda(boxes, scores, labels, valid, iou_threshold, max_out,
         )
     with torch.cuda.device(scores.device):
         keeps = _launch(
-            _k1_lib().paa_nms_batched, "nms_batched",
-            *(t.contiguous() for t in (boxes, scores, labels, valid)),
+            _k1_lib().paa_nms_batched, "nms_batched", _aligned_boxes(boxes),
+            *(t.contiguous() for t in (scores, labels, valid)),
             iou_threshold, max_out, class_aware,
+            None if tiles is None else tiles.data_ptr(),
         )
     nms_batched.launches += 1
     return keeps
@@ -237,9 +267,6 @@ def _nms_global(boxes, scores, labels, valid, iou_threshold, max_out,
     bsz, n = scores.shape
     if bsz == 0 or max_out == 0:
         return _empty_keeps(bsz, max_out, scores.device)
-    boxes = boxes.contiguous()
-    if boxes.data_ptr() % 16:  # the kernel loads a box as one float4
-        boxes = boxes.clone()
     route, cs = k2_plan(n, k2_capacity(scores.device))
     if route == "cluster":
         fn, extra = _k2_lib().paa_nms_cluster, cs
@@ -249,7 +276,7 @@ def _nms_global(boxes, scores, labels, valid, iou_threshold, max_out,
         fn, extra = _k2_lib().paa_nms_global, scratch.data_ptr()
     with torch.cuda.device(scores.device):
         keeps = _launch(
-            fn, "nms_global", boxes,
+            fn, "nms_global", _aligned_boxes(boxes),
             *(t.contiguous() for t in (scores, labels, valid)),
             iou_threshold, max_out, class_aware, extra,
         )

@@ -14,6 +14,8 @@ import torch
 from paa_tpu_torch.ops import group_norm as gn
 from paa_tpu_torch.ops import nms
 
+import nms_cases
+
 pytestmark = pytest.mark.cuda
 
 
@@ -66,6 +68,96 @@ def test_nms_kernel_refuses_what_it_cannot_hold(dev):
     with pytest.raises(TypeError, match="labels"):
         nms.nms_batched(*_nms_case(0, 1, 10, dev)[:2], args[2][:, :10],
                         args[3][:, :10], 0.6, 10)
+
+
+@pytest.mark.parametrize("name", nms_cases.EDGES)
+def test_nms_kernel_sort_and_sweep_edges(dev, name):
+    """K1 bit-equal to its plain version at the edges of its sort and
+    tile sweep (tests/nms_cases.py, the cases the CPU tests hold against
+    the JAX package) and at the main paths' shapes (PAA 8x5000, 100
+    picks; the RPN's 40x1000, 1000 picks, class-agnostic, IoU 0.7)."""
+    arrays, thresh, max_out, aware = nms_cases.edge_case(name)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in arrays]
+    before = nms.nms_batched.launches
+    got = nms.nms_batched(*args, thresh, max_out, aware)
+    assert nms.nms_batched.launches == before + 1
+    want = nms.nms_batched_plain(*args, thresh, max_out, aware)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(g, w)
+    assert bool(got[2].any())
+    if name == "ties_across_tiles":
+        picks = nms_cases.tied_picks()
+        assert got[0][0, :len(picks)].tolist() == picks.tolist()
+
+
+def test_nms_kernel_reports_tiles_swept(dev):
+    """Each row's tiles of 32, counted by the kernel: up to the tile of
+    the max_out-th pick, or every live candidate's tile; none in a row
+    without live candidates."""
+    arrays, thresh, max_out, aware = nms_cases.edge_case(
+        "max_out_below_survivors")
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    tiles = torch.full((3,), -1, dtype=torch.int32, device=dev)
+    got = nms._nms_batched_cuda(*args, thresh, max_out, aware, tiles=tiles)
+    torch.cuda.synchronize()
+    assert tiles[1].item() == 0  # the all-invalid row
+    for row in (0, 2):  # 5 picks: the tile of the 5th pick's rank
+        s, live = args[1][row], args[3][row]
+        j = got[0][row, -1].long()
+        ahead = (s > s[j]) | ((s == s[j]) & (torch.arange(300, device=dev)
+                                             < j))
+        rank = int((live & ahead).sum())
+        assert tiles[row].item() == rank // 32 + 1
+    arrays, thresh, _, aware = nms_cases.edge_case("max_out_above_valid")
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    tiles = torch.zeros(2, dtype=torch.int32, device=dev)
+    nms._nms_batched_cuda(*args, thresh, 64, aware, tiles=tiles)
+    assert tiles.tolist() == [1, 0]  # 8 valid candidates: one tile
+    with pytest.raises(TypeError, match="tiles"):
+        nms._nms_batched_cuda(*args, thresh, 64, aware,
+                              tiles=tiles.to(torch.int64))
+
+
+def test_nms_kernel_takes_unaligned_boxes(dev):
+    """K1 loads a box as one float4: a box view that starts off a
+    16-byte boundary is copied, not read misaligned."""
+    args = _nms_case(4, 2, 200, dev)
+    flat = torch.cat([torch.zeros(1, device=dev), args[0].reshape(-1)])
+    args[0] = flat[1:].view(2, 200, 4)
+    assert args[0].data_ptr() % 16 != 0
+    got = nms._nms_batched_cuda(*args, 0.5, 30, True)
+    want = nms.nms_batched_plain(*args, 0.5, 30)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _nan_n(n, dev):
+    return 16 * nms.k2_capacity(dev) + 1 if n == "scratch" else n
+
+
+@pytest.mark.parametrize("entry,n", [
+    ("nms_batched", 300), ("nms_batched", 5000), ("_nms_global", 300),
+    ("_nms_global", 80000), ("_nms_global", "scratch"),
+])
+def test_nms_kernels_nan_score_ends_its_row(dev, entry, n):
+    """A valid NaN score leaves its row without picks, in K1 and in both
+    routes of K2 (the NaN in a later CTA's range at N=80,000); an invalid
+    NaN changes nothing. Bit-equal to the plain version."""
+    n = _nan_n(n, dev)
+    args = _nms_case(n + 2, 3, n, dev)
+    args[3][0] = True
+    j = n - 5  # in the last CTA's range of a cluster
+    args[1][1, j], args[3][1, j] = float("nan"), True
+    args[1][2, 3], args[3][2, 3] = float("nan"), False
+    got = getattr(nms, entry)(*args, 0.6, 50, True)
+    want = nms.nms_batched_plain(*args, 0.6, 50, True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not bool(got[2][1].any())
+    assert bool(got[2][0].all()) and bool(got[2][2].all())
+    assert bool((got[0][1] == 0).all()) and bool((got[1][1] == -1e30).all())
 
 
 def _k2_n(n, dev):

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports without JAX, and no module of
-paa_tpu_torch (nor chip_smoke.py or kernel_ab.py) names jax, flax or
-paa_tpu in an import."""
+paa_tpu_torch (nor chip_smoke.py, kernel_ab.py or the NMS cases they
+share with the tests, tests/nms_cases.py) names jax, flax or paa_tpu in
+an import."""
 
 import ast
 import os
@@ -19,7 +20,8 @@ def _port_sources():
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out) + [os.path.join(ROOT, f)
-                          for f in ("chip_smoke.py", "kernel_ab.py")]
+                          for f in ("chip_smoke.py", "kernel_ab.py",
+                                    os.path.join("tests", "nms_cases.py"))]
 
 
 def _imported_modules(path):
