@@ -55,6 +55,27 @@ and prints no result line):
 10. A torch.profiler window of three requests of each path: device time
     per request by kernel class (the Faster R-CNN box head's kernels by
     a span around ``module.box``), and the device's idle share.
+11. Training, K3's gradient: the autograd Function around K3 (forward
+    K3, backward the VJP of the plain version, recomputed) against
+    autograd through the plain version at the towers' shapes of a
+    16 x 800 x 1344 batch, float32 and bfloat16: forward within K3's
+    tolerances, gradients of x, weight and bias equal.
+12. The training main path: PAA-R50 at full width in bfloat16 (params
+    and losses float32), weights from seed 0, through
+    ``make_bucket_train_step`` and ``do_train``: 10 SGD steps (the
+    config's lr 0.01, constant warmup 1/3, weight decay 1e-4, momentum
+    0.9) on one batch of 16 uint8 images of 800 x 1344 (content
+    800 x 1333) with 100 GT slots, 3-12 valid per image. Every loss
+    finite, num_pos > 0, the last step's loss below the first's, K3
+    launched 40 times per step and no NMS; peak device memory.
+13. One training step in float32 (TF32 off) on the card and on the CPU
+    at 2 x 256 x 320 from the same weights and batch: losses, num_pos,
+    the positive mask and the updated parameters agree; the same step
+    on the card with a fault planted in K3's gradient does not.
+14. Timing and a profile of the train step: step ms and img/s (CUDA
+    events after 2 warm-up steps); torch.profiler over three
+    steps with device busy, wall and idle share per span (forward,
+    assignment, losses, backward, K3's backward recompute, optimizer).
 
 The line before the last is the ``kernels`` JSON; the card's name and
 power limit (nvidia-smi) come on a line before it; the last line is
@@ -66,6 +87,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -76,6 +98,8 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BATCH, HW, SIZE = 8, (800, 1344), (800.0, 1333.0)
+# training: SOLVER.IMS_PER_BATCH images, GT slots, steps of the main path
+TRAIN_BATCH, MAX_GT, TRAIN_STEPS = 16, 100, 10
 TOWER_HW = [(100, 168), (50, 84), (25, 42), (13, 21), (7, 11)]
 SLEEP_CYCLES = 35_000_000  # ~20 ms at the H100's 1.755 GHz boost clock
 GN_PER_LEVEL = 8  # 2 towers x 4 GroupNorm+ReLU
@@ -413,12 +437,12 @@ def phase_group_norm(dev):
     return max(worst[f"{BATCH}x256x{h}x{w}"]["bf16"] for h, w in TOWER_HW)
 
 
-def build_cfg(dtype, path):
+def build_cfg(dtype, path, extra=()):
     from paa_tpu_torch.config import get_cfg
 
     cfg = get_cfg()
     cfg.merge_from_file(path)
-    cfg.merge_from_list(["TPU.COMPUTE_DTYPE", dtype])
+    cfg.merge_from_list(["TPU.COMPUTE_DTYPE", dtype, *extra])
     cfg.freeze()
     return cfg
 
@@ -663,7 +687,6 @@ def time_nms(entry, args, kernel_reps, what, real_n=None):
 
 def phase_timing(dev, model, eval_fn, launches, gn_err, name):
     from paa_tpu_torch.modeling.paa_inference import paa_candidates
-    from paa_tpu_torch.ops import group_norm as gn
     from paa_tpu_torch.ops import nms
     from paa_tpu_torch.ops.image_norm import device_normalize
 
@@ -692,44 +715,72 @@ def phase_timing(dev, model, eval_fn, launches, gn_err, name):
                       "ious_needed": ious, "valid_picks": int(got[2].sum()),
                       "card": name}))
 
-    # GroupNorm+ReLU: per forward, 8 launches at each tower shape
-    gen = torch.Generator().manual_seed(5)
-    s = (torch.rand(256, generator=gen) + 0.5).to(dev)
-    b = (torch.randn(256, generator=gen) * 0.2).to(dev)
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0}
-    per_level = {}
-    for h, w in TOWER_HW:
-        x = torch.randn(BATCH, 256, h, w, generator=gen).to(
-            dev, torch.bfloat16)
-        ms = cuda_ms(lambda: gn.group_norm_relu(x, s, b), 50)
-        plain = cuda_ms(lambda: gn.group_norm_relu_plain(x, s, b), 20)
-        lib = cuda_ms(lambda: F.relu(F.group_norm(x, 32, s.to(x.dtype),
-                                                  b.to(x.dtype), 1e-5)), 50)
-        nbytes = 2 * x.numel() * x.element_size() + 2 * 256 * 4
-        plan = gn.gn_plan(BATCH, 256, h * w, 32, x.element_size())
-        per_level[f"{h}x{w}"] = {"ms": ms, "plain_ms": plain,
-                                 "library_ms": lib,
-                                 "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
-                                 "cs": plan.cs, "threads": plan.threads,
-                                 "max_active_clusters":
-                                     gn.gn_max_active_clusters(x)}
-        totals["ms"] += GN_PER_LEVEL * ms
-        totals["plain_ms"] += GN_PER_LEVEL * plain
-        totals["library_ms"] += GN_PER_LEVEL * lib
-        totals["bytes"] += GN_PER_LEVEL * nbytes
+    totals, per_level = gn_forward_cost(dev, BATCH, 5)
     k3 = {
         "name": "group_norm_relu", "route": "cuda",
         "source": "paa_tpu_torch/csrc/group_norm.cu",
         "replaces": "paa_tpu/ops/fused_gn.py:146",
         "launches": launches["group_norm_relu"], "max_abs_err": gn_err,
         "ms": totals["ms"], "plain_ms": totals["plain_ms"],
-        "bound_ms": 1e3 * totals["bytes"] / HBM_BYTES_PER_S,
-        "bound_by": "bytes", "library_ms": totals["library_ms"],
+        "bound_ms": totals["bound_ms"], "bound_by": "bytes",
+        "library_ms": totals["library_ms"],
     }
     print(json.dumps({"kernel_detail": "group_norm_relu", "dtype":
-                      "bfloat16", "per_launch_by_level": per_level,
-                      "card": name}))
+                      "bfloat16", "B": BATCH,
+                      "per_launch_by_level": per_level, "card": name}))
+    train, per_level = gn_forward_cost(dev, TRAIN_BATCH, 6, backward=True)
+    k3["training"] = {"B": TRAIN_BATCH, **train}
+    print(json.dumps({"kernel_detail": "group_norm_relu", "dtype":
+                      "bfloat16", "B": TRAIN_BATCH, "path": "paa_train",
+                      "per_launch_by_level": per_level, "card": name}))
     return k1, k3
+
+
+def gn_forward_cost(dev, bsz, seed, backward=False):
+    """K3 per forward of the towers at batch ``bsz`` (8 launches at each
+    level's shape, bfloat16): its ms beside the plain version's, the
+    bound (bytes: x read once, y written once, the affine) and
+    ``F.group_norm`` + ``F.relu``; with ``backward`` also the ms of the
+    gradient's recompute (the plain version's VJP, for x, weight and
+    bias). Returns (totals, per level)."""
+    from paa_tpu_torch.ops import group_norm as gn
+
+    gen = torch.Generator().manual_seed(seed)
+    s = (torch.rand(256, generator=gen) + 0.5).to(dev)
+    b = (torch.randn(256, generator=gen) * 0.2).to(dev)
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+              "bound_ms": 0.0}
+    per_level = {}
+    for h, w in TOWER_HW:
+        x = torch.randn(bsz, 256, h, w, generator=gen).to(
+            dev, torch.bfloat16)
+        level = {
+            "ms": cuda_ms(lambda: gn.group_norm_relu(x, s, b), 50),
+            "plain_ms": cuda_ms(lambda: gn.group_norm_relu_plain(x, s, b),
+                                20),
+            "library_ms": cuda_ms(lambda: F.relu(F.group_norm(
+                x, 32, s.to(x.dtype), b.to(x.dtype), 1e-5)), 50),
+            "bound_ms": 1e3 * (2 * x.numel() * x.element_size()
+                               + 2 * 256 * 4) / HBM_BYTES_PER_S,
+        }
+        if backward:
+            ins = [t.detach().requires_grad_(True) for t in (x, s, b)]
+            up = torch.randn_like(x)
+
+            def vjp():
+                with torch.enable_grad():
+                    torch.autograd.grad(gn.group_norm_relu_plain(*ins),
+                                        ins, up)
+
+            level["backward_recompute_ms"] = cuda_ms(vjp, 10)
+        for k, v in level.items():
+            totals[k] = totals.get(k, 0.0) + GN_PER_LEVEL * v
+        plan = gn.gn_plan(bsz, 256, h * w, 32, x.element_size())
+        per_level[f"{h}x{w}"] = {**level, "cs": plan.cs,
+                                 "threads": plan.threads,
+                                 "max_active_clusters":
+                                     gn.gn_max_active_clusters(x)}
+    return totals, per_level
 
 
 def phase_frcnn_timing(dev, model, eval_fn, launches, name):
@@ -810,6 +861,388 @@ def phase_frcnn_timing(dev, model, eval_fn, launches, name):
                       "valid_picks": int(got[2].sum()), **k1_rpn,
                       "card": name}))
     return k2, k1_rpn
+
+
+def train_batch(seed, bsz, hw, size, max_gt=MAX_GT):
+    """A batch in the loader's contract: uint8 images (content ``size``)
+    and 3-12 GT boxes per image (COCO averages about 7) in ``max_gt``
+    slots, sqrt(area) log-uniform in 16-512 px, aspect ratio log-uniform
+    in 1/2-2, inside the content, labels 1-80; the other slots padding
+    (label 0)."""
+    images, sizes = request(seed, bsz, hw, size)
+    rng = np.random.RandomState(seed + 1)
+    boxes = np.zeros((bsz, max_gt, 4), np.float32)
+    labels = np.zeros((bsz, max_gt), np.int32)
+    h, w = size
+    for b in range(bsz):
+        n = rng.randint(3, 13)
+        side = np.exp(rng.uniform(np.log(16), np.log(512), n))
+        aspect = np.exp(rng.uniform(np.log(0.5), np.log(2.0), n))
+        bw, bh = side * np.sqrt(aspect), side / np.sqrt(aspect)
+        x1 = rng.uniform(0, w - 1 - bw)
+        y1 = rng.uniform(0, h - 1 - bh)
+        boxes[b, :n] = np.stack([x1, y1, x1 + bw, y1 + bh], axis=1)
+        labels[b, :n] = rng.randint(1, 81, n)
+    return {"images": images, "image_sizes": sizes,
+            "gt_boxes": torch.from_numpy(boxes),
+            "gt_labels": torch.from_numpy(labels)}
+
+
+def train_state(model):
+    from paa_tpu_torch.engine import TrainState
+    from paa_tpu_torch.solver import make_optimizer
+
+    return TrainState(model.module, make_optimizer(model.cfg,
+                                                   model.module)[0])
+
+
+def phase_gn_grad(dev):
+    """The autograd Function around K3 against autograd through the
+    plain version, at the towers' shapes of a training batch."""
+    from paa_tpu_torch.ops import group_norm as gn
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(8)
+    worst = {}
+    for h, w in TOWER_HW:
+        shape = (TRAIN_BATCH, 256, h, w)
+        x32 = torch.randn(*shape, generator=gen) * 1.5 + 0.4
+        s = (torch.rand(256, generator=gen) + 0.5).to(dev)
+        b = (torch.randn(256, generator=gen) * 0.2).to(dev)
+        up32 = torch.randn(*shape, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            what = f"{dtype} {'x'.join(map(str, shape))}"
+            x, up = x32.to(dev, dtype), up32.to(dev, dtype)
+            ins = [t.clone().requires_grad_(True) for t in (x, s, b)]
+            before = gn.group_norm_relu.launches
+            y = gn.group_norm_relu(*ins)
+            check(gn.group_norm_relu.launches == before + 1
+                  and type(y.grad_fn).__name__ == "GroupNormReLUBackward",
+                  f"gn grad {what}: K3 not launched through the Function")
+            y.backward(up)
+            refs = [t.clone().requires_grad_(True) for t in (x, s, b)]
+            want = gn.group_norm_relu_plain(*refs)
+            want.backward(up)
+            y, want = y.detach(), want.detach()
+            err = (y.float() - want.float()).abs()
+            if dtype == torch.float32:
+                check(float(err.max()) <= 1e-5,
+                      f"gn grad {what}: forward err {float(err.max())}")
+            else:
+                ulp = _bf16_ulp(torch.maximum(y.float().abs(),
+                                              want.float().abs()))
+                check(bool((err <= ulp + 1e-6).all()),
+                      f"gn grad {what}: forward beyond one ulp")
+            for got, ref, n in zip(ins, refs, ("x", "weight", "bias")):
+                check(got.grad.dtype == ref.grad.dtype
+                      and torch.equal(got.grad, ref.grad),
+                      f"gn grad {what}: d{n} differs by "
+                      f"{float((got.grad - ref.grad).abs().max())}")
+            worst[what] = float(err.max())
+    print(json.dumps({"phase": "gn_grad_vs_plain", "ok": True,
+                      "gradients": "equal", "forward_max_abs_err": worst}))
+
+
+def phase_train_main_path(dev, name):
+    """10 steps of do_train at full width on one batch; the launch counts
+    set to 0 just before and read just after."""
+    from paa_tpu_torch.engine import do_train
+    from paa_tpu_torch.modeling import build_detection_model
+
+    cfg = build_cfg("bfloat16", PAA_CONFIG,
+                    ["SOLVER.MAX_ITER", TRAIN_STEPS])
+    model = build_detection_model(cfg, device=dev, seed=0)
+    state = train_state(model)
+    batch = train_batch(70, TRAIN_BATCH, HW, SIZE)
+    seen = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    do_train(cfg, model, state, [batch] * TRAIN_STEPS,
+             metric_hook=lambda i, m: seen.update({i: m}))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    expected = {"nms_batched": 0, "nms_global": 0,
+                "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW)
+                * TRAIN_STEPS}
+    check(launches == expected,
+          f"train_main_path: launches {launches}, expected {expected}")
+    check(sorted(seen) == list(range(1, TRAIN_STEPS + 1)),
+          f"train_main_path: metrics of steps {sorted(seen)}")
+    for i, m in seen.items():
+        check(all(math.isfinite(v) for v in m.values()),
+              f"train_main_path: step {i} {m}")
+        check(m["num_pos"] > 0, f"train_main_path: step {i} no positives")
+    check(seen[TRAIN_STEPS]["loss"] < seen[1]["loss"],
+          f"train_main_path: loss {seen[1]['loss']} -> "
+          f"{seen[TRAIN_STEPS]['loss']}")
+    n_gt = (batch["gt_labels"] > 0).sum(dim=1).tolist()
+    print(json.dumps({
+        "phase": "train_main_path", "ok": True, "batch": TRAIN_BATCH,
+        "hw": HW, "max_gt": MAX_GT, "gt_per_image": n_gt,
+        "steps": TRAIN_STEPS, "dtype": "bfloat16", "launches": launches,
+        "losses": {k: [seen[i][k] for i in sorted(seen)]
+                   for k in seen[1]},
+        "do_train_s": wall,
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "card": name}))
+    return model, state, batch, launches
+
+
+def _with_pos_mask(loss):
+    """``loss`` that also reports its positive mask among the step's
+    metrics (the train step sums only the ``loss_*`` entries)."""
+    def call(*args, **kwargs):
+        out, aux = loss(*args, return_aux=True, **kwargs)
+        return {**out, "pos_mask": aux["pos_mask"]}
+    return call
+
+
+def train_once(model, batch):
+    """One train step of ``model`` on ``batch`` with a fresh optimizer:
+    (host metrics, the step's positive mask, the parameters before and
+    after it), all on the CPU."""
+    loss_call, loss_cfg = model.loss_fn()
+    model.loss_fn = lambda: (_with_pos_mask(loss_call), loss_cfg)
+    state = train_state(model)
+    params = dict(model.module.named_parameters())
+    before = {n: p.detach().cpu().clone() for n, p in params.items()}
+    metrics = model.make_bucket_train_step(
+        tuple(batch["images"].shape[1:3]))(state, batch)
+    pos_mask = metrics.pop("pos_mask").cpu()
+    return ({k: float(v) for k, v in metrics.items()}, pos_mask, before,
+            {n: p.detach().cpu() for n, p in params.items()})
+
+
+def update_errors(got, want, before):
+    """The four parameter tensors whose update (after - before) in
+    ``got`` is farthest from that in ``want``: by the difference's norm
+    over the update's norm, and by its largest element over the update's
+    largest element."""
+    share, norm = {}, {}
+    for n, p in want.items():
+        upd = p - before[n]
+        diff = got[n] - before[n] - upd
+        share[n] = float(diff.abs().max() / upd.abs().max().clamp(min=1e-30))
+        norm[n] = float(diff.norm() / upd.norm().clamp(min=1e-30))
+    return (sorted(norm.items(), key=lambda kv: -kv[1])[:4],
+            sorted(share.items(), key=lambda kv: -kv[1])[:4])
+
+
+def _gn_plain_stats_detached(x, weight, bias, num_groups=32, eps=1e-5):
+    """group_norm_relu_plain with its group statistics taken as constants:
+    a wrong gradient of x (the mean and variance terms are missing)."""
+    b, c, h, w = x.shape
+    xf = x.to(torch.float32).reshape(b, num_groups, -1)
+    mean = xf.mean(dim=2, keepdim=True).detach()
+    var = (xf - mean).square().mean(dim=2, keepdim=True).detach()
+    xn = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, c, h, w)
+    out = xn * weight[:, None, None] + bias[:, None, None]
+    return torch.relu(out).to(x.dtype)
+
+
+UPDATE_NORM_TOL, UPDATE_SHARE_TOL = 1e-2, 3e-2
+
+
+def phase_train_reference(dev):
+    """One float32 train step on the card against the same on the CPU
+    (plain versions), from the same weights and batch at 2 x 256 x 320:
+    losses within 1e-4 relative, num_pos and the positive mask equal;
+    each parameter tensor's update (after - before) within
+    UPDATE_NORM_TOL of its norm, and every element within
+    UPDATE_SHARE_TOL of the tensor's largest update. Why so wide: the two
+    sides sum in float32 in different orders and by different algorithms
+    (cuDNN without TF32, the CPU's convolutions); the head's GroupNorm
+    gradients subtract group means, which amplifies what differs, and a
+    ReLU input within rounding of zero falls on the other side on one of
+    them. On an H100 80GB HBM3 the worst tensor was at 3.1e-3 of its norm
+    and 9.7e-3 of its largest element, the same in every run (PERF.md).
+    The same step on the card with a fault planted in K3's gradient (the
+    group statistics taken as constants; x's gradient 1.05 times the
+    right one) must land beyond the limits: GroupNormReLU's backward
+    recomputes through the module's group_norm_relu_plain, which each
+    fault replaces for one step."""
+    from paa_tpu_torch.modeling import build_detection_model
+    from paa_tpu_torch.ops import group_norm as gn
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = build_cfg("float32", PAA_CONFIG)
+    batch = train_batch(99, 2, (256, 320), (256.0, 300.0))
+    runs = [train_once(build_detection_model(cfg, device=d, seed=0), batch)
+            for d in (dev, "cpu")]
+    (m_gpu, pos_gpu, before, p_gpu), (m_cpu, pos_cpu, _, p_cpu) = runs
+    loss_err = {k: abs(m_gpu[k] - v) / max(abs(v), 1e-12)
+                for k, v in m_cpu.items()}
+    worst_norm, worst_share = update_errors(p_gpu, p_cpu, before)
+    check(m_gpu["num_pos"] == m_cpu["num_pos"] > 0
+          and torch.equal(pos_gpu, pos_cpu),
+          "train_card_vs_cpu: positive masks differ")
+    check(max(loss_err.values()) <= 1e-4, f"train_card_vs_cpu: {loss_err}")
+    check(worst_norm[0][1] <= UPDATE_NORM_TOL
+          and worst_share[0][1] <= UPDATE_SHARE_TOL,
+          f"train_card_vs_cpu: updates {worst_norm} {worst_share}")
+    planted = {}
+    plain = gn.group_norm_relu_plain
+    faults = {"gn_stats_detached": _gn_plain_stats_detached,
+              "gn_dx_x1.05": lambda x, *args: plain(
+                  x.detach() + (x - x.detach()) * 1.05, *args)}
+    for fault, fn in faults.items():
+        gn.group_norm_relu_plain = fn
+        try:
+            _, _, _, p_bad = train_once(
+                build_detection_model(cfg, device=dev, seed=0), batch)
+        finally:
+            gn.group_norm_relu_plain = plain
+        f_norm, f_share = update_errors(p_bad, p_cpu, before)
+        planted[fault] = {"worst_update_norm_err": f_norm[0],
+                          "worst_update_share": f_share[0]}
+        check(f_norm[0][1] > UPDATE_NORM_TOL
+              or f_share[0][1] > UPDATE_SHARE_TOL,
+              f"train_card_vs_cpu: planted {fault} within the limits: "
+              f"{f_norm} {f_share}")
+    print(json.dumps({"phase": "train_card_vs_cpu", "ok": True,
+                      "hw": [256, 320], "num_pos": m_gpu["num_pos"],
+                      "loss_rel_err": loss_err,
+                      "worst_update_norm_err": worst_norm,
+                      "worst_update_share": worst_share,
+                      "planted_faults": planted}))
+
+
+def phase_train_timing(model, state, batch, name):
+    """Step ms and img/s of the train step (CUDA events after 2 warm-up
+    steps)."""
+    step = model.make_bucket_train_step(HW)
+    ms = cuda_step_ms(lambda: step(state, batch), 5)
+    out = {"step_ms": ms, "img_per_s": TRAIN_BATCH / ms * 1e3}
+    print(json.dumps({"metric": "train_step", "path": "paa_train",
+                      "batch": TRAIN_BATCH, "hw": HW, "dtype": "bfloat16",
+                      **out, "card": name}))
+    return out
+
+
+def cuda_step_ms(fn, reps, warmup=2):
+    """ms per call of ``fn`` between CUDA events, host time included (no
+    device-side sleep: a train step's host gaps are part of it)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_train_profile(model, state, batch, name):
+    """torch.profiler over three train steps. Each kernel goes to the
+    innermost span around its launch (input: the batch's copy and
+    normalize; forward, assignment, losses, backward, K3's backward
+    recompute, optimizer; "other": outside every span), matched through
+    the trace's launch correlation. Per span class: host ms in the span,
+    the device window from its first kernel's start to its last's end in
+    each occurrence, the device busy time in it and the windows' idle
+    share; and the step's device busy time, wall time and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paa_tpu_torch.engine import train_step as ts
+    from paa_tpu_torch.modeling import paa_loss as pl
+    from paa_tpu_torch.ops import group_norm as gn
+
+    spans_named = {ts.SPAN_INPUT: "input", ts.SPAN_FORWARD: "forward",
+                   pl.SPAN_ASSIGN: "assignment", pl.SPAN_LOSSES: "losses",
+                   ts.SPAN_BACKWARD: "backward",
+                   gn.SPAN_BACKWARD: "gn_backward_recompute",
+                   ts.SPAN_OPTIMIZER: "optimizer"}
+    step = model.make_bucket_train_step(HW)
+    step(state, batch)
+    torch.cuda.synchronize()
+    steps = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = trace_events(prof)
+    spans = [(e["ts"], e["ts"] + e["dur"], spans_named[e["name"]])
+             for e in events if e.get("cat") == "user_annotation"
+             and e.get("name") in spans_named]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    kernels = [e for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not kernels:
+        print(json.dumps({"phase": "train_profile",
+                          "device_time": "not measured", "card": name}))
+        return
+
+    def span_of(t):
+        inside = [(b - a, a, label) for a, b, label in spans if a <= t <= b]
+        return min(inside)[1:] if inside else (None, "other")
+
+    per = {}  # (span occurrence start, label) -> kernel intervals
+    by_kernel_class = {}
+    for k in kernels:
+        at = launched.get(k.get("args", {}).get("correlation"))
+        occurrence = span_of(at) if at is not None else (None, "other")
+        per.setdefault(occurrence, []).append((k["ts"], k["ts"] + k["dur"]))
+        cls = kernel_class(k["name"])
+        by_kernel_class[cls] = (by_kernel_class.get(cls, 0.0)
+                                + k["dur"] / steps / 1e3)
+    classes = {}
+    for (_, label), iv in per.items():
+        c = classes.setdefault(label, {"window_us": 0.0, "busy_us": 0.0})
+        c["window_us"] += max(b for _, b in iv) - min(a for a, _ in iv)
+        c["busy_us"] += _union_us(iv)
+    host = {}
+    for a, b, label in spans:
+        host[label] = host.get(label, 0.0) + (b - a)
+    out = {}
+    for label, c in sorted(classes.items(), key=lambda kv: -kv[1]["busy_us"]):
+        out[label] = {"host_ms": host.get(label, 0.0) / steps / 1e3,
+                      "device_busy_ms": c["busy_us"] / steps / 1e3}
+        if label != "other":  # one occurrence per span, not per step
+            out[label].update(
+                device_window_ms=c["window_us"] / steps / 1e3,
+                idle_share=1.0 - c["busy_us"] / max(c["window_us"], 1e-9))
+    busy = _union_us([(k["ts"], k["ts"] + k["dur"]) for k in kernels])
+    print(json.dumps({
+        "phase": "train_profile", "steps": steps, "batch": TRAIN_BATCH,
+        "by_span": out, "device_busy_ms_per_step": busy / steps / 1e3,
+        "wall_ms_per_step": wall_us / steps / 1e3,
+        "device_idle_share": 1.0 - busy / wall_us,
+        "ms_per_step_by_kernel_class": dict(sorted(
+            by_kernel_class.items(), key=lambda kv: -kv[1])),
+        "card": name}))
+
+
+def trace_events(prof):
+    """The profile's events as its Chrome trace lists them (kernels carry
+    the correlation id of the runtime call that launched them)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    return trace["traceEvents"] if isinstance(trace, dict) else trace
+
+
+def _union_us(intervals):
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
 
 
 BOX_SPAN = "box_head"  # record_function span around FasterRCNN.box
@@ -904,11 +1337,7 @@ def phase_profile(model, eval_fn, seed, what, name):
     for k, ms in box_by_name.items():  # move them to the box head class
         by_class[kernel_class(k)] = by_class.get(kernel_class(k), 0.0) - ms
         by_class[BOX_LABEL] = by_class.get(BOX_LABEL, 0.0) + ms
-    busy, end = 0.0, -math.inf
-    for a, b in sorted(spans):  # union of kernel intervals
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = _union_us(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {
         "phase": "profile", "path": what, "requests": reqs, "batch": BATCH,
@@ -950,17 +1379,27 @@ def main():
     phase_reference(dev)
     frcnn, frcnn_eval, frcnn_launches = phase_frcnn_main_path(dev)
     phase_frcnn_reference(dev)
+    phase_gn_grad(dev)
+    trained, state, batch, train_launches = phase_train_main_path(dev, name)
+    phase_train_reference(dev)
     k1, k3 = phase_timing(dev, paa, paa_eval, paa_launches, gn_err, name)
     k2, k1_rpn = phase_frcnn_timing(dev, frcnn, frcnn_eval, frcnn_launches,
                                     name)
+    phase_train_timing(trained, state, batch, name)
     # K1 serves both paths: its launches are the two main paths' runs,
     # its times those at PAA's candidates, with the RPN's beside them
     by_path = {"paa": paa_launches["nms_batched"],
                "faster_rcnn": frcnn_launches["nms_batched"]}
     k1.update(launches=sum(by_path.values()), launches_by_path=by_path,
               faster_rcnn_rpn=k1_rpn)
+    # K3 serves PAA's serving and training paths: its times are per
+    # serving forward (B=8), with the training forward's (B=16) beside
+    by_path = {"paa": paa_launches["group_norm_relu"],
+               "paa_train": train_launches["group_norm_relu"]}
+    k3.update(launches=sum(by_path.values()), launches_by_path=by_path)
     phase_profile(paa, paa_eval, 30, "paa", name)
     phase_profile(frcnn, frcnn_eval, 60, "faster_rcnn", name)
+    phase_train_profile(trained, state, batch, name)
     print(name)
     print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@ Faster R-CNN through two_stage.py.
 
 A ``DetectionModel`` bundles the ``DenseDetector`` module (backbone +
 PAA head) on its device with the anchor generator and the static-shape
-helpers; post-processing is a plain function (paa_inference.py).
+helpers; post-processing is a plain function (paa_inference.py), and the
+train step is built per bucket shape (``make_bucket_train_step``, PAA
+only).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
 with no device given and no card present they raise.
@@ -19,11 +21,13 @@ import torch
 from torch import nn
 
 from ..ops.image_norm import maybe_device_normalize
+from ..solver import make_lr_schedule
 from .anchors import AnchorGenerator, make_anchor_generator_paa
 from .fpn import ResNetFPNBackbone
 from .layers import reset_parameters
 from .paa_head import paa_head_from_cfg
 from .paa_inference import PostProcessConfig, paa_postprocess
+from .paa_loss import PAALossConfig, paa_loss
 from .resnet import resnet_from_cfg
 
 
@@ -83,6 +87,30 @@ class DetectionModel:
 
     def postprocess_config(self):
         return PostProcessConfig.from_cfg(self.cfg)
+
+    def loss_fn(self):
+        """(loss_callable, loss_config) of the head: PAA's; other heads
+        do not train in the port and raise."""
+        if not self.cfg.MODEL.PAA_ON:
+            raise NotImplementedError("paa_tpu_torch trains PAA models only")
+        return paa_loss, PAALossConfig.from_cfg(self.cfg)
+
+    # the batch keys a train step reads; image_sizes serves the uint8
+    # device normalize
+    train_batch_keys = ("images", "gt_boxes", "gt_labels", "image_sizes")
+
+    def make_bucket_train_step(self, hw, num_shards=1):
+        """train_step(state, batch) -> metrics for padded inputs of shape
+        ``hw`` (engine/train_step.py), with the config's learning-rate
+        schedule and on-device uint8 normalize."""
+        from ..engine.train_step import make_train_step  # engine imports us
+
+        loss_call, loss_cfg = self.loss_fn()
+        anchors, counts = self.anchors_for(hw)
+        return make_train_step(
+            anchors, counts, loss_cfg, make_lr_schedule(self.cfg),
+            num_shards=num_shards, loss_call=loss_call,
+            normalize=(self.cfg.INPUT.PIXEL_MEAN, self.cfg.INPUT.PIXEL_STD))
 
     def detect(self, images, image_sizes):
         """PAA detections of normalized NCHW ``images`` on the device."""

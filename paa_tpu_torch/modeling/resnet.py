@@ -3,6 +3,13 @@ the PAA and Faster R-CNN R-50 and R-101 FPN configs without DCN run:
 FrozenBatchNorm, stride in the 1x1, no groups, no dilation and no DCN.
 The space-to-depth stem is a TPU lowering and is not ported. Returns
 C2..C5 in NCHW.
+
+``freeze_at`` (MODEL.BACKBONE.FREEZE_CONV_BODY_AT) freezes the stem
+(stage 0) and ``layer{i}_*`` for i < freeze_at, as the reference's
+``_freeze_backbone`` does (resnet.py:134-143): their parameters do not
+require grad, the counterpart of the JAX package's "frozen" label
+(paa_tpu/solver/build.py:64-94) and ``stop_gradient`` in its train step.
+FrozenBatchNorm's tensors are buffers and never train.
 """
 
 from __future__ import annotations
@@ -72,7 +79,7 @@ class ResNet(nn.Module):
 
     def __init__(self, body="R-50-FPN-RETINANET", width_per_group=64,
                  stem_out_channels=64, res2_out_channels=256,
-                 dtype=torch.float32):
+                 dtype=torch.float32, freeze_at=0):
         super().__init__()
         self.block_counts, self.return_features = STAGE_SPECS[body]
         self.stem = Stem(stem_out_channels, dtype=dtype)
@@ -87,6 +94,12 @@ class ResNet(nn.Module):
                     stride=stride, dtype=dtype,
                 ))
                 in_channels = out_channels
+        frozen = [self.stem] if freeze_at >= 1 else []
+        frozen += [getattr(self, f"layer{i + 1}_{b}")
+                   for i in range(min(freeze_at - 1, len(self.block_counts)))
+                   for b in range(self.block_counts[i])]
+        for module in frozen:
+            module.requires_grad_(False)
 
     def forward(self, x):
         x = self.stem(x)
@@ -122,4 +135,5 @@ def resnet_from_cfg(cfg, dtype=torch.float32):
         stem_out_channels=r.STEM_OUT_CHANNELS,
         res2_out_channels=r.RES2_OUT_CHANNELS,
         dtype=dtype,
+        freeze_at=cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT,
     )

@@ -10,14 +10,19 @@ relu(x * a + b) is cast back to the input dtype.
 
 ``group_norm_relu`` dispatches on the tensor's device: the plain PyTorch
 version for CPU tensors, the CUDA kernel K3 (csrc/group_norm.cu) for
-CUDA tensors. There is no fallback between the two, and no shape gate:
-the kernel serves every level down to P7 (7 x 11 positions at
-800 x 1344). The kernel's header says what bounds it and how it is
-built: each (image, group) is one contiguous run of an NCHW tensor,
-split over a thread-block cluster of ``cs`` CTAs that hold it in shared
-memory, read once from device memory. ``gn_plan`` makes the launch's
-choices from the shape alone. The wrapper raises on any layout other
-than NCHW-contiguous.
+CUDA tensors. Where autograd records (grad enabled, an input requiring
+grad), CUDA tensors go through ``GroupNormReLU``, an autograd Function
+whose forward is K3 and whose backward is the VJP of the plain version,
+recomputed from the saved inputs: the JAX package's custom VJP
+(fused_gn.py:161-177, ``jax.vjp`` of ``_gn_relu_reference``), which has
+no backward kernel either. There is no fallback between the two, and
+no shape gate: the kernel serves every level down to P7 (7 x 11
+positions at 800 x 1344). The kernel's header says what bounds it and
+how it is built: each (image, group) is one contiguous run of an NCHW
+tensor, split over a thread-block cluster of ``cs`` CTAs that hold it
+in shared memory, read once from device memory. ``gn_plan`` makes the
+launch's choices from the shape alone. The wrapper raises on any layout
+other than NCHW-contiguous.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import functools
 from dataclasses import dataclass
 
 import torch
+from torch.profiler import record_function
 
 from . import _build
 
@@ -171,19 +177,55 @@ def _group_norm_relu_cuda(x, weight, bias, num_groups, eps):
     return y
 
 
+# the span of the backward's recompute, which chip_smoke.py's profile reads
+SPAN_BACKWARD = "group_norm_relu/backward"
+
+
+class GroupNormReLU(torch.autograd.Function):
+    """relu(GroupNorm(x)) with ``forward_fn`` (K3's launcher on the main
+    path; a CPU test passes the plain version) as the forward, and the
+    VJP of ``group_norm_relu_plain`` as the backward: it saves (x,
+    weight, bias) and recomputes the plain version under autograd.
+    Returns the gradient of x in x's dtype and those of weight and bias
+    in float32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, num_groups, eps, forward_fn):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.num_groups, ctx.eps = num_groups, eps
+        return forward_fn(x, weight, bias, num_groups, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[:3]
+        with record_function(SPAN_BACKWARD), torch.enable_grad():
+            inputs = [t.detach().requires_grad_(w)
+                      for t, w in zip(saved, wanted)]
+            y = group_norm_relu_plain(*inputs, ctx.num_groups, ctx.eps)
+            grads = iter(torch.autograd.grad(
+                y, [t for t in inputs if t.requires_grad], grad))
+        return (*(next(grads) if w else None for w in wanted),
+                None, None, None)
+
+
 def group_norm_relu(x, weight, bias, num_groups=32, eps=1e-5):
     """relu(GroupNorm(x)) for x (B, C, H, W) in float32, bfloat16 or
     float16 and float32 weight, bias (C,); returns x's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch K3
     (csrc/group_norm.cu, counted in ``group_norm_relu.launches``) or
-    raise."""
+    raise, through ``GroupNormReLU`` where autograd records."""
     if x.shape[1] % num_groups:
         raise ValueError(f"{x.shape[1]} channels in {num_groups} groups")
     if x.device.type == "cpu":
         return group_norm_relu_plain(x, weight, bias, num_groups, eps)
     if x.device.type != "cuda":
         raise ValueError(f"group_norm_relu: no kernel for {x.device}")
+    if torch.is_grad_enabled() and (
+            x.requires_grad or weight.requires_grad or bias.requires_grad):
+        return GroupNormReLU.apply(x, weight, bias, num_groups, eps,
+                                   _group_norm_relu_cuda)
     return _group_norm_relu_cuda(x, weight, bias, num_groups, eps)
 
 

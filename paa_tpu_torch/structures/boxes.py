@@ -35,6 +35,19 @@ def box_iou(boxes1, boxes2):
     return inter / union
 
 
+def box_iou_aligned(boxes1, boxes2):
+    """Elementwise IoU of aligned (..., 4) box tensors under the +1
+    convention (reference PAALossComputation.compute_ious,
+    paa_core/modeling/rpn/paa/loss.py:258-265)."""
+    area1 = box_area(boxes1)
+    area2 = box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt + TO_REMOVE).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter / (area1 + area2 - inter)
+
+
 def clip_to_image(boxes, image_size):
     """Clip xyxy boxes to [0, size-1] like BoxList.clip_to_image.
 
@@ -49,3 +62,17 @@ def clip_to_image(boxes, image_size):
     x2 = torch.clamp(boxes[..., 2], zero, w - TO_REMOVE)
     y2 = torch.clamp(boxes[..., 3], zero, h - TO_REMOVE)
     return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
+def xyxy_to_xywh(boxes):
+    """xyxy -> xywh under the +1 convention (BoxList.convert)."""
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack(
+        [x1, y1, x2 - x1 + TO_REMOVE, y2 - y1 + TO_REMOVE], dim=-1)
+
+
+def xywh_to_xyxy(boxes):
+    x, y, w, h = boxes.unbind(-1)
+    return torch.stack(
+        [x, y, x + (w - TO_REMOVE).clamp(min=0.0),
+         y + (h - TO_REMOVE).clamp(min=0.0)], dim=-1)
