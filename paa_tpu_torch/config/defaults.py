@@ -8,6 +8,8 @@ lowering knobs ``NMS_IMPL``, ``FUSED_GN``, ``SPACE_TO_DEPTH`` and
 ``DCN_MODE``: they choose a TPU lowering, not a semantics.
 """
 
+import os
+
 from .cfg_node import CN
 
 _C = CN()
@@ -408,5 +410,4 @@ _C.TPU.PROFILE_STEPS = 5
 # Misc
 # ---------------------------------------------------------------------------
 _C.OUTPUT_DIR = "."
-# the dataset catalog belongs to the data pipeline, which is not ported yet
-_C.PATHS_CATALOG = ""
+_C.PATHS_CATALOG = os.path.join(os.path.dirname(__file__), "paths_catalog.py")

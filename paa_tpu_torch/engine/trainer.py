@@ -7,10 +7,11 @@ one step late, so reading them does not wait for the step just queued
 engine/train_step.py), and a non-finite lagged loss raises
 FloatingPointError; the last step's are read once the loop ends.
 
-``batches`` is an iterable of batch dicts in the loader's contract:
+``batches`` is an iterable of batch dicts in the loader's contract
+(data/loader.py, ``make_data_loader(cfg, dataset, is_train=True)``):
 'images' (B, H, W, 3) uint8, 'image_sizes' (B, 2), 'gt_boxes'
 (B, MAX_GT, 4) float32, 'gt_labels' (B, MAX_GT) int32 with 0 for
-padding. The JAX package's loader is not ported yet.
+padding; other keys ('image_ids', 'orig_sizes') are not read.
 """
 
 from __future__ import annotations

@@ -1,0 +1,282 @@
+"""COCO-style bbox evaluation in numpy (port of
+paa_tpu/evaluation/coco_eval.py, the bbox flavour).
+
+pycocotools is not a dependency, so this follows the COCOeval bbox
+protocol itself (pycocotools/cocoeval.py semantics): 10 IoU thresholds
+0.50:0.05:0.95, 101 recall points, maxDets [1, 10, 100], area ranges
+all/small/medium/large, crowd GTs matched by "iof", greedy
+per-threshold matching that prefers non-ignored GTs, and the standard
+12-number summary. The IoU and the matching run in the native matcher
+(csrc/cocoeval.cpp through evaluation/_native.py); ``_match_img_py`` is
+its plain numpy version, which the tests hold it against.
+
+The caller (engine/inference.py) rescales predictions to the original
+image, converts them to xywh with the +1 convention (BoxList.convert)
+and maps contiguous labels back to json category ids, as the
+reference's do_coco_evaluation does
+(paa_core/data/datasets/evaluation/coco/coco_eval.py:13-67).
+
+Not ported yet (ROADMAP item 10): the segm and keypoints flavours
+(mask RLE, OKS) and ``evaluate_box_proposals`` (the RPN-only model).
+"""
+
+from __future__ import annotations
+
+from collections import defaultdict
+from typing import Dict, List
+
+import numpy as np
+
+from . import _native
+
+IOU_THRS = np.linspace(0.5, 0.95, 10)
+REC_THRS = np.linspace(0.0, 1.00, 101)
+MAX_DETS = (1, 10, 100)
+AREA_RNGS = {
+    "all": (0.0, 1e10),
+    "small": (0.0, 32.0 ** 2),
+    "medium": (32.0 ** 2, 96.0 ** 2),
+    "large": (96.0 ** 2, 1e10),
+}
+
+METRICS = (
+    "AP", "AP50", "AP75", "APs", "APm", "APl",
+    "AR1", "AR10", "AR100", "ARs", "ARm", "ARl",
+)
+
+
+def _match_img_py(ious, g_ig, g_crowd, dt_out_of_range):
+    """The plain numpy version of the native per-image greedy matching
+    (csrc/cocoeval.cpp ``evaluate_img``)."""
+    T = len(IOU_THRS)
+    n_dt, n_gt = ious.shape
+    dtm = np.full((T, n_dt), -1, dtype=np.int64)
+    gtm = np.full((T, n_gt), -1, dtype=np.int64)
+    dt_ig = np.zeros((T, n_dt), dtype=bool)
+    for t, thr in enumerate(IOU_THRS):
+        for di in range(n_dt):
+            best = min(thr, 1 - 1e-10)
+            m = -1
+            for gi in range(n_gt):
+                # already-matched non-crowd GTs are unavailable
+                # (crowd GTs may match many detections)
+                if gtm[t, gi] >= 0 and not g_crowd[gi]:
+                    continue
+                if m > -1 and not g_ig[m] and g_ig[gi]:
+                    break
+                if ious[di, gi] < best:
+                    continue
+                best = ious[di, gi]
+                m = gi
+            if m == -1:
+                dt_ig[t, di] = dt_out_of_range[di]
+                continue
+            dt_ig[t, di] = g_ig[m]
+            dtm[t, di] = m
+            gtm[t, m] = di
+    return dtm, dt_ig
+
+
+class COCOEvaluator:
+    """Evaluates bbox detections against COCO-style ground truth.
+
+    gt_by_image: image_id -> list of annotation dicts with keys bbox
+    (xywh), category_id (json id), iscrowd, area, optional ignore.
+    """
+
+    def __init__(self, gt_by_image: Dict[int, list], cat_ids: List[int],
+                 image_ids: List[int]):
+        self.max_dets = MAX_DETS
+        self.area_rngs = AREA_RNGS
+        self.cat_ids = list(cat_ids)
+        self.image_ids = list(image_ids)
+        self._gt = {}
+        for img_id in self.image_ids:
+            by_cat = defaultdict(list)
+            for a in gt_by_image.get(img_id, []):
+                by_cat[a["category_id"]].append(a)
+            self._gt[img_id] = by_cat
+
+    def _image_eval(self, img_id, cat_id, detections, max_det):
+        """Scores, IoUs and GT flags of one (image, category), or None
+        when it has neither GTs nor detections."""
+        gts = self._gt[img_id].get(cat_id, [])
+        det = detections.get(img_id)
+        if det is None:
+            dt_boxes, dt_scores = np.zeros((0, 4)), np.zeros((0,))
+        else:
+            sel = np.asarray(det["category_ids"]) == cat_id
+            dt_boxes = np.asarray(det["boxes_xywh"])[sel]
+            dt_scores = np.asarray(det["scores"])[sel]
+        if len(gts) == 0 and len(dt_scores) == 0:
+            return None
+        order = np.argsort(-dt_scores, kind="mergesort")[:max_det]
+        dt_boxes, dt_scores = dt_boxes[order], dt_scores[order]
+        g_boxes = np.asarray([g["bbox"] for g in gts]).reshape(-1, 4)
+        g_crowd = np.asarray([int(g.get("iscrowd", 0)) for g in gts],
+                             dtype=bool)
+        g_ignore_base = np.asarray(
+            [bool(g.get("ignore", 0)) or bool(g.get("iscrowd", 0))
+             for g in gts], dtype=bool)
+        g_area = np.asarray(
+            [g.get("area", g["bbox"][2] * g["bbox"][3]) for g in gts],
+            dtype=np.float64)
+        return dict(
+            scores=dt_scores,
+            ious=_native.bbox_iou_xywh(dt_boxes, g_boxes, g_crowd),
+            g_ignore_base=g_ignore_base, g_area=g_area, g_crowd=g_crowd,
+            dt_area=dt_boxes[:, 2] * dt_boxes[:, 3],
+        )
+
+    def evaluate(self, detections: Dict[int, dict]):
+        """detections: image_id -> dict(boxes_xywh (n, 4), scores (n,),
+        category_ids (n,)). Returns the 12 standard metrics, each in
+        [0, 1] or -1 where nothing is there to measure."""
+        T = len(IOU_THRS)
+        R = len(REC_THRS)
+        K = len(self.cat_ids)
+        A = len(self.area_rngs)
+        M = len(self.max_dets)
+        max_det = max(self.max_dets)
+
+        precision = -np.ones((T, R, K, A, M))
+        recall = -np.ones((T, K, A, M))
+
+        for k, cat_id in enumerate(self.cat_ids):
+            per_image = [self._image_eval(img_id, cat_id, detections,
+                                          max_det)
+                         for img_id in self.image_ids]
+            for a, (a_lo, a_hi) in enumerate(self.area_rngs.values()):
+                # evaluateImg for every image at this area range
+                img_evals = []
+                for ev in per_image:
+                    if ev is None:
+                        continue
+                    g_ig = ev["g_ignore_base"] | (
+                        (ev["g_area"] < a_lo) | (ev["g_area"] > a_hi)
+                    )
+                    # gt order: non-ignored first (pycocotools sorts by
+                    # ignore flag)
+                    g_order = np.argsort(g_ig, kind="mergesort")
+                    ious = ev["ious"][:, g_order]
+                    g_ig_s = g_ig[g_order]
+                    out_of_rng = (
+                        (ev["dt_area"] < a_lo) | (ev["dt_area"] > a_hi)
+                    )
+                    dtm, dt_ig = _native.evaluate_img(
+                        ious, g_ig_s, ev["g_crowd"][g_order], out_of_rng,
+                        IOU_THRS)
+                    img_evals.append(dict(
+                        scores=ev["scores"], dtm=dtm, dt_ig=dt_ig,
+                        n_ig=int(g_ig_s.sum()), n_gt=ious.shape[1]))
+
+                for m, md in enumerate(self.max_dets):
+                    npig = sum(ie["n_gt"] - ie["n_ig"] for ie in img_evals)
+                    if npig == 0:
+                        continue
+                    if img_evals:
+                        scores_cat = np.concatenate(
+                            [ie["scores"][:md] for ie in img_evals])
+                        order = np.argsort(-scores_cat, kind="mergesort")
+                        tps = np.concatenate(
+                            [ie["dtm"][:, :md] >= 0 for ie in img_evals],
+                            axis=1)[:, order]
+                        ig = np.concatenate(
+                            [ie["dt_ig"][:, :md] for ie in img_evals],
+                            axis=1)[:, order]
+                    else:
+                        tps = np.zeros((T, 0), dtype=bool)
+                        ig = np.zeros((T, 0), dtype=bool)
+
+                    tp_sum = np.cumsum((tps & ~ig).astype(np.float64), axis=1)
+                    fp_sum = np.cumsum((~tps & ~ig).astype(np.float64),
+                                       axis=1)
+                    for t in range(T):
+                        tp_c, fp_c = tp_sum[t], fp_sum[t]
+                        nd = len(tp_c)
+                        rc = tp_c / npig
+                        pr = tp_c / np.maximum(tp_c + fp_c, np.finfo(
+                            np.float64).eps)
+                        recall[t, k, a, m] = rc[-1] if nd else 0.0
+                        # monotone-from-right precision envelope
+                        q = np.zeros(R)
+                        if nd:
+                            pr = pr.tolist()
+                            for i in range(nd - 1, 0, -1):
+                                if pr[i] > pr[i - 1]:
+                                    pr[i - 1] = pr[i]
+                            inds = np.searchsorted(rc, REC_THRS, side="left")
+                            for ri, pi in enumerate(inds):
+                                if pi < nd:
+                                    q[ri] = pr[pi]
+                        precision[t, :, k, a, m] = q
+
+        self.precision = precision
+        self.recall = recall
+        return self.summarize()
+
+    def _summ(self, ap, iou_thr=None, area="all", max_det=None):
+        if max_det is None:
+            max_det = max(self.max_dets)
+        a = list(self.area_rngs.keys()).index(area)
+        m = self.max_dets.index(max_det)
+        s = self.precision[:, :, :, a, m] if ap else self.recall[:, :, a, m]
+        if iou_thr is not None:
+            s = s[np.where(np.isclose(IOU_THRS, iou_thr))[0]]
+        valid = s[s > -1]
+        return float(valid.mean()) if valid.size else -1.0
+
+    def summarize(self):
+        return {
+            "AP": self._summ(True),
+            "AP50": self._summ(True, iou_thr=0.5),
+            "AP75": self._summ(True, iou_thr=0.75),
+            "APs": self._summ(True, area="small"),
+            "APm": self._summ(True, area="medium"),
+            "APl": self._summ(True, area="large"),
+            "AR1": self._summ(False, max_det=1),
+            "AR10": self._summ(False, max_det=10),
+            "AR100": self._summ(False, max_det=100),
+            "ARs": self._summ(False, area="small"),
+            "ARm": self._summ(False, area="medium"),
+            "ARl": self._summ(False, area="large"),
+        }
+
+
+def check_expected_results(results, expected_results, sigma_tol,
+                           logger=None):
+    """Regression assertion (reference coco_eval.py:403-422): each entry
+    (task, metric, mean, std) must satisfy |actual - mean| <
+    sigma_tol * std. Raises AssertionError otherwise. The port evaluates
+    'bbox' only, whose entries are the top-level metrics; an entry of
+    another task finds no result and is skipped with a warning."""
+    for task, metric, mean, std in expected_results:
+        key = metric if task == "bbox" else f"{task}/{metric}"
+        if key not in results:
+            if logger:
+                logger.warning(f"no result for {task}/{metric}; skipping")
+            continue
+        actual = results[key]
+        lo = mean - sigma_tol * std
+        hi = mean + sigma_tol * std
+        ok = lo < actual < hi
+        msg = (
+            f"{task}/{metric} = {actual:.4f}; expected {mean:.4f} "
+            f"+/- {sigma_tol}*{std:.4f} -> ({lo:.4f}, {hi:.4f}): "
+            f"{'OK' if ok else 'FAILED'}"
+        )
+        if logger:
+            (logger.info if ok else logger.error)(msg)
+        assert ok, msg
+
+
+def format_results(results, task="bbox"):
+    """COCOResults-style table (reference coco_eval.py:358-402)."""
+    lines = [f"Task: {task}"]
+    for k in METRICS:
+        if k in results:
+            lines.append(f"{k}: {results[k]:.4f}")
+    for k in results:
+        if k not in METRICS and "/" not in k:
+            lines.append(f"{k}: {results[k]:.4f}")
+    return "\n".join(lines)

@@ -14,6 +14,10 @@ multiply and a rounded add: the NMS kernels' integer outputs must equal
 their plain PyTorch version, and a fused multiply-add moves a
 borderline IoU across the threshold. No source includes PyTorch's
 headers, so a build takes seconds.
+
+``load_host`` does the same for a host-only ``csrc/<name>.cpp`` (the
+COCO matcher, evaluation/_native.py) with ``g++``. A failed build of
+either raises.
 """
 
 from __future__ import annotations
@@ -48,12 +52,15 @@ def _nvcc():
     return path
 
 
-def _target(name):
+GXX_FLAGS = ("-O3", "-shared", "-fPIC")
+
+
+def _target(name, ext=".cu", flags=NVCC_FLAGS):
     """The source of ``name`` and its library, named by a hash of the
     source, the shared headers (csrc/*.cuh) and the flags."""
-    src = os.path.join(CSRC, name + ".cu")
+    src = os.path.join(CSRC, name + ext)
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(flags).encode())
     for path in [src] + [os.path.join(CSRC, h) for h in headers]:
         with open(path, "rb") as f:
             digest.update(f.read())
@@ -100,4 +107,21 @@ def load(name):
     _, out = _target(name)
     if not os.path.exists(out):
         build_all()
+    return ctypes.CDLL(out)
+
+
+@functools.cache
+def load_host(name):
+    """The ctypes handle of the host-only ``csrc/<name>.cpp``, built with
+    g++ into ``_build/`` first if needed."""
+    src, out = _target(name, ".cpp", GXX_FLAGS)
+    if not os.path.exists(out):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed for {name}.cpp:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
     return ctypes.CDLL(out)

@@ -52,15 +52,25 @@ MIN_THREADS = 64
 
 def group_norm_relu_plain(x, weight, bias, num_groups=32, eps=1e-5):
     """The plain PyTorch version, following the JAX package's
-    ``_gn_relu_reference``. x: (B, C, H, W); weight, bias: (C,)."""
+    ``_gn_relu_reference``. x: (B, C, H, W); weight, bias: (C,).
+
+    The ReLU is ``torch.maximum(out, 0)``, whose gradient, like that of
+    the reference's ``jnp.maximum(out, 0.0)``, is half the upstream
+    gradient where ``out`` is exactly 0 (``torch.relu`` gives 0 there).
+    That happens in a group of zero variance with a zero bias, GN's
+    initial value; GroupNormReLU's backward differentiates this
+    function, so both training paths take the same rule.
+
+    It computes in float32, or in float64 for a float64 ``x`` (a
+    float64 reference step, chip_smoke.py)."""
     b, c, h, w = x.shape
-    xf = x.to(torch.float32).reshape(b, num_groups, (c // num_groups) * h * w)
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(ct).reshape(b, num_groups, (c // num_groups) * h * w)
     mean = xf.mean(dim=2, keepdim=True)
     var = (xf - mean).square().mean(dim=2, keepdim=True)
     xn = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, c, h, w)
-    out = xn * weight.to(torch.float32)[:, None, None] + bias.to(
-        torch.float32)[:, None, None]
-    return torch.relu(out).to(x.dtype)
+    out = xn * weight.to(ct)[:, None, None] + bias.to(ct)[:, None, None]
+    return torch.maximum(out, out.new_zeros(())).to(x.dtype)
 
 
 @dataclass(frozen=True)

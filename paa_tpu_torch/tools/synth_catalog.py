@@ -1,0 +1,35 @@
+"""A paths catalog of synthetic COCO datasets, for dry runs of the
+port's CLIs without COCO (the port's counterpart of
+tools/synth_catalog.py, with PPM images that need no cv2):
+
+    python -m paa_tpu_torch.tools.test_net \\
+        --config-file configs/paa/paa_R_50_FPN_1x.yaml \\
+        PATHS_CATALOG paa_tpu_torch/tools/synth_catalog.py \\
+        DATASETS.TEST '("synth_coco_32",)'
+
+``synth_coco_<n>`` is a dataset of n images (data/synth.py), written
+once under $PAA_TPU_TORCH_SYNTH_DIR (default: a directory in the
+system's temporary directory).
+"""
+
+import os
+import re
+import tempfile
+
+from paa_tpu_torch.data.synth import synth_coco
+
+
+class DatasetCatalog:
+    DATA_DIR = os.environ.get(
+        "PAA_TPU_TORCH_SYNTH_DIR",
+        os.path.join(tempfile.gettempdir(), "paa_tpu_torch_synth"))
+
+    @staticmethod
+    def get(name):
+        m = re.fullmatch(r"synth_coco_(\d+)", name)
+        if not m:
+            raise RuntimeError(f"Dataset not available: {name}")
+        ann_file, img_dir = synth_coco(
+            os.path.join(DatasetCatalog.DATA_DIR, name), int(m.group(1)))
+        return dict(factory="COCODataset",
+                    args=dict(root=img_dir, ann_file=ann_file))

@@ -7,6 +7,8 @@ optimizer's state (momentum buffers, groups), the update count and
 ``extra`` (the iteration) to ``save_dir/name`` with ``torch.save``, and
 records ``name`` in the ``last_checkpoint`` file. ``load(state)`` with
 no path resumes from that file; otherwise it loads the given path.
+``load_weights(module, path)`` restores only the module's weights, for
+evaluation.
 """
 
 from __future__ import annotations
@@ -68,3 +70,13 @@ class Checkpointer:
         state.optimizer.load_state_dict(data["optimizer"])
         state.step = data["step"]
         return data["extra"]
+
+
+def load_weights(module, path):
+    """Load the module weights of a checkpoint written by
+    ``Checkpointer.save`` into ``module``; returns the checkpoint's
+    ``extra`` dict."""
+    device = next(module.parameters()).device
+    data = torch.load(path, map_location=device, weights_only=True)
+    module.load_state_dict(data["model"])
+    return data["extra"]

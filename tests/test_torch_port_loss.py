@@ -405,6 +405,38 @@ def test_paa_loss_matches_jax(seed, use_iou_pred):
     assert (got_aux["iou_labels"][2] == 0).all()
 
 
+@pytest.mark.parametrize("use_iou_pred", [True, False])
+def test_paa_loss_no_gt_batch_matches_jax(use_iou_pred):
+    """A batch with no valid GT in any image (num_pos 0): the losses
+    divide by clamped counts, so they, the aux outputs and the gradients
+    must still equal the JAX package's."""
+    outputs, gt_boxes, gt_labels, anchors, counts = _loss_case(0)
+    gt_labels = np.zeros_like(gt_labels)
+    lc = tpaa.PAALossConfig(topk=TOPK, gmm_iters=100,
+                            use_iou_pred=use_iou_pred)
+    jlc = jpaa.PAALossConfig(topk=TOPK, gmm_iters=100,
+                             use_iou_pred=use_iou_pred)
+    case = (outputs, gt_boxes, gt_labels, anchors, counts)
+    want, want_aux, want_grads = _jax_loss(*case, jlc)
+    got, got_aux, got_grads = _port_loss(*case, lc)
+
+    assert set(got) == set(want)
+    assert int(got["num_pos"]) == int(want["num_pos"]) == 0
+    for k in ("labels_paa", "pos_mask", "iou_labels"):
+        _equal(got_aux[k], want_aux[k], k)
+    assert not got_aux["pos_mask"].any()
+    for k in want:
+        if k.startswith("loss_"):
+            _close(got[k], want[k], rtol=1e-5, atol=1e-7, what=k)
+    for k, g in want_grads.items():
+        g = np.asarray(g)
+        if got_grads[k] is None:  # no loss reads it
+            assert not g.any(), k
+            continue
+        _close(got_grads[k], g, atol=1e-5 * max(np.abs(g).max(), 1e-12),
+               what=f"d/d {k}")
+
+
 def test_paa_loss_candidates_match_jax():
     """The candidates (``_select_candidates``) and the positive mask
     (``_paa_positive_mask``) from the same combined loss; the case holds

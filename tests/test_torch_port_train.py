@@ -378,29 +378,50 @@ def test_group_norm_function_backward_is_the_plain_vjp(shape, dtype):
     assert xo.grad is not None and w.grad is None
 
 
-def test_group_norm_function_matches_jax_custom_vjp():
-    """The port's gradient against the JAX package's custom VJP of
-    ``fused_group_norm_relu`` (jax.vjp of its reference), float32, NHWC
-    on the JAX side: within 1e-5 of the largest magnitude (the
-    statistics' sums run in different orders)."""
+def _gn_vjp_cases():
+    """(name, x NHWC, scale, bias, upstream gradient): random inputs, and
+    a group of zero variance with a zero bias (the ReLU input exactly 0,
+    where the reference's ``jnp.maximum`` gives half the upstream
+    gradient: d bias of channels 0-1 is half their upstream sum)."""
     rng = np.random.RandomState(0)
     x = rng.normal(0.3, 1.2, (2, 8, 10, 64)).astype(np.float32)
     s = rng.uniform(0.5, 1.5, 64).astype(np.float32)
     b = rng.normal(0, 0.2, 64).astype(np.float32)
     g = rng.normal(0, 1, x.shape).astype(np.float32)
-    _, vjp = jax.vjp(lambda *a: fused_group_norm_relu(*a, 32, 1e-5),
-                     jnp.asarray(x), jnp.asarray(s), jnp.asarray(b))
-    want = vjp(jnp.asarray(g))
-    ins = [torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(),
-           torch.from_numpy(s), torch.from_numpy(b)]
-    ins = [t.requires_grad_(True) for t in ins]
-    y = gn.GroupNormReLU.apply(*ins, 32, 1e-5, gn.group_norm_relu_plain)
-    y.backward(torch.from_numpy(g).permute(0, 3, 1, 2))
-    got = [ins[0].grad.permute(0, 2, 3, 1), ins[1].grad, ins[2].grad]
-    for gt, w in zip(got, want):
-        w = np.asarray(w)
-        np.testing.assert_allclose(gt.numpy(), w, rtol=0,
-                                   atol=1e-5 * np.abs(w).max())
+    yield "random", x, s, b, g
+    x = rng.normal(0.3, 1.2, (1, 4, 4, 64)).astype(np.float32)
+    x[0, :, :, 0:2] = 1.0
+    b = rng.normal(0, 0.2, 64).astype(np.float32)
+    b[0:2] = 0.0
+    g = rng.normal(0, 1, x.shape).astype(np.float32)
+    yield "zero_variance_tie", x, np.ones(64, np.float32), b, g
+
+
+def test_group_norm_function_matches_jax_custom_vjp():
+    """The port's gradient against the JAX package's custom VJP of
+    ``fused_group_norm_relu`` (jax.vjp of its reference), float32, NHWC
+    on the JAX side: within 1e-5 of the largest magnitude (the
+    statistics' sums run in different orders). Both cases of
+    ``_gn_vjp_cases``, the second a ReLU input of exactly 0."""
+    for name, x, s, b, g in _gn_vjp_cases():
+        _, vjp = jax.vjp(lambda *a: fused_group_norm_relu(*a, 32, 1e-5),
+                         jnp.asarray(x), jnp.asarray(s), jnp.asarray(b))
+        want = vjp(jnp.asarray(g))
+        ins = [torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(),
+               torch.from_numpy(s), torch.from_numpy(b)]
+        ins = [t.requires_grad_(True) for t in ins]
+        y = gn.GroupNormReLU.apply(*ins, 32, 1e-5, gn.group_norm_relu_plain)
+        y.backward(torch.from_numpy(g).permute(0, 3, 1, 2))
+        got = [ins[0].grad.permute(0, 2, 3, 1), ins[1].grad, ins[2].grad]
+        for gt, w in zip(got, want):
+            w = np.asarray(w)
+            np.testing.assert_allclose(gt.numpy(), w, rtol=0,
+                                       atol=1e-5 * np.abs(w).max(),
+                                       err_msg=name)
+        if name == "zero_variance_tie":
+            half = 0.5 * g[0, :, :, 0:2].sum(axis=(0, 1))
+            np.testing.assert_allclose(got[2][0:2].numpy(), half,
+                                       rtol=1e-6)
 
 
 # ---- the loop ---------------------------------------------------------
