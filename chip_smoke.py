@@ -96,6 +96,30 @@ and prints no result line):
     CPU's five best detections per image on a first pass. Detections
     matched as in phase 6, the 12 metrics within 1e-3.
 
+17. (Run after phase 14's profile.) The AP gate: a seeded
+    reference-format ``{"model": state_dict}`` checkpoint of full-width
+    PAA-R50 (paa_core's key names, tests/reference_layout.py) through
+    ``paa_tpu_torch.tools.reproduce_ap``: every port tensor written, none
+    skipped, the tensors on the card equal to the file's; the gate over
+    synth_coco_32 (800 x 1333, B=8, bf16) exits 0 at the AP of a first
+    pass, 1 at that AP + 0.1 and 2 with the weights missing; K1 once and
+    K3 40 times per eval batch.
+18. Training from ImageNet weights: a seeded Detectron R-50 pickle at
+    the real shapes under a temporary ModelCatalog.WEIGHTS_DIR, through
+    ``paa_tpu_torch.tools.train_net`` with the config's MODEL.WEIGHT
+    catalog://ImageNetPretrained/MSRA/R-50 on synth_coco_32 at full
+    width (bf16, IMS_PER_BATCH 8, MAX_ITER 4, CHECKPOINT_PERIOD 2): the
+    body equals the pickle's blobs after the import, finite losses, K3
+    40 times per step; the run stopped after its iteration-2 checkpoint
+    resumes there in a second run, reaches 4 and writes the AP table.
+19. Data parallelism: two ranks on the one card with gloo (NCCL refuses
+    two ranks on one device), started as torchrun starts them. One
+    float32 DDP step of full-width PAA-R50 on a global batch of 8 at
+    256 x 320 (4 per rank) against the one-process step: positive mask
+    and num_pos equal, updates within phase 13's limits; step times
+    side by side. Then a two-rank eval of synth_coco_32 against one
+    process: the same detections and the 12 metrics.
+
 Phase 13 also runs the step a third time on the CPU with the network in
 float64 (every convolution, FrozenBN and GroupNorm), the referee of the
 two float32 steps, and phase 11 checks K3's Function at a group of zero
@@ -255,15 +279,16 @@ def rpn_case(seed, dev, rows=5 * BATCH, n=1000):
             valid]
 
 
-def shared_cases():
-    """tests/nms_cases.py: the NMS inputs this script shares with the
-    tests (numpy only)."""
+def shared(name):
+    """A numpy-only module of tests/ that this script shares with the
+    tests: nms_cases (the NMS inputs), reference_layout (the reference's
+    checkpoint layouts)."""
     path = os.path.join(ROOT, "tests")
     if path not in sys.path:
         sys.path.insert(0, path)
-    import nms_cases
+    import importlib
 
-    return nms_cases
+    return importlib.import_module(name)
 
 
 def tie_case(dev):
@@ -271,7 +296,7 @@ def tie_case(dev):
     boxes across both tile boundaries (tests/nms_cases.py): the picks
     must take them in index order and drop the copies."""
     args = nms_case(9, BATCH, 300, "cpu")
-    shared_cases().with_ties(*(a.numpy() for a in args))
+    shared("nms_cases").with_ties(*(a.numpy() for a in args))
     return [a.to(dev) for a in args]
 
 
@@ -302,7 +327,7 @@ def phase_nms(dev):
         check(rows == expect,
               f"nms_batched {what}: rows with picks {rows}, not {expect}")
         if what.startswith("equal"):
-            keep = shared_cases().tied_picks().tolist()
+            keep = shared("nms_cases").tied_picks().tolist()
             check(got[0][0, :len(keep)].tolist() == keep,
                   f"nms_batched {what}: picks {got[0][0, :8].tolist()}")
     print(json.dumps({"phase": "nms_vs_plain", "ok": True,
@@ -1137,6 +1162,28 @@ def _detections_by_image(dets, image_ids):
     return {"boxes": boxes, "labels": labels, "valid": valid}
 
 
+def top_detections_gt(ann_file, bbox_json, out_file, per_image=5):
+    """A copy of ``ann_file`` whose ground truth is each image's
+    ``per_image`` best detections of a first pass, so that the AP of
+    random weights is far from 0."""
+    with open(ann_file) as f:
+        data = json.load(f)
+    with open(bbox_json) as f:
+        dets = json.load(f)
+    data["annotations"] = []
+    for img in data["images"]:
+        mine = sorted((d for d in dets if d["image_id"] == img["id"]),
+                      key=lambda d: -d["score"])[:per_image]
+        for d in mine:
+            data["annotations"].append(dict(
+                id=len(data["annotations"]) + 1, image_id=img["id"],
+                bbox=d["bbox"], area=d["bbox"][2] * d["bbox"][3],
+                category_id=d["category_id"], iscrowd=0))
+    with open(out_file, "w") as f:
+        json.dump(data, f)
+    return len(data["annotations"])
+
+
 def phase_eval_card_vs_cpu(dev):
     """The whole eval path, dataset to AP table, in float32 (TF32 off) on
     the card and on the CPU (plain versions) from the same weights: four
@@ -1165,21 +1212,11 @@ def phase_eval_card_vs_cpu(dev):
     models = {d: seeded_model("float32", d) for d in (dev, "cpu")}
     folder = os.path.join(tmp, "first")
     inference(cfg, models["cpu"], first, output_folder=folder, logger=logger)
-    with open(ann_file) as f:
-        data = json.load(f)
-    data["annotations"] = []
     ids = [r.id for r in first.records]
-    for img_id in ids:
-        mine = sorted((d for d in read_bbox_json(folder)
-                       if d["image_id"] == img_id), key=lambda d: -d["score"])
-        for d in mine[:5]:
-            data["annotations"].append(dict(
-                id=len(data["annotations"]) + 1, image_id=img_id,
-                bbox=d["bbox"], area=d["bbox"][2] * d["bbox"][3],
-                category_id=d["category_id"], iscrowd=0))
-    ann_file = os.path.join(tmp, "cpu_top5.json")
-    with open(ann_file, "w") as f:
-        json.dump(data, f)
+    top5 = os.path.join(tmp, "cpu_top5.json")
+    n_gt = top_detections_gt(ann_file, os.path.join(folder, "bbox.json"),
+                             top5)
+    ann_file = top5
     dataset = COCODataset(ann_file, img_dir,
                           remove_images_without_annotations=False)
     results, dets = [], []
@@ -1195,7 +1232,7 @@ def phase_eval_card_vs_cpu(dev):
           and max(ap_err.values()) <= 1e-3 and results[1]["AP"] > 0,
           f"eval_card_vs_cpu: AP {results}")
     print(json.dumps({"phase": "eval_card_vs_cpu", "ok": True,
-                      "images": len(ids), "gt": len(data["annotations"]),
+                      "images": len(ids), "gt": n_gt,
                       "ap_card": results[0], "ap_abs_err": ap_err,
                       **matched}))
     shutil.rmtree(tmp, ignore_errors=True)
@@ -1348,7 +1385,7 @@ def train_once(model, batch):
         tuple(batch["images"].shape[1:3]))(state, batch)
     pos_mask = metrics.pop("pos_mask").cpu()
     return ({k: float(v) for k, v in metrics.items()}, pos_mask, before,
-            {n: p.detach().cpu() for n, p in params.items()})
+            {n: p.detach().cpu().clone() for n, p in params.items()})
 
 
 def update_norm_err(got, want, before):
@@ -1798,6 +1835,514 @@ def phase_profile(model, eval_fn, seed, what, name):
     print(json.dumps({**out, "card": name}))
 
 
+SYNTH_CATALOG = os.path.join(ROOT, "paa_tpu_torch", "tools",
+                             "synth_catalog.py")
+SYNTH_32 = ("synth_coco_32",)
+
+
+def synth_opts(out_dir, dtype="bfloat16"):
+    """The CLIs' overrides for the synthetic COCO of 32 PPM images
+    (tools/synth_catalog.py, written under $PAA_TPU_TORCH_SYNTH_DIR)."""
+    return [str(v) for v in (
+        "TPU.COMPUTE_DTYPE", dtype, "PATHS_CATALOG", SYNTH_CATALOG,
+        "DATASETS.TRAIN", SYNTH_32, "DATASETS.TEST", SYNTH_32,
+        "OUTPUT_DIR", out_dir)]
+
+
+def read_results(out_dir, dataset):
+    with open(os.path.join(out_dir, "inference", dataset,
+                           "coco_results.json")) as f:
+        return json.load(f)
+
+
+def phase_ap_gate(dev, name):
+    """The AP-gate runbook (paa_tpu_torch/tools/reproduce_ap.py) on the
+    card from a seeded reference-format checkpoint of full-width
+    PAA-R50: {"model": state_dict} with paa_core's key names
+    (tests/reference_layout.py), the cls_logits bias in [-3.5, -2.5] so
+    that an untrained net yields candidates. ``load_model`` must write
+    every port tensor and skip nothing, and the tensors on the card
+    must equal the file's after the documented transforms (a (1,) Scale
+    becomes a scalar). Then ``main`` over synth_coco_32 (800 x 1333,
+    B=8, bf16): a first pass with a tolerance that admits any AP (the
+    launch counts set to 0 just before and read just after: K1 once and
+    K3 40 times per batch), a second pass against its five best
+    detections per image as ground truth, the gate at that AP +/- 0.003
+    (exit 0), at that AP + 0.1 (exit 1), and with the weights missing
+    (exit 2)."""
+    import logging
+
+    from paa_tpu_torch.data.coco import COCODataset
+    from paa_tpu_torch.data.loader import make_data_loader
+    from paa_tpu_torch.data.synth import synth_coco
+    from paa_tpu_torch.tools import reproduce_ap
+    from paa_tpu_torch.utils.torch_import import torch_name_to_port_keys
+
+    rl = shared("reference_layout")
+    tmp = tempfile.mkdtemp(prefix="paa_gate_")
+    os.environ["PAA_TPU_TORCH_SYNTH_DIR"] = os.path.join(tmp, "synth")
+    out_dir = os.path.join(tmp, "out")
+    cfg = build_cfg("bfloat16", PAA_CONFIG, ["OUTPUT_DIR", out_dir])
+    state = rl.seeded_state_dict(rl.layout(cfg), seed=21,
+                                 cls_bias=(-3.5, -2.5))
+    weights = os.path.join(tmp, "PAA_R_50_FPN_1x.pth")
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in state.items()}},
+               weights)
+    logger = logging.getLogger("chip_smoke.ap_gate")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, skipped, unwritten = reproduce_ap.load_model(cfg, weights, logger,
+                                                        dev)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    check(skipped == [] and unwritten == [],
+          f"ap_gate: skipped {skipped[:5]}, unwritten {unwritten[:5]}")
+    on_card = model.module.state_dict()
+    for key, value in state.items():
+        port_key, kind = next((k, t) for k, t in torch_name_to_port_keys(key)
+                              if k in on_card)
+        want = torch.from_numpy(value)
+        if kind == "scalar":
+            want = want.reshape(())
+        got = on_card[port_key]
+        check(got.device.type == dev.type and torch.equal(got.cpu(), want),
+              f"ap_gate: {port_key} differs from the file's {key}")
+    del model, on_card
+
+    def gate(*argv):
+        return reproduce_ap.main(["--config-file", PAA_CONFIG, *argv,
+                                  "--device", str(dev), "--output-dir",
+                                  out_dir, *synth_opts(out_dir)])
+
+    zero_launch_counts()
+    rc = gate("--weights", weights, "--expected", "0", "--tol", "2")
+    launches = launch_counts()
+    first = read_results(out_dir, SYNTH_32[0])
+    # the catalog's dataset, written by the first pass
+    ann_file, img_dir = synth_coco(
+        os.path.join(tmp, "synth", SYNTH_32[0]), EVAL_IMAGES)
+    batches = sum(1 for _ in make_data_loader(
+        cfg, COCODataset(ann_file, img_dir, False), is_train=False))
+    expected = {"nms_batched": batches, "nms_global": 0,
+                "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW) * batches}
+    check(rc == 0 and launches == expected,
+          f"ap_gate: first pass rc {rc}, launches {launches}, expected "
+          f"{expected}")
+    ann = os.path.join(tmp, "top5.json")
+    n_gt = top_detections_gt(
+        ann_file, os.path.join(out_dir, "inference", SYNTH_32[0],
+                               "bbox.json"), ann)
+    custom = ("--ann-file", ann, "--img-dir", img_dir)
+    rc_second = gate("--weights", weights, *custom, "--expected", "0",
+                     "--tol", "2")
+    ap = read_results(out_dir, "custom")["AP"]
+    rcs = {"second_pass": rc_second,
+           "gate_at_ap": gate("--weights", weights, *custom, "--expected",
+                              str(ap)),
+           "gate_at_ap_plus_0.1": gate("--weights", weights, *custom,
+                                       "--expected", str(ap + 0.1)),
+           "weights_missing": gate("--weights",
+                                   os.path.join(tmp, "missing.pth"),
+                                   *custom)}
+    check(rcs == {"second_pass": 0, "gate_at_ap": 0,
+                  "gate_at_ap_plus_0.1": 1, "weights_missing": 2}
+          and ap > 0.1, f"ap_gate: exit codes {rcs}, AP {ap}")
+    print(json.dumps({"phase": "ap_gate", "ok": True,
+                      "weights_mb": os.path.getsize(weights) / 2**20,
+                      "tensors": len(state), "import_s": import_s,
+                      "first_pass_ap": first["AP"], "gt": n_gt,
+                      "gate_ap": ap, "exit_codes": rcs,
+                      "launches": launches, "batches": batches,
+                      "card": name}))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+class Preempted(Exception):
+    """Stops a train_net run after its iteration-2 checkpoint, as a
+    preempted job stops."""
+
+
+def phase_train_net_from_pkl(dev, name):
+    """python -m paa_tpu_torch.tools.train_net from ImageNet weights: a
+    seeded Detectron R-50 pickle at the real shapes (BatchNorm folded,
+    the 1000-way classifier beside) under a temporary
+    ModelCatalog.WEIGHTS_DIR, reached through the config's MODEL.WEIGHT
+    catalog://ImageNetPretrained/MSRA/R-50. First the import alone on the
+    card: every body tensor equals its blob, the running statistics stay
+    0 and 1, only the classifier is skipped. Then ``train_net.main`` at
+    full width in bf16 on synth_coco_32 with IMS_PER_BATCH 8, MAX_ITER 4
+    and CHECKPOINT_PERIOD 2, stopped after the iteration-2 checkpoint:
+    finite losses, K3 40 times per step (launch counts set to 0 just
+    before and read just after), the frozen stem and first stage of the
+    checkpoint equal to the pickle's blobs. A second run resumes from
+    ``last_checkpoint`` at iteration 2, reaches 4 and evaluates
+    synth_coco_32 to the AP table (K3 40 per step and per eval batch, K1
+    once per eval batch)."""
+    import logging
+    import pickle
+
+    from paa_tpu_torch.config.paths_catalog import ModelCatalog
+    from paa_tpu_torch.modeling import build_detection_model
+    from paa_tpu_torch.tools import train_net
+    from paa_tpu_torch.utils.torch_import import (
+        load_pretrained_into, torch_name_to_port_keys)
+
+    rl = shared("reference_layout")
+    tmp = tempfile.mkdtemp(prefix="paa_train_net_")
+    os.environ["PAA_TPU_TORCH_SYNTH_DIR"] = os.path.join(tmp, "synth")
+    weights_dir = os.path.join(tmp, "weights")
+    os.makedirs(weights_dir)
+    ModelCatalog.WEIGHTS_DIR = weights_dir
+    cfg = build_cfg("bfloat16", PAA_CONFIG)
+    body = {k: v for k, v in rl.seeded_state_dict(rl.layout(cfg), 31).items()
+            if k.startswith("backbone.body.")}
+    blobs = rl.c2_imagenet_blobs(body, seed=32)
+    pkl = os.path.join(weights_dir, "R-50.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump({"blobs": blobs}, f, protocol=2)
+    # the blob each body tensor of the port holds after the import
+    want = {}
+    for key, value in rl.fold_frozen_bn(body).items():
+        (port_key, _), = torch_name_to_port_keys(key)
+        want[port_key] = value
+    logger = logging.getLogger("chip_smoke.train_net")
+    model = build_detection_model(cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    skipped, unwritten = load_pretrained_into(cfg, model.module,
+                                              cfg.MODEL.WEIGHT, logger)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    on_card = model.module.state_dict()
+    stats = {k for k in want if "running" in k}
+    check(sorted(skipped) == ["pred_b", "pred_w"]
+          and not (set(want) - stats) & set(unwritten),
+          f"train_net: skipped {skipped}, unwritten {unwritten[:5]}")
+    for key, value in want.items():
+        check(torch.equal(on_card[key].cpu(), torch.from_numpy(value)),
+              f"train_net: {key} is not its blob")
+    del model, on_card
+
+    out_dir = os.path.join(tmp, "out")
+    head = ["--config-file", PAA_CONFIG, "--device", str(dev)]
+    opts = [*synth_opts(out_dir), "SOLVER.IMS_PER_BATCH", "8",
+            "SOLVER.MAX_ITER", "4", "SOLVER.CHECKPOINT_PERIOD", "2"]
+    seen, stamps, preempt = {}, {}, [True]
+
+    def hook(it, metrics):
+        stamps[it] = time.perf_counter()
+        seen[it] = metrics
+        if preempt[0] and it == 2:
+            raise Preempted
+
+    zero_launch_counts()
+    try:
+        train_net.main(head + ["--skip-test"] + opts, metric_hook=hook)
+        check(False, "train_net: the first run was not stopped")
+    except Preempted:
+        pass
+    first_launches = launch_counts()
+    check(first_launches == {"nms_batched": 0, "nms_global": 0,
+                             "group_norm_relu": 3 * 40},
+          f"train_net: first run launches {first_launches}")
+    check(sorted(seen) == [1, 2] and all(
+        math.isfinite(v) for m in seen.values() for v in m.values())
+        and all(m["num_pos"] > 0 for m in seen.values()),
+        f"train_net: first run metrics {seen}")
+    with open(os.path.join(out_dir, "last_checkpoint")) as f:
+        check(f.read().strip() == "model_0000002",
+              "train_net: last_checkpoint")
+    ckpt = torch.load(os.path.join(out_dir, "model_0000002"),
+                      map_location="cpu", weights_only=True)
+    frozen = [k for k in want if k.startswith(("backbone.resnet.stem.",
+                                               "backbone.resnet.layer1_"))]
+    for key in frozen + sorted(stats):
+        check(torch.equal(ckpt["model"][key], torch.from_numpy(want[key])),
+              f"train_net: {key} moved from its blob")
+    iteration_ms = (stamps[2] - stamps[1]) * 1e3
+    first = dict(seen)
+
+    seen.clear()
+    preempt[0] = False
+    zero_launch_counts()
+    rc = train_net.main(head + opts, metric_hook=hook)
+    launches = launch_counts()
+    results = read_results(out_dir, SYNTH_32[0])
+    batches = launches["nms_batched"]
+    check(rc == 0 and sorted(seen) == [3, 4] and launches == {
+        "nms_batched": batches, "nms_global": 0,
+        "group_norm_relu": 40 * (2 + batches)} and batches > 0,
+        f"train_net: second run rc {rc}, iterations {sorted(seen)}, "
+        f"launches {launches}")
+    ckpt = torch.load(os.path.join(out_dir, "model_final"),
+                      map_location="cpu", weights_only=True)
+    check(ckpt["extra"] == {"iteration": 4} and ckpt["step"] == 4
+          and sorted(results) == sorted(METRICS),
+          f"train_net: final {ckpt['extra']}, results {results}")
+    print(json.dumps({"phase": "train_net_from_pkl", "ok": True,
+                      "pkl_mb": os.path.getsize(pkl) / 2**20,
+                      "blobs": len(blobs), "import_s": import_s,
+                      "batch": 8, "losses": {
+                          k: [m[k] for _, m in sorted({**first, **seen}
+                                                      .items())]
+                          for k in seen[3]},
+                      "iteration_ms": iteration_ms,
+                      "first_run_launches": first_launches,
+                      "launches": launches, "eval_batches": batches,
+                      "ap_table": results, "card": name}))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {k: first_launches[k] + launches[k] for k in launches}
+
+
+DDP_WORLD, DDP_BATCH, DDP_HW, DDP_SIZE = 2, 8, (256, 320), (256.0, 300.0)
+DDP_TIMED_STEPS = 3
+
+
+def _ddp_train_steps(model, batch, timed):
+    """The first train step of ``model`` on ``batch`` (host metrics, the
+    positive mask, the parameters before and after it on the CPU), then
+    ``timed`` more steps: ms per step (host clock around synchronized
+    steps)."""
+    metrics, pos_mask, before, after = train_once(model, batch)
+    state = train_state(model)
+    step = model.make_bucket_train_step(tuple(batch["images"].shape[1:3]))
+    step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        step(state, batch)
+    torch.cuda.synchronize()
+    return (metrics, pos_mask, before, after,
+            (time.perf_counter() - t0) * 1e3 / timed)
+
+
+def _ddp_model(dev):
+    """Full-width PAA-R50 in float32 from seed 0, cuDNN off (see
+    phase_ddp_two_ranks)."""
+    from paa_tpu_torch.modeling import build_detection_model
+
+    torch.backends.cudnn.enabled = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return build_detection_model(build_cfg("float32", PAA_CONFIG),
+                                 device=dev, seed=0)
+
+
+def ddp_worker(job_path, out_path):
+    """One rank of phase_ddp_two_ranks (``chip_smoke.py --ddp-worker JOB
+    OUT``, launched with torchrun's environment): gloo on the one card;
+    the first step and the timed steps on its interleaved share of the
+    global batch, then the eval of the job's dataset."""
+    import logging
+    import pickle
+
+    import torch.distributed as dist
+
+    from paa_tpu_torch.data.coco import COCODataset
+    from paa_tpu_torch.engine.inference import inference
+    from paa_tpu_torch.utils import comm
+
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    dev = comm.init_distributed(job["device"], backend="gloo")
+    rank, world = comm.get_rank(), comm.get_world_size()
+    batch = {k: v[rank::world] for k, v in job["batch"].items()}
+    zero_launch_counts()
+    metrics, pos_mask, _, after, step_ms = _ddp_train_steps(
+        _ddp_model(dev), batch, DDP_TIMED_STEPS)
+    train_launches = launch_counts()
+    torch.backends.cudnn.enabled = True
+    model = seeded_model("bfloat16", dev)
+    dataset = COCODataset(job["ann_file"], job["img_dir"], False)
+    results = inference(model.cfg, model, dataset,
+                        output_folder=job["eval_dir"],
+                        logger=logging.getLogger("chip_smoke.ddp"))
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "device": str(dev), "metrics": metrics,
+           "pos_mask": pos_mask.numpy(), "step_ms": step_ms,
+           "train_launches": train_launches, "results": results,
+           "digests": {n: [float(p.double().sum()),
+                           float(p.double().abs().sum())]
+                       for n, p in after.items()}}
+    if rank == 0:
+        out["params"] = {n: p.numpy() for n, p in after.items()}
+    with open(f"{out_path}.{rank}", "wb") as f:
+        pickle.dump(out, f)
+    comm.synchronize()
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ddp_workers(job_path, out_path, deadline_s=600):
+    """Two ranks of ddp_worker on the one card, as torchrun would start
+    them (LOCAL_RANK 0 for both: one card); raises if one fails or the
+    deadline passes, and kills what still runs."""
+    port = _free_port()
+    procs = []
+    for rank in range(DDP_WORLD):
+        env = {**os.environ, "MASTER_ADDR": "localhost",
+               "MASTER_PORT": str(port), "WORLD_SIZE": str(DDP_WORLD),
+               "RANK": str(rank), "LOCAL_RANK": "0"}
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ddp-worker",
+             job_path, out_path], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    deadline = time.time() + deadline_s
+    failure = None
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                failure = "a rank exited non-zero"
+                break
+            if time.time() > deadline:
+                failure = "the ranks timed out"
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        logs = [p.communicate()[0] or "" for p in procs]
+    if failure or any(p.returncode for p in procs):
+        raise RuntimeError(f"ddp_two_ranks: {failure}" + "".join(
+            f"\n--- rank {i} (rc={p.returncode}) ---\n{log[-3000:]}"
+            for i, (p, log) in enumerate(zip(procs, logs))))
+
+
+def phase_ddp_two_ranks(dev, name):
+    """Data parallelism over torch.distributed: two ranks on the one card
+    with the gloo backend over CUDA tensors (NCCL refuses two ranks on
+    one device; NCCL across cards waits for a machine with more than
+    one), each launched as torchrun launches a rank.
+
+    Training: full-width PAA-R50 in float32 (TF32 off) from seed 0, a
+    global batch of 8 at 256 x 320 (3-12 GTs per image), 4 images per
+    rank (interleaved, as the loader shares a global batch). One DDP
+    step against the one-process step on the same 8 images: losses
+    within 1e-4 relative, num_pos and the positive mask equal, every
+    parameter's update within the f32 train-step limits of phase 13
+    (UPDATE_NORM_TOL, UPDATE_SHARE_TOL), the two ranks' parameters
+    equal. cuDNN is off in this comparison on both sides: cuDNN picks
+    its algorithms by the batch's shape, so a 4-image forward rounds
+    otherwise than an 8-image one, and the GMM's two-candidate
+    foreground ties flip on one-ulp changes of the candidate losses
+    (ROADMAP.md section 3); PyTorch's own convolutions compute each
+    image alike at any batch size. Then 3 more steps of each are timed.
+
+    Eval: synth_coco_32 (800 x 1333, B=8, bf16, the serving cell's
+    seeded weights) through ``inference`` on both ranks (round-robin
+    batches, predictions gathered, the main rank evaluates) against one
+    process, with the ground truth the one process's five best
+    detections per image: detections matched as in phase 6, the 12
+    metrics within 1e-6."""
+    import logging
+    import pickle
+
+    from paa_tpu_torch.data.coco import COCODataset
+    from paa_tpu_torch.data.synth import synth_coco
+    from paa_tpu_torch.engine.inference import inference
+
+    tmp = tempfile.mkdtemp(prefix="paa_ddp_")
+    batch = {k: v.numpy() for k, v in train_batch(
+        77, DDP_BATCH, DDP_HW, DDP_SIZE, max_gt=20).items()}
+    zero_launch_counts()
+    one_metrics, one_mask, before, one_after, one_ms = _ddp_train_steps(
+        _ddp_model(dev), {k: torch.from_numpy(v) for k, v in batch.items()},
+        DDP_TIMED_STEPS)
+    one_launches = launch_counts()
+    torch.backends.cudnn.enabled = True
+
+    logger = logging.getLogger("chip_smoke.ddp")
+    first_dir = os.path.join(tmp, "first")
+    ann_file, img_dir = synth_coco(os.path.join(tmp, "coco"), EVAL_IMAGES,
+                                   seed=41)
+    model = seeded_model("bfloat16", dev)
+    inference(model.cfg, model, COCODataset(ann_file, img_dir, False),
+              output_folder=first_dir, logger=logger)
+    ann = os.path.join(tmp, "top5.json")
+    top_detections_gt(ann_file, os.path.join(first_dir, "bbox.json"), ann)
+    top5 = COCODataset(ann, img_dir, False)
+    one_dir = os.path.join(tmp, "one")
+    one_results = inference(model.cfg, model, top5, output_folder=one_dir,
+                            logger=logger)
+    del model
+    torch.cuda.empty_cache()
+
+    job = {"device": str(dev), "batch": batch, "ann_file": ann,
+           "img_dir": img_dir,
+           "eval_dir": os.path.join(tmp, "two")}
+    job_path, out_path = os.path.join(tmp, "job.pkl"), os.path.join(
+        tmp, "out.pkl")
+    with open(job_path, "wb") as f:
+        pickle.dump(job, f)
+    t0 = time.perf_counter()
+    run_ddp_workers(job_path, out_path)
+    ranks_s = time.perf_counter() - t0
+    ranks = []
+    for rank in range(DDP_WORLD):
+        with open(f"{out_path}.{rank}", "rb") as f:
+            ranks.append(pickle.load(f))
+    for rank, out in enumerate(ranks):
+        check((out["rank"], out["world"], out["backend"], out["device"])
+              == (rank, DDP_WORLD, "gloo", str(dev)),
+              f"ddp_two_ranks: rank {rank} {out['backend']} {out['device']}")
+    mask = torch.zeros_like(one_mask)
+    for rank, out in enumerate(ranks):
+        mask[rank::DDP_WORLD] = torch.from_numpy(out["pos_mask"])
+    check(torch.equal(mask, one_mask) and all(
+        out["metrics"]["num_pos"] == one_metrics["num_pos"] > 0
+        for out in ranks),
+        f"ddp_two_ranks: positive masks differ "
+        f"({int((mask != one_mask).sum())} anchors)")
+    loss_err = {k: max(abs(out["metrics"][k] - v) / max(abs(v), 1e-12)
+                       for out in ranks) for k, v in one_metrics.items()}
+    check(max(loss_err.values()) <= 1e-4, f"ddp_two_ranks: {loss_err}")
+    check(all(out["digests"] == ranks[0]["digests"] for out in ranks),
+          "ddp_two_ranks: the ranks' parameters differ")
+    two_after = {n: torch.from_numpy(v)
+                 for n, v in ranks[0]["params"].items()}
+    worst_norm, worst_share = update_errors(two_after, one_after, before)
+    check(worst_norm[0][1] <= UPDATE_NORM_TOL
+          and worst_share[0][1] <= UPDATE_SHARE_TOL,
+          f"ddp_two_ranks: updates {worst_norm} {worst_share}")
+
+    with open(os.path.join(job["eval_dir"], "bbox.json")) as f:
+        two_dets = json.load(f)
+    ids = [r.id for r in top5.records]
+    matched = match_detections(
+        _detections_by_image(two_dets, ids),
+        _detections_by_image(read_bbox_json(one_dir), ids), "ddp_two_ranks")
+    two_results = ranks[0]["results"]
+    ap_err = {k: abs(two_results[k] - v) for k, v in one_results.items()}
+    check(ranks[1]["results"] == {} and sorted(ap_err) == sorted(METRICS)
+          and max(ap_err.values()) <= 1e-6 and one_results["AP"] > 0.1,
+          f"ddp_two_ranks: AP {two_results} vs {one_results}")
+    print(json.dumps({
+        "phase": "ddp_two_ranks", "ok": True, "backend": "gloo",
+        "why_not_nccl": "NCCL refuses two ranks on one device; NCCL "
+                        "across cards is not verified (one card)",
+        "world": DDP_WORLD, "global_batch": DDP_BATCH, "hw": DDP_HW,
+        "dtype": "float32", "cudnn": False,
+        "num_pos": one_metrics["num_pos"], "loss_rel_err": loss_err,
+        "worst_update_norm_err": worst_norm,
+        "worst_update_share": worst_share,
+        "one_process_step_ms": one_ms,
+        "two_rank_step_ms": [out["step_ms"] for out in ranks],
+        "one_process_launches": one_launches,
+        "rank_train_launches": [out["train_launches"] for out in ranks],
+        "ranks_wall_s": ranks_s, "ap_one": one_results,
+        "ap_abs_err": ap_err, **matched, "card": name}))
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1844,6 +2389,17 @@ def main():
     phase_profile(paa, paa_eval, 30, "paa", name)
     phase_profile(frcnn, frcnn_eval, 60, "faster_rcnn", name)
     phase_train_profile(trained, state, batch, name)
+    del paa, paa_eval, frcnn, frcnn_eval, trained, state, batch
+    torch.cuda.empty_cache()
+    gate_launches = phase_ap_gate(dev, name)
+    train_net_launches = phase_train_net_from_pkl(dev, name)
+    phase_ddp_two_ranks(dev, name)
+    for kernel, key in ((k1, "nms_batched"), (k3, "group_norm_relu")):
+        by_path = dict(kernel["launches_by_path"],
+                       ap_gate=gate_launches[key],
+                       train_net=train_net_launches[key])
+        kernel.update(launches=sum(by_path.values()),
+                      launches_by_path=by_path)
     print(name)
     print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
@@ -1853,4 +2409,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        sys.exit(ddp_worker(*sys.argv[2:4]))
     sys.exit(main())

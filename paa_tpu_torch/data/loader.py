@@ -112,11 +112,16 @@ class DetectionLoader:
                  process_index=0, normalize=None, device_normalize=False):
         """``batch_size`` is the GLOBAL batch; with ``process_count`` > 1
         every process computes the identical global batch/bucket stream
-        (deterministic seed + per-(epoch, index) augmentation draws) and
-        loads only its ``process_index``-th interleaved slice: the
-        reference's DistributedSampler
+        (deterministic seed + per-(epoch, index) augmentation draws).
+        Training loads only the ``process_index``-th interleaved slice of
+        each batch: the reference's DistributedSampler
         (paa_core/data/samplers/distributed.py:10-66), with the bucket
-        shapes kept equal across processes."""
+        shapes kept equal across processes. Evaluation loads whole
+        batches, every ``process_count``-th one from the
+        ``process_index``-th, so that each batch keeps the composition
+        it has in one process (the round robin of
+        paa_tpu/engine/inference.py:85-88, with no rank loading a batch
+        it does not run)."""
         self.dataset = dataset
         self.transform = transform
         self.assigner = BucketAssigner(buckets)
@@ -128,10 +133,10 @@ class DetectionLoader:
         self.prefetch = prefetch
         self.start_iter = start_iter
         self.max_iter = max_iter
-        assert batch_size % process_count == 0, (
-            f"global batch {batch_size} not divisible by "
-            f"{process_count} processes"
-        )
+        if is_train and batch_size % process_count:
+            raise ValueError(
+                f"global batch {batch_size} not divisible by "
+                f"{process_count} processes")
         self.process_count = process_count
         self.process_index = process_index
         self.normalize = normalize
@@ -212,19 +217,23 @@ class DetectionLoader:
             # (dummy image_id -1 samples) so every batch of a bucket has
             # one shape
             pending = {}
+            batches = []
             for idx in range(n):
                 b = self._predicted_bucket(idx, 0)
                 pending.setdefault(b, []).append(idx)
                 if len(pending[b]) == self.batch_size:
-                    yield 0, b, pending.pop(b)
+                    batches.append((0, b, pending.pop(b)))
             for b, rest in pending.items():
                 if rest:
-                    yield 0, b, rest + [-1] * (self.batch_size - len(rest))
+                    batches.append(
+                        (0, b, rest + [-1] * (self.batch_size - len(rest))))
+            yield from batches[self.process_index::self.process_count]
 
     def _assemble(self, epoch, group_bucket, indices, pool):
-        # this process loads only its interleaved slice of the global
-        # batch (all of it for process_count=1)
-        local = indices[self.process_index::self.process_count]
+        # in training this process loads only its interleaved slice of
+        # the global batch (all of it for process_count=1)
+        local = (indices[self.process_index::self.process_count]
+                 if self.is_train else indices)
         samples = list(
             pool.map(lambda i: self._load_sample(i, epoch), local)
         )
@@ -270,13 +279,11 @@ class DetectionLoader:
 
 
 def process_count_and_index():
-    """(world size, rank) of torch.distributed when it is initialized,
-    else (1, 0)."""
-    import torch.distributed as dist
+    """(world size, rank) of the process group (utils/comm.py), else
+    (1, 0)."""
+    from ..utils import comm
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(), dist.get_rank()
-    return 1, 0
+    return comm.get_world_size(), comm.get_rank()
 
 
 def make_data_loader(cfg, dataset, is_train=True, start_iter=0, seed=0):
@@ -289,7 +296,7 @@ def make_data_loader(cfg, dataset, is_train=True, start_iter=0, seed=0):
     batch_size = (
         cfg.SOLVER.IMS_PER_BATCH if is_train else cfg.TEST.IMS_PER_BATCH
     )
-    count, index = process_count_and_index() if is_train else (1, 0)
+    count, index = process_count_and_index()
     return DetectionLoader(
         dataset,
         transform,

@@ -62,7 +62,11 @@ def synth_coco(root, n_images, seed=0, sizes=COCO_SIZES):
         y = rng.uniform(0, h - 1 - bh)
         boxes = np.round(np.stack([x, y, bw, bh], 1), 2)
         name = f"{i:06d}.ppm"
-        write_ppm(os.path.join(img_dir, name), synth_image(rng, w, h, boxes))
+        # each file appears whole: ranks of a process group may write the
+        # same dataset at once and read it as soon as their own is done
+        path = os.path.join(img_dir, name)
+        write_ppm(f"{path}.{os.getpid()}.tmp", synth_image(rng, w, h, boxes))
+        os.replace(f"{path}.{os.getpid()}.tmp", path)
         images.append(dict(id=i + 1, file_name=name, width=w, height=h))
         for b, c in zip(boxes.tolist(),
                         rng.choice(COCO_CATEGORY_IDS, n).tolist()):

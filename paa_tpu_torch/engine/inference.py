@@ -9,9 +9,16 @@ with the +1 convention (BoxList.convert) before the COCO evaluator.
 Total and model time are logged. The same engine serves every model
 with ``make_eval_fn``: PAA and Faster R-CNN.
 
+Data-parallel under a process group (utils/comm.py): the loader gives
+each rank every world-th whole batch (data/loader.py), so a batch keeps
+the composition it has in one process and so its detections; the
+predictions are gathered with ``all_gather_pickled`` and only the main
+process runs the COCO evaluator and writes the files. The other ranks
+return {}.
+
 Not ported: the optimistic-DCN fallback (a TPU lowering), TTA
-(``TEST.BBOX_AUG``, ROADMAP item 9), more than one process (ROADMAP item
-5), and the RPN-only, mask and keypoint outputs (ROADMAP item 10).
+(``TEST.BBOX_AUG``, ROADMAP item 9), and the RPN-only, mask and
+keypoint outputs (ROADMAP item 10).
 """
 
 from __future__ import annotations
@@ -25,15 +32,16 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..data.loader import make_data_loader, process_count_and_index
+from ..data.loader import make_data_loader
 from ..evaluation.coco_eval import (
     COCOEvaluator, check_expected_results, format_results)
+from ..utils import comm
 
 
 def compute_on_dataset(model, loader, state=None):
     """Run ``model.make_eval_fn(state)`` over ``loader``: (predictions by
-    image id, model seconds, images). The model time spans each batch's
-    call through to its detections on the host."""
+    image id, model seconds, images), this rank's. The model time spans
+    each batch's call through to its detections on the host."""
     eval_fn = model.make_eval_fn(state)
     predictions = {}
     model_time = 0.0
@@ -79,16 +87,14 @@ def inference(cfg, model, dataset, output_folder=None, logger=None,
     """Evaluate ``model`` on ``dataset``: the 12 COCO bbox metrics.
     ``state``, if given, is a state_dict loaded into the model first.
     With ``output_folder``, writes coco_results.json (the metrics) and
-    bbox.json (the detections in COCO's results format) there."""
+    bbox.json (the detections in COCO's results format) there. Under a
+    process group every rank calls it; the main process returns the
+    metrics and writes the files, the others return {}."""
     logger = logger or logging.getLogger("paa_tpu_torch.inference")
     if cfg.TEST.BBOX_AUG.ENABLED:
         raise NotImplementedError(
             "TEST.BBOX_AUG (test-time augmentation) is not ported to "
             "paa_tpu_torch yet (ROADMAP item 9)")
-    if process_count_and_index()[0] > 1:
-        raise NotImplementedError(
-            "paa_tpu_torch evaluates in one process; data-parallel eval "
-            "is ROADMAP item 5")
     loader = make_data_loader(cfg, dataset, is_train=False)
 
     t_start = time.perf_counter()
@@ -101,6 +107,11 @@ def inference(cfg, model, dataset, output_folder=None, logger=None,
             f"({total / n_images:.4f} s/img); model time "
             f"{model_time:.1f}s ({model_time / n_images:.4f} s/img)"
         )
+    if comm.get_world_size() > 1:
+        parts = comm.all_gather_pickled(predictions)
+        if not comm.is_main_process():
+            return {}
+        predictions = {k: v for part in parts for k, v in part.items()}
 
     # map contiguous labels -> json category ids
     cat_ids = sorted(dataset.contiguous_category_id_to_json_id.values())

@@ -12,6 +12,16 @@ on the module's device as it is called. The metrics stay on the device
 (the trainer reads them a step late). The step syncs with the device
 only inside the loss's GMM, which reads "every row converged" on the
 host every ``ops/gmm.py::CHECK_EVERY`` EM iterations until it is true.
+
+Under a process group of more than one rank (utils/comm.py) the step
+wraps ``state.module`` in ``DistributedDataParallel`` at its first call:
+each rank's batch is its share of the global one, the loss sums the
+positive count and the IoU sum over the ranks (modeling/paa_loss.py),
+DDP averages the gradients, and the logged losses are averaged over the
+ranks (the reference's ``reduce_loss_dict``). Frozen parameters do not
+require grad, so DDP's reducer leaves them out. ``broadcast_buffers``
+keeps its default: the only buffers are FrozenBatchNorm's, which never
+change, so rank 0's broadcast copies equal values.
 """
 
 from __future__ import annotations
@@ -19,11 +29,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.nn.parallel import DistributedDataParallel
 from torch.profiler import record_function
 
 from ..modeling.paa_loss import PAALossConfig, paa_loss
 from ..ops.image_norm import maybe_device_normalize
 from ..solver import set_lr
+from ..utils import comm
 
 # the spans of a step that chip_smoke.py's profile reads (the loss has
 # its own, modeling/paa_loss.py)
@@ -35,16 +47,37 @@ SPAN_OPTIMIZER = "train_step/optimizer"
 
 @dataclass
 class TrainState:
-    """The module being trained, its optimizer and the number of updates
-    taken (which picks the learning rate of the next one)."""
+    """The module being trained (``DistributedDataParallel`` around the
+    model's module once a step of more than one rank has run), its
+    optimizer and the number of updates taken (which picks the learning
+    rate of the next one)."""
 
     module: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
 
 
+def _data_parallel(module):
+    """``module`` in ``DistributedDataParallel`` when there is more than
+    one rank (once)."""
+    if comm.get_world_size() == 1 or \
+            isinstance(module, DistributedDataParallel):
+        return module
+    device = next(module.parameters()).device
+    return DistributedDataParallel(
+        module, device_ids=[device] if device.type == "cuda" else None)
+
+
+def _mean_over_ranks(metrics):
+    """The ``loss*`` metrics averaged over the ranks, in one all-reduce."""
+    keys = [k for k in metrics if k.startswith("loss")]
+    means = comm.all_reduce_sum(torch.stack([metrics[k] for k in keys])
+                                ) / comm.get_world_size()
+    return {**metrics, **dict(zip(keys, means))}
+
+
 def make_train_step(anchors, level_counts, loss_cfg: PAALossConfig,
-                    schedule, num_shards=1, loss_call=paa_loss,
+                    schedule, loss_call=paa_loss,
                     normalize=None):
     """Returns train_step(state, batch) -> metrics.
 
@@ -52,11 +85,13 @@ def make_train_step(anchors, level_counts, loss_cfg: PAALossConfig,
     (B, G), and with ``normalize`` = (pixel_mean, pixel_std) the raw
     uint8 images' 'image_sizes' (B, 2). Numpy arrays or tensors; they
     move to the device of ``anchors``. metrics: the losses, 'num_pos' and
-    'loss' (their total), detached tensors on the device."""
+    'loss' (their total), detached tensors on the device, over the
+    global batch when there is more than one rank."""
     counts = tuple(level_counts)
     device = anchors.device
 
     def train_step(state: TrainState, batch):
+        state.module = _data_parallel(state.module)
         with record_function(SPAN_INPUT):
             batch = {k: torch.as_tensor(v).to(device)
                      for k, v in batch.items()}
@@ -67,7 +102,7 @@ def make_train_step(anchors, level_counts, loss_cfg: PAALossConfig,
         with record_function(SPAN_FORWARD):
             outputs = state.module(images.permute(0, 3, 1, 2).contiguous())
         losses = loss_call(outputs, batch["gt_boxes"], batch["gt_labels"],
-                           anchors, counts, loss_cfg, num_shards=num_shards)
+                           anchors, counts, loss_cfg)
         total = sum(v for k, v in losses.items() if k.startswith("loss_"))
         with record_function(SPAN_BACKWARD):
             state.optimizer.zero_grad(set_to_none=True)
@@ -78,6 +113,8 @@ def make_train_step(anchors, level_counts, loss_cfg: PAALossConfig,
         state.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
+        if comm.get_world_size() > 1:
+            metrics = _mean_over_ranks(metrics)
         return metrics
 
     return train_step

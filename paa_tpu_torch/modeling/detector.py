@@ -99,17 +99,18 @@ class DetectionModel:
     # device normalize
     train_batch_keys = ("images", "gt_boxes", "gt_labels", "image_sizes")
 
-    def make_bucket_train_step(self, hw, num_shards=1):
+    def make_bucket_train_step(self, hw):
         """train_step(state, batch) -> metrics for padded inputs of shape
         ``hw`` (engine/train_step.py), with the config's learning-rate
-        schedule and on-device uint8 normalize."""
+        schedule and on-device uint8 normalize; data-parallel over the
+        ranks of a process group (utils/comm.py)."""
         from ..engine.train_step import make_train_step  # engine imports us
 
         loss_call, loss_cfg = self.loss_fn()
         anchors, counts = self.anchors_for(hw)
         return make_train_step(
             anchors, counts, loss_cfg, make_lr_schedule(self.cfg),
-            num_shards=num_shards, loss_call=loss_call,
+            loss_call=loss_call,
             normalize=(self.cfg.INPUT.PIXEL_MEAN, self.cfg.INPUT.PIXEL_STD))
 
     def detect(self, images, image_sizes):

@@ -16,8 +16,13 @@ paa_core/modeling/rpn/paa/loss.py).
    anchor has one matched GT), so the per-GT writes scatter in one pass.
 5. Losses (loss.py:317-359): focal cls over all anchors over the
    positive count, IoU-weighted GIoU over the IoU sum, BCE on the IoU
-   branch. ``num_shards`` keeps the reference's per-GPU averaging: the
-   denominators are max(total, num_shards).
+   branch. Under a process group (utils/comm.py) each rank holds its
+   share of the batch: the positive count and the IoU sum are summed
+   over the ranks (detached), and each rank divides by max(total,
+   world) / world and sum_iou / world, as the reference does per GPU
+   (loss.py:22-28, 317-322); DDP's gradient mean then gives the global
+   batch's step, the same for any world size when total >= world. One
+   process divides by max(total, 1) and sum_iou.
 
 The integer outputs equal the JAX package's: ``torch.argmin`` and
 ``torch.argmax`` take the first index on ties, as ``jnp``'s do, and the
@@ -38,6 +43,7 @@ from torch.profiler import record_function
 from ..ops.focal_loss import sigmoid_focal_loss
 from ..ops.gmm import gmm_fit_predict
 from ..structures.boxes import box_iou, box_iou_aligned
+from ..utils import comm
 from .box_coder import decode_box, encode_box
 from .matcher import match_anchors
 
@@ -201,7 +207,7 @@ def _paa_positive_mask(combined_loss, cand_idx, cand_valid, gmm_iters):
 
 
 def paa_loss(outputs, gt_boxes, gt_labels, anchors, level_counts, lc,
-             num_shards=1, return_aux=False):
+             return_aux=False):
     """The PAA losses of one batch.
 
     outputs: 'cls_logits' (B, N, C), 'box_regression' (B, N, 4) and
@@ -257,10 +263,12 @@ def paa_loss(outputs, gt_boxes, gt_labels, anchors, level_counts, lc,
 
     with record_function(SPAN_LOSSES):
         # 5. losses
-        num_pos = pos_mask.sum()
+        world = comm.get_world_size()
+        num_pos = comm.all_reduce_sum(pos_mask.sum())
         # max(total / num_gpus, 1) per GPU under gradient averaging is
-        # the global denominator max(total, num_shards)
-        num_pos_norm = num_pos.to(torch.float32).clamp(min=float(num_shards))
+        # the global denominator max(total, num_gpus)
+        num_pos_norm = num_pos.to(torch.float32).clamp(
+            min=float(world)) / world
         loss_cls = sigmoid_focal_loss(cls_logits, labels_paa, lc.gamma,
                                       lc.alpha).sum() / num_pos_norm
 
@@ -274,7 +282,8 @@ def paa_loss(outputs, gt_boxes, gt_labels, anchors, level_counts, lc,
             iou_bce = bce_with_logits(iou_pred, ious) * posf
             out["loss_iou_pred"] = (iou_bce.sum() / num_pos_norm
                                     * lc.iou_loss_weight)
-            reg_norm = (ious * posf).sum().clamp(min=1e-6)
+            reg_norm = comm.all_reduce_sum(
+                (ious * posf).sum()).clamp(min=1e-6) / world
             reg_weight = ious
         else:
             reg_norm = num_pos_norm

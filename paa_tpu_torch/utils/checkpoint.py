@@ -9,6 +9,11 @@ records ``name`` in the ``last_checkpoint`` file. ``load(state)`` with
 no path resumes from that file; otherwise it loads the given path.
 ``load_weights(module, path)`` restores only the module's weights, for
 evaluation.
+
+Under a process group only the main process writes, and a
+``DistributedDataParallel`` module is saved as the module inside it, so
+a checkpoint has no ``module.`` prefix and loads into one process;
+every rank loads.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ from __future__ import annotations
 import os
 
 import torch
+
+from .comm import is_main_process, unwrap
 
 
 class Checkpointer:
@@ -29,11 +36,11 @@ class Checkpointer:
             self.logger.info(msg)
 
     def save(self, name, state, **extra):
-        if not (self.save_dir and self.save_to_disk):
+        if not (self.save_dir and self.save_to_disk and is_main_process()):
             return
         path = os.path.abspath(os.path.join(self.save_dir, name))
         self._log(f"Saving checkpoint to {path}")
-        torch.save({"model": state.module.state_dict(),
+        torch.save({"model": unwrap(state.module).state_dict(),
                     "optimizer": state.optimizer.state_dict(),
                     "step": state.step, "extra": dict(extra)}, path)
         self.tag_last_checkpoint(name)
@@ -64,9 +71,10 @@ class Checkpointer:
             path = os.path.join(self.save_dir, self.get_checkpoint_file())
         path = os.path.abspath(path)
         self._log(f"Loading checkpoint from {path}")
-        device = next(state.module.parameters()).device
+        module = unwrap(state.module)
+        device = next(module.parameters()).device
         data = torch.load(path, map_location=device, weights_only=True)
-        state.module.load_state_dict(data["model"])
+        module.load_state_dict(data["model"])
         state.optimizer.load_state_dict(data["optimizer"])
         state.step = data["step"]
         return data["extra"]

@@ -471,3 +471,64 @@ def test_train_step_launches_k3_40_times(dev):
     assert head.cls_tower.gn0.weight.grad is not None
     assert bool(head.bbox_tower.gn3.bias.grad.abs().sum() > 0)
     assert model.module.backbone.resnet.stem.conv1.weight.grad is None
+
+
+def _reference_checkpoint_cases():
+    """(config overrides, seeded reference state dict) of the narrow
+    PAA-R50 and Faster R-CNN R-50-FPN (tests/reference_layout.py)."""
+    import os
+
+    import reference_layout as rl
+    from paa_tpu_torch.config import get_cfg
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cases = []
+    for config, extra in (
+            (None, ["MODEL.PAA_ON", True, "MODEL.RPN_ONLY", True,
+                    "MODEL.BACKBONE.CONV_BODY", "R-50-FPN-RETINANET",
+                    "MODEL.RETINANET.USE_C5", False]),
+            (os.path.join(root, "configs", "e2e_faster_rcnn_R_50_FPN_1x.yaml"),
+             ["MODEL.ROI_BOX_HEAD.NUM_CLASSES", 5,
+              "MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM", 64])):
+        cfg = get_cfg()
+        if config:
+            cfg.merge_from_file(config)
+        cfg.merge_from_list(extra + ["MODEL.RESNETS.BACKBONE_OUT_CHANNELS",
+                                     64])
+        cfg.freeze()
+        cases.append((cfg, rl.seeded_state_dict(rl.layout(cfg), seed=5)))
+    return cases
+
+
+def test_checkpoint_import_on_the_card_equals_the_cpu(dev):
+    """utils/torch_import.py into a module on the card lands on the CPU
+    import's tensors, every key written, nothing skipped."""
+    from paa_tpu_torch.modeling import build_detection_model
+    from paa_tpu_torch.utils.torch_import import load_torch_state_dict
+
+    for cfg, state in _reference_checkpoint_cases():
+        loaded = {}
+        for device in (dev, "cpu"):
+            module = build_detection_model(cfg, device=device).module
+            assert load_torch_state_dict(module, state) == ([], [])
+            loaded[str(device)] = module.state_dict()
+        for key, value in loaded["cpu"].items():
+            got = loaded[str(dev)][key]
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu(), value), key
+
+
+def test_load_pretrained_into_keeps_the_module_on_its_device(dev, tmp_path):
+    from paa_tpu_torch.modeling import build_detection_model
+    from paa_tpu_torch.utils.torch_import import load_pretrained_into
+
+    cfg, state = _reference_checkpoint_cases()[0]
+    path = tmp_path / "model.pth"
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in state.items()}},
+               path)
+    model = build_detection_model(cfg, device=dev)
+    assert load_pretrained_into(cfg, model.module, str(path)) == ([], [])
+    assert {t.device.type for t in model.module.state_dict().values()} == \
+        {"cuda"}
+    assert torch.equal(model.module.head.cls_logits.bias.cpu(),
+                       torch.from_numpy(state["rpn.head.cls_logits.bias"]))

@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: it imports without JAX, and no module of
-paa_tpu_torch (nor chip_smoke.py, kernel_ab.py or the NMS cases they
-share with the tests, tests/nms_cases.py) names jax, flax or paa_tpu in
-an import. Nor does any import cv2 or PIL at module level (the machine
-with the card has neither): the eval path runs on a PPM dataset with
-both blocked."""
+paa_tpu_torch (nor chip_smoke.py, kernel_ab.py, the NMS cases and the
+reference checkpoint layouts they share with the tests,
+tests/nms_cases.py and tests/reference_layout.py, nor the distributed
+tests' worker) names jax, flax or paa_tpu in an import. Nor does any
+import cv2 or PIL at module level (the machine with the card has
+neither): the eval path runs on a PPM dataset with both blocked."""
 
 import ast
 import os
@@ -23,7 +24,11 @@ def _port_sources():
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out) + [os.path.join(ROOT, f)
                           for f in ("chip_smoke.py", "kernel_ab.py",
-                                    os.path.join("tests", "nms_cases.py"))]
+                                    os.path.join("tests", "nms_cases.py"),
+                                    os.path.join("tests",
+                                                 "reference_layout.py"),
+                                    os.path.join("tests",
+                                                 "torch_port_dist_worker.py"))]
 
 
 def _imported_modules(path):
@@ -61,7 +66,9 @@ def test_no_jax_or_paa_tpu_imports():
     rel = {os.path.relpath(p, PKG) for p in sources}
     for module in ("data/loader.py", "data/transforms.py", "data/coco.py",
                    "evaluation/coco_eval.py", "engine/inference.py",
-                   "tools/test_net.py", "config/paths_catalog.py"):
+                   "tools/test_net.py", "config/paths_catalog.py",
+                   "utils/torch_import.py", "utils/comm.py", "utils/misc.py",
+                   "tools/train_net.py", "tools/reproduce_ap.py"):
         assert module in rel, module
     bad = [
         (os.path.relpath(p, ROOT), m)
