@@ -54,7 +54,8 @@ and prints no result line):
    cudaOccupancyMaxActiveClusters for it.
 10. A torch.profiler window of three requests of each path: device time
     per request by kernel class (the Faster R-CNN box head's kernels by
-    a span around ``module.box``), and the device's idle share.
+    a span around ``module.box``, matched through the trace's launch
+    correlation), and the device's idle share.
 11. Training, K3's gradient: the autograd Function around K3 (forward
     K3, backward the VJP of the plain version, recomputed) against
     autograd through the plain version at the towers' shapes of a
@@ -120,14 +121,41 @@ and prints no result line):
     side by side. Then a two-rank eval of synth_coco_32 against one
     process: the same detections and the 12 metrics.
 
+20. (Run after phase 14's profile, with the earlier paths' models
+    freed.) The X-152 dcnv2 main path:
+    configs/paa/paa_dcnv2_X_152_32x8d_FPN_2x.yaml at full width (32x8d
+    ResNeXt at R-152 depth, modulated DCN as conv2 of every block of
+    stages 3-5 and as the towers' last conv, 256 FPN channels, 80
+    classes) in bfloat16, weights from seed 0, the cls_logits bias from
+    seed 1 in [-3.5, -2.5] and every DCN offset conv from seed 2 (as
+    the CPU tests draw them: fractional offsets of a pixel or two),
+    serves three 8 x 800 x 1344 requests through ``make_eval_fn``: the
+    checks of phase 5, K1 3 and K3 120 launches, peak device memory.
+21. One ``DeformConv`` at the path's stage-3 (512 channels, 100 x 168,
+    32 groups), stage-4 (1024, 50 x 84, 32 groups) and P3 tower (256,
+    100 x 168, with bias) shapes, B=1, offset conv from a seed, on the
+    card against the CPU: float32 (TF32 off) within rtol = atol = 2e-4,
+    bfloat16 within DCN_BF16_REL of the largest float32 output.
+22. The X-152 dcnv2 model in float32 on the card against the CPU at
+    2 x 256 x 320, as phase 6.
+23. Its img/s and ms per request with
+    cuDNN's TF32 off (as the phases after phase 4 run) and with torch's
+    default (on; the offset convs are the path's only float32 convs),
+    the offsets at full width (mean and largest, share of samples off
+    the image), and, with the default, a torch.profiler window of three
+    requests with the DCN steps (geometry, sampling, contraction) and
+    the grouped convs split out by spans around them.
+
 Phase 13 also runs the step a third time on the CPU with the network in
 float64 (every convolution, FrozenBN and GroupNorm), the referee of the
 two float32 steps, and phase 11 checks K3's Function at a group of zero
 variance with a zero bias (the ReLU input exactly 0: half the upstream
 gradient, as the JAX package's custom VJP gives).
 
-The line before the last is the ``kernels`` JSON; the card's name and
-power limit (nvidia-smi) come on a line before it; the last line is
+The script's wall time comes on a line of its own; the line before the
+last is the ``kernels`` JSON, which lists each kernel's launches per
+path; the card's name and power limit (nvidia-smi) come on a line
+before it; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits with 2.
 """
 
@@ -157,6 +185,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PAA_CONFIG = os.path.join(ROOT, "configs", "paa", "paa_R_50_FPN_1x.yaml")
 FRCNN_CONFIG = os.path.join(ROOT, "configs",
                             "e2e_faster_rcnn_R_50_FPN_1x.yaml")
+DCNV2_CONFIG = os.path.join(ROOT, "configs", "paa",
+                            "paa_dcnv2_X_152_32x8d_FPN_2x.yaml")
+# one deformable conv in bfloat16 against float32, within this share of
+# the float32 output's largest magnitude (tests/test_torch_port_dcn.py's
+# BF16_REL)
+DCN_BF16_REL = 1.5e-2
 # an IoU and its compare: 2 x (min, max, sub, add, max), mul, add, sub,
 # div, compare; and a label compare
 NMS_IOU_OPS, NMS_LABEL_OPS = 15, 1
@@ -501,19 +535,48 @@ def build_cfg(dtype, path, extra=()):
     return cfg
 
 
-def seeded_model(dtype, device):
-    """Full-width PAA-R50 with weights from seed 0 and the cls_logits bias
-    drawn from seed 1 around the 0.05 threshold (logit -2.944), so that
-    an untrained net yields candidates."""
+def seeded_model(dtype, device, path=PAA_CONFIG):
+    """Full-width PAA (PAA-R50 unless ``path`` names another config) with
+    weights from seed 0 and the cls_logits bias drawn from seed 1 around
+    the 0.05 threshold (logit -2.944), so that an untrained net yields
+    candidates."""
     from paa_tpu_torch.modeling import build_detection_model
 
-    model = build_detection_model(build_cfg(dtype, PAA_CONFIG),
+    model = build_detection_model(build_cfg(dtype, path),
                                   device=device, seed=0)
     gen = torch.Generator().manual_seed(1)
     bias = model.module.head.cls_logits.bias
     with torch.no_grad():
         bias.copy_(torch.empty(bias.shape).uniform_(-3.5, -2.5,
                                                     generator=gen))
+    return model
+
+
+def seed_offset_convs(module, seed):
+    """Every DCN offset conv under ``module`` drawn from ``seed`` as the
+    CPU tests draw them (tests/test_torch_port_backbones.py): the kernel
+    uniform at 0.02 of the kaiming bound, the bias normal(0, 1.5), so
+    fractional offsets of a pixel or two (at their zero init a DCN layer
+    is a plain conv with a mask of 0.5)."""
+    from paa_tpu_torch.ops.dcn import DeformConv
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, DeformConv):
+                w, b = m.offset.weight, m.offset.bias
+                bound = 0.02 * math.sqrt(3.0 / w[0].numel())
+                w.copy_(torch.empty(w.shape).uniform_(-bound, bound,
+                                                      generator=gen))
+                b.copy_(torch.empty(b.shape).normal_(0.0, 1.5,
+                                                     generator=gen))
+
+
+def seeded_dcnv2(dtype, device):
+    """Full-width paa_dcnv2_X_152_32x8d_FPN_2x as ``seeded_model``, with
+    the offset convs drawn from seed 2."""
+    model = seeded_model(dtype, device, DCNV2_CONFIG)
+    seed_offset_convs(model.module, 2)
     return model
 
 
@@ -1724,6 +1787,16 @@ def _union_us(intervals):
 
 BOX_SPAN = "box_head"  # record_function span around FasterRCNN.box
 BOX_LABEL = "box head (ROIAlign + f32 MLP)"
+# record_function spans around the DCN steps and grouped convs (set up
+# by _profiled), and the class their kernels count in
+SPAN_LABELS = {
+    BOX_SPAN: BOX_LABEL,
+    "dcn_geometry": "deform geometry (corner rows and weights)",
+    "dcn_sampling": "deform sampling (patch table, gather, corner "
+                    "weighting)",
+    "dcn_contraction": "deform contraction (grouped GEMM)",
+    "grouped_conv": "grouped conv (ResNeXt 3x3)",
+}
 
 
 def kernel_class(name):
@@ -1747,19 +1820,48 @@ def kernel_class(name):
     return "other"
 
 
+def _span(fn, name):
+    from torch.profiler import record_function
+
+    def traced(*args, **kwargs):
+        with record_function(name):
+            return fn(*args, **kwargs)
+    return traced
+
+
+def _grouped_span(forward):
+    from torch.profiler import record_function
+
+    def traced(self, x):
+        if self.groups == 1:
+            return forward(self, x)
+        with record_function("grouped_conv"):
+            return forward(self, x)
+    return traced
+
+
 def _profiled(model, eval_fn, images, sizes, reqs):
     """``reqs`` requests under torch.profiler, with the two-stage box
-    head (``module.box``, when the model has one) inside a BOX_SPAN span.
+    head (``module.box``, when the model has one), the DCN steps of
+    ops/dcn.py and the grouped convs inside the spans of SPAN_LABELS.
     Returns the profile and the window's wall time in microseconds."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
+
+    from paa_tpu_torch.modeling.layers import Conv
+    from paa_tpu_torch.ops import dcn
 
     module = model.module
     box = getattr(module, "box", None)
     if box is not None:
-        def traced_box(*args):
-            with record_function(BOX_SPAN):
-                return box(*args)
-        module.box = traced_box
+        module.box = _span(box, BOX_SPAN)
+    steps = {"_geometry": "dcn_geometry", "_patch_table": "dcn_sampling",
+             "_sample_columns": "dcn_sampling",
+             "_contract": "dcn_contraction"}
+    plain = {attr: getattr(dcn, attr) for attr in steps}
+    conv_forward = Conv.forward
+    for attr, span in steps.items():
+        setattr(dcn, attr, _span(plain[attr], span))
+    Conv.forward = _grouped_span(conv_forward)
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1771,50 +1873,54 @@ def _profiled(model, eval_fn, images, sizes, reqs):
     finally:
         if box is not None:
             del module.box
+        for attr, fn in plain.items():
+            setattr(dcn, attr, fn)
+        Conv.forward = conv_forward
     return prof, wall_us
 
 
 def phase_profile(model, eval_fn, seed, what, name):
     """Device time by kernel class over three requests (torch.profiler)
-    and the device's idle share of that window (host clock). The kernels
-    that the CPU ops inside the box head's span launched count as the
-    box head, whatever their names."""
-    from torch.autograd import DeviceType
-
+    and the device's idle share of that window (host clock). A kernel
+    launched inside a span of SPAN_LABELS (the box head, the DCN steps,
+    the grouped convs; the innermost, matched through the trace's launch
+    correlation) counts in the span's class, whatever its name."""
     images, sizes = request(seed, BATCH, HW, SIZE)
     eval_fn(images, sizes)
     torch.cuda.synchronize()
     reqs = 3
     prof, wall_us = _profiled(model, eval_fn, images, sizes, reqs)
-    events = prof.events()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and e.name != BOX_SPAN]
+    events = trace_events(prof)
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+             if e.get("cat") == "user_annotation"
+             and e.get("name") in SPAN_LABELS]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    kernels = [e for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not kernels:
         print(json.dumps({"phase": "profile", "path": what,
                           "device_time": "not measured", "card": name}))
-        return
-    by_class, by_name, spans = {}, {}, []
-    for e in kernels:
-        ms = e.time_range.elapsed_us() / reqs / 1e3
-        spans.append((e.time_range.start, e.time_range.end))
-        label = kernel_class(e.name)
+        return None
+
+    def span_of(t):
+        inside = [(b - a, span) for a, b, span in spans if a <= t <= b]
+        return min(inside)[1] if inside else None
+
+    by_class, by_name, by_span, intervals = {}, {}, {}, []
+    for k in kernels:
+        ms = k["dur"] / reqs / 1e3
+        at = launched.get(k.get("args", {}).get("correlation"))
+        span = span_of(at) if at is not None else None
+        label = SPAN_LABELS[span] if span else kernel_class(k["name"])
         by_class[label] = by_class.get(label, 0.0) + ms
-        by_name[e.name] = by_name.get(e.name, 0.0) + ms
-    cpu = [e for e in events if e.device_type == DeviceType.CPU]
-    box_spans = [(e.time_range.start, e.time_range.end) for e in cpu
-                 if e.name == BOX_SPAN]
-    box_by_name = {}
-    for e in cpu:  # each kernel is listed under the one op that launched it
-        if any(a <= e.time_range.start <= b for a, b in box_spans):
-            for k in e.kernels:
-                if k.name != BOX_SPAN:
-                    box_by_name[k.name] = (box_by_name.get(k.name, 0.0)
-                                           + k.duration / reqs / 1e3)
-    for k, ms in box_by_name.items():  # move them to the box head class
-        by_class[kernel_class(k)] = by_class.get(kernel_class(k), 0.0) - ms
-        by_class[BOX_LABEL] = by_class.get(BOX_LABEL, 0.0) + ms
-    busy = _union_us(spans)
+        by_name[k["name"]] = by_name.get(k["name"], 0.0) + ms
+        if span:
+            names = by_span.setdefault(span, {})
+            names[k["name"]] = names.get(k["name"], 0.0) + ms
+        intervals.append((k["ts"], k["ts"] + k["dur"]))
+    busy = _union_us(intervals)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {
         "phase": "profile", "path": what, "requests": reqs, "batch": BATCH,
@@ -1825,14 +1931,156 @@ def phase_profile(model, eval_fn, seed, what, name):
         "device_idle_share": 1.0 - busy / wall_us,
         "top_kernels_ms": {k[:100]: v for k, v in top},
     }
-    if box_spans:
+    if BOX_SPAN in {span for _, _, span in spans}:
+        box_by_name = by_span.get(BOX_SPAN, {})
         out["box_head"] = "not measured" if not box_by_name else {
             "kernels_ms": {k[:100]: v for k, v in sorted(
                 box_by_name.items(), key=lambda kv: -kv[1])[:6]},
             "gemm_ms": sum(v for k, v in box_by_name.items()
                            if "gemm" in k.lower()),
         }
+    dcn_spans = sorted(s for s in by_span if s.startswith("dcn_"))
+    if dcn_spans:
+        dcn_ms = sum(by_class[SPAN_LABELS[s]] for s in dcn_spans)
+        out["dcn"] = {
+            "ms_per_request": dcn_ms,
+            "share_of_kernel_time": dcn_ms / sum(by_class.values()),
+            "kernels_ms": {s: {k[:80]: v for k, v in sorted(
+                by_span[s].items(), key=lambda kv: -kv[1])[:4]}
+                for s in dcn_spans},
+        }
     print(json.dumps({**out, "card": name}))
+    return out
+
+
+def phase_dcnv2_main_path(dev):
+    """The X-152 dcnv2 main path: paa_dcnv2_X_152_32x8d_FPN_2x at full
+    width (32x8d ResNeXt, R-152 depth, modulated DCN in stages 3-5 and
+    the towers' last conv) in bfloat16, weights from seed 0, cls bias
+    from seed 1, offset convs from seed 2, serving three 8 x 800 x 1344
+    requests through make_eval_fn: K1 once and K3 40 times per request;
+    peak device memory over the three."""
+    model = seeded_dcnv2("bfloat16", dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eval_fn, launches = serve(
+        model, "dcnv2_x152_main_path", 70,
+        {"nms_batched": 3, "nms_global": 0, "group_norm_relu": 120}, 0.0)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    params = sum(p.numel() for p in model.module.parameters())
+    print(json.dumps({"phase": "dcnv2_x152_main_path",
+                      "peak_memory_gb": peak, "params_m": params / 1e6}))
+    return model, eval_fn, launches
+
+
+DCN_SHAPES = [  # name, channels, (H, W), groups, head tower conv
+    ("stage3", 512, (100, 168), 32, False),
+    ("stage4", 1024, (50, 84), 32, False),
+    ("tower_p3", 256, (100, 168), 1, True),
+]
+
+
+def phase_dcn_card_vs_cpu(dev):
+    """One DeformConv (offset conv from seed, as in the main path) at the
+    main path's stage-3, stage-4 and P3 tower shapes, B=1, on the card
+    against the CPU: float32 (TF32 off) within rtol = atol = 2e-4, and
+    bfloat16 on the card within DCN_BF16_REL of the CPU's float32
+    output's largest magnitude."""
+    from paa_tpu_torch.modeling.layers import reset_parameters
+    from paa_tpu_torch.ops.dcn import DeformConv
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for i, (what, c, hw, groups, tower) in enumerate(DCN_SHAPES):
+        conv = DeformConv(c, c, groups=groups, bias=tower,
+                          normal_std=0.01 if tower else None)
+        gen = torch.Generator().manual_seed(100 + i)
+        reset_parameters(conv, gen)
+        seed_offset_convs(conv, 200 + i)
+        if tower:
+            with torch.no_grad():
+                conv.bias.normal_(0.0, 0.1, generator=gen)
+        x = torch.randn((1, c, *hw), generator=gen)
+        with torch.inference_mode():
+            want = conv(x)
+            conv.to(dev)
+            got32 = conv(x.to(dev)).cpu()
+            conv.dtype = torch.bfloat16
+            got16 = conv(x.to(dev)).float().cpu()
+        err32 = (got32 - want).abs()
+        check(bool((err32 <= 2e-4 + 2e-4 * want.abs()).all()),
+              f"dcn_card_vs_cpu {what}: float32 max err "
+              f"{float(err32.max())}")
+        rel16 = float((got16 - want).abs().max() / want.abs().max())
+        check(rel16 <= DCN_BF16_REL,
+              f"dcn_card_vs_cpu {what}: bfloat16 rel err {rel16}")
+        out[what] = {"channels": c, "hw": hw, "groups": groups,
+                     "f32_max_abs_err": float(err32.max()),
+                     "bf16_rel_err": rel16}
+    print(json.dumps({"phase": "dcn_card_vs_cpu", "ok": True,
+                      "bf16_bound": DCN_BF16_REL, "shapes": out}))
+
+
+def phase_dcnv2_card_vs_cpu(dev):
+    card_vs_cpu(dev, seeded_dcnv2, lambda m, x: m.module(x),
+                "dcnv2_card_vs_cpu")
+
+
+def offset_stats(model, images, sizes):
+    """Per DCN layer of one forward: the mean and largest |offset| and
+    the share of samples whose centre lies off the image (zero)."""
+    from paa_tpu_torch.ops import dcn
+
+    plain, stats = dcn.deform_conv2d, []
+
+    def spy(x, offsets, mask, weight, stride, padding, dilation, groups,
+            dg):
+        h, w = x.shape[2:]
+        kh, kw = weight.shape[2:]
+        _, _, cw = dcn._geometry(offsets, mask, h, w, kh, kw, stride,
+                                 padding, dilation, dg)
+        stats.append((float(offsets.abs().mean()),
+                      float(offsets.abs().max()),
+                      float((cw.sum(-1) == 0).float().mean())))
+        return plain(x, offsets, mask, weight, stride, padding, dilation,
+                     groups, dg)
+
+    dcn.deform_conv2d = spy
+    try:
+        model.make_eval_fn()(images[:1], sizes[:1])
+    finally:
+        dcn.deform_conv2d = plain
+    backbone, tower = stats[:-10], stats[-10:]
+    return {"layers": len(stats),
+            "backbone_mean_abs_offset": sum(s[0] for s in backbone)
+            / len(backbone),
+            "backbone_max_abs_offset": max(s[1] for s in backbone),
+            "backbone_off_image_share": sum(s[2] for s in backbone)
+            / len(backbone),
+            "tower_mean_abs_offset": sum(s[0] for s in tower) / len(tower),
+            "tower_off_image_share": sum(s[2] for s in tower) / len(tower)}
+
+
+def phase_dcnv2_timing(dev, model, eval_fn, name):
+    """img/s and ms per request of the X-152 dcnv2 path (host clock around
+    synchronized requests, as e2e_rate), its offsets at full width and
+    its profile. The DCN offset convs are the path's only float32
+    convolutions, so cuDNN's TF32 switch moves them: the path is timed
+    with it off, as the phases after phase 4 run, and with torch's
+    default (on), as a user serving the model runs it; the profile is
+    taken with the default."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        e2e_rate(eval_fn, 80, "paa_dcnv2_x152 (cuDNN TF32 off)", name, dev)
+        torch.backends.cudnn.allow_tf32 = True
+        images, sizes = e2e_rate(eval_fn, 80, "paa_dcnv2_x152", name, dev)
+        print(json.dumps({"phase": "dcnv2_x152_offsets",
+                          **offset_stats(model, images, sizes),
+                          "card": name}))
+        phase_profile(model, eval_fn, 90, "paa_dcnv2_x152", name)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
 
 
 SYNTH_CATALOG = os.path.join(ROOT, "paa_tpu_torch", "tools",
@@ -2380,6 +2628,8 @@ def main():
                "paa_eval": eval_launches["nms_batched"]}
     k1.update(launches=sum(by_path.values()), launches_by_path=by_path,
               faster_rcnn_rpn=k1_rpn)
+    by_path = {"faster_rcnn": frcnn_launches["nms_global"]}
+    k2.update(launches=sum(by_path.values()), launches_by_path=by_path)
     # K3 serves PAA's serving, eval and training paths: its times are per
     # serving forward (B=8), with the training forward's (B=16) beside
     by_path = {"paa": paa_launches["group_norm_relu"],
@@ -2391,15 +2641,28 @@ def main():
     phase_train_profile(trained, state, batch, name)
     del paa, paa_eval, frcnn, frcnn_eval, trained, state, batch
     torch.cuda.empty_cache()
+    # the X-152 dcnv2 path after the others' timings, so that its model
+    # and its cached blocks are not resident while they are timed
+    dcnv2, dcnv2_eval, dcnv2_launches = phase_dcnv2_main_path(dev)
+    phase_dcn_card_vs_cpu(dev)
+    phase_dcnv2_card_vs_cpu(dev)
+    phase_dcnv2_timing(dev, dcnv2, dcnv2_eval, name)
+    del dcnv2, dcnv2_eval
+    torch.cuda.empty_cache()
     gate_launches = phase_ap_gate(dev, name)
     train_net_launches = phase_train_net_from_pkl(dev, name)
     phase_ddp_two_ranks(dev, name)
-    for kernel, key in ((k1, "nms_batched"), (k3, "group_norm_relu")):
+    for kernel, key in ((k1, "nms_batched"), (k2, "nms_global"),
+                        (k3, "group_norm_relu")):
         by_path = dict(kernel["launches_by_path"],
-                       ap_gate=gate_launches[key],
-                       train_net=train_net_launches[key])
+                       paa_dcnv2_x152=dcnv2_launches[key])
+        if kernel is not k2:
+            by_path.update(ap_gate=gate_launches[key],
+                           train_net=train_net_launches[key])
         kernel.update(launches=sum(by_path.values()),
                       launches_by_path=by_path)
+    print(json.dumps({"phase": "script", "wall_s":
+                      time.perf_counter() - t0, "card": name}))
     print(name)
     print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {

@@ -17,41 +17,57 @@ from torch import nn
 from ..ops.group_norm import group_norm_relu
 
 
+def init_conv_weight(weight, normal_std, generator):
+    """A conv weight (O, C/groups, kh, kw) as the JAX package initialises
+    it: kaiming-uniform (a=1, bound sqrt(3 / fan_in), fan_in =
+    C/groups*kh*kw) when ``normal_std`` is None, else normal(std)."""
+    if normal_std is None:
+        bound = math.sqrt(3.0 / weight[0].numel())
+        weight.uniform_(-bound, bound, generator=generator)
+    else:
+        weight.normal_(0.0, normal_std, generator=generator)
+
+
 class Conv(nn.Module):
     """Conv2d with torch-style explicit padding, float32 parameters and a
-    compute dtype. Initialised as the JAX package does: kaiming-uniform
-    (a=1, bound sqrt(3 / fan_in)) by default, normal(std) when
-    ``normal_std`` is given; bias zero or ``bias_value``."""
+    compute dtype; ``groups`` (ResNeXt) and ``dilation`` as in
+    ``F.conv2d``. Initialised as the JAX package does: kaiming-uniform
+    (a=1, bound sqrt(3 / fan_in), fan_in = cin / groups * kh * kw, the
+    JAX HWIO kernel's fan-in) by default, normal(std) when
+    ``normal_std`` is given, zero with ``zero_init`` (DCN offset convs);
+    bias zero or ``bias_value``."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, bias=False, dtype=torch.float32,
-                 normal_std=None, bias_value=0.0):
+                 normal_std=None, bias_value=0.0, groups=1, dilation=1,
+                 zero_init=False):
         super().__init__()
         self.stride = stride
         self.padding = padding
+        self.groups = groups
+        self.dilation = dilation
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(
-            out_channels, in_channels, kernel_size, kernel_size))
+            out_channels, in_channels // groups, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
         self.normal_std = normal_std
         self.bias_value = bias_value
+        self.zero_init = zero_init
 
     def reset_parameters(self, generator):
         with torch.no_grad():
-            if self.normal_std is None:
-                fan_in = self.weight[0].numel()
-                bound = math.sqrt(3.0 / fan_in)
-                self.weight.uniform_(-bound, bound, generator=generator)
+            if self.zero_init:
+                self.weight.zero_()
             else:
-                self.weight.normal_(0.0, self.normal_std,
-                                    generator=generator)
+                init_conv_weight(self.weight, self.normal_std, generator)
             if self.bias is not None:
                 self.bias.fill_(self.bias_value)
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), bias,
-                        self.stride, self.padding)
+                        self.stride, self.padding, self.dilation,
+                        self.groups)
 
 
 class Linear(nn.Module):
@@ -134,9 +150,11 @@ def max_pool_3x3_s2(x):
 
 
 def reset_parameters(module, generator):
-    """Initialise every ``Conv`` and ``Linear`` under ``module`` from
-    ``generator``, in module order; norms and scales keep their
-    constructor values."""
+    """Initialise every ``Conv``, ``Linear`` and ``DeformConv`` under
+    ``module`` from ``generator``, in module order; norms and scales keep
+    their constructor values."""
+    from ..ops.dcn import DeformConv  # ops/dcn.py imports this module
+
     for m in module.modules():
-        if isinstance(m, (Conv, Linear)):
+        if isinstance(m, (Conv, Linear, DeformConv)):
             m.reset_parameters(generator)

@@ -3,7 +3,9 @@ paa_core/modeling/rpn/paa/paa.py:15-108): shared 4-conv cls and bbox
 towers of [3x3 conv, GroupNorm(32)+ReLU] over all FPN levels,
 ``cls_logits`` (A*C), per-level ``Scale`` on ``bbox_pred`` (A*4) and the
 ``iou_pred`` (A*1) branch. Focal-prior bias on cls_logits; every head
-conv normal(0.01), bias 0.
+conv normal(0.01), bias 0. With USE_DCN_IN_TOWER the last conv of each
+tower is a modulated deformable conv with bias (ops/dcn.py), followed by
+GroupNorm+ReLU as the others.
 
 Outputs are flattened per level to (B, H*W*A, K) in the y, x, anchor
 order of the anchor grid: the NCHW maps are permuted to NHWC before the
@@ -17,19 +19,24 @@ import math
 import torch
 from torch import nn
 
+from ..ops import dcn  # ops/dcn.py imports .layers: bind the module
 from .layers import Conv, GroupNorm32, Scale
 
 _HEAD_STD = 0.01
 
 
 class ConvTower(nn.Module):
-    """num_convs x [3x3 conv, GN(32)+ReLU], shared across levels."""
+    """num_convs x [3x3 conv, GN(32)+ReLU], shared across levels; the
+    last conv deformable (modulated, with bias) when ``use_dcn_last``."""
 
-    def __init__(self, channels, num_convs=4, dtype=torch.float32):
+    def __init__(self, channels, num_convs=4, use_dcn_last=False,
+                 dtype=torch.float32):
         super().__init__()
         self.num_convs = num_convs
         for i in range(num_convs):
-            self.add_module(f"conv{i}", Conv(
+            last = use_dcn_last and i == num_convs - 1
+            conv = dcn.DeformConv if last else Conv
+            self.add_module(f"conv{i}", conv(
                 channels, channels, 3, padding=1, bias=True, dtype=dtype,
                 normal_std=_HEAD_STD))
             self.add_module(f"gn{i}", GroupNorm32(channels))
@@ -43,12 +50,14 @@ class ConvTower(nn.Module):
 class PAAHead(nn.Module):
     def __init__(self, num_classes, num_anchors=1, in_channels=256,
                  num_convs=4, num_levels=5, prior_prob=0.01,
-                 dtype=torch.float32):
+                 use_dcn_in_tower=False, dtype=torch.float32):
         super().__init__()
         self.num_classes = num_classes  # WITHOUT background
         self.num_levels = num_levels
-        self.cls_tower = ConvTower(in_channels, num_convs, dtype=dtype)
-        self.bbox_tower = ConvTower(in_channels, num_convs, dtype=dtype)
+        self.cls_tower = ConvTower(in_channels, num_convs, use_dcn_in_tower,
+                                   dtype=dtype)
+        self.bbox_tower = ConvTower(in_channels, num_convs, use_dcn_in_tower,
+                                    dtype=dtype)
         bias_value = -math.log((1 - prior_prob) / prior_prob)
         self.cls_logits = Conv(
             in_channels, num_anchors * num_classes, 3, padding=1, bias=True,
@@ -88,10 +97,10 @@ class PAAHead(nn.Module):
 
 def paa_head_from_cfg(cfg, dtype=torch.float32):
     p = cfg.MODEL.PAA
-    if p.USE_DCN_IN_TOWER or not p.USE_IOU_PRED:
+    if not p.USE_IOU_PRED:
         raise NotImplementedError(
-            "paa_tpu_torch ports the PAA head of the configs: no DCN tower, "
-            "with the iou_pred branch")
+            "paa_tpu_torch ports the PAA head of the configs: with the "
+            "iou_pred branch")
     return PAAHead(
         num_classes=p.NUM_CLASSES - 1,
         num_anchors=len(p.ASPECT_RATIOS) * p.SCALES_PER_OCTAVE,
@@ -99,5 +108,6 @@ def paa_head_from_cfg(cfg, dtype=torch.float32):
         num_convs=p.NUM_CONVS,
         num_levels=len(p.ANCHOR_STRIDES),
         prior_prob=p.PRIOR_PROB,
+        use_dcn_in_tower=p.USE_DCN_IN_TOWER,
         dtype=dtype,
     )

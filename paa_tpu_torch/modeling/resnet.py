@@ -1,8 +1,11 @@
-"""ResNet backbone (port of paa_tpu/modeling/resnet.py), cut to what
-the PAA and Faster R-CNN R-50 and R-101 FPN configs without DCN run:
-FrozenBatchNorm, stride in the 1x1, no groups, no dilation and no DCN.
-The space-to-depth stem is a TPU lowering and is not ported. Returns
-C2..C5 in NCHW.
+"""ResNet / ResNeXt backbone (port of paa_tpu/modeling/resnet.py) with
+FrozenBatchNorm: the FPN bodies R-50, R-101 and R-152, ResNeXt grouped
+3x3 convs (NUM_GROUPS x WIDTH_PER_GROUP), the stride in the 1x1 or in
+the 3x3 (STRIDE_IN_1X1), a dilated res5 (RES5_DILATION) and deformable
+3x3 convs per stage (STAGE_WITH_DCN, v1 or modulated v2,
+DEFORMABLE_GROUPS; ops/dcn.py). The space-to-depth stem is a TPU
+lowering and is not ported; GroupNorm and SyncBN bodies and the C4/C5
+bodies are not ported yet. Returns C2..C5 in NCHW.
 
 ``freeze_at`` (MODEL.BACKBONE.FREEZE_CONV_BODY_AT) freezes the stem
 (stage 0) and ``layer{i}_*`` for i < freeze_at, as the reference's
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import dcn  # ops/dcn.py imports .layers: bind the module
 from .layers import Conv, FrozenBatchNorm, max_pool_3x3_s2
 
 # (block counts per stage, return_features per stage)
@@ -26,6 +30,8 @@ STAGE_SPECS = {
     "R-50-FPN-RETINANET": ((3, 4, 6, 3), (True, True, True, True)),
     "R-101-FPN": ((3, 4, 23, 3), (True, True, True, True)),
     "R-101-FPN-RETINANET": ((3, 4, 23, 3), (True, True, True, True)),
+    "R-152-FPN": ((3, 8, 36, 3), (True, True, True, True)),
+    "R-152-FPN-RETINANET": ((3, 8, 36, 3), (True, True, True, True)),
 }
 
 
@@ -43,16 +49,31 @@ class Stem(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """1x1 (stride) -> 3x3 -> 1x1 with residual (resnet.py:238-341)."""
+    """1x1 -> 3x3 (groups, stride or dilation, optionally deformable) ->
+    1x1 with residual (resnet.py:238-341). With a dilation above 1 the
+    block does not stride (resnet.py:111-114)."""
 
     def __init__(self, in_channels, bottleneck_channels, out_channels,
-                 stride=1, dtype=torch.float32):
+                 stride=1, num_groups=1, stride_in_1x1=True, dilation=1,
+                 with_dcn=False, with_modulated_dcn=False,
+                 deformable_groups=1, dtype=torch.float32):
         super().__init__()
-        self.conv1 = Conv(in_channels, bottleneck_channels, 1, stride=stride,
-                          dtype=dtype)
+        stride = 1 if dilation > 1 else stride
+        stride_1x1, stride_3x3 = (stride, 1) if stride_in_1x1 else (1, stride)
+        self.conv1 = Conv(in_channels, bottleneck_channels, 1,
+                          stride=stride_1x1, dtype=dtype)
         self.bn1 = FrozenBatchNorm(bottleneck_channels)
-        self.conv2 = Conv(bottleneck_channels, bottleneck_channels, 3,
-                          padding=1, dtype=dtype)
+        if with_dcn:
+            self.conv2 = dcn.DeformConv(
+                bottleneck_channels, bottleneck_channels, 3,
+                stride=stride_3x3, padding=dilation, dilation=dilation,
+                groups=num_groups, deformable_groups=deformable_groups,
+                modulated=with_modulated_dcn, dtype=dtype)
+        else:
+            self.conv2 = Conv(bottleneck_channels, bottleneck_channels, 3,
+                              stride=stride_3x3, padding=dilation,
+                              dtype=dtype, groups=num_groups,
+                              dilation=dilation)
         self.bn2 = FrozenBatchNorm(bottleneck_channels)
         self.conv3 = Conv(bottleneck_channels, out_channels, 1, dtype=dtype)
         self.bn3 = FrozenBatchNorm(out_channels)
@@ -75,11 +96,15 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """Config-shaped ResNet body returning [C2, C3, C4, C5]. Blocks are
-    named ``layer{stage}_{block}`` like the flax scopes."""
+    named ``layer{stage}_{block}`` like the flax scopes; the bottleneck
+    of stage i is num_groups * width_per_group * 2**i wide."""
 
-    def __init__(self, body="R-50-FPN-RETINANET", width_per_group=64,
-                 stem_out_channels=64, res2_out_channels=256,
-                 dtype=torch.float32, freeze_at=0):
+    def __init__(self, body="R-50-FPN-RETINANET", num_groups=1,
+                 width_per_group=64, stem_out_channels=64,
+                 res2_out_channels=256, stride_in_1x1=True,
+                 stage_with_dcn=(False, False, False, False),
+                 with_modulated_dcn=False, deformable_groups=1,
+                 res5_dilation=1, dtype=torch.float32, freeze_at=0):
         super().__init__()
         self.block_counts, self.return_features = STAGE_SPECS[body]
         self.stem = Stem(stem_out_channels, dtype=dtype)
@@ -90,8 +115,13 @@ class ResNet(nn.Module):
             for b in range(count):
                 stride = (1 if i == 0 else 2) if b == 0 else 1
                 self.add_module(f"layer{i + 1}_{b}", Bottleneck(
-                    in_channels, width_per_group * factor, out_channels,
-                    stride=stride, dtype=dtype,
+                    in_channels, num_groups * width_per_group * factor,
+                    out_channels, stride=stride, num_groups=num_groups,
+                    stride_in_1x1=stride_in_1x1,
+                    dilation=res5_dilation if i == 3 else 1,
+                    with_dcn=i < len(stage_with_dcn) and stage_with_dcn[i],
+                    with_modulated_dcn=with_modulated_dcn,
+                    deformable_groups=deformable_groups, dtype=dtype,
                 ))
                 in_channels = out_channels
         frozen = [self.stem] if freeze_at >= 1 else []
@@ -116,10 +146,6 @@ def resnet_from_cfg(cfg, dtype=torch.float32):
     r = cfg.MODEL.RESNETS
     unsupported = {
         "TRANS_FUNC": r.TRANS_FUNC != "BottleneckWithFixedBatchNorm",
-        "NUM_GROUPS": r.NUM_GROUPS != 1,
-        "STRIDE_IN_1X1": not r.STRIDE_IN_1X1,
-        "RES5_DILATION": r.RES5_DILATION != 1,
-        "STAGE_WITH_DCN": any(r.STAGE_WITH_DCN),
         "USE_SYNCBN": cfg.MODEL.USE_SYNCBN,
     }
     bad = [k for k, v in unsupported.items() if v]
@@ -131,9 +157,15 @@ def resnet_from_cfg(cfg, dtype=torch.float32):
         )
     return ResNet(
         body=cfg.MODEL.BACKBONE.CONV_BODY,
+        num_groups=r.NUM_GROUPS,
         width_per_group=r.WIDTH_PER_GROUP,
         stem_out_channels=r.STEM_OUT_CHANNELS,
         res2_out_channels=r.RES2_OUT_CHANNELS,
+        stride_in_1x1=r.STRIDE_IN_1X1,
+        stage_with_dcn=tuple(r.STAGE_WITH_DCN),
+        with_modulated_dcn=r.WITH_MODULATED_DCN,
+        deformable_groups=r.DEFORMABLE_GROUPS,
+        res5_dilation=r.RES5_DILATION,
         dtype=dtype,
         freeze_at=cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT,
     )

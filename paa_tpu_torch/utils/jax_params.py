@@ -7,8 +7,12 @@ the flax scope names (``backbone.resnet.stem.conv1``,
 ``head.cls_tower.gn0``, ``head.scale3``, ...), so the walk is
 mechanical; only the leaves change form:
 
-- a conv ``kernel`` (kh, kw, cin, cout) becomes ``weight``
-  (cout, cin, kh, kw); ``bias`` stays ``bias``;
+- a conv ``kernel`` (kh, kw, cin/groups, cout) becomes ``weight``
+  (cout, cin/groups, kh, kw); ``bias`` stays ``bias``;
+- a ``DeformConv`` keeps its sampled conv's ``kernel`` (and ``bias``)
+  beside a child conv ``offset`` (flax's ``conv2/{kernel, offset/{kernel,
+  bias}}``): the kernel becomes ``weight`` as a conv's, and ``offset``
+  is walked as a conv;
 - a dense ``kernel`` (in, out) becomes ``Linear.weight`` (out, in). The
   box head's fc6 reads ROI features flattened in (7, 7, C) order in both
   packages (ops/roi_align.py pools them channels-last), so its rows need
@@ -31,6 +35,7 @@ import torch
 
 from ..modeling.layers import (
     Conv, FrozenBatchNorm, GroupNorm32, Linear, Scale)
+from ..ops import dcn  # ops/dcn.py imports modeling: bind the module
 
 
 def _leaves(mod, tree, path):
@@ -41,11 +46,16 @@ def _leaves(mod, tree, path):
                 f"{path}: JAX leaves {sorted(tree)} vs port {sorted(expected)}"
             )
 
-    if isinstance(mod, Conv):
-        keys(["kernel"] + (["bias"] if mod.bias is not None else []))
+    if isinstance(mod, (Conv, dcn.DeformConv)):
+        children = ["offset"] if isinstance(mod, dcn.DeformConv) else []
+        keys(["kernel"] + (["bias"] if mod.bias is not None else [])
+             + children)
         out = [("weight", np.transpose(tree["kernel"], (3, 2, 0, 1)))]
         if mod.bias is not None:
             out.append(("bias", tree["bias"]))
+        out += [(f"{c}.{name}", value) for c in children
+                for name, value in _leaves(mod.offset, tree[c],
+                                           f"{path}/{c}")]
         return out
     if isinstance(mod, Linear):
         keys(["kernel", "bias"])

@@ -4,10 +4,18 @@ paa_core/utils/{c2_model_loading,model_serialization,checkpoint}.py).
 
 - ``load_torch_state_dict(module, state_dict)``: a ``paa_core`` state
   dict (the released PAA_R_50_FPN_1x ``.pth``, a Faster R-CNN
-  R-50-FPN one) -> the port's module, for the R-50/R-101 bodies, both
-  FPN wirings, the PAA head, the RPN head and the FPN2MLP box head.
+  R-50-FPN one, the dcnv2 and ResNeXt PAA ones) -> the port's module,
+  for the R-50/R-101/R-152 and ResNeXt bodies with or without DCN, both
+  FPN wirings, the PAA head (DCN tower included), the RPN head and the
+  FPN2MLP box head.
 - ``load_c2_pickle(module, path)``: a Detectron ``.pkl`` (an ImageNet
   body, or a Caffe2Detectron detection model's FPN, RPN and box head).
+  A DCN block's sampled conv takes the plain ``branch2b`` blob; its
+  offset conv has no blob and keeps its zero init, as DFConv2d's does
+  (the reference renames conv2 to conv2.conv, c2_model_loading.py:
+  148-166). A body deeper than the pickle's (the X-152 config loads
+  X-101 weights) keeps its init in the blocks the pickle lacks, which
+  come back in ``unwritten``.
 - ``load_pretrained_into(cfg, module, weight)``: the DetectronCheckpointer
   dispatch on ``MODEL.WEIGHT`` (``catalog://``, ``http(s)://``, ``.pkl``,
   else a torch checkpoint).
@@ -52,6 +60,13 @@ _RULES = [
      (r"backbone.resnet.stem.\1",), "copy"),
     (r"backbone\.body\.layer(\d)\.(\d+)\.(conv\d\.weight|bn\d\.\w+)",
      (r"backbone.resnet.layer\1_\2.\3",), "copy"),
+    # a DCN block's DFConv2d (layers/misc.py:113-185): the sampled conv
+    # under ``.conv``, the offset conv under ``.offset``; the port's
+    # DeformConv keeps the former's weight on conv2 itself
+    (r"backbone\.body\.layer(\d)\.(\d+)\.conv2\.conv\.weight",
+     (r"backbone.resnet.layer\1_\2.conv2.weight",), "copy"),
+    (r"backbone\.body\.layer(\d)\.(\d+)\.conv2\.offset\.(weight|bias)",
+     (r"backbone.resnet.layer\1_\2.conv2.offset.\3",), "copy"),
     (r"backbone\.body\.layer(\d)\.(\d+)\.downsample\.0\.weight",
      (r"backbone.resnet.layer\1_\2.downsample_conv.weight",), "copy"),
     (r"backbone\.body\.layer(\d)\.(\d+)\.downsample\.1\.(\w+)",
@@ -74,7 +89,10 @@ _RULES = [
      (r"box_head.\1.\2",), "copy"),
 ]
 _RULES = [(re.compile(p), t, k) for p, t, k in _RULES]
-_TOWER = re.compile(r"rpn\.head\.(cls_tower|bbox_tower)\.(\d+)\.(weight|bias)")
+# the towers' Sequential slots; a DCN tower conv (USE_DCN_IN_TOWER) is a
+# DFConv2d with ``.conv`` and ``.offset`` children
+_TOWER = re.compile(r"rpn\.head\.(cls_tower|bbox_tower)\.(\d+)\."
+                    r"(?:(conv|offset)\.)?(weight|bias)")
 
 
 def torch_name_to_port_keys(name):
@@ -86,12 +104,13 @@ def torch_name_to_port_keys(name):
         name = name[len("module."):]
     m = _TOWER.fullmatch(name)
     if m:
-        tower, idx, leaf = m.groups()
+        tower, idx, child, leaf = m.groups()
         block, within = divmod(int(idx), 3)
-        if within == 2:  # the ReLU: no parameters
+        if within == 2 or (child and within):  # the ReLU has no parameters
             return []
         sub = "conv" if within == 0 else "gn"
-        return [(f"head.{tower}.{sub}{block}.{leaf}", "copy")]
+        offset = ".offset" if child == "offset" else ""
+        return [(f"head.{tower}.{sub}{block}{offset}.{leaf}", "copy")]
     for pattern, templates, kind in _RULES:
         m = pattern.fullmatch(name)
         if m:

@@ -6,11 +6,17 @@ share it.
 - ``paa_core`` state dicts (``{"model": state_dict}`` ``.pth`` files):
   the R-50/R-101 body (modeling/backbone/resnet.py: ``stem.conv1``,
   ``stem.bn1``, ``layer{1..4}.{b}.conv{1..3}``/``bn{1..3}``,
-  ``downsample.0``/``.1`` on each stage's first block), the FPN
+  ``downsample.0``/``.1`` on each stage's first block; ResNeXt's conv2
+  of shape (mid, mid / groups, 3, 3); R-152's (3, 8, 36, 3) blocks; in a
+  DCN stage, conv2 a DFConv2d, layers/misc.py:113-185, with the sampled
+  conv under ``conv2.conv`` and the offset conv, dg * 9 * 3 outputs
+  when modulated, else dg * 9 * 2, with a bias, under ``conv2.offset``),
+  the FPN
   (fpn.py: ``fpn_inner{k}``/``fpn_layer{k}`` with k counted from 1
   over the body's stages, so 2..4 when the RetinaNet wiring skips C2,
   and ``top_blocks.p6``/``p7``), the PAA head (rpn/paa/paa.py: towers
-  as ``Sequential``s of [conv, GroupNorm, ReLU] x 4, ``cls_logits``,
+  as ``Sequential``s of [conv, GroupNorm, ReLU] x 4, the last conv a
+  modulated DFConv2d with bias under USE_DCN_IN_TOWER, ``cls_logits``,
   ``bbox_pred``, ``iou_pred``, ``scales.{l}.scale`` of shape (1,)), the
   RPN head (rpn/rpn.py: ``conv``, ``cls_logits``, ``bbox_pred``) and the
   FPN2MLP box head (roi_box_feature_extractors.py ``fc6``/``fc7``, fc6
@@ -28,7 +34,8 @@ from collections import OrderedDict
 
 import numpy as np
 
-BLOCKS = {"R-50": (3, 4, 6, 3), "R-101": (3, 4, 23, 3)}
+BLOCKS = {"R-50": (3, 4, 6, 3), "R-101": (3, 4, 23, 3),
+          "R-152": (3, 8, 36, 3)}
 
 
 def _bn(out, prefix, channels):
@@ -36,19 +43,35 @@ def _bn(out, prefix, channels):
         out[f"{prefix}.{leaf}"] = (channels,)
 
 
-def resnet_keys(blocks, stem_out=64, res2_out=256, width=64):
-    """The body's keys and shapes (stride in the 1x1, no groups)."""
+def _dfconv(out, prefix, cin, cout, groups, dg, modulated, bias):
+    """A DFConv2d's keys: the sampled conv and the offset conv."""
+    out[f"{prefix}.conv.weight"] = (cout, cin // groups, 3, 3)
+    if bias:
+        out[f"{prefix}.conv.bias"] = (cout,)
+    out[f"{prefix}.offset.weight"] = (dg * 9 * (3 if modulated else 2),
+                                      cin, 3, 3)
+    out[f"{prefix}.offset.bias"] = (dg * 9 * (3 if modulated else 2),)
+
+
+def resnet_keys(blocks, stem_out=64, res2_out=256, width=64, groups=1,
+                stage_with_dcn=(False,) * 4, modulated=False, dg=1):
+    """The body's keys and shapes (either stride placement: it moves no
+    tensor)."""
     out = OrderedDict()
     out["backbone.body.stem.conv1.weight"] = (stem_out, 3, 7, 7)
     _bn(out, "backbone.body.stem.bn1", stem_out)
     cin = stem_out
     for i, count in enumerate(blocks):
-        mid, cout = width * 2 ** i, res2_out * 2 ** i
+        mid, cout = groups * width * 2 ** i, res2_out * 2 ** i
         for b in range(count):
             p = f"backbone.body.layer{i + 1}.{b}"
             out[f"{p}.conv1.weight"] = (mid, cin, 1, 1)
             _bn(out, f"{p}.bn1", mid)
-            out[f"{p}.conv2.weight"] = (mid, mid, 3, 3)
+            if stage_with_dcn[i]:
+                _dfconv(out, f"{p}.conv2", mid, mid, groups, dg, modulated,
+                        bias=False)
+            else:
+                out[f"{p}.conv2.weight"] = (mid, mid // groups, 3, 3)
             _bn(out, f"{p}.bn2", mid)
             out[f"{p}.conv3.weight"] = (cout, mid, 1, 1)
             _bn(out, f"{p}.bn3", cout)
@@ -76,14 +99,18 @@ def fpn_keys(retina, res2_out, channels):
 
 
 def paa_head_keys(channels, num_classes, num_anchors=1, num_convs=4,
-                  num_levels=5):
+                  num_levels=5, dcn_in_tower=False):
     """``num_classes`` without the background."""
     out = OrderedDict()
     for tower in ("cls_tower", "bbox_tower"):
         for i in range(num_convs):
             p = f"rpn.head.{tower}"
-            out[f"{p}.{3 * i}.weight"] = (channels, channels, 3, 3)
-            out[f"{p}.{3 * i}.bias"] = (channels,)
+            if dcn_in_tower and i == num_convs - 1:
+                _dfconv(out, f"{p}.{3 * i}", channels, channels, 1, 1, True,
+                        bias=True)
+            else:
+                out[f"{p}.{3 * i}.weight"] = (channels, channels, 3, 3)
+                out[f"{p}.{3 * i}.bias"] = (channels,)
             out[f"{p}.{3 * i + 1}.weight"] = (channels,)
             out[f"{p}.{3 * i + 1}.bias"] = (channels,)
     for name, n in (("cls_logits", num_anchors * num_classes),
@@ -131,14 +158,17 @@ def layout(cfg):
     body = m.BACKBONE.CONV_BODY
     retina = body.endswith("RETINANET")
     out = resnet_keys(BLOCKS[body.split("-FPN")[0]], r.STEM_OUT_CHANNELS,
-                      r.RES2_OUT_CHANNELS, r.WIDTH_PER_GROUP)
+                      r.RES2_OUT_CHANNELS, r.WIDTH_PER_GROUP, r.NUM_GROUPS,
+                      r.STAGE_WITH_DCN, r.WITH_MODULATED_DCN,
+                      r.DEFORMABLE_GROUPS)
     channels = r.BACKBONE_OUT_CHANNELS
     out.update(fpn_keys(retina, r.RES2_OUT_CHANNELS, channels))
     if m.PAA_ON:
         out.update(paa_head_keys(
             channels, m.PAA.NUM_CLASSES - 1,
             len(m.PAA.ASPECT_RATIOS) * m.PAA.SCALES_PER_OCTAVE,
-            m.PAA.NUM_CONVS, len(m.PAA.ANCHOR_STRIDES)))
+            m.PAA.NUM_CONVS, len(m.PAA.ANCHOR_STRIDES),
+            m.PAA.USE_DCN_IN_TOWER))
     else:
         out.update(rpn_head_keys(channels, len(m.RPN.ASPECT_RATIOS)))
         bh = m.ROI_BOX_HEAD
@@ -152,33 +182,42 @@ def seeded_state_dict(shapes, seed, cls_bias=(-2.5, 0.5)):
     an identity, so that a wrong mapping shows: weights kaiming-uniform
     (bound sqrt(3 / fan_in)), norm and Scale weights in [0.5, 1.5],
     running variances in [0.5, 2], means and biases normal(0, 0.1); the
-    PAA cls_logits bias in ``cls_bias``, so that detections exist."""
+    PAA cls_logits bias in ``cls_bias``, so that detections exist. A DCN
+    offset conv's weight at 0.02 of the kaiming bound and its bias
+    normal(0, 1.5): fractional offsets of a pixel or two, some samples
+    off the image (a trained offset conv's scale; at its zero init a DCN
+    layer is a plain conv with mask 0.5)."""
     rng = np.random.RandomState(seed)
     out = OrderedDict()
     for key, shape in shapes.items():
+        offset = ".offset." in key
         if key.endswith("running_var"):
             v = rng.uniform(0.5, 2.0, shape)
         elif key.endswith(".scale") or (key.endswith(".weight")
                                         and len(shape) == 1):
             v = rng.uniform(0.5, 1.5, shape)
         elif key.endswith(".weight"):
-            bound = np.sqrt(3.0 / np.prod(shape[1:]))
+            bound = np.sqrt(3.0 / np.prod(shape[1:])) * (0.02 if offset
+                                                         else 1.0)
             v = rng.uniform(-bound, bound, shape)
         elif key == "rpn.head.cls_logits.bias" and \
                 "rpn.head.iou_pred.bias" in shapes:  # PAA, not the RPN
             v = rng.uniform(*cls_bias, shape)
         else:
-            v = rng.normal(0.0, 0.1, shape)
+            v = rng.normal(0.0, 1.5 if offset else 0.1, shape)
         out[key] = v.astype(np.float32)
     return out
 
 
 def c2_body_name(key):
     """A reference body key -> its Detectron blob name; None for the
-    running statistics, which Detectron folds into s and b."""
+    running statistics, which Detectron folds into s and b, and for DCN
+    offset convs, which Detectron bodies do not have. A DCN block's
+    sampled conv is ``branch2b``."""
     parts = key.split(".")
     leaf = parts[-1]
-    if parts[:2] != ["backbone", "body"] or leaf.startswith("running"):
+    if parts[:2] != ["backbone", "body"] or leaf.startswith("running") \
+            or "offset" in parts:
         return None
     sb = {"weight": "s", "bias": "b"}
     if parts[2] == "stem":

@@ -1,8 +1,10 @@
 """Reference-checkpoint import of the PyTorch port against the JAX
 package, on the CPU, at the narrow configs of
-tests/test_torch_port_model.py (PAA-R50, BACKBONE_OUT_CHANNELS 64) and
+tests/test_torch_port_model.py (PAA-R50, BACKBONE_OUT_CHANNELS 64),
 tests/test_torch_port_two_stage.py (Faster R-CNN R-50-FPN, 64 channels,
-5 classes, MLP 64).
+5 classes, MLP 64) and a narrow dcnv2 ResNeXt PAA (8 groups x 4, stem 16,
+res2 64, modulated DCN in stages 3-5 and the towers' last conv, the JAX
+side sampling with TPU.DCN_MODE "gather").
 
 The reference's state-dict layout is written out from its module
 definitions in tests/reference_layout.py (not from either package's
@@ -23,6 +25,11 @@ name table) and filled from a numpy seed, no tensor at an identity.
   head; BatchNorm folded) made with tests/ref_torch.py's inverse rename
   lands on the same tensors through both packages' ``load_c2_pickle``;
   the running statistics keep 0 and 1.
+- A seeded X-101-32x8d ImageNet pickle at the X-152 dcnv2 config's
+  ``MODEL.WEIGHT`` (narrowed): the port leaves unwritten exactly the
+  tensors whose leaves ``paa_tpu`` leaves untouched (the offset convs,
+  ``layer2_4..7`` and ``layer3_23..35``, which X-101 lacks, the FPN, the
+  head and the folded running statistics).
 - ``catalog://`` through ``ModelCatalog`` (its WEIGHTS_DIR set on the
   class, which reads the environment when it is defined), the
   ``module.`` prefix, a missing FrozenBN tensor left at its init, a
@@ -31,6 +38,7 @@ name table) and filled from a numpy seed, no tensor at an identity.
 """
 
 import logging
+import os
 import pickle
 
 import jax
@@ -52,6 +60,7 @@ from paa_tpu_torch.config.paths_catalog import ModelCatalog
 from paa_tpu_torch.modeling import build_detection_model
 from paa_tpu_torch.utils import load_jax_params
 from paa_tpu_torch.utils import torch_import as ti
+from test_torch_port_backbones import _restore_jax_dcn_mode  # noqa: F401
 from test_torch_port_model import OVERRIDES as PAA_OVERRIDES
 from test_torch_port_two_stage import CONFIG as FRCNN_CONFIG
 from test_torch_port_two_stage import OVERRIDES as FRCNN_OVERRIDES
@@ -60,6 +69,17 @@ HW = (64, 96)
 SLIM = ["MODEL.RESNETS.WIDTH_PER_GROUP", 8,
         "MODEL.RESNETS.STEM_OUT_CHANNELS", 8,
         "MODEL.RESNETS.RES2_OUT_CHANNELS", 32]
+DCNV2_X = ["MODEL.RESNETS.NUM_GROUPS", 8,
+           "MODEL.RESNETS.WIDTH_PER_GROUP", 4,
+           "MODEL.RESNETS.STEM_OUT_CHANNELS", 16,
+           "MODEL.RESNETS.RES2_OUT_CHANNELS", 64,
+           "MODEL.RESNETS.STAGE_WITH_DCN", (False, True, True, True),
+           "MODEL.RESNETS.WITH_MODULATED_DCN", True,
+           "MODEL.PAA.USE_DCN_IN_TOWER", True,
+           "TPU.DCN_MODE", "gather"]
+X152_CONFIG = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "configs", "paa",
+    "paa_dcnv2_X_152_32x8d_FPN_2x.yaml")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -75,6 +95,8 @@ def _cfg(get, kind, extra=()):
     if kind == "frcnn":
         cfg.merge_from_file(FRCNN_CONFIG)
         cfg.merge_from_list(FRCNN_OVERRIDES + list(extra))
+    elif kind == "dcnv2_x":
+        cfg.merge_from_list(PAA_OVERRIDES + DCNV2_X + list(extra))
     else:
         cfg.merge_from_list(PAA_OVERRIDES + list(extra))
     cfg.freeze()
@@ -112,7 +134,7 @@ def _logger():
     return logger, handler.lines
 
 
-@pytest.fixture(scope="module", params=["paa", "frcnn"])
+@pytest.fixture(scope="module", params=["paa", "frcnn", "dcnv2_x"])
 def loaded(request):
     """One seeded reference state dict loaded into each package."""
     kind = request.param
@@ -162,7 +184,7 @@ def test_fc6_columns_and_scale_shape(loaded):
     """fc6's (out, C * 7 * 7) NCHW columns land in the port's (7, 7, C)
     order; a (1,) Scale lands as a scalar."""
     state, module = loaded["state"], loaded["model"].module
-    if loaded["kind"] == "paa":
+    if loaded["kind"] != "frcnn":
         for level in range(5):
             got = module.head.get_submodule(f"scale{level}").scale
             assert got.shape == ()
@@ -190,7 +212,7 @@ def test_forward_matches_jax(loaded):
     x = np.random.RandomState(3).uniform(-100, 100, (2, *HW, 3)).astype(
         np.float32)
     xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
-    if loaded["kind"] == "paa":
+    if loaded["kind"] != "frcnn":
         def fwd(m, xx):
             feats = m.backbone(xx)
             return feats, m.head(feats)
@@ -332,6 +354,78 @@ def test_catalog_pickle_resolves_like_jax(slim_imagenet_pkl):
                                        msg=key)
 
 
+def test_x101_pickle_into_x152_leaves_what_jax_leaves(tmp_path,
+                                                      monkeypatch):
+    """The X-152 dcnv2 config's MODEL.WEIGHT is the X-101-32x8d ImageNet
+    pickle: its blobs fill the stem and every block X-101 has (the DCN
+    blocks' sampled convs from plain ``branch2b``), R-152's extra blocks
+    (res3 has 8 to X-101's 4, res4 36 to its 23) keep their init; the
+    port's unwritten tensors are exactly those whose leaves ``paa_tpu``
+    leaves untouched (every leaf starts at NaN there)."""
+    monkeypatch.setattr(ModelCatalog, "WEIGHTS_DIR", str(tmp_path))
+    monkeypatch.setattr(JModelCatalog, "WEIGHTS_DIR", str(tmp_path))
+    narrow = ["MODEL.RESNETS.NUM_GROUPS", 4,
+              "MODEL.RESNETS.WIDTH_PER_GROUP", 4,
+              "MODEL.RESNETS.STEM_OUT_CHANNELS", 8,
+              "MODEL.RESNETS.RES2_OUT_CHANNELS", 32,
+              "MODEL.RESNETS.BACKBONE_OUT_CHANNELS", 64,
+              "TPU.DCN_MODE", "gather"]
+    cfgs = []
+    for get in (get_cfg, jax_get_cfg):
+        cfg = get()
+        cfg.merge_from_file(X152_CONFIG)
+        cfg.merge_from_list(narrow)
+        cfg.freeze()
+        cfgs.append(cfg)
+    cfg, jcfg = cfgs
+    weight = cfg.MODEL.WEIGHT
+    assert weight == "catalog://ImageNetPretrained/FAIR/20171220/X-101-32x8d"
+    r = cfg.MODEL.RESNETS
+    x101 = rl.resnet_keys(rl.BLOCKS["R-101"], r.STEM_OUT_CHANNELS,
+                          r.RES2_OUT_CHANNELS, r.WIDTH_PER_GROUP,
+                          r.NUM_GROUPS)
+    blobs = rl.c2_imagenet_blobs(rl.seeded_state_dict(x101, 10), seed=11)
+    with open(tmp_path / "X-101-32x8d.pkl", "wb") as f:
+        pickle.dump({"blobs": blobs}, f, protocol=2)
+
+    model = build_detection_model(cfg, device="cpu", seed=1)
+    skipped, unwritten = ti.load_pretrained_into(cfg, model.module, weight)
+    assert sorted(skipped) == ["pred_b", "pred_w"]
+
+    jmodel = jax_build(jcfg)
+    shapes = jax.eval_shape(
+        lambda: jmodel.init(jax.random.PRNGKey(0), HW))["params"]
+    start = jax.tree.map(lambda a: np.full(a.shape, np.nan, np.float32),
+                         shapes)
+    tree = jti.load_pretrained_into(jcfg, start, weight)
+    scratch = build_detection_model(cfg, device="cpu", seed=2)
+    load_jax_params(scratch.module, tree)
+    untouched = sorted(k for k, v in scratch.module.state_dict().items()
+                       if bool(torch.isnan(v).all()))
+    assert unwritten == untouched
+
+    def expected(key):
+        return (not key.startswith("backbone.resnet.")
+                or key.endswith(("running_mean", "running_var"))
+                or ".conv2.offset." in key
+                or any(key.startswith(f"backbone.resnet.layer2_{b}.")
+                       for b in range(4, 8))
+                or any(key.startswith(f"backbone.resnet.layer3_{b}.")
+                       for b in range(23, 36)))
+
+    assert unwritten == sorted(k for k in model.module.state_dict()
+                               if expected(k))
+    want = _port_layout(model, tree)
+    for key, value in model.module.state_dict().items():
+        if key not in unwritten:
+            torch.testing.assert_close(value, want[key], rtol=0, atol=0,
+                                       msg=key)
+    np.testing.assert_array_equal(
+        model.module.backbone.resnet.layer3_22.conv2.weight.detach().numpy(),
+        blobs["res4_22_branch2b_w"])
+    assert not model.module.backbone.resnet.layer3_22.conv2.offset.weight.any()
+
+
 def test_module_prefix_missing_and_wrong_keys(tmp_path):
     cfg = _cfg(get_cfg, "paa", SLIM)
     state = rl.seeded_state_dict(rl.layout(cfg), seed=9)
@@ -395,6 +489,15 @@ def test_load_pretrained_into_raises(tmp_path, monkeypatch):
     ("rpn.anchor_generator.cell_anchors.0", []),
     ("module.backbone.body.layer4.2.downsample.1.running_var",
      [("backbone.resnet.layer4_2.downsample_bn.running_var", "copy")]),
+    ("rpn.head.cls_tower.9.conv.bias", [("head.cls_tower.conv3.bias",
+                                         "copy")]),
+    ("rpn.head.bbox_tower.9.offset.weight",
+     [("head.bbox_tower.conv3.offset.weight", "copy")]),
+    ("rpn.head.cls_tower.10.offset.weight", []),
+    ("backbone.body.layer3.35.conv2.conv.weight",
+     [("backbone.resnet.layer3_35.conv2.weight", "copy")]),
+    ("module.backbone.body.layer2.0.conv2.offset.bias",
+     [("backbone.resnet.layer2_0.conv2.offset.bias", "copy")]),
 ])
 def test_torch_name_to_port_keys(name, want):
     assert ti.torch_name_to_port_keys(name) == want
@@ -406,6 +509,7 @@ def test_torch_name_to_port_keys(name, want):
     ("fpn_inner_res4_5_sum_lateral_w", ["backbone.fpn.fpn_inner3.weight"]),
     ("conv_rpn_fpn2_b", ["rpn.head.conv.bias"]),
     ("fc1000_w", []), ("res3_0_branch1_w_momentum", []),
+    ("res4_35_branch2b_w", ["backbone.body.layer3.35.conv2.weight"]),
 ])
 def test_c2_blob_to_torch_names_matches_jax(blob, want):
     assert ti.c2_blob_to_torch_names(blob) == want
