@@ -28,8 +28,10 @@ and prints no result line):
 4. K3, the GroupNorm+ReLU kernel, against its plain version at the five
    tower shapes of an 8 x 800 x 1344 batch, at shapes whose launch takes
    each cluster size from 1 to 4, 8 and 16 and the streaming
-   instantiation, and with groups that start off 16-byte boundaries: float32 (TF32 off) within 1e-5, bfloat16 within one bf16
-   ulp (plus 1e-6 near zero).
+   instantiation, and with groups that start off 16-byte boundaries:
+   float32 (TF32 off) within 1e-5, bfloat16 within one bf16 ulp (plus
+   1e-6 near zero). Phase 30 holds it so at every other shape of the
+   run.
 5. The PAA main path: PAA-R50 (configs/paa/paa_R_50_FPN_1x.yaml, full
    width, 80 classes) in bfloat16 with weights from a seed serves three
    requests of 8 x 800 x 1344 uint8 images through ``make_eval_fn``.
@@ -97,7 +99,7 @@ and prints no result line):
     CPU's five best detections per image on a first pass. Detections
     matched as in phase 6, the 12 metrics within 1e-3.
 
-17. (Run after phase 14's profile.) The AP gate: a seeded
+17. (Run after phase 29.) The AP gate: a seeded
     reference-format ``{"model": state_dict}`` checkpoint of full-width
     PAA-R50 (paa_core's key names, tests/reference_layout.py) through
     ``paa_tpu_torch.tools.reproduce_ap``: every port tensor written, none
@@ -146,6 +148,47 @@ and prints no result line):
     requests with the DCN steps (geometry, sampling, contraction) and
     the grouped convs split out by spans around them.
 
+24. (Run after phase 23, with the X-152 serving model freed.) The DCN
+    backward that keeps only its inputs (ops/dcn.py's
+    DeformConv2dFunction) against autograd through deform_conv2d on the
+    card at phase 21's shapes, B=2: the gradients of x, offsets, mask
+    and weight in float32 (TF32 off) and bfloat16 within
+    DCN_GRAD_LIMITS; the peak memory of one stage-3 layer's forward and
+    backward at B=8 in bfloat16 with each, the Function's the lower.
+25. The X-152 dcnv2 training main path: the config at full width in
+    bfloat16 with its SOLVER, weights from seed 0 and the offset convs
+    from seed 2, TRAIN_STEPS steps of do_train on one repeated batch of
+    8 (else 4, else 2: the largest that fits) uint8 800 x 1344 images
+    with 3-12 GTs in 100 slots: every loss finite, num_pos > 0, the
+    last loss below the first, K3 40 launches per step and no NMS; one
+    step at each of the ladder's buckets (800, 1344) and (1344, 800);
+    peak memory, ms per step, img/s, and a torch.profiler split
+    (forward, the DCN backward's recompute, K3's gradient recompute,
+    the rest of backward, assignment, losses, optimizer).
+26. One float32 train step (TF32 off) of that model on the card against
+    the CPU and against a float64 step on the CPU at 2 x 256 x 320, each
+    float32 step with the backbone's and the FPN's ReLU decisions that
+    rounding put on the other side of 0 pinned to float64's (the pinned
+    elements printed): all three within phase 13's limits of each
+    other; a card step with the offsets' gradient x1.05 planted in the
+    DCN backward must land beyond them. ``python3 chip_smoke.py
+    --dcnv2-step-readings SEED...`` runs these steps at other batches.
+27. Multi-scale testing of the X-152 dcnv2 config: ``inference`` with
+    TEST.BBOX_AUG.ENABLED and the config's own 26 augmentations
+    (soft-vote) over four 480 x 640 PPM images at full width in
+    bfloat16: K1 once and K3 40 times per augmentation and batch, a
+    detection per image, the 12 metrics; s/img, peak memory and the
+    largest padded bucket.
+28. The TTA path in float32 on the card against the CPU with full-width
+    PAA-R50 at a reduced list (the identity at 256, scales 192 and 320
+    with scale ranges, all flipped): detections matched as in phase 6,
+    the 12 metrics within 1e-3.
+29. Phase 18 on the X-152 dcnv2 config, from a seeded Detectron
+    X-101-32x8d pickle through its catalog:// MODEL.WEIGHT.
+30. K3 against its plain version, as phase 4, at every input shape at
+    which the paths of phases 5-29 launched it (the TTA buckets up to
+    1824 x 3008 and the training ladder's among them).
+
 Phase 13 also runs the step a third time on the CPU with the network in
 float64 (every convolution, FrozenBN and GroupNorm), the referee of the
 two float32 steps, and phase 11 checks K3's Function at a group of zero
@@ -159,6 +202,7 @@ before it; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits with 2.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -485,6 +529,27 @@ GN_EXTRA_SHAPES = [
 ]
 
 
+def k3_vs_plain(x, s, b, what):
+    """K3 against group_norm_relu_plain on x (float32, on the card) and
+    on x in bfloat16, with the same scale and bias: float32 within 1e-5,
+    bfloat16 within one bfloat16 ulp of the larger side (+1e-6). Returns
+    the largest errors."""
+    from paa_tpu_torch.ops import group_norm as gn
+
+    got = gn.group_norm_relu(x, s, b)
+    err32 = float((got - gn.group_norm_relu_plain(x, s, b)).abs().max())
+    check(err32 <= 1e-5, f"group_norm_relu f32 {what}: err {err32}")
+    xb = x.to(torch.bfloat16)
+    got = gn.group_norm_relu(xb, s, b).float()
+    want = gn.group_norm_relu_plain(xb, s, b).float()
+    err = (got - want).abs()
+    ulp = _bf16_ulp(torch.maximum(got.abs(), want.abs()))
+    check(bool((err <= ulp + 1e-6).all()),
+          f"group_norm_relu bf16 {what}: beyond one ulp, max err "
+          f"{float(err.max())}")
+    return {"f32": err32, "bf16": float(err.max())}
+
+
 def phase_group_norm(dev):
     from paa_tpu_torch.ops import group_norm as gn
 
@@ -499,18 +564,7 @@ def phase_group_norm(dev):
         x = (torch.randn(*shape, generator=gen) * 1.5 + 0.4).to(dev)
         s = (torch.rand(c, generator=gen) + 0.5).to(dev)
         b = (torch.randn(c, generator=gen) * 0.2).to(dev)
-        got = gn.group_norm_relu(x, s, b)
-        err32 = float((got - gn.group_norm_relu_plain(x, s, b)).abs().max())
-        check(err32 <= 1e-5, f"group_norm_relu f32 {what}: err {err32}")
-        xb = x.to(torch.bfloat16)
-        got = gn.group_norm_relu(xb, s, b).float()
-        want = gn.group_norm_relu_plain(xb, s, b).float()
-        err = (got - want).abs()
-        ulp = _bf16_ulp(torch.maximum(got.abs(), want.abs()))
-        check(bool((err <= ulp + 1e-6).all()),
-              f"group_norm_relu bf16 {what}: beyond one ulp, max err "
-              f"{float(err.max())}")
-        worst[what] = {"f32": err32, "bf16": float(err.max())}
+        worst[what] = k3_vs_plain(x, s, b, what)
         for size in (4, 2):
             p = gn.gn_plan(bsz, c, h * w, 32, size)
             plans.add((p.cs, p.resident))
@@ -523,6 +577,54 @@ def phase_group_norm(dev):
                       "plans_cs_resident": sorted(plans),
                       "max_abs_err": worst}))
     return max(worst[f"{BATCH}x256x{h}x{w}"]["bf16"] for h, w in TOWER_HW)
+
+
+@contextlib.contextmanager
+def recording_k3_shapes():
+    """Records the input shape of every K3 launch made while it is open
+    (the launcher behind ``group_norm_relu``, wrapped): the set it
+    yields fills as the paths run."""
+    from paa_tpu_torch.ops import group_norm as gn
+
+    seen, launch = set(), gn._group_norm_relu_cuda
+
+    def recorded(x, *args):
+        seen.add(tuple(x.shape))
+        return launch(x, *args)
+
+    gn._group_norm_relu_cuda = recorded
+    try:
+        yield seen
+    finally:
+        gn._group_norm_relu_cuda = launch
+
+
+def phase_k3_at_path_shapes(dev, shapes):
+    """K3 against its plain version as phase_group_norm holds it (float32
+    and bfloat16) at every input shape at which this process's paths
+    launched it (``recording_k3_shapes``), inputs from a seed on the
+    card: the serving, eval and training forwards, each bucket of the
+    X-152 TTA list at B=4 up to 1824 x 3008 (P3 228 x 376) and the
+    training ladder's (1344, 800) among them."""
+    check((TTA_IMAGES, 256, 228, 376) in shapes
+          and any(shape[2:] == (168, 100) for shape in shapes),
+          f"k3_at_path_shapes: the TTA's largest bucket or the (1344, "
+          f"800) train bucket was not recorded: {sorted(shapes)[-5:]}")
+    gen = torch.Generator(dev).manual_seed(17)
+    worst = {"f32": 0.0, "bf16": 0.0}
+    for shape in sorted(shapes):
+        c = shape[1]
+        x = torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.4
+        s = torch.rand(c, generator=gen, device=dev) + 0.5
+        b = torch.randn(c, generator=gen, device=dev) * 0.2
+        err = k3_vs_plain(x, s, b, "x".join(map(str, shape)))
+        worst = {k: max(v, err[k]) for k, v in worst.items()}
+        del x
+    largest = max(shapes, key=math.prod)
+    print(json.dumps({"phase": "k3_at_path_shapes", "ok": True,
+                      "shapes": len(shapes), "largest": largest,
+                      "max_abs_err": worst}))
+    torch.cuda.empty_cache()
 
 
 def build_cfg(dtype, path, extra=()):
@@ -1247,14 +1349,15 @@ def top_detections_gt(ann_file, bbox_json, out_file, per_image=5):
     return len(data["annotations"])
 
 
-def phase_eval_card_vs_cpu(dev):
-    """The whole eval path, dataset to AP table, in float32 (TF32 off) on
-    the card and on the CPU (plain versions) from the same weights: four
-    PPM images resized to 256 (at most 320) in the buckets (256, 320) and
-    (320, 256). So that the AP is not 0 for random weights, the ground
+def eval_card_vs_cpu(dev, cfg, seed, what):
+    """The whole eval path of ``cfg`` (``inference``, dataset to AP
+    table) in float32 (TF32 off) on the card and on the CPU (plain
+    versions) from phase 5's weights, over four PPM images from
+    ``seed``. So that the AP is not 0 for random weights, the ground
     truth is the CPU's five best detections of each image on a first
     pass. Detections matched as in phase 6; the 12 AP values within
-    1e-3."""
+    1e-3. Returns the printed fields and the card run's launch counts
+    (set to 0 just before it)."""
     import logging
 
     from paa_tpu_torch.data.coco import COCODataset
@@ -1264,13 +1367,9 @@ def phase_eval_card_vs_cpu(dev):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     tmp = tempfile.mkdtemp(prefix="paa_eval_ref_")
-    ann_file, img_dir = synth_coco(os.path.join(tmp, "coco"), 4, seed=12)
+    ann_file, img_dir = synth_coco(os.path.join(tmp, "coco"), 4, seed=seed)
     first = COCODataset(ann_file, img_dir,
                         remove_images_without_annotations=False)
-    cfg = build_cfg("float32", PAA_CONFIG, [
-        "INPUT.MIN_SIZE_TEST", 256, "INPUT.MAX_SIZE_TEST", 320,
-        "TPU.TEST_BUCKETS", ((256, 320), (320, 256)),
-        "TEST.IMS_PER_BATCH", 2])
     logger = logging.getLogger("chip_smoke.eval")
     models = {d: seeded_model("float32", d) for d in (dev, "cpu")}
     folder = os.path.join(tmp, "first")
@@ -1279,26 +1378,37 @@ def phase_eval_card_vs_cpu(dev):
     top5 = os.path.join(tmp, "cpu_top5.json")
     n_gt = top_detections_gt(ann_file, os.path.join(folder, "bbox.json"),
                              top5)
-    ann_file = top5
-    dataset = COCODataset(ann_file, img_dir,
+    dataset = COCODataset(top5, img_dir,
                           remove_images_without_annotations=False)
     results, dets = [], []
     for device in (dev, "cpu"):
         folder = os.path.join(tmp, str(device))
+        zero_launch_counts()
         results.append(inference(cfg, models[device], dataset,
                                  output_folder=folder, logger=logger))
+        if device == dev:
+            launches = launch_counts()
         dets.append(read_bbox_json(folder))
     matched = match_detections(*[_detections_by_image(d, ids)
-                                 for d in dets], "eval_card_vs_cpu")
+                                 for d in dets], what)
     ap_err = {k: abs(results[0][k] - v) for k, v in results[1].items()}
     check(sorted(ap_err) == sorted(METRICS)
           and max(ap_err.values()) <= 1e-3 and results[1]["AP"] > 0,
-          f"eval_card_vs_cpu: AP {results}")
-    print(json.dumps({"phase": "eval_card_vs_cpu", "ok": True,
-                      "images": len(ids), "gt": n_gt,
-                      "ap_card": results[0], "ap_abs_err": ap_err,
-                      **matched}))
+          f"{what}: AP {results}")
     shutil.rmtree(tmp, ignore_errors=True)
+    return {"images": len(ids), "gt": n_gt, "ap_card": results[0],
+            "ap_abs_err": ap_err, **matched}, launches
+
+
+def phase_eval_card_vs_cpu(dev):
+    """``eval_card_vs_cpu`` on the PAA-R50 eval path: the images resized
+    to 256 (at most 320) in the buckets (256, 320) and (320, 256)."""
+    cfg = build_cfg("float32", PAA_CONFIG, [
+        "INPUT.MIN_SIZE_TEST", 256, "INPUT.MAX_SIZE_TEST", 320,
+        "TPU.TEST_BUCKETS", ((256, 320), (320, 256)),
+        "TEST.IMS_PER_BATCH", 2])
+    out, _ = eval_card_vs_cpu(dev, cfg, 12, "eval_card_vs_cpu")
+    print(json.dumps({"phase": "eval_card_vs_cpu", "ok": True, **out}))
 
 
 def phase_gn_grad(dev):
@@ -1595,6 +1705,19 @@ def conv_precision_probe(dev):
     return out
 
 
+def in_float64(model):
+    """``model`` with every convolution and DeformConv computing in
+    float64 (FrozenBN and GroupNorm follow their inputs; the loss, the
+    GMM, the parameters and SGD stay float32)."""
+    from paa_tpu_torch.modeling import layers
+    from paa_tpu_torch.ops.dcn import DeformConv
+
+    for m in model.module.modules():
+        if isinstance(m, (layers.Conv, DeformConv)):
+            m.dtype = torch.float64
+    return model
+
+
 def float64_referee(dev, cfg, batch, before, p_gpu, p_cpu, pos_cpu):
     """The same step once more on the CPU with the network in float64
     (every convolution, FrozenBN and GroupNorm; the loss and the GMM
@@ -1607,10 +1730,7 @@ def float64_referee(dev, cfg, batch, before, p_gpu, p_cpu, pos_cpu):
     from paa_tpu_torch.modeling import build_detection_model, layers
     from paa_tpu_torch.ops import group_norm as gn
 
-    model = build_detection_model(cfg, device="cpu", seed=0)
-    for m in model.module.modules():
-        if isinstance(m, layers.Conv):
-            m.dtype = torch.float64
+    model = in_float64(build_detection_model(cfg, device="cpu", seed=0))
     _, pos64, before64, p64 = train_once(model, batch)
     check(all(torch.equal(before[n], before64[n]) for n in before)
           and torch.equal(pos64, pos_cpu),
@@ -1680,27 +1800,31 @@ def cuda_step_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def phase_train_profile(model, state, batch, name):
+def phase_train_profile(model, state, batch, name, hw=HW,
+                        what="train_profile"):
     """torch.profiler over three train steps. Each kernel goes to the
     innermost span around its launch (input: the batch's copy and
     normalize; forward, assignment, losses, backward, K3's backward
-    recompute, optimizer; "other": outside every span), matched through
-    the trace's launch correlation. Per span class: host ms in the span,
-    the device window from its first kernel's start to its last's end in
-    each occurrence, the device busy time in it and the windows' idle
-    share; and the step's device busy time, wall time and idle share."""
+    recompute, the DCN backward's recompute and VJP, optimizer; "other":
+    outside every span), matched through the trace's launch correlation.
+    Per span class: host ms in the span, the device window from its
+    first kernel's start to its last's end in each occurrence, the
+    device busy time in it and the windows' idle share; and the step's
+    device busy time, wall time and idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     from paa_tpu_torch.engine import train_step as ts
     from paa_tpu_torch.modeling import paa_loss as pl
+    from paa_tpu_torch.ops import dcn
     from paa_tpu_torch.ops import group_norm as gn
 
     spans_named = {ts.SPAN_INPUT: "input", ts.SPAN_FORWARD: "forward",
                    pl.SPAN_ASSIGN: "assignment", pl.SPAN_LOSSES: "losses",
                    ts.SPAN_BACKWARD: "backward",
                    gn.SPAN_BACKWARD: "gn_backward_recompute",
+                   dcn.SPAN_BACKWARD: "dcn_backward_recompute",
                    ts.SPAN_OPTIMIZER: "optimizer"}
-    step = model.make_bucket_train_step(HW)
+    step = model.make_bucket_train_step(hw)
     step(state, batch)
     torch.cuda.synchronize()
     steps = 3
@@ -1721,9 +1845,9 @@ def phase_train_profile(model, state, batch, name):
     kernels = [e for e in events
                if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not kernels:
-        print(json.dumps({"phase": "train_profile",
+        print(json.dumps({"phase": what,
                           "device_time": "not measured", "card": name}))
-        return
+        return None
 
     def span_of(t):
         inside = [(b - a, a, label) for a, b, label in spans if a <= t <= b]
@@ -1755,14 +1879,16 @@ def phase_train_profile(model, state, batch, name):
                 device_window_ms=c["window_us"] / steps / 1e3,
                 idle_share=1.0 - c["busy_us"] / max(c["window_us"], 1e-9))
     busy = _union_us([(k["ts"], k["ts"] + k["dur"]) for k in kernels])
-    print(json.dumps({
-        "phase": "train_profile", "steps": steps, "batch": TRAIN_BATCH,
+    result = {
+        "phase": what, "steps": steps,
+        "batch": int(batch["images"].shape[0]), "hw": list(hw),
         "by_span": out, "device_busy_ms_per_step": busy / steps / 1e3,
         "wall_ms_per_step": wall_us / steps / 1e3,
         "device_idle_share": 1.0 - busy / wall_us,
         "ms_per_step_by_kernel_class": dict(sorted(
-            by_kernel_class.items(), key=lambda kv: -kv[1])),
-        "card": name}))
+            by_kernel_class.items(), key=lambda kv: -kv[1]))}
+    print(json.dumps({**result, "card": name}))
+    return result
 
 
 def trace_events(prof):
@@ -2083,6 +2209,672 @@ def phase_dcnv2_timing(dev, model, eval_fn, name):
         torch.backends.cudnn.allow_tf32 = tf32
 
 
+# ---- training and test-time augmentation of the X-152 dcnv2 config -----
+
+# the X-152 dcnv2 training cell's batch: the largest of these that fits
+DCN_TRAIN_BATCHES = (8, 4, 2)
+# DeformConv2dFunction against autograd through deform_conv2d on the
+# card, within this share of each gradient's largest magnitude: the
+# card's index_add (the row gather's backward) adds in no fixed order,
+# a few float32 roundings (~1e-6) or, in bfloat16, where every add
+# rounds to 8 bits, a few bfloat16 roundings (~1e-2)
+DCN_GRAD_LIMITS = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+TTA_IMAGES = 4
+
+
+def dcn_layer_inputs(dev, c, hw, groups, tower, bsz, seed):
+    """One DeformConv's raw inputs at a main-path shape: x, the offsets
+    and the mask that its offset conv (drawn from a seed as in phase 20)
+    gives on x, its weight and an upstream gradient, float32 on ``dev``."""
+    from paa_tpu_torch.modeling.layers import reset_parameters
+    from paa_tpu_torch.ops.dcn import DeformConv
+
+    conv = DeformConv(c, c, groups=groups, bias=tower,
+                      normal_std=0.01 if tower else None)
+    gen = torch.Generator().manual_seed(300 + seed)
+    reset_parameters(conv, gen)
+    seed_offset_convs(conv, 400 + seed)
+    x = torch.randn((bsz, c, *hw), generator=gen).to(dev)
+    up = torch.randn((bsz, c, *hw), generator=gen).to(dev)
+    conv.to(dev)
+    with torch.no_grad():
+        om = conv.offset(x)
+        offsets = om[:, :conv.n_offsets].contiguous()
+        mask = torch.sigmoid(om[:, conv.n_offsets:]).contiguous()
+    return x, offsets, mask, conv.weight.detach().clone(), up
+
+
+def _dcn_leaves(x, offsets, mask, weight, dtype):
+    """x and weight in ``dtype``, offsets and mask float32 (as DeformConv
+    passes them), each a fresh leaf."""
+    return [t.to(dtype if i in (0, 3) else torch.float32).clone()
+            .requires_grad_() for i, t in enumerate((x, offsets, mask,
+                                                     weight))]
+
+
+def dcn_layer_grads(fn, x, offsets, mask, weight, up, dtype, groups):
+    ins = _dcn_leaves(x, offsets, mask, weight, dtype)
+    fn(*ins, 1, 1, 1, groups, 1).backward(up.to(dtype))
+    return [t.grad for t in ins]
+
+
+def dcn_layer_peak_gb(dev, fn, x, offsets, mask, weight, up, dtype, groups):
+    """Peak device memory of one layer's forward and backward through
+    ``fn``, above what was allocated before it (its inputs)."""
+    ins = _dcn_leaves(x, offsets, mask, weight, dtype)
+    upd = up.to(dtype)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn(*ins, 1, 1, 1, groups, 1).backward(upd)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del ins, upd
+    torch.cuda.empty_cache()
+    return peak / 2**30
+
+
+def phase_dcn_backward_card(dev, name):
+    """ops/dcn.py's DeformConv2dFunction (the backward that keeps only
+    x, offsets, mask and weight and recomputes each chunk of images)
+    against autograd through deform_conv2d on the card, at the X-152
+    path's stage-3, stage-4 and P3 tower shapes, B=2, offsets from a
+    seed: the gradients of x, offsets, mask and weight in float32 (TF32
+    off) and bfloat16 within DCN_GRAD_LIMITS of each one's largest
+    magnitude. Then the peak memory of one stage-3 layer's forward and
+    backward in bfloat16 at the training cell's first batch (8) with
+    each: the Function's must be the lower."""
+    from paa_tpu_torch.ops import dcn
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names = ("x", "offsets", "mask", "weight")
+    out = {}
+    for i, (what, c, hw, groups, tower) in enumerate(DCN_SHAPES):
+        inputs = dcn_layer_inputs(dev, c, hw, groups, tower, 2, i)
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            got = dcn_layer_grads(dcn.DeformConv2dFunction.apply, *inputs,
+                                  dtype, groups)
+            want = dcn_layer_grads(dcn.deform_conv2d, *inputs, dtype,
+                                   groups)
+            for n, g, w in zip(names, got, want):
+                check(g.dtype == w.dtype, f"dcn_backward {what} d{n} dtype")
+                w = w.float()
+                err = float((g.float() - w).abs().max() / w.abs().max())
+                check(err <= DCN_GRAD_LIMITS[dtype],
+                      f"dcn_backward {what} {dtype} d{n}: rel err {err}")
+                errs[f"{str(dtype)[6:]}_d{n}"] = err
+        out[what] = errs
+        del inputs
+    what, c, hw, groups, tower = DCN_SHAPES[0]
+    bsz = DCN_TRAIN_BATCHES[0]
+    inputs = dcn_layer_inputs(dev, c, hw, groups, tower, bsz, 0)
+    peaks = {route: dcn_layer_peak_gb(dev, fn, *inputs, torch.bfloat16,
+                                      groups)
+             for route, fn in (("function", dcn.DeformConv2dFunction.apply),
+                               ("plain_autograd", dcn.deform_conv2d))}
+    del inputs
+    torch.cuda.empty_cache()
+    check(peaks["function"] < peaks["plain_autograd"],
+          f"dcn_backward: peak memory {peaks}")
+    print(json.dumps({"phase": "dcn_backward_card", "ok": True,
+                      "batch": 2, "limits": {str(k)[6:]: v for k, v in
+                                             DCN_GRAD_LIMITS.items()},
+                      "max_rel_err": out,
+                      "stage3_layer_peak_gb": {
+                          "batch": bsz, "dtype": "bfloat16",
+                          "chunk_images": dcn._images_per_chunk(
+                              torch.empty(bsz, c, 1, 1,
+                                          dtype=torch.bfloat16),
+                              *hw, 9),
+                          **peaks},
+                      "card": name}))
+
+
+def seeded_dcnv2_train(cfg, device):
+    """The X-152 dcnv2 model of ``cfg`` with weights from seed 0 and its
+    offset convs from seed 2 (as phase 20; the cls bias at the focal
+    prior, as a training run starts)."""
+    from paa_tpu_torch.modeling import build_detection_model
+
+    model = build_detection_model(cfg, device=device, seed=0)
+    seed_offset_convs(model.module, 2)
+    return model
+
+
+def phase_dcnv2_train_main_path(dev, name):
+    """The X-152 dcnv2 training main path at full width in bfloat16,
+    the config's SOLVER: TRAIN_STEPS steps of do_train on one repeated
+    batch of uint8 800 x 1344 images (content 800 x 1333) with 3-12 GTs
+    in 100 slots, at the largest batch of DCN_TRAIN_BATCHES that fits;
+    the launch counts set to 0 just before and read just after. Then one
+    step at each of two buckets of the config's ladder, (800, 1344) and
+    (1344, 800), step timing, and a profile split by span."""
+    import gc
+
+    from paa_tpu_torch.engine import do_train
+
+    cfg = build_cfg("bfloat16", DCNV2_CONFIG,
+                    ["SOLVER.MAX_ITER", TRAIN_STEPS])
+    too_big = []
+    for bsz in DCN_TRAIN_BATCHES:
+        model = seeded_dcnv2_train(cfg, dev)
+        state = train_state(model)
+        batch = train_batch(71, bsz, HW, SIZE)
+        seen = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        fits = True
+        try:
+            do_train(cfg, model, state, [batch] * TRAIN_STEPS,
+                     metric_hook=lambda i, m: seen.update({i: m}))
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            fits = False
+        if fits:
+            break
+        too_big.append(bsz)
+        del model, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        check(False, f"dcnv2_train: no batch of {DCN_TRAIN_BATCHES} fits")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    launches = launch_counts()
+    expected = {"nms_batched": 0, "nms_global": 0,
+                "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW)
+                * TRAIN_STEPS}
+    check(launches == expected,
+          f"dcnv2_train: launches {launches}, expected {expected}")
+    check(sorted(seen) == list(range(1, TRAIN_STEPS + 1)),
+          f"dcnv2_train: metrics of steps {sorted(seen)}")
+    for i, m in seen.items():
+        check(all(math.isfinite(v) for v in m.values()),
+              f"dcnv2_train: step {i} {m}")
+        check(m["num_pos"] > 0, f"dcnv2_train: step {i} no positives")
+    check(seen[TRAIN_STEPS]["loss"] < seen[1]["loss"],
+          f"dcnv2_train: loss {seen[1]['loss']} -> "
+          f"{seen[TRAIN_STEPS]['loss']}")
+    buckets = {}
+    for i, (hw, size) in enumerate((((800, 1344), (800.0, 1333.0)),
+                                    ((1344, 800), (1333.0, 800.0)))):
+        step = model.make_bucket_train_step(hw)
+        zero_launch_counts()
+        m = step(state, train_batch(72 + i, bsz, hw, size))
+        m = {k: float(v) for k, v in m.items()}
+        got = launch_counts()["group_norm_relu"]
+        check(all(math.isfinite(v) for v in m.values()) and m["num_pos"] > 0
+              and got == GN_PER_LEVEL * len(TOWER_HW),
+              f"dcnv2_train: bucket {hw}: {m}, K3 {got}")
+        buckets["x".join(map(str, hw))] = {"loss": m["loss"],
+                                           "num_pos": m["num_pos"]}
+    step = model.make_bucket_train_step(HW)
+    ms = cuda_step_ms(lambda: step(state, batch), 3, warmup=1)
+    result = {"batch": bsz, "too_big": too_big, "peak_memory_gb": peak,
+              "step_ms": ms, "img_per_s": bsz / ms * 1e3}
+    n_gt = (batch["gt_labels"] > 0).sum(dim=1).tolist()
+    print(json.dumps({
+        "phase": "dcnv2_x152_train_main_path", "ok": True, "hw": HW,
+        "max_gt": MAX_GT, "gt_per_image": n_gt, "steps": TRAIN_STEPS,
+        "dtype": "bfloat16", "launches": launches,
+        "losses": {k: [seen[i][k] for i in sorted(seen)] for k in seen[1]},
+        "do_train_s": wall, "buckets": buckets, **result, "card": name}))
+    result["profile"] = phase_train_profile(
+        model, state, batch, name, HW, "dcnv2_x152_train_profile")
+    del model, state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, result
+
+
+def build_off_the_grid(cfg, device):
+    """The X-152 dcnv2 model of ``cfg`` with weights from seed 0 and its
+    offset convs from ``seed_offsets_off_the_grid`` (seed 5)."""
+    from paa_tpu_torch.modeling import build_detection_model
+
+    model = build_detection_model(cfg, device=device, seed=0)
+    seed_offsets_off_the_grid(model.module, 5)
+    return model
+
+
+def _offsets_grad_x105(plain):
+    """deform_conv2d whose offsets' gradient is 1.05 times the right one
+    (its values unchanged): a fault in the DCN backward, which
+    DeformConv2dFunction's backward recomputes through the module's
+    deform_conv2d."""
+    def faulty(x, offsets, *args):
+        return plain(x, offsets.detach() + (offsets - offsets.detach())
+                     * 1.05, *args)
+    return faulty
+
+
+def seed_offsets_off_the_grid(module, seed):
+    """Every DCN offset conv under ``module`` with a zero kernel and a
+    bias from ``seed`` that puts each tap's samples at a constant offset
+    of 0.05-0.25 px either way, and mask logits in [-0.25, 0.25]. The
+    offsets are then exact and the same on every device, away from the
+    integer grid, where bilinear sampling has kinks: its gradient of the
+    offsets jumps there, so a rounding difference that moves a sample
+    across a grid line changes that sample's gradient by the whole jump
+    (``kink_crossings``). The biases stay small because a step's update
+    of them is ~1e-5: next to a bias of 1 or more (a float32 ulp of
+    1.2e-7 to 2.4e-7) the update itself would round by a few percent.
+    The kernel still receives its gradient and trains."""
+    from paa_tpu_torch.ops.dcn import DeformConv
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, DeformConv):
+                w, b, n = m.offset.weight, m.offset.bias, m.n_offsets
+                w.zero_()
+                sign = torch.randint(0, 2, (n,), generator=gen) * 2 - 1
+                b[:n].copy_(sign * (torch.rand(n, generator=gen) * 0.2
+                                    + 0.05))
+                b[n:].copy_(torch.rand(b.numel() - n, generator=gen) * 0.5
+                            - 0.25)
+
+
+def kink_crossings(dev, cfg, batch):
+    """With the offset convs of phase 20 (seed 2), how many samples of
+    the float32 forward at ``batch`` sit in another bilinear cell on the
+    card than on the CPU (their top-left corner rows differ), over every
+    DCN layer: each such sample's offsets' gradient differs by a jump,
+    not by rounding."""
+    from paa_tpu_torch.ops import dcn
+    from paa_tpu_torch.ops.image_norm import device_normalize
+
+    corners, plain = [], dcn._geometry
+
+    def spy(*args):
+        y0p, x0p, cw = plain(*args)
+        corners[-1].append((y0p.cpu(), x0p.cpu()))
+        return y0p, x0p, cw
+
+    dcn._geometry = spy
+    try:
+        for device in (dev, "cpu"):
+            corners.append([])
+            model = seeded_dcnv2_train(cfg, device)
+            x = device_normalize(batch["images"].to(device),
+                                 batch["image_sizes"].to(device),
+                                 cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD)
+            with torch.inference_mode():
+                model.module(x.permute(0, 3, 1, 2).contiguous())
+            del model
+    finally:
+        dcn._geometry = plain
+    moved = sum(int(((yg != yc) | (xg != xc)).sum())
+                for (yg, xg), (yc, xc) in zip(*corners))
+    total = sum(y.numel() for y, _ in corners[1])
+    return {"layers": len(corners[1]), "samples": total,
+            "in_another_cell": moved}
+
+
+# a pinned ReLU decision sits at the kink: its float32 input and the
+# float64 record's value both within this share of the largest magnitude
+# of that call's record (float32 rounding moves an input by ~1e-6 of it)
+PIN_SHARE = 1e-3
+# the modules whose forward applies a ReLU: F.relu in the ResNet and the
+# FPN, group_norm_relu (K3 on the card) in the head's towers
+RELU_CALLERS = ("Stem", "Bottleneck", "FPN", "GroupNorm32")
+
+
+@contextlib.contextmanager
+def relu_decisions(module, record=None, pin=False):
+    """While open, watches every ReLU of ``module``'s forward, in call
+    order: torch.nn.functional.relu (the ResNet's and the FPN's) and
+    ``layers.group_norm_relu`` (the head towers' GroupNorm+ReLU, K3 on
+    the card, whose input to the ReLU is that of F.group_norm). It
+    yields a dict of what it saw: ``calls``, and without ``record`` the
+    ReLU ``inputs`` of the calls (float32 copies on the CPU). With
+    ``record`` (the ``inputs`` of a float64 step) it lists under
+    ``flips``, per call, the elements whose ReLU decision (input > 0)
+    is not the record's: the module and which of its ReLUs, how many,
+    the first one's input and record value, and the largest share of
+    the record's largest magnitude that such an input or record value
+    reaches. With ``pin`` these elements take the record's decision
+    (their input where the record's is positive, else 0, and the
+    gradient to match), so that the step follows float64's branch of
+    each ReLU; every other element is the call's own output."""
+    from paa_tpu_torch.modeling import layers
+
+    relu, gn_relu = F.relu, layers.group_norm_relu
+    where = {"name": "", "n": 0}
+    seen = {"calls": 0, "inputs": [], "flips": []}
+
+    def entered(name):
+        def hook(mod, args):
+            where.update(name=name, n=0)
+        return hook
+
+    def decide(out, on, pre):
+        """``out``: the call's output; ``on``: its ReLU decisions;
+        ``pre()``: its ReLU input."""
+        k = seen["calls"]
+        seen["calls"] += 1
+        where["n"] += 1
+        if record is None:
+            seen["inputs"].append(pre().detach().float().cpu())
+            return out
+        ref = record[k].to(out.device)
+        ref_on = ref > 0
+        moved = ref_on != on
+        n = int(moved.sum())
+        if not n:
+            return out
+        x = pre()
+        xd = x.detach()
+        at = tuple(moved.nonzero()[0].tolist())
+        far = torch.maximum(xd[moved].abs().float(), ref[moved].abs())
+        seen["flips"].append({
+            "relu": f"{where['name']}#{where['n']}", "elements": n,
+            "x": float(xd[at]), "float64": float(ref[at]),
+            "share": float(far.max() / ref.abs().max())})
+        if not pin:
+            return out
+        return torch.where(moved, torch.where(ref_on, x, torch.zeros_like(x)),
+                           out)
+
+    def watched(x, inplace=False):  # the model's ReLUs are not in place
+        on = x > 0
+        return decide(relu(x), on, lambda: x)
+
+    def watched_gn(x, weight, bias, groups, eps):
+        y = gn_relu(x, weight, bias, groups, eps)
+        return decide(y, y > 0, lambda: F.group_norm(
+            x, groups, weight.to(x.dtype), bias.to(x.dtype), eps))
+
+    hooks = [m.register_forward_pre_hook(entered(name))
+             for name, m in module.named_modules()
+             if type(m).__name__ in RELU_CALLERS]
+    F.relu, layers.group_norm_relu = watched, watched_gn
+    try:
+        yield seen
+    finally:
+        F.relu, layers.group_norm_relu = relu, gn_relu
+        for h in hooks:
+            h.remove()
+
+
+def dcnv2_steps_vs_float64(dev, cfg, seed, planted=False):
+    """The float32 train steps (TF32 off) of the full-width X-152 dcnv2
+    model of ``build_off_the_grid`` on the card and on the CPU against
+    the same step on the CPU in float64 (``in_float64``), at 2 x 256 x
+    320 from batch ``seed``: the float64 step records its ReLU inputs
+    (``relu_decisions``). Each float32 step runs twice: as it is, and
+    with the ReLU decisions that float32 rounding took on the other side
+    of the kink pinned to float64's. Checked: the positive mask and
+    num_pos equal in every step, the card's losses within 1e-4 relative
+    of the CPU's, and every pinned element at the kink (PIN_SHARE).
+    With ``planted``, a pinned card step with the fault of
+    ``_offsets_grad_x105`` too. Returns the readings: each pair's worst
+    update errors (``update_errors``) and the pinned elements."""
+    from paa_tpu_torch.ops import dcn
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = train_batch(seed, 2, (256, 320), (256.0, 300.0))
+    model = in_float64(build_off_the_grid(cfg, "cpu"))
+    with relu_decisions(model.module) as ref:
+        _, pos64, before, p64 = train_once(model, batch)
+    del model
+    record, steps, flips = ref["inputs"], {}, {}
+    runs = [(f"{side}{'_pinned' if pin else ''}", device, pin)
+            for pin in (False, True) for side, device in (("card", dev),
+                                                          ("cpu", "cpu"))]
+    if planted:
+        runs.append(("card_pinned_planted", dev, True))
+    for what, device, pin in runs:
+        model = build_off_the_grid(cfg, device)
+        plain = dcn.deform_conv2d
+        if what.endswith("planted"):
+            dcn.deform_conv2d = _offsets_grad_x105(plain)
+        try:
+            with relu_decisions(model.module, record, pin) as seen:
+                steps[what] = train_once(model, batch)
+        finally:
+            dcn.deform_conv2d = plain
+        del model
+        m, pos = steps[what][:2]
+        check(seen["calls"] == ref["calls"]
+              and m["num_pos"] > 0 and torch.equal(pos, pos64),
+              f"dcnv2_steps {seed} {what}: {seen['calls']} ReLU calls of "
+              f"{ref['calls']}, or the positive mask differs")
+        if pin:
+            flips[what] = seen["flips"]
+            check(all(f["share"] <= PIN_SHARE for f in seen["flips"]),
+                  f"dcnv2_steps {seed} {what}: pinned away from the kink "
+                  f"{seen['flips']}")
+    for pin in ("", "_pinned"):
+        m_gpu, m_cpu = steps[f"card{pin}"][0], steps[f"cpu{pin}"][0]
+        loss_err = {k: abs(m_gpu[k] - v) / max(abs(v), 1e-12)
+                    for k, v in m_cpu.items()}
+        check(max(loss_err.values()) <= 1e-4,
+              f"dcnv2_steps {seed}{pin}: losses {loss_err}")
+    pairs = {"card_vs_cpu": ("card", "cpu")}
+    for side in steps:
+        pairs[f"{side}_vs_float64"] = (side, None)
+    pairs["card_pinned_vs_cpu_pinned"] = ("card_pinned", "cpu_pinned")
+    if planted:
+        pairs["card_pinned_planted_vs_cpu_pinned"] = ("card_pinned_planted",
+                                                      "cpu_pinned")
+    readings = {}
+    for pair, (a, b) in pairs.items():
+        want = p64 if b is None else steps[b][3]
+        norm, share = update_errors(steps[a][3], want, before)
+        # how large each worst tensor's update is against the float32
+        # resolution of its weights
+        ulps = {n: update_ulps(want[n], before[n])
+                for n, _ in norm[:2] + share[:2]}
+        readings[pair] = {"worst_update_norm_err": norm[:2],
+                          "worst_update_share": share[:2],
+                          "update_in_ulps_of_largest_weight": ulps}
+    return {"batch_seed": seed, "num_pos": steps["card"][0]["num_pos"],
+            "readings": readings, "pinned": flips}
+
+
+def update_ulps(after, before):
+    """The largest update (after - before) in float32 ulps of the largest
+    weight before it."""
+    top = before.abs().max()
+    ulp = torch.nextafter(top, torch.tensor(math.inf)) - top
+    return float((after - before).abs().max() / ulp)
+
+
+def within_update_limits(reading):
+    return (reading["worst_update_norm_err"][0][1] <= UPDATE_NORM_TOL
+            and reading["worst_update_share"][0][1] <= UPDATE_SHARE_TOL)
+
+
+def phase_dcnv2_train_card_vs_cpu(dev):
+    """One float32 train step (TF32 off) of the full-width X-152 dcnv2
+    model on the card against the CPU and against a float64 step, at
+    2 x 256 x 320 (``dcnv2_steps_vs_float64``, batch 99). Every sample of
+    its DCN layers sits off the integer grid at an exact offset
+    (``seed_offsets_off_the_grid``), as the CPU tests keep DCN offsets:
+    with phase 20's seeded offset convs the card's float32 offset convs
+    move some samples into another bilinear cell than the CPU's
+    (``kink_crossings``, printed), whose offsets' gradients then differ
+    by a jump, not by rounding. The ReLUs have the same kink, which
+    offsets cannot avoid: at R-152 depth a float32 step, the card's or
+    the CPU's, puts a few ReLU inputs within rounding of 0 on the other
+    side of it than float64 does (the backbone's, the FPN's and the
+    head towers' GroupNorm+ReLU), and each such element moves the
+    weight gradients of its block by a few percent. So the steps are
+    held with those decisions pinned to float64's (``relu_decisions``;
+    the pinned elements are printed): the pinned card step within phase
+    13's update limits (UPDATE_NORM_TOL, UPDATE_SHARE_TOL) of the pinned
+    CPU step and of the float64 step, and the pinned CPU step within
+    them of the float64 step, as phase 13 holds both sides. The steps
+    as they are, unpinned, are printed beside. A pinned card step with
+    a fault planted in the DCN backward (the offsets' gradient x1.05)
+    must land beyond the limits of the float64 step and of the pinned
+    CPU step."""
+    cfg = build_cfg("float32", DCNV2_CONFIG)
+    t0 = time.perf_counter()
+    crossings = kink_crossings(dev, cfg,
+                               train_batch(99, 2, (256, 320), (256.0, 300.0)))
+    out = dcnv2_steps_vs_float64(dev, cfg, 99, planted=True)
+    readings = out["readings"]
+    for pair in ("card_pinned_vs_cpu_pinned", "card_pinned_vs_float64",
+                 "cpu_pinned_vs_float64"):
+        check(within_update_limits(readings[pair]),
+              f"dcnv2_train_card_vs_cpu: {pair} {readings[pair]}")
+    for pair in ("card_pinned_planted_vs_float64",
+                 "card_pinned_planted_vs_cpu_pinned"):
+        check(not within_update_limits(readings[pair]),
+              f"dcnv2_train_card_vs_cpu: planted fault within the limits "
+              f"({pair}): {readings[pair]}")
+    print(json.dumps({"phase": "dcnv2_train_card_vs_cpu", "ok": True,
+                      "hw": [256, 320], **out,
+                      "seeded_offset_convs_kink_crossings": crossings,
+                      "wall_s": time.perf_counter() - t0}))
+
+
+def dcnv2_step_readings(seeds):
+    """``python3 chip_smoke.py --dcnv2-step-readings SEED...``: phase 26's
+    steps (``dcnv2_steps_vs_float64`` with the planted fault) at each
+    batch seed, one JSON line each, the pairs' readings beside the
+    update limits; a failed check is printed and the next seed runs."""
+    from paa_tpu_torch.ops import _build
+
+    _build.build_all()
+    dev = torch.device("cuda", 0)
+    cfg = build_cfg("float32", DCNV2_CONFIG)
+    print(card())
+    for seed in seeds:
+        t0 = time.perf_counter()
+        try:
+            out = dcnv2_steps_vs_float64(dev, cfg, seed, planted=True)
+            out["within_limits"] = {pair: within_update_limits(r) for pair, r
+                                    in out["readings"].items()}
+        except RuntimeError as e:
+            out = {"batch_seed": seed, "failed": str(e)}
+        print(json.dumps({"phase": "dcnv2_step_readings", **out,
+                          "limits": [UPDATE_NORM_TOL, UPDATE_SHARE_TOL],
+                          "wall_s": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def phase_dcnv2_x152_tta(dev, name):
+    """Multi-scale testing of the X-152 dcnv2 config: ``inference`` with
+    TEST.BBOX_AUG.ENABLED True and the config's own list (the identity,
+    its flip and 12 scales up to 1800 with MAX_SIZE 3000, each flipped:
+    26 augmentations; soft-vote at VOTE_TH 0.66) over TTA_IMAGES PPM
+    images of 480 x 640 in one batch, full width, bfloat16, the weights
+    and cls bias of phase 20; the launch counts set to 0 just before and
+    read just after: K1 once and K3 40 times per augmentation and batch.
+    A detection for every image and the 12 metrics written; s/img (and
+    the model calls' share, host clock around each synchronized call),
+    peak memory and the largest padded bucket."""
+    import logging
+
+    from paa_tpu_torch.data.coco import COCODataset
+    from paa_tpu_torch.data.synth import synth_coco
+    from paa_tpu_torch.engine import bbox_aug
+    from paa_tpu_torch.engine.inference import inference
+
+    tmp = tempfile.mkdtemp(prefix="paa_tta_")
+    ann_file, img_dir = synth_coco(os.path.join(tmp, "coco"), TTA_IMAGES,
+                                   seed=13, sizes=((640, 480),))
+    dataset = COCODataset(ann_file, img_dir,
+                          remove_images_without_annotations=False)
+    cfg = build_cfg("bfloat16", DCNV2_CONFIG, [
+        "TEST.BBOX_AUG.ENABLED", True, "TEST.IMS_PER_BATCH", TTA_IMAGES])
+    augs = bbox_aug.build_aug_list(cfg)
+    check(len(augs) == 26, f"dcnv2_tta: {len(augs)} augmentations")
+    model = seeded_dcnv2("bfloat16", dev)
+    calls = timed_eval_calls(model)
+    shapes, plain = [], bbox_aug.aug_batch
+
+    def recorded(*args):
+        images, sizes = plain(*args)
+        shapes.append(images.shape[1:3])
+        return images, sizes
+
+    bbox_aug.aug_batch = recorded
+    out_dir = os.path.join(tmp, "inference")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        results = inference(cfg, model, dataset, output_folder=out_dir,
+                            logger=logging.getLogger("chip_smoke.tta"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        bbox_aug.aug_batch = plain
+    launches = launch_counts()
+    runs = len(shapes)
+    check(runs == len(augs), f"dcnv2_tta: {runs} model runs")
+    expected = {"nms_batched": runs, "nms_global": 0,
+                "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW) * runs}
+    check(launches == expected,
+          f"dcnv2_tta: launches {launches}, expected {expected}")
+    check(sorted(results) == sorted(METRICS) and all(
+        math.isfinite(v) and -1.0 <= v <= 1.0 for v in results.values()),
+        f"dcnv2_tta: results {results}")
+    with open(os.path.join(out_dir, "coco_results.json")) as f:
+        check(json.load(f) == results, "dcnv2_tta: coco_results.json")
+    dets = read_bbox_json(out_dir)
+    per_image = {}
+    for d in dets:
+        per_image[d["image_id"]] = per_image.get(d["image_id"], 0) + 1
+    check(sorted(per_image) == sorted(r.id for r in dataset.records),
+          f"dcnv2_tta: detections per image {per_image}")
+    check(all(all(map(math.isfinite, d["bbox"])) and 0 < d["score"] <= 1
+              for d in dets), "dcnv2_tta: malformed detection")
+    largest = max(shapes, key=lambda hw: hw[0] * hw[1])
+    pixels = sum(TTA_IMAGES * h * w for h, w in shapes)
+    print(json.dumps({"phase": "dcnv2_x152_tta", "ok": True,
+                      "images": TTA_IMAGES, "image_hw": [480, 640],
+                      "augmentations": len(augs),
+                      "batches": runs // len(augs), "launches": launches,
+                      "detections": len(dets),
+                      "s_per_image": wall / TTA_IMAGES, "wall_s": wall,
+                      "model_calls_s": sum(calls),
+                      "model_call_ms": [c * 1e3 for c in calls],
+                      "peak_memory_gb":
+                          torch.cuda.max_memory_allocated(dev) / 2**30,
+                      "largest_bucket": list(largest),
+                      "padded_mpixels_per_image": pixels / TTA_IMAGES / 1e6,
+                      "card": name}))
+    print(json.dumps({"ap_table": "random weights, 26 augmentations, a "
+                      "synthetic dataset: not an accuracy", **results}))
+    del model
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def phase_tta_card_vs_cpu(dev):
+    """``eval_card_vs_cpu`` on the TTA eval path of full-width PAA-R50
+    (phase 5's weights) at a reduced list: the identity at 256 (at most
+    400) and its flip, scales 192 and 320 with scale ranges, each
+    flipped; soft-vote, two images per batch. On the card K1 once and
+    K3 40 times per augmentation and batch."""
+    cfg = build_cfg("float32", PAA_CONFIG, [
+        "INPUT.MIN_SIZE_TEST", 256, "INPUT.MAX_SIZE_TEST", 400,
+        "TEST.IMS_PER_BATCH", 2, "TEST.BBOX_AUG.ENABLED", True,
+        "TEST.BBOX_AUG.H_FLIP", True, "TEST.BBOX_AUG.SCALES", (192, 320),
+        "TEST.BBOX_AUG.SCALE_RANGES", ((0, 192), (32, 10000)),
+        "TEST.BBOX_AUG.SCALE_H_FLIP", True, "TEST.BBOX_AUG.VOTE", True,
+        "TEST.BBOX_AUG.MERGE_TYPE", "soft-vote"])
+    out, launches = eval_card_vs_cpu(dev, cfg, 14, "tta_card_vs_cpu")
+    runs = 6 * 2  # augmentations x batches
+    check(launches == {"nms_batched": runs, "nms_global": 0,
+                       "group_norm_relu": 40 * runs},
+          f"tta_card_vs_cpu: launches {launches}")
+    print(json.dumps({"phase": "tta_card_vs_cpu", "ok": True,
+                      "augmentations": 6, "launches": launches, **out}))
+
+
 SYNTH_CATALOG = os.path.join(ROOT, "paa_tpu_torch", "tools",
                              "synth_catalog.py")
 SYNTH_32 = ("synth_coco_32",)
@@ -2211,22 +3003,34 @@ class Preempted(Exception):
     preempted job stops."""
 
 
-def phase_train_net_from_pkl(dev, name):
-    """python -m paa_tpu_torch.tools.train_net from ImageNet weights: a
-    seeded Detectron R-50 pickle at the real shapes (BatchNorm folded,
-    the 1000-way classifier beside) under a temporary
-    ModelCatalog.WEIGHTS_DIR, reached through the config's MODEL.WEIGHT
-    catalog://ImageNetPretrained/MSRA/R-50. First the import alone on the
-    card: every body tensor equals its blob, the running statistics stay
-    0 and 1, only the classifier is skipped. Then ``train_net.main`` at
-    full width in bf16 on synth_coco_32 with IMS_PER_BATCH 8, MAX_ITER 4
-    and CHECKPOINT_PERIOD 2, stopped after the iteration-2 checkpoint:
-    finite losses, K3 40 times per step (launch counts set to 0 just
-    before and read just after), the frozen stem and first stage of the
-    checkpoint equal to the pickle's blobs. A second run resumes from
-    ``last_checkpoint`` at iteration 2, reaches 4 and evaluates
-    synth_coco_32 to the AP table (K3 40 per step and per eval batch, K1
-    once per eval batch)."""
+# what phase 18 trains with train_net: the config, the body of the
+# ImageNet pickle that its MODEL.WEIGHT names in the catalog, and the
+# seed of that pickle's weights (its blobs' from the next one)
+TRAIN_NET_CASES = {
+    "train_net_from_pkl": (PAA_CONFIG, "R-50", "R-50.pkl", 31),
+    "dcnv2_train_net_from_pkl": (DCNV2_CONFIG, "R-101", "X-101-32x8d.pkl",
+                                 41),
+}
+
+
+def phase_train_net_from_pkl(dev, name, what):
+    """python -m paa_tpu_torch.tools.train_net from ImageNet weights, for
+    each case of TRAIN_NET_CASES (``what``): a seeded Detectron pickle of
+    the body at the real shapes (BatchNorm folded, the 1000-way
+    classifier beside; for the X-152 dcnv2 config the X-101-32x8d that
+    it starts from) under a temporary ModelCatalog.WEIGHTS_DIR, reached
+    through the config's MODEL.WEIGHT (catalog://ImageNetPretrained/
+    MSRA/R-50, .../FAIR/20171220/X-101-32x8d). First the import alone on
+    the card: every body tensor equals its blob, the running statistics
+    stay 0 and 1, only the classifier is skipped. Then ``train_net.main``
+    at full width in bf16 on synth_coco_32 (the config's bucket ladder)
+    with IMS_PER_BATCH 8, MAX_ITER 4 and CHECKPOINT_PERIOD 2, stopped
+    after the iteration-2 checkpoint: finite losses, K3 40 times per
+    step (launch counts set to 0 just before and read just after), the
+    frozen stem and first stage of the checkpoint equal to the pickle's
+    blobs. A second run resumes from ``last_checkpoint`` at iteration 2,
+    reaches 4 and evaluates synth_coco_32 to the AP table (K3 40 per
+    step and per eval batch, K1 once per eval batch)."""
     import logging
     import pickle
 
@@ -2236,17 +3040,20 @@ def phase_train_net_from_pkl(dev, name):
     from paa_tpu_torch.utils.torch_import import (
         load_pretrained_into, torch_name_to_port_keys)
 
+    config, blocks, pkl_name, seed = TRAIN_NET_CASES[what]
     rl = shared("reference_layout")
     tmp = tempfile.mkdtemp(prefix="paa_train_net_")
     os.environ["PAA_TPU_TORCH_SYNTH_DIR"] = os.path.join(tmp, "synth")
     weights_dir = os.path.join(tmp, "weights")
     os.makedirs(weights_dir)
     ModelCatalog.WEIGHTS_DIR = weights_dir
-    cfg = build_cfg("bfloat16", PAA_CONFIG)
-    body = {k: v for k, v in rl.seeded_state_dict(rl.layout(cfg), 31).items()
-            if k.startswith("backbone.body.")}
-    blobs = rl.c2_imagenet_blobs(body, seed=32)
-    pkl = os.path.join(weights_dir, "R-50.pkl")
+    cfg = build_cfg("bfloat16", config)
+    r = cfg.MODEL.RESNETS
+    body = rl.seeded_state_dict(rl.resnet_keys(
+        rl.BLOCKS[blocks], r.STEM_OUT_CHANNELS, r.RES2_OUT_CHANNELS,
+        r.WIDTH_PER_GROUP, r.NUM_GROUPS), seed)
+    blobs = rl.c2_imagenet_blobs(body, seed=seed + 1)
+    pkl = os.path.join(weights_dir, pkl_name)
     with open(pkl, "wb") as f:
         pickle.dump({"blobs": blobs}, f, protocol=2)
     # the blob each body tensor of the port holds after the import
@@ -2266,14 +3073,14 @@ def phase_train_net_from_pkl(dev, name):
     stats = {k for k in want if "running" in k}
     check(sorted(skipped) == ["pred_b", "pred_w"]
           and not (set(want) - stats) & set(unwritten),
-          f"train_net: skipped {skipped}, unwritten {unwritten[:5]}")
+          f"{what}: skipped {skipped}, unwritten {unwritten[:5]}")
     for key, value in want.items():
         check(torch.equal(on_card[key].cpu(), torch.from_numpy(value)),
-              f"train_net: {key} is not its blob")
+              f"{what}: {key} is not its blob")
     del model, on_card
 
     out_dir = os.path.join(tmp, "out")
-    head = ["--config-file", PAA_CONFIG, "--device", str(dev)]
+    head = ["--config-file", config, "--device", str(dev)]
     opts = [*synth_opts(out_dir), "SOLVER.IMS_PER_BATCH", "8",
             "SOLVER.MAX_ITER", "4", "SOLVER.CHECKPOINT_PERIOD", "2"]
     seen, stamps, preempt = {}, {}, [True]
@@ -2287,27 +3094,27 @@ def phase_train_net_from_pkl(dev, name):
     zero_launch_counts()
     try:
         train_net.main(head + ["--skip-test"] + opts, metric_hook=hook)
-        check(False, "train_net: the first run was not stopped")
+        check(False, f"{what}: the first run was not stopped")
     except Preempted:
         pass
     first_launches = launch_counts()
     check(first_launches == {"nms_batched": 0, "nms_global": 0,
                              "group_norm_relu": 3 * 40},
-          f"train_net: first run launches {first_launches}")
+          f"{what}: first run launches {first_launches}")
     check(sorted(seen) == [1, 2] and all(
         math.isfinite(v) for m in seen.values() for v in m.values())
         and all(m["num_pos"] > 0 for m in seen.values()),
-        f"train_net: first run metrics {seen}")
+        f"{what}: first run metrics {seen}")
     with open(os.path.join(out_dir, "last_checkpoint")) as f:
         check(f.read().strip() == "model_0000002",
-              "train_net: last_checkpoint")
+              f"{what}: last_checkpoint")
     ckpt = torch.load(os.path.join(out_dir, "model_0000002"),
                       map_location="cpu", weights_only=True)
     frozen = [k for k in want if k.startswith(("backbone.resnet.stem.",
                                                "backbone.resnet.layer1_"))]
     for key in frozen + sorted(stats):
         check(torch.equal(ckpt["model"][key], torch.from_numpy(want[key])),
-              f"train_net: {key} moved from its blob")
+              f"{what}: {key} moved from its blob")
     iteration_ms = (stamps[2] - stamps[1]) * 1e3
     first = dict(seen)
 
@@ -2321,14 +3128,14 @@ def phase_train_net_from_pkl(dev, name):
     check(rc == 0 and sorted(seen) == [3, 4] and launches == {
         "nms_batched": batches, "nms_global": 0,
         "group_norm_relu": 40 * (2 + batches)} and batches > 0,
-        f"train_net: second run rc {rc}, iterations {sorted(seen)}, "
+        f"{what}: second run rc {rc}, iterations {sorted(seen)}, "
         f"launches {launches}")
     ckpt = torch.load(os.path.join(out_dir, "model_final"),
                       map_location="cpu", weights_only=True)
     check(ckpt["extra"] == {"iteration": 4} and ckpt["step"] == 4
           and sorted(results) == sorted(METRICS),
-          f"train_net: final {ckpt['extra']}, results {results}")
-    print(json.dumps({"phase": "train_net_from_pkl", "ok": True,
+          f"{what}: final {ckpt['extra']}, results {results}")
+    print(json.dumps({"phase": what, "ok": True,
                       "pkl_mb": os.path.getsize(pkl) / 2**20,
                       "blobs": len(blobs), "import_s": import_s,
                       "batch": 8, "losses": {
@@ -2608,57 +3415,74 @@ def main():
     phase_nms(dev)
     phase_nms_global(dev)
     gn_err = phase_group_norm(dev)
-    paa, paa_eval, paa_launches = phase_main_path(dev)
-    phase_reference(dev)
-    frcnn, frcnn_eval, frcnn_launches = phase_frcnn_main_path(dev)
-    phase_frcnn_reference(dev)
-    eval_launches = phase_eval_main_path(dev, name)
-    phase_eval_card_vs_cpu(dev)
-    phase_gn_grad(dev)
-    trained, state, batch, train_launches = phase_train_main_path(dev, name)
-    phase_train_reference(dev)
-    k1, k3 = phase_timing(dev, paa, paa_eval, paa_launches, gn_err, name)
-    k2, k1_rpn = phase_frcnn_timing(dev, frcnn, frcnn_eval, frcnn_launches,
-                                    name)
-    phase_train_timing(trained, state, batch, name)
-    # K1 serves every inference path: its launches are the main paths'
-    # runs, its times those at PAA's candidates, with the RPN's beside them
-    by_path = {"paa": paa_launches["nms_batched"],
-               "faster_rcnn": frcnn_launches["nms_batched"],
-               "paa_eval": eval_launches["nms_batched"]}
-    k1.update(launches=sum(by_path.values()), launches_by_path=by_path,
-              faster_rcnn_rpn=k1_rpn)
-    by_path = {"faster_rcnn": frcnn_launches["nms_global"]}
-    k2.update(launches=sum(by_path.values()), launches_by_path=by_path)
-    # K3 serves PAA's serving, eval and training paths: its times are per
-    # serving forward (B=8), with the training forward's (B=16) beside
-    by_path = {"paa": paa_launches["group_norm_relu"],
-               "paa_train": train_launches["group_norm_relu"],
-               "paa_eval": eval_launches["group_norm_relu"]}
-    k3.update(launches=sum(by_path.values()), launches_by_path=by_path)
-    phase_profile(paa, paa_eval, 30, "paa", name)
-    phase_profile(frcnn, frcnn_eval, 60, "faster_rcnn", name)
-    phase_train_profile(trained, state, batch, name)
-    del paa, paa_eval, frcnn, frcnn_eval, trained, state, batch
-    torch.cuda.empty_cache()
-    # the X-152 dcnv2 path after the others' timings, so that its model
-    # and its cached blocks are not resident while they are timed
-    dcnv2, dcnv2_eval, dcnv2_launches = phase_dcnv2_main_path(dev)
-    phase_dcn_card_vs_cpu(dev)
-    phase_dcnv2_card_vs_cpu(dev)
-    phase_dcnv2_timing(dev, dcnv2, dcnv2_eval, name)
-    del dcnv2, dcnv2_eval
-    torch.cuda.empty_cache()
-    gate_launches = phase_ap_gate(dev, name)
-    train_net_launches = phase_train_net_from_pkl(dev, name)
-    phase_ddp_two_ranks(dev, name)
+    with recording_k3_shapes() as k3_shapes:
+        paa, paa_eval, paa_launches = phase_main_path(dev)
+        phase_reference(dev)
+        frcnn, frcnn_eval, frcnn_launches = phase_frcnn_main_path(dev)
+        phase_frcnn_reference(dev)
+        eval_launches = phase_eval_main_path(dev, name)
+        phase_eval_card_vs_cpu(dev)
+        phase_gn_grad(dev)
+        trained, state, batch, train_launches = phase_train_main_path(
+            dev, name)
+        phase_train_reference(dev)
+        k1, k3 = phase_timing(dev, paa, paa_eval, paa_launches, gn_err, name)
+        k2, k1_rpn = phase_frcnn_timing(dev, frcnn, frcnn_eval,
+                                        frcnn_launches, name)
+        phase_train_timing(trained, state, batch, name)
+        # K1 serves every inference path: its launches are the main
+        # paths' runs, its times those at PAA's candidates, with the RPN's
+        # beside them
+        by_path = {"paa": paa_launches["nms_batched"],
+                   "faster_rcnn": frcnn_launches["nms_batched"],
+                   "paa_eval": eval_launches["nms_batched"]}
+        k1.update(launches=sum(by_path.values()), launches_by_path=by_path,
+                  faster_rcnn_rpn=k1_rpn)
+        by_path = {"faster_rcnn": frcnn_launches["nms_global"]}
+        k2.update(launches=sum(by_path.values()), launches_by_path=by_path)
+        # K3 serves PAA's serving, eval and training paths: its times are
+        # per serving forward (B=8), with the training forward's (B=16)
+        # beside
+        by_path = {"paa": paa_launches["group_norm_relu"],
+                   "paa_train": train_launches["group_norm_relu"],
+                   "paa_eval": eval_launches["group_norm_relu"]}
+        k3.update(launches=sum(by_path.values()), launches_by_path=by_path)
+        phase_profile(paa, paa_eval, 30, "paa", name)
+        phase_profile(frcnn, frcnn_eval, 60, "faster_rcnn", name)
+        phase_train_profile(trained, state, batch, name)
+        del paa, paa_eval, frcnn, frcnn_eval, trained, state, batch
+        torch.cuda.empty_cache()
+        # the X-152 dcnv2 path after the others' timings, so that its
+        # model and its cached blocks are not resident while they are timed
+        dcnv2, dcnv2_eval, dcnv2_launches = phase_dcnv2_main_path(dev)
+        phase_dcn_card_vs_cpu(dev)
+        phase_dcnv2_card_vs_cpu(dev)
+        phase_dcnv2_timing(dev, dcnv2, dcnv2_eval, name)
+        del dcnv2, dcnv2_eval
+        torch.cuda.empty_cache()
+        phase_dcn_backward_card(dev, name)
+        dcnv2_train_launches, _ = phase_dcnv2_train_main_path(dev, name)
+        phase_dcnv2_train_card_vs_cpu(dev)
+        tta_launches = phase_dcnv2_x152_tta(dev, name)
+        phase_tta_card_vs_cpu(dev)
+        dcnv2_train_net_launches = phase_train_net_from_pkl(
+            dev, name, "dcnv2_train_net_from_pkl")
+        gate_launches = phase_ap_gate(dev, name)
+        train_net_launches = phase_train_net_from_pkl(
+            dev, name, "train_net_from_pkl")
+        phase_ddp_two_ranks(dev, name)
+    phase_k3_at_path_shapes(dev, k3_shapes)
     for kernel, key in ((k1, "nms_batched"), (k2, "nms_global"),
                         (k3, "group_norm_relu")):
         by_path = dict(kernel["launches_by_path"],
-                       paa_dcnv2_x152=dcnv2_launches[key])
+                       paa_dcnv2_x152=dcnv2_launches[key],
+                       paa_dcnv2_x152_tta=tta_launches[key])
         if kernel is not k2:
             by_path.update(ap_gate=gate_launches[key],
-                           train_net=train_net_launches[key])
+                           train_net=train_net_launches[key],
+                           dcnv2_train_net=dcnv2_train_net_launches[key])
+        if kernel is k3:
+            by_path.update(paa_dcnv2_x152_train=dcnv2_train_launches[key])
         kernel.update(launches=sum(by_path.values()),
                       launches_by_path=by_path)
     print(json.dumps({"phase": "script", "wall_s":
@@ -2674,4 +3498,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-worker"]:
         sys.exit(ddp_worker(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--dcnv2-step-readings"]:
+        sys.exit(dcnv2_step_readings([int(a) for a in sys.argv[2:]]))
     sys.exit(main())

@@ -16,9 +16,12 @@ predictions are gathered with ``all_gather_pickled`` and only the main
 process runs the COCO evaluator and writes the files. The other ranks
 return {}.
 
-Not ported: the optimistic-DCN fallback (a TPU lowering), TTA
-(``TEST.BBOX_AUG``, ROADMAP item 9), and the RPN-only, mask and
-keypoint outputs (ROADMAP item 10).
+TEST.BBOX_AUG.ENABLED dispatches to ``bbox_aug.inference_tta`` (test-time
+augmentation, one process), which evaluates through
+``evaluate_predictions`` as this engine does.
+
+Not ported: the optimistic-DCN fallback (a TPU lowering), and the
+RPN-only, mask and keypoint outputs (ROADMAP item 10).
 """
 
 from __future__ import annotations
@@ -92,9 +95,10 @@ def inference(cfg, model, dataset, output_folder=None, logger=None,
     metrics and writes the files, the others return {}."""
     logger = logger or logging.getLogger("paa_tpu_torch.inference")
     if cfg.TEST.BBOX_AUG.ENABLED:
-        raise NotImplementedError(
-            "TEST.BBOX_AUG (test-time augmentation) is not ported to "
-            "paa_tpu_torch yet (ROADMAP item 9)")
+        from .bbox_aug import inference_tta
+
+        return inference_tta(cfg, model, dataset, output_folder, logger,
+                             state)
     loader = make_data_loader(cfg, dataset, is_train=False)
 
     t_start = time.perf_counter()
@@ -112,7 +116,15 @@ def inference(cfg, model, dataset, output_folder=None, logger=None,
         if not comm.is_main_process():
             return {}
         predictions = {k: v for part in parts for k, v in part.items()}
+    return evaluate_predictions(cfg, dataset, predictions, output_folder,
+                                logger)
 
+
+def evaluate_predictions(cfg, dataset, predictions, output_folder, logger):
+    """The 12 COCO bbox metrics of ``predictions`` ({image id: xywh
+    boxes, scores, contiguous labels}) on ``dataset``, checked against
+    TEST.EXPECTED_RESULTS; with ``output_folder``, coco_results.json and
+    bbox.json written there."""
     # map contiguous labels -> json category ids
     cat_ids = sorted(dataset.contiguous_category_id_to_json_id.values())
     detections: Dict[int, dict] = {}

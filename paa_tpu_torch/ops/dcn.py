@@ -26,6 +26,17 @@ The gathered rows of a layer take B*Ho*Wo*K*4C values (5 GB at stage 3
 of X-152-32x8d at B=8 in bf16), so steps 2-3 run over chunks of images
 whose gathered rows stay under ``CHUNK_BYTES``.
 
+Under autograd, ``DeformConv`` goes through ``DeformConv2dFunction``:
+the counterpart of the JAX package's custom VJP (``sample_auto``,
+ops/dcn.py:528-554). Autograd through ``deform_conv2d`` would keep every
+chunk's gathered rows for the backward, those of every DCN layer of a
+train step at once; the Function keeps only its inputs (x, offsets,
+mask, weight) and recomputes each chunk's geometry, patch table,
+sampling and contraction inside its backward, where it takes the
+chunk's VJP and frees it before the next. Its gradients are autograd's
+through ``deform_conv2d``, which stays as the plain version the tests
+hold it against.
+
 Offset channel layout as torch's deform_conv2d: per deformable group,
 per kernel tap (row-major), a (dy, dx) pair; the mask's dg*K channels
 follow all offsets in the offset conv's output and pass a sigmoid.
@@ -35,10 +46,14 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ..modeling.layers import Conv, init_conv_weight
 
 CHUNK_BYTES = 2 << 30  # gathered rows per chunk of images
+# the span of the backward's recompute and VJP, which chip_smoke.py's
+# train profile reads
+SPAN_BACKWARD = "deform_conv2d/backward"
 
 
 def _out_size(size, k, s, p, d):
@@ -79,6 +94,14 @@ def _geometry(offsets, mask, h, w, kh, kw, s, p, d, dg):
         m = mask.to(f32).view(b, dg, k, ho, wo).permute(0, 3, 4, 2, 1)
         cw = cw * m[..., None]
     return y0p, x0p, cw
+
+
+def _images_per_chunk(x, ho, wo, k):
+    """Images per chunk: their gathered rows (Ho*Wo*K rows of 4C values
+    each) stay under CHUNK_BYTES, one image at least."""
+    b, c = x.shape[:2]
+    per_image = ho * wo * k * 4 * c * x.element_size()
+    return max(1, min(b, CHUNK_BYTES // max(per_image, 1)))
 
 
 def _patch_table(x, dg):
@@ -144,8 +167,7 @@ def deform_conv2d(x, offsets, mask, weight, stride=1, padding=1,
     rows = ((image * hp + y0p) * wp + x0p) * dg + group
     cw = cw.to(x.dtype)
 
-    per_image = ho * wo * k * 4 * c * x.element_size()
-    step = max(1, min(b, CHUNK_BYTES // max(per_image, 1)))
+    step = _images_per_chunk(x, ho, wo, k)
     outs = []
     for i in range(0, b, step):
         j = min(b, i + step)
@@ -155,6 +177,58 @@ def deform_conv2d(x, offsets, mask, weight, stride=1, padding=1,
         outs.append(_contract(col.view(n, k, c), weight, groups))
     out = outs[0] if len(outs) == 1 else torch.cat(outs)
     return out.view(b, ho, wo, o).permute(0, 3, 1, 2).contiguous()
+
+
+class DeformConv2dFunction(torch.autograd.Function):
+    """``deform_conv2d`` whose backward keeps only its inputs.
+
+    The forward is ``deform_conv2d`` itself, without a graph, and saves
+    (x, offsets, mask, weight). The backward takes the forward's chunks
+    of images again (``_images_per_chunk``); for each it recomputes
+    ``deform_conv2d`` of the chunk's slices of x, offsets and mask (the
+    chunk's own patch table, its rows based at the chunk's first image)
+    under autograd, and takes ``torch.autograd.grad`` of it against
+    those slices and the weight with the chunk's slice of the upstream
+    gradient. The weight's gradient sums over the chunks. Each chunk's
+    gathered rows live only while its VJP runs. Gradients come back in
+    their inputs' dtypes; a v1 conv (no mask) passes ``mask=None``."""
+
+    @staticmethod
+    def forward(ctx, x, offsets, mask, weight, stride, padding, dilation,
+                groups, deformable_groups):
+        ctx.conv = (stride, padding, dilation, groups, deformable_groups)
+        ctx.save_for_backward(x, offsets, mask, weight)
+        return deform_conv2d(x, offsets, mask, weight, *ctx.conv)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, offsets, mask, weight = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[:4]
+        kh, kw = weight.shape[2:]
+        step = _images_per_chunk(x, *grad.shape[2:], kh * kw)
+        parts = [[], [], []]  # the chunks' gradients of x, offsets, mask
+        dweight = None
+        with record_function(SPAN_BACKWARD), torch.enable_grad():
+            w = weight.detach().requires_grad_(wanted[3])
+            for i in range(0, x.shape[0], step):
+                j = i + step
+                ins = [None if t is None else
+                       t[i:j].detach().requires_grad_(want)
+                       for t, want in zip((x, offsets, mask), wanted)]
+                out = deform_conv2d(*ins, w, *ctx.conv)
+                leaves = [t for t in (*ins, w)
+                          if t is not None and t.requires_grad]
+                grads = iter(torch.autograd.grad(out, leaves, grad[i:j]))
+                for part, t in zip(parts, ins):
+                    if t is not None and t.requires_grad:
+                        part.append(next(grads))
+                if wanted[3]:
+                    g = next(grads)
+                    dweight = g if dweight is None else dweight + g
+        dx, doffsets, dmask = (
+            (part[0] if len(part) == 1 else torch.cat(part)) if part
+            else None for part in parts)
+        return dx, doffsets, dmask, dweight, None, None, None, None, None
 
 
 class DeformConv(nn.Module):
@@ -168,7 +242,9 @@ class DeformConv(nn.Module):
     ``weight`` (O, C/groups, kh, kw) and the optional ``bias`` compute
     in ``dtype``. Initialised as the JAX module: kaiming-uniform (a=1)
     by default (the backbone), normal(std) when ``normal_std`` is given
-    (the head tower); bias zero."""
+    (the head tower); bias zero. The sampling and contraction go
+    through ``DeformConv2dFunction``, which records no graph where no
+    gradient is wanted."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
                  padding=1, dilation=1, groups=1, deformable_groups=1,
@@ -205,7 +281,7 @@ class DeformConv(nn.Module):
         offsets = offset_mask[:, :self.n_offsets]
         mask = (torch.sigmoid(offset_mask[:, self.n_offsets:])
                 if self.modulated else None)
-        out = deform_conv2d(
+        out = DeformConv2dFunction.apply(
             x.to(self.dtype), offsets, mask, self.weight.to(self.dtype),
             self.stride, self.padding, self.dilation, self.groups,
             self.deformable_groups)

@@ -16,6 +16,16 @@ images (96 to 128 px in a 128 x 128 bucket).
   a missing dataset; 1 when the AP misses 0.404 +/- 0.003 (random
   weights); 0 inside a tolerance that admits it, with the results
   written; and the catalog route through --data.
+- ``train_net.main`` on the X-152 dcnv2 config at narrow widths (4
+  groups x 4, stem 8, res2 32) from its own MODEL.WEIGHT,
+  ``catalog://ImageNetPretrained/FAIR/20171220/X-101-32x8d`` (a seeded
+  narrow X-101 pickle): two iterations through the config's loader
+  path, finite losses, the frozen stem and first stage of the
+  checkpoint equal to the pickle's blobs, the offset convs trained.
+- ``python -m paa_tpu_torch.tools.test_net`` with TEST.BBOX_AUG.ENABLED
+  (the identity, one scale, both flipped, soft-vote) on
+  ``synth_coco_4`` from the seeded weights: exit 0, the 12 metrics and
+  detections of every image written.
 """
 
 import json
@@ -167,6 +177,91 @@ def test_train_net_missing_weights_exit_2(tmp_path, monkeypatch):
 # the narrow eval of tests/test_torch_port_eval.py at the slim body
 GATE = SLIM + ["INPUT.MIN_SIZE_TEST", 64, "INPUT.MAX_SIZE_TEST", 96,
                "TPU.TEST_BUCKETS", ((96, 96),), "TEST.IMS_PER_BATCH", 2]
+
+
+X152 = os.path.join(ROOT, "configs", "paa",
+                    "paa_dcnv2_X_152_32x8d_FPN_2x.yaml")
+X152_NARROW = ["MODEL.RESNETS.NUM_GROUPS", 4,
+               "MODEL.RESNETS.WIDTH_PER_GROUP", 4,
+               "MODEL.RESNETS.STEM_OUT_CHANNELS", 8,
+               "MODEL.RESNETS.RES2_OUT_CHANNELS", 32,
+               "MODEL.RESNETS.BACKBONE_OUT_CHANNELS", 64,
+               "TPU.COMPUTE_DTYPE", "float32", "DATALOADER.NUM_WORKERS", 2]
+
+
+def test_train_net_x152_dcnv2_from_the_x101_catalog_pickle(tmp_path,
+                                                           monkeypatch):
+    from paa_tpu_torch.config.paths_catalog import ModelCatalog
+    from paa_tpu_torch.utils.torch_import import torch_name_to_port_keys
+
+    monkeypatch.setenv("PAA_TPU_TORCH_SYNTH_DIR", str(tmp_path / "synth"))
+    monkeypatch.setattr(ModelCatalog, "WEIGHTS_DIR", str(tmp_path))
+    cfg = get_cfg()
+    cfg.merge_from_file(X152)
+    cfg.merge_from_list(X152_NARROW)
+    assert cfg.MODEL.WEIGHT == \
+        "catalog://ImageNetPretrained/FAIR/20171220/X-101-32x8d"
+    r = cfg.MODEL.RESNETS
+    body = rl.seeded_state_dict(rl.resnet_keys(
+        rl.BLOCKS["R-101"], r.STEM_OUT_CHANNELS, r.RES2_OUT_CHANNELS,
+        r.WIDTH_PER_GROUP, r.NUM_GROUPS), 21)
+    with open(tmp_path / "X-101-32x8d.pkl", "wb") as f:
+        pickle.dump({"blobs": rl.c2_imagenet_blobs(body, seed=22)}, f,
+                    protocol=2)
+    out = tmp_path / "out"
+    opts = _opts(*X152_NARROW, *SMALL, "SOLVER.MAX_ITER", 2,
+                 "PATHS_CATALOG", CATALOG,
+                 "DATASETS.TRAIN", ("synth_coco_4",), "OUTPUT_DIR", out)
+    seen = {}
+    rc = train_net.main(["--config-file", X152, "--device", "cpu",
+                         "--skip-test", *opts],
+                        metric_hook=lambda i, m: seen.update({i: m}))
+    assert rc == 0 and sorted(seen) == [1, 2]
+    assert all(np.isfinite(list(m.values())).all() and m["num_pos"] > 0
+               for m in seen.values())
+    model = torch.load(out / "model_final", weights_only=True)["model"]
+    frozen = 0
+    for key, value in rl.fold_frozen_bn(body).items():
+        (port_key, _), = torch_name_to_port_keys(key)
+        if port_key.startswith(("backbone.resnet.stem.",
+                                "backbone.resnet.layer1_")):
+            np.testing.assert_array_equal(model[port_key].numpy(), value,
+                                          err_msg=port_key)
+            frozen += 1
+    assert frozen > 20
+    # the offset convs start at zero (X-101 has none) and trained
+    assert float(model["backbone.resnet.layer2_0.conv2.offset.weight"]
+                 .abs().max()) > 0
+
+
+def test_test_net_with_test_time_augmentation(tmp_path):
+    out = tmp_path / "out"
+    opts = _opts(*SLIM, *SMALL, "PATHS_CATALOG", CATALOG,
+                 "DATASETS.TEST", ("synth_coco_4",), "OUTPUT_DIR", out,
+                 "TEST.BBOX_AUG.ENABLED", True, "TEST.BBOX_AUG.H_FLIP", True,
+                 "TEST.BBOX_AUG.SCALES", (64,),
+                 "TEST.BBOX_AUG.SCALE_RANGES", ((0, 10000),),
+                 "TEST.BBOX_AUG.SCALE_H_FLIP", True,
+                 "TEST.BBOX_AUG.VOTE", True,
+                 "TEST.BBOX_AUG.MERGE_TYPE", "soft-vote",
+                 # the seeded head's class scores sit at the focal prior
+                 # (0.01): a lower threshold lets candidates through
+                 "MODEL.PAA.INFERENCE_TH", 0.005)
+    proc = subprocess.run(
+        [sys.executable, "-m", "paa_tpu_torch.tools.test_net",
+         "--config-file", CONFIG, "--device", "cpu", *opts],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1",
+             "PAA_TPU_TORCH_SYNTH_DIR": str(tmp_path / "synth")})
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    assert "TTA eval" in proc.stdout + proc.stderr
+    folder = out / "inference" / "synth_coco_4"
+    with open(folder / "coco_results.json") as f:
+        assert sorted(json.load(f)) == sorted(
+            ["AP", "AP50", "AP75", "APs", "APm", "APl",
+             "AR1", "AR10", "AR100", "ARs", "ARm", "ARl"])
+    with open(folder / "bbox.json") as f:
+        assert {d["image_id"] for d in json.load(f)} == {1, 2, 3, 4}
 
 
 @pytest.fixture(scope="module")

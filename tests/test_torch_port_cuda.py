@@ -532,3 +532,54 @@ def test_load_pretrained_into_keeps_the_module_on_its_device(dev, tmp_path):
         {"cuda"}
     assert torch.equal(model.module.head.cls_logits.bias.cpu(),
                        torch.from_numpy(state["rpn.head.cls_logits.bias"]))
+
+
+def _dcn_inputs(seed, b=2, c=64, hw=(20, 28), groups=4):
+    """x, offsets (fractional parts in [0.1, 0.9], some samples off the
+    image), mask, weight and an upstream gradient, float32 on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, c, *hw, generator=gen)
+    offsets = (torch.rand(b, 18, *hw, generator=gen) * 0.8 + 0.1
+               + torch.randint(-4, 4, (b, 18, *hw), generator=gen))
+    mask = torch.rand(b, 9, *hw, generator=gen) * 0.9 + 0.1
+    weight = torch.randn(c, c // groups, 3, 3, generator=gen) * 0.1
+    up = torch.randn(b, c, *hw, generator=gen)
+    return x, offsets, mask, weight, up
+
+
+def _dcn_grads(fn, x, offsets, mask, weight, up, dtype, groups=4):
+    ins = [t.clone().to(dtype if i in (0, 3) else torch.float32)
+           .requires_grad_() for i, t in enumerate((x, offsets, mask,
+                                                    weight))]
+    out = fn(*ins, 1, 1, 1, groups, 1)
+    out.backward(up.to(out.device, dtype))
+    return [t.grad.float().cpu() for t in ins]
+
+
+@pytest.mark.parametrize("chunk_bytes", [None, 64 * 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dcn_function_gradients_match_plain(dev, dtype, chunk_bytes,
+                                            monkeypatch):
+    """ops/dcn.py's DeformConv2dFunction (the backward that keeps only
+    its inputs and recomputes each chunk) against autograd through
+    deform_conv2d on the card, and in float32 against the CPU: the
+    card's index_add is order-nondeterministic, so within 1e-5 of each
+    gradient's largest magnitude in float32 (1e-4 against the CPU) and
+    2e-2 in bfloat16; chunks of one image with ``chunk_bytes``."""
+    from paa_tpu_torch.ops import dcn
+
+    if chunk_bytes is not None:
+        monkeypatch.setattr(dcn, "CHUNK_BYTES", chunk_bytes)
+    cpu = _dcn_inputs(3)
+    ins = [t.to(dev) for t in cpu]
+    got = _dcn_grads(dcn.DeformConv2dFunction.apply, *ins, dtype)
+    want = _dcn_grads(dcn.deform_conv2d, *ins, dtype)
+    share = 1e-5 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=share * float(w.abs().max()))
+    if dtype == torch.float32:
+        ref = _dcn_grads(dcn.DeformConv2dFunction.apply, *cpu, dtype)
+        for g, w in zip(got, ref):
+            torch.testing.assert_close(g, w, rtol=0,
+                                       atol=1e-4 * float(w.abs().max()))

@@ -257,10 +257,14 @@ def test_inference_detections_match_jax(eval_case):
 
 
 def test_inference_raises_on_what_is_not_ported(eval_case):
+    """Test-time augmentation (TEST.BBOX_AUG) runs for PAA models only,
+    as in the JAX package, whose TTA engine reads a PAA model's
+    post-processing."""
     _, ann_file, img_dir, _ = eval_case
     cfg = get_cfg()
-    cfg.merge_from_list(EVAL + ["TEST.BBOX_AUG.ENABLED", True])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    cfg.merge_from_list(EVAL + ["TEST.BBOX_AUG.ENABLED", True,
+                                "MODEL.PAA_ON", False])
+    with pytest.raises(NotImplementedError, match="PAA models only"):
         inference(cfg, None, COCODataset(ann_file, img_dir, False))
 
 
