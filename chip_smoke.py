@@ -186,8 +186,40 @@ and prints no result line):
 29. Phase 18 on the X-152 dcnv2 config, from a seeded Detectron
     X-101-32x8d pickle through its catalog:// MODEL.WEIGHT.
 30. K3 against its plain version, as phase 4, at every input shape at
-    which the paths of phases 5-29 launched it (the TTA buckets up to
+    which the paths of phases 5-33 launched it (the TTA buckets up to
     1824 x 3008 and the training ladder's among them).
+
+31. (Run after phase 14's profile, before phase 20.) The dense detectors
+    beside PAA at full width (256 FPN channels, 80 classes), bfloat16,
+    weights from seed 0 and the cls bias from seed 1, each through the
+    phases of PAA-R50 (``phase_dense``): ATSS
+    (configs/atss/atss_R_50_FPN_1x.yaml), FCOS
+    (configs/fcos/fcos_imprv_R_50_FPN_1x.yaml: NORM_REG_TARGETS,
+    centerness on the regression tower, center sampling, GIoU) and
+    RetinaNet (configs/retinanet/retinanet_R-50-FPN_1x.yaml: 9 anchors
+    per location, P6 from C5, plain towers). Three 8 x 800 x 1344
+    requests (phase 5's checks; K1 once and K3 40 times per request,
+    no K3 for RetinaNet); K1 against its plain version on the inputs
+    the first request gave it (recorded), bit-equal, and timed there;
+    img/s and a profile (phases 9-10); the f32 model on the card
+    against the CPU (phase 6); 10 do_train steps at the config's
+    IMS_PER_BATCH (16; RetinaNet 8) with K3 40 times per step for ATSS
+    and FCOS, the step's ms, img/s and profile (phases 12, 14); the f32
+    train step on the card against the CPU and float64 (phase 13), the
+    assignment's labels equal, and for FCOS a third card step with its
+    centerness targets x1.05, which must land beyond the limits.
+    RetinaNet's 10 steps take FrozenBN statistics calibrated on its
+    seeded body (its towers have no norm; with the seed's identity
+    statistics P3-P7 reach ~1e3 and its steps diverge); its one-step
+    comparison keeps the seeded ones, as every head's.
+32. (Run after phase 28.) ATSS multi-scale testing as phase 27: the
+    identity, 3 scales of the X-152 list (400, 1000, 1800, their scale
+    ranges, MAX_SIZE 3000) and their flips, 8 augmentations, soft-vote,
+    4 images of 480 x 640: K1 once and K3 40 times per augmentation.
+33. ``paa_tpu_torch.tools.test_net`` on the FCOS config over
+    synth_coco_32 at full width from the seeded weights: exit 0, the 12
+    metrics, a detection on every image, K1 once and K3 40 times per
+    eval batch.
 
 Phase 13 also runs the step a third time on the CPU with the network in
 float64 (every convolution, FrozenBN and GroupNorm), the referee of the
@@ -231,6 +263,15 @@ FRCNN_CONFIG = os.path.join(ROOT, "configs",
                             "e2e_faster_rcnn_R_50_FPN_1x.yaml")
 DCNV2_CONFIG = os.path.join(ROOT, "configs", "paa",
                             "paa_dcnv2_X_152_32x8d_FPN_2x.yaml")
+# the dense detectors beside PAA: each serves, trains and is held
+# against the CPU by the phases of PAA-R50, called once per head
+DENSE_CONFIGS = {
+    "atss": os.path.join(ROOT, "configs", "atss", "atss_R_50_FPN_1x.yaml"),
+    "fcos": os.path.join(ROOT, "configs", "fcos",
+                         "fcos_imprv_R_50_FPN_1x.yaml"),
+    "retinanet": os.path.join(ROOT, "configs", "retinanet",
+                              "retinanet_R-50-FPN_1x.yaml"),
+}
 # one deformable conv in bfloat16 against float32, within this share of
 # the float32 output's largest magnitude (tests/test_torch_port_dcn.py's
 # BF16_REL)
@@ -638,10 +679,10 @@ def build_cfg(dtype, path, extra=()):
 
 
 def seeded_model(dtype, device, path=PAA_CONFIG):
-    """Full-width PAA (PAA-R50 unless ``path`` names another config) with
-    weights from seed 0 and the cls_logits bias drawn from seed 1 around
-    the 0.05 threshold (logit -2.944), so that an untrained net yields
-    candidates."""
+    """The full-width dense model of ``path`` (PAA-R50 by default; ATSS,
+    FCOS, RetinaNet) with weights from seed 0 and the cls_logits bias
+    drawn from seed 1 around the 0.05 threshold (logit -2.944), so that
+    an untrained net yields candidates."""
     from paa_tpu_torch.modeling import build_detection_model
 
     model = build_detection_model(build_cfg(dtype, path),
@@ -781,11 +822,24 @@ def serve(model, what, seed, expected, min_score):
     return eval_fn, launches
 
 
-def phase_main_path(dev):
-    model = seeded_model("bfloat16", dev)
+def gn_per_forward(model):
+    """K3 launches of one forward: the GroupNorm+ReLU layers of the
+    model (its head's towers), once per pyramid level; 0 for RetinaNet's
+    plain towers."""
+    from paa_tpu_torch.modeling.layers import GroupNorm32
+
+    return len(model.strides) * sum(
+        isinstance(m, GroupNorm32) for m in model.module.modules())
+
+
+def phase_main_path(dev, path=PAA_CONFIG, what="main_path"):
+    """Three full-width requests of the dense model of ``path`` (PAA-R50
+    by default): K1 once and K3 ``gn_per_forward`` times per request."""
+    model = seeded_model("bfloat16", dev, path)
     eval_fn, launches = serve(
-        model, "main_path", 10,
-        {"nms_batched": 3, "nms_global": 0, "group_norm_relu": 120}, 0.0)
+        model, what, 10,
+        {"nms_batched": 3, "nms_global": 0,
+         "group_norm_relu": 3 * gn_per_forward(model)}, 0.0)
     return model, eval_fn, launches
 
 
@@ -847,8 +901,9 @@ def card_vs_cpu(dev, build, outputs, what):
                       **match_detections(*dets, what)}))
 
 
-def phase_reference(dev):
-    card_vs_cpu(dev, seeded_model, lambda m, x: m.module(x), "card_vs_cpu")
+def phase_reference(dev, path=PAA_CONFIG, what="card_vs_cpu"):
+    card_vs_cpu(dev, lambda dtype, device: seeded_model(dtype, device, path),
+                lambda m, x: m.module(x), what)
 
 
 def phase_frcnn_reference(dev):
@@ -1488,17 +1543,66 @@ def gn_zero_variance_tie(dev):
     return got.tolist()
 
 
-def phase_train_main_path(dev, name):
-    """10 steps of do_train at full width on one batch; the launch counts
-    set to 0 just before and read just after."""
-    from paa_tpu_torch.engine import do_train
+def calibrated_frozen_bn(path):
+    """FrozenBN statistics for the seeded body of ``path``: each
+    FrozenBatchNorm's running mean and variance set, in forward order, to
+    the per-channel mean and variance (at least 1e-5) of its input over a
+    calibration batch (seed 98, 2 x 256 x 320, float32 on the CPU), so
+    that the random body's activations keep unit scale, as the
+    BatchNorm-folded ImageNet body the configs load does. With the seeded
+    model's identity statistics P3-P7 reach ~1e3, which RetinaNet's
+    plain towers (no norm) carry into its logits: its train steps
+    diverge to NaN by the fourth step, on the CPU as on the card.
+    Returns the buffers as a state-dict subset."""
+    from paa_tpu_torch.modeling import build_detection_model
+    from paa_tpu_torch.modeling.layers import FrozenBatchNorm
+    from paa_tpu_torch.ops.image_norm import device_normalize
+
+    model = build_detection_model(build_cfg("float32", path), device="cpu",
+                                  seed=0)
+
+    def calibrate(module, inputs):
+        x = inputs[0].to(torch.float32)
+        module.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+        module.running_var.copy_(x.var(dim=(0, 2, 3)).clamp(min=1e-5))
+
+    hooks = [m.register_forward_pre_hook(calibrate)
+             for m in model.module.modules()
+             if isinstance(m, FrozenBatchNorm)]
+    batch = train_batch(98, 2, (256, 320), (256.0, 300.0))
+    x = device_normalize(batch["images"], batch["image_sizes"],
+                         model.cfg.INPUT.PIXEL_MEAN, model.cfg.INPUT.PIXEL_STD)
+    with torch.inference_mode():
+        model.module.backbone(x.permute(0, 3, 1, 2).contiguous())
+    for h in hooks:
+        h.remove()
+    return {k: v.clone() for k, v in model.module.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def seeded_train_model(cfg, device, frozen_bn=None):
+    """``build_detection_model`` from seed 0, with ``frozen_bn`` (from
+    ``calibrated_frozen_bn``) loaded when given."""
     from paa_tpu_torch.modeling import build_detection_model
 
-    cfg = build_cfg("bfloat16", PAA_CONFIG,
-                    ["SOLVER.MAX_ITER", TRAIN_STEPS])
-    model = build_detection_model(cfg, device=dev, seed=0)
+    model = build_detection_model(cfg, device=device, seed=0)
+    if frozen_bn is not None:
+        model.module.load_state_dict(frozen_bn, strict=False)
+    return model
+
+
+def phase_train_main_path(dev, name, path=PAA_CONFIG,
+                          what="train_main_path", frozen_bn=None):
+    """10 steps of do_train at full width on one batch of the config's
+    SOLVER.IMS_PER_BATCH images (16; RetinaNet's 8); the launch counts
+    set to 0 just before and read just after. ``frozen_bn``, if given,
+    replaces the seeded FrozenBN statistics."""
+    from paa_tpu_torch.engine import do_train
+
+    cfg = build_cfg("bfloat16", path, ["SOLVER.MAX_ITER", TRAIN_STEPS])
+    model = seeded_train_model(cfg, dev, frozen_bn)
     state = train_state(model)
-    batch = train_batch(70, TRAIN_BATCH, HW, SIZE)
+    batch = train_batch(70, cfg.SOLVER.IMS_PER_BATCH, HW, SIZE)
     seen = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1510,22 +1614,21 @@ def phase_train_main_path(dev, name):
     wall = time.perf_counter() - t0
     launches = launch_counts()
     expected = {"nms_batched": 0, "nms_global": 0,
-                "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW)
-                * TRAIN_STEPS}
+                "group_norm_relu": gn_per_forward(model) * TRAIN_STEPS}
     check(launches == expected,
-          f"train_main_path: launches {launches}, expected {expected}")
+          f"{what}: launches {launches}, expected {expected}")
     check(sorted(seen) == list(range(1, TRAIN_STEPS + 1)),
-          f"train_main_path: metrics of steps {sorted(seen)}")
+          f"{what}: metrics of steps {sorted(seen)}")
     for i, m in seen.items():
         check(all(math.isfinite(v) for v in m.values()),
-              f"train_main_path: step {i} {m}")
-        check(m["num_pos"] > 0, f"train_main_path: step {i} no positives")
+              f"{what}: step {i} {m}")
+        check(m["num_pos"] > 0, f"{what}: step {i} no positives")
     check(seen[TRAIN_STEPS]["loss"] < seen[1]["loss"],
-          f"train_main_path: loss {seen[1]['loss']} -> "
+          f"{what}: loss {seen[1]['loss']} -> "
           f"{seen[TRAIN_STEPS]['loss']}")
     n_gt = (batch["gt_labels"] > 0).sum(dim=1).tolist()
     print(json.dumps({
-        "phase": "train_main_path", "ok": True, "batch": TRAIN_BATCH,
+        "phase": what, "ok": True, "batch": cfg.SOLVER.IMS_PER_BATCH,
         "hw": HW, "max_gt": MAX_GT, "gt_per_image": n_gt,
         "steps": TRAIN_STEPS, "dtype": "bfloat16", "launches": launches,
         "losses": {k: [seen[i][k] for i in sorted(seen)]
@@ -1536,19 +1639,50 @@ def phase_train_main_path(dev, name):
     return model, state, batch, launches
 
 
+def _assigned_labels(loss, outputs, gt_boxes, gt_labels, anchors, counts,
+                     lc):
+    """The labels of the assignment that the ATSS, FCOS or RetinaNet loss
+    ``loss`` computes inside (its assignment function, run again on the
+    same inputs)."""
+    from paa_tpu_torch.modeling import atss_loss, fcos_loss, retinanet_head
+
+    gt_boxes = gt_boxes.to(torch.float32)
+    if loss is atss_loss.atss_loss:
+        return atss_loss.atss_assignment(gt_boxes, gt_labels, anchors,
+                                         counts, lc)[0]
+    if loss is fcos_loss.fcos_loss:
+        return fcos_loss.fcos_assign(gt_boxes, gt_labels, anchors[:, :2],
+                                     counts, lc)[0]
+    return retinanet_head.retinanet_assign(gt_boxes, gt_labels, anchors,
+                                           lc)[0]
+
+
 def _with_pos_mask(loss):
     """``loss`` that also reports its positive mask among the step's
-    metrics (the train step sums only the ``loss_*`` entries)."""
+    metrics (the train step sums only the ``loss_*`` entries): PAA's
+    from ``return_aux``; for the other heads the labels of their
+    assignment (their positives are the labels > 0), so that comparing
+    them compares the classes too."""
+    from paa_tpu_torch.modeling.paa_loss import paa_loss
+
     def call(*args, **kwargs):
-        out, aux = loss(*args, return_aux=True, **kwargs)
-        return {**out, "pos_mask": aux["pos_mask"]}
+        if loss is paa_loss:
+            out, aux = loss(*args, return_aux=True, **kwargs)
+            return {**out, "pos_mask": aux["pos_mask"]}
+        return {**loss(*args, **kwargs),
+                "pos_mask": _assigned_labels(loss, *args)}
     return call
 
 
 def train_once(model, batch):
     """One train step of ``model`` on ``batch`` with a fresh optimizer:
     (host metrics, the step's positive mask, the parameters before and
-    after it), all on the CPU."""
+    after it), all on the CPU. "After" is the step's update as SGD
+    computed it, before - lr x its first momentum buffer (g + wd x p), in
+    float64: the float32 parameters store an update of a few ulps of
+    their weights only to the ulp (FPN P7's, whose update is mostly
+    weight decay, is 3-6 ulps of its largest weight), which the update
+    comparisons would read as an error of a sixth to a third of it."""
     loss_call, loss_cfg = model.loss_fn()
     model.loss_fn = lambda: (_with_pos_mask(loss_call), loss_cfg)
     state = train_state(model)
@@ -1557,8 +1691,15 @@ def train_once(model, batch):
     metrics = model.make_bucket_train_step(
         tuple(batch["images"].shape[1:3]))(state, batch)
     pos_mask = metrics.pop("pos_mask").cpu()
+    lr = {id(p): g["lr"] for g in state.optimizer.param_groups
+          for p in g["params"]}
+    after = {}
+    for n, p in params.items():
+        buf = state.optimizer.state.get(p, {}).get("momentum_buffer")
+        after[n] = before[n].double() if buf is None else (
+            before[n].double() - lr[id(p)] * buf.detach().cpu().double())
     return ({k: float(v) for k, v in metrics.items()}, pos_mask, before,
-            {n: p.detach().cpu().clone() for n, p in params.items()})
+            after)
 
 
 def update_norm_err(got, want, before):
@@ -1600,10 +1741,38 @@ def _gn_plain_stats_detached(x, weight, bias, num_groups=32, eps=1e-5):
 UPDATE_NORM_TOL, UPDATE_SHARE_TOL = 9e-3, 2.9e-2
 
 
-def phase_train_reference(dev):
+def _gn_faults():
+    """Faults planted in K3's gradient: GroupNormReLU's backward
+    recomputes through the module's group_norm_relu_plain, which each
+    fault replaces for one step."""
+    from paa_tpu_torch.ops import group_norm as gn
+
+    plain = gn.group_norm_relu_plain
+    return {"gn_stats_detached": (gn, "group_norm_relu_plain",
+                                  _gn_plain_stats_detached),
+            "gn_dx_x1.05": (gn, "group_norm_relu_plain",
+                            lambda x, *args: plain(
+                                x.detach() + (x - x.detach()) * 1.05,
+                                *args))}
+
+
+def _fcos_centerness_fault():
+    """FCOS's centerness targets scaled by 1.05 (they weight the IoU loss
+    and are the branch's BCE targets)."""
+    from paa_tpu_torch.modeling import fcos_loss
+
+    plain = fcos_loss.compute_centerness_targets_ltrb
+    return {"fcos_centerness_x1.05": (
+        fcos_loss, "compute_centerness_targets_ltrb",
+        lambda r: plain(r) * 1.05)}
+
+
+def phase_train_reference(dev, path=PAA_CONFIG, what="train_card_vs_cpu",
+                          faults=_gn_faults):
     """One float32 train step on the card against the same on the CPU
     (plain versions), from the same weights and batch at 2 x 256 x 320:
-    losses within 1e-4 relative, num_pos and the positive mask equal;
+    losses within 1e-4 relative, num_pos and the positive mask (for
+    ATSS, FCOS and RetinaNet the assignment's labels) equal;
     each parameter tensor's update (after - before) within
     UPDATE_NORM_TOL of its norm, and every element within
     UPDATE_SHARE_TOL of the tensor's largest update. Both float32 steps
@@ -1618,17 +1787,16 @@ def phase_train_reference(dev):
     which amplifies what differs. On an H100 80GB HBM3 the worst tensor
     was at 3.1e-3 of its norm and 9.7e-3 of its largest element, the
     same in every run, both against the CPU and against float64
-    (PERF.md). The same step on the card with a fault planted in K3's
+    (PERF.md). The same step on the card with each fault of ``faults()``
+    planted must land beyond the limits: for PAA-R50 two in K3's
     gradient (the group statistics taken as constants; x's gradient 1.05
-    times the right one) must land beyond the limits: GroupNormReLU's
-    backward recomputes through the module's group_norm_relu_plain,
-    which each fault replaces for one step."""
+    times the right one, ``_gn_faults``), for FCOS its centerness
+    targets x1.05; ``faults`` None plants none."""
     from paa_tpu_torch.modeling import build_detection_model
-    from paa_tpu_torch.ops import group_norm as gn
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = build_cfg("float32", PAA_CONFIG)
+    cfg = build_cfg("float32", path)
     batch = train_batch(99, 2, (256, 320), (256.0, 300.0))
     runs = [train_once(build_detection_model(cfg, device=d, seed=0), batch)
             for d in (dev, "cpu")]
@@ -1641,31 +1809,28 @@ def phase_train_reference(dev):
     referee["conv_probe"] = conv_precision_probe(dev)
     check(m_gpu["num_pos"] == m_cpu["num_pos"] > 0
           and torch.equal(pos_gpu, pos_cpu),
-          "train_card_vs_cpu: positive masks differ")
-    check(max(loss_err.values()) <= 1e-4, f"train_card_vs_cpu: {loss_err}")
+          f"{what}: positive masks differ")
+    check(max(loss_err.values()) <= 1e-4, f"{what}: {loss_err}")
     check(worst_norm[0][1] <= UPDATE_NORM_TOL
           and worst_share[0][1] <= UPDATE_SHARE_TOL,
-          f"train_card_vs_cpu: updates {worst_norm} {worst_share}")
+          f"{what}: updates {worst_norm} {worst_share}")
     planted = {}
-    plain = gn.group_norm_relu_plain
-    faults = {"gn_stats_detached": _gn_plain_stats_detached,
-              "gn_dx_x1.05": lambda x, *args: plain(
-                  x.detach() + (x - x.detach()) * 1.05, *args)}
-    for fault, fn in faults.items():
-        gn.group_norm_relu_plain = fn
+    for fault, (module, attr, fn) in (faults() if faults else {}).items():
+        plain = getattr(module, attr)
+        setattr(module, attr, fn)
         try:
             _, _, _, p_bad = train_once(
                 build_detection_model(cfg, device=dev, seed=0), batch)
         finally:
-            gn.group_norm_relu_plain = plain
+            setattr(module, attr, plain)
         f_norm, f_share = update_errors(p_bad, p_cpu, before)
         planted[fault] = {"worst_update_norm_err": f_norm[0],
                           "worst_update_share": f_share[0]}
         check(f_norm[0][1] > UPDATE_NORM_TOL
               or f_share[0][1] > UPDATE_SHARE_TOL,
-              f"train_card_vs_cpu: planted {fault} within the limits: "
+              f"{what}: planted {fault} within the limits: "
               f"{f_norm} {f_share}")
-    print(json.dumps({"phase": "train_card_vs_cpu", "ok": True,
+    print(json.dumps({"phase": what, "ok": True,
                       "hw": [256, 320], "num_pos": m_gpu["num_pos"],
                       "loss_rel_err": loss_err,
                       "worst_update_norm_err": worst_norm,
@@ -1772,14 +1937,15 @@ def float64_referee(dev, cfg, batch, before, p_gpu, p_cpu, pos_cpu):
     return out
 
 
-def phase_train_timing(model, state, batch, name):
+def phase_train_timing(model, state, batch, name, what="paa_train"):
     """Step ms and img/s of the train step (CUDA events after 2 warm-up
     steps)."""
     step = model.make_bucket_train_step(HW)
+    bsz = int(batch["images"].shape[0])
     ms = cuda_step_ms(lambda: step(state, batch), 5)
-    out = {"step_ms": ms, "img_per_s": TRAIN_BATCH / ms * 1e3}
-    print(json.dumps({"metric": "train_step", "path": "paa_train",
-                      "batch": TRAIN_BATCH, "hw": HW, "dtype": "bfloat16",
+    out = {"step_ms": ms, "img_per_s": bsz / ms * 1e3}
+    print(json.dumps({"metric": "train_step", "path": what,
+                      "batch": bsz, "hw": HW, "dtype": "bfloat16",
                       **out, "card": name}))
     return out
 
@@ -1814,16 +1980,19 @@ def phase_train_profile(model, state, batch, name, hw=HW,
     from torch.profiler import ProfilerActivity, profile
 
     from paa_tpu_torch.engine import train_step as ts
+    from paa_tpu_torch.modeling import atss_loss, fcos_loss, retinanet_head
     from paa_tpu_torch.modeling import paa_loss as pl
     from paa_tpu_torch.ops import dcn
     from paa_tpu_torch.ops import group_norm as gn
 
     spans_named = {ts.SPAN_INPUT: "input", ts.SPAN_FORWARD: "forward",
-                   pl.SPAN_ASSIGN: "assignment", pl.SPAN_LOSSES: "losses",
                    ts.SPAN_BACKWARD: "backward",
                    gn.SPAN_BACKWARD: "gn_backward_recompute",
                    dcn.SPAN_BACKWARD: "dcn_backward_recompute",
                    ts.SPAN_OPTIMIZER: "optimizer"}
+    for loss in (pl, atss_loss, fcos_loss, retinanet_head):
+        spans_named.update({loss.SPAN_ASSIGN: "assignment",
+                            loss.SPAN_LOSSES: "losses"})
     step = model.make_bucket_train_step(hw)
     step(state, batch)
     torch.cuda.synchronize()
@@ -2762,16 +2931,47 @@ def dcnv2_step_readings(seeds):
 
 
 def phase_dcnv2_x152_tta(dev, name):
-    """Multi-scale testing of the X-152 dcnv2 config: ``inference`` with
-    TEST.BBOX_AUG.ENABLED True and the config's own list (the identity,
-    its flip and 12 scales up to 1800 with MAX_SIZE 3000, each flipped:
-    26 augmentations; soft-vote at VOTE_TH 0.66) over TTA_IMAGES PPM
-    images of 480 x 640 in one batch, full width, bfloat16, the weights
-    and cls bias of phase 20; the launch counts set to 0 just before and
-    read just after: K1 once and K3 40 times per augmentation and batch.
-    A detection for every image and the 12 metrics written; s/img (and
-    the model calls' share, host clock around each synchronized call),
-    peak memory and the largest padded bucket."""
+    """Multi-scale testing of the X-152 dcnv2 config: ``phase_tta`` with
+    the config's own list (the identity, its flip and 12 scales up to
+    1800 with MAX_SIZE 3000, each flipped: 26 augmentations; soft-vote
+    at VOTE_TH 0.66), the weights and cls bias of phase 20."""
+    cfg = build_cfg("bfloat16", DCNV2_CONFIG, [
+        "TEST.BBOX_AUG.ENABLED", True, "TEST.IMS_PER_BATCH", TTA_IMAGES])
+    return phase_tta(dev, name, "dcnv2_x152_tta", cfg,
+                     seeded_dcnv2("bfloat16", dev), 26)
+
+
+# ATSS's TTA: three scales of the X-152 config's list (its smallest, its
+# largest, one between) with their scale ranges, each flipped, and the
+# identity and its flip: 8 augmentations
+ATSS_TTA = ["TEST.BBOX_AUG.ENABLED", True, "TEST.IMS_PER_BATCH", TTA_IMAGES,
+            "TEST.BBOX_AUG.H_FLIP", True,
+            "TEST.BBOX_AUG.SCALES", (400, 1000, 1800),
+            "TEST.BBOX_AUG.SCALE_RANGES", ((96, 10000), (0, 10000),
+                                           (0, 96)),
+            "TEST.BBOX_AUG.MAX_SIZE", 3000,
+            "TEST.BBOX_AUG.SCALE_H_FLIP", True, "TEST.BBOX_AUG.VOTE", True,
+            "TEST.BBOX_AUG.MERGE_TYPE", "soft-vote"]
+
+
+def phase_atss_tta(dev, name):
+    """``phase_tta`` of atss_R_50_FPN_1x at ATSS_TTA's 8 augmentations,
+    serving's seeded weights and cls bias."""
+    path = DENSE_CONFIGS["atss"]
+    return phase_tta(dev, name, "atss_tta",
+                     build_cfg("bfloat16", path, ATSS_TTA),
+                     seeded_model("bfloat16", dev, path), 8)
+
+
+def phase_tta(dev, name, what, cfg, model, n_augs):
+    """Multi-scale testing: ``inference`` with TEST.BBOX_AUG.ENABLED over
+    TTA_IMAGES PPM images of 480 x 640 in one batch, full width,
+    bfloat16, ``cfg``'s ``n_augs`` augmentations; the launch counts set
+    to 0 just before and read just after: K1 once and K3
+    ``gn_per_forward`` times per augmentation and batch. A detection for
+    every image and the 12 metrics written; s/img (and the model calls'
+    share, host clock around each synchronized call), peak memory and
+    the largest padded bucket."""
     import logging
 
     from paa_tpu_torch.data.coco import COCODataset
@@ -2784,11 +2984,8 @@ def phase_dcnv2_x152_tta(dev, name):
                                    seed=13, sizes=((640, 480),))
     dataset = COCODataset(ann_file, img_dir,
                           remove_images_without_annotations=False)
-    cfg = build_cfg("bfloat16", DCNV2_CONFIG, [
-        "TEST.BBOX_AUG.ENABLED", True, "TEST.IMS_PER_BATCH", TTA_IMAGES])
     augs = bbox_aug.build_aug_list(cfg)
-    check(len(augs) == 26, f"dcnv2_tta: {len(augs)} augmentations")
-    model = seeded_dcnv2("bfloat16", dev)
+    check(len(augs) == n_augs, f"{what}: {len(augs)} augmentations")
     calls = timed_eval_calls(model)
     shapes, plain = [], bbox_aug.aug_batch
 
@@ -2812,27 +3009,27 @@ def phase_dcnv2_x152_tta(dev, name):
         bbox_aug.aug_batch = plain
     launches = launch_counts()
     runs = len(shapes)
-    check(runs == len(augs), f"dcnv2_tta: {runs} model runs")
+    check(runs == len(augs), f"{what}: {runs} model runs")
     expected = {"nms_batched": runs, "nms_global": 0,
-                "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW) * runs}
+                "group_norm_relu": gn_per_forward(model) * runs}
     check(launches == expected,
-          f"dcnv2_tta: launches {launches}, expected {expected}")
+          f"{what}: launches {launches}, expected {expected}")
     check(sorted(results) == sorted(METRICS) and all(
         math.isfinite(v) and -1.0 <= v <= 1.0 for v in results.values()),
-        f"dcnv2_tta: results {results}")
+        f"{what}: results {results}")
     with open(os.path.join(out_dir, "coco_results.json")) as f:
-        check(json.load(f) == results, "dcnv2_tta: coco_results.json")
+        check(json.load(f) == results, f"{what}: coco_results.json")
     dets = read_bbox_json(out_dir)
     per_image = {}
     for d in dets:
         per_image[d["image_id"]] = per_image.get(d["image_id"], 0) + 1
     check(sorted(per_image) == sorted(r.id for r in dataset.records),
-          f"dcnv2_tta: detections per image {per_image}")
+          f"{what}: detections per image {per_image}")
     check(all(all(map(math.isfinite, d["bbox"])) and 0 < d["score"] <= 1
-              for d in dets), "dcnv2_tta: malformed detection")
+              for d in dets), f"{what}: malformed detection")
     largest = max(shapes, key=lambda hw: hw[0] * hw[1])
     pixels = sum(TTA_IMAGES * h * w for h, w in shapes)
-    print(json.dumps({"phase": "dcnv2_x152_tta", "ok": True,
+    print(json.dumps({"phase": what, "ok": True,
                       "images": TTA_IMAGES, "image_hw": [480, 640],
                       "augmentations": len(augs),
                       "batches": runs // len(augs), "launches": launches,
@@ -2845,8 +3042,9 @@ def phase_dcnv2_x152_tta(dev, name):
                       "largest_bucket": list(largest),
                       "padded_mpixels_per_image": pixels / TTA_IMAGES / 1e6,
                       "card": name}))
-    print(json.dumps({"ap_table": "random weights, 26 augmentations, a "
-                      "synthetic dataset: not an accuracy", **results}))
+    print(json.dumps({"ap_table": f"random weights, {len(augs)} "
+                      "augmentations, a synthetic dataset: not an accuracy",
+                      **results}))
     del model
     torch.cuda.empty_cache()
     shutil.rmtree(tmp, ignore_errors=True)
@@ -3398,6 +3596,142 @@ def phase_ddp_two_ranks(dev, name):
     shutil.rmtree(tmp, ignore_errors=True)
 
 
+@contextlib.contextmanager
+def recording_k1_inputs():
+    """Records the inputs of every K1 launch made while it is open (the
+    launcher behind ``nms_batched``, wrapped): the list it yields fills
+    with each launch's positional arguments as the path runs."""
+    from paa_tpu_torch.ops import nms
+
+    seen, launch = [], nms._nms_batched_cuda
+
+    def recorded(*args, **kwargs):
+        seen.append(args)
+        return launch(*args, **kwargs)
+
+    nms._nms_batched_cuda = recorded
+    try:
+        yield seen
+    finally:
+        nms._nms_batched_cuda = launch
+
+
+def k1_at_path_inputs(args, what, name):
+    """K1 against its plain version on the inputs a path's request gave it
+    (``recording_k1_inputs``): keep_idx, keep_scores and keep_valid
+    bit-equal; both timed, with the bound (``time_nms``)."""
+    from paa_tpu_torch.ops import nms
+
+    ious, got, timing = time_nms(nms.nms_batched, args, 20,
+                                 f"nms_batched on the {what} candidates")
+    detail = {"kernel_detail": "nms_batched", "path": what,
+              "B": args[1].shape[0], "N": args[1].shape[1],
+              "iou_threshold": args[4], "valid_candidates":
+              int(args[3].sum()), **k1_tiles(args, got),
+              "ious_needed": ious, "valid_picks": int(got[2].sum()),
+              **timing, "card": name}
+    print(json.dumps(detail))
+    return detail
+
+
+def phase_dense(dev, head, name):
+    """The serving, training and card-vs-CPU phases of PAA-R50, on the
+    config of DENSE_CONFIGS[``head``] at full width:
+
+    - three 8 x 800 x 1344 bf16 requests (``phase_main_path``: K1 once
+      and K3 40 times per request, none for RetinaNet), K1 held
+      bit-equal to its plain version on the first request's own inputs
+      and timed there, img/s and a profile of three requests;
+    - the f32 model on the card against the CPU at 2 x 256 x 320
+      (``phase_reference``);
+    - 10 bf16 steps of do_train at the config's IMS_PER_BATCH (16; 8 for
+      RetinaNet) with K3 40 times per step for ATSS and FCOS, then the
+      step's ms, img/s and a profile split by span
+      (``phase_train_main_path``, ``phase_train_timing``,
+      ``phase_train_profile``);
+    - one f32 train step on the card against the CPU and float64
+      (``phase_train_reference``), with FCOS's centerness targets x1.05
+      planted in a third step, which must land beyond the limits.
+
+    RetinaNet's 10 training steps take FrozenBN statistics calibrated on
+    its seeded body (``calibrated_frozen_bn``): its towers have no norm.
+    Its one-step comparison keeps the seeded statistics, as every head's:
+    the calibrated ones centre the body's ReLU inputs at 0, where
+    float32 and float64 decide apart, so that the CPU's own f32 step
+    misses float64 by 2.1e-2 of a tensor's update norm with them and
+    2.8e-3 without.
+
+    Returns the launch counts of the serving and training runs."""
+    path = DENSE_CONFIGS[head]
+    frozen_bn = calibrated_frozen_bn(path) if head == "retinanet" else None
+    with recording_k1_inputs() as k1_inputs:
+        model, eval_fn, serving = phase_main_path(dev, path,
+                                                  f"{head}_main_path")
+    k1 = k1_at_path_inputs(k1_inputs[0], head, name)
+    e2e_rate(eval_fn, 20, head, name, dev)
+    phase_profile(model, eval_fn, 30, head, name)
+    del model, eval_fn, k1_inputs
+    torch.cuda.empty_cache()
+    phase_reference(dev, path, f"{head}_card_vs_cpu")
+    trained, state, batch, training = phase_train_main_path(
+        dev, name, path, f"{head}_train_main_path", frozen_bn)
+    phase_train_timing(trained, state, batch, name, f"{head}_train")
+    phase_train_profile(trained, state, batch, name,
+                        what=f"{head}_train_profile")
+    del trained, state, batch
+    torch.cuda.empty_cache()
+    phase_train_reference(dev, path, f"{head}_train_card_vs_cpu",
+                          _fcos_centerness_fault if head == "fcos"
+                          else None)
+    return {"serving": serving, "training": training, "k1": k1}
+
+
+def phase_dense_test_net(dev, name, head="fcos"):
+    """``python -m paa_tpu_torch.tools.test_net`` (its ``main``, in this
+    process) on the config of DENSE_CONFIGS[``head``] over synth_coco_32
+    at full width in bf16 from the seeded weights (a dry run; the class
+    threshold at 0.005, below the focal prior 0.01 of the untrained
+    head, so that every image has detections): exit 0, the 12 metrics,
+    K1 once and K3 40 times per eval batch (launch counts set to 0 just
+    before and read just after)."""
+    from paa_tpu_torch.modeling.detector import DENSE_HEADS
+    from paa_tpu_torch.tools import test_net
+
+    tmp = tempfile.mkdtemp(prefix="paa_test_net_")
+    os.environ["PAA_TPU_TORCH_SYNTH_DIR"] = os.path.join(tmp, "synth")
+    out_dir = os.path.join(tmp, "out")
+    node = DENSE_HEADS[head][0]
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    rc = test_net.main(["--config-file", DENSE_CONFIGS[head],
+                        *synth_opts(out_dir),
+                        f"MODEL.{node}.INFERENCE_TH", "0.005"])
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    check(rc == 0, f"{head}_test_net: exit {rc}")
+    batches = launches["nms_batched"]
+    gn = 0 if head == "retinanet" else GN_PER_LEVEL * len(TOWER_HW)
+    check(batches >= 4 and launches == {
+        "nms_batched": batches, "nms_global": 0,
+        "group_norm_relu": gn * batches},
+        f"{head}_test_net: launches {launches}")
+    results = read_results(out_dir, SYNTH_32[0])
+    check(sorted(results) == sorted(METRICS) and all(
+        math.isfinite(v) and -1.0 <= v <= 1.0 for v in results.values()),
+        f"{head}_test_net: results {results}")
+    dets = read_bbox_json(os.path.join(out_dir, "inference", SYNTH_32[0]))
+    check(len({d["image_id"] for d in dets}) == 32,
+          f"{head}_test_net: images with detections")
+    print(json.dumps({"phase": f"{head}_test_net", "ok": True,
+                      "images": 32, "launches": launches,
+                      "detections": len(dets), "wall_s": wall,
+                      "card": name}))
+    print(json.dumps({"ap_table": "random weights, a synthetic dataset: "
+                      "not an accuracy", **results}))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3452,6 +3786,10 @@ def main():
         phase_train_profile(trained, state, batch, name)
         del paa, paa_eval, frcnn, frcnn_eval, trained, state, batch
         torch.cuda.empty_cache()
+        # ATSS, FCOS and RetinaNet through PAA-R50's serving, training and
+        # card-vs-CPU phases
+        dense = {head: phase_dense(dev, head, name)
+                 for head in DENSE_CONFIGS}
         # the X-152 dcnv2 path after the others' timings, so that its
         # model and its cached blocks are not resident while they are timed
         dcnv2, dcnv2_eval, dcnv2_launches = phase_dcnv2_main_path(dev)
@@ -3465,6 +3803,8 @@ def main():
         phase_dcnv2_train_card_vs_cpu(dev)
         tta_launches = phase_dcnv2_x152_tta(dev, name)
         phase_tta_card_vs_cpu(dev)
+        atss_tta_launches = phase_atss_tta(dev, name)
+        test_net_launches = phase_dense_test_net(dev, name)
         dcnv2_train_net_launches = phase_train_net_from_pkl(
             dev, name, "dcnv2_train_net_from_pkl")
         gate_launches = phase_ap_gate(dev, name)
@@ -3483,8 +3823,17 @@ def main():
                            dcnv2_train_net=dcnv2_train_net_launches[key])
         if kernel is k3:
             by_path.update(paa_dcnv2_x152_train=dcnv2_train_launches[key])
+        for head, runs in dense.items():
+            by_path.update({head: runs["serving"][key],
+                            f"{head}_train": runs["training"][key]})
+        by_path.update(atss_tta=atss_tta_launches[key],
+                       fcos_test_net=test_net_launches[key])
         kernel.update(launches=sum(by_path.values()),
                       launches_by_path=by_path)
+    # K1's time at each dense head's own candidates, beside PAA's
+    k1["at_path_inputs"] = {head: {f: runs["k1"][f] for f in (
+        "N", "valid_candidates", "ms", "plain_ms", "bound_ms")}
+        for head, runs in dense.items()}
     print(json.dumps({"phase": "script", "wall_s":
                       time.perf_counter() - t0, "card": name}))
     print(name)

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..data.transforms import get_resize_size, resize_uint8_linear
+from ..modeling.detector import dense_head_type
 from ..modeling.paa_inference import paa_candidates
 from ..ops.image_norm import maybe_device_normalize
 from ..utils import comm
@@ -218,12 +219,25 @@ def to_original(boxes, scores, labels, size, orig_hw, hflip, srange):
 class TTAEngine:
     """Runs each augmentation of a batch through ``model`` on its device
     and merges the detections on the host. ``state``, if given, is a
-    state_dict loaded into the model first."""
+    state_dict loaded into the model first.
+
+    The dense detectors only (PAA, ATSS, FCOS, RetinaNet), as the JAX
+    package's engine reads a dense head's post-processing. FCOS without
+    VOTE raises: the JAX package's candidate path decodes every head's
+    regression as anchor deltas, which FCOS's l/t/r/b distances are not
+    (ROADMAP section 3)."""
 
     def __init__(self, cfg, model, state=None):
-        if not cfg.MODEL.PAA_ON:
+        head_type = dense_head_type(cfg)
+        if head_type is None:
             raise NotImplementedError(
-                "paa_tpu_torch runs TEST.BBOX_AUG for PAA models only")
+                "paa_tpu_torch runs TEST.BBOX_AUG for the dense detectors "
+                "(PAA, ATSS, FCOS, RetinaNet) only")
+        if head_type == "fcos" and not cfg.TEST.BBOX_AUG.VOTE:
+            raise NotImplementedError(
+                "paa_tpu_torch runs FCOS's TEST.BBOX_AUG with VOTE only: "
+                "the JAX package decodes FCOS's candidates as anchor "
+                "deltas without it (ROADMAP section 3)")
         self.cfg = cfg
         self.model = model
         self.vote = cfg.TEST.BBOX_AUG.VOTE

@@ -1,7 +1,8 @@
 """Anchor generation (numpy, host side).
 
-The port's own copy of paa_tpu/modeling/anchors.py, cut to what PAA
-needs. Re-implements the legacy-Detectron anchor math of the reference
+The port's own copy of paa_tpu/modeling/anchors.py: the PAA, ATSS and
+RetinaNet anchor generators and FCOS's ``LocationGenerator``.
+Re-implements the legacy-Detectron anchor math of the reference
 (paa_core/modeling/rpn/anchor_generator.py:266-335 ``generate_anchors``
 and :73-95 ``grid_anchors``) as host-side numpy precomputation: anchors
 depend only on the padded feature-map shapes, so they are computed once
@@ -151,4 +152,68 @@ def make_anchor_generator_paa(cfg):
     return AnchorGenerator(
         sizes, cfg.MODEL.PAA.ASPECT_RATIOS, cfg.MODEL.PAA.ANCHOR_STRIDES,
         cfg.MODEL.PAA.STRADDLE_THRESH,
+    )
+
+
+def compute_locations(feature_shapes, strides):
+    """Per-level (H*W, 2) float32 centre locations: grid * stride +
+    stride // 2 (reference fcos.py compute_locations)."""
+    out = []
+    for (h, w), stride in zip(feature_shapes, strides):
+        sx = np.arange(0, w * stride, stride, dtype=np.float32)
+        sy = np.arange(0, h * stride, stride, dtype=np.float32)
+        gx, gy = np.meshgrid(sx, sy)
+        pts = np.stack([gx.reshape(-1), gy.reshape(-1)], axis=1)
+        out.append(pts + stride // 2)
+    return out
+
+
+class LocationGenerator:
+    """FCOS per-location points with the AnchorGenerator interface: each
+    level's (H*W, 2) grid ``* stride + stride // 2`` is tiled to (N, 4)
+    (x, y, x, y), so downstream code treats the points as anchors
+    (fcos_head.decode_ltrb reads columns 0 and 1)."""
+
+    def __init__(self, strides):
+        self.strides = tuple(strides)
+        self._cache = {}
+
+    @property
+    def num_anchors_per_location(self):
+        return 1
+
+    def __call__(self, feature_shapes):
+        """Concatenated (N, 4) float32 points and per-level counts."""
+        key = tuple(tuple(s) for s in feature_shapes)
+        if key not in self._cache:
+            per_level = [
+                np.concatenate([pts, pts], axis=1).astype(np.float32)
+                for pts in compute_locations(feature_shapes, self.strides)
+            ]
+            counts = [p.shape[0] for p in per_level]
+            self._cache[key] = (np.concatenate(per_level, axis=0), counts)
+        return self._cache[key]
+
+
+def make_anchor_generator_atss(cfg):
+    sizes = expand_octave_sizes(
+        cfg.MODEL.ATSS.ANCHOR_SIZES, cfg.MODEL.ATSS.OCTAVE,
+        cfg.MODEL.ATSS.SCALES_PER_OCTAVE,
+    )
+    return AnchorGenerator(
+        sizes, cfg.MODEL.ATSS.ASPECT_RATIOS, cfg.MODEL.ATSS.ANCHOR_STRIDES,
+        cfg.MODEL.ATSS.STRADDLE_THRESH,
+    )
+
+
+def make_anchor_generator_retinanet(cfg):
+    sizes = expand_octave_sizes(
+        cfg.MODEL.RETINANET.ANCHOR_SIZES, cfg.MODEL.RETINANET.OCTAVE,
+        cfg.MODEL.RETINANET.SCALES_PER_OCTAVE,
+    )
+    return AnchorGenerator(
+        sizes,
+        cfg.MODEL.RETINANET.ASPECT_RATIOS,
+        cfg.MODEL.RETINANET.ANCHOR_STRIDES,
+        cfg.MODEL.RETINANET.STRADDLE_THRESH,
     )

@@ -1,11 +1,14 @@
-"""Model assembly (port of paa_tpu/modeling/detector.py): PAA, and
-Faster R-CNN through two_stage.py.
+"""Model assembly (port of paa_tpu/modeling/detector.py): the dense
+detectors (PAA, ATSS, FCOS, RetinaNet), and Faster R-CNN through
+two_stage.py.
 
 A ``DetectionModel`` bundles the ``DenseDetector`` module (backbone +
-PAA head) on its device with the anchor generator and the static-shape
-helpers; post-processing is a plain function (paa_inference.py), and the
-train step is built per bucket shape (``make_bucket_train_step``, PAA
-only).
+dense head) on its device with the anchor generator (FCOS: its points,
+tiled as anchors) and the static-shape helpers. The head's type picks
+its loss (``loss_fn``) and its post-processing settings
+(``postprocess_config``); the post-processing itself is the shared
+``paa_postprocess`` (FCOS decodes l/t/r/b through ``decode_ltrb``), and
+the train step is built per bucket shape (``make_bucket_train_step``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
 with no device given and no card present they raise.
@@ -22,13 +25,53 @@ from torch import nn
 
 from ..ops.image_norm import maybe_device_normalize
 from ..solver import make_lr_schedule
-from .anchors import AnchorGenerator, make_anchor_generator_paa
+from .anchors import (
+    AnchorGenerator,
+    LocationGenerator,
+    make_anchor_generator_atss,
+    make_anchor_generator_paa,
+    make_anchor_generator_retinanet,
+)
+from .atss_head import atss_head_from_cfg
+from .atss_loss import ATSSLossConfig, atss_loss
+from .fcos_head import decode_ltrb, fcos_head_from_cfg
+from .fcos_loss import FCOSLossConfig, fcos_loss
 from .fpn import ResNetFPNBackbone
 from .layers import reset_parameters
 from .paa_head import paa_head_from_cfg
 from .paa_inference import PostProcessConfig, paa_postprocess
 from .paa_loss import PAALossConfig, paa_loss
 from .resnet import resnet_from_cfg
+from .retinanet_head import (
+    RetinaNetLossConfig,
+    retinanet_head_from_cfg,
+    retinanet_loss,
+)
+
+# head type: (cfg node, head builder, anchor generator builder, (loss,
+# loss config)); the JAX package's dispatch (detector.py:57-139, 299-335)
+DENSE_HEADS = {
+    "paa": ("PAA", paa_head_from_cfg, make_anchor_generator_paa,
+            (paa_loss, PAALossConfig)),
+    "atss": ("ATSS", atss_head_from_cfg, make_anchor_generator_atss,
+             (atss_loss, ATSSLossConfig)),
+    "fcos": ("FCOS", fcos_head_from_cfg,
+             lambda cfg: LocationGenerator(cfg.MODEL.FCOS.FPN_STRIDES),
+             (fcos_loss, FCOSLossConfig)),
+    "retinanet": ("RETINANET", retinanet_head_from_cfg,
+                  make_anchor_generator_retinanet,
+                  (retinanet_loss, RetinaNetLossConfig)),
+}
+
+
+def dense_head_type(cfg):
+    """"paa", "atss", "fcos" or "retinanet" from the MODEL.*_ON flags (in
+    that order of precedence, as the JAX package reads them), else
+    None."""
+    for head_type, (node, *_) in DENSE_HEADS.items():
+        if cfg.MODEL[f"{node}_ON"]:
+            return head_type
+    return None
 
 
 def resolve_device(device=None):
@@ -65,6 +108,7 @@ class DetectionModel:
     anchor_generator: AnchorGenerator
     strides: Tuple[int, ...]
     device: torch.device
+    head_type: str = "paa"
     _anchors: dict = field(default_factory=dict, repr=False)
 
     def feature_shapes(self, image_hw):
@@ -86,14 +130,39 @@ class DetectionModel:
         return self._anchors[key]
 
     def postprocess_config(self):
-        return PostProcessConfig.from_cfg(self.cfg)
+        """The head's PostProcessConfig: PAA's from its node; the other
+        heads' from theirs, with no score voting."""
+        if self.head_type == "paa":
+            return PostProcessConfig.from_cfg(self.cfg)
+        c = self.cfg.MODEL[DENSE_HEADS[self.head_type][0]]
+        return PostProcessConfig(
+            pre_nms_thresh=c.INFERENCE_TH,
+            pre_nms_top_n=c.PRE_NMS_TOP_N,
+            nms_thresh=c.NMS_TH,
+            detections_per_img=self.cfg.TEST.DETECTIONS_PER_IMG,
+            num_classes=c.NUM_CLASSES - 1,
+            score_voting=False,
+        )
+
+    def postprocess(self, outputs, image_sizes, anchors, level_counts):
+        """The head's detections (``paa_postprocess``); FCOS decodes its
+        l/t/r/b distances about the points, times each level's stride
+        under NORM_REG_TARGETS."""
+        pp = self.postprocess_config()
+        if self.head_type != "fcos":
+            return paa_postprocess(outputs, image_sizes, anchors,
+                                   level_counts, pp)
+        f = self.cfg.MODEL.FCOS
+        reg_scales = (tuple(float(s) for s in f.FPN_STRIDES)
+                      if f.NORM_REG_TARGETS else None)
+        return paa_postprocess(outputs, image_sizes, anchors, level_counts,
+                               pp, decode_fn=decode_ltrb,
+                               reg_scales=reg_scales)
 
     def loss_fn(self):
-        """(loss_callable, loss_config) of the head: PAA's; other heads
-        do not train in the port and raise."""
-        if not self.cfg.MODEL.PAA_ON:
-            raise NotImplementedError("paa_tpu_torch trains PAA models only")
-        return paa_loss, PAALossConfig.from_cfg(self.cfg)
+        """(loss_callable, loss_config) of the head."""
+        loss, config = DENSE_HEADS[self.head_type][3]
+        return loss, config.from_cfg(self.cfg)
 
     # the batch keys a train step reads; image_sizes serves the uint8
     # device normalize
@@ -114,10 +183,10 @@ class DetectionModel:
             normalize=(self.cfg.INPUT.PIXEL_MEAN, self.cfg.INPUT.PIXEL_STD))
 
     def detect(self, images, image_sizes):
-        """PAA detections of normalized NCHW ``images`` on the device."""
+        """Detections of normalized NCHW ``images`` on the device."""
         anchors, counts = self.anchors_for(images.shape[2:])
-        return paa_postprocess(self.module(images), image_sizes, anchors,
-                               counts, self.postprocess_config())
+        return self.postprocess(self.module(images), image_sizes, anchors,
+                                counts)
 
     def make_eval_fn(self, state=None):
         """eval_fn(images, image_sizes) -> {"boxes", "scores", "labels",
@@ -152,17 +221,21 @@ def _torch_dtype(name):
 
 def build_backbone(cfg, dtype=torch.float32):
     """ResNet + FPN in the wiring the body names: *-FPN-RETINANET (P3-P7,
-    P6 from P5) or *-FPN (P2-P6, P6 pooled); no FPN GN or ReLU."""
+    P6 from C5 with RETINANET.USE_C5, else from P5) or *-FPN (P2-P6, P6
+    pooled); no FPN GN or ReLU. The MobileNetV2 body is ROADMAP item 11."""
     body = cfg.MODEL.BACKBONE.CONV_BODY
+    if body.startswith("MNV2"):
+        raise NotImplementedError(
+            f"paa_tpu_torch has no {body} body yet: the MobileNetV2 body "
+            f"(and SyncBatchNorm) is ROADMAP item 11")
     retina = body.endswith("FPN-RETINANET")
     if not (retina or body.endswith("FPN")) or cfg.MODEL.FPN.USE_GN or \
-            cfg.MODEL.FPN.USE_RELU or (retina and cfg.MODEL.RETINANET.USE_C5):
+            cfg.MODEL.FPN.USE_RELU:
         raise NotImplementedError(
-            f"paa_tpu_torch ports the *-FPN-RETINANET wiring (P6 from P5) "
-            f"and the *-FPN wiring (pooled P6), without FPN GN or ReLU, "
-            f"not {body} with FPN.USE_GN={cfg.MODEL.FPN.USE_GN}, "
-            f"FPN.USE_RELU={cfg.MODEL.FPN.USE_RELU}, RETINANET.USE_C5="
-            f"{cfg.MODEL.RETINANET.USE_C5}"
+            f"paa_tpu_torch ports the *-FPN-RETINANET wiring and the *-FPN "
+            f"wiring (pooled P6), without FPN GN or ReLU, not {body} with "
+            f"FPN.USE_GN={cfg.MODEL.FPN.USE_GN}, "
+            f"FPN.USE_RELU={cfg.MODEL.FPN.USE_RELU}"
         )
     r = cfg.MODEL.RESNETS
     in_channels_list = [r.RES2_OUT_CHANNELS * 2 ** i for i in range(4)]
@@ -172,6 +245,7 @@ def build_backbone(cfg, dtype=torch.float32):
         out_channels=r.BACKBONE_OUT_CHANNELS,
         dtype=dtype,
         retina=retina,
+        p6_from_c5=retina and cfg.MODEL.RETINANET.USE_C5,
     )
 
 
@@ -180,31 +254,36 @@ def build_detection_model(cfg, device=None, seed=0):
     computing in ``TPU.COMPUTE_DTYPE``, with weights initialised from
     ``seed`` as the JAX package initialises them (kaiming-uniform
     backbone and box-head FCs, normal(0.01) heads and cls_score,
-    normal(0.001) bbox_pred, focal-prior PAA cls bias, identity FrozenBN
+    normal(0.001) bbox_pred, focal-prior cls biases, identity FrozenBN
     and GroupNorm).
 
-    PAA_ON builds the PAA detector; with no dense head and RPN_ONLY off
-    it is the Faster R-CNN of two_stage.py, as in the JAX package. Other
-    heads raise."""
-    m = cfg.MODEL
+    PAA_ON, ATSS_ON, FCOS_ON or RETINANET_ON builds that dense detector
+    (the first set, in that order); with none of them and RPN_ONLY off it
+    is the Faster R-CNN of two_stage.py, as in the JAX package. The
+    RPN-only model raises."""
     device = resolve_device(device)
     dtype = _torch_dtype(cfg.TPU.COMPUTE_DTYPE)
-    if m.PAA_ON:
+    head_type = dense_head_type(cfg)
+    if head_type is not None:
+        node, head_from_cfg, anchor_generator, _ = DENSE_HEADS[head_type]
+        strides = (cfg.MODEL.FCOS.FPN_STRIDES if head_type == "fcos"
+                   else cfg.MODEL[node].ANCHOR_STRIDES)
         model = DetectionModel(
             cfg=cfg,
             module=DenseDetector(build_backbone(cfg, dtype=dtype),
-                                 paa_head_from_cfg(cfg, dtype=dtype)),
-            anchor_generator=make_anchor_generator_paa(cfg),
-            strides=tuple(cfg.MODEL.PAA.ANCHOR_STRIDES),
+                                 head_from_cfg(cfg, dtype=dtype)),
+            anchor_generator=anchor_generator(cfg),
+            strides=tuple(strides),
             device=device,
+            head_type=head_type,
         )
-    elif not (m.ATSS_ON or m.FCOS_ON or m.RETINANET_ON or m.RPN_ONLY):
+    elif not cfg.MODEL.RPN_ONLY:
         from .two_stage import build_faster_rcnn  # two_stage imports this
 
         model = build_faster_rcnn(cfg, device, dtype=dtype)
     else:
         raise NotImplementedError(
-            "paa_tpu_torch builds PAA and Faster R-CNN models only")
+            "paa_tpu_torch has no RPN-only model yet (ROADMAP item 10)")
     reset_parameters(model.module, torch.Generator().manual_seed(seed))
     model.module.to(device)
     return model

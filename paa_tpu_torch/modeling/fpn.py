@@ -1,8 +1,9 @@
 """FPN (port of paa_tpu/modeling/fpn.py) in the two wirings the ported
 configs use:
 
-- "R-*-FPN-RETINANET" (every PAA config): the C2 lateral is skipped, P6
-  comes from P5 (RETINANET.USE_C5=False) and P7 from relu(P6); the
+- "R-*-FPN-RETINANET" (the PAA, ATSS, FCOS and RetinaNet configs): the
+  C2 lateral is skipped, P6 comes from P5 (RETINANET.USE_C5=False) or
+  from C5 (USE_C5=True, RetinaNet's default) and P7 from relu(P6); the
   output is (P3, P4, P5, P6, P7);
 - "R-*-FPN" (Faster R-CNN): the C2 lateral is used and P6 is
   ``LastLevelMaxPool``, a 1x1 max-pool of stride 2 of P5; the output is
@@ -33,10 +34,11 @@ def _upsample_nearest(x, target_hw):
 
 class FPN(nn.Module):
     """Takes [C2, C3, C4, C5]; returns (P3, P4, P5, P6, P7) in the
-    ``retina`` wiring, else (P2, P3, P4, P5, P6) with the pooled P6."""
+    ``retina`` wiring (P6 from C5 with ``p6_from_c5``, else from P5),
+    else (P2, P3, P4, P5, P6) with the pooled P6."""
 
     def __init__(self, in_channels_list, out_channels=256,
-                 dtype=torch.float32, retina=True):
+                 dtype=torch.float32, retina=True, p6_from_c5=False):
         super().__init__()
         self.start = 1 if retina else 0
         used = in_channels_list[self.start:]
@@ -49,8 +51,10 @@ class FPN(nn.Module):
                 dtype=dtype))
         self.num_used = len(used)
         self.retina = retina
+        self.p6_from_c5 = p6_from_c5
         if retina:
-            self.p6 = Conv(out_channels, out_channels, 3, stride=2,
+            p6_in = in_channels_list[-1] if p6_from_c5 else out_channels
+            self.p6 = Conv(p6_in, out_channels, 3, stride=2,
                            padding=1, bias=True, dtype=dtype)
             self.p7 = Conv(out_channels, out_channels, 3, stride=2,
                            padding=1, bias=True, dtype=dtype)
@@ -71,7 +75,7 @@ class FPN(nn.Module):
         if not self.retina:
             # LastLevelMaxPool: max_pool2d(P5, 1, 2) keeps every other pixel
             return (*results, results[-1][:, :, ::2, ::2])
-        p6 = self.p6(results[-1])
+        p6 = self.p6(used[-1] if self.p6_from_c5 else results[-1])
         p7 = self.p7(F.relu(p6))
         return (*results, p6, p7)
 
@@ -80,11 +84,11 @@ class ResNetFPNBackbone(nn.Module):
     """body + fpn (reference backbone.py:49-73)."""
 
     def __init__(self, resnet, in_channels_list, out_channels=256,
-                 dtype=torch.float32, retina=True):
+                 dtype=torch.float32, retina=True, p6_from_c5=False):
         super().__init__()
         self.resnet = resnet
         self.fpn = FPN(in_channels_list, out_channels, dtype=dtype,
-                       retina=retina)
+                       retina=retina, p6_from_c5=p6_from_c5)
 
     def forward(self, x):
         return self.fpn(self.resnet(x))

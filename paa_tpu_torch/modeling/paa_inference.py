@@ -2,8 +2,11 @@
 reference paa_core/modeling/rpn/paa/inference.py).
 
 Per level: the INFERENCE_TH threshold on the raw cls scores (compared in
-float32 logit space), score fusion ``sqrt(cls * iou_pred)``, per-image
-selection of PRE_NMS_TOP_N candidates, decode. Across levels: clip,
+float32 logit space), score fusion ``sqrt(cls * iou_pred)`` (``sigmoid(cls)``
+for a head without the branch: RetinaNet, the ATSS ablation without
+one, PAA with USE_IOU_PRED off), per-image selection of PRE_NMS_TOP_N
+candidates, decode (anchor deltas, or FCOS's l/t/r/b distances through
+``decode_fn`` after a per-level ``reg_scale``). Across levels: clip,
 one batched class-aware NMS (ops/nms.py, the CUDA kernel on the card)
 emitting DETECTIONS_PER_IMG picks, then optional score voting.
 
@@ -56,13 +59,23 @@ class PostProcessConfig:
         )
 
 
+def _fuse(cls_prob, iou_logits):
+    """sqrt(cls * sigmoid(iou)), or the cls score without a branch."""
+    if iou_logits is None:
+        return cls_prob
+    return torch.sqrt(cls_prob * torch.sigmoid(iou_logits.to(torch.float32)))
+
+
 def _select_level_batched(cls_logits, box_regression, iou_pred, anchors,
-                          pp):
+                          pp, decode_fn=None, reg_scale=1.0):
     """Candidate selection of one level for the whole batch.
 
-    cls_logits (B, n, C); box_regression (B, n, 4); iou_pred (B, n);
-    anchors (n, 4). Returns boxes (B, K, 4), scores (B, K), labels
-    (B, K) int32 and valid (B, K) with K = min(pre_nms_top_n, n * C).
+    cls_logits (B, n, C); box_regression (B, n, 4); iou_pred (B, n) or
+    None; anchors (n, 4). ``decode_fn(reg, anchors)`` replaces the
+    anchor-delta decode (FCOS's ``decode_ltrb``), and the regression is
+    multiplied by ``reg_scale`` before it (FCOS's NORM_REG_TARGETS
+    stride). Returns boxes (B, K, 4), scores (B, K), labels (B, K) int32
+    and valid (B, K) with K = min(pre_nms_top_n, n * C).
 
     Three tiers, chosen on the data exactly as the JAX package chooses
     them, because the candidate order (and so NMS's keep_idx) depends on
@@ -90,17 +103,16 @@ def _select_level_batched(cls_logits, box_regression, iou_pred, anchors,
         flat_idx.scatter_(
             1, slot, torch.arange(m_flat, device=dev).expand(bsz, m_flat))
         flat_idx = flat_idx[:, :kk]
-        sel_iou = iou_pred.to(torch.float32).gather(1, flat_idx // c)
-        score = torch.sqrt(torch.sigmoid(logits.gather(1, flat_idx))
-                           * torch.sigmoid(sel_iou))
+        score = _fuse(torch.sigmoid(logits.gather(1, flat_idx)),
+                      None if iou_pred is None
+                      else iou_pred.gather(1, flat_idx // c))
         slot_valid = (torch.arange(1, kk + 1, device=dev)[None, :]
                       <= total[:, None])
         score = torch.where(slot_valid, score, -1.0)
     else:  # top k in score order; a stable sort breaks ties like top_k
         kk = k
-        fused = torch.sqrt(
-            torch.sigmoid(logits).reshape(bsz, n, c)
-            * torch.sigmoid(iou_pred.to(torch.float32))[..., None])
+        fused = _fuse(torch.sigmoid(logits).reshape(bsz, n, c),
+                      None if iou_pred is None else iou_pred[..., None])
         masked = torch.where(cand, fused.reshape(bsz, m_flat), -1.0)
         score, flat_idx = torch.sort(masked, dim=1, descending=True,
                                      stable=True)
@@ -110,7 +122,8 @@ def _select_level_batched(cls_logits, box_regression, iou_pred, anchors,
     labels = (flat_idx % c + 1).to(torch.int32)
     reg_sel = box_regression.to(torch.float32).gather(
         1, anchor_idx[..., None].expand(bsz, kk, 4))
-    boxes = decode_box(reg_sel, anchors[anchor_idx])
+    boxes = (decode_fn or decode_box)(reg_sel * reg_scale,
+                                      anchors[anchor_idx])
     if kk < k:  # pad to the static k slots; padding is invalid
         pad = k - kk
         boxes = torch.nn.functional.pad(boxes, (0, 0, 0, pad))
@@ -138,21 +151,27 @@ def _score_vote(kept_boxes, kept_labels, kept_valid,
     return torch.where(use_vote[..., None], voted, kept_boxes)
 
 
-def paa_candidates(outputs, image_sizes, anchors, level_counts, pp):
+def paa_candidates(outputs, image_sizes, anchors, level_counts, pp,
+                   decode_fn=None, reg_scales=None):
     """The NMS input: per-level selection, concatenated and clipped.
+    ``decode_fn`` and the per-level ``reg_scales`` as in
+    ``_select_level_batched``.
 
     Returns boxes (B, K, 4) float32, scores (B, K) float32, labels
     (B, K) int32 and valid (B, K) bool, K = sum of per-level slots."""
+    iou_pred = outputs.get("iou_pred")
     parts = []
     start = 0
-    for count in level_counts:
+    for level, count in enumerate(level_counts):
         sl = slice(start, start + count)
         parts.append(_select_level_batched(
             outputs["cls_logits"][:, sl],
             outputs["box_regression"][:, sl],
-            outputs["iou_pred"][:, sl],
+            None if iou_pred is None else iou_pred[:, sl],
             anchors[sl],
             pp,
+            decode_fn=decode_fn,
+            reg_scale=1.0 if reg_scales is None else reg_scales[level],
         ))
         start += count
     boxes, scores, labels, valid = (
@@ -163,18 +182,22 @@ def paa_candidates(outputs, image_sizes, anchors, level_counts, pp):
     return boxes, scores, labels, valid
 
 
-def paa_postprocess(outputs, image_sizes, anchors, level_counts, pp):
+def paa_postprocess(outputs, image_sizes, anchors, level_counts, pp,
+                    decode_fn=None, reg_scales=None):
     """Batched post-processing.
 
     outputs: dict with 'cls_logits' (B, N, C), 'box_regression' (B, N, 4)
-    and 'iou_pred' (B, N); image_sizes (B, 2) (h, w) of the
-    un-padded content; anchors (N, 4) float32 on the same device;
-    level_counts: per-level anchor counts summing to N.
+    and optionally 'iou_pred' (B, N); image_sizes (B, 2) (h, w) of the
+    un-padded content; anchors (N, 4) float32 on the same device (FCOS:
+    its points tiled to (x, y, x, y)); level_counts: per-level anchor
+    counts summing to N; ``decode_fn`` and ``reg_scales`` as in
+    ``_select_level_batched``.
 
     Returns a dict of (B, detections_per_img, ...) tensors: boxes,
     scores, labels (int32) and valid (bool)."""
     boxes, scores, labels, valid = paa_candidates(
-        outputs, image_sizes, anchors, level_counts, pp)
+        outputs, image_sizes, anchors, level_counts, pp, decode_fn,
+        reg_scales)
     keep_idx, keep_scores, keep_valid = nms_batched(
         boxes, scores, labels, valid, pp.nms_thresh,
         pp.detections_per_img, class_aware=True,

@@ -59,6 +59,10 @@ class TwoStageModel(DetectionModel):
     def postprocess_config(self):
         return ROIBoxConfig.from_cfg(self.cfg)
 
+    def loss_fn(self):
+        raise NotImplementedError(
+            "paa_tpu_torch does not train Faster R-CNN yet (ROADMAP item 7)")
+
     def detect(self, images, image_sizes):
         """Detections of normalized NCHW ``images`` (B, 3, H, W):
         {"boxes", "scores", "labels", "valid"}, each (B,

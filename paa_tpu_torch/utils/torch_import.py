@@ -6,8 +6,9 @@ paa_core/utils/{c2_model_loading,model_serialization,checkpoint}.py).
   dict (the released PAA_R_50_FPN_1x ``.pth``, a Faster R-CNN
   R-50-FPN one, the dcnv2 and ResNeXt PAA ones) -> the port's module,
   for the R-50/R-101/R-152 and ResNeXt bodies with or without DCN, both
-  FPN wirings, the PAA head (DCN tower included), the RPN head and the
-  FPN2MLP box head.
+  FPN wirings (P6 from P5 or C5), the PAA, ATSS and FCOS heads (DCN
+  tower included), the RPN head and the FPN2MLP box head. A RetinaNet
+  head's towers raise (``_check_tower_layout``).
 - ``load_c2_pickle(module, path)``: a Detectron ``.pkl`` (an ImageNet
   body, or a Caffe2Detectron detection model's FPN, RPN and box head).
   A DCN block's sampled conv takes the plain ``branch2b`` blob; its
@@ -78,7 +79,9 @@ _RULES = [
     # the PAA head and the RPN head share the reference's "rpn.head"
     (r"rpn\.head\.(cls_logits|bbox_pred)\.(weight|bias)",
      (r"head.\1.\2", r"rpn_head.\1.\2"), "copy"),
-    (r"rpn\.head\.iou_pred\.(weight|bias)", (r"head.iou_pred.\1",), "copy"),
+    # PAA's IoU branch; ATSS's and FCOS's centerness branch
+    (r"rpn\.head\.(iou_pred|centerness)\.(weight|bias)",
+     (r"head.\1.\2",), "copy"),
     (r"rpn\.head\.scales\.(\d+)\.scale", (r"head.scale\1.scale",), "scalar"),
     (r"rpn\.head\.conv\.(weight|bias)", (r"rpn_head.conv.\1",), "copy"),
     (r"roi_heads\.box\.feature_extractor\.fc6\.weight",
@@ -186,10 +189,27 @@ def _report(logger, what, matched, skipped, unwritten):
             logger.info(f"  skipped: {name}")
 
 
+def _check_tower_layout(writer, names):
+    """Raise on a head whose towers have no GroupNorm (RetinaNet's
+    ``PlainTower``) when the file has tower keys: the reference RetinaNet
+    head's towers are ``Sequential(conv, ReLU, ...)``, conv i at index
+    2i, which the GroupNorm towers' rule (conv at 3i, GroupNorm at 3i +
+    1) would write into the wrong convs."""
+    if "head.cls_tower.conv0.weight" not in writer.targets or \
+            "head.cls_tower.gn0.weight" in writer.targets:
+        return
+    if any(_TOWER.fullmatch(n.removeprefix("module.")) for n in names):
+        raise NotImplementedError(
+            "paa_tpu_torch does not import the reference RetinaNet head's "
+            "towers (conv i at Sequential index 2i); paa_tpu's mapping "
+            "reads them as GroupNorm towers (ROADMAP section 3)")
+
+
 def load_torch_state_dict(module, state_dict, logger=None):
     """Copy a reference-keyed state dict (torch tensors or numpy arrays)
     into ``module`` in place; returns (skipped, unwritten)."""
     writer = _Writer(module)
+    _check_tower_layout(writer, state_dict)
     skipped = [name for name, value in state_dict.items()
                if not writer.write(torch_name_to_port_keys(name), value)]
     unwritten = writer.unwritten()

@@ -82,7 +82,7 @@ def resnet_keys(blocks, stem_out=64, res2_out=256, width=64, groups=1,
     return out
 
 
-def fpn_keys(retina, res2_out, channels):
+def fpn_keys(retina, res2_out, channels, p6_from_c5=False):
     out = OrderedDict()
     for k in range(2 if retina else 1, 5):
         cin = res2_out * 2 ** (k - 1)
@@ -90,17 +90,19 @@ def fpn_keys(retina, res2_out, channels):
         out[f"backbone.fpn.fpn_inner{k}.bias"] = (channels,)
         out[f"backbone.fpn.fpn_layer{k}.weight"] = (channels, channels, 3, 3)
         out[f"backbone.fpn.fpn_layer{k}.bias"] = (channels,)
-    if retina:  # RETINANET.USE_C5 False: P6 from P5
+    if retina:  # P6 from P5, or from C5 with RETINANET.USE_C5
         for p in ("p6", "p7"):
-            out[f"backbone.fpn.top_blocks.{p}.weight"] = (channels, channels,
-                                                          3, 3)
+            cin = res2_out * 8 if p == "p6" and p6_from_c5 else channels
+            out[f"backbone.fpn.top_blocks.{p}.weight"] = (channels, cin, 3, 3)
             out[f"backbone.fpn.top_blocks.{p}.bias"] = (channels,)
     return out
 
 
 def paa_head_keys(channels, num_classes, num_anchors=1, num_convs=4,
-                  num_levels=5, dcn_in_tower=False):
-    """``num_classes`` without the background."""
+                  num_levels=5, dcn_in_tower=False, branch="iou_pred"):
+    """``num_classes`` without the background. The ATSS and FCOS heads
+    (rpn/atss/atss.py, rpn/fcos/fcos.py) have the same layout with the
+    ``centerness`` branch; ``branch`` None leaves it out."""
     out = OrderedDict()
     for tower in ("cls_tower", "bbox_tower"):
         for i in range(num_convs):
@@ -115,11 +117,30 @@ def paa_head_keys(channels, num_classes, num_anchors=1, num_convs=4,
             out[f"{p}.{3 * i + 1}.bias"] = (channels,)
     for name, n in (("cls_logits", num_anchors * num_classes),
                     ("bbox_pred", num_anchors * 4),
-                    ("iou_pred", num_anchors)):
+                    (branch, num_anchors)):
+        if name is None:
+            continue
         out[f"rpn.head.{name}.weight"] = (n, channels, 3, 3)
         out[f"rpn.head.{name}.bias"] = (n,)
     for level in range(num_levels):
         out[f"rpn.head.scales.{level}.scale"] = (1,)
+    return out
+
+
+def retinanet_head_keys(channels, num_classes, num_anchors=9,
+                        num_convs=4):
+    """rpn/retinanet/retinanet.py: towers as ``Sequential``s of [conv,
+    ReLU] x num_convs (conv i at index 2i), no norm, no scales."""
+    out = OrderedDict()
+    for tower in ("cls_tower", "bbox_tower"):
+        for i in range(num_convs):
+            out[f"rpn.head.{tower}.{2 * i}.weight"] = (channels, channels,
+                                                       3, 3)
+            out[f"rpn.head.{tower}.{2 * i}.bias"] = (channels,)
+    for name, n in (("cls_logits", num_anchors * num_classes),
+                    ("bbox_pred", num_anchors * 4)):
+        out[f"rpn.head.{name}.weight"] = (n, channels, 3, 3)
+        out[f"rpn.head.{name}.bias"] = (n,)
     return out
 
 
@@ -151,8 +172,9 @@ def box_head_keys(channels, resolution, mlp, num_classes):
 
 
 def layout(cfg):
-    """The reference state dict's keys and shapes for the PAA or the
-    Faster R-CNN model of ``cfg`` (either package's config)."""
+    """The reference state dict's keys and shapes for the PAA, ATSS,
+    FCOS, RetinaNet or Faster R-CNN model of ``cfg`` (either package's
+    config)."""
     m = cfg.MODEL
     r = m.RESNETS
     body = m.BACKBONE.CONV_BODY
@@ -162,13 +184,27 @@ def layout(cfg):
                       r.STAGE_WITH_DCN, r.WITH_MODULATED_DCN,
                       r.DEFORMABLE_GROUPS)
     channels = r.BACKBONE_OUT_CHANNELS
-    out.update(fpn_keys(retina, r.RES2_OUT_CHANNELS, channels))
-    if m.PAA_ON:
+    dense = next((n for n in ("PAA", "ATSS", "FCOS", "RETINANET")
+                  if m[f"{n}_ON"]), None)
+    out.update(fpn_keys(retina, r.RES2_OUT_CHANNELS, channels,
+                        dense is not None and m.RETINANET.USE_C5))
+    if dense == "RETINANET":
+        h = m.RETINANET
+        out.update(retinanet_head_keys(
+            channels, h.NUM_CLASSES - 1,
+            len(h.ASPECT_RATIOS) * h.SCALES_PER_OCTAVE, h.NUM_CONVS))
+    elif dense is not None:
+        h = m[dense]
+        fcos = dense == "FCOS"
+        branch = {"PAA": h.get("USE_IOU_PRED") and "iou_pred",
+                  "ATSS": (h.get("USE_CENTERNESS_PRED")
+                           or h.get("USE_IOU_PRED")) and "centerness",
+                  "FCOS": "centerness"}[dense] or None
         out.update(paa_head_keys(
-            channels, m.PAA.NUM_CLASSES - 1,
-            len(m.PAA.ASPECT_RATIOS) * m.PAA.SCALES_PER_OCTAVE,
-            m.PAA.NUM_CONVS, len(m.PAA.ANCHOR_STRIDES),
-            m.PAA.USE_DCN_IN_TOWER))
+            channels, h.NUM_CLASSES - 1,
+            1 if fcos else len(h.ASPECT_RATIOS) * h.SCALES_PER_OCTAVE,
+            h.NUM_CONVS, len(h.FPN_STRIDES if fcos else h.ANCHOR_STRIDES),
+            h.USE_DCN_IN_TOWER, branch))
     else:
         out.update(rpn_head_keys(channels, len(m.RPN.ASPECT_RATIOS)))
         bh = m.ROI_BOX_HEAD

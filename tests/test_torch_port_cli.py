@@ -26,6 +26,13 @@ images (96 to 128 px in a 128 x 128 bucket).
   (the identity, one scale, both flipped, soft-vote) on
   ``synth_coco_4`` from the seeded weights: exit 0, the 12 metrics and
   detections of every image written.
+- The dense detectors' configs at the same slim body: ``train_net.main``
+  on atss_R_50_FPN_1x for two iterations from its catalog R-50 pickle,
+  then its test pass to the AP table; ``python -m
+  paa_tpu_torch.tools.test_net`` on retinanet_R-50-FPN_1x (P6 from C5)
+  and, with TEST.BBOX_AUG (no VOTE: the pooled candidates and one NMS),
+  on fcos_imprv_R_50_FPN_1x with VOTE and atss_R_50_FPN_1x without:
+  exit 0, the 12 metrics written.
 """
 
 import json
@@ -332,3 +339,74 @@ def test_reproduce_ap_cli_through_the_catalog(gate_inputs, tmp_path):
     assert "AP GATE PASSED" in proc.stdout
     assert (out / "inference" / "coco_2017_val" / "coco_results.json"
             ).exists()
+
+
+# ---- the dense detectors' configs -------------------------------------------
+
+DENSE_CONFIGS = {
+    "atss": os.path.join(ROOT, "configs", "atss", "atss_R_50_FPN_1x.yaml"),
+    "fcos": os.path.join(ROOT, "configs", "fcos",
+                         "fcos_imprv_R_50_FPN_1x.yaml"),
+    "retinanet": os.path.join(ROOT, "configs", "retinanet",
+                              "retinanet_R-50-FPN_1x.yaml"),
+}
+METRICS = sorted(["AP", "AP50", "AP75", "APs", "APm", "APl",
+                  "AR1", "AR10", "AR100", "ARs", "ARm", "ARl"])
+
+
+def test_train_net_atss_two_iterations_then_test(tmp_path, monkeypatch):
+    from paa_tpu_torch.config.paths_catalog import ModelCatalog
+
+    monkeypatch.setenv("PAA_TPU_TORCH_SYNTH_DIR", str(tmp_path / "synth"))
+    monkeypatch.setattr(ModelCatalog, "WEIGHTS_DIR", str(tmp_path))
+    body = {k: v for k, v in rl.seeded_state_dict(
+        rl.layout(_slim_cfg()), 11).items() if k.startswith("backbone.body.")}
+    with open(tmp_path / "R-50.pkl", "wb") as f:
+        pickle.dump({"blobs": rl.c2_imagenet_blobs(body, seed=12)}, f,
+                    protocol=2)
+    out = tmp_path / "out"
+    seen = {}
+    rc = train_net.main(
+        ["--config-file", DENSE_CONFIGS["atss"], "--device", "cpu",
+         *_opts(*SLIM, *SMALL, "SOLVER.MAX_ITER", 2, "PATHS_CATALOG",
+                CATALOG, "DATASETS.TRAIN", ("synth_coco_4",),
+                "DATASETS.TEST", ("synth_coco_4",), "OUTPUT_DIR", out)],
+        metric_hook=lambda i, m: seen.update({i: m}))
+    assert rc == 0 and sorted(seen) == [1, 2]
+    assert all(np.isfinite(list(m.values())).all() and m["num_pos"] > 0
+               and "loss_centerness" in m for m in seen.values())
+    assert (out / "model_final").exists()
+    with open(out / "inference" / "synth_coco_4" / "coco_results.json") as f:
+        assert sorted(json.load(f)) == METRICS
+
+
+@pytest.mark.parametrize("kind,extra", [
+    ("retinanet", ["MODEL.RETINANET.INFERENCE_TH", 0.005]),
+    ("fcos", ["MODEL.FCOS.INFERENCE_TH", 0.005,
+              "TEST.BBOX_AUG.ENABLED", True, "TEST.BBOX_AUG.SCALES", (64,),
+              "TEST.BBOX_AUG.VOTE", True]),
+    ("atss", ["MODEL.ATSS.INFERENCE_TH", 0.005,
+              "TEST.BBOX_AUG.ENABLED", True, "TEST.BBOX_AUG.H_FLIP", True,
+              "TEST.BBOX_AUG.SCALES", (64,)]),
+])
+def test_test_net_dense_configs(kind, extra, tmp_path):
+    """From the seeded weights (the seeded head's class scores sit at the
+    focal prior, 0.01: a lower threshold lets candidates through)."""
+    out = tmp_path / "out"
+    proc = subprocess.run(
+        [sys.executable, "-m", "paa_tpu_torch.tools.test_net",
+         "--config-file", DENSE_CONFIGS[kind], "--device", "cpu",
+         *_opts(*SLIM, *SMALL, "PATHS_CATALOG", CATALOG,
+                "DATASETS.TEST", ("synth_coco_4",), "OUTPUT_DIR", out,
+                *extra)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1",
+             "PAA_TPU_TORCH_SYNTH_DIR": str(tmp_path / "synth")})
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    assert ("TTA eval" in proc.stdout + proc.stderr) == \
+        ("TEST.BBOX_AUG.ENABLED" in extra)
+    folder = out / "inference" / "synth_coco_4"
+    with open(folder / "coco_results.json") as f:
+        assert sorted(json.load(f)) == METRICS
+    with open(folder / "bbox.json") as f:
+        assert len(json.load(f)) > 0
