@@ -186,7 +186,7 @@ and prints no result line):
 29. Phase 18 on the X-152 dcnv2 config, from a seeded Detectron
     X-101-32x8d pickle through its catalog:// MODEL.WEIGHT.
 30. K3 against its plain version, as phase 4, at every input shape at
-    which the paths of phases 5-33 launched it (the TTA buckets up to
+    which the paths of phases 5-37 launched it (the TTA buckets up to
     1824 x 3008 and the training ladder's among them).
 
 31. (Run after phase 14's profile, before phase 20.) The dense detectors
@@ -220,6 +220,42 @@ and prints no result line):
     synth_coco_32 at full width from the seeded weights: exit 0, the 12
     metrics, a detection on every image, K1 once and K3 40 times per
     eval batch.
+
+34. (Run after phase 33.) Mask R-CNN serving:
+    configs/e2e_mask_rcnn_R_50_FPN_1x.yaml at full width (Faster R-CNN's
+    phase 7 model and biases, the mask head's 4 x 256 convs, deconv and
+    80 class channels; the mask logits' biases from seed 2 in
+    [0.5, 1.5]) in bfloat16, three 8 x 800 x 1344 requests: phase 7's
+    checks, K1 3 and K2 3 launches, masks (8, 100, 28, 28) float32 in
+    [0, 1]; K1 against its plain version on the RPN's rows of the first
+    request; img/s; a profile with the mask head in its own span; the
+    f32 model on the card against the CPU at 2 x 256 x 320 (phase 8),
+    and the masks of the detections at the same box within
+    MASK_PROB_TOL.
+35. Faster R-CNN and Mask R-CNN training at full width in bfloat16: 10
+    do_train steps each at IMS_PER_BATCH 16 on one batch of 800 x 1344
+    images (3-12 GTs, for Mask R-CNN each with its octagon's
+    box-normalized mask), FrozenBN calibrated on the seeded body:
+    finite losses that fall, num_pos > 0, K1 once per step at the
+    training RPN's rows (80 rows of up to 2,000 candidates, 2,000
+    picks), held bit-equal to its plain version on the first step's
+    rows and timed there; peak memory, ms per step, img/s, and a
+    profile split by the two-stage spans (RPN loss, proposals, roi
+    sampling, box head, box loss, mask head, mask targets, mask loss).
+36. One float32 Mask R-CNN train step on the card and on the CPU
+    against a float64 CPU step at 2 x 256 x 320 (128 rois per image,
+    phase 35's calibrated FrozenBN), the same draws injected, and the
+    proposals and the ReLU decisions at the kink pinned to float64's:
+    sampled anchors and rois, labels, GT indices and num_pos equal,
+    losses within 1e-4, updates within phase 13's limits; a planted
+    x1.05 in the mask logits' gradient must land beyond them.
+37. ``paa_tpu_torch.tools.test_net`` on Mask R-CNN over synth_coco_32
+    at full width with cv2 blocked: exit 0, the bbox and segm tables,
+    K1 and K2 once per batch; then the eval path in f32 on the card
+    against the CPU at 256 px: the 24 AP values within 1e-3.
+38. K1 against its plain version at every input shape phases 34-37
+    launched it at (recorded), the training RPN's 2,000-pick rows
+    among them.
 
 Phase 13 also runs the step a third time on the CPU with the network in
 float64 (every convolution, FrozenBN and GroupNorm), the referee of the
@@ -261,6 +297,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PAA_CONFIG = os.path.join(ROOT, "configs", "paa", "paa_R_50_FPN_1x.yaml")
 FRCNN_CONFIG = os.path.join(ROOT, "configs",
                             "e2e_faster_rcnn_R_50_FPN_1x.yaml")
+MRCNN_CONFIG = os.path.join(ROOT, "configs", "e2e_mask_rcnn_R_50_FPN_1x.yaml")
 DCNV2_CONFIG = os.path.join(ROOT, "configs", "paa",
                             "paa_dcnv2_X_152_32x8d_FPN_2x.yaml")
 # the dense detectors beside PAA: each serves, trains and is held
@@ -723,9 +760,10 @@ def seeded_dcnv2(dtype, device):
     return model
 
 
-def seeded_frcnn(dtype, device):
-    """Full-width Faster R-CNN R-50-FPN with weights from seed 0 and the
-    80 foreground cls_score biases drawn from seed 1 in [25, 35]. The
+def seeded_frcnn(dtype, device, path=FRCNN_CONFIG):
+    """Full-width Faster R-CNN R-50-FPN (or the two-stage model of
+    ``path``) with weights from seed 0 and the 80 foreground cls_score
+    biases drawn from seed 1 in [25, 35]. The
     random box head's logits spread with a std of ~30 across classes,
     so a roi's softmax is nearly one-hot whatever the bias; lifting the
     foreground one std above the background keeps the background from
@@ -733,7 +771,7 @@ def seeded_frcnn(dtype, device):
     candidate above the 0.05 threshold."""
     from paa_tpu_torch.modeling import build_detection_model
 
-    model = build_detection_model(build_cfg(dtype, FRCNN_CONFIG),
+    model = build_detection_model(build_cfg(dtype, path),
                                   device=device, seed=0)
     gen = torch.Generator().manual_seed(1)
     bias = model.module.box_head.cls_score.bias
@@ -798,9 +836,11 @@ def check_detections(dets, what, min_score):
     return n_valid
 
 
-def serve(model, what, seed, expected, min_score):
+def serve(model, what, seed, expected, min_score, extra_check=None):
     """Three requests through make_eval_fn with the launch counts set to
-    0 just before and read just after."""
+    0 just before and read just after; ``extra_check(dets)``, if given,
+    checks the three requests' outputs further and returns fields to
+    print."""
     eval_fn = model.make_eval_fn()
     reqs = [request(seed + i, BATCH, HW, SIZE) for i in range(3)]
     zero_launch_counts()
@@ -816,9 +856,11 @@ def serve(model, what, seed, expected, min_score):
     check(launches == expected,
           f"{what}: launches {launches}, expected {expected}")
     n_valid = check_detections(dets, what, min_score)
+    extra = extra_check(dets) if extra_check else {}
     print(json.dumps({"phase": what, "ok": True, "requests": 3,
                       "batch": BATCH, "hw": HW, "launches": launches,
-                      "valid_detections": n_valid, "request_s": times}))
+                      "valid_detections": n_valid, "request_s": times,
+                      **extra}))
     return eval_fn, launches
 
 
@@ -1385,7 +1427,10 @@ def _detections_by_image(dets, image_ids):
 def top_detections_gt(ann_file, bbox_json, out_file, per_image=5):
     """A copy of ``ann_file`` whose ground truth is each image's
     ``per_image`` best detections of a first pass, so that the AP of
-    random weights is far from 0."""
+    random weights is far from 0; each with the polygon of the octagon
+    in its box (data/synth.py), for the segm table."""
+    from paa_tpu_torch.data.synth import box_octagon
+
     with open(ann_file) as f:
         data = json.load(f)
     with open(bbox_json) as f:
@@ -1395,24 +1440,26 @@ def top_detections_gt(ann_file, bbox_json, out_file, per_image=5):
         mine = sorted((d for d in dets if d["image_id"] == img["id"]),
                       key=lambda d: -d["score"])[:per_image]
         for d in mine:
+            poly, area = box_octagon(*d["bbox"])
             data["annotations"].append(dict(
                 id=len(data["annotations"]) + 1, image_id=img["id"],
-                bbox=d["bbox"], area=d["bbox"][2] * d["bbox"][3],
+                bbox=d["bbox"], area=area, segmentation=[poly],
                 category_id=d["category_id"], iscrowd=0))
     with open(out_file, "w") as f:
         json.dump(data, f)
     return len(data["annotations"])
 
 
-def eval_card_vs_cpu(dev, cfg, seed, what):
+def eval_card_vs_cpu(dev, cfg, seed, what, build=seeded_model):
     """The whole eval path of ``cfg`` (``inference``, dataset to AP
     table) in float32 (TF32 off) on the card and on the CPU (plain
-    versions) from phase 5's weights, over four PPM images from
-    ``seed``. So that the AP is not 0 for random weights, the ground
-    truth is the CPU's five best detections of each image on a first
-    pass. Detections matched as in phase 6; the 12 AP values within
-    1e-3. Returns the printed fields and the card run's launch counts
-    (set to 0 just before it)."""
+    versions) from ``build(dtype, device)``'s weights (phase 5's by
+    default), over four PPM images from ``seed``. So that the AP is not
+    0 for random weights, the ground truth is the CPU's five best
+    detections of each image on a first pass. Detections matched as in
+    phase 6; every AP value (the 12 bbox ones, and for Mask R-CNN the 12
+    segm ones) within 1e-3. Returns the printed fields and the card
+    run's launch counts (set to 0 just before it)."""
     import logging
 
     from paa_tpu_torch.data.coco import COCODataset
@@ -1426,7 +1473,7 @@ def eval_card_vs_cpu(dev, cfg, seed, what):
     first = COCODataset(ann_file, img_dir,
                         remove_images_without_annotations=False)
     logger = logging.getLogger("chip_smoke.eval")
-    models = {d: seeded_model("float32", d) for d in (dev, "cpu")}
+    models = {d: build("float32", d) for d in (dev, "cpu")}
     folder = os.path.join(tmp, "first")
     inference(cfg, models["cpu"], first, output_folder=folder, logger=logger)
     ids = [r.id for r in first.records]
@@ -1447,7 +1494,8 @@ def eval_card_vs_cpu(dev, cfg, seed, what):
     matched = match_detections(*[_detections_by_image(d, ids)
                                  for d in dets], what)
     ap_err = {k: abs(results[0][k] - v) for k, v in results[1].items()}
-    check(sorted(ap_err) == sorted(METRICS)
+    check(sorted(k for k in ap_err if "/" not in k) == sorted(METRICS)
+          and sorted(ap_err) == sorted(results[0])
           and max(ap_err.values()) <= 1e-3 and results[1]["AP"] > 0,
           f"{what}: AP {results}")
     shutil.rmtree(tmp, ignore_errors=True)
@@ -1691,6 +1739,13 @@ def train_once(model, batch):
     metrics = model.make_bucket_train_step(
         tuple(batch["images"].shape[1:3]))(state, batch)
     pos_mask = metrics.pop("pos_mask").cpu()
+    return ({k: float(v) for k, v in metrics.items()}, pos_mask, before,
+            sgd_update(state, params, before))
+
+
+def sgd_update(state, params, before):
+    """The parameters after a first SGD step as it computed them, in
+    float64: before - lr x the momentum buffer (see ``train_once``)."""
     lr = {id(p): g["lr"] for g in state.optimizer.param_groups
           for p in g["params"]}
     after = {}
@@ -1698,8 +1753,7 @@ def train_once(model, batch):
         buf = state.optimizer.state.get(p, {}).get("momentum_buffer")
         after[n] = before[n].double() if buf is None else (
             before[n].double() - lr[id(p)] * buf.detach().cpu().double())
-    return ({k: float(v) for k, v in metrics.items()}, pos_mask, before,
-            after)
+    return after
 
 
 def update_norm_err(got, want, before):
@@ -1719,8 +1773,11 @@ def update_errors(got, want, before):
         diff = got[n] - before[n] - upd
         share[n] = float(diff.abs().max() / upd.abs().max().clamp(min=1e-30))
         norm[n] = float(diff.norm() / upd.norm().clamp(min=1e-30))
-    return (sorted(norm.items(), key=lambda kv: -kv[1])[:4],
-            sorted(share.items(), key=lambda kv: -kv[1])[:4])
+    def worst_first(kv):  # a NaN (a broken update) ranks worst
+        return -math.inf if math.isnan(kv[1]) else -kv[1]
+
+    return (sorted(norm.items(), key=worst_first)[:4],
+            sorted(share.items(), key=worst_first)[:4])
 
 
 def _gn_plain_stats_detached(x, weight, bias, num_groups=32, eps=1e-5):
@@ -1971,8 +2028,10 @@ def phase_train_profile(model, state, batch, name, hw=HW,
     """torch.profiler over three train steps. Each kernel goes to the
     innermost span around its launch (input: the batch's copy and
     normalize; forward, assignment, losses, backward, K3's backward
-    recompute, the DCN backward's recompute and VJP, optimizer; "other":
-    outside every span), matched through the trace's launch correlation.
+    recompute, the DCN backward's recompute and VJP, optimizer; for a
+    two-stage model the RPN loss, proposals, roi sampling, box head, box
+    loss, mask head, mask targets and mask loss; "other": outside every
+    span), matched through the trace's launch correlation.
     Per span class: host ms in the span, the device window from its
     first kernel's start to its last's end in each occurrence, the
     device busy time in it and the windows' idle share; and the step's
@@ -1982,6 +2041,7 @@ def phase_train_profile(model, state, batch, name, hw=HW,
     from paa_tpu_torch.engine import train_step as ts
     from paa_tpu_torch.modeling import atss_loss, fcos_loss, retinanet_head
     from paa_tpu_torch.modeling import paa_loss as pl
+    from paa_tpu_torch.modeling import two_stage as two
     from paa_tpu_torch.ops import dcn
     from paa_tpu_torch.ops import group_norm as gn
 
@@ -1990,6 +2050,11 @@ def phase_train_profile(model, state, batch, name, hw=HW,
                    gn.SPAN_BACKWARD: "gn_backward_recompute",
                    dcn.SPAN_BACKWARD: "dcn_backward_recompute",
                    ts.SPAN_OPTIMIZER: "optimizer"}
+    for span in (two.SPAN_RPN_LOSS, two.SPAN_PROPOSALS,
+                 two.SPAN_ROI_SAMPLING, two.SPAN_BOX_HEAD,
+                 two.SPAN_BOX_LOSS, two.SPAN_MASK_HEAD,
+                 two.SPAN_MASK_TARGETS, two.SPAN_MASK_LOSS):
+        spans_named[span] = span.split("/")[1]
     for loss in (pl, atss_loss, fcos_loss, retinanet_head):
         spans_named.update({loss.SPAN_ASSIGN: "assignment",
                             loss.SPAN_LOSSES: "losses"})
@@ -2086,6 +2151,8 @@ BOX_LABEL = "box head (ROIAlign + f32 MLP)"
 # by _profiled), and the class their kernels count in
 SPAN_LABELS = {
     BOX_SPAN: BOX_LABEL,
+    # modeling/two_stage.py's span around Mask R-CNN's mask head
+    "mask head": "mask head (ROIAlign 14x14, 4 convs, deconv, 1x1)",
     "dcn_geometry": "deform geometry (corner rows and weights)",
     "dcn_sampling": "deform sampling (patch table, gather, corner "
                     "weighting)",
@@ -3732,6 +3799,496 @@ def phase_dense_test_net(dev, name, head="fcos"):
     return launches
 
 
+# ---- two-stage training and Mask R-CNN -------------------------------------
+
+TWO_STAGE_CONFIGS = {"faster_rcnn": FRCNN_CONFIG, "mask_rcnn": MRCNN_CONFIG}
+# the sampled anchors and rois a two-stage train step reports beside its
+# losses (``make_bucket_train_step(..., return_aux=True)``)
+TWO_STAGE_AUX = ("rpn_pos", "rpn_neg", "rois", "roi_labels", "roi_valid",
+                 "roi_gt_idx", "mask_targets")
+# the rois per image of the two-stage f32 steps compared with the CPU and
+# float64 (the config's 512 cut to 128: the CPU's float64 mask head over
+# 1,024 rois takes minutes)
+REFERENCE_ROIS = 128
+# the f32 step's sampled rois (proposals, floats) against the CPU's, in
+# px, and the share of its 28 x 28 mask targets (crops thresholded at 0.5)
+# that a roi that far off may flip
+ROI_PX_TOL, MASK_TARGET_SHARE_TOL = 1e-2, 1e-3
+# a mask probability of a card detection and of the CPU's at the same box
+# (within 0.01 px) within this much of each other (float32; the mask head
+# pools at the box)
+MASK_PROB_TOL = 1e-3
+
+
+def seeded_mrcnn(dtype, device):
+    """``seeded_frcnn`` on Mask R-CNN, with the mask logits' biases
+    drawn from seed 2 in [0.5, 1.5], so that an untrained mask head's
+    masks cover much of each box (a segm AP away from 0 against the
+    octagons of ``top_detections_gt``)."""
+    model = seeded_frcnn(dtype, device, MRCNN_CONFIG)
+    gen = torch.Generator().manual_seed(2)
+    bias = model.module.mask_head.mask_fcn_logits.bias
+    with torch.no_grad():
+        bias.copy_(torch.empty(bias.shape).uniform_(0.5, 1.5, generator=gen))
+    return model
+
+
+def check_masks(dets):
+    """Each request's "masks" (B, 100, 28, 28) float32 in [0, 1]."""
+    for det in dets:
+        m = det["masks"]
+        check(tuple(m.shape) == (BATCH, 100, 28, 28)
+              and m.dtype == torch.float32
+              and bool(torch.isfinite(m).all())
+              and float(m.min()) >= 0 and float(m.max()) <= 1,
+              f"mask_rcnn: masks {tuple(m.shape)} {m.dtype}")
+    m = dets[0]["masks"][dets[0]["valid"]]
+    return {"masks": list(dets[0]["masks"].shape),
+            "mask_pixels_above_half": float((m > 0.5).float().mean())}
+
+
+def mask_rcnn_card_vs_cpu(dev):
+    """The f32 Mask R-CNN on the card against the CPU at 2 x 256 x 320
+    (``card_vs_cpu``: RPN outputs, detections matched), and each card
+    detection's mask against the CPU's at the same box (label equal,
+    box within 0.01 px) within MASK_PROB_TOL."""
+    card_vs_cpu(dev, seeded_mrcnn, lambda m, x: m.module.backbone_rpn(x)[1],
+                "mask_rcnn_card_vs_cpu")
+    images, sizes = request(99, 2, (256, 320), (256.0, 300.0))
+    dets = [{k: v.cpu() for k, v in seeded_mrcnn("float32", d).make_eval_fn()(
+        images, sizes).items()} for d in (dev, "cpu")]
+    gpu, cpu = dets
+    compared, worst = 0, 0.0
+    for i in range(gpu["valid"].shape[0]):
+        for j in torch.nonzero(gpu["valid"][i]).flatten().tolist():
+            same = cpu["valid"][i] & (cpu["labels"][i] == gpu["labels"][i, j])
+            d = (cpu["boxes"][i] - gpu["boxes"][i, j]).abs().amax(dim=1)
+            d = torch.where(same, d, torch.inf)
+            k = int(d.argmin())
+            if float(d[k]) <= 0.01:
+                compared += 1
+                worst = max(worst, float(
+                    (gpu["masks"][i, j] - cpu["masks"][i, k]).abs().max()))
+    check(compared >= 0.9 * int(gpu["valid"].sum()) and compared > 0
+          and worst <= MASK_PROB_TOL,
+          f"mask_rcnn_card_vs_cpu: {compared} masks compared, worst {worst}")
+    print(json.dumps({"phase": "mask_rcnn_masks_card_vs_cpu", "ok": True,
+                      "masks_compared": compared,
+                      "detections": int(gpu["valid"].sum()),
+                      "max_abs_err": worst, "tolerance": MASK_PROB_TOL}))
+
+
+def phase_mask_rcnn_serving(dev, name):
+    """Phase 34: full-width Mask R-CNN serving (three 8 x 800 x 1344 bf16
+    requests: K1 3, K2 3, masks (8, 100, 28, 28) in [0, 1]), K1 against
+    its plain version on the first request's RPN rows, img/s, a profile
+    with the mask head in its own span, and the f32 model on the card
+    against the CPU with the masks compared. Returns the launch counts
+    and the K1 detail."""
+    model = seeded_mrcnn("bfloat16", dev)
+    with recording_k1_inputs() as k1_inputs:
+        eval_fn, launches = serve(
+            model, "mask_rcnn_main_path", 50,
+            {"nms_batched": 3, "nms_global": 3, "group_norm_relu": 0},
+            0.05, check_masks)
+    k1 = k1_at_path_inputs(k1_inputs[0], "mask_rcnn_rpn", name)
+    e2e_rate(eval_fn, 20, "mask_rcnn", name, dev)
+    phase_profile(model, eval_fn, 60, "mask_rcnn", name)
+    del model, eval_fn, k1_inputs
+    torch.cuda.empty_cache()
+    mask_rcnn_card_vs_cpu(dev)
+    return launches, k1
+
+
+def box_octagon_masks(gt_boxes, gt_labels):
+    """(B, G, 112, 112) uint8 box-normalized masks of the octagon in each
+    valid GT box (data/synth.py's polygon), rasterized without cv2."""
+    from paa_tpu_torch.data.synth import box_octagon
+    from paa_tpu_torch.structures.masks import rasterize_instances
+
+    out = []
+    for boxes, labels in zip(gt_boxes.numpy(), gt_labels.numpy()):
+        n = int((labels > 0).sum())
+        polys = [[box_octagon(x1, y1, x2 - x1, y2 - y1)[0]]
+                 for x1, y1, x2, y2 in boxes[:n]]
+        out.append(rasterize_instances(polys, boxes[:n], len(labels)))
+    return torch.from_numpy(np.stack(out))
+
+
+def two_stage_batch(seed, bsz, hw, size, masks):
+    """``train_batch`` with, for Mask R-CNN, each GT's octagon mask."""
+    batch = train_batch(seed, bsz, hw, size)
+    if masks:
+        batch["gt_masks"] = box_octagon_masks(batch["gt_boxes"],
+                                              batch["gt_labels"])
+    return batch
+
+
+def phase_two_stage_train(dev, name, kind, frozen_bn):
+    """Phase 35: TRAIN_STEPS steps of do_train of the full-width bf16
+    model of TWO_STAGE_CONFIGS[``kind``] at its IMS_PER_BATCH (16) on
+    one repeated batch (3-12 GTs in 100 slots; for Mask R-CNN their
+    octagons' box-normalized masks), with FrozenBN statistics calibrated
+    on the seeded body (``calibrated_frozen_bn``: at the seed's identity
+    statistics the random FPN's ~1e3 features put the RPN's deltas and
+    the classifier's logits in the hundreds, and both packages' box
+    losses go NaN): losses finite, num_pos > 0, the last loss below the
+    first, K1 once per step (the RPN's rows of PRE_NMS_TOP_N_TRAIN
+    candidates, POST_NMS_TOP_N_TRAIN picks) and no K2 or K3 (launch
+    counts set to 0 just before and read just after); K1 against its
+    plain version on the first step's rows, timed there; peak memory;
+    then the step's ms, img/s and a profile split by span. Returns the
+    launch counts and the K1 detail."""
+    from paa_tpu_torch.engine import do_train
+
+    path = TWO_STAGE_CONFIGS[kind]
+    what = f"{kind}_train"
+    cfg = build_cfg("bfloat16", path, ["SOLVER.MAX_ITER", TRAIN_STEPS])
+    model = seeded_train_model(cfg, dev, frozen_bn)
+    state = train_state(model)
+    batch = two_stage_batch(70, cfg.SOLVER.IMS_PER_BATCH, HW, SIZE,
+                            cfg.MODEL.MASK_ON)
+    seen = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with recording_k1_inputs() as k1_inputs:
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        do_train(cfg, model, state, [batch] * TRAIN_STEPS,
+                 metric_hook=lambda i, m: seen.update({i: m}))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    expected = {"nms_batched": TRAIN_STEPS, "nms_global": 0,
+                "group_norm_relu": 0}
+    check(launches == expected,
+          f"{what}: launches {launches}, expected {expected}")
+    check(sorted(seen) == list(range(1, TRAIN_STEPS + 1)),
+          f"{what}: metrics of steps {sorted(seen)}")
+    for i, m in seen.items():
+        check(all(math.isfinite(v) for v in m.values()) and m["num_pos"] > 0,
+              f"{what}: step {i} {m}")
+    check(seen[TRAIN_STEPS]["loss"] < seen[1]["loss"],
+          f"{what}: loss {seen[1]['loss']} -> {seen[TRAIN_STEPS]['loss']}")
+    args = k1_inputs[0]
+    check(not any(isinstance(a, torch.Tensor) and a.requires_grad
+                  for a in args), f"{what}: K1 saw a tensor under autograd")
+    print(json.dumps({
+        "phase": what, "ok": True, "batch": cfg.SOLVER.IMS_PER_BATCH,
+        "hw": HW, "max_gt": MAX_GT, "steps": TRAIN_STEPS,
+        "dtype": "bfloat16", "launches": launches,
+        "k1_rows": list(args[1].shape), "k1_max_out": args[5],
+        "losses": {k: [seen[i][k] for i in sorted(seen)] for k in seen[1]},
+        "do_train_s": wall, "peak_memory_gb": peak, "card": name}))
+    k1 = k1_at_path_inputs(args, f"{kind}_train_rpn", name)
+    del k1_inputs, args
+    phase_train_timing(model, state, batch, name, what)
+    phase_train_profile(model, state, batch, name,
+                        what=f"{kind}_train_profile")
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return launches, {**k1, "peak_memory_gb": peak}
+
+
+def fixed_draws(device, seed=97):
+    """``draws`` for ``make_bucket_train_step`` with the same uniforms on
+    every device: drawn on the CPU from (seed, step, name), then moved."""
+    def draws(step):
+        def draw(name, shape):
+            gen = torch.Generator().manual_seed(
+                seed * 1000 + step * 10 + (name == "roi"))
+            return tuple(torch.rand(shape, generator=gen).to(device)
+                         for _ in range(2))
+        return draw
+    return draws
+
+
+def two_stage_train_once(model, batch):
+    """One two-stage train step with a fresh optimizer and ``fixed_draws``:
+    (host losses, the sampled anchors and rois on the CPU, the
+    parameters before, the update as SGD computed it; ``train_once``)."""
+    state = train_state(model)
+    params = dict(model.module.named_parameters())
+    before = {n: p.detach().cpu().clone() for n, p in params.items()}
+    metrics = model.make_bucket_train_step(
+        tuple(batch["images"].shape[1:3]), draws=fixed_draws(model.device),
+        return_aux=True)(state, batch)
+    aux = {k: metrics.pop(k).cpu() for k in TWO_STAGE_AUX if k in metrics}
+    return ({k: float(v) for k, v in metrics.items()}, aux, before,
+            sgd_update(state, params, before))
+
+
+@contextlib.contextmanager
+def pinned_proposals(record=None, pin=None):
+    """Wraps the two-stage loss's ``select_proposals``: with ``record`` (a
+    list) each call's (proposals, scores, valid) is appended to it on the
+    CPU; with ``pin`` (such a list) each call computes its own, counts
+    the slots that differ from the pinned ones (validity, or a box
+    farther than ROI_PX_TOL) and returns the pinned ones. The counts
+    fill the dict it yields."""
+    from paa_tpu_torch.modeling import two_stage
+
+    plain, stats, calls = two_stage.select_proposals, {}, [0]
+
+    def wrapped(*args):
+        out = plain(*args)
+        if record is not None:
+            record.append(tuple(t.cpu() for t in out))
+        if pin is not None:
+            want = pin[calls[0]]
+            calls[0] += 1
+            boxes, valid = out[0].cpu(), out[2].cpu()
+            stats["differing_slots"] = stats.get("differing_slots", 0) + int(
+                ((boxes - want[0]).abs().amax(dim=-1).nan_to_num(0)
+                 > ROI_PX_TOL) .logical_or(valid != want[2]).sum())
+            stats["slots"] = stats.get("slots", 0) + valid.numel()
+            out = tuple(t.to(out[0].device) for t in want)
+        return out
+
+    two_stage.select_proposals = wrapped
+    try:
+        yield stats
+    finally:
+        two_stage.select_proposals = plain
+
+
+def _mask_logit_grad_x105():
+    """A fault in the mask loss: its logits' gradient 1.05 times the
+    right one."""
+    from paa_tpu_torch.modeling import two_stage
+
+    plain = two_stage.mask_loss
+    return {"mask_logits_grad_x1.05": (
+        two_stage, "mask_loss",
+        lambda logits, *args: plain(
+            logits.detach() + (logits - logits.detach()) * 1.05, *args))}
+
+
+def phase_two_stage_train_reference(dev, frozen_bn):
+    """Phase 36: one float32 Mask R-CNN train step (TF32 off; its RPN,
+    box and mask losses) on the card and on the CPU against the same
+    step on the CPU in float64 (every convolution in float64; the box
+    head's float32 FCs, the losses, parameters and SGD stay float32), at
+    2 x 256 x 320 with REFERENCE_ROIS rois per image, the same weights
+    (phase 35's calibrated FrozenBN: with the seed's identity statistics
+    the random FPN's ~1e3 features give deltas and logits in the
+    hundreds, and the box loss is NaN on every side), batch and
+    ``fixed_draws``. The float64 step records its proposals and its ReLU
+    inputs; each float32 step takes float64's proposals
+    (``pinned_proposals``: the RPN's top-k and NMS are decisions that
+    rounding may take apart) and float64's decision at each ReLU input
+    that rounding put on the other side of 0 (``relu_decisions``: the
+    calibrated body centres them at 0), each pinned element within
+    PIN_SHARE of the kink; the pins are counted and printed. K1 is held
+    bit-equal to its plain version on the training rows in phase 38.
+    Checked: the sampled anchors (positive and negative), the sampled
+    rois' labels, validity and GT indices, and num_pos equal on all
+    three; the rois within ROI_PX_TOL px and the mask targets equal but
+    for MASK_TARGET_SHARE_TOL of them; finite losses, the card's within
+    1e-4 relative of the CPU's; each parameter tensor's update within
+    phase 13's limits between the two float32 steps and of each against
+    float64. The pinned card step with the mask logits' gradient x1.05
+    planted must land beyond them."""
+    what = "mask_rcnn_train_card_vs_cpu"
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = build_cfg("float32", MRCNN_CONFIG,
+                    ["MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", REFERENCE_ROIS])
+    batch = two_stage_batch(99, 2, (256, 320), (256.0, 300.0), True)
+    proposals = []
+    model = in_float64(seeded_train_model(cfg, "cpu", frozen_bn))
+    with pinned_proposals(record=proposals), \
+            relu_decisions(model.module) as ref:
+        m64, aux64, before, p64 = two_stage_train_once(model, batch)
+    del model
+    steps, pins = {}, {}
+
+    def pinned_step(side, device):
+        model = seeded_train_model(cfg, device, frozen_bn)
+        with pinned_proposals(pin=proposals) as proposal_pins, \
+                relu_decisions(model.module, ref["inputs"], pin=True) as seen:
+            out = two_stage_train_once(model, batch)
+        check(seen["calls"] == ref["calls"]
+              and all(f["share"] <= PIN_SHARE for f in seen["flips"]),
+              f"{what} {side}: {seen['calls']} ReLU calls of "
+              f"{ref['calls']}, or pinned away from the kink "
+              f"{seen['flips']}")
+        pins[side] = {"proposals": proposal_pins, "relu_elements": sum(
+            f["elements"] for f in seen["flips"]),
+            "relu_calls": len(seen["flips"])}
+        return out
+
+    for side, device in (("card", dev), ("cpu", "cpu")):
+        steps[side] = pinned_step(side, device)
+    (m_gpu, aux_gpu, _, p_gpu), (m_cpu, aux_cpu, _, p_cpu) = \
+        steps["card"], steps["cpu"]
+    for k in ("rpn_pos", "rpn_neg", "roi_labels", "roi_valid", "roi_gt_idx"):
+        check(torch.equal(aux_gpu[k], aux64[k])
+              and torch.equal(aux_cpu[k], aux64[k]),
+              f"{what}: sampled {k} differ")
+    # the rois are proposals (floats) and the targets their crops
+    roi_err = {side: float((aux["rois"] - aux64["rois"]).abs().max())
+               for side, aux in (("card", aux_gpu), ("cpu", aux_cpu))}
+    target_share = {side: float((aux["mask_targets"]
+                                 != aux64["mask_targets"]).float().mean())
+                    for side, aux in (("card", aux_gpu), ("cpu", aux_cpu))}
+    check(max(roi_err.values()) <= ROI_PX_TOL
+          and max(target_share.values()) <= MASK_TARGET_SHARE_TOL,
+          f"{what}: rois {roi_err} px, mask targets {target_share}")
+    check(m_gpu["num_pos"] == m_cpu["num_pos"] == m64["num_pos"] > 0
+          and int(aux64["roi_labels"].gt(0).sum()) > 0,
+          f"{what}: num_pos {m_gpu['num_pos']} {m_cpu['num_pos']}")
+    loss_err = {k: abs(m_gpu[k] - v) / max(abs(v), 1e-12)
+                for k, v in m_cpu.items()}
+    check(all(math.isfinite(v) for m in (m_gpu, m_cpu, m64)
+              for v in m.values())
+          and all(e <= 1e-4 for e in loss_err.values()),
+          f"{what}: losses {m_gpu} {m_cpu} {m64}")
+    readings = {}
+    for side, got, want in (("card_vs_cpu", p_gpu, p_cpu),
+                            ("card_vs_float64", p_gpu, p64),
+                            ("cpu_vs_float64", p_cpu, p64)):
+        norm, share = update_errors(got, want, before)
+        readings[side] = {"worst_update_norm_err": norm[0],
+                          "worst_update_share": share[0]}
+        check(norm[0][1] <= UPDATE_NORM_TOL
+              and share[0][1] <= UPDATE_SHARE_TOL,
+              f"{what}: {side} {norm} {share}")
+    planted = {}
+    for fault, (module, attr, fn) in _mask_logit_grad_x105().items():
+        plain = getattr(module, attr)
+        setattr(module, attr, fn)
+        try:
+            _, _, _, p_bad = pinned_step(f"planted {fault}", dev)
+        finally:
+            setattr(module, attr, plain)
+        f_norm, f_share = update_errors(p_bad, p_cpu, before)
+        planted[fault] = {"worst_update_norm_err": f_norm[0],
+                          "worst_update_share": f_share[0]}
+        check(not (f_norm[0][1] <= UPDATE_NORM_TOL
+                   and f_share[0][1] <= UPDATE_SHARE_TOL),
+              f"{what}: planted {fault} within the limits: {f_norm}")
+    print(json.dumps({
+        "phase": what, "ok": True, "hw": [256, 320],
+        "rois_per_image": REFERENCE_ROIS, "num_pos": m_gpu["num_pos"],
+        "pinned": pins, "roi_max_abs_err_px": roi_err,
+        "mask_targets_differing_share": target_share,
+        "sampled": {k: int(v.sum()) if v.dtype == torch.bool else
+                    list(v.shape) for k, v in aux64.items()},
+        "losses": m_gpu, "loss_rel_err": loss_err, **readings,
+        "planted_faults": planted}))
+
+
+def phase_mask_rcnn_test_net(dev, name):
+    """Phase 37: ``paa_tpu_torch.tools.test_net`` (its ``main``, in this
+    process) on Mask R-CNN over synth_coco_32 at full width in bf16 from
+    the seeded weights, with cv2 blocked (the card machine has none; the
+    polygons' fill and the masks' paste run in numpy) and SCORE_THRESH 0
+    (100 detections, so 100 pasted masks, per image): exit 0, the bbox
+    and segm tables, a detection on every image, K1 and K2 once per eval
+    batch. Then the same eval
+    path in float32 on the card and on the CPU at 256 px
+    (``eval_card_vs_cpu``): the 24 AP values within 1e-3."""
+    from paa_tpu_torch.tools import test_net
+
+    tmp = tempfile.mkdtemp(prefix="paa_mask_test_net_")
+    os.environ["PAA_TPU_TORCH_SYNTH_DIR"] = os.path.join(tmp, "synth")
+    out_dir = os.path.join(tmp, "out")
+    cv2 = sys.modules.get("cv2", False)
+    sys.modules["cv2"] = None  # import cv2 raises ImportError
+    try:
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        # every candidate above 0: 100 detections and masks per image
+        rc = test_net.main(["--config-file", MRCNN_CONFIG,
+                            *synth_opts(out_dir),
+                            "MODEL.ROI_HEADS.SCORE_THRESH", "0.0"])
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    finally:
+        if cv2 is False:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = cv2
+    check(rc == 0, f"mask_rcnn_test_net: exit {rc}")
+    batches = launches["nms_batched"]
+    check(batches >= 4 and launches == {
+        "nms_batched": batches, "nms_global": batches,
+        "group_norm_relu": 0}, f"mask_rcnn_test_net: launches {launches}")
+    results = read_results(out_dir, SYNTH_32[0])
+    segm = {k[5:]: v for k, v in results.items() if k.startswith("segm/")}
+    check(sorted(k for k in results if "/" not in k) == sorted(METRICS)
+          and sorted(segm) == sorted(METRICS) and all(
+              math.isfinite(v) and -1.0 <= v <= 1.0
+              for v in results.values()),
+          f"mask_rcnn_test_net: results {results}")
+    dets = read_bbox_json(os.path.join(out_dir, "inference", SYNTH_32[0]))
+    check(len({d["image_id"] for d in dets}) == 32,
+          "mask_rcnn_test_net: images with detections")
+    print(json.dumps({"phase": "mask_rcnn_test_net", "ok": True,
+                      "images": 32, "cv2": "blocked", "launches": launches,
+                      "detections": len(dets), "wall_s": wall,
+                      "card": name}))
+    print(json.dumps({"ap_table": "random weights, a synthetic dataset: "
+                      "not an accuracy", **results}))
+    shutil.rmtree(tmp, ignore_errors=True)
+    cfg = build_cfg("float32", MRCNN_CONFIG, [
+        "INPUT.MIN_SIZE_TEST", 256, "INPUT.MAX_SIZE_TEST", 320,
+        "TPU.TEST_BUCKETS", ((256, 320), (320, 256)),
+        "TEST.IMS_PER_BATCH", 2])
+    out, _ = eval_card_vs_cpu(dev, cfg, 13, "mask_rcnn_eval_card_vs_cpu",
+                              build=seeded_mrcnn)
+    print(json.dumps({"phase": "mask_rcnn_eval_card_vs_cpu", "ok": True,
+                      **out}))
+    return launches
+
+
+def phase_k1_at_recorded_inputs(inputs, name):
+    """Phase 38: K1 against its plain version, bit-equal, at every
+    distinct input shape (rows, candidates, max_out) at which phases
+    34-37 launched it (recorded); returns the shapes checked."""
+    from paa_tpu_torch.ops import nms
+
+    shapes = {}
+    for args in inputs:
+        key = (*args[1].shape, args[5])
+        if key not in shapes:
+            shapes[key] = args
+    for key, args in shapes.items():
+        same_keeps(nms.nms_batched(*args), nms.nms_batched_plain(*args),
+                   f"nms_batched at {key}")
+    check(any(k[1] >= 2000 and k[2] >= 2000 for k in shapes),
+          f"k1_at_recorded_inputs: no training RPN rows in {list(shapes)}")
+    print(json.dumps({"phase": "k1_at_recorded_inputs", "ok": True,
+                      "shapes": [list(k) for k in shapes], "card": name}))
+    return list(shapes)
+
+
+def phase_two_stage(dev, name):
+    """Phases 34-38 (after phase 33): Mask R-CNN serving, Faster R-CNN
+    and Mask R-CNN training, the f32 Mask R-CNN step against the CPU and
+    float64, Mask R-CNN's test_net with cv2 blocked, and K1 at every
+    input those runs gave it. Returns the launch counts by path and
+    K1's details at the training RPN's rows."""
+    with recording_k1_inputs() as k1_inputs:
+        serving, k1_serving = phase_mask_rcnn_serving(dev, name)
+        frozen_bn = calibrated_frozen_bn(FRCNN_CONFIG)
+        training = {kind: phase_two_stage_train(dev, name, kind, frozen_bn)
+                    for kind in TWO_STAGE_CONFIGS}
+        phase_two_stage_train_reference(dev, frozen_bn)
+        test_net_launches = phase_mask_rcnn_test_net(dev, name)
+    phase_k1_at_recorded_inputs(k1_inputs, name)
+    del k1_inputs
+    torch.cuda.empty_cache()
+    launches = {"mask_rcnn": serving, "mask_rcnn_test_net": test_net_launches,
+                **{f"{kind}_train": runs[0]
+                   for kind, runs in training.items()}}
+    k1 = {"mask_rcnn_rpn": k1_serving,
+          **{f"{kind}_train_rpn": runs[1] for kind, runs in training.items()}}
+    return launches, k1
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3805,6 +4362,8 @@ def main():
         phase_tta_card_vs_cpu(dev)
         atss_tta_launches = phase_atss_tta(dev, name)
         test_net_launches = phase_dense_test_net(dev, name)
+        # Mask R-CNN serving, two-stage training, Mask R-CNN's test_net
+        two_stage_launches, k1_two_stage = phase_two_stage(dev, name)
         dcnv2_train_net_launches = phase_train_net_from_pkl(
             dev, name, "dcnv2_train_net_from_pkl")
         gate_launches = phase_ap_gate(dev, name)
@@ -3828,12 +4387,18 @@ def main():
                             f"{head}_train": runs["training"][key]})
         by_path.update(atss_tta=atss_tta_launches[key],
                        fcos_test_net=test_net_launches[key])
+        by_path.update({path: runs[key]
+                        for path, runs in two_stage_launches.items()})
         kernel.update(launches=sum(by_path.values()),
                       launches_by_path=by_path)
     # K1's time at each dense head's own candidates, beside PAA's
-    k1["at_path_inputs"] = {head: {f: runs["k1"][f] for f in (
-        "N", "valid_candidates", "ms", "plain_ms", "bound_ms")}
-        for head, runs in dense.items()}
+    fields = ("B", "N", "valid_candidates", "ms", "plain_ms", "bound_ms")
+    k1["at_path_inputs"] = {head: {f: runs["k1"][f] for f in fields}
+                            for head, runs in dense.items()}
+    # and at the two-stage RPN's rows: serving, and training's up to
+    # 2,000 candidates with 2,000 picks
+    k1["at_path_inputs"].update({path: {f: detail[f] for f in fields}
+                                 for path, detail in k1_two_stage.items()})
     print(json.dumps({"phase": "script", "wall_s":
                       time.perf_counter() - t0, "card": name}))
     print(name)

@@ -1,4 +1,5 @@
-"""COCO detection dataset (port of paa_tpu/data/coco.py, boxes only).
+"""COCO detection dataset (port of paa_tpu/data/coco.py, boxes and
+polygons).
 
 Mirrors reference paa_core/data/datasets/coco.py:39-101 without
 pycocotools: the instances json is parsed with the json module into
@@ -11,11 +12,13 @@ flat numpy records.
 - boxes xywh -> xyxy with the +1 convention (BoxList.convert), clipped
   to the image with degenerate boxes removed
   (clip_to_image(remove_empty=True))
+- with_masks (Mask R-CNN training): each kept instance's COCO polygons
+  (``segmentation``, [] when absent) in ``ImageRecord.polygons``
 
 Decoding goes by the file, not by what is installed: a binary PPM (P6)
 is read with numpy, and any other format needs cv2, imported inside the
-call (``read_image``). Masks and keypoints are not ported yet (ROADMAP
-item 10).
+call (``read_image``). Keypoints come with Keypoint R-CNN (ROADMAP item
+10, next).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -36,6 +39,7 @@ class ImageRecord:
     height: int
     boxes: np.ndarray  # (n, 4) float32 xyxy
     labels: np.ndarray  # (n,) int32 contiguous 1..C
+    polygons: Optional[list] = None  # per instance, with_masks only
 
 
 def _ppm_header(f):
@@ -125,7 +129,7 @@ def _clip_remove_empty(boxes, labels, width, height):
     boxes[:, 2] = np.clip(boxes[:, 2], 0, width - 1)
     boxes[:, 3] = np.clip(boxes[:, 3], 0, height - 1)
     keep = (boxes[:, 3] > boxes[:, 1]) & (boxes[:, 2] > boxes[:, 0])
-    return boxes[keep], labels[keep]
+    return boxes[keep], labels[keep], keep
 
 
 def _has_valid_annotation(annos):
@@ -141,11 +145,10 @@ class COCODataset:
     def __init__(self, ann_file, root,
                  remove_images_without_annotations=True,
                  with_masks=False, with_keypoints=False):
-        if with_masks or with_keypoints:
+        if with_keypoints:
             raise NotImplementedError(
-                "paa_tpu_torch's COCODataset loads boxes only; masks and "
-                "keypoints wait for the Mask and Keypoint heads "
-                "(ROADMAP item 10)")
+                "paa_tpu_torch's COCODataset loads boxes and polygons; "
+                "keypoints wait for Keypoint R-CNN (ROADMAP item 10)")
         self.root = root
         with open(ann_file) as f:
             data = json.load(f)
@@ -185,9 +188,13 @@ class COCODataset:
                  for a in non_crowd],
                 dtype=np.int32,
             ).reshape(-1)
-            boxes, labels = _clip_remove_empty(
+            boxes, labels, keep = _clip_remove_empty(
                 _xywh_to_xyxy(boxes), labels, img["width"], img["height"]
             )
+            polygons = None
+            if with_masks:
+                polygons = [a.get("segmentation") or []
+                            for a, k in zip(non_crowd, keep) if k]
             self.records.append(
                 ImageRecord(
                     id=img_id,
@@ -196,6 +203,7 @@ class COCODataset:
                     height=img["height"],
                     boxes=boxes,
                     labels=labels,
+                    polygons=polygons,
                 )
             )
 

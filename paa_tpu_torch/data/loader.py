@@ -14,8 +14,11 @@ onto bucket grouping: batches are formed within a bucket. The
 iteration-based infinite sampler with epoch-seeded shuffling mirrors
 samplers/iteration_based_batch_sampler.py + distributed.py. Decoding and
 resizing run in a thread pool (the numpy PPM read and the torch resize
-release the GIL) with batch prefetch. Masks and keypoints wait for the
-Mask and Keypoint heads (ROADMAP item 10).
+release the GIL) with batch prefetch. For Mask R-CNN training each
+sample's polygons are rasterized in its boxes' frames
+(structures/masks.py ``rasterize_instances``, no cv2) and the batch
+carries them as 'gt_masks' (B, MAX_GT, 112, 112) uint8. Keypoints wait
+for Keypoint R-CNN (ROADMAP item 10, next).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
+from ..structures.masks import rasterize_instances
 from .transforms import build_transforms, get_resize_size, normalize_image
 
 
@@ -53,8 +57,10 @@ def make_batch(samples, bucket_hw, max_gt, normalize=None,
     """Assemble transformed samples into fixed-shape arrays.
 
     samples: list of dicts with image (HWC), boxes, labels, image_id,
-    orig_size (h, w). Short batches are padded with zero images and
-    image_id -1.
+    orig_size (h, w), and optionally masks (n, M, M). Short batches are
+    padded with zero images and image_id -1. When a sample has masks the
+    batch has 'gt_masks' (B, max_gt, M, M) uint8, zero in the padding
+    slots.
 
     normalize: optional (pixel_mean, pixel_std): samples then carry RAW
     uint8 images and (x - mean)/std is computed straight into the
@@ -75,6 +81,10 @@ def make_batch(samples, bucket_hw, max_gt, normalize=None,
     image_sizes = np.zeros((bsz, 2), dtype=np.float32)
     orig_sizes = np.zeros((bsz, 2), dtype=np.float32)
     image_ids = np.full((bsz,), -1, dtype=np.int64)
+    gt_masks = None
+    masked = [s["masks"] for s in samples if s.get("masks") is not None]
+    if masked:
+        gt_masks = np.zeros((bsz, max_gt, *masked[0].shape[1:]), np.uint8)
 
     for i, s in enumerate(samples):
         img = s["image"]
@@ -93,7 +103,9 @@ def make_batch(samples, bucket_hw, max_gt, normalize=None,
         if n:
             gt_boxes[i, :n] = boxes[:n]
             gt_labels[i, :n] = labels[:n]
-    return {
+            if gt_masks is not None and s.get("masks") is not None:
+                gt_masks[i, :n] = s["masks"][:n]
+    batch = {
         "images": images,
         "gt_boxes": gt_boxes,
         "gt_labels": gt_labels,
@@ -101,6 +113,9 @@ def make_batch(samples, bucket_hw, max_gt, normalize=None,
         "orig_sizes": orig_sizes,
         "image_ids": image_ids,
     }
+    if gt_masks is not None:
+        batch["gt_masks"] = gt_masks
+    return batch
 
 
 class DetectionLoader:
@@ -174,14 +189,24 @@ class DetectionLoader:
                 "orig_size": (1, 1),
             }
         r = self.dataset.records[index]
-        image, boxes = self.transform(
+        masks = None
+        if getattr(r, "polygons", None) is not None:
+            # box-normalized masks: the resize leaves them as they are,
+            # the flip flips them with the image
+            masks = rasterize_instances(r.polygons, r.boxes,
+                                        max(len(r.labels), 1)
+                                        )[:len(r.labels)]
+        out = self.transform(
             self.dataset.load_image(index), r.boxes.copy(),
             draws=self._draws(epoch, index) if self.is_train else None,
+            masks=masks,
         )
+        image, boxes = out[:2]
         return {
             "image": image,
             "boxes": boxes if boxes is not None else np.zeros((0, 4)),
             "labels": r.labels.copy(),
+            "masks": out[2] if masks is not None else None,
             "image_id": r.id,
             "orig_size": (r.height, r.width),
         }

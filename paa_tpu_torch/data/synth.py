@@ -4,7 +4,9 @@
 (read without cv2, data/coco.py) at COCO's common sizes, with
 low-frequency content and a few filled boxes, and an instances json
 with COCO's 80 sparse category ids (1-90 with gaps) and 3-12 boxes per
-image. Everything comes from ``seed``. tools/synth_catalog.py serves
+image, each with a polygon (an octagon with the box's corners cut at a
+quarter of its sides, for Mask R-CNN) and the polygon's area.
+Everything comes from ``seed``. tools/synth_catalog.py serves
 such datasets through ``PATHS_CATALOG``.
 """
 
@@ -41,12 +43,30 @@ def synth_image(rng, w, h, boxes):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
+def box_octagon(x, y, w, h):
+    """The COCO polygon of the octagon inside the xywh box whose corners
+    are cut at a quarter of the box's sides, and its area."""
+    xs = (x + 0.25 * w, x + 0.75 * w, x + w, x + w,
+          x + 0.75 * w, x + 0.25 * w, x, x)
+    ys = (y, y, y + 0.25 * h, y + 0.75 * h, y + h, y + h, y + 0.75 * h,
+          y + 0.25 * h)
+    poly = [round(float(v), 2) for xy in zip(xs, ys) for v in xy]
+    return poly, 0.875 * w * h
+
+
+def _has_polygons(ann_file):
+    with open(ann_file) as f:
+        annotations = json.load(f)["annotations"]
+    return all("segmentation" in a for a in annotations)
+
+
 def synth_coco(root, n_images, seed=0, sizes=COCO_SIZES):
-    """Write the dataset under ``root`` (images in ``root/images``) once;
-    returns (ann_file, img_dir)."""
+    """Write the dataset under ``root`` (images in ``root/images``) once
+    (again when an earlier one there lacks the polygons); returns
+    (ann_file, img_dir)."""
     img_dir = os.path.join(root, "images")
     ann_file = os.path.join(root, "instances.json")
-    if os.path.exists(ann_file):
+    if os.path.exists(ann_file) and _has_polygons(ann_file):
         return ann_file, img_dir
     os.makedirs(img_dir, exist_ok=True)
     rng = np.random.RandomState(seed)
@@ -70,9 +90,11 @@ def synth_coco(root, n_images, seed=0, sizes=COCO_SIZES):
         images.append(dict(id=i + 1, file_name=name, width=w, height=h))
         for b, c in zip(boxes.tolist(),
                         rng.choice(COCO_CATEGORY_IDS, n).tolist()):
+            poly, area = box_octagon(*b)
             annotations.append(dict(
                 id=len(annotations) + 1, image_id=i + 1, bbox=b,
-                area=b[2] * b[3], category_id=int(c), iscrowd=0))
+                area=area, segmentation=[poly], category_id=int(c),
+                iscrowd=0))
     categories = [dict(id=c, name=f"category_{c}")
                   for c in COCO_CATEGORY_IDS]
     tmp = f"{ann_file}.{os.getpid()}.tmp"

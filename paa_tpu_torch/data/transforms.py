@@ -172,13 +172,17 @@ class TrainTransform:
         self.rng = random.Random(seed)
         self._lock = threading.Lock()
 
-    def __call__(self, image, boxes, draws=None):
+    def __call__(self, image, boxes, draws=None, masks=None):
         """``draws=(size_draw, flip_draw)`` in [0, 1) makes the
         augmentation deterministic per sample: the loader derives them
         from (seed, epoch, index), so every data-parallel process agrees
         on the realized sizes (and so the buckets) without communication.
         Without ``draws`` the shared RNG is used (thread order then
-        decides which sample gets which draw)."""
+        decides which sample gets which draw).
+
+        ``masks``: the instances' box-normalized masks (n, M, M); they do
+        not change with the resize and flip with the image. Returns
+        (image, boxes), and the masks third when given."""
         if draws is None:
             with self._lock:  # the shared RNG is used from loader threads
                 size_draw = self.rng.random()
@@ -192,9 +196,11 @@ class TrainTransform:
         )
         if flip_draw < self.flip_prob:
             image, boxes = hflip_image_and_boxes(image, boxes)
+            if masks is not None:
+                masks = np.ascontiguousarray(masks[:, :, ::-1])
         if not self.defer_normalize:
             image = normalize_image(image, self.pixel_mean, self.pixel_std)
-        return image, boxes
+        return (image, boxes) if masks is None else (image, boxes, masks)
 
 
 class EvalTransform:
@@ -206,13 +212,13 @@ class EvalTransform:
         self.pixel_std = pixel_std
         self.defer_normalize = defer_normalize
 
-    def __call__(self, image, boxes=None, draws=None):
+    def __call__(self, image, boxes=None, draws=None, masks=None):
         image, boxes = resize_image_and_boxes(
             image, boxes, self.min_size, self.max_size
         )
         if not self.defer_normalize:
             image = normalize_image(image, self.pixel_mean, self.pixel_std)
-        return image, boxes
+        return (image, boxes) if masks is None else (image, boxes, masks)
 
 
 def build_transforms(cfg, is_train=True, seed=None,

@@ -1,5 +1,5 @@
-"""Evaluation engine (port of paa_tpu/engine/inference.py, the bbox
-path; reference paa_core/engine/inference.py:19-123).
+"""Evaluation engine (port of paa_tpu/engine/inference.py, the bbox and
+segm paths; reference paa_core/engine/inference.py:19-123).
 
 Batches of the bucketed loader go through the model's ``make_eval_fn``
 (device normalize, backbone, head, post-processing with its kernels) on
@@ -7,7 +7,12 @@ the model's device; predictions come back to the host keyed by image
 id, are rescaled to the original image size and converted to COCO xywh
 with the +1 convention (BoxList.convert) before the COCO evaluator.
 Total and model time are logged. The same engine serves every model
-with ``make_eval_fn``: PAA and Faster R-CNN.
+with ``make_eval_fn``: the dense detectors, Faster R-CNN and Mask
+R-CNN. A Mask R-CNN's 28x28 mask probabilities are pasted into the
+original image at each rescaled box, thresholded at 0.5 and
+RLE-encoded on the host (structures/masks.py, evaluation/mask_rle.py,
+no cv2), and the segm table follows the bbox one, its metrics under
+``segm/...``.
 
 Data-parallel under a process group (utils/comm.py): the loader gives
 each rank every world-th whole batch (data/loader.py), so a batch keeps
@@ -20,8 +25,9 @@ TEST.BBOX_AUG.ENABLED dispatches to ``bbox_aug.inference_tta`` (test-time
 augmentation, one process), which evaluates through
 ``evaluate_predictions`` as this engine does.
 
-Not ported: the optimistic-DCN fallback (a TPU lowering), and the
-RPN-only, mask and keypoint outputs (ROADMAP item 10).
+Not ported: the optimistic-DCN fallback (a TPU lowering), the keypoint
+output (Keypoint R-CNN, ROADMAP item 10, next) and the RPN-only model's
+proposal recall (item 10, after the C4 bodies and the GN heads).
 """
 
 from __future__ import annotations
@@ -36,8 +42,10 @@ import numpy as np
 import torch
 
 from ..data.loader import make_data_loader
+from ..evaluation import mask_rle
 from ..evaluation.coco_eval import (
     COCOEvaluator, check_expected_results, format_results)
+from ..structures.masks import paste_mask_in_image
 from ..utils import comm
 
 
@@ -79,15 +87,24 @@ def compute_on_dataset(model, loader, state=None):
                 ],
                 axis=1,
             )
-            predictions[int(img_id)] = dict(
-                boxes_xywh=xywh, scores=det["scores"][i][valid],
-                labels=det["labels"][i][valid])
+            pred = dict(boxes_xywh=xywh, scores=det["scores"][i][valid],
+                        labels=det["labels"][i][valid])
+            if "masks" in det:
+                # box-frame mask probabilities pasted into the original
+                # image (reference Masker), then RLE (coco_eval.py
+                # prepare_for_coco_segmentation)
+                oh_i, ow_i = int(round(float(oh))), int(round(float(ow)))
+                pred["masks_rle"] = [
+                    mask_rle.encode(paste_mask_in_image(m, b, oh_i, ow_i))
+                    for m, b in zip(det["masks"][i][valid], boxes)]
+            predictions[int(img_id)] = pred
     return predictions, model_time, n_images
 
 
 def inference(cfg, model, dataset, output_folder=None, logger=None,
               state=None):
-    """Evaluate ``model`` on ``dataset``: the 12 COCO bbox metrics.
+    """Evaluate ``model`` on ``dataset``: the 12 COCO bbox metrics, and
+    for a model with masks the 12 segm ones under "segm/...".
     ``state``, if given, is a state_dict loaded into the model first.
     With ``output_folder``, writes coco_results.json (the metrics) and
     bbox.json (the detections in COCO's results format) there. Under a
@@ -122,7 +139,9 @@ def inference(cfg, model, dataset, output_folder=None, logger=None,
 
 def evaluate_predictions(cfg, dataset, predictions, output_folder, logger):
     """The 12 COCO bbox metrics of ``predictions`` ({image id: xywh
-    boxes, scores, contiguous labels}) on ``dataset``, checked against
+    boxes, scores, contiguous labels, and with masks ``masks_rle``}) on
+    ``dataset``, and the segm ones under "segm/..." when every
+    prediction has masks, checked against
     TEST.EXPECTED_RESULTS; with ``output_folder``, coco_results.json and
     bbox.json written there."""
     # map contiguous labels -> json category ids
@@ -145,6 +164,16 @@ def evaluate_predictions(cfg, dataset, predictions, output_folder, logger):
     evaluator = COCOEvaluator(dataset._raw_annotations, cat_ids, image_ids)
     results = evaluator.evaluate(detections)
     logger.info("\n" + format_results(results))
+
+    if predictions and all("masks_rle" in p for p in predictions.values()):
+        for img_id, p in predictions.items():
+            detections[img_id]["masks_rle"] = p["masks_rle"]
+        segm = COCOEvaluator(
+            dataset._raw_annotations, cat_ids, image_ids, iou_type="segm",
+            image_sizes={r.id: (r.height, r.width) for r in dataset.records},
+        ).evaluate(detections)
+        logger.info("segm:\n" + format_results(segm, "segm"))
+        results = {**results, **{f"segm/{k}": v for k, v in segm.items()}}
 
     if cfg.TEST.EXPECTED_RESULTS:
         check_expected_results(

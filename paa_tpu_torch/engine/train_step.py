@@ -2,7 +2,10 @@
 loop paa_core/engine/trainer.py:57-113).
 
 One step: normalize the raw uint8 batch on the device (padding back to
-zero), forward, the loss, total = sum of the ``loss_*`` terms, backward,
+zero), the model's forward and loss (``forward_loss``: for a dense
+detector ``dense_forward_loss``, its head's outputs into its loss; a
+two-stage model's module computes its losses in its own forward,
+modeling/two_stage.py), total = sum of the ``loss_*`` terms, backward,
 an SGD update at ``schedule(step)``, ``step += 1``. Frozen parameters
 do not require grad (modeling/resnet.py), so autograd computes no
 gradient for them and the optimizer holds none of them.
@@ -32,7 +35,6 @@ import torch
 from torch.nn.parallel import DistributedDataParallel
 from torch.profiler import record_function
 
-from ..modeling.paa_loss import PAALossConfig, paa_loss
 from ..ops.image_norm import maybe_device_normalize
 from ..solver import set_lr
 from ..utils import comm
@@ -76,19 +78,33 @@ def _mean_over_ranks(metrics):
     return {**metrics, **dict(zip(keys, means))}
 
 
-def make_train_step(anchors, level_counts, loss_cfg: PAALossConfig,
-                    schedule, loss_call=paa_loss,
-                    normalize=None):
+def dense_forward_loss(anchors, level_counts, loss_cfg, loss_call):
+    """``forward_loss`` of a dense detector: its module's head outputs
+    into ``loss_call(outputs, gt_boxes, gt_labels, anchors, level_counts,
+    loss_cfg)``."""
+    counts = tuple(level_counts)
+
+    def forward_loss(module, images, batch, step):
+        with record_function(SPAN_FORWARD):
+            outputs = module(images)
+        return loss_call(outputs, batch["gt_boxes"], batch["gt_labels"],
+                         anchors, counts, loss_cfg)
+
+    return forward_loss
+
+
+def make_train_step(forward_loss, schedule, device, normalize=None):
     """Returns train_step(state, batch) -> metrics.
 
-    batch: 'images' (B, H, W, 3), 'gt_boxes' (B, G, 4), 'gt_labels'
-    (B, G), and with ``normalize`` = (pixel_mean, pixel_std) the raw
-    uint8 images' 'image_sizes' (B, 2). Numpy arrays or tensors; they
-    move to the device of ``anchors``. metrics: the losses, 'num_pos' and
-    'loss' (their total), detached tensors on the device, over the
-    global batch when there is more than one rank."""
-    counts = tuple(level_counts)
-    device = anchors.device
+    forward_loss(module, images, batch, step) -> the loss dict, from the
+    normalized NCHW images and the batch on the device, at the number of
+    updates taken so far. batch: 'images' (B, H, W, 3), 'gt_boxes'
+    (B, G, 4), 'gt_labels' (B, G), and with ``normalize`` = (pixel_mean,
+    pixel_std) the raw uint8 images' 'image_sizes' (B, 2); whatever else
+    the loss reads. Numpy arrays or tensors; they move to ``device``.
+    metrics: the losses, 'num_pos' and 'loss' (their total), detached
+    tensors on the device, over the global batch when there is more than
+    one rank."""
 
     def train_step(state: TrainState, batch):
         state.module = _data_parallel(state.module)
@@ -99,10 +115,9 @@ def make_train_step(anchors, level_counts, loss_cfg: PAALossConfig,
             if normalize is not None:
                 images = maybe_device_normalize(
                     images, batch.get("image_sizes"), *normalize)
-        with record_function(SPAN_FORWARD):
-            outputs = state.module(images.permute(0, 3, 1, 2).contiguous())
-        losses = loss_call(outputs, batch["gt_boxes"], batch["gt_labels"],
-                           anchors, counts, loss_cfg)
+        losses = forward_loss(state.module,
+                              images.permute(0, 3, 1, 2).contiguous(), batch,
+                              state.step)
         total = sum(v for k, v in losses.items() if k.startswith("loss_"))
         with record_function(SPAN_BACKWARD):
             state.optimizer.zero_grad(set_to_none=True)

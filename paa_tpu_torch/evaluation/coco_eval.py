@@ -1,5 +1,5 @@
-"""COCO-style bbox evaluation in numpy (port of
-paa_tpu/evaluation/coco_eval.py, the bbox flavour).
+"""COCO-style bbox and segm evaluation in numpy (port of
+paa_tpu/evaluation/coco_eval.py, the bbox and segm flavours).
 
 pycocotools is not a dependency, so this follows the COCOeval bbox
 protocol itself (pycocotools/cocoeval.py semantics): 10 IoU thresholds
@@ -14,10 +14,15 @@ The caller (engine/inference.py) rescales predictions to the original
 image, converts them to xywh with the +1 convention (BoxList.convert)
 and maps contiguous labels back to json category ids, as the
 reference's do_coco_evaluation does
-(paa_core/data/datasets/evaluation/coco/coco_eval.py:13-67).
+(paa_core/data/datasets/evaluation/coco/coco_eval.py:13-67). The segm
+flavour takes each detection's mask as an RLE of the original image
+(evaluation/mask_rle.py) and rasterizes the GT polygons at the image's
+size; the mask IoUs (a crowd GT's as "iof": intersection over the
+detection's area) go to the same native matcher.
 
-Not ported yet (ROADMAP item 10): the segm and keypoints flavours
-(mask RLE, OKS) and ``evaluate_box_proposals`` (the RPN-only model).
+Not ported yet (ROADMAP item 10): the keypoints flavour (OKS, with
+Keypoint R-CNN, next) and ``evaluate_box_proposals`` (the RPN-only
+model).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from . import _native
+from . import _native, mask_rle
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 REC_THRS = np.linspace(0.0, 1.00, 101)
@@ -78,14 +83,25 @@ def _match_img_py(ious, g_ig, g_crowd, dt_out_of_range):
 
 
 class COCOEvaluator:
-    """Evaluates bbox detections against COCO-style ground truth.
+    """Evaluates bbox or segm detections against COCO-style ground truth.
 
     gt_by_image: image_id -> list of annotation dicts with keys bbox
-    (xywh), category_id (json id), iscrowd, area, optional ignore.
+    (xywh), category_id (json id), iscrowd, area, optional ignore, and
+    for segm ``segmentation`` (polygons, or an uncompressed RLE).
+    iou_type "segm" compares masks: the detections carry ``masks_rle``
+    and ``image_sizes`` maps each image id to its (h, w).
     """
 
     def __init__(self, gt_by_image: Dict[int, list], cat_ids: List[int],
-                 image_ids: List[int]):
+                 image_ids: List[int], iou_type: str = "bbox",
+                 image_sizes: Dict[int, tuple] = None):
+        if iou_type not in ("bbox", "segm"):
+            raise NotImplementedError(
+                f"iou_type {iou_type!r}: paa_tpu_torch evaluates bbox and "
+                f"segm (keypoints come with Keypoint R-CNN, ROADMAP item "
+                f"10)")
+        self.iou_type = iou_type
+        self.image_sizes = image_sizes or {}
         self.max_dets = MAX_DETS
         self.area_rngs = AREA_RNGS
         self.cat_ids = list(cat_ids)
@@ -102,12 +118,16 @@ class COCOEvaluator:
         when it has neither GTs nor detections."""
         gts = self._gt[img_id].get(cat_id, [])
         det = detections.get(img_id)
+        segm = self.iou_type == "segm"
+        dt_rles = []
         if det is None:
             dt_boxes, dt_scores = np.zeros((0, 4)), np.zeros((0,))
         else:
             sel = np.asarray(det["category_ids"]) == cat_id
             dt_boxes = np.asarray(det["boxes_xywh"])[sel]
             dt_scores = np.asarray(det["scores"])[sel]
+            if segm:
+                dt_rles = [det["masks_rle"][i] for i in np.nonzero(sel)[0]]
         if len(gts) == 0 and len(dt_scores) == 0:
             return None
         order = np.argsort(-dt_scores, kind="mergesort")[:max_det]
@@ -121,11 +141,20 @@ class COCOEvaluator:
         g_area = np.asarray(
             [g.get("area", g["bbox"][2] * g["bbox"][3]) for g in gts],
             dtype=np.float64)
+        if segm:
+            gh, gw = self.image_sizes.get(img_id, (0, 0))
+            dt_rles = [dt_rles[i] for i in order]
+            ious = mask_rle.iou(
+                dt_rles, [mask_rle.polygons_to_rle(g["segmentation"], gh, gw)
+                          for g in gts], g_crowd)
+            dt_area = np.asarray([mask_rle.area(r) for r in dt_rles],
+                                 dtype=np.float64)
+        else:
+            ious = _native.bbox_iou_xywh(dt_boxes, g_boxes, g_crowd)
+            dt_area = dt_boxes[:, 2] * dt_boxes[:, 3]
         return dict(
-            scores=dt_scores,
-            ious=_native.bbox_iou_xywh(dt_boxes, g_boxes, g_crowd),
-            g_ignore_base=g_ignore_base, g_area=g_area, g_crowd=g_crowd,
-            dt_area=dt_boxes[:, 2] * dt_boxes[:, 3],
+            scores=dt_scores, ious=ious, g_ignore_base=g_ignore_base,
+            g_area=g_area, g_crowd=g_crowd, dt_area=dt_area,
         )
 
     def evaluate(self, detections: Dict[int, dict]):
@@ -247,9 +276,9 @@ def check_expected_results(results, expected_results, sigma_tol,
                            logger=None):
     """Regression assertion (reference coco_eval.py:403-422): each entry
     (task, metric, mean, std) must satisfy |actual - mean| <
-    sigma_tol * std. Raises AssertionError otherwise. The port evaluates
-    'bbox' only, whose entries are the top-level metrics; an entry of
-    another task finds no result and is skipped with a warning."""
+    sigma_tol * std. Raises AssertionError otherwise. 'bbox' entries are
+    the top-level metrics, another task's are under "task/metric"; an
+    entry with no result is skipped with a warning."""
     for task, metric, mean, std in expected_results:
         key = metric if task == "bbox" else f"{task}/{metric}"
         if key not in results:

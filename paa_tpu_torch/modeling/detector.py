@@ -1,6 +1,6 @@
 """Model assembly (port of paa_tpu/modeling/detector.py): the dense
-detectors (PAA, ATSS, FCOS, RetinaNet), and Faster R-CNN through
-two_stage.py.
+detectors (PAA, ATSS, FCOS, RetinaNet), and Faster R-CNN and Mask R-CNN
+through two_stage.py.
 
 A ``DetectionModel`` bundles the ``DenseDetector`` module (backbone +
 dense head) on its device with the anchor generator (FCOS: its points,
@@ -173,13 +173,14 @@ class DetectionModel:
         ``hw`` (engine/train_step.py), with the config's learning-rate
         schedule and on-device uint8 normalize; data-parallel over the
         ranks of a process group (utils/comm.py)."""
-        from ..engine.train_step import make_train_step  # engine imports us
+        # engine imports us
+        from ..engine.train_step import dense_forward_loss, make_train_step
 
         loss_call, loss_cfg = self.loss_fn()
         anchors, counts = self.anchors_for(hw)
         return make_train_step(
-            anchors, counts, loss_cfg, make_lr_schedule(self.cfg),
-            loss_call=loss_call,
+            dense_forward_loss(anchors, counts, loss_cfg, loss_call),
+            make_lr_schedule(self.cfg), self.device,
             normalize=(self.cfg.INPUT.PIXEL_MEAN, self.cfg.INPUT.PIXEL_STD))
 
     def detect(self, images, image_sizes):
@@ -259,7 +260,8 @@ def build_detection_model(cfg, device=None, seed=0):
 
     PAA_ON, ATSS_ON, FCOS_ON or RETINANET_ON builds that dense detector
     (the first set, in that order); with none of them and RPN_ONLY off it
-    is the Faster R-CNN of two_stage.py, as in the JAX package. The
+    is the Faster R-CNN of two_stage.py (Mask R-CNN with MASK_ON), as in
+    the JAX package. The
     RPN-only model raises."""
     device = resolve_device(device)
     dtype = _torch_dtype(cfg.TPU.COMPUTE_DTYPE)

@@ -96,6 +96,32 @@ class Linear(nn.Module):
         return F.linear(x.to(torch.float32), self.weight, self.bias)
 
 
+class ConvTranspose(nn.Module):
+    """The 2x2, stride-2 transposed conv of the mask predictor in float32
+    (flax ``nn.ConvTranspose`` with no dtype computes in float32 from a
+    bfloat16 input), kaiming-uniform (a=1) with the JAX kernel's fan-in
+    (kh * kw * cin), bias zero. ``weight`` is torch's (cin, cout, kh,
+    kw); the JAX kernel is its spatial flip (utils/jax_params.py)."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=2, stride=2):
+        super().__init__()
+        self.stride = stride
+        self.weight = nn.Parameter(torch.empty(
+            in_channels, out_channels, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+
+    def reset_parameters(self, generator):
+        with torch.no_grad():
+            cin, _, kh, kw = self.weight.shape
+            bound = math.sqrt(3.0 / (cin * kh * kw))
+            self.weight.uniform_(-bound, bound, generator=generator)
+            self.bias.zero_()
+
+    def forward(self, x):
+        return F.conv_transpose2d(x.to(torch.float32), self.weight,
+                                  self.bias, stride=self.stride)
+
+
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with fixed statistics: y = x * (weight * rsqrt(var)) +
     (bias - mean * scale), with NO epsilon, as the reference's
@@ -150,11 +176,11 @@ def max_pool_3x3_s2(x):
 
 
 def reset_parameters(module, generator):
-    """Initialise every ``Conv``, ``Linear`` and ``DeformConv`` under
-    ``module`` from ``generator``, in module order; norms and scales keep
-    their constructor values."""
+    """Initialise every ``Conv``, ``ConvTranspose``, ``Linear`` and
+    ``DeformConv`` under ``module`` from ``generator``, in module order;
+    norms and scales keep their constructor values."""
     from ..ops.dcn import DeformConv  # ops/dcn.py imports this module
 
     for m in module.modules():
-        if isinstance(m, (Conv, Linear, DeformConv)):
+        if isinstance(m, (Conv, ConvTranspose, Linear, DeformConv)):
             m.reset_parameters(generator)

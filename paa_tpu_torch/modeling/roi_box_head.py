@@ -1,4 +1,4 @@
-"""The Faster R-CNN box head at inference (port of
+"""The Faster R-CNN box head (port of
 paa_tpu/modeling/roi_box_head.py; reference
 paa_core/modeling/roi_heads/box_head/).
 
@@ -15,8 +15,15 @@ paa_core/modeling/roi_heads/box_head/).
   C=81), more than K1 holds: ``nms_batched`` takes K2 there, and ``nms``
   always does.
 
-Training (``subsample_proposals``, ``roi_box_loss``), the GN and Xconv
-heads and the C4 head are not ported yet.
+- ``subsample_proposals`` and ``roi_box_loss`` (box_head/loss.py): the
+  GTs appended to the proposals, the matcher at ROI_HEADS FG/BG (no
+  low-quality matches), BATCH_SIZE_PER_IMAGE rois per image drawn by
+  the RPN's ``balanced_sample`` at POSITIVE_FRACTION and compacted
+  positives first, softmax cross-entropy over the sampled rois and
+  smooth-L1 (beta 1) on the matched class's deltas.
+
+Not ported yet: the GN and Xconv box heads and FPN GN (ROADMAP item 10,
+after Keypoint R-CNN and the C4 bodies) and the C4 head.
 """
 
 from __future__ import annotations
@@ -29,9 +36,11 @@ from torch import nn
 
 from ..ops.nms import nms, nms_batched
 from ..ops.roi_align import multilevel_roi_align
-from ..structures.boxes import clip_to_image
-from .box_coder import decode_box
+from ..structures.boxes import box_iou, clip_to_image
+from .box_coder import decode_box, encode_box
 from .layers import Linear
+from .retinanet_head import smooth_l1
+from .rpn import balanced_sample, top_k_stable
 
 _REG_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
 
@@ -70,10 +79,11 @@ class FPN2MLPBoxHead(nn.Module):
 
 @dataclass(frozen=True)
 class ROIBoxConfig:
-    """The inference fields of the JAX package's ROIBoxConfig; the
-    sampling fields come with training."""
-
     num_classes: int = 81
+    fg_iou_threshold: float = 0.5
+    bg_iou_threshold: float = 0.5
+    batch_size_per_image: int = 512
+    positive_fraction: float = 0.25
     score_thresh: float = 0.05
     nms_thresh: float = 0.5
     detections_per_img: int = 100
@@ -83,10 +93,92 @@ class ROIBoxConfig:
         r = cfg.MODEL.ROI_HEADS
         return ROIBoxConfig(
             num_classes=cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES,
+            fg_iou_threshold=r.FG_IOU_THRESHOLD,
+            bg_iou_threshold=r.BG_IOU_THRESHOLD,
+            batch_size_per_image=r.BATCH_SIZE_PER_IMAGE,
+            positive_fraction=r.POSITIVE_FRACTION,
             score_thresh=r.SCORE_THRESH,
             nms_thresh=r.NMS,
             detections_per_img=r.DETECTIONS_PER_IMG,
         )
+
+
+def sampling_width(num_proposals, max_gt, bc):
+    """The candidates per image ``subsample_proposals`` draws from: the
+    proposals and the GT slots, at least batch_size_per_image."""
+    return max(num_proposals + max_gt, bc.batch_size_per_image)
+
+
+def subsample_proposals(proposals, proposal_valid, gt_boxes, gt_labels,
+                        bc, draws):
+    """Per image: the GTs appended to the proposals, matched, and a
+    fixed batch_size_per_image rois drawn (box_head/loss.py
+    subsample), compacted positives first, then negatives, then unused
+    slots, each in index order.
+
+    proposals (B, K, 4), proposal_valid (B, K), gt_boxes (B, G, 4),
+    gt_labels (B, G) with 0 for padding; draws: (u_pos, u_neg), each
+    (B, P) with P = ``sampling_width(K, G, bc)``. Returns rois (B, S, 4),
+    roi_labels (B, S) int32 (-1 on unused slots), reg_targets (B, S, 4)
+    with BBOX_REG_WEIGHTS, roi_valid (B, S), roi_gt_idx (B, S) int64 and
+    the matched GT boxes (B, S, 4)."""
+    bsz, k = proposal_valid.shape
+    gt_boxes = gt_boxes.to(torch.float32)
+    gt_valid = gt_labels > 0
+    proposals = torch.cat([proposals.to(torch.float32), gt_boxes], dim=1)
+    valid = torch.cat([proposal_valid, gt_valid], dim=1)
+    deficit = sampling_width(k, gt_boxes.shape[1], bc) - proposals.shape[1]
+    if deficit > 0:  # the fixed-size draw needs batch_size_per_image slots
+        proposals = F.pad(proposals, (0, 0, 0, deficit))
+        valid = F.pad(valid, (0, deficit), value=False)
+
+    iou = box_iou(gt_boxes, proposals)  # (B, G, P)
+    iou = torch.where(gt_valid[:, :, None], iou, -1.0)
+    matched_vals = iou.amax(dim=1)
+    matched_idx = iou.argmax(dim=1)  # the first GT on ties
+    labels = torch.where(
+        matched_vals >= bc.fg_iou_threshold,
+        gt_labels.gather(1, matched_idx).to(torch.int32),
+        torch.where(matched_vals >= bc.bg_iou_threshold, -1, 0
+                    ).to(torch.int32))
+    labels = torch.where(valid, labels, -1)  # padding is ignored
+
+    pos_sel, neg_sel = balanced_sample(
+        labels, *draws, bc.batch_size_per_image, bc.positive_fraction)
+    sel = pos_sel | neg_sel
+    s = bc.batch_size_per_image
+    _, idx = top_k_stable(sel.to(torch.float32) + pos_sel.to(torch.float32),
+                          s)
+    roi_valid = sel.gather(1, idx)
+    rois = proposals.gather(1, idx[..., None].expand(bsz, s, 4))
+    roi_labels = torch.where(roi_valid, labels.gather(1, idx), -1)
+    roi_gt_idx = matched_idx.gather(1, idx)
+    matched_boxes = gt_boxes.gather(
+        1, roi_gt_idx[..., None].expand(bsz, s, 4))
+    reg_targets = encode_box(matched_boxes, rois, weights=_REG_WEIGHTS)
+    return (rois, roi_labels, reg_targets, roi_valid, roi_gt_idx,
+            matched_boxes)
+
+
+def roi_box_loss(cls_logits, box_deltas, roi_labels, reg_targets,
+                 roi_valid):
+    """FastRCNNLossComputation (box_head/loss.py): softmax cross-entropy
+    averaged over the sampled rois; smooth-L1 (beta 1) on the matched
+    class's deltas of the positives, summed and divided by the sampled
+    count. cls_logits (R, C), box_deltas (R, C, 4), roi_labels (R,),
+    reg_targets (R, 4), roi_valid (R,)."""
+    validf = (roi_valid & (roi_labels >= 0)).to(torch.float32)
+    n = validf.sum().clamp(min=1.0)
+    labels = roi_labels.clamp(min=0).long()
+    logp = torch.log_softmax(cls_logits.to(torch.float32), dim=-1)
+    ce = -logp.gather(1, labels[:, None])[:, 0]
+    loss_cls = (ce * validf).sum() / n
+    posf = ((roi_labels > 0) & roi_valid).to(torch.float32)
+    cls_deltas = box_deltas.to(torch.float32).gather(
+        1, labels[:, None, None].expand(-1, 1, 4))[:, 0]
+    reg = smooth_l1(cls_deltas, reg_targets, beta=1.0)
+    loss_reg = (reg * posf[:, None]).sum() / n
+    return {"loss_classifier": loss_cls, "loss_box_reg": loss_reg}
 
 
 def box_head_candidates(cls_logits, box_deltas, rois, roi_valid,

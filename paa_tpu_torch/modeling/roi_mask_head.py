@@ -1,0 +1,106 @@
+"""The Mask R-CNN mask head (port of paa_tpu/modeling/roi_mask_head.py;
+reference paa_core/modeling/roi_heads/mask_head/).
+
+- ``MaskHead``: MaskRCNNFPNFeatureExtractor (multilevel ROIAlign 14x14,
+  sampling ratio 2, then 4 x [conv3x3 256 + ReLU], kaiming-uniform a=1,
+  in the compute dtype) and MaskRCNNC4Predictor (a 2x2 stride-2
+  transposed conv + ReLU in float32, then a 1x1 conv, normal(0.001), to
+  C - 1 class channels): (R, C - 1, 28, 28) logits, NCHW. The JAX
+  package emits the same C - 1 foreground channels, NHWC; the
+  reference's channel 0 is dropped on import (utils/torch_import.py).
+- ``crop_gt_masks_for_rois``: the 28x28 targets, cropped on the device
+  from each matched GT's box-normalized bitmask (structures/masks.py) by
+  ROIAlign of the roi mapped into the GT box's frame, then thresholded
+  at 0.5.
+- ``mask_loss``: binary cross-entropy on the matched class's channel
+  over the positive rois (mask_head/loss.py maskrcnn_loss).
+
+Not ported yet: the GN and dilated mask heads, the 1x1 predictor and
+the C4 predictor on the box head's shared res5 features (ROADMAP item
+10: the C4 bodies, then the GN heads).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.roi_align import align_on_own_maps, multilevel_roi_align
+from .layers import Conv, ConvTranspose
+
+_LOGITS_STD = 0.001
+
+
+class MaskHead(nn.Module):
+    """MaskRCNNFPNFeatureExtractor + MaskRCNNC4Predictor."""
+
+    def __init__(self, num_classes, in_channels=256,
+                 conv_layers=(256, 256, 256, 256), resolution=14,
+                 scales=(0.25, 0.125, 0.0625, 0.03125), sampling_ratio=2,
+                 dtype=torch.float32):
+        super().__init__()
+        self.resolution = resolution
+        self.scales = tuple(scales)
+        self.sampling_ratio = sampling_ratio
+        self.num_layers = len(conv_layers)
+        channels = in_channels
+        for i, out in enumerate(conv_layers):
+            setattr(self, f"mask_fcn{i + 1}",
+                    Conv(channels, out, 3, padding=1, bias=True,
+                         dtype=dtype))
+            channels = out
+        self.conv5_mask = ConvTranspose(channels, channels)
+        self.mask_fcn_logits = Conv(channels, num_classes, 1, bias=True,
+                                    dtype=dtype, normal_std=_LOGITS_STD)
+
+    def forward(self, features, rois, roi_batch_idx):
+        """features: the first len(scales) FPN maps (P2..P5), NCHW; rois
+        (R, 4); roi_batch_idx (R,). Returns (R, C - 1, 28, 28) logits in
+        the compute dtype."""
+        x = multilevel_roi_align(
+            features, rois, roi_batch_idx,
+            (self.resolution, self.resolution), self.scales,
+            self.sampling_ratio,
+        ).permute(0, 3, 1, 2)
+        for i in range(self.num_layers):
+            x = F.relu(getattr(self, f"mask_fcn{i + 1}")(x))
+        return self.mask_fcn_logits(F.relu(self.conv5_mask(x)))
+
+
+def crop_gt_masks_for_rois(gt_masks, matched_gt_boxes, rois, out_size=28):
+    """The mask targets: each roi's window bilinearly cropped from its
+    matched GT's box-normalized bitmask and thresholded at 0.5.
+
+    gt_masks (R, M, M) float, the matched GT's mask per roi;
+    matched_gt_boxes (R, 4); rois (R, 4). Returns (R, out_size,
+    out_size) float32 in {0, 1}."""
+    m = gt_masks.shape[-1]
+    gx1, gy1 = matched_gt_boxes[:, 0], matched_gt_boxes[:, 1]
+    gw = torch.clamp(matched_gt_boxes[:, 2] - gx1 + 1.0, min=1.0)
+    gh = torch.clamp(matched_gt_boxes[:, 3] - gy1 + 1.0, min=1.0)
+    # the roi mapped into the GT box's mask frame
+    mask_rois = torch.stack([
+        (rois[:, 0] - gx1) / gw * m, (rois[:, 1] - gy1) / gh * m,
+        (rois[:, 2] - gx1) / gw * m, (rois[:, 3] - gy1) / gh * m,
+    ], dim=1)
+    crops = align_on_own_maps(gt_masks.to(torch.float32), mask_rois,
+                              (out_size, out_size), 2)
+    return (crops > 0.5).to(torch.float32)
+
+
+def mask_loss(mask_logits, roi_labels, mask_targets, roi_valid):
+    """Binary cross-entropy of the matched class's channel (class - 1)
+    against the targets, averaged over the pixels and over the positive
+    rois. mask_logits (R, C - 1, M, M); roi_labels (R,); mask_targets
+    (R, M, M); roi_valid (R,)."""
+    posf = ((roi_labels > 0) & roi_valid).to(torch.float32)
+    n = posf.sum().clamp(min=1.0)
+    r = mask_logits.shape[0]
+    channel = (roi_labels - 1).clamp(min=0).long()
+    logits = mask_logits[torch.arange(r, device=channel.device),
+                         channel].to(torch.float32)
+    t = mask_targets
+    bce = -(t * F.logsigmoid(logits)
+            + (1 - t) * F.logsigmoid(-logits)).mean(dim=(1, 2))
+    return {"loss_mask": (bce * posf).sum() / n}

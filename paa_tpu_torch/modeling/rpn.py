@@ -1,5 +1,5 @@
-"""Classic RPN at inference (port of paa_tpu/modeling/rpn.py; reference
-paa_core/modeling/rpn/{rpn.py,inference.py}).
+"""Classic RPN (port of paa_tpu/modeling/rpn.py; reference
+paa_core/modeling/rpn/{rpn.py,inference.py,loss.py}).
 
 - ``RPNHead`` (rpn.py:77-110): a shared 3x3 conv + ReLU, 1x1 objectness
   (A) and 1x1 deltas (4A), normal(0.01) with bias 0, in the compute
@@ -10,8 +10,18 @@ paa_core/modeling/rpn/{rpn.py,inference.py}).
   NMS_THRESH keeping POST_NMS_TOP_N; then, per image, the top
   FPN_POST_NMS_TOP_N of all levels by score.
 
-Training (the matcher, the balanced sampler, ``rpn_loss``) is not ported
-yet.
+- ``rpn_loss`` (loss.py:92-131): the matcher at FG/BG_IOU_THRESHOLD
+  with low-quality matches, anchors straddling the image by more than
+  STRADDLE_THRESH ignored, ``balanced_sample`` (BATCH_SIZE_PER_IMAGE at
+  POSITIVE_FRACTION), binary cross-entropy over the sampled anchors and
+  smooth-L1 (beta 1/9) over the sampled positives, both divided by the
+  number sampled.
+
+The sampler draws nothing itself: it takes one uniform in [0, 1) per
+candidate for the positives and one for the negatives, and keeps the
+highest (ties to the lower index, as ``jax.lax.top_k``). The caller owns
+the stream (modeling/two_stage.py), so the same uniforms give the same
+samples as the JAX package's ``jax.random`` draws.
 """
 
 from __future__ import annotations
@@ -23,9 +33,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.nms import nms_batched
-from ..structures.boxes import clip_to_image
-from .box_coder import decode_box
+from ..structures.boxes import box_iou, clip_to_image
+from .box_coder import decode_box, encode_box
 from .layers import Conv
+from .matcher import match_anchors
+from .retinanet_head import smooth_l1
 
 _HEAD_STD = 0.01
 
@@ -57,14 +69,16 @@ class RPNHead(nn.Module):
 
 @dataclass(frozen=True)
 class RPNConfig:
-    """The inference fields of the JAX package's RPNConfig; the matcher
-    and sampler fields come with training."""
-
     pre_nms_top_n: int = 1000
     post_nms_top_n: int = 1000
     fpn_post_nms_top_n: int = 1000
     nms_thresh: float = 0.7
     min_size: float = 0.0
+    fg_iou_threshold: float = 0.7
+    bg_iou_threshold: float = 0.3
+    batch_size_per_image: int = 256
+    positive_fraction: float = 0.5
+    straddle_thresh: float = 0.0
 
     @staticmethod
     def from_cfg(cfg, is_train=False):
@@ -83,6 +97,11 @@ class RPNConfig:
             ),
             nms_thresh=r.NMS_THRESH,
             min_size=r.MIN_SIZE,
+            fg_iou_threshold=r.FG_IOU_THRESHOLD,
+            bg_iou_threshold=r.BG_IOU_THRESHOLD,
+            batch_size_per_image=r.BATCH_SIZE_PER_IMAGE,
+            positive_fraction=r.POSITIVE_FRACTION,
+            straddle_thresh=float(r.STRADDLE_THRESH),
         )
 
 
@@ -182,3 +201,92 @@ def select_proposals(outputs, image_sizes, anchors, level_counts, rc):
         top_s,
         torch.isfinite(top_s),
     )
+
+
+def balanced_sample(labels, u_pos, u_neg, batch_size, positive_fraction):
+    """BalancedPositiveNegativeSampler (balanced_positive_negative_sampler
+    .py) per row: at most batch_size * positive_fraction positives, the
+    negatives filling the rest of batch_size.
+
+    labels: (R, N) int, > 0 positive, 0 negative, < 0 ignored; u_pos,
+    u_neg: (R, N) uniforms in [0, 1), the priorities of the positive and
+    the negative candidates. Returns bool masks (pos_sel, neg_sel),
+    (R, N)."""
+    rows, n = labels.shape
+    num_pos_cap = min(int(batch_size * positive_fraction), n)
+    pos = labels > 0
+    neg = labels == 0
+    _, pos_idx = top_k_stable(torch.where(pos, u_pos, -1.0), num_pos_cap)
+    pos_sel = torch.zeros_like(pos).scatter_(1, pos_idx, True) & pos
+    num_neg_target = batch_size - pos_sel.sum(1, keepdim=True)
+    k_neg = min(batch_size, n)
+    _, neg_idx = top_k_stable(torch.where(neg, u_neg, -1.0), k_neg)
+    rank = torch.zeros(rows, n, dtype=torch.int64, device=labels.device)
+    rank.scatter_(1, neg_idx, torch.arange(
+        1, k_neg + 1, device=labels.device).expand(rows, k_neg))
+    neg_sel = (rank > 0) & (rank <= num_neg_target) & neg
+    return pos_sel, neg_sel
+
+
+def rpn_labels(gt_boxes, gt_labels, anchors, rc, image_sizes=None):
+    """Per anchor: label (B, N) int32 (1 foreground, 0 background, -1
+    ignored: between the thresholds, or straddling the true image size
+    by more than straddle_thresh when ``image_sizes`` (B, 2) (h, w) is
+    given, as the reference's visibility discard, rpn/loss.py:76-78)
+    and the matched GT (B, N), clamped to >= 0."""
+    matched = match_anchors(box_iou(gt_boxes, anchors[None]),
+                            gt_labels > 0, rc.fg_iou_threshold,
+                            rc.bg_iou_threshold,
+                            allow_low_quality_matches=True)
+    labels = torch.where(matched >= 0, 1,
+                         torch.where(matched == -2, -1, 0)).to(torch.int32)
+    if image_sizes is not None and rc.straddle_thresh >= 0:
+        st = rc.straddle_thresh
+        h = image_sizes[:, 0:1].to(torch.float32)
+        w = image_sizes[:, 1:2].to(torch.float32)
+        visible = ((anchors[None, :, 0] >= -st)
+                   & (anchors[None, :, 1] >= -st)
+                   & (anchors[None, :, 2] < w + st)
+                   & (anchors[None, :, 3] < h + st))
+        labels = torch.where(visible, labels, -1)
+    return labels, matched.clamp(min=0)
+
+
+def rpn_loss(outputs, gt_boxes, gt_labels, anchors, rc, draws,
+             image_sizes=None, return_aux=False):
+    """RPNLossComputation (rpn/loss.py:92-131).
+
+    outputs: "objectness" (B, N) and "box_regression" (B, N, 4);
+    gt_boxes (B, G, 4), gt_labels (B, G) with 0 for padding; anchors
+    (N, 4) float32; draws: (u_pos, u_neg), each (B, N), the sampler's
+    uniforms. Returns loss_objectness, loss_rpn_box_reg and num_pos;
+    with ``return_aux`` also the sampled masks "rpn_pos" and "rpn_neg".
+    The losses are divided by this process's sampled count (the JAX
+    package takes no cross-rank normalizer here)."""
+    objectness = outputs["objectness"].to(torch.float32)
+    box_regression = outputs["box_regression"].to(torch.float32)
+    gt_boxes = gt_boxes.to(torch.float32)
+    labels, matched = rpn_labels(gt_boxes, gt_labels, anchors, rc,
+                                 image_sizes)
+    matched_boxes = gt_boxes.gather(
+        1, matched.long()[..., None].expand(*matched.shape, 4))
+    reg_targets = encode_box(matched_boxes, anchors[None],
+                             weights=(1.0, 1.0, 1.0, 1.0))
+
+    pos_sel, neg_sel = balanced_sample(
+        labels, *draws, rc.batch_size_per_image, rc.positive_fraction)
+    posf = pos_sel.to(torch.float32)
+    sampled = (pos_sel | neg_sel).to(torch.float32)
+    n_sampled = sampled.sum().clamp(min=1.0)
+
+    reg = smooth_l1(box_regression, reg_targets, beta=1.0 / 9)
+    loss_reg = (reg * posf[..., None]).sum() / n_sampled
+    t = (labels > 0).to(torch.float32)
+    bce = -(t * F.logsigmoid(objectness)
+            + (1 - t) * F.logsigmoid(-objectness))
+    loss_obj = (bce * sampled).sum() / n_sampled
+    out = {"loss_objectness": loss_obj, "loss_rpn_box_reg": loss_reg,
+           "num_pos": posf.sum()}
+    if return_aux:
+        out.update(rpn_pos=pos_sel, rpn_neg=neg_sel)
+    return out

@@ -15,6 +15,12 @@ bilinear weights are built per axis and gathered as rows of a
 channels-last table of the maps. Bilinear sums are float32 whatever the
 features' dtype (bfloat16 rows times float32 weights promote, as in the
 JAX package).
+
+``_align`` runs its rois in chunks whose (R, Sy, Sx, C) float32 corner
+terms stay under ``CHUNK_BYTES``: the mask head's 14x14 pool of 8,192
+training rois at 256 channels would otherwise hold four 6.6 GB corner
+tensors (and their gradients). Each roi's numbers do not depend on the
+chunking.
 """
 
 from __future__ import annotations
@@ -22,6 +28,9 @@ from __future__ import annotations
 import math
 
 import torch
+
+# the largest float32 corner tensor (R, Sy, Sx, C) of one chunk of rois
+CHUNK_BYTES = 1 << 30
 
 
 def _axis_samples(start, end, bins, sampling_ratio, size):
@@ -54,9 +63,27 @@ def _align(table, row0, height, width, rois, scale, output_size,
     """ROIAlign of R rois against rows of ``table`` (M, C), the
     channels-last pixels of the maps: roi r samples the (height[r],
     width[r]) map whose pixel (0, 0) is row ``row0[r]``, at coordinates
-    ``rois[r] * scale[r]``. Returns (R, ph, pw, C) float32."""
+    ``rois[r] * scale[r]`` (``scale`` a scalar or (R,)). Returns (R, ph,
+    pw, C) float32, computed in chunks of rois (``CHUNK_BYTES``)."""
     if sampling_ratio <= 0:
         raise ValueError("adaptive sampling_ratio is not supported; set > 0")
+    ph, pw = output_size
+    per_roi = ph * pw * sampling_ratio ** 2 * table.shape[1] * 4
+    chunk = max(CHUNK_BYTES // per_roi, 1)
+    r = rois.shape[0]
+    if r <= chunk:
+        return _align_chunk(table, row0, height, width, rois, scale,
+                            output_size, sampling_ratio)
+    scale = scale.expand(r)
+    return torch.cat([
+        _align_chunk(table, row0[i:i + chunk], height[i:i + chunk],
+                     width[i:i + chunk], rois[i:i + chunk],
+                     scale[i:i + chunk], output_size, sampling_ratio)
+        for i in range(0, r, chunk)])
+
+
+def _align_chunk(table, row0, height, width, rois, scale, output_size,
+                 sampling_ratio):
     ph, pw = output_size
     rois = rois.to(torch.float32)
     height = height.to(torch.float32)
@@ -105,6 +132,20 @@ def roi_align(features, rois, roi_batch_idx, output_size=(7, 7),
         rois, torch.tensor(spatial_scale, dtype=torch.float32, device=dev),
         output_size, sampling_ratio,
     )
+
+
+def align_on_own_maps(maps, rois, output_size, sampling_ratio=2):
+    """ROIAlign of roi r on its own single-channel map r, at scale 1.
+
+    maps: (R, H, W) float32; rois: (R, 4) xyxy in the maps' pixels.
+    Returns (R, ph, pw) float32."""
+    r, h, w = maps.shape
+    dev = maps.device
+    return _align(
+        maps.reshape(r * h * w, 1), torch.arange(r, device=dev) * (h * w),
+        torch.full((r,), h, device=dev), torch.full((r,), w, device=dev),
+        rois, torch.tensor(1.0, dtype=torch.float32, device=dev),
+        output_size, sampling_ratio)[..., 0]
 
 
 def fpn_level_for_rois(rois, k_min=2, k_max=5, canonical_scale=224,

@@ -13,6 +13,11 @@ mechanical; only the leaves change form:
   beside a child conv ``offset`` (flax's ``conv2/{kernel, offset/{kernel,
   bias}}``): the kernel becomes ``weight`` as a conv's, and ``offset``
   is walked as a conv;
+- a transposed conv's ``kernel`` (kh, kw, cin, cout) becomes
+  ``ConvTranspose.weight`` (cin, cout, kh, kw) flipped in space: flax's
+  ``nn.ConvTranspose`` (``transpose_kernel=False``, 2x2, stride 2,
+  'SAME') computes out[2i + a] = x[i] K[1 - a], torch's out[2i + a] =
+  x[i] W[a];
 - a dense ``kernel`` (in, out) becomes ``Linear.weight`` (out, in). The
   box head's fc6 reads ROI features flattened in (7, 7, C) order in both
   packages (ops/roi_align.py pools them channels-last), so its rows need
@@ -34,7 +39,7 @@ import numpy as np
 import torch
 
 from ..modeling.layers import (
-    Conv, FrozenBatchNorm, GroupNorm32, Linear, Scale)
+    Conv, ConvTranspose, FrozenBatchNorm, GroupNorm32, Linear, Scale)
 from ..ops import dcn  # ops/dcn.py imports modeling: bind the module
 
 
@@ -57,6 +62,11 @@ def _leaves(mod, tree, path):
                 for name, value in _leaves(mod.offset, tree[c],
                                            f"{path}/{c}")]
         return out
+    if isinstance(mod, ConvTranspose):
+        keys(["kernel", "bias"])
+        return [("weight", np.ascontiguousarray(np.transpose(
+            tree["kernel"], (2, 3, 0, 1))[:, :, ::-1, ::-1])),
+                ("bias", tree["bias"])]
     if isinstance(mod, Linear):
         keys(["kernel", "bias"])
         return [("weight", np.transpose(tree["kernel"])),

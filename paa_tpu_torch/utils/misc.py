@@ -2,7 +2,9 @@
 utils/{miscellaneous,collect_env,model_zoo}.py): the saved config, the
 environment dump of the start-up log (torch, CUDA and the GPUs), and the
 local weight cache of http(s) MODEL.WEIGHT urls, which reads no
-network. ``find_contours`` waits for the mask head (ROADMAP item 10).
+network. ``find_contours`` (a cv2 version shim that nothing in the JAX
+package calls; the reference's demo draws mask outlines with it) is not
+ported: the card machine has no cv2.
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ paa_core/utils/{c2_model_loading,model_serialization,checkpoint}.py).
   tower included), the RPN head and the FPN2MLP box head. A RetinaNet
   head's towers raise (``_check_tower_layout``).
 - ``load_c2_pickle(module, path)``: a Detectron ``.pkl`` (an ImageNet
-  body, or a Caffe2Detectron detection model's FPN, RPN and box head).
+  body, or a Caffe2Detectron detection model's FPN, RPN, box head and
+  mask head).
   A DCN block's sampled conv takes the plain ``branch2b`` blob; its
   offset conv has no blob and keeps its zero init, as DFConv2d's does
   (the reference renames conv2 to conv2.conv, c2_model_loading.py:
@@ -26,7 +27,7 @@ to no port tensor, and the port's state-dict keys it never wrote.
 
 The port's tensors carry the JAX package's scope names
 (``backbone.resnet.layer1_0.conv1.weight``, ``head.cls_tower.conv0``,
-``head.scale3.scale``), so the reference keys are renamed. Three places
+``head.scale3.scale``), so the reference keys are renamed. Four places
 change more than the name:
 
 - fc6's input columns. The reference flattens the pooled ROI features
@@ -36,7 +37,11 @@ change more than the name:
 - ``rpn.head.scales.N.scale`` has shape (1,), the port's
   ``head.scaleN.scale`` shape ();
 - the towers' ``Sequential`` indices 3i and 3i + 1 are the conv and the
-  GroupNorm of block i (3i + 2 is the parameter-free ReLU).
+  GroupNorm of block i (3i + 2 is the parameter-free ReLU);
+- ``mask_fcn_logits`` has NUM_CLASSES output channels in the reference
+  and C - 1 in the port (and the JAX package), which drop channel 0:
+  the reference's loss and inference never read it. ``conv5_mask`` (a
+  ConvTranspose2d) keeps torch's layout, so it copies as it is.
 
 FrozenBatchNorm has no epsilon in either, so its four tensors copy as
 they are; a tensor the file lacks keeps the module's value (at init,
@@ -90,6 +95,12 @@ _RULES = [
      (r"box_head.fc\1.\2",), "copy"),
     (r"roi_heads\.box\.predictor\.(cls_score|bbox_pred)\.(weight|bias)",
      (r"box_head.\1.\2",), "copy"),
+    (r"roi_heads\.mask\.feature_extractor\.(mask_fcn\d)\.(weight|bias)",
+     (r"mask_head.\1.\2",), "copy"),
+    (r"roi_heads\.mask\.predictor\.conv5_mask\.(weight|bias)",
+     (r"mask_head.conv5_mask.\1",), "copy"),
+    (r"roi_heads\.mask\.predictor\.mask_fcn_logits\.(weight|bias)",
+     (r"mask_head.mask_fcn_logits.\1",), "drop_background"),
 ]
 _RULES = [(re.compile(p), t, k) for p, t, k in _RULES]
 # the towers' Sequential slots; a DCN tower conv (USE_DCN_IN_TOWER) is a
@@ -141,6 +152,8 @@ def _transform(value, kind, module, key):
     if kind == "fc_nchw":
         owner = module.get_submodule(key.rsplit(".", 2)[0])
         return _fc_nchw_to_port(value, owner.resolution)
+    if kind == "drop_background":
+        return value[1:]
     return value
 
 
@@ -227,8 +240,9 @@ def c2_blob_to_torch_names(name):
     may fill, the likeliest first (c2_model_loading.py:12-113 renames
     blobs to torch suffixes that model_serialization.py:10-58 then
     matches; this maps each blob to the full names directly). Covers the
-    ResNet bodies, the FPN laterals and outputs, the RPN head and the
-    FPN2MLP box head; optimizer momenta, ``weight_order`` and the
+    ResNet bodies, the FPN laterals and outputs, the RPN head, the
+    FPN2MLP box head and the mask head (Detectron names its convs
+    ``_[mask]_fcnN``); optimizer momenta, ``weight_order`` and the
     ImageNet classifier map to nothing (c2_model_loading.py:119-123)."""
     if _C2_SKIP.search(name):
         return []
@@ -280,6 +294,13 @@ def c2_blob_to_torch_names(name):
     m = re.fullmatch(r"(cls_score|bbox_pred)_([wb])", name)
     if m:
         return [f"roi_heads.box.predictor.{m.group(1)}.{_leaf(m.group(2))}"]
+    m = re.fullmatch(r"_\[mask\]_fcn(\d)_([wb])", name)
+    if m:
+        return [f"roi_heads.mask.feature_extractor.mask_fcn{m.group(1)}."
+                f"{_leaf(m.group(2))}"]
+    m = re.fullmatch(r"(mask_fcn_logits|conv5_mask)_([wb])", name)
+    if m:
+        return [f"roi_heads.mask.predictor.{m.group(1)}.{_leaf(m.group(2))}"]
     return []
 
 

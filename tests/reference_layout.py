@@ -21,7 +21,12 @@ share it.
   RPN head (rpn/rpn.py: ``conv``, ``cls_logits``, ``bbox_pred``) and the
   FPN2MLP box head (roi_box_feature_extractors.py ``fc6``/``fc7``, fc6
   over the NCHW-flattened pooled features; roi_box_predictors.py
-  ``cls_score``/``bbox_pred``). FrozenBatchNorm has four tensors and no
+  ``cls_score``/``bbox_pred``) and the FPN mask head
+  (roi_mask_feature_extractors.py ``mask_fcn{1..4}``, 3x3 with bias;
+  roi_mask_predictors.py MaskRCNNC4Predictor ``conv5_mask``, a
+  ConvTranspose2d of weight (in, out, 2, 2), and ``mask_fcn_logits``
+  with NUM_CLASSES outputs, background included). FrozenBatchNorm has
+  four tensors and no
   ``num_batches_tracked``. The anchor generators' ``cell_anchors``
   buffers, which the port computes, are left out.
 - Detectron ImageNet pickles (``{"blobs": {...}}``): the body's
@@ -171,10 +176,27 @@ def box_head_keys(channels, resolution, mlp, num_classes):
     return out
 
 
+def mask_head_keys(channels, conv_layers, num_classes):
+    """``num_classes`` with the background."""
+    out = OrderedDict()
+    cin = channels
+    for i, cout in enumerate(conv_layers):
+        p = f"roi_heads.mask.feature_extractor.mask_fcn{i + 1}"
+        out[f"{p}.weight"] = (cout, cin, 3, 3)
+        out[f"{p}.bias"] = (cout,)
+        cin = cout
+    p = "roi_heads.mask.predictor"
+    out[f"{p}.conv5_mask.weight"] = (cin, cin, 2, 2)
+    out[f"{p}.conv5_mask.bias"] = (cin,)
+    out[f"{p}.mask_fcn_logits.weight"] = (num_classes, cin, 1, 1)
+    out[f"{p}.mask_fcn_logits.bias"] = (num_classes,)
+    return out
+
+
 def layout(cfg):
     """The reference state dict's keys and shapes for the PAA, ATSS,
-    FCOS, RetinaNet or Faster R-CNN model of ``cfg`` (either package's
-    config)."""
+    FCOS, RetinaNet, Faster R-CNN or Mask R-CNN model of ``cfg`` (either
+    package's config)."""
     m = cfg.MODEL
     r = m.RESNETS
     body = m.BACKBONE.CONV_BODY
@@ -210,6 +232,10 @@ def layout(cfg):
         bh = m.ROI_BOX_HEAD
         out.update(box_head_keys(channels, bh.POOLER_RESOLUTION,
                                  bh.MLP_HEAD_DIM, bh.NUM_CLASSES))
+        if m.MASK_ON:
+            out.update(mask_head_keys(channels,
+                                      m.ROI_MASK_HEAD.CONV_LAYERS,
+                                      bh.NUM_CLASSES))
     return out
 
 

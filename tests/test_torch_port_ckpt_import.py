@@ -2,7 +2,8 @@
 package, on the CPU, at the narrow configs of
 tests/test_torch_port_model.py (PAA-R50, BACKBONE_OUT_CHANNELS 64),
 tests/test_torch_port_two_stage.py (Faster R-CNN R-50-FPN, 64 channels,
-5 classes, MLP 64) and a narrow dcnv2 ResNeXt PAA (8 groups x 4, stem 16,
+5 classes, MLP 64), the same Mask R-CNN with 64-channel mask convs,
+and a narrow dcnv2 ResNeXt PAA (8 groups x 4, stem 16,
 res2 64, modulated DCN in stages 3-5 and the towers' last conv, the JAX
 side sampling with TPU.DCN_MODE "gather").
 
@@ -15,16 +16,22 @@ name table) and filled from a numpy seed, no tensor at an identity.
   the port's skips none and leaves no port tensor unwritten.
 - Both land on the same numbers: the port's tensors equal the JAX tree
   carried across by ``load_jax_params`` (exactly: the importers only
-  rename, reshape and permute). fc6's column permutation and the
-  Scale's shape are checked here.
+  rename, reshape and permute). fc6's column permutation, the Scale's
+  shape and the mask logits' dropped background channel are checked
+  here; the reference's ``conv5_mask`` (torch's ConvTranspose2d layout)
+  copies as it is, where the JAX package flips it spatially, so equal
+  tensors through ``load_jax_params`` check both flips.
 - The forwards agree within test_torch_port_model.py's tolerances (FPN
   features and head outputs within 1e-4 of each tensor's largest
   magnitude), and so do the detections (labels and valid equal, boxes
-  and scores within 1e-3).
+  and scores within 1e-3; Mask R-CNN's mask probabilities within 1e-3:
+  the mask head pools at those boxes, which agree to 1e-3 px).
 - A Detectron pickle (Caffe2Detectron surface: body, FPN, RPN, box
-  head; BatchNorm folded) made with tests/ref_torch.py's inverse rename
-  lands on the same tensors through both packages' ``load_c2_pickle``;
-  the running statistics keep 0 and 1.
+  head, and mask head ``_[mask]_fcnN``, ``conv5_mask``,
+  ``mask_fcn_logits``; BatchNorm folded) made with
+  tests/ref_torch.py's inverse rename lands on the same tensors through
+  both packages' ``load_c2_pickle``; the running statistics keep 0 and
+  1.
 - A seeded X-101-32x8d ImageNet pickle at the X-152 dcnv2 config's
   ``MODEL.WEIGHT`` (narrowed): the port leaves unwritten exactly the
   tensors whose leaves ``paa_tpu`` leaves untouched (the offset convs,
@@ -65,6 +72,12 @@ from test_torch_port_model import OVERRIDES as PAA_OVERRIDES
 from test_torch_port_two_stage import CONFIG as FRCNN_CONFIG
 from test_torch_port_two_stage import OVERRIDES as FRCNN_OVERRIDES
 
+MRCNN_CONFIG = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "configs", "e2e_mask_rcnn_R_50_FPN_1x.yaml")
+MRCNN_OVERRIDES = FRCNN_OVERRIDES + [
+    "MODEL.ROI_MASK_HEAD.CONV_LAYERS", (64, 64, 64, 64)]
+TWO_STAGE = ("frcnn", "mrcnn")
+
 HW = (64, 96)
 SLIM = ["MODEL.RESNETS.WIDTH_PER_GROUP", 8,
         "MODEL.RESNETS.STEM_OUT_CHANNELS", 8,
@@ -95,6 +108,9 @@ def _cfg(get, kind, extra=()):
     if kind == "frcnn":
         cfg.merge_from_file(FRCNN_CONFIG)
         cfg.merge_from_list(FRCNN_OVERRIDES + list(extra))
+    elif kind == "mrcnn":
+        cfg.merge_from_file(MRCNN_CONFIG)
+        cfg.merge_from_list(MRCNN_OVERRIDES + list(extra))
     elif kind == "dcnv2_x":
         cfg.merge_from_list(PAA_OVERRIDES + DCNV2_X + list(extra))
     else:
@@ -134,7 +150,8 @@ def _logger():
     return logger, handler.lines
 
 
-@pytest.fixture(scope="module", params=["paa", "frcnn", "dcnv2_x"])
+@pytest.fixture(scope="module", params=["paa", "frcnn", "mrcnn",
+                                        "dcnv2_x"])
 def loaded(request):
     """One seeded reference state dict loaded into each package."""
     kind = request.param
@@ -182,9 +199,22 @@ def test_import_lands_on_the_tensors_jax_lands_on(loaded):
 
 def test_fc6_columns_and_scale_shape(loaded):
     """fc6's (out, C * 7 * 7) NCHW columns land in the port's (7, 7, C)
-    order; a (1,) Scale lands as a scalar."""
+    order; a (1,) Scale lands as a scalar; the mask logits' channel 0
+    (the background, which the reference never reads) is dropped and
+    ``conv5_mask`` copies in torch's layout."""
     state, module = loaded["state"], loaded["model"].module
-    if loaded["kind"] != "frcnn":
+    if loaded["kind"] == "mrcnn":
+        p = "roi_heads.mask.predictor"
+        np.testing.assert_array_equal(
+            module.mask_head.mask_fcn_logits.weight.detach().numpy(),
+            state[f"{p}.mask_fcn_logits.weight"][1:])
+        np.testing.assert_array_equal(
+            module.mask_head.mask_fcn_logits.bias.detach().numpy(),
+            state[f"{p}.mask_fcn_logits.bias"][1:])
+        np.testing.assert_array_equal(
+            module.mask_head.conv5_mask.weight.detach().numpy(),
+            state[f"{p}.conv5_mask.weight"])
+    if loaded["kind"] not in TWO_STAGE:
         for level in range(5):
             got = module.head.get_submodule(f"scale{level}").scale
             assert got.shape == ()
@@ -212,7 +242,7 @@ def test_forward_matches_jax(loaded):
     x = np.random.RandomState(3).uniform(-100, 100, (2, *HW, 3)).astype(
         np.float32)
     xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
-    if loaded["kind"] != "frcnn":
+    if loaded["kind"] not in TWO_STAGE:
         def fwd(m, xx):
             feats = m.backbone(xx)
             return feats, m.head(feats)
@@ -239,6 +269,15 @@ def test_forward_matches_jax(loaded):
                                        torch.from_numpy(bidx).long())
         for g, w in zip(got_box, want_box):
             _close(g.numpy(), w, 1e-4)
+        if loaded["kind"] == "mrcnn":  # the mask head on the same rois
+            want_mask = jax.jit(lambda v, f, r, b: jmodel.module.apply(
+                v, f, r, b, method=JFasterRCNN.mask))(
+                variables, want_f, jnp.asarray(rois), jnp.asarray(bidx))
+            with torch.no_grad():
+                got_mask = model.module.mask(
+                    got_f, torch.from_numpy(rois),
+                    torch.from_numpy(bidx).long())
+            _close(got_mask.permute(0, 2, 3, 1).numpy(), want_mask, 1e-4)
     assert len(got_f) == len(want_f) == 5
     for g, w in zip(got_f, want_f):
         _close(g.permute(0, 2, 3, 1).numpy(), w, 1e-4)
@@ -263,6 +302,13 @@ def test_detections_match_jax(loaded):
                                np.asarray(want["boxes"]), rtol=0, atol=1e-3)
     np.testing.assert_allclose(got["scores"].numpy(),
                                np.asarray(want["scores"]), rtol=0, atol=1e-3)
+    assert ("masks" in got) == ("masks" in want) == (
+        loaded["kind"] == "mrcnn")
+    if "masks" in got:
+        assert got["masks"].shape == (2, 10, 28, 28)
+        np.testing.assert_allclose(got["masks"].numpy(),
+                                   np.asarray(want["masks"]), rtol=0,
+                                   atol=1e-3)
 
 
 # ---- Detectron pickles ----------------------------------------------------
@@ -283,8 +329,9 @@ def _c2_pickle(path, state):
     return blobs
 
 
-def test_c2_pickle_lands_on_the_tensors_jax_lands_on(tmp_path):
-    jcfg, cfg = _cfg(jax_get_cfg, "frcnn"), _cfg(get_cfg, "frcnn")
+@pytest.mark.parametrize("kind", TWO_STAGE)
+def test_c2_pickle_lands_on_the_tensors_jax_lands_on(tmp_path, kind):
+    jcfg, cfg = _cfg(jax_get_cfg, kind), _cfg(get_cfg, kind)
     state = rl.seeded_state_dict(rl.layout(cfg), seed=6)
     path = str(tmp_path / "model_final.pkl")
     blobs = _c2_pickle(path, state)

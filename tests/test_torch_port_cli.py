@@ -33,6 +33,13 @@ images (96 to 128 px in a 128 x 128 bucket).
   and, with TEST.BBOX_AUG (no VOTE: the pooled candidates and one NMS),
   on fcos_imprv_R_50_FPN_1x with VOTE and atss_R_50_FPN_1x without:
   exit 0, the 12 metrics written.
+- Mask R-CNN (e2e_mask_rcnn_R_50_FPN_1x) at the same slim body, with 64
+  rois per image and 32-channel mask convs: ``train_net.main`` for two
+  iterations from its catalog R-50 pickle on ``synth_coco_4``, whose
+  annotations carry polygons (finite box and mask losses), then its test
+  pass to the bbox and segm tables; and ``python -m
+  paa_tpu_torch.tools.test_net`` from the seeded weights, which prints
+  both tables.
 """
 
 import json
@@ -409,4 +416,71 @@ def test_test_net_dense_configs(kind, extra, tmp_path):
     with open(folder / "coco_results.json") as f:
         assert sorted(json.load(f)) == METRICS
     with open(folder / "bbox.json") as f:
+        assert len(json.load(f)) > 0
+
+
+# ---- Mask R-CNN -------------------------------------------------------------
+
+MASK_CONFIG = os.path.join(ROOT, "configs", "e2e_mask_rcnn_R_50_FPN_1x.yaml")
+MASK_SLIM = ["MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 64,
+             "MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM", 64,
+             "MODEL.ROI_MASK_HEAD.CONV_LAYERS", (32, 32, 32, 32),
+             "SOLVER.BASE_LR", 0.001]
+
+
+def _segm_results(folder):
+    with open(folder / "coco_results.json") as f:
+        results = json.load(f)
+    assert sorted(k for k in results if "/" not in k) == METRICS
+    assert sorted(k[5:] for k in results if k.startswith("segm/")) == METRICS
+    return results
+
+
+def test_train_net_mask_rcnn_two_iterations_then_test(tmp_path, monkeypatch):
+    from paa_tpu_torch.config.paths_catalog import ModelCatalog
+
+    monkeypatch.setenv("PAA_TPU_TORCH_SYNTH_DIR", str(tmp_path / "synth"))
+    monkeypatch.setattr(ModelCatalog, "WEIGHTS_DIR", str(tmp_path))
+    body = {k: v for k, v in rl.seeded_state_dict(
+        rl.layout(_slim_cfg()), 11).items() if k.startswith("backbone.body.")}
+    with open(tmp_path / "R-50.pkl", "wb") as f:
+        pickle.dump({"blobs": rl.c2_imagenet_blobs(body, seed=12)}, f,
+                    protocol=2)
+    out = tmp_path / "out"
+    seen = {}
+    rc = train_net.main(
+        ["--config-file", MASK_CONFIG, "--device", "cpu",
+         *_opts(*SLIM, *SMALL, *MASK_SLIM, "SOLVER.MAX_ITER", 2,
+                "PATHS_CATALOG", CATALOG, "DATASETS.TRAIN", ("synth_coco_4",),
+                "DATASETS.TEST", ("synth_coco_4",), "OUTPUT_DIR", out)],
+        metric_hook=lambda i, m: seen.update({i: m}))
+    assert rc == 0 and sorted(seen) == [1, 2]
+    for m in seen.values():
+        assert np.isfinite(list(m.values())).all() and m["num_pos"] > 0
+        assert {"loss_objectness", "loss_classifier", "loss_mask"} <= set(m)
+        assert m["loss_mask"] > 0
+    ckpt = torch.load(out / "model_final", weights_only=True)
+    assert "mask_head.conv5_mask.weight" in ckpt["model"]
+    _segm_results(out / "inference" / "synth_coco_4")
+
+
+def test_test_net_mask_rcnn_prints_bbox_and_segm(tmp_path):
+    out = tmp_path / "out"
+    proc = subprocess.run(
+        [sys.executable, "-m", "paa_tpu_torch.tools.test_net",
+         "--config-file", MASK_CONFIG, "--device", "cpu",
+         *_opts(*SLIM, *SMALL, *MASK_SLIM, "PATHS_CATALOG", CATALOG,
+                "DATASETS.TEST", ("synth_coco_4",), "OUTPUT_DIR", out,
+                # the seeded classifier's scores sit near 1/81: a lower
+                # threshold keeps detections, so masks get pasted
+                "MODEL.ROI_HEADS.SCORE_THRESH", 0.0)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1",
+             "PAA_TPU_TORCH_SYNTH_DIR": str(tmp_path / "synth")})
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    text = proc.stdout + proc.stderr
+    assert "Task: bbox" in text and "Task: segm" in text
+    results = _segm_results(out / "inference" / "synth_coco_4")
+    assert all(np.isfinite(list(results.values())))
+    with open(out / "inference" / "synth_coco_4" / "bbox.json") as f:
         assert len(json.load(f)) > 0

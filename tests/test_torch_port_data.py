@@ -219,8 +219,10 @@ def test_coco_records_match_jax(synth, remove):
 
 
 def test_coco_masks_wait_for_the_mask_head(synth):
+    """Polygons load since Mask R-CNN (tests/test_torch_port_mask.py);
+    keypoints still wait for Keypoint R-CNN."""
     with pytest.raises(NotImplementedError, match="item 10"):
-        coco.COCODataset(*synth, with_masks=True)
+        coco.COCODataset(*synth, with_keypoints=True)
 
 
 def test_list_dataset_matches_jax(synth):

@@ -307,7 +307,9 @@ def test_seeded_build_inits_the_box_head_like_jax():
 
 
 @pytest.mark.parametrize("extra", [
-    ["MODEL.MASK_ON", True],
+    # Mask R-CNN builds on an FPN body (tests/test_torch_port_mask.py);
+    # the C4 one does not yet
+    ["MODEL.MASK_ON", True, "MODEL.BACKBONE.CONV_BODY", "R-50-C4"],
     ["MODEL.KEYPOINT_ON", True],
     ["MODEL.ROI_BOX_HEAD.FEATURE_EXTRACTOR", "FPNXconv1fcFeatureExtractor"],
     ["MODEL.BACKBONE.CONV_BODY", "R-50-C4"],
