@@ -157,9 +157,9 @@ and prints no result line):
     backward at B=8 in bfloat16 with each, the Function's the lower.
 25. The X-152 dcnv2 training main path: the config at full width in
     bfloat16 with its SOLVER, weights from seed 0 and the offset convs
-    from seed 2, TRAIN_STEPS steps of do_train on one repeated batch of
-    8 (else 4, else 2: the largest that fits) uint8 800 x 1344 images
-    with 3-12 GTs in 100 slots: every loss finite, num_pos > 0, the
+    from seed 2, DCN_TRAIN_STEPS (5) steps of do_train on one repeated
+    batch of 8 (else 4, else 2: the largest that fits) uint8 800 x 1344
+    images with 3-12 GTs in 100 slots: every loss finite, num_pos > 0, the
     last loss below the first, K3 40 launches per step and no NMS; one
     step at each of the ladder's buckets (800, 1344) and (1344, 800);
     peak memory, ms per step, img/s, and a torch.profiler split
@@ -175,7 +175,7 @@ and prints no result line):
     --dcnv2-step-readings SEED...`` runs these steps at other batches.
 27. Multi-scale testing of the X-152 dcnv2 config: ``inference`` with
     TEST.BBOX_AUG.ENABLED and the config's own 26 augmentations
-    (soft-vote) over four 480 x 640 PPM images at full width in
+    (soft-vote) over TTA_IMAGES (2) 480 x 640 PPM images at full width in
     bfloat16: K1 once and K3 40 times per augmentation and batch, a
     detection per image, the 12 metrics; s/img, peak memory and the
     largest padded bucket.
@@ -215,7 +215,8 @@ and prints no result line):
 32. (Run after phase 28.) ATSS multi-scale testing as phase 27: the
     identity, 3 scales of the X-152 list (400, 1000, 1800, their scale
     ranges, MAX_SIZE 3000) and their flips, 8 augmentations, soft-vote,
-    4 images of 480 x 640: K1 once and K3 40 times per augmentation.
+    TTA_IMAGES (2) images of 480 x 640: K1 once and K3 40 times per
+    augmentation.
 33. ``paa_tpu_torch.tools.test_net`` on the FCOS config over
     synth_coco_32 at full width from the seeded weights: exit 0, the 12
     metrics, a detection on every image, K1 once and K3 40 times per
@@ -256,6 +257,49 @@ and prints no result line):
 38. K1 against its plain version at every input shape phases 34-37
     launched it at (recorded), the training RPN's 2,000-pick rows
     among them.
+
+39. (Run after phase 38.) Keypoint R-CNN serving:
+    configs/e2e_keypoint_rcnn_R_50_FPN_1x.yaml at full width (R-50-FPN,
+    256 channels, 2 classes, the keypoint head's 8 x 512 convs on 14 x 14
+    pools, the 4 x 4 deconv to 17 channels and the bilinear x2 to
+    56 x 56), bf16, weights from seed 0 and the foreground bias from
+    seed 1, three 8 x 800 x 1344 requests: phase 7's checks, K1 6
+    launches (the RPN's 40 rows of 1,000 and the box head's 8 rows of
+    1,000, class-aware, 100 picks; 1,000 x 1 candidates fit K1), the
+    heatmaps (8, 100, 17, 56, 56) float32, the first image's detections
+    decoded on the host with every keypoint inside its box within 1 px;
+    K1 against its plain version at both recorded inputs; img/s; a
+    profile with the keypoint head in its own span; the f32 model on the
+    card against the CPU (phase 8) and its detect with 20 detections per
+    image against the CPU and float64: heatmaps at the same box within
+    KP_HEATMAP_TOL.
+40. Keypoint R-CNN training at B=16 (phase 35's recipe, each GT a person
+    with 17 keypoints, calibrated FrozenBN): K1 once per step at the
+    training RPN's 80 rows of 2,000; loss and loss_kp over 10 steps,
+    peak memory, ms per step and a profile with the keypoint head and
+    loss spans.
+41. C4 Faster and Mask R-CNN serving (configs/e2e_faster_rcnn_R_50_C4_1x
+    and e2e_mask_rcnn_R_50_C4_1x: R-50 to C4, 1,024 channels at stride
+    16, 15 anchors per location, the res5 box head on 14 x 14 pools, 81
+    classes, the C4 mask predictor at 14 x 14), bf16, FrozenBN
+    calibrated on the seeded body and res5, three 8 x 800 x 1344
+    requests each: K1 3 (the RPN's 8 rows of 6,000, 1,000 picks) and K2
+    3 (the box head's 80,000 per image) launches, masks (8, 100, 14,
+    14); both kernels against their plain versions at the first
+    request's inputs; img/s and a profile (res5 in the box head span).
+42. C4 Faster and Mask R-CNN training at the configs' IMS_PER_BATCH 8:
+    the RPN's 8 rows of 12,000 candidates (of 63,000 anchors) with 2,000
+    picks go to K2's cluster route, once per step; K2 held bit-equal to
+    its plain version there and timed against its bound; losses, peak
+    memory, ms per step, profile.
+43. One f32 C4 Mask R-CNN train step on the card and on the CPU against
+    float64 (phase 36 at 64 rois per image).
+44. ``paa_tpu_torch.tools.test_net`` on Keypoint R-CNN over the 32-image
+    synthetic person-keypoint COCO (its DATASETS.TEST, served by
+    tools/synth_catalog.py) with cv2 blocked: exit 0, the bbox and
+    keypoints (OKS) tables, K1 twice per batch, the seconds of the
+    heatmaps' copy to the host and of their decode. Then K1 and K2
+    against their plain versions at every input phases 39-44 gave them.
 
 Phase 13 also runs the step a third time on the CPU with the network in
 float64 (every convolution, FrozenBN and GroupNorm), the referee of the
@@ -1600,7 +1644,8 @@ def calibrated_frozen_bn(path):
     BatchNorm-folded ImageNet body the configs load does. With the seeded
     model's identity statistics P3-P7 reach ~1e3, which RetinaNet's
     plain towers (no norm) carry into its logits: its train steps
-    diverge to NaN by the fourth step, on the CPU as on the card.
+    diverge to NaN by the fourth step, on the CPU as on the card. A C4
+    model's res5 (its box head) is calibrated on the batch's GT boxes.
     Returns the buffers as a state-dict subset."""
     from paa_tpu_torch.modeling import build_detection_model
     from paa_tpu_torch.modeling.layers import FrozenBatchNorm
@@ -1621,7 +1666,13 @@ def calibrated_frozen_bn(path):
     x = device_normalize(batch["images"], batch["image_sizes"],
                          model.cfg.INPUT.PIXEL_MEAN, model.cfg.INPUT.PIXEL_STD)
     with torch.inference_mode():
-        model.module.backbone(x.permute(0, 3, 1, 2).contiguous())
+        features = model.module.backbone(x.permute(0, 3, 1, 2).contiguous())
+        if hasattr(model.module, "box_head") and \
+                hasattr(model.module.box_head, "layer4_0"):
+            # a C4 model's res5 (its box head), on the batch's GT boxes
+            valid = batch["gt_labels"] > 0
+            model.module.box(features, batch["gt_boxes"][valid],
+                             valid.nonzero()[:, 0])
     for h in hooks:
         h.remove()
     return {k: v.clone() for k, v in model.module.state_dict().items()
@@ -1928,14 +1979,15 @@ def conv_precision_probe(dev):
 
 
 def in_float64(model):
-    """``model`` with every convolution and DeformConv computing in
-    float64 (FrozenBN and GroupNorm follow their inputs; the loss, the
-    GMM, the parameters and SGD stay float32)."""
+    """``model`` with every convolution, transposed convolution and
+    DeformConv computing in float64 (FrozenBN and GroupNorm follow their
+    inputs; the box head's FCs, the loss, the GMM, the parameters and SGD
+    stay float32)."""
     from paa_tpu_torch.modeling import layers
     from paa_tpu_torch.ops.dcn import DeformConv
 
     for m in model.module.modules():
-        if isinstance(m, (layers.Conv, DeformConv)):
+        if isinstance(m, (layers.Conv, layers.ConvTranspose, DeformConv)):
             m.dtype = torch.float64
     return model
 
@@ -2030,8 +2082,9 @@ def phase_train_profile(model, state, batch, name, hw=HW,
     normalize; forward, assignment, losses, backward, K3's backward
     recompute, the DCN backward's recompute and VJP, optimizer; for a
     two-stage model the RPN loss, proposals, roi sampling, box head, box
-    loss, mask head, mask targets and mask loss; "other": outside every
-    span), matched through the trace's launch correlation.
+    loss, mask head, mask targets, mask loss, keypoint head and keypoint
+    loss; "other": outside every span), matched through the trace's
+    launch correlation.
     Per span class: host ms in the span, the device window from its
     first kernel's start to its last's end in each occurrence, the
     device busy time in it and the windows' idle share; and the step's
@@ -2053,7 +2106,8 @@ def phase_train_profile(model, state, batch, name, hw=HW,
     for span in (two.SPAN_RPN_LOSS, two.SPAN_PROPOSALS,
                  two.SPAN_ROI_SAMPLING, two.SPAN_BOX_HEAD,
                  two.SPAN_BOX_LOSS, two.SPAN_MASK_HEAD,
-                 two.SPAN_MASK_TARGETS, two.SPAN_MASK_LOSS):
+                 two.SPAN_MASK_TARGETS, two.SPAN_MASK_LOSS,
+                 two.SPAN_KEYPOINT_HEAD, two.SPAN_KEYPOINT_LOSS):
         spans_named[span] = span.split("/")[1]
     for loss in (pl, atss_loss, fcos_loss, retinanet_head):
         spans_named.update({loss.SPAN_ASSIGN: "assignment",
@@ -2146,13 +2200,17 @@ def _union_us(intervals):
 
 
 BOX_SPAN = "box_head"  # record_function span around FasterRCNN.box
-BOX_LABEL = "box head (ROIAlign + f32 MLP)"
+BOX_LABEL = "box head (ROIAlign + f32 MLP; C4: ROIAlign 14x14 + res5)"
 # record_function spans around the DCN steps and grouped convs (set up
 # by _profiled), and the class their kernels count in
 SPAN_LABELS = {
     BOX_SPAN: BOX_LABEL,
     # modeling/two_stage.py's span around Mask R-CNN's mask head
-    "mask head": "mask head (ROIAlign 14x14, 4 convs, deconv, 1x1)",
+    "mask head": "mask head (ROIAlign 14x14, 4 convs, deconv, 1x1; C4: "
+                 "res5, deconv, 1x1)",
+    # and around Keypoint R-CNN's keypoint head
+    "keypoint head": "keypoint head (ROIAlign 14x14, 8 convs, deconv, "
+                     "bilinear x2)",
     "dcn_geometry": "deform geometry (corner rows and weights)",
     "dcn_sampling": "deform sampling (patch table, gather, corner "
                     "weighting)",
@@ -2449,13 +2507,17 @@ def phase_dcnv2_timing(dev, model, eval_fn, name):
 
 # the X-152 dcnv2 training cell's batch: the largest of these that fits
 DCN_TRAIN_BATCHES = (8, 4, 2)
+# the X-152 training main path's steps (cut from TRAIN_STEPS' 10 to keep
+# the script near its time with phases 39-44 added; its loss falls
+# monotonically from the first step)
+DCN_TRAIN_STEPS = 5
 # DeformConv2dFunction against autograd through deform_conv2d on the
 # card, within this share of each gradient's largest magnitude: the
 # card's index_add (the row gather's backward) adds in no fixed order,
 # a few float32 roundings (~1e-6) or, in bfloat16, where every add
 # rounds to 8 bits, a few bfloat16 roundings (~1e-2)
 DCN_GRAD_LIMITS = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
-TTA_IMAGES = 4
+TTA_IMAGES = 2
 
 
 def dcn_layer_inputs(dev, c, hw, groups, tower, bsz, seed):
@@ -2581,8 +2643,9 @@ def seeded_dcnv2_train(cfg, device):
 
 def phase_dcnv2_train_main_path(dev, name):
     """The X-152 dcnv2 training main path at full width in bfloat16,
-    the config's SOLVER: TRAIN_STEPS steps of do_train on one repeated
-    batch of uint8 800 x 1344 images (content 800 x 1333) with 3-12 GTs
+    the config's SOLVER: DCN_TRAIN_STEPS (5) steps of do_train on one
+    repeated batch of uint8 800 x 1344 images (content 800 x 1333) with
+    3-12 GTs
     in 100 slots, at the largest batch of DCN_TRAIN_BATCHES that fits;
     the launch counts set to 0 just before and read just after. Then one
     step at each of two buckets of the config's ladder, (800, 1344) and
@@ -2592,7 +2655,7 @@ def phase_dcnv2_train_main_path(dev, name):
     from paa_tpu_torch.engine import do_train
 
     cfg = build_cfg("bfloat16", DCNV2_CONFIG,
-                    ["SOLVER.MAX_ITER", TRAIN_STEPS])
+                    ["SOLVER.MAX_ITER", DCN_TRAIN_STEPS])
     too_big = []
     for bsz in DCN_TRAIN_BATCHES:
         model = seeded_dcnv2_train(cfg, dev)
@@ -2605,7 +2668,7 @@ def phase_dcnv2_train_main_path(dev, name):
         t0 = time.perf_counter()
         fits = True
         try:
-            do_train(cfg, model, state, [batch] * TRAIN_STEPS,
+            do_train(cfg, model, state, [batch] * DCN_TRAIN_STEPS,
                      metric_hook=lambda i, m: seen.update({i: m}))
             torch.cuda.synchronize()
         except torch.cuda.OutOfMemoryError:
@@ -2623,18 +2686,18 @@ def phase_dcnv2_train_main_path(dev, name):
     launches = launch_counts()
     expected = {"nms_batched": 0, "nms_global": 0,
                 "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW)
-                * TRAIN_STEPS}
+                * DCN_TRAIN_STEPS}
     check(launches == expected,
           f"dcnv2_train: launches {launches}, expected {expected}")
-    check(sorted(seen) == list(range(1, TRAIN_STEPS + 1)),
+    check(sorted(seen) == list(range(1, DCN_TRAIN_STEPS + 1)),
           f"dcnv2_train: metrics of steps {sorted(seen)}")
     for i, m in seen.items():
         check(all(math.isfinite(v) for v in m.values()),
               f"dcnv2_train: step {i} {m}")
         check(m["num_pos"] > 0, f"dcnv2_train: step {i} no positives")
-    check(seen[TRAIN_STEPS]["loss"] < seen[1]["loss"],
+    check(seen[DCN_TRAIN_STEPS]["loss"] < seen[1]["loss"],
           f"dcnv2_train: loss {seen[1]['loss']} -> "
-          f"{seen[TRAIN_STEPS]['loss']}")
+          f"{seen[DCN_TRAIN_STEPS]['loss']}")
     buckets = {}
     for i, (hw, size) in enumerate((((800, 1344), (800.0, 1333.0)),
                                     ((1344, 800), (1333.0, 800.0)))):
@@ -2655,7 +2718,7 @@ def phase_dcnv2_train_main_path(dev, name):
     n_gt = (batch["gt_labels"] > 0).sum(dim=1).tolist()
     print(json.dumps({
         "phase": "dcnv2_x152_train_main_path", "ok": True, "hw": HW,
-        "max_gt": MAX_GT, "gt_per_image": n_gt, "steps": TRAIN_STEPS,
+        "max_gt": MAX_GT, "gt_per_image": n_gt, "steps": DCN_TRAIN_STEPS,
         "dtype": "bfloat16", "launches": launches,
         "losses": {k: [seen[i][k] for i in sorted(seen)] for k in seen[1]},
         "do_train_s": wall, "buckets": buckets, **result, "card": name}))
@@ -3321,11 +3384,11 @@ def phase_train_net_from_pkl(dev, name, what):
     pkl = os.path.join(weights_dir, pkl_name)
     with open(pkl, "wb") as f:
         pickle.dump({"blobs": blobs}, f, protocol=2)
-    # the blob each body tensor of the port holds after the import
+    # the blob each body tensor of the port holds after the import (an
+    # FPN body's name: the first candidate)
     want = {}
     for key, value in rl.fold_frozen_bn(body).items():
-        (port_key, _), = torch_name_to_port_keys(key)
-        want[port_key] = value
+        want[torch_name_to_port_keys(key)[0][0]] = value
     logger = logging.getLogger("chip_smoke.train_net")
     model = build_detection_model(cfg, device=dev)
     torch.cuda.synchronize()
@@ -3693,6 +3756,7 @@ def k1_at_path_inputs(args, what, name):
                                  f"nms_batched on the {what} candidates")
     detail = {"kernel_detail": "nms_batched", "path": what,
               "B": args[1].shape[0], "N": args[1].shape[1],
+              "max_out": args[5],
               "iou_threshold": args[4], "valid_candidates":
               int(args[3].sum()), **k1_tiles(args, got),
               "ious_needed": ious, "valid_picks": int(got[2].sum()),
@@ -3924,34 +3988,52 @@ def two_stage_batch(seed, bsz, hw, size, masks):
     return batch
 
 
-def phase_two_stage_train(dev, name, kind, frozen_bn):
-    """Phase 35: TRAIN_STEPS steps of do_train of the full-width bf16
-    model of TWO_STAGE_CONFIGS[``kind``] at its IMS_PER_BATCH (16) on
-    one repeated batch (3-12 GTs in 100 slots; for Mask R-CNN their
-    octagons' box-normalized masks), with FrozenBN statistics calibrated
-    on the seeded body (``calibrated_frozen_bn``: at the seed's identity
-    statistics the random FPN's ~1e3 features put the RPN's deltas and
-    the classifier's logits in the hundreds, and both packages' box
-    losses go NaN): losses finite, num_pos > 0, the last loss below the
-    first, K1 once per step (the RPN's rows of PRE_NMS_TOP_N_TRAIN
-    candidates, POST_NMS_TOP_N_TRAIN picks) and no K2 or K3 (launch
-    counts set to 0 just before and read just after); K1 against its
-    plain version on the first step's rows, timed there; peak memory;
-    then the step's ms, img/s and a profile split by span. Returns the
-    launch counts and the K1 detail."""
-    from paa_tpu_torch.engine import do_train
+def two_stage_config(kind):
+    """The config of a two-stage path: Faster and Mask R-CNN R-50-FPN
+    (TWO_STAGE_CONFIGS), Keypoint R-CNN, the C4 models (C4_CONFIGS)."""
+    return {**TWO_STAGE_CONFIGS, "keypoint_rcnn": KRCNN_CONFIG,
+            **C4_CONFIGS}[kind]
 
-    path = TWO_STAGE_CONFIGS[kind]
+
+def phase_two_stage_train(dev, name, kind, frozen_bn):
+    """Phases 35, 40 and 42: TRAIN_STEPS steps of do_train of the
+    full-width bf16 model of ``two_stage_config(kind)`` at its
+    IMS_PER_BATCH (16; the C4 models' 8) on one repeated batch (3-12 GTs
+    in 100 slots; for Mask R-CNN their octagons' box-normalized masks,
+    for Keypoint R-CNN persons with 17 keypoints), with FrozenBN
+    statistics calibrated on the seeded body (``calibrated_frozen_bn``:
+    at the seed's identity statistics the random FPN's ~1e3 features put
+    the RPN's deltas and the classifier's logits in the hundreds, and
+    both packages' box losses go NaN): losses finite, num_pos > 0, the
+    last loss below the first, the RPN's NMS once per step (its rows of
+    PRE_NMS_TOP_N_TRAIN candidates, POST_NMS_TOP_N_TRAIN picks: K1, or K2
+    above K1's capacity as the C4 RPN's 12,000) and no other NMS or K3
+    (launch counts set to 0 just before and read just after); that
+    kernel against its plain version on the first step's rows, timed
+    there; peak memory; then the step's ms, img/s and a profile split by
+    span. Returns the launch counts and the kernel's detail."""
+    from paa_tpu_torch.engine import do_train
+    from paa_tpu_torch.ops import nms
+
     what = f"{kind}_train"
-    cfg = build_cfg("bfloat16", path, ["SOLVER.MAX_ITER", TRAIN_STEPS])
+    cfg = build_cfg("bfloat16", two_stage_config(kind),
+                    ["SOLVER.MAX_ITER", TRAIN_STEPS])
     model = seeded_train_model(cfg, dev, frozen_bn)
     state = train_state(model)
-    batch = two_stage_batch(70, cfg.SOLVER.IMS_PER_BATCH, HW, SIZE,
-                            cfg.MODEL.MASK_ON)
+    if cfg.MODEL.KEYPOINT_ON:
+        batch = keypoint_batch(70, cfg.SOLVER.IMS_PER_BATCH, HW, SIZE)
+    else:
+        batch = two_stage_batch(70, cfg.SOLVER.IMS_PER_BATCH, HW, SIZE,
+                                cfg.MODEL.MASK_ON)
+    _, counts = model.anchors_for(HW)
+    per_row = min(cfg.MODEL.RPN.PRE_NMS_TOP_N_TRAIN, max(counts))
+    kernel = ("nms_global" if per_row > nms.k1_max_candidates(dev)
+              else "nms_batched")
     seen = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    with recording_k1_inputs() as k1_inputs:
+    with recording_k1_inputs() as k1_inputs, \
+            recording_k2_inputs() as k2_inputs:
         zero_launch_counts()
         t0 = time.perf_counter()
         do_train(cfg, model, state, [batch] * TRAIN_STEPS,
@@ -3960,8 +4042,8 @@ def phase_two_stage_train(dev, name, kind, frozen_bn):
         wall = time.perf_counter() - t0
         launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    expected = {"nms_batched": TRAIN_STEPS, "nms_global": 0,
-                "group_norm_relu": 0}
+    expected = {"nms_batched": 0, "nms_global": 0, "group_norm_relu": 0,
+                kernel: TRAIN_STEPS}
     check(launches == expected,
           f"{what}: launches {launches}, expected {expected}")
     check(sorted(seen) == list(range(1, TRAIN_STEPS + 1)),
@@ -3971,24 +4053,28 @@ def phase_two_stage_train(dev, name, kind, frozen_bn):
               f"{what}: step {i} {m}")
     check(seen[TRAIN_STEPS]["loss"] < seen[1]["loss"],
           f"{what}: loss {seen[1]['loss']} -> {seen[TRAIN_STEPS]['loss']}")
-    args = k1_inputs[0]
+    args = (k2_inputs if kernel == "nms_global" else k1_inputs)[0]
     check(not any(isinstance(a, torch.Tensor) and a.requires_grad
-                  for a in args), f"{what}: K1 saw a tensor under autograd")
+                  for a in args), f"{what}: the NMS saw a tensor under "
+          f"autograd")
     print(json.dumps({
         "phase": what, "ok": True, "batch": cfg.SOLVER.IMS_PER_BATCH,
         "hw": HW, "max_gt": MAX_GT, "steps": TRAIN_STEPS,
-        "dtype": "bfloat16", "launches": launches,
-        "k1_rows": list(args[1].shape), "k1_max_out": args[5],
+        "dtype": "bfloat16", "launches": launches, "rpn_nms": kernel,
+        "rpn_nms_rows": list(args[1].shape), "rpn_nms_max_out": args[5],
         "losses": {k: [seen[i][k] for i in sorted(seen)] for k in seen[1]},
         "do_train_s": wall, "peak_memory_gb": peak, "card": name}))
-    k1 = k1_at_path_inputs(args, f"{kind}_train_rpn", name)
-    del k1_inputs, args
+    if kernel == "nms_global":
+        detail = k2_at_path_inputs(args, f"{kind}_train_rpn", name, reps=5)
+    else:
+        detail = k1_at_path_inputs(args, f"{kind}_train_rpn", name)
+    del k1_inputs, k2_inputs, args
     phase_train_timing(model, state, batch, name, what)
     phase_train_profile(model, state, batch, name,
                         what=f"{kind}_train_profile")
     del model, state, batch
     torch.cuda.empty_cache()
-    return launches, {**k1, "peak_memory_gb": peak}
+    return launches, {**detail, "peak_memory_gb": peak}
 
 
 def fixed_draws(device, seed=97):
@@ -4065,8 +4151,11 @@ def _mask_logit_grad_x105():
             logits.detach() + (logits - logits.detach()) * 1.05, *args))}
 
 
-def phase_two_stage_train_reference(dev, frozen_bn):
-    """Phase 36: one float32 Mask R-CNN train step (TF32 off; its RPN,
+def phase_two_stage_train_reference(dev, frozen_bn, path=MRCNN_CONFIG,
+                                    rois=REFERENCE_ROIS,
+                                    what="mask_rcnn_train_card_vs_cpu"):
+    """Phases 36 and 43: one float32 Mask R-CNN train step of ``path``
+    (R-50-FPN; or C4 with ``rois`` C4_REFERENCE_ROIS) (TF32 off; its RPN,
     box and mask losses) on the card and on the CPU against the same
     step on the CPU in float64 (every convolution in float64; the box
     head's float32 FCs, the losses, parameters and SGD stay float32), at
@@ -4090,11 +4179,10 @@ def phase_two_stage_train_reference(dev, frozen_bn):
     phase 13's limits between the two float32 steps and of each against
     float64. The pinned card step with the mask logits' gradient x1.05
     planted must land beyond them."""
-    what = "mask_rcnn_train_card_vs_cpu"
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = build_cfg("float32", MRCNN_CONFIG,
-                    ["MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", REFERENCE_ROIS])
+    cfg = build_cfg("float32", path,
+                    ["MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", rois])
     batch = two_stage_batch(99, 2, (256, 320), (256.0, 300.0), True)
     proposals = []
     model = in_float64(seeded_train_model(cfg, "cpu", frozen_bn))
@@ -4171,7 +4259,7 @@ def phase_two_stage_train_reference(dev, frozen_bn):
               f"{what}: planted {fault} within the limits: {f_norm}")
     print(json.dumps({
         "phase": what, "ok": True, "hw": [256, 320],
-        "rois_per_image": REFERENCE_ROIS, "num_pos": m_gpu["num_pos"],
+        "rois_per_image": rois, "num_pos": m_gpu["num_pos"],
         "pinned": pins, "roi_max_abs_err_px": roi_err,
         "mask_targets_differing_share": target_share,
         "sampled": {k: int(v.sum()) if v.dtype == torch.bool else
@@ -4244,10 +4332,14 @@ def phase_mask_rcnn_test_net(dev, name):
     return launches
 
 
-def phase_k1_at_recorded_inputs(inputs, name):
-    """Phase 38: K1 against its plain version, bit-equal, at every
-    distinct input shape (rows, candidates, max_out) at which phases
-    34-37 launched it (recorded); returns the shapes checked."""
+def phase_k1_at_recorded_inputs(inputs, name,
+                                what="k1_at_recorded_inputs",
+                                required=None):
+    """Phase 38 (and after phase 44): K1 against its plain version,
+    bit-equal, at every distinct input shape (rows, candidates, max_out)
+    at which phases 34-37 (39-44) launched it (recorded): the
+    ``required`` shapes among them, by default training RPN rows of
+    2,000 picks; returns the shapes checked."""
     from paa_tpu_torch.ops import nms
 
     shapes = {}
@@ -4258,9 +4350,13 @@ def phase_k1_at_recorded_inputs(inputs, name):
     for key, args in shapes.items():
         same_keeps(nms.nms_batched(*args), nms.nms_batched_plain(*args),
                    f"nms_batched at {key}")
-    check(any(k[1] >= 2000 and k[2] >= 2000 for k in shapes),
-          f"k1_at_recorded_inputs: no training RPN rows in {list(shapes)}")
-    print(json.dumps({"phase": "k1_at_recorded_inputs", "ok": True,
+    if required is None:
+        check(any(k[1] >= 2000 and k[2] >= 2000 for k in shapes),
+              f"{what}: no training RPN rows in {list(shapes)}")
+    else:
+        check(set(required) <= set(shapes),
+              f"{what}: {required} not among {list(shapes)}")
+    print(json.dumps({"phase": what, "ok": True,
                       "shapes": [list(k) for k in shapes], "card": name}))
     return list(shapes)
 
@@ -4289,6 +4385,439 @@ def phase_two_stage(dev, name):
     return launches, k1
 
 
+# ---- Keypoint R-CNN and the C4 two-stage bodies ----------------------------
+
+KRCNN_CONFIG = os.path.join(ROOT, "configs",
+                            "e2e_keypoint_rcnn_R_50_FPN_1x.yaml")
+C4_CONFIGS = {
+    "faster_rcnn_c4": os.path.join(ROOT, "configs",
+                                   "e2e_faster_rcnn_R_50_C4_1x.yaml"),
+    "mask_rcnn_c4": os.path.join(ROOT, "configs",
+                                 "e2e_mask_rcnn_R_50_C4_1x.yaml"),
+}
+# the detections of a serving request whose heatmaps are decoded on the
+# host in the serving check, and the slack (px) allowed about each box
+KP_DECODED, KP_BOX_SLACK = 100, 1.0
+# the f32 Keypoint R-CNN detect on the card against the CPU and float64:
+# detections per image (the CPU's float64 keypoint head over 100 per image
+# takes minutes) and the heatmaps of a detection at the same box (within
+# 0.01 px) within this share of their largest magnitude
+KP_DETECTIONS_REF, KP_HEATMAP_TOL = 20, 1e-3
+# the rois per image of the f32 C4 Mask R-CNN step against the CPU and
+# float64 (the config's 512 cut to 64: the CPU's float64 res5 over
+# 1,024 rois takes minutes)
+C4_REFERENCE_ROIS = 64
+# the keypoint config's own test set, which tools/synth_catalog.py serves
+# as a 32-image synthetic person-keypoint COCO
+KP_DATASETS = ("keypoints_coco_2017_val",)
+
+
+def seeded_krcnn(dtype, device):
+    """Full-width Keypoint R-CNN R-50-FPN as ``seeded_frcnn`` (its one
+    foreground class's cls_score bias from seed 1 in [25, 35], so every
+    roi gives a candidate above the threshold: 1,000 per image, which K1
+    holds)."""
+    return seeded_frcnn(dtype, device, KRCNN_CONFIG)
+
+
+def seeded_c4(kind, frozen_bn, dtype, device):
+    """The full-width C4 model of C4_CONFIGS[``kind``] from seed 0 with
+    ``frozen_bn`` (its calibrated FrozenBN, body and res5) and, for Mask
+    R-CNN, the mask logits' biases from seed 2 in [0.5, 1.5] as
+    ``seeded_mrcnn``."""
+    model = seeded_train_model(build_cfg(dtype, C4_CONFIGS[kind]), device,
+                               frozen_bn)
+    if model.module.mask_head is not None:
+        gen = torch.Generator().manual_seed(2)
+        bias = model.module.mask_head.mask_fcn_logits.bias
+        with torch.no_grad():
+            bias.copy_(torch.empty(bias.shape).uniform_(0.5, 1.5,
+                                                        generator=gen))
+    return model
+
+
+def check_keypoints(dets):
+    """Each request's "kp_heatmaps" (B, 100, 17, 56, 56) float32 and
+    finite; the first image's first KP_DECODED detections decoded on the
+    host (``heatmaps_to_keypoints``), every keypoint inside its box
+    within KP_BOX_SLACK px, its score in (0, 1]."""
+    from paa_tpu_torch.structures.keypoints import heatmaps_to_keypoints
+
+    for det in dets:
+        m = det["kp_heatmaps"]
+        check(tuple(m.shape) == (BATCH, 100, 17, 56, 56)
+              and m.dtype == torch.float32 and bool(torch.isfinite(m).all()),
+              f"keypoint_rcnn: kp_heatmaps {tuple(m.shape)} {m.dtype}")
+    t0 = time.perf_counter()
+    valid = dets[0]["valid"][0].cpu()
+    boxes = dets[0]["boxes"][0].cpu()[valid][:KP_DECODED].numpy()
+    kps = heatmaps_to_keypoints(
+        dets[0]["kp_heatmaps"][0].cpu()[valid][:KP_DECODED], boxes)
+    decode_s = time.perf_counter() - t0
+    x, y, score = kps[..., 0], kps[..., 1], kps[..., 2]
+    # a box under a pixel wide (x2 < x1 + 1, the +1 convention's width
+    # below 1) is decoded over one pixel from x1, as the reference does
+    x2 = np.maximum(boxes[:, 2], boxes[:, 0] + 1)
+    y2 = np.maximum(boxes[:, 3], boxes[:, 1] + 1)
+    inside = ((x >= boxes[:, None, 0] - KP_BOX_SLACK)
+              & (x <= x2[:, None] + KP_BOX_SLACK)
+              & (y >= boxes[:, None, 1] - KP_BOX_SLACK)
+              & (y <= y2[:, None] + KP_BOX_SLACK))
+    check(len(kps) > 0 and inside.all() and (score > 0).all()
+          and (score <= 1).all(),
+          f"keypoint_rcnn: {int((~inside).sum())} keypoints outside their "
+          f"box of {inside.size}")
+    return {"kp_heatmaps": list(dets[0]["kp_heatmaps"].shape),
+            "keypoints_decoded": int(inside.size), "decode_s": decode_s,
+            "mean_box_px": [float((boxes[:, 2] - boxes[:, 0]).mean()),
+                            float((boxes[:, 3] - boxes[:, 1]).mean())]}
+
+
+def check_c4_masks(dets):
+    """Each request's "masks" (B, 100, 14, 14) float32 in [0, 1] (the C4
+    predictor's 14 x 14)."""
+    for det in dets:
+        m = det["masks"]
+        check(tuple(m.shape) == (BATCH, 100, 14, 14)
+              and m.dtype == torch.float32
+              and bool(torch.isfinite(m).all())
+              and float(m.min()) >= 0 and float(m.max()) <= 1,
+              f"mask_rcnn_c4: masks {tuple(m.shape)} {m.dtype}")
+    m = dets[0]["masks"][dets[0]["valid"]]
+    return {"masks": list(dets[0]["masks"].shape),
+            "mask_pixels_above_half": float((m > 0.5).float().mean())}
+
+
+@contextlib.contextmanager
+def recording_k2_inputs():
+    """Records the inputs of every K2 launch made while it is open (the
+    batched entry ``nms._nms_global``, wrapped; its launch counter moves
+    to the wrapper and back): the list it yields fills with each call's
+    positional arguments."""
+    from paa_tpu_torch.ops import nms
+
+    seen, launch = [], nms._nms_global
+
+    def recorded(*args, **kwargs):
+        args = args + tuple(kwargs.values())
+        seen.append(args)
+        return launch(*args)
+
+    recorded.launches = launch.launches
+    nms._nms_global = recorded
+    try:
+        yield seen
+    finally:
+        launch.launches = recorded.launches
+        nms._nms_global = launch
+
+
+def k2_at_path_inputs(args, what, name, reps=10):
+    """K2 against its plain version on the inputs a path gave it
+    (``recording_k2_inputs``): keep_idx, keep_scores and keep_valid
+    bit-equal; both timed, with the bound (``time_nms``)."""
+    from paa_tpu_torch.ops import nms
+
+    ious, got, timing = time_nms(nms._nms_global, args, reps,
+                                 f"nms_global on the {what} candidates")
+    n = args[1].shape[1]
+    detail = {"kernel_detail": "nms_global", "path": what,
+              "B": args[1].shape[0], "N": n, "max_out": args[5],
+              "iou_threshold": args[4], "class_aware": args[6],
+              "route": nms.k2_plan(n, nms.k2_capacity(args[1].device)),
+              "max_active_clusters": nms.k2_max_active_clusters(
+                  args[1].device, n),
+              "valid_candidates": int(args[3].sum()), "ious_needed": ious,
+              "valid_picks": int(got[2].sum()), **timing, "card": name}
+    print(json.dumps(detail))
+    return detail
+
+
+def keypoint_rcnn_card_vs_cpu(dev):
+    """The f32 Keypoint R-CNN on the card against the CPU at 2 x 256 x 320
+    (``card_vs_cpu``: RPN outputs, detections matched), then its detect
+    with KP_DETECTIONS_REF detections per image on the card, on the CPU
+    and on the CPU in float64 (every convolution): each card detection's
+    heatmaps against those of the detection at the same box (label
+    equal, box within 0.01 px) within KP_HEATMAP_TOL of their largest
+    magnitude, and its decoded keypoints' positions (the argmax) within
+    a pixel of them."""
+    from paa_tpu_torch.structures.keypoints import heatmaps_to_keypoints
+
+    card_vs_cpu(dev, seeded_krcnn, lambda m, x: m.module.backbone_rpn(x)[1],
+                "keypoint_rcnn_card_vs_cpu")
+    images, sizes = request(99, 2, (256, 320), (256.0, 300.0))
+    dets = {}
+    for side, device in (("card", dev), ("cpu", "cpu"), ("float64", "cpu")):
+        model = seeded_krcnn("float32", device)
+        model.cfg.defrost()
+        model.cfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG = KP_DETECTIONS_REF
+        if side == "float64":
+            in_float64(model)
+        dets[side] = {k: v.cpu() for k, v in model.make_eval_fn()(
+            images, sizes).items()}
+    gpu = dets["card"]
+    out = {}
+    for side in ("cpu", "float64"):
+        ref = dets[side]
+        compared, worst, moved = 0, 0.0, 0
+        for i in range(gpu["valid"].shape[0]):
+            for j in torch.nonzero(gpu["valid"][i]).flatten().tolist():
+                same = ref["valid"][i] & (ref["labels"][i]
+                                          == gpu["labels"][i, j])
+                d = (ref["boxes"][i] - gpu["boxes"][i, j]).abs().amax(dim=1)
+                d = torch.where(same, d, torch.inf)
+                k = int(d.argmin())
+                if float(d[k]) > 0.01:
+                    continue
+                compared += 1
+                a, b = gpu["kp_heatmaps"][i, j], ref["kp_heatmaps"][i, k]
+                worst = max(worst, float((a - b).abs().max()
+                                         / b.abs().max()))
+                box = gpu["boxes"][i, j:j + 1].numpy()
+                pa = heatmaps_to_keypoints(a[None], box)[0]
+                pb = heatmaps_to_keypoints(b[None], box)[0]
+                moved += int((np.abs(pa[:, :2] - pb[:, :2]) > 1.0).any(
+                    axis=1).sum())
+        check(compared >= 0.9 * int(gpu["valid"].sum()) and compared > 0
+              and worst <= KP_HEATMAP_TOL,
+              f"keypoint_rcnn_card_vs_{side}: {compared} compared, "
+              f"worst {worst}")
+        out[side] = {"detections_compared": compared,
+                     "heatmap_max_rel_err": worst,
+                     "keypoints_moved_over_1px": moved}
+    check(out["cpu"]["keypoints_moved_over_1px"]
+          <= 0.01 * 17 * out["cpu"]["detections_compared"],
+          f"keypoint_rcnn_card_vs_cpu: keypoints moved {out}")
+    print(json.dumps({"phase": "keypoint_rcnn_heatmaps_card_vs_cpu",
+                      "ok": True, "detections": int(gpu["valid"].sum()),
+                      "tolerance": KP_HEATMAP_TOL, **out}))
+
+
+def phase_keypoint_rcnn_serving(dev, name):
+    """Phase 39: full-width Keypoint R-CNN serving (three 8 x 800 x 1344
+    bf16 requests: K1 twice per request, the RPN's 40 rows of 1,000 and
+    the box head's 8 rows of 1,000 class-aware with 100 picks; heatmaps
+    (8, 100, 17, 56, 56), keypoints inside their boxes), K1 against its
+    plain version on the first request's inputs at both, img/s, a
+    profile with the keypoint head in its own span, and the f32 model on
+    the card against the CPU and float64 with the heatmaps compared.
+    Returns the launch counts and K1's details."""
+    model = seeded_krcnn("bfloat16", dev)
+    with recording_k1_inputs() as k1_inputs:
+        eval_fn, launches = serve(
+            model, "keypoint_rcnn_main_path", 70,
+            {"nms_batched": 6, "nms_global": 0, "group_norm_relu": 0},
+            0.05, check_keypoints)
+    check([a[1].shape[0] for a in k1_inputs[:2]] == [5 * BATCH, BATCH]
+          and k1_inputs[1][6] is True and k1_inputs[1][5] == 100,
+          f"keypoint_rcnn: K1's inputs {[a[1].shape for a in k1_inputs]}")
+    k1 = {"keypoint_rcnn_rpn": k1_at_path_inputs(
+              k1_inputs[0], "keypoint_rcnn_rpn", name),
+          "keypoint_rcnn_box_head": k1_at_path_inputs(
+              k1_inputs[1], "keypoint_rcnn_box_head", name)}
+    e2e_rate(eval_fn, 20, "keypoint_rcnn", name, dev)
+    phase_profile(model, eval_fn, 60, "keypoint_rcnn", name)
+    del model, eval_fn, k1_inputs
+    torch.cuda.empty_cache()
+    keypoint_rcnn_card_vs_cpu(dev)
+    return launches, k1
+
+
+def phase_c4_serving(dev, name, kind, frozen_bn):
+    """Phase 41: full-width C4 Faster or Mask R-CNN serving (three
+    8 x 800 x 1344 bf16 requests, calibrated FrozenBN: K1 once per
+    request at the RPN's 8 rows of 6,000 with 1,000 picks, K2 once at the
+    box head's 80,000 candidates per image; for Mask R-CNN masks
+    (8, 100, 14, 14)), K1 and K2 against their plain versions on the
+    first request's inputs, img/s and a profile (the res5 box head in the
+    "box head" span). Returns the launch counts and the kernels'
+    details."""
+    model = seeded_c4(kind, frozen_bn, "bfloat16", dev)
+    with recording_k1_inputs() as k1_inputs, \
+            recording_k2_inputs() as k2_inputs:
+        eval_fn, launches = serve(
+            model, f"{kind}_main_path", 80,
+            {"nms_batched": 3, "nms_global": 3, "group_norm_relu": 0},
+            0.05, check_c4_masks if kind == "mask_rcnn_c4" else None)
+    # one level: the RPN's rows are the images, PRE_NMS_TOP_N_TEST (6,000)
+    # candidates, POST_NMS_TOP_N_TEST (1,000) picks; the box head's
+    # candidates are those picks x 80 classes
+    rpn = model.cfg.MODEL.RPN
+    _, counts = model.anchors_for(HW)
+    n = min(rpn.PRE_NMS_TOP_N_TEST, counts[0])
+    picks = min(rpn.POST_NMS_TOP_N_TEST, n)
+    want = [(BATCH, n, picks), (BATCH, min(picks, rpn.FPN_POST_NMS_TOP_N_TEST)
+                                * (model.cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES
+                                   - 1), 100)]
+    got = [(*a[1].shape, a[5]) for a in (k1_inputs[0], k2_inputs[0])]
+    check(got == want, f"{kind}: K1 and K2 at {got}, expected {want}")
+    k1 = k1_at_path_inputs(k1_inputs[0], f"{kind}_rpn", name)
+    k2 = k2_at_path_inputs(k2_inputs[0], f"{kind}_box_head", name)
+    e2e_rate(eval_fn, 20, kind, name, dev)
+    phase_profile(model, eval_fn, 60, kind, name)
+    del model, eval_fn, k1_inputs, k2_inputs
+    torch.cuda.empty_cache()
+    return launches, k1, k2
+
+
+def keypoint_batch(seed, bsz, hw, size):
+    """``train_batch`` for Keypoint R-CNN: every GT a person (label 1)
+    with the synthetic COCO's 17 keypoints in its box
+    (data/synth.py ``box_keypoints``); 'gt_keypoints' (B, MAX_GT, 17, 3)
+    float32, zero in the padding slots."""
+    from paa_tpu_torch.data.synth import box_keypoints
+
+    batch = train_batch(seed, bsz, hw, size)
+    labels = batch["gt_labels"].clamp(max=1)
+    boxes = batch["gt_boxes"].numpy()
+    rng = np.random.RandomState(seed + 2)
+    kps = np.zeros((*labels.shape, 17, 3), np.float32)
+    for b, g in zip(*np.nonzero(labels.numpy())):
+        x1, y1, x2, y2 = boxes[b, g]
+        kps[b, g] = np.reshape(box_keypoints(rng, x1, y1, x2 - x1,
+                                             y2 - y1)[0], (17, 3))
+    return {**batch, "gt_labels": labels,
+            "gt_keypoints": torch.from_numpy(kps)}
+
+
+def phase_keypoint_and_c4(dev, name):
+    """Phases 39-44 (after phase 38): Keypoint R-CNN serving (39) and
+    training (40, ``phase_two_stage_train``: B=16, K1 once per step at
+    the training RPN's 80 rows of 2,000); C4 Faster and Mask R-CNN
+    serving (41) and training (42: B=8, the RPN's 8 rows of 12,000
+    candidates per image, above K1's 8,192, K2 once per step with 2,000
+    picks), calibrated FrozenBN; the f32 C4 Mask R-CNN step against the
+    CPU and float64 (43, ``phase_two_stage_train_reference``); Keypoint
+    R-CNN ``test_net`` over a synthetic person-keypoint COCO with cv2
+    blocked (44); then K1 and K2 at every input those runs gave them,
+    bit-equal to their plain versions. Returns the launch counts by path
+    and the kernels' details by path."""
+    launches, k1, k2 = {}, {}, {}
+    t0 = time.perf_counter()
+    with recording_k1_inputs() as k1_inputs, \
+            recording_k2_inputs() as k2_inputs:
+        launches["keypoint_rcnn"], k1_kp = phase_keypoint_rcnn_serving(
+            dev, name)
+        k1.update(k1_kp)
+        fpn_bn = calibrated_frozen_bn(KRCNN_CONFIG)
+        c4_bn = calibrated_frozen_bn(C4_CONFIGS["faster_rcnn_c4"])
+        for kind in C4_CONFIGS:
+            launches[kind], k1[f"{kind}_rpn"], k2[f"{kind}_box_head"] = \
+                phase_c4_serving(dev, name, kind, c4_bn)
+        # the training RPN's rows go to K1 or K2 by their length
+        for kind, frozen_bn in (("keypoint_rcnn", fpn_bn),
+                                *((kind, c4_bn) for kind in C4_CONFIGS)):
+            launches[f"{kind}_train"], detail = phase_two_stage_train(
+                dev, name, kind, frozen_bn)
+            (k2 if detail["kernel_detail"] == "nms_global" else k1)[
+                f"{kind}_train_rpn"] = detail
+        phase_two_stage_train_reference(
+            dev, c4_bn, C4_CONFIGS["mask_rcnn_c4"], C4_REFERENCE_ROIS,
+            "mask_rcnn_c4_train_card_vs_cpu")
+        launches["keypoint_rcnn_test_net"] = phase_keypoint_rcnn_test_net(
+            dev, name)
+    phase_k1_at_recorded_inputs(
+        k1_inputs, name, "k1_at_recorded_inputs_kp_c4",
+        [(d["B"], d["N"], d["max_out"]) for d in k1.values()])
+    shapes = phase_k2_at_recorded_inputs(k2_inputs, name)
+    want = {(d["B"], d["N"], d["max_out"]) for d in k2.values()}
+    check(want <= set(shapes),
+          f"k2_at_recorded_inputs: {want} not among {shapes}")
+    del k1_inputs, k2_inputs
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "keypoint_and_c4", "ok": True,
+                      "wall_s": time.perf_counter() - t0, "card": name}))
+    return launches, k1, k2
+
+
+def phase_k2_at_recorded_inputs(inputs, name):
+    """K2 against its plain version, bit-equal, at every distinct input
+    shape (rows, candidates, max_out) at which phases 39-44 launched it
+    (recorded; the C4 box head's 80,000 per image and the C4 training
+    RPN's 12,000 with 2,000 picks must be among them); returns the
+    shapes checked."""
+    from paa_tpu_torch.ops import nms
+
+    shapes = {}
+    for args in inputs:
+        key = (*args[1].shape, args[5])
+        if key not in shapes:
+            shapes[key] = args
+    for key, args in shapes.items():
+        same_keeps(nms._nms_global(*args), nms.nms_batched_plain(*args),
+                   f"nms_global at {key}")
+    print(json.dumps({"phase": "k2_at_recorded_inputs", "ok": True,
+                      "shapes": [list(k) for k in shapes], "card": name}))
+    return list(shapes)
+
+
+def phase_keypoint_rcnn_test_net(dev, name):
+    """Phase 44: ``paa_tpu_torch.tools.test_net`` (its ``main``, in this
+    process) on Keypoint R-CNN over the synthetic person-keypoint COCO
+    of 32 PPM images (the config's own DATASETS.TEST,
+    keypoints_coco_2017_val, which tools/synth_catalog.py serves) at full
+    width in bf16 from the seeded weights, with cv2 blocked (the
+    heatmaps' cubic resize runs without it): exit 0, the bbox and
+    keypoints tables, a detection on every image, K1 twice per batch
+    (RPN and box head); the seconds of the heatmaps' copy to the host and
+    of their decode there (``compute_on_dataset``'s host times)."""
+    from paa_tpu_torch.engine import inference as port_inference
+    from paa_tpu_torch.tools import test_net
+
+    tmp = tempfile.mkdtemp(prefix="paa_kp_test_net_")
+    os.environ["PAA_TPU_TORCH_SYNTH_DIR"] = os.path.join(tmp, "synth")
+    out_dir = os.path.join(tmp, "out")
+    cv2 = sys.modules.get("cv2", False)
+    sys.modules["cv2"] = None  # import cv2 raises ImportError
+    plain, host = port_inference.compute_on_dataset, {}
+
+    def timed(*args, **kwargs):
+        out = plain(*args, **kwargs)
+        host.update(out[3], model_s=out[1], images=out[2])
+        return out
+
+    port_inference.compute_on_dataset = timed
+    try:
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        rc = test_net.main(["--config-file", KRCNN_CONFIG,
+                            *synth_opts(out_dir),
+                            "DATASETS.TEST", str(KP_DATASETS)])
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    finally:
+        port_inference.compute_on_dataset = plain
+        if cv2 is False:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = cv2
+    check(rc == 0, f"keypoint_rcnn_test_net: exit {rc}")
+    batches = launches["nms_batched"] // 2
+    check(batches >= 4 and launches == {
+        "nms_batched": 2 * batches, "nms_global": 0,
+        "group_norm_relu": 0}, f"keypoint_rcnn_test_net: launches {launches}")
+    dataset = KP_DATASETS[0]
+    results = read_results(out_dir, dataset)
+    oks = {k[10:]: v for k, v in results.items()
+           if k.startswith("keypoints/")}
+    check(sorted(k for k in results if "/" not in k) == sorted(METRICS)
+          and len(oks) == 10 and all(math.isfinite(v) and -1.0 <= v <= 1.0
+                                     for v in results.values()),
+          f"keypoint_rcnn_test_net: results {results}")
+    dets = read_bbox_json(os.path.join(out_dir, "inference", dataset))
+    check(len({d["image_id"] for d in dets}) == 32,
+          "keypoint_rcnn_test_net: images with detections")
+    print(json.dumps({"phase": "keypoint_rcnn_test_net", "ok": True,
+                      "images": 32, "cv2": "blocked", "launches": launches,
+                      "detections": len(dets), "wall_s": wall,
+                      "host_s": host, "card": name}))
+    print(json.dumps({"ap_table": "random weights, a synthetic dataset: "
+                      "not an accuracy", **results}))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4303,9 +4832,16 @@ def main():
                       "build_s": time.perf_counter() - t0,
                       "torch": torch.__version__,
                       "cuda": torch.version.cuda}))
+
+    def stamp(done):
+        """The script's seconds so far, after the phases ``done``."""
+        print(json.dumps({"stamp": done,
+                          "elapsed_s": time.perf_counter() - t0}))
+
     phase_nms(dev)
     phase_nms_global(dev)
     gn_err = phase_group_norm(dev)
+    stamp("1-4 kernels against their plain versions")
     with recording_k3_shapes() as k3_shapes:
         paa, paa_eval, paa_launches = phase_main_path(dev)
         phase_reference(dev)
@@ -4317,6 +4853,8 @@ def main():
         trained, state, batch, train_launches = phase_train_main_path(
             dev, name)
         phase_train_reference(dev)
+        stamp("5-8, 11-13, 15-16 PAA and Faster R-CNN serving, eval, "
+              "training")
         k1, k3 = phase_timing(dev, paa, paa_eval, paa_launches, gn_err, name)
         k2, k1_rpn = phase_frcnn_timing(dev, frcnn, frcnn_eval,
                                         frcnn_launches, name)
@@ -4343,10 +4881,12 @@ def main():
         phase_train_profile(trained, state, batch, name)
         del paa, paa_eval, frcnn, frcnn_eval, trained, state, batch
         torch.cuda.empty_cache()
+        stamp("9-10, 14 timing and profiles")
         # ATSS, FCOS and RetinaNet through PAA-R50's serving, training and
         # card-vs-CPU phases
         dense = {head: phase_dense(dev, head, name)
                  for head in DENSE_CONFIGS}
+        stamp("31 ATSS, FCOS, RetinaNet")
         # the X-152 dcnv2 path after the others' timings, so that its
         # model and its cached blocks are not resident while they are timed
         dcnv2, dcnv2_eval, dcnv2_launches = phase_dcnv2_main_path(dev)
@@ -4355,21 +4895,30 @@ def main():
         phase_dcnv2_timing(dev, dcnv2, dcnv2_eval, name)
         del dcnv2, dcnv2_eval
         torch.cuda.empty_cache()
+        stamp("20-23 X-152 dcnv2 serving")
         phase_dcn_backward_card(dev, name)
         dcnv2_train_launches, _ = phase_dcnv2_train_main_path(dev, name)
         phase_dcnv2_train_card_vs_cpu(dev)
+        stamp("24-26 X-152 dcnv2 training")
         tta_launches = phase_dcnv2_x152_tta(dev, name)
         phase_tta_card_vs_cpu(dev)
         atss_tta_launches = phase_atss_tta(dev, name)
         test_net_launches = phase_dense_test_net(dev, name)
+        stamp("27-28, 32-33 TTA and FCOS test_net")
         # Mask R-CNN serving, two-stage training, Mask R-CNN's test_net
         two_stage_launches, k1_two_stage = phase_two_stage(dev, name)
+        stamp("34-38 Mask R-CNN, two-stage training")
+        # Keypoint R-CNN and the C4 models: serving, training, test_net
+        kp_c4_launches, k1_kp_c4, k2_kp_c4 = phase_keypoint_and_c4(dev, name)
+        stamp("39-44 Keypoint R-CNN, C4")
         dcnv2_train_net_launches = phase_train_net_from_pkl(
             dev, name, "dcnv2_train_net_from_pkl")
         gate_launches = phase_ap_gate(dev, name)
         train_net_launches = phase_train_net_from_pkl(
             dev, name, "train_net_from_pkl")
+        stamp("29, 17-18 train_net and the AP gate")
         phase_ddp_two_ranks(dev, name)
+        stamp("19 two ranks")
     phase_k3_at_path_shapes(dev, k3_shapes)
     for kernel, key in ((k1, "nms_batched"), (k2, "nms_global"),
                         (k3, "group_norm_relu")):
@@ -4389,6 +4938,8 @@ def main():
                        fcos_test_net=test_net_launches[key])
         by_path.update({path: runs[key]
                         for path, runs in two_stage_launches.items()})
+        by_path.update({path: runs[key]
+                        for path, runs in kp_c4_launches.items()})
         kernel.update(launches=sum(by_path.values()),
                       launches_by_path=by_path)
     # K1's time at each dense head's own candidates, beside PAA's
@@ -4399,6 +4950,13 @@ def main():
     # 2,000 candidates with 2,000 picks
     k1["at_path_inputs"].update({path: {f: detail[f] for f in fields}
                                  for path, detail in k1_two_stage.items()})
+    # Keypoint R-CNN's RPN and box head rows, the C4 RPN's 8 x 6,000
+    k1["at_path_inputs"].update({path: {f: detail[f] for f in fields}
+                                 for path, detail in k1_kp_c4.items()})
+    # K2 at the C4 box head's 80,000 and the C4 training RPN's 12,000 with
+    # 2,000 picks, beside the Faster R-CNN box head's time
+    k2["at_path_inputs"] = {path: {f: detail[f] for f in fields}
+                            for path, detail in k2_kp_c4.items()}
     print(json.dumps({"phase": "script", "wall_s":
                       time.perf_counter() - t0, "card": name}))
     print(name)

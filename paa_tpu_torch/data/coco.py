@@ -1,5 +1,5 @@
-"""COCO detection dataset (port of paa_tpu/data/coco.py, boxes and
-polygons).
+"""COCO detection dataset (port of paa_tpu/data/coco.py, boxes,
+polygons and keypoints).
 
 Mirrors reference paa_core/data/datasets/coco.py:39-101 without
 pycocotools: the instances json is parsed with the json module into
@@ -14,11 +14,15 @@ flat numpy records.
   (clip_to_image(remove_empty=True))
 - with_masks (Mask R-CNN training): each kept instance's COCO polygons
   (``segmentation``, [] when absent) in ``ImageRecord.polygons``
+- with_keypoints (Keypoint R-CNN training): each kept instance's
+  ``keypoints`` as (G, K, 3) float32 (x, y, visibility; 17 zeros when
+  absent) in ``ImageRecord.keypoints``. Images are kept as for boxes:
+  the reference's filter of training images with fewer than 10 visible
+  keypoints is not the JAX package's, nor the port's
 
 Decoding goes by the file, not by what is installed: a binary PPM (P6)
 is read with numpy, and any other format needs cv2, imported inside the
-call (``read_image``). Keypoints come with Keypoint R-CNN (ROADMAP item
-10, next).
+call (``read_image``).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ class ImageRecord:
     boxes: np.ndarray  # (n, 4) float32 xyxy
     labels: np.ndarray  # (n,) int32 contiguous 1..C
     polygons: Optional[list] = None  # per instance, with_masks only
+    keypoints: Optional[np.ndarray] = None  # (n, K, 3), with_keypoints
 
 
 def _ppm_header(f):
@@ -145,10 +150,6 @@ class COCODataset:
     def __init__(self, ann_file, root,
                  remove_images_without_annotations=True,
                  with_masks=False, with_keypoints=False):
-        if with_keypoints:
-            raise NotImplementedError(
-                "paa_tpu_torch's COCODataset loads boxes and polygons; "
-                "keypoints wait for Keypoint R-CNN (ROADMAP item 10)")
         self.root = root
         with open(ann_file) as f:
             data = json.load(f)
@@ -195,6 +196,14 @@ class COCODataset:
             if with_masks:
                 polygons = [a.get("segmentation") or []
                             for a, k in zip(non_crowd, keep) if k]
+            keypoints = None
+            if with_keypoints:
+                keypoints = np.zeros((0, 17, 3), np.float32)
+                if non_crowd:
+                    keypoints = np.asarray(
+                        [np.asarray(a.get("keypoints") or [0.0] * 51,
+                                    dtype=np.float32).reshape(-1, 3)
+                         for a in non_crowd], dtype=np.float32)[keep]
             self.records.append(
                 ImageRecord(
                     id=img_id,
@@ -204,6 +213,7 @@ class COCODataset:
                     boxes=boxes,
                     labels=labels,
                     polygons=polygons,
+                    keypoints=keypoints,
                 )
             )
 

@@ -17,8 +17,10 @@ resizing run in a thread pool (the numpy PPM read and the torch resize
 release the GIL) with batch prefetch. For Mask R-CNN training each
 sample's polygons are rasterized in its boxes' frames
 (structures/masks.py ``rasterize_instances``, no cv2) and the batch
-carries them as 'gt_masks' (B, MAX_GT, 112, 112) uint8. Keypoints wait
-for Keypoint R-CNN (ROADMAP item 10, next).
+carries them as 'gt_masks' (B, MAX_GT, 112, 112) uint8. For Keypoint
+R-CNN training each sample's keypoints follow its resize and flip
+(data/transforms.py) and the batch carries them as 'gt_keypoints'
+(B, MAX_GT, K, 3) float32, zero in the padding slots.
 """
 
 from __future__ import annotations
@@ -57,10 +59,12 @@ def make_batch(samples, bucket_hw, max_gt, normalize=None,
     """Assemble transformed samples into fixed-shape arrays.
 
     samples: list of dicts with image (HWC), boxes, labels, image_id,
-    orig_size (h, w), and optionally masks (n, M, M). Short batches are
-    padded with zero images and image_id -1. When a sample has masks the
-    batch has 'gt_masks' (B, max_gt, M, M) uint8, zero in the padding
-    slots.
+    orig_size (h, w), and optionally masks (n, M, M) and keypoints (n,
+    K, 3). Short batches are padded with zero images and image_id -1.
+    When a sample has masks the batch has 'gt_masks' (B, max_gt, M, M)
+    uint8, when one has keypoints 'gt_keypoints' (B, max_gt, K, 3)
+    float32 (K of the first sample with any, else 17), each zero in the
+    padding slots.
 
     normalize: optional (pixel_mean, pixel_std): samples then carry RAW
     uint8 images and (x - mean)/std is computed straight into the
@@ -85,6 +89,11 @@ def make_batch(samples, bucket_hw, max_gt, normalize=None,
     masked = [s["masks"] for s in samples if s.get("masks") is not None]
     if masked:
         gt_masks = np.zeros((bsz, max_gt, *masked[0].shape[1:]), np.uint8)
+    gt_keypoints = None
+    kps = [s["keypoints"] for s in samples if s.get("keypoints") is not None]
+    if kps:
+        k = next((p.shape[1] for p in kps if len(p)), 17)
+        gt_keypoints = np.zeros((bsz, max_gt, k, 3), np.float32)
 
     for i, s in enumerate(samples):
         img = s["image"]
@@ -105,6 +114,8 @@ def make_batch(samples, bucket_hw, max_gt, normalize=None,
             gt_labels[i, :n] = labels[:n]
             if gt_masks is not None and s.get("masks") is not None:
                 gt_masks[i, :n] = s["masks"][:n]
+            if gt_keypoints is not None and s.get("keypoints") is not None:
+                gt_keypoints[i, :n] = s["keypoints"][:n]
     batch = {
         "images": images,
         "gt_boxes": gt_boxes,
@@ -115,6 +126,8 @@ def make_batch(samples, bucket_hw, max_gt, normalize=None,
     }
     if gt_masks is not None:
         batch["gt_masks"] = gt_masks
+    if gt_keypoints is not None:
+        batch["gt_keypoints"] = gt_keypoints
     return batch
 
 
@@ -196,17 +209,19 @@ class DetectionLoader:
             masks = rasterize_instances(r.polygons, r.boxes,
                                         max(len(r.labels), 1)
                                         )[:len(r.labels)]
+        keypoints = getattr(r, "keypoints", None)
         out = self.transform(
             self.dataset.load_image(index), r.boxes.copy(),
             draws=self._draws(epoch, index) if self.is_train else None,
-            masks=masks,
+            masks=masks, keypoints=keypoints,
         )
-        image, boxes = out[:2]
+        image, boxes, *rest = out
         return {
             "image": image,
             "boxes": boxes if boxes is not None else np.zeros((0, 4)),
             "labels": r.labels.copy(),
-            "masks": out[2] if masks is not None else None,
+            "masks": rest.pop(0) if masks is not None else None,
+            "keypoints": rest.pop(0) if keypoints is not None else None,
             "image_id": r.id,
             "orig_size": (r.height, r.width),
         }

@@ -5,9 +5,13 @@
 low-frequency content and a few filled boxes, and an instances json
 with COCO's 80 sparse category ids (1-90 with gaps) and 3-12 boxes per
 image, each with a polygon (an octagon with the box's corners cut at a
-quarter of its sides, for Mask R-CNN) and the polygon's area.
-Everything comes from ``seed``. tools/synth_catalog.py serves
-such datasets through ``PATHS_CATALOG``.
+quarter of its sides, for Mask R-CNN) and the polygon's area. With
+``person_keypoints`` every box is a "person" (category 1, the only one)
+with 17 keypoints inside it (a quarter of them unlabelled: v = 0 at
+(0, 0), as COCO writes them) and their ``num_keypoints``, for Keypoint
+R-CNN; images and boxes are the same as without. Everything comes from
+``seed``. tools/synth_catalog.py serves such datasets through
+``PATHS_CATALOG``.
 """
 
 from __future__ import annotations
@@ -54,19 +58,37 @@ def box_octagon(x, y, w, h):
     return poly, 0.875 * w * h
 
 
-def _has_polygons(ann_file):
+def box_keypoints(rng, x, y, w, h, k=17):
+    """COCO keypoints of one person in the xywh box: k points drawn
+    inside it, each labelled visible (2) or occluded (1), a quarter
+    unlabelled (0, at (0, 0)); the flat [x, y, v] * k list and the count
+    labelled."""
+    kps = np.zeros((k, 3))
+    kps[:, 0] = np.round(x + rng.uniform(0, 1, k) * w, 2)
+    kps[:, 1] = np.round(y + rng.uniform(0, 1, k) * h, 2)
+    kps[:, 2] = rng.choice([1, 2], k)
+    kps[rng.uniform(0, 1, k) < 0.25] = 0
+    return kps.reshape(-1).tolist(), int((kps[:, 2] > 0).sum())
+
+
+def _complete(ann_file, person_keypoints):
+    """Whether an earlier dataset at ``ann_file`` has the polygons (and
+    the keypoints asked for)."""
     with open(ann_file) as f:
         annotations = json.load(f)["annotations"]
-    return all("segmentation" in a for a in annotations)
+    return all("segmentation" in a and ("keypoints" in a
+                                        or not person_keypoints)
+               for a in annotations)
 
 
-def synth_coco(root, n_images, seed=0, sizes=COCO_SIZES):
+def synth_coco(root, n_images, seed=0, sizes=COCO_SIZES,
+               person_keypoints=False):
     """Write the dataset under ``root`` (images in ``root/images``) once
-    (again when an earlier one there lacks the polygons); returns
-    (ann_file, img_dir)."""
+    (again when an earlier one there lacks the polygons or the keypoints
+    asked for); returns (ann_file, img_dir)."""
     img_dir = os.path.join(root, "images")
     ann_file = os.path.join(root, "instances.json")
-    if os.path.exists(ann_file) and _has_polygons(ann_file):
+    if os.path.exists(ann_file) and _complete(ann_file, person_keypoints):
         return ann_file, img_dir
     os.makedirs(img_dir, exist_ok=True)
     rng = np.random.RandomState(seed)
@@ -91,12 +113,19 @@ def synth_coco(root, n_images, seed=0, sizes=COCO_SIZES):
         for b, c in zip(boxes.tolist(),
                         rng.choice(COCO_CATEGORY_IDS, n).tolist()):
             poly, area = box_octagon(*b)
-            annotations.append(dict(
-                id=len(annotations) + 1, image_id=i + 1, bbox=b,
-                area=area, segmentation=[poly], category_id=int(c),
-                iscrowd=0))
-    categories = [dict(id=c, name=f"category_{c}")
-                  for c in COCO_CATEGORY_IDS]
+            ann = dict(id=len(annotations) + 1, image_id=i + 1, bbox=b,
+                       area=area, segmentation=[poly], category_id=int(c),
+                       iscrowd=0)
+            if person_keypoints:
+                # their own stream: the images and boxes stay the same
+                kps, labelled = box_keypoints(
+                    np.random.RandomState(seed * 100_003 + ann["id"]), *b)
+                ann.update(category_id=1, keypoints=kps,
+                           num_keypoints=labelled)
+            annotations.append(ann)
+    categories = ([dict(id=1, name="person")] if person_keypoints else
+                  [dict(id=c, name=f"category_{c}")
+                   for c in COCO_CATEGORY_IDS])
     tmp = f"{ann_file}.{os.getpid()}.tmp"
     with open(tmp, "w") as f:
         json.dump(dict(images=images, annotations=annotations,

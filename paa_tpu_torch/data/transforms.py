@@ -10,7 +10,7 @@ The JAX package resizes with ``cv2.resize(..., INTER_LINEAR)``. The
 port does not depend on cv2: ``resize_uint8_linear`` computes the same
 pixels, bit for bit, in integer arithmetic on torch tensors (torch ops
 release the GIL, so the loader's threads run it in parallel). It is the
-one resize of the port, whatever is installed.
+one image resize of the port, whatever is installed.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ import threading
 
 import numpy as np
 import torch
+
+from ..structures.keypoints import flip_keypoints, resize_keypoints
 
 # cv2's fixed-point scale of the interpolation weights
 # (INTER_RESIZE_COEF_BITS = 11)
@@ -172,7 +174,8 @@ class TrainTransform:
         self.rng = random.Random(seed)
         self._lock = threading.Lock()
 
-    def __call__(self, image, boxes, draws=None, masks=None):
+    def __call__(self, image, boxes, draws=None, masks=None,
+                 keypoints=None):
         """``draws=(size_draw, flip_draw)`` in [0, 1) makes the
         augmentation deterministic per sample: the loader derives them
         from (seed, epoch, index), so every data-parallel process agrees
@@ -181,26 +184,33 @@ class TrainTransform:
         decides which sample gets which draw).
 
         ``masks``: the instances' box-normalized masks (n, M, M); they do
-        not change with the resize and flip with the image. Returns
-        (image, boxes), and the masks third when given."""
+        not change with the resize and flip with the image.
+        ``keypoints``: the instances' (n, K, 3) keypoints; they scale
+        with the resize and flip with the image (left and right swapped,
+        the invisible ones zeroed). Returns (image, boxes), then the
+        masks and the keypoints, each when given."""
         if draws is None:
             with self._lock:  # the shared RNG is used from loader threads
                 size_draw = self.rng.random()
                 flip_draw = self.rng.random()
         else:
             size_draw, flip_draw = draws
+        oh, ow = image.shape[:2]
         image, boxes = resize_image_and_boxes(
             image, boxes,
             self.min_sizes[int(size_draw * len(self.min_sizes))],
             self.max_size,
         )
+        keypoints = _resized_keypoints(keypoints, image, oh, ow)
         if flip_draw < self.flip_prob:
             image, boxes = hflip_image_and_boxes(image, boxes)
             if masks is not None:
                 masks = np.ascontiguousarray(masks[:, :, ::-1])
+            if keypoints is not None and len(keypoints):
+                keypoints = flip_keypoints(keypoints, image.shape[1])
         if not self.defer_normalize:
             image = normalize_image(image, self.pixel_mean, self.pixel_std)
-        return (image, boxes) if masks is None else (image, boxes, masks)
+        return _with_fields(image, boxes, masks, keypoints)
 
 
 class EvalTransform:
@@ -212,13 +222,34 @@ class EvalTransform:
         self.pixel_std = pixel_std
         self.defer_normalize = defer_normalize
 
-    def __call__(self, image, boxes=None, draws=None, masks=None):
+    def __call__(self, image, boxes=None, draws=None, masks=None,
+                 keypoints=None):
+        oh, ow = image.shape[:2]
         image, boxes = resize_image_and_boxes(
             image, boxes, self.min_size, self.max_size
         )
+        keypoints = _resized_keypoints(keypoints, image, oh, ow)
         if not self.defer_normalize:
             image = normalize_image(image, self.pixel_mean, self.pixel_std)
-        return (image, boxes) if masks is None else (image, boxes, masks)
+        return _with_fields(image, boxes, masks, keypoints)
+
+
+def _resized_keypoints(keypoints, image, oh, ow):
+    """(n, K, 3) keypoints of an (oh, ow) image scaled to ``image``'s
+    size (None and empty arrays pass through)."""
+    if keypoints is None or not len(keypoints):
+        return keypoints
+    nh, nw = image.shape[:2]
+    return resize_keypoints(keypoints, nw / ow, nh / oh)
+
+
+def _with_fields(image, boxes, masks, keypoints):
+    out = (image, boxes)
+    if masks is not None:
+        out = out + (masks,)
+    if keypoints is not None:
+        out = out + (keypoints,)
+    return out
 
 
 def build_transforms(cfg, is_train=True, seed=None,

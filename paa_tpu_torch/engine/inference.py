@@ -1,5 +1,6 @@
-"""Evaluation engine (port of paa_tpu/engine/inference.py, the bbox and
-segm paths; reference paa_core/engine/inference.py:19-123).
+"""Evaluation engine (port of paa_tpu/engine/inference.py, the bbox,
+segm and keypoints paths; reference
+paa_core/engine/inference.py:19-123).
 
 Batches of the bucketed loader go through the model's ``make_eval_fn``
 (device normalize, backbone, head, post-processing with its kernels) on
@@ -12,7 +13,13 @@ R-CNN. A Mask R-CNN's 28x28 mask probabilities are pasted into the
 original image at each rescaled box, thresholded at 0.5 and
 RLE-encoded on the host (structures/masks.py, evaluation/mask_rle.py,
 no cv2), and the segm table follows the bbox one, its metrics under
-``segm/...``.
+``segm/...``. A Keypoint R-CNN's (K, 56, 56) heatmaps come to the host
+apart from the detections and are decoded there per kept box
+(structures/keypoints.py ``heatmaps_to_keypoints``: cv2's cubic resize
+without cv2) into (K, 3) keypoints, rescaled to the original image; the
+keypoints table (OKS, 10 metrics) follows the bbox one under
+``keypoints/...``. The seconds of the heatmaps' copy and decode are
+logged.
 
 Data-parallel under a process group (utils/comm.py): the loader gives
 each rank every world-th whole batch (data/loader.py), so a batch keeps
@@ -25,9 +32,8 @@ TEST.BBOX_AUG.ENABLED dispatches to ``bbox_aug.inference_tta`` (test-time
 augmentation, one process), which evaluates through
 ``evaluate_predictions`` as this engine does.
 
-Not ported: the optimistic-DCN fallback (a TPU lowering), the keypoint
-output (Keypoint R-CNN, ROADMAP item 10, next) and the RPN-only model's
-proposal recall (item 10, after the C4 bodies and the GN heads).
+Not ported: the optimistic-DCN fallback (a TPU lowering) and the
+RPN-only model's proposal recall (ROADMAP item 10, after the GN heads).
 """
 
 from __future__ import annotations
@@ -45,38 +51,47 @@ from ..data.loader import make_data_loader
 from ..evaluation import mask_rle
 from ..evaluation.coco_eval import (
     COCOEvaluator, check_expected_results, format_results)
+from ..structures.keypoints import heatmaps_to_keypoints
 from ..structures.masks import paste_mask_in_image
 from ..utils import comm
 
 
 def compute_on_dataset(model, loader, state=None):
     """Run ``model.make_eval_fn(state)`` over ``loader``: (predictions by
-    image id, model seconds, images), this rank's. The model time spans
-    each batch's call through to its detections on the host."""
+    image id, model seconds, images, host seconds), this rank's. The
+    model time spans each batch's call through to its detections on the
+    host; the host seconds are the keypoint heatmaps' copy to the host
+    ("keypoint_copy_s") and their decode ("keypoint_decode_s")."""
     eval_fn = model.make_eval_fn(state)
     predictions = {}
     model_time = 0.0
     n_images = 0
+    host = {"keypoint_copy_s": 0.0, "keypoint_decode_s": 0.0}
     for batch in loader:
         t0 = time.perf_counter()
-        det = {k: v.cpu().numpy() for k, v in eval_fn(
-            torch.from_numpy(batch["images"]),
-            torch.from_numpy(batch["image_sizes"])).items()}
+        out = eval_fn(torch.from_numpy(batch["images"]),
+                      torch.from_numpy(batch["image_sizes"]))
+        heatmaps = out.pop("kp_heatmaps", None)
+        det = {k: v.cpu().numpy() for k, v in out.items()}
         model_time += time.perf_counter() - t0
+        if heatmaps is not None:
+            t0 = time.perf_counter()
+            heatmaps = heatmaps.cpu()
+            host["keypoint_copy_s"] += time.perf_counter() - t0
 
         for i, img_id in enumerate(batch["image_ids"]):
             if img_id < 0:  # padding image in a short batch
                 continue
             n_images += 1
             valid = det["valid"][i]
-            boxes = det["boxes"][i][valid]
+            net_boxes = det["boxes"][i][valid]
             # rescale network-input coords -> original image coords
             oh, ow = batch["orig_sizes"][i]
             rh, rw = batch["image_sizes"][i]
             scale = np.array(
                 [ow / rw, oh / rh, ow / rw, oh / rh], dtype=np.float32
             )
-            boxes = boxes * scale
+            boxes = net_boxes * scale
             # xyxy -> COCO xywh with the +1 convention (BoxList.convert)
             xywh = np.stack(
                 [
@@ -89,6 +104,16 @@ def compute_on_dataset(model, loader, state=None):
             )
             pred = dict(boxes_xywh=xywh, scores=det["scores"][i][valid],
                         labels=det["labels"][i][valid])
+            if heatmaps is not None:
+                # decoded in the network's coordinates, then rescaled
+                # (reference heatmaps_to_keypoints + Keypoints.resize)
+                t0 = time.perf_counter()
+                kps = heatmaps_to_keypoints(
+                    heatmaps[i][torch.from_numpy(valid)], net_boxes)
+                kps[..., 0] *= ow / rw
+                kps[..., 1] *= oh / rh
+                pred["keypoints"] = kps
+                host["keypoint_decode_s"] += time.perf_counter() - t0
             if "masks" in det:
                 # box-frame mask probabilities pasted into the original
                 # image (reference Masker), then RLE (coco_eval.py
@@ -98,7 +123,7 @@ def compute_on_dataset(model, loader, state=None):
                     mask_rle.encode(paste_mask_in_image(m, b, oh_i, ow_i))
                     for m, b in zip(det["masks"][i][valid], boxes)]
             predictions[int(img_id)] = pred
-    return predictions, model_time, n_images
+    return predictions, model_time, n_images, host
 
 
 def inference(cfg, model, dataset, output_folder=None, logger=None,
@@ -119,7 +144,7 @@ def inference(cfg, model, dataset, output_folder=None, logger=None,
     loader = make_data_loader(cfg, dataset, is_train=False)
 
     t_start = time.perf_counter()
-    predictions, model_time, n_images = compute_on_dataset(
+    predictions, model_time, n_images, host = compute_on_dataset(
         model, loader, state)
     total = time.perf_counter() - t_start
     if n_images:
@@ -128,6 +153,11 @@ def inference(cfg, model, dataset, output_folder=None, logger=None,
             f"({total / n_images:.4f} s/img); model time "
             f"{model_time:.1f}s ({model_time / n_images:.4f} s/img)"
         )
+    if any(p.get("keypoints") is not None for p in predictions.values()):
+        logger.info(
+            f"Keypoint heatmaps on the host: copy "
+            f"{host['keypoint_copy_s']:.3f}s, decode "
+            f"{host['keypoint_decode_s']:.3f}s")
     if comm.get_world_size() > 1:
         parts = comm.all_gather_pickled(predictions)
         if not comm.is_main_process():
@@ -139,11 +169,12 @@ def inference(cfg, model, dataset, output_folder=None, logger=None,
 
 def evaluate_predictions(cfg, dataset, predictions, output_folder, logger):
     """The 12 COCO bbox metrics of ``predictions`` ({image id: xywh
-    boxes, scores, contiguous labels, and with masks ``masks_rle``}) on
-    ``dataset``, and the segm ones under "segm/..." when every
-    prediction has masks, checked against
-    TEST.EXPECTED_RESULTS; with ``output_folder``, coco_results.json and
-    bbox.json written there."""
+    boxes, scores, contiguous labels, and with masks ``masks_rle``, with
+    keypoints ``keypoints``}) on ``dataset``, the 10 keypoints ones
+    under "keypoints/..." when every prediction has keypoints and the
+    segm ones under "segm/..." when every prediction has masks, checked
+    against TEST.EXPECTED_RESULTS; with ``output_folder``,
+    coco_results.json and bbox.json written there."""
     # map contiguous labels -> json category ids
     cat_ids = sorted(dataset.contiguous_category_id_to_json_id.values())
     detections: Dict[int, dict] = {}
@@ -164,6 +195,14 @@ def evaluate_predictions(cfg, dataset, predictions, output_folder, logger):
     evaluator = COCOEvaluator(dataset._raw_annotations, cat_ids, image_ids)
     results = evaluator.evaluate(detections)
     logger.info("\n" + format_results(results))
+
+    if predictions and all("keypoints" in p for p in predictions.values()):
+        for img_id, p in predictions.items():
+            detections[img_id]["keypoints"] = p["keypoints"]
+        kp = COCOEvaluator(dataset._raw_annotations, cat_ids, image_ids,
+                           iou_type="keypoints").evaluate(detections)
+        logger.info("keypoints:\n" + format_results(kp, "keypoints"))
+        results = {**results, **{f"keypoints/{k}": v for k, v in kp.items()}}
 
     if predictions and all("masks_rle" in p for p in predictions.values()):
         for img_id, p in predictions.items():

@@ -1,8 +1,8 @@
-"""COCO-style bbox and segm evaluation in numpy (port of
-paa_tpu/evaluation/coco_eval.py, the bbox and segm flavours).
+"""COCO-style bbox, segm and keypoints evaluation in numpy (port of
+paa_tpu/evaluation/coco_eval.py).
 
-pycocotools is not a dependency, so this follows the COCOeval bbox
-protocol itself (pycocotools/cocoeval.py semantics): 10 IoU thresholds
+pycocotools is not a dependency, so this follows the COCOeval protocol
+itself (pycocotools/cocoeval.py semantics): 10 IoU thresholds
 0.50:0.05:0.95, 101 recall points, maxDets [1, 10, 100], area ranges
 all/small/medium/large, crowd GTs matched by "iof", greedy
 per-threshold matching that prefers non-ignored GTs, and the standard
@@ -18,11 +18,15 @@ reference's do_coco_evaluation does
 flavour takes each detection's mask as an RLE of the original image
 (evaluation/mask_rle.py) and rasterizes the GT polygons at the image's
 size; the mask IoUs (a crowd GT's as "iof": intersection over the
-detection's area) go to the same native matcher.
+detection's area) go to the same native matcher. The keypoints flavour
+(pycocotools' keypoint params: maxDets [20], areas all/medium/large)
+scores each detection's (K, 3) keypoints against a GT by object
+keypoint similarity (``oks_iou``), ignores GTs without labelled
+keypoints, takes a detection's area from its keypoints' extent, matches
+through the same native matcher and summarizes 10 numbers.
 
-Not ported yet (ROADMAP item 10): the keypoints flavour (OKS, with
-Keypoint R-CNN, next) and ``evaluate_box_proposals`` (the RPN-only
-model).
+Not ported yet (ROADMAP item 10): ``evaluate_box_proposals`` (the
+RPN-only model).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from ..structures.keypoints import OKS_SIGMAS
 from . import _native, mask_rle
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
@@ -48,6 +53,43 @@ METRICS = (
     "AP", "AP50", "AP75", "APs", "APm", "APl",
     "AR1", "AR10", "AR100", "ARs", "ARm", "ARl",
 )
+
+
+def oks_iou(dt_kps, gts):
+    """pycocotools computeOks: the object keypoint similarity of each
+    (detection, GT) pair, (n_dt, n_gt) float64.
+
+    dt_kps (n_dt, K, 3) (x, y, score); gts: annotation dicts with
+    'keypoints' (flat 3K list, absent: all 0), 'bbox' (xywh) and
+    'area'. A GT with visible keypoints compares those; one without
+    measures each detected point's distance to the GT box grown by its
+    size on every side."""
+    n_d, n_g = len(dt_kps), len(gts)
+    out = np.zeros((n_d, n_g))
+    if not n_d or not n_g:
+        return out
+    variances = (2 * OKS_SIGMAS) ** 2
+    k = len(OKS_SIGMAS)
+    xd = np.asarray(dt_kps, dtype=np.float64)[:, :, 0]
+    yd = np.asarray(dt_kps, dtype=np.float64)[:, :, 1]
+    for j, g in enumerate(gts):
+        gkp = np.asarray(g.get("keypoints") or [0.0] * (3 * k),
+                         dtype=np.float64).reshape(-1, 3)
+        xg, yg, vg = gkp[:, 0], gkp[:, 1], gkp[:, 2]
+        bx, by, bw, bh = g["bbox"]
+        if (vg > 0).any():
+            dx, dy = xd - xg, yd - yg
+        else:
+            dx = (np.maximum(0, bx - bw - xd)
+                  + np.maximum(0, xd - (bx + bw * 2)))
+            dy = (np.maximum(0, by - bh - yd)
+                  + np.maximum(0, yd - (by + bh * 2)))
+        e = (dx ** 2 + dy ** 2) / variances / (
+            g.get("area", bw * bh) + np.spacing(1)) / 2
+        if (vg > 0).any():
+            e = e[:, vg > 0]
+        out[:, j] = np.exp(-e).sum(axis=1) / e.shape[1]
+    return out
 
 
 def _match_img_py(ious, g_ig, g_crowd, dt_out_of_range):
@@ -83,27 +125,34 @@ def _match_img_py(ious, g_ig, g_crowd, dt_out_of_range):
 
 
 class COCOEvaluator:
-    """Evaluates bbox or segm detections against COCO-style ground truth.
+    """Evaluates bbox, segm or keypoints detections against COCO-style
+    ground truth.
 
     gt_by_image: image_id -> list of annotation dicts with keys bbox
-    (xywh), category_id (json id), iscrowd, area, optional ignore, and
-    for segm ``segmentation`` (polygons, or an uncompressed RLE).
-    iou_type "segm" compares masks: the detections carry ``masks_rle``
-    and ``image_sizes`` maps each image id to its (h, w).
+    (xywh), category_id (json id), iscrowd, area, optional ignore, for
+    segm ``segmentation`` (polygons, or an uncompressed RLE) and for
+    keypoints ``keypoints`` and ``num_keypoints``. iou_type "segm"
+    compares masks: the detections carry ``masks_rle`` and
+    ``image_sizes`` maps each image id to its (h, w); "keypoints"
+    compares the detections' ``keypoints`` (n, K, 3) by OKS.
     """
 
     def __init__(self, gt_by_image: Dict[int, list], cat_ids: List[int],
                  image_ids: List[int], iou_type: str = "bbox",
                  image_sizes: Dict[int, tuple] = None):
-        if iou_type not in ("bbox", "segm"):
-            raise NotImplementedError(
-                f"iou_type {iou_type!r}: paa_tpu_torch evaluates bbox and "
-                f"segm (keypoints come with Keypoint R-CNN, ROADMAP item "
-                f"10)")
+        if iou_type not in ("bbox", "segm", "keypoints"):
+            raise ValueError(f"iou_type {iou_type!r}: bbox, segm or "
+                             f"keypoints")
         self.iou_type = iou_type
         self.image_sizes = image_sizes or {}
-        self.max_dets = MAX_DETS
-        self.area_rngs = AREA_RNGS
+        if iou_type == "keypoints":
+            # pycocotools' keypoint params: maxDets [20], no small range
+            self.max_dets = (20,)
+            self.area_rngs = {k: AREA_RNGS[k]
+                              for k in ("all", "medium", "large")}
+        else:
+            self.max_dets = MAX_DETS
+            self.area_rngs = AREA_RNGS
         self.cat_ids = list(cat_ids)
         self.image_ids = list(image_ids)
         self._gt = {}
@@ -119,7 +168,8 @@ class COCOEvaluator:
         gts = self._gt[img_id].get(cat_id, [])
         det = detections.get(img_id)
         segm = self.iou_type == "segm"
-        dt_rles = []
+        kps = self.iou_type == "keypoints"
+        dt_rles, dt_kps = [], np.zeros((0, len(OKS_SIGMAS), 3))
         if det is None:
             dt_boxes, dt_scores = np.zeros((0, 4)), np.zeros((0,))
         else:
@@ -128,6 +178,8 @@ class COCOEvaluator:
             dt_scores = np.asarray(det["scores"])[sel]
             if segm:
                 dt_rles = [det["masks_rle"][i] for i in np.nonzero(sel)[0]]
+            if kps:
+                dt_kps = np.asarray(det["keypoints"])[sel]
         if len(gts) == 0 and len(dt_scores) == 0:
             return None
         order = np.argsort(-dt_scores, kind="mergesort")[:max_det]
@@ -135,8 +187,11 @@ class COCOEvaluator:
         g_boxes = np.asarray([g["bbox"] for g in gts]).reshape(-1, 4)
         g_crowd = np.asarray([int(g.get("iscrowd", 0)) for g in gts],
                              dtype=bool)
+        # the keypoints flavour also ignores GTs without labelled
+        # keypoints (pycocotools _prepare)
         g_ignore_base = np.asarray(
             [bool(g.get("ignore", 0)) or bool(g.get("iscrowd", 0))
+             or (kps and int(g.get("num_keypoints", 0)) == 0)
              for g in gts], dtype=bool)
         g_area = np.asarray(
             [g.get("area", g["bbox"][2] * g["bbox"][3]) for g in gts],
@@ -149,6 +204,14 @@ class COCOEvaluator:
                           for g in gts], g_crowd)
             dt_area = np.asarray([mask_rle.area(r) for r in dt_rles],
                                  dtype=np.float64)
+        elif kps:
+            dt_kps = dt_kps[order]
+            ious = oks_iou(dt_kps, gts)
+            # pycocotools loadRes: a detection's area is its keypoints'
+            # extent
+            xs, ys = dt_kps[..., 0], dt_kps[..., 1]
+            dt_area = ((xs.max(1) - xs.min(1)) * (ys.max(1) - ys.min(1))
+                       if len(dt_kps) else np.zeros((0,)))
         else:
             ious = _native.bbox_iou_xywh(dt_boxes, g_boxes, g_crowd)
             dt_area = dt_boxes[:, 2] * dt_boxes[:, 3]
@@ -159,8 +222,10 @@ class COCOEvaluator:
 
     def evaluate(self, detections: Dict[int, dict]):
         """detections: image_id -> dict(boxes_xywh (n, 4), scores (n,),
-        category_ids (n,)). Returns the 12 standard metrics, each in
-        [0, 1] or -1 where nothing is there to measure."""
+        category_ids (n,), and masks_rle or keypoints (n, K, 3) for
+        their flavours). Returns the 12 standard metrics (the keypoints
+        flavour: 10), each in [0, 1] or -1 where nothing is there to
+        measure."""
         T = len(IOU_THRS)
         R = len(REC_THRS)
         K = len(self.cat_ids)
@@ -256,6 +321,19 @@ class COCOEvaluator:
         return float(valid.mean()) if valid.size else -1.0
 
     def summarize(self):
+        if self.iou_type == "keypoints":
+            return {
+                "AP": self._summ(True),
+                "AP50": self._summ(True, iou_thr=0.5),
+                "AP75": self._summ(True, iou_thr=0.75),
+                "APm": self._summ(True, area="medium"),
+                "APl": self._summ(True, area="large"),
+                "AR": self._summ(False),
+                "AR50": self._summ(False, iou_thr=0.5),
+                "AR75": self._summ(False, iou_thr=0.75),
+                "ARm": self._summ(False, area="medium"),
+                "ARl": self._summ(False, area="large"),
+            }
         return {
             "AP": self._summ(True),
             "AP50": self._summ(True, iou_thr=0.5),

@@ -97,15 +97,22 @@ class Linear(nn.Module):
 
 
 class ConvTranspose(nn.Module):
-    """The 2x2, stride-2 transposed conv of the mask predictor in float32
-    (flax ``nn.ConvTranspose`` with no dtype computes in float32 from a
-    bfloat16 input), kaiming-uniform (a=1) with the JAX kernel's fan-in
-    (kh * kw * cin), bias zero. ``weight`` is torch's (cin, cout, kh,
-    kw); the JAX kernel is its spatial flip (utils/jax_params.py)."""
+    """A transposed conv: the mask predictors' 2x2 stride 2, the keypoint
+    predictor's 4x4 stride 2 with ``padding`` 1 (flax's explicit (2, 2):
+    kernel - 1 - padding per side). By default in float32 (flax
+    ``nn.ConvTranspose`` with no dtype computes in float32 from a
+    bfloat16 input), else in ``dtype``; kaiming-uniform (a=1) with the
+    JAX kernel's fan-in (kh * kw * cin) by default, normal(std) when
+    ``normal_std`` is given; bias zero. ``weight`` is torch's (cin, cout,
+    kh, kw); the JAX kernel is its spatial flip (utils/jax_params.py)."""
 
-    def __init__(self, in_channels, out_channels, kernel_size=2, stride=2):
+    def __init__(self, in_channels, out_channels, kernel_size=2, stride=2,
+                 padding=0, dtype=torch.float32, normal_std=None):
         super().__init__()
         self.stride = stride
+        self.padding = padding
+        self.dtype = dtype
+        self.normal_std = normal_std
         self.weight = nn.Parameter(torch.empty(
             in_channels, out_channels, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels))
@@ -113,13 +120,19 @@ class ConvTranspose(nn.Module):
     def reset_parameters(self, generator):
         with torch.no_grad():
             cin, _, kh, kw = self.weight.shape
-            bound = math.sqrt(3.0 / (cin * kh * kw))
-            self.weight.uniform_(-bound, bound, generator=generator)
+            if self.normal_std is None:
+                bound = math.sqrt(3.0 / (cin * kh * kw))
+                self.weight.uniform_(-bound, bound, generator=generator)
+            else:
+                self.weight.normal_(0.0, self.normal_std,
+                                    generator=generator)
             self.bias.zero_()
 
     def forward(self, x):
-        return F.conv_transpose2d(x.to(torch.float32), self.weight,
-                                  self.bias, stride=self.stride)
+        return F.conv_transpose2d(x.to(self.dtype),
+                                  self.weight.to(self.dtype),
+                                  self.bias.to(self.dtype),
+                                  stride=self.stride, padding=self.padding)
 
 
 class FrozenBatchNorm(nn.Module):

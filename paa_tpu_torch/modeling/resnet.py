@@ -4,8 +4,10 @@ FrozenBatchNorm: the FPN bodies R-50, R-101 and R-152, ResNeXt grouped
 the 3x3 (STRIDE_IN_1X1), a dilated res5 (RES5_DILATION) and deformable
 3x3 convs per stage (STAGE_WITH_DCN, v1 or modulated v2,
 DEFORMABLE_GROUPS; ops/dcn.py). The space-to-depth stem is a TPU
-lowering and is not ported; GroupNorm and SyncBN bodies and the C4/C5
-bodies are not ported yet. Returns C2..C5 in NCHW.
+lowering and is not ported; GroupNorm and SyncBN bodies and the C5
+bodies are not ported yet. Returns C2..C5 in NCHW, and for the C4
+bodies (R-50-C4, R-101-C4: three stages, the two-stage models' res5 is
+their box head) C4 alone.
 
 ``freeze_at`` (MODEL.BACKBONE.FREEZE_CONV_BODY_AT) freezes the stem
 (stage 0) and ``layer{i}_*`` for i < freeze_at, as the reference's
@@ -26,6 +28,8 @@ from .layers import Conv, FrozenBatchNorm, max_pool_3x3_s2
 
 # (block counts per stage, return_features per stage)
 STAGE_SPECS = {
+    "R-50-C4": ((3, 4, 6), (False, False, True)),
+    "R-101-C4": ((3, 4, 23), (False, False, True)),
     "R-50-FPN": ((3, 4, 6, 3), (True, True, True, True)),
     "R-50-FPN-RETINANET": ((3, 4, 6, 3), (True, True, True, True)),
     "R-101-FPN": ((3, 4, 23, 3), (True, True, True, True)),
@@ -151,7 +155,7 @@ def resnet_from_cfg(cfg, dtype=torch.float32):
     bad = [k for k, v in unsupported.items() if v]
     if bad or cfg.MODEL.BACKBONE.CONV_BODY not in STAGE_SPECS:
         raise NotImplementedError(
-            "paa_tpu_torch ports the FrozenBN ResNet FPN bodies "
+            "paa_tpu_torch ports the FrozenBN ResNet FPN and C4 bodies "
             f"{sorted(STAGE_SPECS)} only; unsupported: "
             f"{bad or cfg.MODEL.BACKBONE.CONV_BODY}"
         )

@@ -22,8 +22,16 @@ paa_core/modeling/roi_heads/box_head/).
   positives first, softmax cross-entropy over the sampled rois and
   smooth-L1 (beta 1) on the matched class's deltas.
 
+- ``Res5ROIBoxHead`` (the C4 models: ResNet50Conv5ROIFeatureExtractor +
+  FastRCNNPredictor): ROIAlign 14x14 at 1/16 on the single C4 map, the
+  res5 stage (3 bottlenecks to 2,048 channels, stride 2 in the first,
+  FrozenBN) in the compute dtype, the spatial mean in float32, then
+  float32 ``cls_score`` and ``bbox_pred``; with ``return_features`` also
+  the (R, 2048, 7, 7) res5 features, which the C4 Mask R-CNN's mask
+  predictor shares.
+
 Not ported yet: the GN and Xconv box heads and FPN GN (ROADMAP item 10,
-after Keypoint R-CNN and the C4 bodies) and the C4 head.
+next).
 """
 
 from __future__ import annotations
@@ -35,10 +43,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.nms import nms, nms_batched
-from ..ops.roi_align import multilevel_roi_align
+from ..ops.roi_align import multilevel_roi_align, roi_align
 from ..structures.boxes import box_iou, clip_to_image
 from .box_coder import decode_box, encode_box
 from .layers import Linear
+from .resnet import Bottleneck
 from .retinanet_head import smooth_l1
 from .rpn import balanced_sample, top_k_stable
 
@@ -75,6 +84,47 @@ class FPN2MLPBoxHead(nn.Module):
         x = F.relu(self.fc7(x))
         return (self.cls_score(x),
                 self.bbox_pred(x).reshape(r, self.num_classes, 4))
+
+
+class Res5ROIBoxHead(nn.Module):
+    """The C4 box head: pooler, res5, mean pool, cls + class-specific box
+    deltas. The bottlenecks are num_groups * width_per_group * 8 wide
+    and always end at 2,048 channels, as the JAX package builds them
+    (paa_tpu/modeling/roi_box_head.py:364), with the stride in the 1x1."""
+
+    def __init__(self, num_classes, in_channels=1024, resolution=14,
+                 scale=1.0 / 16, sampling_ratio=2, num_groups=1,
+                 width_per_group=64, dtype=torch.float32):
+        super().__init__()
+        self.num_classes = num_classes  # INCLUDING background
+        self.resolution = resolution
+        self.scale = scale
+        self.sampling_ratio = sampling_ratio
+        width = num_groups * width_per_group * 8
+        for b in range(3):
+            self.add_module(f"layer4_{b}", Bottleneck(
+                in_channels if b == 0 else 2048, width, 2048,
+                stride=2 if b == 0 else 1, num_groups=num_groups,
+                dtype=dtype))
+        self.cls_score = Linear(2048, num_classes, normal_std=0.01)
+        self.bbox_pred = Linear(2048, num_classes * 4, normal_std=0.001)
+
+    def forward(self, features, proposals, proposal_batch_idx,
+                return_features=False):
+        """features: [C4] (B, C, H, W); proposals (R, 4); their batch
+        index (R,). Returns cls_logits (R, C) and box_deltas (R, C, 4),
+        float32, and with ``return_features`` the res5 features (R, 2048,
+        res / 2, res / 2) in the compute dtype."""
+        x = roi_align(features[0], proposals, proposal_batch_idx,
+                      (self.resolution, self.resolution), self.scale,
+                      self.sampling_ratio).permute(0, 3, 1, 2)
+        for b in range(3):
+            x = getattr(self, f"layer4_{b}")(x)
+        pooled = x.to(torch.float32).mean(dim=(2, 3))
+        r = pooled.shape[0]
+        out = (self.cls_score(pooled),
+               self.bbox_pred(pooled).reshape(r, self.num_classes, 4))
+        return out + (x,) if return_features else out
 
 
 @dataclass(frozen=True)

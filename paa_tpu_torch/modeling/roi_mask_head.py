@@ -15,12 +15,20 @@ reference paa_core/modeling/roi_heads/mask_head/).
 - ``mask_loss``: binary cross-entropy on the matched class's channel
   over the positive rois (mask_head/loss.py maskrcnn_loss).
 
+- ``MaskRCNNC4Predictor`` alone (the C4 Mask R-CNN): on the box head's
+  res5 features, which the reference's C4 model shares with its mask
+  branch (roi_heads.py:19), a 2x2 stride-2 transposed conv to
+  CONV_LAYERS[-1] channels + ReLU and a 1x1 conv to C - 1 class
+  channels, both in the compute dtype, kaiming-normal fan-out:
+  (R, C - 1, 14, 14) logits.
+
 Not ported yet: the GN and dilated mask heads, the 1x1 predictor and
-the C4 predictor on the box head's shared res5 features (ROADMAP item
-10: the C4 bodies, then the GN heads).
+the C4 models' unshared mask head (ROADMAP item 10: the GN heads next).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -66,6 +74,26 @@ class MaskHead(nn.Module):
         for i in range(self.num_layers):
             x = F.relu(getattr(self, f"mask_fcn{i + 1}")(x))
         return self.mask_fcn_logits(F.relu(self.conv5_mask(x)))
+
+
+class MaskRCNNC4Predictor(nn.Module):
+    """The C4 mask predictor on shared res5 ROI features
+    (roi_mask_predictors.py:10-31, the JAX package's
+    MaskRCNNC4Predictor): NCHW (R, 2048, 7, 7) -> (R, C - 1, 14, 14)."""
+
+    def __init__(self, num_classes, in_channels=2048, dim_reduced=256,
+                 dtype=torch.float32):
+        super().__init__()
+        # Caffe2's MSRAFill: kaiming-normal, fan-out
+        self.conv5_mask = ConvTranspose(
+            in_channels, dim_reduced, dtype=dtype,
+            normal_std=math.sqrt(2.0 / (4 * dim_reduced)))
+        self.mask_fcn_logits = Conv(
+            dim_reduced, num_classes, 1, bias=True, dtype=dtype,
+            normal_std=math.sqrt(2.0 / num_classes))
+
+    def forward(self, res5):
+        return self.mask_fcn_logits(F.relu(self.conv5_mask(res5)))
 
 
 def crop_gt_masks_for_rois(gt_masks, matched_gt_boxes, rois, out_size=28):

@@ -43,13 +43,19 @@ _HEAD_STD = 0.01
 
 
 class RPNHead(nn.Module):
-    def __init__(self, num_anchors=3, in_channels=256, dtype=torch.float32):
+    """``out_channels`` is the shared conv's width (default
+    ``in_channels``): the JAX package's C4 RPN makes it 1,024 whatever
+    the body's width (paa_tpu/modeling/two_stage.py:375)."""
+
+    def __init__(self, num_anchors=3, in_channels=256, dtype=torch.float32,
+                 out_channels=None):
         super().__init__()
-        self.conv = Conv(in_channels, in_channels, 3, padding=1, bias=True,
+        width = out_channels or in_channels
+        self.conv = Conv(in_channels, width, 3, padding=1, bias=True,
                          dtype=dtype, normal_std=_HEAD_STD)
-        self.cls_logits = Conv(in_channels, num_anchors, 1, bias=True,
+        self.cls_logits = Conv(width, num_anchors, 1, bias=True,
                                dtype=dtype, normal_std=_HEAD_STD)
-        self.bbox_pred = Conv(in_channels, num_anchors * 4, 1, bias=True,
+        self.bbox_pred = Conv(width, num_anchors * 4, 1, bias=True,
                               dtype=dtype, normal_std=_HEAD_STD)
 
     def forward(self, features):

@@ -1,30 +1,48 @@
-"""Faster R-CNN and Mask R-CNN on an FPN body (port of
-paa_tpu/modeling/two_stage.py, the FPN2MLP box head and the FPN mask
-head).
+"""Faster R-CNN, Mask R-CNN and Keypoint R-CNN (port of
+paa_tpu/modeling/two_stage.py).
 
-R-50/101-FPN backbone (P2..P6, P6 by LastLevelMaxPool), the classic RPN
-over 5 levels (anchor sizes 32..512 at strides 4..64, 3 ratios),
-static-shape proposal selection, the FPN2MLP box head pooling from
-P2..P5 and, with MODEL.MASK_ON, the mask head (modeling/roi_mask_head.py).
+Two bodies:
+
+- FPN (``R-*-FPN``): the backbone's P2..P6 (P6 by LastLevelMaxPool),
+  the classic RPN over 5 levels (anchor sizes 32..512 at strides
+  4..64, 3 ratios), the FPN2MLP box head pooling from P2..P5 and, with
+  MODEL.MASK_ON, the mask head (modeling/roi_mask_head.py), with
+  MODEL.KEYPOINT_ON the keypoint head (modeling/roi_keypoint_head.py);
+- C4 (``R-50-C4``, ``R-101-C4``; ``_build_single_level_rcnn``): the
+  body's stride-16 C4 map alone, a one-level RPN with all 5 sizes x 3
+  ratios at stride 16 (its shared conv 1,024 wide, as the JAX package
+  builds it), the res5 box head (``Res5ROIBoxHead``) and, with
+  MASK_ON, the C4 mask predictor on the box head's res5 features
+  (``share_mask_extractor``).
+
 On the card a request launches K1 once (the RPN's NMS, all levels in
-one launch) and K2 once (the box head's NMS over R * (C - 1) candidates
-per image); Mask R-CNN then runs its mask head on the kept boxes and
-returns each one's 28x28 mask probabilities of its class.
+one launch) and the box head's NMS over R * (C - 1) candidates per
+image once: K2 at 81 classes, K1 where the candidates fit it (Keypoint
+R-CNN's 2 classes); Mask R-CNN then runs its mask head on the kept
+boxes and returns each one's mask probabilities of its class (28x28;
+14x14 on C4), Keypoint R-CNN its keypoint head's (K, 56, 56) heatmap
+logits.
 
 Training (``FasterRCNN.forward``, the module's forward): the RPN loss,
 proposals from the detached RPN outputs (K1 at PRE_NMS_TOP_N_TRAIN
-candidates per level and image, POST_NMS_TOP_N_TRAIN picks), the
-sampled rois and the box loss, and the mask loss over the positive
-rois. The RPN's and the roi sampler's uniforms come from ``draws``: by
-default a ``torch.Generator`` seeded from TPU.SEED, the step and the
-rank (``seeded_draws``), so that a resumed run repeats the stream, as
-the JAX package's ``fold_in(PRNGKey(TPU.SEED), step)`` does. Losses are
+candidates per level and image, POST_NMS_TOP_N_TRAIN picks; above K1's
+capacity, as C4's 12,000 candidates, K2), the sampled rois and the box
+loss, the mask loss over the positive rois and the keypoint loss (the
+head runs on every sampled roi; the loss keeps the positives'). The C4
+Mask R-CNN computes res5 once per step for the box and the mask branch
+(the JAX package runs the box head a second time for the mask: the same
+function of the same weights, so the same gradient). The RPN's and the
+roi sampler's uniforms come from ``draws``: by default a
+``torch.Generator`` seeded from TPU.SEED, the step and the rank
+(``seeded_draws``), so that a resumed run repeats the stream, as the
+JAX package's ``fold_in(PRNGKey(TPU.SEED), step)`` does. Losses are
 divided by this process's counts (no cross-rank normalizer, as in the
 JAX package); under DDP the gradients are averaged.
 
-Not ported yet (ROADMAP item 10, in this order): Keypoint R-CNN, the C4
-bodies and their mask predictor, the Xconv and GN heads and FPN GN, and
-the RPN-only model; building any of them raises.
+Not ported yet (ROADMAP item 10, in this order): the Xconv and GN heads
+and FPN GN, the RPN-only model; also FBNet (item 11), the C4 keypoint
+variant (the JAX package builds Keypoint R-CNN on FPN only) and the C4
+models' unshared mask head. Building any of them raises.
 """
 
 from __future__ import annotations
@@ -41,15 +59,19 @@ from ..solver import make_lr_schedule
 from ..utils import comm
 from .anchors import AnchorGenerator
 from .detector import DetectionModel, build_backbone
+from .resnet import resnet_from_cfg
 from .roi_box_head import (
     FPN2MLPBoxHead,
+    Res5ROIBoxHead,
     ROIBoxConfig,
     roi_box_loss,
     roi_box_postprocess_batched,
     sampling_width,
     subsample_proposals,
 )
-from .roi_mask_head import MaskHead, crop_gt_masks_for_rois, mask_loss
+from .roi_keypoint_head import KeypointHead, keypoint_loss
+from .roi_mask_head import (
+    MaskHead, MaskRCNNC4Predictor, crop_gt_masks_for_rois, mask_loss)
 from .rpn import RPNConfig, RPNHead, rpn_loss, select_proposals
 
 RPN_STRIDES = (4, 8, 16, 32, 64)
@@ -64,8 +86,11 @@ SPAN_BOX_LOSS = "two_stage/box_loss"
 SPAN_MASK_HEAD = "two_stage/mask_head"
 SPAN_MASK_TARGETS = "two_stage/mask_targets"
 SPAN_MASK_LOSS = "two_stage/mask_loss"
-# the mask head at inference
+SPAN_KEYPOINT_HEAD = "two_stage/keypoint_head"
+SPAN_KEYPOINT_LOSS = "two_stage/keypoint_loss"
+# the mask and keypoint heads at inference
 SPAN_MASK_EVAL = "mask head"
+SPAN_KEYPOINT_EVAL = "keypoint head"
 
 
 @dataclass
@@ -98,43 +123,74 @@ def seeded_draws(seed, step, device, rank=0):
     return draw
 
 
-class FasterRCNN(nn.Module):
-    """backbone + RPN head + box head (+ mask head). ``forward`` is the
-    training loss; inference goes through ``TwoStageModel.detect``."""
+class SingleLevelBackbone(nn.Module):
+    """A C4 body as a one-level feature list, [C4] (the JAX package's
+    _SingleLevelBackbone: its ``body`` scope)."""
 
-    def __init__(self, backbone, rpn_head, box_head, mask_head=None):
+    def __init__(self, body):
+        super().__init__()
+        self.body = body
+
+    def forward(self, x):
+        return self.body(x)[-1:]
+
+
+class FasterRCNN(nn.Module):
+    """backbone + RPN head + box head (+ mask head, + keypoint head).
+    ``forward`` is the training loss; inference goes through
+    ``TwoStageModel.detect``. With ``share_mask_extractor`` (the C4 Mask
+    R-CNN) the mask head is the predictor alone, on the box head's res5
+    features."""
+
+    def __init__(self, backbone, rpn_head, box_head, mask_head=None,
+                 keypoint_head=None, share_mask_extractor=False):
         super().__init__()
         self.backbone = backbone
         self.rpn_head = rpn_head
         self.box_head = box_head
         self.mask_head = mask_head
+        self.keypoint_head = keypoint_head
+        self.share_mask_extractor = share_mask_extractor
 
     def backbone_rpn(self, images):
         features = self.backbone(images)
         return features, self.rpn_head(features)
 
     def box(self, features, rois, roi_batch_idx):
-        # the pooler uses the first 4 pyramid levels (P2..P5)
+        # the FPN pooler uses the first 4 pyramid levels (P2..P5)
         return self.box_head(list(features)[:4], rois, roi_batch_idx)
 
     def mask(self, features, rois, roi_batch_idx):
+        if self.share_mask_extractor:
+            return self.mask_head(self.box_head(
+                list(features)[:4], rois, roi_batch_idx,
+                return_features=True)[2])
         return self.mask_head(list(features)[:4], rois, roi_batch_idx)
 
+    def keypoint(self, features, rois, roi_batch_idx):
+        return self.keypoint_head(list(features)[:4], rois, roi_batch_idx)
+
     def forward(self, images, batch, ctx: LossContext):
-        """The Faster / Mask R-CNN training losses of normalized NCHW
-        ``images`` (faster_rcnn_train_step_fns of the JAX package).
+        """The two-stage training losses of normalized NCHW ``images``
+        (faster_rcnn_train_step_fns of the JAX package).
 
         batch: 'gt_boxes' (B, G, 4), 'gt_labels' (B, G), 'image_sizes'
-        (B, 2), and with a mask head 'gt_masks' (B, G, M, M) (the GTs'
-        box-normalized bitmasks). Returns loss_objectness,
-        loss_rpn_box_reg, num_pos (the RPN's sampled positives),
-        loss_classifier, loss_box_reg and loss_mask; with
-        ``ctx.return_aux`` also the sampled anchors ("rpn_pos",
-        "rpn_neg") and rois ("rois", "roi_labels", "roi_valid",
-        "roi_gt_idx", with masks "mask_targets")."""
+        (B, 2), with a mask head 'gt_masks' (B, G, M, M) (the GTs'
+        box-normalized bitmasks) and with a keypoint head 'gt_keypoints'
+        (B, G, K, 3). Returns loss_objectness, loss_rpn_box_reg, num_pos
+        (the RPN's sampled positives), loss_classifier, loss_box_reg,
+        loss_mask and loss_kp; with ``ctx.return_aux`` also the sampled
+        anchors ("rpn_pos", "rpn_neg") and rois ("rois", "roi_labels",
+        "roi_valid", "roi_gt_idx", with masks "mask_targets")."""
         gt_boxes, gt_labels = batch["gt_boxes"], batch["gt_labels"]
         image_sizes = batch["image_sizes"]
         bsz = images.shape[0]
+        for key, head in (("gt_masks", self.mask_head),
+                          ("gt_keypoints", self.keypoint_head)):
+            if head is not None and key not in batch:
+                raise KeyError(
+                    f"this train step needs the batch's {key!r} (the "
+                    f"loader gives it with MODEL.MASK_ON / KEYPOINT_ON)")
         with record_function(SPAN_FORWARD):
             features, rpn_out = self.backbone_rpn(images)
         with record_function(SPAN_RPN_LOSS):
@@ -143,7 +199,7 @@ class FasterRCNN(nn.Module):
                 ctx.draws("rpn", (bsz, ctx.anchors.shape[0])),
                 image_sizes=image_sizes, return_aux=ctx.return_aux)
         with record_function(SPAN_PROPOSALS):
-            # proposals carry no gradient: K1 never sees the graph
+            # proposals carry no gradient: the NMS never sees the graph
             proposals, _, p_valid = select_proposals(
                 {k: v.detach() for k, v in rpn_out.items()}, image_sizes,
                 ctx.anchors, ctx.level_counts, ctx.rpn)
@@ -160,9 +216,15 @@ class FasterRCNN(nn.Module):
                                      ).repeat_interleave(s)
             flat_labels = roi_labels.reshape(-1)
             flat_valid = roi_valid.reshape(-1)
+            flat_gt_idx = roi_gt_idx.reshape(-1)
         with record_function(SPAN_BOX_HEAD):
-            cls_logits, box_deltas = self.box(features, flat_rois,
-                                              batch_idx)
+            if self.share_mask_extractor:
+                cls_logits, box_deltas, res5 = self.box_head(
+                    list(features), flat_rois, batch_idx,
+                    return_features=True)
+            else:
+                cls_logits, box_deltas = self.box(features, flat_rois,
+                                                  batch_idx)
         with record_function(SPAN_BOX_LOSS):
             losses.update(roi_box_loss(
                 cls_logits, box_deltas, flat_labels,
@@ -170,25 +232,31 @@ class FasterRCNN(nn.Module):
         if ctx.return_aux:
             losses.update(rois=rois, roi_labels=roi_labels,
                           roi_valid=roi_valid, roi_gt_idx=roi_gt_idx)
-        if self.mask_head is None:
-            return losses
-        if "gt_masks" not in batch:
-            raise KeyError("a Mask R-CNN train step needs the batch's "
-                           "'gt_masks' (the loader's with MODEL.MASK_ON)")
-        with record_function(SPAN_MASK_HEAD):
-            mask_logits = self.mask(features, flat_rois, batch_idx)
-        with record_function(SPAN_MASK_TARGETS):
-            roi_masks = batch["gt_masks"][batch_idx,
-                                          roi_gt_idx.reshape(-1)]
-            targets = crop_gt_masks_for_rois(
-                roi_masks.to(torch.float32), roi_gt_boxes.reshape(-1, 4),
-                flat_rois, out_size=mask_logits.shape[-1])
-        with record_function(SPAN_MASK_LOSS):
-            losses.update(mask_loss(mask_logits, flat_labels, targets,
-                                    flat_valid))
-        if ctx.return_aux:
-            losses["mask_targets"] = targets.reshape(
-                bsz, s, *targets.shape[1:])
+        if self.mask_head is not None:
+            with record_function(SPAN_MASK_HEAD):
+                mask_logits = (self.mask_head(res5)
+                               if self.share_mask_extractor else
+                               self.mask(features, flat_rois, batch_idx))
+            with record_function(SPAN_MASK_TARGETS):
+                roi_masks = batch["gt_masks"][batch_idx, flat_gt_idx]
+                targets = crop_gt_masks_for_rois(
+                    roi_masks.to(torch.float32),
+                    roi_gt_boxes.reshape(-1, 4), flat_rois,
+                    out_size=mask_logits.shape[-1])
+            with record_function(SPAN_MASK_LOSS):
+                losses.update(mask_loss(mask_logits, flat_labels, targets,
+                                        flat_valid))
+            if ctx.return_aux:
+                losses["mask_targets"] = targets.reshape(
+                    bsz, s, *targets.shape[1:])
+        if self.keypoint_head is not None:
+            with record_function(SPAN_KEYPOINT_HEAD):
+                kp_logits = self.keypoint(features, flat_rois, batch_idx)
+            with record_function(SPAN_KEYPOINT_LOSS):
+                losses.update(keypoint_loss(
+                    kp_logits, flat_rois,
+                    batch["gt_keypoints"][batch_idx, flat_gt_idx],
+                    (flat_labels > 0) & flat_valid))
         return losses
 
 
@@ -203,7 +271,11 @@ class TwoStageModel(DetectionModel):
     @property
     def train_batch_keys(self):
         keys = ("images", "gt_boxes", "gt_labels", "image_sizes")
-        return keys + (("gt_masks",) if self.cfg.MODEL.MASK_ON else ())
+        if self.cfg.MODEL.MASK_ON:
+            keys = keys + ("gt_masks",)
+        if self.cfg.MODEL.KEYPOINT_ON:
+            keys = keys + ("gt_keypoints",)
+        return keys
 
     def postprocess_config(self):
         return ROIBoxConfig.from_cfg(self.cfg)
@@ -235,9 +307,11 @@ class TwoStageModel(DetectionModel):
     def detect(self, images, image_sizes):
         """Detections of normalized NCHW ``images`` (B, 3, H, W):
         {"boxes", "scores", "labels", "valid"}, each (B,
-        ROI_HEADS.DETECTIONS_PER_IMG, ...), and for Mask R-CNN "masks"
-        (B, DETECTIONS_PER_IMG, 28, 28) float32: the sigmoid of each
-        kept box's class channel (channel 0 for an invalid slot)."""
+        ROI_HEADS.DETECTIONS_PER_IMG, ...); for Mask R-CNN "masks" (B,
+        DETECTIONS_PER_IMG, M, M) float32 (M 28, on C4 14): the sigmoid
+        of each kept box's class channel (channel 0 for an invalid
+        slot); for Keypoint R-CNN "kp_heatmaps" (B, DETECTIONS_PER_IMG,
+        K, 56, 56) float32 logits of each kept box."""
         anchors, counts = self.anchors_for(images.shape[2:])
         features, rpn_out = self.module.backbone_rpn(images)
         proposals, _, p_valid = select_proposals(
@@ -254,18 +328,23 @@ class TwoStageModel(DetectionModel):
             box_deltas.reshape(bsz, k, c, 4),
             proposals, p_valid, image_sizes, self.postprocess_config(),
         )
+        d = det["boxes"].shape[1]
+        det_rois = det["boxes"].reshape(-1, 4)
+        det_idx = torch.arange(bsz, device=proposals.device
+                               ).repeat_interleave(d)
         if self.module.mask_head is not None:
             with record_function(SPAN_MASK_EVAL):
-                d = det["boxes"].shape[1]
-                logits = self.module.mask(
-                    features, det["boxes"].reshape(-1, 4),
-                    torch.arange(bsz, device=proposals.device
-                                 ).repeat_interleave(d))
+                logits = self.module.mask(features, det_rois, det_idx)
                 channel = (det["labels"].reshape(-1) - 1).clamp(min=0)
                 sel = logits[torch.arange(bsz * d, device=channel.device),
                              channel.long()]
                 det["masks"] = torch.sigmoid(sel.to(torch.float32)).reshape(
                     bsz, d, *sel.shape[-2:])
+        if self.module.keypoint_head is not None:
+            with record_function(SPAN_KEYPOINT_EVAL):
+                heat = self.module.keypoint(features, det_rois, det_idx)
+                det["kp_heatmaps"] = heat.to(torch.float32).reshape(
+                    bsz, d, *heat.shape[1:])
         return det
 
 
@@ -294,25 +373,42 @@ def _mask_head(cfg, channels, dtype):
         sampling_ratio=max(mh.POOLER_SAMPLING_RATIO, 1), dtype=dtype)
 
 
+def _keypoint_head(cfg, channels, dtype):
+    """The FPN keypoint head of ``cfg`` (KeypointRCNNFeatureExtractor +
+    KeypointRCNNPredictor)."""
+    kh = cfg.MODEL.ROI_KEYPOINT_HEAD
+    scales = tuple(kh.POOLER_SCALES)
+    if len(scales) != 4:  # a C4-style default: the FPN levels
+        scales = FPN_POOLER_SCALES
+    return KeypointHead(
+        num_keypoints=kh.NUM_CLASSES, in_channels=channels,
+        conv_layers=tuple(kh.CONV_LAYERS), resolution=kh.POOLER_RESOLUTION,
+        scales=scales, sampling_ratio=max(kh.POOLER_SAMPLING_RATIO, 1),
+        dtype=dtype)
+
+
 def build_faster_rcnn(cfg, device, dtype=torch.float32):
-    """The FPN2MLP Faster R-CNN of ``cfg`` on ``device`` (with the mask
-    head when MODEL.MASK_ON), parameters not yet initialised
-    (``build_detection_model`` seeds them)."""
+    """The two-stage model of ``cfg`` on ``device``: the FPN2MLP Faster
+    R-CNN on an R-*-FPN body (with the mask head when MODEL.MASK_ON, the
+    keypoint head when MODEL.KEYPOINT_ON), or on an R-*-C4 body the res5
+    head model (``_build_single_level_rcnn``); parameters not yet
+    initialised (``build_detection_model`` seeds them)."""
+    body = cfg.MODEL.BACKBONE.CONV_BODY
+    if body.endswith("-C4"):
+        return _build_single_level_rcnn(cfg, device, dtype)
     bh = cfg.MODEL.ROI_BOX_HEAD
     unsupported = {
-        "KEYPOINT_ON": cfg.MODEL.KEYPOINT_ON,
-        "CONV_BODY": not cfg.MODEL.BACKBONE.CONV_BODY.endswith("-FPN"),
+        "CONV_BODY": not body.endswith("-FPN"),
         "FEATURE_EXTRACTOR": bh.FEATURE_EXTRACTOR != "FPN2MLPFeatureExtractor",
         "ROI_BOX_HEAD.USE_GN": bh.USE_GN,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"paa_tpu_torch ports the FPN2MLP Faster R-CNN and Mask R-CNN "
-            f"on an R-*-FPN body only; unsupported: {bad} "
-            f"({cfg.MODEL.BACKBONE.CONV_BODY}, {bh.FEATURE_EXTRACTOR}); "
-            f"Keypoint R-CNN, the C4 bodies and the Xconv/GN heads are "
-            f"ROADMAP item 10"
+            f"paa_tpu_torch ports the FPN2MLP Faster, Mask and Keypoint "
+            f"R-CNN on an R-*-FPN body and the R-*-C4 models; "
+            f"unsupported: {bad} ({body}, {bh.FEATURE_EXTRACTOR}); the "
+            f"Xconv/GN heads are ROADMAP item 10, FBNet item 11"
         )
     channels = cfg.MODEL.RESNETS.BACKBONE_OUT_CHANNELS
     module = FasterRCNN(
@@ -325,6 +421,8 @@ def build_faster_rcnn(cfg, device, dtype=torch.float32):
             sampling_ratio=max(bh.POOLER_SAMPLING_RATIO, 1),
         ),
         _mask_head(cfg, channels, dtype) if cfg.MODEL.MASK_ON else None,
+        (_keypoint_head(cfg, channels, dtype) if cfg.MODEL.KEYPOINT_ON
+         else None),
     )
     return TwoStageModel(
         cfg=cfg,
@@ -333,5 +431,57 @@ def build_faster_rcnn(cfg, device, dtype=torch.float32):
             cfg.MODEL.RPN.ANCHOR_SIZES, cfg.MODEL.RPN.ASPECT_RATIOS,
             RPN_STRIDES),
         strides=RPN_STRIDES,
+        device=device,
+    )
+
+
+def _build_single_level_rcnn(cfg, device, dtype):
+    """The C4 Faster / Mask R-CNN of ``cfg`` (the JAX package's
+    _build_single_level_rcnn without its FBNet branch): the R-*-C4 body,
+    one RPN level at RPN.ANCHOR_STRIDE[0] with every ANCHOR_SIZES x
+    ASPECT_RATIOS anchor (reference make_anchor_generator for a non-FPN
+    RPN), the res5 box head pooling at 1 / stride (POOLER_RESOLUTION, at
+    least 14) and, with MASK_ON and SHARE_BOX_FEATURE_EXTRACTOR, the C4
+    mask predictor on the box head's res5 features."""
+    r, bh = cfg.MODEL.RESNETS, cfg.MODEL.ROI_BOX_HEAD
+    unsupported = {
+        "KEYPOINT_ON": cfg.MODEL.KEYPOINT_ON,
+        "ROI_MASK_HEAD.SHARE_BOX_FEATURE_EXTRACTOR": (
+            cfg.MODEL.MASK_ON
+            and not cfg.MODEL.ROI_MASK_HEAD.SHARE_BOX_FEATURE_EXTRACTOR),
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"paa_tpu_torch ports the C4 Faster R-CNN and the C4 Mask "
+            f"R-CNN with the shared res5 extractor; unsupported: {bad} "
+            f"(the JAX package builds Keypoint R-CNN on FPN only)")
+    stride = cfg.MODEL.RPN.ANCHOR_STRIDE[0]
+    c4 = r.RES2_OUT_CHANNELS * 4
+    num_anchors = len(cfg.MODEL.RPN.ANCHOR_SIZES) * len(
+        cfg.MODEL.RPN.ASPECT_RATIOS)
+    mask_head = None
+    if cfg.MODEL.MASK_ON:
+        mask_head = MaskRCNNC4Predictor(
+            bh.NUM_CLASSES - 1, in_channels=2048,
+            dim_reduced=cfg.MODEL.ROI_MASK_HEAD.CONV_LAYERS[-1], dtype=dtype)
+    module = FasterRCNN(
+        SingleLevelBackbone(resnet_from_cfg(cfg, dtype=dtype)),
+        RPNHead(num_anchors=num_anchors, in_channels=c4, dtype=dtype,
+                out_channels=1024),
+        Res5ROIBoxHead(
+            bh.NUM_CLASSES, in_channels=c4,
+            resolution=max(bh.POOLER_RESOLUTION, 14), scale=1.0 / stride,
+            num_groups=r.NUM_GROUPS, width_per_group=r.WIDTH_PER_GROUP,
+            dtype=dtype),
+        mask_head, share_mask_extractor=mask_head is not None,
+    )
+    return TwoStageModel(
+        cfg=cfg,
+        module=module,
+        anchor_generator=AnchorGenerator(
+            (tuple(cfg.MODEL.RPN.ANCHOR_SIZES),),
+            cfg.MODEL.RPN.ASPECT_RATIOS, (stride,)),
+        strides=(stride,),
         device=device,
     )

@@ -9,7 +9,11 @@ tools/synth_catalog.py, with PPM images that need no cv2):
 
 ``synth_coco_<n>`` is a dataset of n images (data/synth.py), written
 once under $PAA_TPU_TORCH_SYNTH_DIR (default: a directory in the
-system's temporary directory).
+system's temporary directory). ``keypoints_synth_coco_<n>`` is the same
+images with one "person" category and 17 keypoints per box (Keypoint
+R-CNN); the reference's keypoint dataset names (``keypoints_coco_*``,
+config/paths_catalog.py) serve that dataset at 32 images, so that a
+keypoint config runs with its own DATASETS.
 """
 
 import os
@@ -26,10 +30,13 @@ class DatasetCatalog:
 
     @staticmethod
     def get(name):
-        m = re.fullmatch(r"synth_coco_(\d+)", name)
+        if re.fullmatch(r"keypoints_coco_\w+", name):
+            name = "keypoints_synth_coco_32"
+        m = re.fullmatch(r"(keypoints_)?synth_coco_(\d+)", name)
         if not m:
             raise RuntimeError(f"Dataset not available: {name}")
         ann_file, img_dir = synth_coco(
-            os.path.join(DatasetCatalog.DATA_DIR, name), int(m.group(1)))
+            os.path.join(DatasetCatalog.DATA_DIR, name), int(m.group(2)),
+            person_keypoints=bool(m.group(1)))
         return dict(factory="COCODataset",
                     args=dict(root=img_dir, ann_file=ann_file))

@@ -7,11 +7,15 @@ paa_core/utils/{c2_model_loading,model_serialization,checkpoint}.py).
   R-50-FPN one, the dcnv2 and ResNeXt PAA ones) -> the port's module,
   for the R-50/R-101/R-152 and ResNeXt bodies with or without DCN, both
   FPN wirings (P6 from P5 or C5), the PAA, ATSS and FCOS heads (DCN
-  tower included), the RPN head and the FPN2MLP box head. A RetinaNet
+  tower included), the RPN head, the FPN2MLP box head, the mask and
+  keypoint heads, and the C4 models (their body under
+  ``backbone.body``, the res5 box head ``roi_heads.box.
+  feature_extractor.head.layer4``, the C4 mask predictor). A RetinaNet
   head's towers raise (``_check_tower_layout``).
 - ``load_c2_pickle(module, path)``: a Detectron ``.pkl`` (an ImageNet
-  body, or a Caffe2Detectron detection model's FPN, RPN, box head and
-  mask head).
+  body, or a Caffe2Detectron detection model's FPN, RPN, box head, mask
+  head and keypoint head). A C4 model takes the res5 blobs into its box
+  head.
   A DCN block's sampled conv takes the plain ``branch2b`` blob; its
   offset conv has no blob and keeps its zero init, as DFConv2d's does
   (the reference renames conv2 to conv2.conv, c2_model_loading.py:
@@ -40,8 +44,9 @@ change more than the name:
   GroupNorm of block i (3i + 2 is the parameter-free ReLU);
 - ``mask_fcn_logits`` has NUM_CLASSES output channels in the reference
   and C - 1 in the port (and the JAX package), which drop channel 0:
-  the reference's loss and inference never read it. ``conv5_mask`` (a
-  ConvTranspose2d) keeps torch's layout, so it copies as it is.
+  the reference's loss and inference never read it. ``conv5_mask`` and
+  ``kps_score_lowres`` (ConvTranspose2d) keep torch's layout, so they
+  copy as they are.
 
 FrozenBatchNorm has no epsilon in either, so its four tensors copy as
 they are; a tensor the file lacks keeps the module's value (at init,
@@ -61,11 +66,18 @@ import torch
 
 # (reference key regex, port key template(s), transform); the first rule
 # whose regex matches gives the candidates, tried in order
+# (the FPN bodies live under ``backbone.resnet``, the C4 bodies under
+# ``backbone.body``; a body's res5 fills the C4 box head's when the body
+# has none)
+_BODY = (r"backbone.resnet.", r"backbone.body.")
+_RES5 = (r"box_head.",)
 _RULES = [
     (r"backbone\.body\.stem\.(conv1\.weight|bn1\.\w+)",
-     (r"backbone.resnet.stem.\1",), "copy"),
+     tuple(b + r"stem.\1" for b in _BODY), "copy"),
+    (r"backbone\.body\.layer(4)\.(\d+)\.(conv\d\.weight|bn\d\.\w+)",
+     tuple(b + r"layer\1_\2.\3" for b in _BODY + _RES5), "copy"),
     (r"backbone\.body\.layer(\d)\.(\d+)\.(conv\d\.weight|bn\d\.\w+)",
-     (r"backbone.resnet.layer\1_\2.\3",), "copy"),
+     tuple(b + r"layer\1_\2.\3" for b in _BODY), "copy"),
     # a DCN block's DFConv2d (layers/misc.py:113-185): the sampled conv
     # under ``.conv``, the offset conv under ``.offset``; the port's
     # DeformConv keeps the former's weight on conv2 itself
@@ -74,9 +86,21 @@ _RULES = [
     (r"backbone\.body\.layer(\d)\.(\d+)\.conv2\.offset\.(weight|bias)",
      (r"backbone.resnet.layer\1_\2.conv2.offset.\3",), "copy"),
     (r"backbone\.body\.layer(\d)\.(\d+)\.downsample\.0\.weight",
-     (r"backbone.resnet.layer\1_\2.downsample_conv.weight",), "copy"),
+     tuple(b + r"layer\1_\2.downsample_conv.weight"
+           for b in _BODY + _RES5), "copy"),
     (r"backbone\.body\.layer(\d)\.(\d+)\.downsample\.1\.(\w+)",
-     (r"backbone.resnet.layer\1_\2.downsample_bn.\3",), "copy"),
+     tuple(b + r"layer\1_\2.downsample_bn.\3" for b in _BODY + _RES5),
+     "copy"),
+    # the C4 box head's res5 (ResNet50Conv5ROIFeatureExtractor; the C4
+    # Mask R-CNN's mask branch shares it, under roi_heads.mask too)
+    (r"roi_heads\.(?:box|mask)\.feature_extractor\.head\.layer4\.(\d+)\."
+     r"(conv\d\.weight|bn\d\.\w+)", (r"box_head.layer4_\1.\2",), "copy"),
+    (r"roi_heads\.(?:box|mask)\.feature_extractor\.head\.layer4\.(\d+)\."
+     r"downsample\.0\.weight", (r"box_head.layer4_\1.downsample_conv.weight",),
+     "copy"),
+    (r"roi_heads\.(?:box|mask)\.feature_extractor\.head\.layer4\.(\d+)\."
+     r"downsample\.1\.(\w+)", (r"box_head.layer4_\1.downsample_bn.\2",),
+     "copy"),
     (r"backbone\.fpn\.(fpn_inner\d|fpn_layer\d)\.(weight|bias)",
      (r"backbone.fpn.\1.\2",), "copy"),
     (r"backbone\.fpn\.top_blocks\.(p6|p7)\.(weight|bias)",
@@ -101,6 +125,10 @@ _RULES = [
      (r"mask_head.conv5_mask.\1",), "copy"),
     (r"roi_heads\.mask\.predictor\.mask_fcn_logits\.(weight|bias)",
      (r"mask_head.mask_fcn_logits.\1",), "drop_background"),
+    (r"roi_heads\.keypoint\.feature_extractor\.(conv_fcn\d+)\."
+     r"(weight|bias)", (r"keypoint_head.\1.\2",), "copy"),
+    (r"roi_heads\.keypoint\.predictor\.kps_score_lowres\.(weight|bias)",
+     (r"keypoint_head.kps_score_lowres.\1",), "copy"),
 ]
 _RULES = [(re.compile(p), t, k) for p, t, k in _RULES]
 # the towers' Sequential slots; a DCN tower conv (USE_DCN_IN_TOWER) is a
@@ -241,9 +269,10 @@ def c2_blob_to_torch_names(name):
     blobs to torch suffixes that model_serialization.py:10-58 then
     matches; this maps each blob to the full names directly). Covers the
     ResNet bodies, the FPN laterals and outputs, the RPN head, the
-    FPN2MLP box head and the mask head (Detectron names its convs
-    ``_[mask]_fcnN``); optimizer momenta, ``weight_order`` and the
-    ImageNet classifier map to nothing (c2_model_loading.py:119-123)."""
+    FPN2MLP box head, the mask head (Detectron names its convs
+    ``_[mask]_fcnN``) and the keypoint head; optimizer momenta,
+    ``weight_order`` and the ImageNet classifier map to nothing
+    (c2_model_loading.py:119-123)."""
     if _C2_SKIP.search(name):
         return []
     if name == "conv1_w":
@@ -301,6 +330,14 @@ def c2_blob_to_torch_names(name):
     m = re.fullmatch(r"(mask_fcn_logits|conv5_mask)_([wb])", name)
     if m:
         return [f"roi_heads.mask.predictor.{m.group(1)}.{_leaf(m.group(2))}"]
+    m = re.fullmatch(r"conv_fcn(\d+)_([wb])", name)
+    if m:
+        return [f"roi_heads.keypoint.feature_extractor.conv_fcn"
+                f"{m.group(1)}.{_leaf(m.group(2))}"]
+    m = re.fullmatch(r"kps_score_lowres_([wb])", name)
+    if m:
+        return [f"roi_heads.keypoint.predictor.kps_score_lowres."
+                f"{_leaf(m.group(1))}"]
     return []
 
 

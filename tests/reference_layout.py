@@ -25,7 +25,17 @@ share it.
   (roi_mask_feature_extractors.py ``mask_fcn{1..4}``, 3x3 with bias;
   roi_mask_predictors.py MaskRCNNC4Predictor ``conv5_mask``, a
   ConvTranspose2d of weight (in, out, 2, 2), and ``mask_fcn_logits``
-  with NUM_CLASSES outputs, background included). FrozenBatchNorm has
+  with NUM_CLASSES outputs, background included), the keypoint head
+  (roi_keypoint_feature_extractors.py ``conv_fcn{1..8}``, 3x3 with bias;
+  roi_keypoint_predictors.py ``kps_score_lowres``, a ConvTranspose2d of
+  weight (in, K, 4, 4)) and the C4 models (the body's three stages; the
+  res5 box head ResNet50Conv5ROIFeatureExtractor under
+  ``roi_heads.box.feature_extractor.head.layer4.{0,1,2}``, to 8 x
+  RES2_OUT_CHANNELS channels, and FastRCNNPredictor's ``cls_score`` and
+  ``bbox_pred`` on its mean; the C4 Mask R-CNN's predictor alone, its
+  feature extractor the box head's, which a checkpoint lists once more
+  under ``roi_heads.mask.feature_extractor``:
+  ``with_shared_mask_extractor``). FrozenBatchNorm has
   four tensors and no
   ``num_batches_tracked``. The anchor generators' ``cell_anchors``
   buffers, which the port computes, are left out.
@@ -193,13 +203,85 @@ def mask_head_keys(channels, conv_layers, num_classes):
     return out
 
 
+def keypoint_head_keys(channels, conv_layers, num_keypoints):
+    out = OrderedDict()
+    cin = channels
+    for i, cout in enumerate(conv_layers):
+        p = f"roi_heads.keypoint.feature_extractor.conv_fcn{i + 1}"
+        out[f"{p}.weight"] = (cout, cin, 3, 3)
+        out[f"{p}.bias"] = (cout,)
+        cin = cout
+    p = "roi_heads.keypoint.predictor.kps_score_lowres"
+    out[f"{p}.weight"] = (cin, num_keypoints, 4, 4)
+    out[f"{p}.bias"] = (num_keypoints,)
+    return out
+
+
+def res5_head_keys(res2_out, width, groups, num_classes):
+    """The C4 box head: res5's three bottlenecks (the first with the
+    downsample) from the C4 map's 4 x res2_out channels to 8 x res2_out,
+    then FastRCNNPredictor's ``cls_score`` and ``bbox_pred``
+    (``num_classes`` with the background)."""
+    res5 = resnet_keys((0, 0, 0, 3), res2_out=res2_out, width=width,
+                       groups=groups)
+    out = OrderedDict()
+    for key, shape in res5.items():
+        if key.startswith("backbone.body.layer4."):
+            out[key.replace("backbone.body.layer4.",
+                            "roi_heads.box.feature_extractor.head.layer4.",
+                            1)] = shape
+    # block 0 reads the C4 map, not the (empty) stage before it
+    first = "roi_heads.box.feature_extractor.head.layer4.0"
+    mid = groups * width * 8
+    out[f"{first}.conv1.weight"] = (mid, 4 * res2_out, 1, 1)
+    out[f"{first}.downsample.0.weight"] = (8 * res2_out, 4 * res2_out, 1, 1)
+    p = "roi_heads.box.predictor"
+    out[f"{p}.cls_score.weight"] = (num_classes, 8 * res2_out)
+    out[f"{p}.cls_score.bias"] = (num_classes,)
+    out[f"{p}.bbox_pred.weight"] = (4 * num_classes, 8 * res2_out)
+    out[f"{p}.bbox_pred.bias"] = (4 * num_classes,)
+    return out
+
+
+def with_shared_mask_extractor(state):
+    """``state`` with the C4 Mask R-CNN's mask feature extractor (the box
+    head's res5, shared: roi_heads.py:19) listed again under
+    ``roi_heads.mask.feature_extractor``, as its state dict lists it."""
+    out = OrderedDict(state)
+    for key, value in state.items():
+        if key.startswith("roi_heads.box.feature_extractor.head."):
+            out[key.replace("roi_heads.box.", "roi_heads.mask.", 1)] = value
+    return out
+
+
 def layout(cfg):
     """The reference state dict's keys and shapes for the PAA, ATSS,
-    FCOS, RetinaNet, Faster R-CNN or Mask R-CNN model of ``cfg`` (either
-    package's config)."""
+    FCOS, RetinaNet, Faster R-CNN, Mask R-CNN or Keypoint R-CNN model of
+    ``cfg`` (either package's config), on an FPN or a C4 body (the C4
+    Mask R-CNN's shared extractor once: ``with_shared_mask_extractor``
+    adds its second listing)."""
     m = cfg.MODEL
     r = m.RESNETS
     body = m.BACKBONE.CONV_BODY
+    if body.endswith("-C4"):
+        out = resnet_keys(BLOCKS[body[:-len("-C4")]][:3],
+                          r.STEM_OUT_CHANNELS, r.RES2_OUT_CHANNELS,
+                          r.WIDTH_PER_GROUP, r.NUM_GROUPS)
+        out.update(rpn_head_keys(4 * r.RES2_OUT_CHANNELS,
+                                 len(m.RPN.ANCHOR_SIZES)
+                                 * len(m.RPN.ASPECT_RATIOS)))
+        out.update(res5_head_keys(r.RES2_OUT_CHANNELS, r.WIDTH_PER_GROUP,
+                                  r.NUM_GROUPS, m.ROI_BOX_HEAD.NUM_CLASSES))
+        if m.MASK_ON:
+            dim = m.ROI_MASK_HEAD.CONV_LAYERS[-1]
+            p = "roi_heads.mask.predictor"
+            out[f"{p}.conv5_mask.weight"] = (8 * r.RES2_OUT_CHANNELS, dim,
+                                             2, 2)
+            out[f"{p}.conv5_mask.bias"] = (dim,)
+            out[f"{p}.mask_fcn_logits.weight"] = (
+                m.ROI_BOX_HEAD.NUM_CLASSES, dim, 1, 1)
+            out[f"{p}.mask_fcn_logits.bias"] = (m.ROI_BOX_HEAD.NUM_CLASSES,)
+        return out
     retina = body.endswith("RETINANET")
     out = resnet_keys(BLOCKS[body.split("-FPN")[0]], r.STEM_OUT_CHANNELS,
                       r.RES2_OUT_CHANNELS, r.WIDTH_PER_GROUP, r.NUM_GROUPS,
@@ -236,6 +318,10 @@ def layout(cfg):
             out.update(mask_head_keys(channels,
                                       m.ROI_MASK_HEAD.CONV_LAYERS,
                                       bh.NUM_CLASSES))
+        if m.KEYPOINT_ON:
+            out.update(keypoint_head_keys(
+                channels, m.ROI_KEYPOINT_HEAD.CONV_LAYERS,
+                m.ROI_KEYPOINT_HEAD.NUM_CLASSES))
     return out
 
 

@@ -197,8 +197,10 @@ def test_eval_fn_matches_jax(built, case):
 
 
 def test_stage_specs_match_jax():
+    """The FPN bodies' specs and, since the C4 models, the C4 bodies'
+    (the C5 ones, the RPN-only model's, are not ported)."""
     assert STAGE_SPECS == {k: v for k, v in JAX_STAGE_SPECS.items()
-                           if "-FPN" in k}
+                           if "-FPN" in k or k.endswith("-C4")}
 
 
 PAA_CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "paa",

@@ -24,8 +24,14 @@ name table) and filled from a numpy seed, no tensor at an identity.
 - The forwards agree within test_torch_port_model.py's tolerances (FPN
   features and head outputs within 1e-4 of each tensor's largest
   magnitude), and so do the detections (labels and valid equal, boxes
-  and scores within 1e-3; Mask R-CNN's mask probabilities within 1e-3:
-  the mask head pools at those boxes, which agree to 1e-3 px).
+  and scores within 1e-3; Mask R-CNN's mask probabilities within 1e-3
+  and Keypoint R-CNN's heatmaps within 1e-3 of their largest magnitude:
+  the heads pool at those boxes, which agree to 1e-3 px). Keypoint
+  R-CNN (the keypoint convs and the 4x4 ``kps_score_lowres``, torch's
+  layout) and the C4 models (the body under ``backbone.body``, res5 as
+  ``roi_heads.box.feature_extractor.head.layer4``, the C4 mask
+  predictor; a C4 of 1,024 channels, the width at which the reference's
+  RPN conv is the JAX package's fixed 1,024) are among the layouts.
 - A Detectron pickle (Caffe2Detectron surface: body, FPN, RPN, box
   head, and mask head ``_[mask]_fcnN``, ``conv5_mask``,
   ``mask_fcn_logits``; BatchNorm folded) made with
@@ -76,7 +82,25 @@ MRCNN_CONFIG = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "configs", "e2e_mask_rcnn_R_50_FPN_1x.yaml")
 MRCNN_OVERRIDES = FRCNN_OVERRIDES + [
     "MODEL.ROI_MASK_HEAD.CONV_LAYERS", (64, 64, 64, 64)]
-TWO_STAGE = ("frcnn", "mrcnn")
+CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "configs")
+# Keypoint R-CNN: the Faster R-CNN overrides, 2 classes, two 32-channel
+# keypoint convs; the C4 models: a C4 of 1,024 channels (the width at
+# which the reference's RPN conv is the JAX package's fixed 1,024) on
+# narrow bottlenecks, a 32-channel mask predictor
+KRCNN = (os.path.join(CONFIGS, "e2e_keypoint_rcnn_R_50_FPN_1x.yaml"),
+         FRCNN_OVERRIDES + ["MODEL.ROI_BOX_HEAD.NUM_CLASSES", 2,
+                            "MODEL.ROI_KEYPOINT_HEAD.CONV_LAYERS", (32, 32)])
+C4 = FRCNN_OVERRIDES + ["MODEL.RESNETS.RES2_OUT_CHANNELS", 256,
+                        "MODEL.RESNETS.WIDTH_PER_GROUP", 8,
+                        "MODEL.RESNETS.STEM_OUT_CHANNELS", 16,
+                        "MODEL.ROI_MASK_HEAD.CONV_LAYERS", (32,)]
+FILES = {"krcnn": KRCNN,
+         "frcnn_c4": (os.path.join(CONFIGS, "e2e_faster_rcnn_R_50_C4_1x.yaml"),
+                      C4),
+         "mrcnn_c4": (os.path.join(CONFIGS, "e2e_mask_rcnn_R_50_C4_1x.yaml"),
+                      C4)}
+TWO_STAGE = ("frcnn", "mrcnn", "krcnn")
 
 HW = (64, 96)
 SLIM = ["MODEL.RESNETS.WIDTH_PER_GROUP", 8,
@@ -111,6 +135,9 @@ def _cfg(get, kind, extra=()):
     elif kind == "mrcnn":
         cfg.merge_from_file(MRCNN_CONFIG)
         cfg.merge_from_list(MRCNN_OVERRIDES + list(extra))
+    elif kind in FILES:
+        cfg.merge_from_file(FILES[kind][0])
+        cfg.merge_from_list(FILES[kind][1] + list(extra))
     elif kind == "dcnv2_x":
         cfg.merge_from_list(PAA_OVERRIDES + DCNV2_X + list(extra))
     else:
@@ -151,7 +178,7 @@ def _logger():
 
 
 @pytest.fixture(scope="module", params=["paa", "frcnn", "mrcnn",
-                                        "dcnv2_x"])
+                                        "dcnv2_x", "krcnn"])
 def loaded(request):
     """One seeded reference state dict loaded into each package."""
     kind = request.param
@@ -203,6 +230,10 @@ def test_fc6_columns_and_scale_shape(loaded):
     (the background, which the reference never reads) is dropped and
     ``conv5_mask`` copies in torch's layout."""
     state, module = loaded["state"], loaded["model"].module
+    if loaded["kind"] == "krcnn":  # the 4x4 deconv copies as it is too
+        np.testing.assert_array_equal(
+            module.keypoint_head.kps_score_lowres.weight.detach().numpy(),
+            state["roi_heads.keypoint.predictor.kps_score_lowres.weight"])
     if loaded["kind"] == "mrcnn":
         p = "roi_heads.mask.predictor"
         np.testing.assert_array_equal(
@@ -269,15 +300,18 @@ def test_forward_matches_jax(loaded):
                                        torch.from_numpy(bidx).long())
         for g, w in zip(got_box, want_box):
             _close(g.numpy(), w, 1e-4)
-        if loaded["kind"] == "mrcnn":  # the mask head on the same rois
-            want_mask = jax.jit(lambda v, f, r, b: jmodel.module.apply(
-                v, f, r, b, method=JFasterRCNN.mask))(
+        # the mask or keypoint head on the same rois
+        for kind, method in (("mrcnn", "mask"), ("krcnn", "keypoint")):
+            if loaded["kind"] != kind:
+                continue
+            want_head = jax.jit(lambda v, f, r, b: jmodel.module.apply(
+                v, f, r, b, method=getattr(JFasterRCNN, method)))(
                 variables, want_f, jnp.asarray(rois), jnp.asarray(bidx))
             with torch.no_grad():
-                got_mask = model.module.mask(
+                got_head = getattr(model.module, method)(
                     got_f, torch.from_numpy(rois),
                     torch.from_numpy(bidx).long())
-            _close(got_mask.permute(0, 2, 3, 1).numpy(), want_mask, 1e-4)
+            _close(got_head.permute(0, 2, 3, 1).numpy(), want_head, 1e-4)
     assert len(got_f) == len(want_f) == 5
     for g, w in zip(got_f, want_f):
         _close(g.permute(0, 2, 3, 1).numpy(), w, 1e-4)
@@ -309,6 +343,71 @@ def test_detections_match_jax(loaded):
         np.testing.assert_allclose(got["masks"].numpy(),
                                    np.asarray(want["masks"]), rtol=0,
                                    atol=1e-3)
+    if loaded["kind"] == "krcnn":  # heatmap logits: 1e-3 of the largest
+        want_h = np.asarray(want["kp_heatmaps"])
+        assert got["kp_heatmaps"].shape == (2, 10, 17, 56, 56)
+        np.testing.assert_allclose(
+            got["kp_heatmaps"].permute(0, 1, 3, 4, 2).numpy(), want_h,
+            rtol=0, atol=1e-3 * np.abs(want_h).max())
+
+
+def _c4_port_key(key):
+    """The port's name of a reference C4 key, written out here: the body
+    keeps ``backbone.body`` (blocks ``layer{s}_{b}``), res5 is the box
+    head's ``layer4_{b}`` (the mask branch's listing too), a downsample's
+    conv and FrozenBN are ``downsample_conv`` / ``downsample_bn``, the
+    RPN head ``rpn_head`` and the predictors the heads' own."""
+    parts = key.split(".")
+    if parts[:2] == ["backbone", "body"] and parts[2].startswith("layer"):
+        parts = ["backbone", "body", f"{parts[2]}_{parts[3]}", *parts[4:]]
+    elif parts[:3] == ["roi_heads", "box", "feature_extractor"] or \
+            parts[:3] == ["roi_heads", "mask", "feature_extractor"]:
+        parts = ["box_head", f"layer4_{parts[5]}", *parts[6:]]
+    elif parts[:2] == ["rpn", "head"]:
+        parts = ["rpn_head", *parts[2:]]
+    elif parts[:3] == ["roi_heads", "box", "predictor"]:
+        parts = ["box_head", *parts[3:]]
+    elif parts[:3] == ["roi_heads", "mask", "predictor"]:
+        parts = ["mask_head", *parts[3:]]
+    out = ".".join(parts)
+    return out.replace("downsample.0.", "downsample_conv.").replace(
+        "downsample.1.", "downsample_bn.")
+
+
+@pytest.mark.parametrize("kind", ["frcnn_c4", "mrcnn_c4"])
+def test_c4_reference_checkpoint_import(kind):
+    """A seeded reference C4 state dict (the C4 Mask R-CNN's shared res5
+    listed under both branches, as its state dict lists it) fills every
+    port tensor and skips nothing; each equals the file's tensor of its
+    name (the mask logits without channel 0). The JAX package's importer
+    reaches only the heads: it writes its FPN body's scope
+    (``backbone/resnet``), not the C4 one (``backbone/body``), so every
+    body key, and the mask branch's listing of res5, stay unmatched there
+    (ROADMAP section 3); the port's detect on the imported weights gives
+    finite detections."""
+    jcfg, cfg = _cfg(jax_get_cfg, kind), _cfg(get_cfg, kind)
+    state = rl.with_shared_mask_extractor(
+        rl.seeded_state_dict(rl.layout(cfg), seed=5))
+    assert len(state) > 240
+    model = build_detection_model(cfg, device="cpu", seed=1)
+    skipped, unwritten = ti.load_torch_state_dict(model.module, state)
+    assert skipped == [] and unwritten == []
+    got = model.module.state_dict()
+    for key, value in state.items():
+        want = value[1:] if "mask_fcn_logits" in key else value
+        np.testing.assert_array_equal(got[_c4_port_key(key)].numpy(), want,
+                                      err_msg=key)
+    jlogger, jlines = _logger()
+    jti.load_torch_state_dict(_jax_tree(jax_build(jcfg)), state, jlogger)
+    unmatched = [k for k in state if k.startswith("backbone.body.")
+                 or k.startswith("roi_heads.mask.feature_extractor.")]
+    assert f"matched {len(state) - len(unmatched)} tensors, skipped " \
+           f"{len(unmatched)}" in jlines[0]
+    images = np.random.RandomState(1).randint(0, 256, (2, *HW, 3)).astype(
+        np.uint8)
+    det = model.make_eval_fn()(torch.from_numpy(images), torch.from_numpy(
+        np.asarray([[64.0, 96.0], [60.0, 90.0]], np.float32)))
+    assert bool(torch.isfinite(det["boxes"]).all())
 
 
 # ---- Detectron pickles ----------------------------------------------------
@@ -534,8 +633,12 @@ def test_load_pretrained_into_raises(tmp_path, monkeypatch):
     ("rpn.head.bbox_tower.9.bias", [("head.bbox_tower.conv3.bias", "copy")]),
     ("rpn.head.cls_tower.4.weight", [("head.cls_tower.gn1.weight", "copy")]),
     ("rpn.anchor_generator.cell_anchors.0", []),
+    # an FPN body's res5 first, then a C4 body's (which has none) and a
+    # C4 box head's
     ("module.backbone.body.layer4.2.downsample.1.running_var",
-     [("backbone.resnet.layer4_2.downsample_bn.running_var", "copy")]),
+     [("backbone.resnet.layer4_2.downsample_bn.running_var", "copy"),
+      ("backbone.body.layer4_2.downsample_bn.running_var", "copy"),
+      ("box_head.layer4_2.downsample_bn.running_var", "copy")]),
     ("rpn.head.cls_tower.9.conv.bias", [("head.cls_tower.conv3.bias",
                                          "copy")]),
     ("rpn.head.bbox_tower.9.offset.weight",

@@ -236,7 +236,7 @@ def test_train_net_x152_dcnv2_from_the_x101_catalog_pickle(tmp_path,
     model = torch.load(out / "model_final", weights_only=True)["model"]
     frozen = 0
     for key, value in rl.fold_frozen_bn(body).items():
-        (port_key, _), = torch_name_to_port_keys(key)
+        port_key = torch_name_to_port_keys(key)[0][0]  # the FPN body's
         if port_key.startswith(("backbone.resnet.stem.",
                                 "backbone.resnet.layer1_")):
             np.testing.assert_array_equal(model[port_key].numpy(), value,

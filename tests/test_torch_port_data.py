@@ -219,10 +219,16 @@ def test_coco_records_match_jax(synth, remove):
 
 
 def test_coco_masks_wait_for_the_mask_head(synth):
-    """Polygons load since Mask R-CNN (tests/test_torch_port_mask.py);
-    keypoints still wait for Keypoint R-CNN."""
-    with pytest.raises(NotImplementedError, match="item 10"):
-        coco.COCODataset(*synth, with_keypoints=True)
+    """Polygons load since Mask R-CNN (tests/test_torch_port_mask.py),
+    keypoints since Keypoint R-CNN (tests/test_torch_port_keypoint.py): a
+    dataset without them gives each kept instance 17 zero keypoints, as
+    the JAX package's does."""
+    got = coco.COCODataset(*synth, with_keypoints=True)
+    want = jcoco.COCODataset(*synth, with_keypoints=True)
+    for g, w in zip(got.records, want.records):
+        assert g.keypoints.shape == (len(g.labels), 17, 3)
+        np.testing.assert_array_equal(g.keypoints, w.keypoints)
+        assert not g.keypoints.any()
 
 
 def test_list_dataset_matches_jax(synth):

@@ -4,8 +4,10 @@ reference checkpoint layouts they share with the tests,
 tests/nms_cases.py and tests/reference_layout.py, nor the distributed
 tests' worker) names jax, flax or paa_tpu in an import. Nor does any
 import cv2 or PIL at module level (the machine with the card has
-neither): the eval path, and Mask R-CNN's train step and eval to the
-segm table, run on a PPM dataset with both blocked."""
+neither): the eval path, Mask R-CNN's train step and eval to the segm
+table, and Keypoint R-CNN's train step and eval to the keypoints table
+(the heatmaps decoded without cv2), run on a PPM dataset with both
+blocked."""
 
 import ast
 import os
@@ -71,7 +73,10 @@ def test_no_jax_or_paa_tpu_imports():
                    "utils/torch_import.py", "utils/comm.py", "utils/misc.py",
                    "tools/train_net.py", "tools/reproduce_ap.py",
                    "modeling/two_stage.py", "modeling/roi_mask_head.py",
-                   "structures/masks.py", "evaluation/mask_rle.py"):
+                   "structures/masks.py", "evaluation/mask_rle.py",
+                   "modeling/roi_keypoint_head.py",
+                   "structures/keypoints.py", "modeling/roi_box_head.py",
+                   "data/synth.py", "tools/synth_catalog.py"):
         assert module in rel, module
     bad = [
         (os.path.relpath(p, ROOT), m)
@@ -217,6 +222,68 @@ def test_mask_path_runs_with_cv2_and_pil_blocked(tmp_path):
         "assert torch.isfinite(m['loss_mask']) and float(m['loss_mask']) > 0\n"
         "r = inference(cfg, model, COCODataset(ann, imgs, False))\n"
         "assert len(r) == 24 and 'segm/AP' in r, r\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"},
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_keypoint_path_runs_with_cv2_and_pil_blocked(tmp_path):
+    """Keypoint R-CNN on the card machine's terms: with cv2, PIL and JAX
+    blocked, a slim Keypoint R-CNN takes a train step from the loader's
+    batch (its 'gt_keypoints') and evaluates a synthetic person-keypoint
+    PPM COCO to the bbox and keypoints tables (the heatmaps resized
+    without cv2)."""
+    code = (
+        "import sys\n"
+        "for m in ('cv2', 'PIL', 'jax', 'flax', 'paa_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from paa_tpu_torch.config import get_cfg\n"
+        "from paa_tpu_torch.data.coco import COCODataset\n"
+        "from paa_tpu_torch.data.loader import make_data_loader\n"
+        "from paa_tpu_torch.data.synth import synth_coco\n"
+        "from paa_tpu_torch.engine import TrainState\n"
+        "from paa_tpu_torch.engine.inference import inference\n"
+        "from paa_tpu_torch.modeling import build_detection_model\n"
+        "from paa_tpu_torch.solver import make_optimizer\n"
+        "cfg = get_cfg()\n"
+        "cfg.merge_from_file('configs/e2e_keypoint_rcnn_R_50_FPN_1x.yaml')\n"
+        "cfg.merge_from_list([\n"
+        "    'MODEL.RESNETS.BACKBONE_OUT_CHANNELS', 32,\n"
+        "    'MODEL.RESNETS.WIDTH_PER_GROUP', 8,\n"
+        "    'MODEL.RESNETS.STEM_OUT_CHANNELS', 8,\n"
+        "    'MODEL.RESNETS.RES2_OUT_CHANNELS', 32,\n"
+        "    'MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM', 32,\n"
+        "    'MODEL.ROI_KEYPOINT_HEAD.CONV_LAYERS', (16, 16),\n"
+        "    'MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE', 32,\n"
+        "    'MODEL.ROI_HEADS.DETECTIONS_PER_IMG', 20,\n"
+        "    'TPU.COMPUTE_DTYPE', 'float32', 'INPUT.MIN_SIZE_TEST', 64,\n"
+        "    'INPUT.MAX_SIZE_TEST', 96, 'TPU.TEST_BUCKETS', ((96, 96),),\n"
+        "    'INPUT.MIN_SIZE_TRAIN', (64,), 'INPUT.MAX_SIZE_TRAIN', 96,\n"
+        "    'TPU.TRAIN_BUCKETS', ((96, 96),), 'SOLVER.IMS_PER_BATCH', 2,\n"
+        "    'SOLVER.MAX_ITER', 1, 'TPU.MAX_GT', 16,\n"
+        "    'TEST.IMS_PER_BATCH', 2, 'SOLVER.BASE_LR', 0.001])\n"
+        "cfg.freeze()\n"
+        "model = build_detection_model(cfg, device='cpu')\n"
+        f"root = {str(tmp_path)!r}\n"
+        "ann, imgs = synth_coco(root, 3, sizes=((96, 64), (64, 96)),\n"
+        "                       person_keypoints=True)\n"
+        "batch = next(iter(make_data_loader(\n"
+        "    cfg, COCODataset(ann, imgs, True, with_keypoints=True))))\n"
+        "assert batch['gt_keypoints'][..., 2].any()\n"
+        "state = TrainState(model.module,\n"
+        "                   make_optimizer(cfg, model.module)[0])\n"
+        "step = model.make_bucket_train_step(batch['images'].shape[1:3])\n"
+        "m = step(state, {k: batch[k] for k in model.train_batch_keys})\n"
+        "assert torch.isfinite(m['loss_kp']) and float(m['loss_kp']) > 0\n"
+        "r = inference(cfg, model, COCODataset(ann, imgs, False))\n"
+        "assert len(r) == 22 and 'keypoints/AP' in r, r\n"
         "print('ok')\n"
     )
     out = subprocess.run(
