@@ -25,8 +25,9 @@ and prints no result line):
    both sides of every boundary between CTA ranges, every valid
    candidate in one CTA's range, fewer valid candidates than max_out,
    and an all-invalid image. All three outputs bit-equal.
-4. K3, the GroupNorm+ReLU kernel, against its plain version at the five
-   tower shapes of an 8 x 800 x 1344 batch, at shapes whose launch takes
+4. K3, the GroupNorm+ReLU kernel, in both its forms (the ReLU fused,
+   and relu=False: GroupNorm alone), against its plain version at the
+   five tower shapes of an 8 x 800 x 1344 batch, at shapes whose launch takes
    each cluster size from 1 to 4, 8 and 16 and the streaming
    instantiation, and with groups that start off 16-byte boundaries:
    float32 (TF32 off) within 1e-5, bfloat16 within one bf16 ulp (plus
@@ -185,9 +186,10 @@ and prints no result line):
     the 12 metrics within 1e-3.
 29. Phase 18 on the X-152 dcnv2 config, from a seeded Detectron
     X-101-32x8d pickle through its catalog:// MODEL.WEIGHT.
-30. K3 against its plain version, as phase 4, at every input shape at
-    which the paths of phases 5-37 launched it (the TTA buckets up to
-    1824 x 3008 and the training ladder's among them).
+30. K3 against its plain version, as phase 4, at every input shape and
+    form at which the paths of phases 5-51 launched it (the TTA buckets
+    up to 1824 x 3008, the training ladder's, the GN body's stem at
+    400 x 672 and the fc GN's (R, 1024, 1, 1) among them).
 
 31. (Run after phase 14's profile, before phase 20.) The dense detectors
     beside PAA at full width (256 FPN channels, 80 classes), bfloat16,
@@ -300,6 +302,46 @@ and prints no result line):
     keypoints (OKS) tables, K1 twice per batch, the seconds of the
     heatmaps' copy to the host and of their decode. Then K1 and K2
     against their plain versions at every input phases 39-44 gave them.
+
+45. (Run after phase 44.) GN Mask R-CNN serving:
+    configs/gn_baselines/e2e_mask_rcnn_R_50_FPN_Xconv1fc_1x_gn.yaml at
+    full width (the GN R-50 body: K3 in each of its 53 norms, with the
+    ReLU fused where one follows and alone (relu=False) before the
+    residual add; GN FPN without ReLU; the Xconv1fc head's four 3x3 convs
+    with GN; the GN mask head), bf16, weights from seed 0 and the
+    foreground and mask biases of phase 34, three 8 x 800 x 1344
+    requests: K1 3, K2 3 and K3 69 launches a request (28 relu=False),
+    masks; K1 and K2 against their plain versions at the first request's
+    inputs; img/s; a profile with the body, box head and mask head in
+    spans; K3 at one request's own shapes and forms, and at the body's
+    alone, against its bound, plain version and F.group_norm (+ F.relu);
+    the f32 model on the card against the CPU, its masks compared.
+46. Its training at IMS_PER_BATCH 16, FREEZE_CONV_BODY_AT 2, seeded GN
+    (no FrozenBN to calibrate): K1 once and K3 69 times per step, losses
+    over 10 steps that fall, peak memory, ms per step, and a profile with
+    the GN gradient's recompute (``group_norm_relu/backward``) in its span.
+47. One f32 GN Mask R-CNN train step on the card and on the CPU against
+    float64 (phase 36's checks and pins, 128 rois per image), and the
+    planted x1.05 beyond the limits.
+48. scratch_e2e_faster_rcnn_R_50_FPN_3x_gn training at B=16 with the
+    whole GN body trainable (FREEZE_CONV_BODY_AT 0) and FPN2MLP's fc GN
+    over (R, 1024, 1, 1): K3 63 times a step, losses, peak memory, ms,
+    the GN recompute span.
+49. ``paa_tpu_torch.tools.test_net`` on the GN Mask R-CNN over
+    synth_coco_32 with cv2 blocked: exit 0, the bbox and segm tables,
+    K1, K2 and 69 K3 launches per batch.
+50. rpn_R_50_FPN_1x (calibrated FrozenBN): three 8 x 800 x 1344 requests
+    (K1 once a request at the five levels' 40 rows of 1,000 with 1,000
+    picks; 2,000 proposals an image), K1 bit-equal there and timed,
+    img/s, a profile; 10 training steps at B=16 (the RPN loss alone, no
+    NMS); ``test_net`` to the box_proposal table (AR at 100 and 1,000,
+    all areas) from a checkpoint of the seeded weights; the f32
+    proposals on the card against the CPU (validity and pick order
+    equal, boxes within RPN_BOX_TOL px).
+51. rpn_R_50_C4_1x: serving at B=8, its RPN's 8 rows of 12,000
+    (PRE_NMS_TOP_N_TEST, above K1's 8,192) on K2 with 2,000 picks, K2
+    bit-equal there and timed against its bound and plain version;
+    training at the default IMS_PER_BATCH 16; the box_proposal table.
 
 Phase 13 also runs the step a third time on the CPU with the network in
 float64 (every convolution, FrozenBN and GroupNorm), the referee of the
@@ -651,19 +693,20 @@ GN_EXTRA_SHAPES = [
 ]
 
 
-def k3_vs_plain(x, s, b, what):
+def k3_vs_plain(x, s, b, what, relu=True):
     """K3 against group_norm_relu_plain on x (float32, on the card) and
-    on x in bfloat16, with the same scale and bias: float32 within 1e-5,
-    bfloat16 within one bfloat16 ulp of the larger side (+1e-6). Returns
-    the largest errors."""
+    on x in bfloat16, with the same scale and bias, in the form ``relu``:
+    float32 within 1e-5, bfloat16 within one bfloat16 ulp of the larger
+    side (+1e-6). Returns the largest errors."""
     from paa_tpu_torch.ops import group_norm as gn
 
-    got = gn.group_norm_relu(x, s, b)
-    err32 = float((got - gn.group_norm_relu_plain(x, s, b)).abs().max())
+    got = gn.group_norm_relu(x, s, b, relu=relu)
+    err32 = float((got - gn.group_norm_relu_plain(
+        x, s, b, relu=relu)).abs().max())
     check(err32 <= 1e-5, f"group_norm_relu f32 {what}: err {err32}")
     xb = x.to(torch.bfloat16)
-    got = gn.group_norm_relu(xb, s, b).float()
-    want = gn.group_norm_relu_plain(xb, s, b).float()
+    got = gn.group_norm_relu(xb, s, b, relu=relu).float()
+    want = gn.group_norm_relu_plain(xb, s, b, relu=relu).float()
     err = (got - want).abs()
     ulp = _bf16_ulp(torch.maximum(got.abs(), want.abs()))
     check(bool((err <= ulp + 1e-6).all()),
@@ -687,6 +730,7 @@ def phase_group_norm(dev):
         s = (torch.rand(c, generator=gen) + 0.5).to(dev)
         b = (torch.randn(c, generator=gen) * 0.2).to(dev)
         worst[what] = k3_vs_plain(x, s, b, what)
+        worst[f"{what} no_relu"] = k3_vs_plain(x, s, b, what, relu=False)
         for size in (4, 2):
             p = gn.gn_plan(bsz, c, h * w, 32, size)
             plans.add((p.cs, p.resident))
@@ -701,51 +745,42 @@ def phase_group_norm(dev):
     return max(worst[f"{BATCH}x256x{h}x{w}"]["bf16"] for h, w in TOWER_HW)
 
 
-@contextlib.contextmanager
-def recording_k3_shapes():
-    """Records the input shape of every K3 launch made while it is open
-    (the launcher behind ``group_norm_relu``, wrapped): the set it
-    yields fills as the paths run."""
-    from paa_tpu_torch.ops import group_norm as gn
-
-    seen, launch = set(), gn._group_norm_relu_cuda
-
-    def recorded(x, *args):
-        seen.add(tuple(x.shape))
-        return launch(x, *args)
-
-    gn._group_norm_relu_cuda = recorded
-    try:
-        yield seen
-    finally:
-        gn._group_norm_relu_cuda = launch
-
-
 def phase_k3_at_path_shapes(dev, shapes):
     """K3 against its plain version as phase_group_norm holds it (float32
-    and bfloat16) at every input shape at which this process's paths
-    launched it (``recording_k3_shapes``), inputs from a seed on the
-    card: the serving, eval and training forwards, each bucket of the
-    X-152 TTA list at B=4 up to 1824 x 3008 (P3 228 x 376) and the
-    training ladder's (1344, 800) among them."""
-    check((TTA_IMAGES, 256, 228, 376) in shapes
-          and any(shape[2:] == (168, 100) for shape in shapes),
+    and bfloat16) at every input shape and form (``relu``) at which this
+    process's paths launched it (``recording_k3_launches``), inputs from a
+    seed on the card: the serving, eval and training forwards, each
+    bucket of the X-152 TTA list at B=4 up to 1824 x 3008 (P3 228 x 376)
+    and the training ladder's (1344, 800) among them; of the GN paths
+    (phases 45-49) the body's stem at 400 x 672 (2 channels a group,
+    streamed from device memory), its relu=False norms, the Xconv
+    head's 7 x 7 and the fc GN's 1 x 1 over the rois."""
+    sizes = {shape for shape, _ in shapes}
+    check((TTA_IMAGES, 256, 228, 376) in sizes
+          and any(shape[2:] == (168, 100) for shape in sizes),
           f"k3_at_path_shapes: the TTA's largest bucket or the (1344, "
-          f"800) train bucket was not recorded: {sorted(shapes)[-5:]}")
+          f"800) train bucket was not recorded: {sorted(sizes)[-5:]}")
+    check((TRAIN_BATCH, 64, 400, 672) in sizes
+          and any(shape[1:] == (256, 7, 7) for shape in sizes)
+          and any(shape[1:] == (1024, 1, 1) for shape in sizes)
+          and any(not relu for _, relu in shapes),
+          f"k3_at_path_shapes: the GN paths' stem, Xconv, fc GN or "
+          f"relu=False launches were not recorded")
     gen = torch.Generator(dev).manual_seed(17)
     worst = {"f32": 0.0, "bf16": 0.0}
-    for shape in sorted(shapes):
+    for shape, relu in sorted(shapes):
         c = shape[1]
         x = torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.4
         s = torch.rand(c, generator=gen, device=dev) + 0.5
         b = torch.randn(c, generator=gen, device=dev) * 0.2
-        err = k3_vs_plain(x, s, b, "x".join(map(str, shape)))
+        err = k3_vs_plain(x, s, b, "x".join(map(str, shape)), relu)
         worst = {k: max(v, err[k]) for k, v in worst.items()}
         del x
-    largest = max(shapes, key=math.prod)
+    largest = max(sizes, key=math.prod)
     print(json.dumps({"phase": "k3_at_path_shapes", "ok": True,
-                      "shapes": len(shapes), "largest": largest,
-                      "max_abs_err": worst}))
+                      "shapes": len(sizes), "shape_forms": len(shapes),
+                      "no_relu_shapes": sum(not r for _, r in shapes),
+                      "largest": largest, "max_abs_err": worst}))
     torch.cuda.empty_cache()
 
 
@@ -846,6 +881,15 @@ def zero_launch_counts():
     nms.nms_batched.launches = 0
     nms._nms_global.launches = 0
     group_norm.group_norm_relu.launches = 0
+    group_norm.group_norm_relu.launches_by_form.update(relu=0, no_relu=0)
+
+
+def k3_forms():
+    """K3's launches by form since the counts were last set to 0:
+    {"relu": GroupNorm + ReLU, "no_relu": GroupNorm alone}."""
+    from paa_tpu_torch.ops import group_norm
+
+    return dict(group_norm.group_norm_relu.launches_by_form)
 
 
 def check_detections(dets, what, min_score):
@@ -880,11 +924,13 @@ def check_detections(dets, what, min_score):
     return n_valid
 
 
-def serve(model, what, seed, expected, min_score, extra_check=None):
+def serve(model, what, seed, expected, min_score, extra_check=None,
+          detections=True):
     """Three requests through make_eval_fn with the launch counts set to
-    0 just before and read just after; ``extra_check(dets)``, if given,
-    checks the three requests' outputs further and returns fields to
-    print."""
+    0 just before and read just after; ``check_detections`` unless
+    ``detections`` is False (the RPN-only model's proposals);
+    ``extra_check(dets)``, if given, checks the three requests' outputs
+    further and returns fields to print."""
     eval_fn = model.make_eval_fn()
     reqs = [request(seed + i, BATCH, HW, SIZE) for i in range(3)]
     zero_launch_counts()
@@ -899,7 +945,8 @@ def serve(model, what, seed, expected, min_score, extra_check=None):
     launches = launch_counts()
     check(launches == expected,
           f"{what}: launches {launches}, expected {expected}")
-    n_valid = check_detections(dets, what, min_score)
+    n_valid = (check_detections(dets, what, min_score) if detections
+               else [int(d["valid"].sum()) for d in dets])
     extra = extra_check(dets) if extra_check else {}
     print(json.dumps({"phase": what, "ok": True, "requests": 3,
                       "batch": BATCH, "hw": HW, "launches": launches,
@@ -1831,7 +1878,8 @@ def update_errors(got, want, before):
             sorted(share.items(), key=worst_first)[:4])
 
 
-def _gn_plain_stats_detached(x, weight, bias, num_groups=32, eps=1e-5):
+def _gn_plain_stats_detached(x, weight, bias, num_groups=32, eps=1e-5,
+                             relu=True):
     """group_norm_relu_plain with its group statistics taken as constants:
     a wrong gradient of x (the mean and variance terms are missing)."""
     b, c, h, w = x.shape
@@ -1840,7 +1888,7 @@ def _gn_plain_stats_detached(x, weight, bias, num_groups=32, eps=1e-5):
     var = (xf - mean).square().mean(dim=2, keepdim=True).detach()
     xn = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, c, h, w)
     out = xn * weight[:, None, None] + bias[:, None, None]
-    return torch.relu(out).to(x.dtype)
+    return (torch.relu(out) if relu else out).to(x.dtype)
 
 
 # about 3x the worst of the card's step against the CPU's, and of either
@@ -2016,8 +2064,8 @@ def float64_referee(dev, cfg, batch, before, p_gpu, p_cpu, pos_cpu):
     finally:
         torch.backends.cudnn.enabled = True
     kernel = layers.group_norm_relu
-    layers.group_norm_relu = lambda x, w, b, g, eps: gn.GroupNormReLU.apply(
-        x, w, b, g, eps, gn.group_norm_relu_plain)
+    layers.group_norm_relu = lambda x, w, b, g, eps, relu=True: \
+        gn.GroupNormReLU.apply(x, w, b, g, eps, gn.group_norm_relu_plain, relu)
     try:
         _, _, _, p_plain_gn = train_once(
             build_detection_model(cfg, device=dev, seed=0), batch)
@@ -2203,8 +2251,10 @@ BOX_SPAN = "box_head"  # record_function span around FasterRCNN.box
 BOX_LABEL = "box head (ROIAlign + f32 MLP; C4: ROIAlign 14x14 + res5)"
 # record_function spans around the DCN steps and grouped convs (set up
 # by _profiled), and the class their kernels count in
+BODY_SPAN = "body"  # span around the backbone, where a phase asks for it
 SPAN_LABELS = {
     BOX_SPAN: BOX_LABEL,
+    BODY_SPAN: "body (ResNet + FPN; GN: K3 in every norm)",
     # modeling/two_stage.py's span around Mask R-CNN's mask head
     "mask head": "mask head (ROIAlign 14x14, 4 convs, deconv, 1x1; C4: "
                  "res5, deconv, 1x1)",
@@ -2260,11 +2310,12 @@ def _grouped_span(forward):
     return traced
 
 
-def _profiled(model, eval_fn, images, sizes, reqs):
+def _profiled(model, eval_fn, images, sizes, reqs, body=False):
     """``reqs`` requests under torch.profiler, with the two-stage box
     head (``module.box``, when the model has one), the DCN steps of
-    ops/dcn.py and the grouped convs inside the spans of SPAN_LABELS.
-    Returns the profile and the window's wall time in microseconds."""
+    ops/dcn.py, the grouped convs and with ``body`` the backbone inside
+    the spans of SPAN_LABELS. Returns the profile and the window's wall
+    time in microseconds."""
     from torch.profiler import ProfilerActivity, profile
 
     from paa_tpu_torch.modeling.layers import Conv
@@ -2274,6 +2325,8 @@ def _profiled(model, eval_fn, images, sizes, reqs):
     box = getattr(module, "box", None)
     if box is not None:
         module.box = _span(box, BOX_SPAN)
+    if body:
+        module.backbone.forward = _span(module.backbone.forward, BODY_SPAN)
     steps = {"_geometry": "dcn_geometry", "_patch_table": "dcn_sampling",
              "_sample_columns": "dcn_sampling",
              "_contract": "dcn_contraction"}
@@ -2293,23 +2346,26 @@ def _profiled(model, eval_fn, images, sizes, reqs):
     finally:
         if box is not None:
             del module.box
+        if body:
+            del module.backbone.forward
         for attr, fn in plain.items():
             setattr(dcn, attr, fn)
         Conv.forward = conv_forward
     return prof, wall_us
 
 
-def phase_profile(model, eval_fn, seed, what, name):
+def phase_profile(model, eval_fn, seed, what, name, body=False):
     """Device time by kernel class over three requests (torch.profiler)
     and the device's idle share of that window (host clock). A kernel
     launched inside a span of SPAN_LABELS (the box head, the DCN steps,
-    the grouped convs; the innermost, matched through the trace's launch
-    correlation) counts in the span's class, whatever its name."""
+    the grouped convs, with ``body`` the backbone; the innermost,
+    matched through the trace's launch correlation) counts in the span's
+    class, whatever its name."""
     images, sizes = request(seed, BATCH, HW, SIZE)
     eval_fn(images, sizes)
     torch.cuda.synchronize()
     reqs = 3
-    prof, wall_us = _profiled(model, eval_fn, images, sizes, reqs)
+    prof, wall_us = _profiled(model, eval_fn, images, sizes, reqs, body)
     events = trace_events(prof)
     spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
              if e.get("cat") == "user_annotation"
@@ -2359,6 +2415,13 @@ def phase_profile(model, eval_fn, seed, what, name):
             "gemm_ms": sum(v for k, v in box_by_name.items()
                            if "gemm" in k.lower()),
         }
+    if BODY_SPAN in by_span:  # the body's kernels by their own class
+        body_by_class = {}
+        for k, v in by_span[BODY_SPAN].items():
+            cls = kernel_class(k)
+            body_by_class[cls] = body_by_class.get(cls, 0.0) + v
+        out["body_ms_by_class"] = dict(sorted(
+            body_by_class.items(), key=lambda kv: -kv[1]))
     dcn_spans = sorted(s for s in by_span if s.startswith("dcn_"))
     if dcn_spans:
         dcn_ms = sum(by_class[SPAN_LABELS[s]] for s in dcn_spans)
@@ -2819,7 +2882,8 @@ def kink_crossings(dev, cfg, batch):
 # of that call's record (float32 rounding moves an input by ~1e-6 of it)
 PIN_SHARE = 1e-3
 # the modules whose forward applies a ReLU: F.relu in the ResNet and the
-# FPN, group_norm_relu (K3 on the card) in the head's towers
+# FPN, group_norm_relu (K3 on the card) in the head's towers and the GN
+# models' norms (its relu=True form)
 RELU_CALLERS = ("Stem", "Bottleneck", "FPN", "GroupNorm32")
 
 
@@ -2827,8 +2891,9 @@ RELU_CALLERS = ("Stem", "Bottleneck", "FPN", "GroupNorm32")
 def relu_decisions(module, record=None, pin=False):
     """While open, watches every ReLU of ``module``'s forward, in call
     order: torch.nn.functional.relu (the ResNet's and the FPN's) and
-    ``layers.group_norm_relu`` (the head towers' GroupNorm+ReLU, K3 on
-    the card, whose input to the ReLU is that of F.group_norm). It
+    ``layers.group_norm_relu`` (GroupNorm+ReLU, K3 on the card, whose
+    input to the ReLU is that of F.group_norm; its relu=False form has
+    no decision and passes through). It
     yields a dict of what it saw: ``calls``, and without ``record`` the
     ReLU ``inputs`` of the calls (float32 copies on the CPU). With
     ``record`` (the ``inputs`` of a float64 step) it lists under
@@ -2883,8 +2948,10 @@ def relu_decisions(module, record=None, pin=False):
         on = x > 0
         return decide(relu(x), on, lambda: x)
 
-    def watched_gn(x, weight, bias, groups, eps):
-        y = gn_relu(x, weight, bias, groups, eps)
+    def watched_gn(x, weight, bias, groups, eps, relu=True):
+        y = gn_relu(x, weight, bias, groups, eps, relu)
+        if not relu:  # GroupNorm alone: no decision
+            return y
         return decide(y, y > 0, lambda: F.group_norm(
             x, groups, weight.to(x.dtype), bias.to(x.dtype), eps))
 
@@ -3884,12 +3951,12 @@ ROI_PX_TOL, MASK_TARGET_SHARE_TOL = 1e-2, 1e-3
 MASK_PROB_TOL = 1e-3
 
 
-def seeded_mrcnn(dtype, device):
-    """``seeded_frcnn`` on Mask R-CNN, with the mask logits' biases
-    drawn from seed 2 in [0.5, 1.5], so that an untrained mask head's
-    masks cover much of each box (a segm AP away from 0 against the
-    octagons of ``top_detections_gt``)."""
-    model = seeded_frcnn(dtype, device, MRCNN_CONFIG)
+def seeded_mrcnn(dtype, device, path=MRCNN_CONFIG):
+    """``seeded_frcnn`` on Mask R-CNN (or the Mask R-CNN of ``path``),
+    with the mask logits' biases drawn from seed 2 in [0.5, 1.5], so that
+    an untrained mask head's masks cover much of each box (a segm AP away
+    from 0 against the octagons of ``top_detections_gt``)."""
+    model = seeded_frcnn(dtype, device, path)
     gen = torch.Generator().manual_seed(2)
     bias = model.module.mask_head.mask_fcn_logits.bias
     with torch.no_grad():
@@ -3911,15 +3978,15 @@ def check_masks(dets):
             "mask_pixels_above_half": float((m > 0.5).float().mean())}
 
 
-def mask_rcnn_card_vs_cpu(dev):
-    """The f32 Mask R-CNN on the card against the CPU at 2 x 256 x 320
-    (``card_vs_cpu``: RPN outputs, detections matched), and each card
-    detection's mask against the CPU's at the same box (label equal,
-    box within 0.01 px) within MASK_PROB_TOL."""
-    card_vs_cpu(dev, seeded_mrcnn, lambda m, x: m.module.backbone_rpn(x)[1],
-                "mask_rcnn_card_vs_cpu")
+def mask_rcnn_card_vs_cpu(dev, build=seeded_mrcnn, what="mask_rcnn"):
+    """The f32 Mask R-CNN of ``build`` on the card against the CPU at
+    2 x 256 x 320 (``card_vs_cpu``: RPN outputs, detections matched), and
+    each card detection's mask against the CPU's at the same box (label
+    equal, box within 0.01 px) within MASK_PROB_TOL."""
+    card_vs_cpu(dev, build, lambda m, x: m.module.backbone_rpn(x)[1],
+                f"{what}_card_vs_cpu")
     images, sizes = request(99, 2, (256, 320), (256.0, 300.0))
-    dets = [{k: v.cpu() for k, v in seeded_mrcnn("float32", d).make_eval_fn()(
+    dets = [{k: v.cpu() for k, v in build("float32", d).make_eval_fn()(
         images, sizes).items()} for d in (dev, "cpu")]
     gpu, cpu = dets
     compared, worst = 0, 0.0
@@ -3935,8 +4002,8 @@ def mask_rcnn_card_vs_cpu(dev):
                     (gpu["masks"][i, j] - cpu["masks"][i, k]).abs().max()))
     check(compared >= 0.9 * int(gpu["valid"].sum()) and compared > 0
           and worst <= MASK_PROB_TOL,
-          f"mask_rcnn_card_vs_cpu: {compared} masks compared, worst {worst}")
-    print(json.dumps({"phase": "mask_rcnn_masks_card_vs_cpu", "ok": True,
+          f"{what}_card_vs_cpu: {compared} masks compared, worst {worst}")
+    print(json.dumps({"phase": f"{what}_masks_card_vs_cpu", "ok": True,
                       "masks_compared": compared,
                       "detections": int(gpu["valid"].sum()),
                       "max_abs_err": worst, "tolerance": MASK_PROB_TOL}))
@@ -3990,28 +4057,33 @@ def two_stage_batch(seed, bsz, hw, size, masks):
 
 def two_stage_config(kind):
     """The config of a two-stage path: Faster and Mask R-CNN R-50-FPN
-    (TWO_STAGE_CONFIGS), Keypoint R-CNN, the C4 models (C4_CONFIGS)."""
+    (TWO_STAGE_CONFIGS), Keypoint R-CNN, the C4 models (C4_CONFIGS), the
+    GN models (GN_CONFIGS) and the RPN-only ones (RPN_CONFIGS)."""
     return {**TWO_STAGE_CONFIGS, "keypoint_rcnn": KRCNN_CONFIG,
-            **C4_CONFIGS}[kind]
+            **C4_CONFIGS, **GN_CONFIGS, **RPN_CONFIGS}[kind]
 
 
-def phase_two_stage_train(dev, name, kind, frozen_bn):
-    """Phases 35, 40 and 42: TRAIN_STEPS steps of do_train of the
-    full-width bf16 model of ``two_stage_config(kind)`` at its
-    IMS_PER_BATCH (16; the C4 models' 8) on one repeated batch (3-12 GTs
-    in 100 slots; for Mask R-CNN their octagons' box-normalized masks,
-    for Keypoint R-CNN persons with 17 keypoints), with FrozenBN
-    statistics calibrated on the seeded body (``calibrated_frozen_bn``:
-    at the seed's identity statistics the random FPN's ~1e3 features put
-    the RPN's deltas and the classifier's logits in the hundreds, and
-    both packages' box losses go NaN): losses finite, num_pos > 0, the
+def phase_two_stage_train(dev, name, kind, frozen_bn, k3_per_step=0):
+    """Phases 35, 40, 42, 46, 48, 50 and 51: TRAIN_STEPS steps of
+    do_train of the full-width bf16 model of ``two_stage_config(kind)``
+    at its IMS_PER_BATCH (16; the C4 models' 8) on one repeated batch
+    (3-12 GTs in 100 slots; for Mask R-CNN their octagons'
+    box-normalized masks, for Keypoint R-CNN persons with 17 keypoints),
+    with FrozenBN statistics calibrated on the seeded body
+    (``calibrated_frozen_bn``: at the seed's identity statistics the
+    random FPN's ~1e3 features put the RPN's deltas and the classifier's
+    logits in the hundreds, and both packages' box losses go NaN; a GN
+    body normalises and takes none): losses finite, num_pos > 0, the
     last loss below the first, the RPN's NMS once per step (its rows of
     PRE_NMS_TOP_N_TRAIN candidates, POST_NMS_TOP_N_TRAIN picks: K1, or K2
-    above K1's capacity as the C4 RPN's 12,000) and no other NMS or K3
-    (launch counts set to 0 just before and read just after); that
-    kernel against its plain version on the first step's rows, timed
-    there; peak memory; then the step's ms, img/s and a profile split by
-    span. Returns the launch counts and the kernel's detail."""
+    above K1's capacity as the C4 RPN's 12,000; none for the RPN-only
+    model, which trains on the RPN loss alone), K3 ``k3_per_step`` times
+    per step (the GN models' forward) and no other NMS (launch counts
+    set to 0 just before and read just after); that NMS kernel against
+    its plain version on the first step's rows, timed there; peak
+    memory; then the step's ms, img/s and a profile split by span.
+    Returns the launch counts (with K3's by form) and the NMS kernel's
+    detail (for the RPN-only model the step's)."""
     from paa_tpu_torch.engine import do_train
     from paa_tpu_torch.ops import nms
 
@@ -4029,6 +4101,7 @@ def phase_two_stage_train(dev, name, kind, frozen_bn):
     per_row = min(cfg.MODEL.RPN.PRE_NMS_TOP_N_TRAIN, max(counts))
     kernel = ("nms_global" if per_row > nms.k1_max_candidates(dev)
               else "nms_batched")
+    rpn_only = model.head_type == "rpn"
     seen = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4041,9 +4114,12 @@ def phase_two_stage_train(dev, name, kind, frozen_bn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = launch_counts()
+        forms = k3_forms()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    expected = {"nms_batched": 0, "nms_global": 0, "group_norm_relu": 0,
-                kernel: TRAIN_STEPS}
+    expected = {"nms_batched": 0, "nms_global": 0,
+                "group_norm_relu": k3_per_step * TRAIN_STEPS}
+    if not rpn_only:
+        expected[kernel] = TRAIN_STEPS
     check(launches == expected,
           f"{what}: launches {launches}, expected {expected}")
     check(sorted(seen) == list(range(1, TRAIN_STEPS + 1)),
@@ -4053,28 +4129,38 @@ def phase_two_stage_train(dev, name, kind, frozen_bn):
               f"{what}: step {i} {m}")
     check(seen[TRAIN_STEPS]["loss"] < seen[1]["loss"],
           f"{what}: loss {seen[1]['loss']} -> {seen[TRAIN_STEPS]['loss']}")
-    args = (k2_inputs if kernel == "nms_global" else k1_inputs)[0]
-    check(not any(isinstance(a, torch.Tensor) and a.requires_grad
-                  for a in args), f"{what}: the NMS saw a tensor under "
-          f"autograd")
+    args = None if rpn_only else (
+        k2_inputs if kernel == "nms_global" else k1_inputs)[0]
+    check(args is None or not any(
+        isinstance(a, torch.Tensor) and a.requires_grad for a in args),
+        f"{what}: the NMS saw a tensor under autograd")
     print(json.dumps({
         "phase": what, "ok": True, "batch": cfg.SOLVER.IMS_PER_BATCH,
         "hw": HW, "max_gt": MAX_GT, "steps": TRAIN_STEPS,
-        "dtype": "bfloat16", "launches": launches, "rpn_nms": kernel,
-        "rpn_nms_rows": list(args[1].shape), "rpn_nms_max_out": args[5],
+        "dtype": "bfloat16", "launches": launches, "k3_by_form": forms,
+        "frozen_bn": "calibrated" if frozen_bn else "none or seeded",
+        "freeze_conv_body_at": cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT,
+        "rpn_nms": None if rpn_only else kernel,
+        "rpn_nms_rows": None if rpn_only else list(args[1].shape),
+        "rpn_nms_max_out": None if rpn_only else args[5],
         "losses": {k: [seen[i][k] for i in sorted(seen)] for k in seen[1]},
         "do_train_s": wall, "peak_memory_gb": peak, "card": name}))
-    if kernel == "nms_global":
+    if rpn_only:
+        detail = {"kernel_detail": None, "path": f"{kind}_train"}
+    elif kernel == "nms_global":
         detail = k2_at_path_inputs(args, f"{kind}_train_rpn", name, reps=5)
     else:
         detail = k1_at_path_inputs(args, f"{kind}_train_rpn", name)
     del k1_inputs, k2_inputs, args
-    phase_train_timing(model, state, batch, name, what)
-    phase_train_profile(model, state, batch, name,
-                        what=f"{kind}_train_profile")
+    timing = phase_train_timing(model, state, batch, name, what)
+    profile = phase_train_profile(model, state, batch, name,
+                                  what=f"{kind}_train_profile")
     del model, state, batch
     torch.cuda.empty_cache()
-    return launches, {**detail, "peak_memory_gb": peak}
+    return {**launches, "k3_by_form": forms}, {
+        **detail, "peak_memory_gb": peak, **timing,
+        "losses": [seen[i]["loss"] for i in sorted(seen)],
+        "profile": profile}
 
 
 def fixed_draws(device, seed=97):
@@ -4268,16 +4354,19 @@ def phase_two_stage_train_reference(dev, frozen_bn, path=MRCNN_CONFIG,
         "planted_faults": planted}))
 
 
-def phase_mask_rcnn_test_net(dev, name):
-    """Phase 37: ``paa_tpu_torch.tools.test_net`` (its ``main``, in this
-    process) on Mask R-CNN over synth_coco_32 at full width in bf16 from
-    the seeded weights, with cv2 blocked (the card machine has none; the
-    polygons' fill and the masks' paste run in numpy) and SCORE_THRESH 0
-    (100 detections, so 100 pasted masks, per image): exit 0, the bbox
-    and segm tables, a detection on every image, K1 and K2 once per eval
-    batch. Then the same eval
-    path in float32 on the card and on the CPU at 256 px
-    (``eval_card_vs_cpu``): the 24 AP values within 1e-3."""
+def phase_mask_rcnn_test_net(dev, name, path=MRCNN_CONFIG,
+                             what="mask_rcnn_test_net", k3_per_batch=0,
+                             reference=True):
+    """Phases 37 and 49: ``paa_tpu_torch.tools.test_net`` (its ``main``,
+    in this process) on the Mask R-CNN of ``path`` over synth_coco_32 at
+    full width in bf16 from the seeded weights, with cv2 blocked (the
+    card machine has none; the polygons' fill and the masks' paste run
+    in numpy) and SCORE_THRESH 0 (100 detections, so 100 pasted masks,
+    per image): exit 0, the bbox and segm tables, a detection on every
+    image, K1 and K2 once and K3 ``k3_per_batch`` times per eval batch.
+    Then, with ``reference``, the same eval path in float32 on the card
+    and on the CPU at 256 px (``eval_card_vs_cpu``): the 24 AP values
+    within 1e-3."""
     from paa_tpu_torch.tools import test_net
 
     tmp = tempfile.mkdtemp(prefix="paa_mask_test_net_")
@@ -4289,7 +4378,7 @@ def phase_mask_rcnn_test_net(dev, name):
         zero_launch_counts()
         t0 = time.perf_counter()
         # every candidate above 0: 100 detections and masks per image
-        rc = test_net.main(["--config-file", MRCNN_CONFIG,
+        rc = test_net.main(["--config-file", path,
                             *synth_opts(out_dir),
                             "MODEL.ROI_HEADS.SCORE_THRESH", "0.0"])
         wall = time.perf_counter() - t0
@@ -4299,28 +4388,31 @@ def phase_mask_rcnn_test_net(dev, name):
             del sys.modules["cv2"]
         else:
             sys.modules["cv2"] = cv2
-    check(rc == 0, f"mask_rcnn_test_net: exit {rc}")
+    check(rc == 0, f"{what}: exit {rc}")
     batches = launches["nms_batched"]
     check(batches >= 4 and launches == {
         "nms_batched": batches, "nms_global": batches,
-        "group_norm_relu": 0}, f"mask_rcnn_test_net: launches {launches}")
+        "group_norm_relu": k3_per_batch * batches},
+        f"{what}: launches {launches}")
     results = read_results(out_dir, SYNTH_32[0])
     segm = {k[5:]: v for k, v in results.items() if k.startswith("segm/")}
     check(sorted(k for k in results if "/" not in k) == sorted(METRICS)
           and sorted(segm) == sorted(METRICS) and all(
               math.isfinite(v) and -1.0 <= v <= 1.0
               for v in results.values()),
-          f"mask_rcnn_test_net: results {results}")
+          f"{what}: results {results}")
     dets = read_bbox_json(os.path.join(out_dir, "inference", SYNTH_32[0]))
     check(len({d["image_id"] for d in dets}) == 32,
-          "mask_rcnn_test_net: images with detections")
-    print(json.dumps({"phase": "mask_rcnn_test_net", "ok": True,
+          f"{what}: images with detections")
+    print(json.dumps({"phase": what, "ok": True,
                       "images": 32, "cv2": "blocked", "launches": launches,
                       "detections": len(dets), "wall_s": wall,
                       "card": name}))
     print(json.dumps({"ap_table": "random weights, a synthetic dataset: "
-                      "not an accuracy", **results}))
+                      "not an accuracy", "path": what, **results}))
     shutil.rmtree(tmp, ignore_errors=True)
+    if not reference:
+        return launches
     cfg = build_cfg("float32", MRCNN_CONFIG, [
         "INPUT.MIN_SIZE_TEST", 256, "INPUT.MAX_SIZE_TEST", 320,
         "TPU.TEST_BUCKETS", ((256, 320), (320, 256)),
@@ -4818,6 +4910,390 @@ def phase_keypoint_rcnn_test_net(dev, name):
     return launches
 
 
+# ---- the GN baselines and the RPN-only model --------------------------------
+
+GN_CONFIGS = {
+    "mask_rcnn_gn": os.path.join(
+        ROOT, "configs", "gn_baselines",
+        "e2e_mask_rcnn_R_50_FPN_Xconv1fc_1x_gn.yaml"),
+    "faster_rcnn_gn_scratch": os.path.join(
+        ROOT, "configs", "gn_baselines",
+        "scratch_e2e_faster_rcnn_R_50_FPN_3x_gn.yaml"),
+}
+RPN_CONFIGS = {
+    "rpn_fpn": os.path.join(ROOT, "configs", "rpn_R_50_FPN_1x.yaml"),
+    "rpn_c4": os.path.join(ROOT, "configs", "rpn_R_50_C4_1x.yaml"),
+}
+# the f32 RPN-only proposals on the card against the CPU's from the same
+# RPN outputs: boxes within this many px
+RPN_BOX_TOL = 1e-2
+# the reps of each K3 timing at the GN paths' shapes (kernel, plain,
+# library): some 35 distinct shapes a request
+GN_COST_REPS = (20, 5, 20)
+
+
+def seeded_gn_mrcnn(dtype, device):
+    """Full-width GN Mask R-CNN (e2e_mask_rcnn_R_50_FPN_Xconv1fc_1x_gn:
+    GN body, GN FPN, the Xconv1fc GN box head, the GN mask head) as
+    ``seeded_mrcnn``: weights from seed 0, the foreground cls_score
+    biases from seed 1 in [25, 35], the mask logits' from seed 2."""
+    return seeded_mrcnn(dtype, device, GN_CONFIGS["mask_rcnn_gn"])
+
+
+def gn_launches_per_forward(model):
+    """K3's launches in one forward of ``model``, by form: each
+    GroupNorm32 once (the body's and FPN's over the batch, the ROI heads'
+    over their rois)."""
+    from paa_tpu_torch.modeling.layers import GroupNorm32
+
+    gns = [m for m in model.module.modules() if isinstance(m, GroupNorm32)]
+    return {"relu": sum(g.relu for g in gns),
+            "no_relu": sum(not g.relu for g in gns)}
+
+
+@contextlib.contextmanager
+def recording_k3_launches():
+    """Records (shape, dtype, relu) of every K3 launch made while it is
+    open, in launch order (the launcher behind ``group_norm_relu``,
+    wrapped): the list it yields fills as the paths run."""
+    from paa_tpu_torch.ops import group_norm as gn
+
+    seen, launch = [], gn._group_norm_relu_cuda
+
+    def recorded(x, *args):
+        seen.append((tuple(x.shape), x.dtype,
+                     args[4] if len(args) > 4 else True))
+        return launch(x, *args)
+
+    gn._group_norm_relu_cuda = recorded
+    try:
+        yield seen
+    finally:
+        gn._group_norm_relu_cuda = launch
+
+
+def k3_cost(dev, launches, seed):
+    """K3 at each distinct (shape, dtype, relu) of ``launches``, times
+    its count: ms beside the plain version's, the bound (bytes: x read
+    once, y written once, the affine) and ``F.group_norm`` (+ ``F.relu``
+    in the relu form). Returns the totals, the totals by form and the
+    five costliest shapes."""
+    from paa_tpu_torch.ops import group_norm as gn
+
+    gen = torch.Generator().manual_seed(seed)
+    counts = {}
+    for key in launches:
+        counts[key] = counts.get(key, 0) + 1
+    totals, by_form, rows = {}, {}, []
+    reps_k, reps_p, reps_l = GN_COST_REPS
+    for (shape, dtype, relu), n in counts.items():
+        c = shape[1]
+        x = torch.randn(shape, generator=gen).to(dev, dtype)
+        s = (torch.rand(c, generator=gen) + 0.5).to(dev)
+        b = (torch.randn(c, generator=gen) * 0.2).to(dev)
+
+        def library():
+            y = F.group_norm(x, 32, s.to(dtype), b.to(dtype), 1e-5)
+            return F.relu(y) if relu else y
+
+        row = {
+            "ms": cuda_ms(lambda: gn.group_norm_relu(x, s, b, relu=relu),
+                          reps_k),
+            "plain_ms": cuda_ms(lambda: gn.group_norm_relu_plain(
+                x, s, b, relu=relu), reps_p, 1),
+            "library_ms": cuda_ms(library, reps_l),
+            "bound_ms": 1e3 * (2 * x.numel() * x.element_size()
+                               + 2 * c * 4) / HBM_BYTES_PER_S,
+        }
+        for out in (totals, by_form.setdefault(gn.form(relu), {})):
+            for k, v in row.items():
+                out[k] = out.get(k, 0.0) + n * v
+            out["launches"] = out.get("launches", 0) + n
+        rows.append({"shape": list(shape), "dtype": str(dtype)[6:],
+                     "relu": relu, "launches": n, **row})
+        del x
+    rows.sort(key=lambda r: -r["launches"] * r["ms"])
+    return totals, by_form, rows[:5]
+
+
+def phase_gn_mask_rcnn_serving(dev, name):
+    """Phase 45: full-width GN Mask R-CNN serving (three 8 x 800 x 1344
+    bf16 requests: K1 once (the RPN's 40 rows of 1,000), K2 once (the box
+    head's 80,000 per image) and K3 once per GroupNorm per request, by
+    form: the body's bn3 and downsample and the FPN's GN without ReLU;
+    masks (8, 100, 28, 28)); K1 and K2 against their plain versions on
+    the first request's inputs; img/s; a profile with the body, box head
+    and mask head in spans; K3 at the request's own shapes and forms
+    against its bound, plain version and F.group_norm (+ F.relu).
+    Returns the launch counts (K3's by form) and the kernels' details."""
+    from paa_tpu_torch.ops.image_norm import device_normalize
+
+    model = seeded_gn_mrcnn("bfloat16", dev)
+    per = gn_launches_per_forward(model)
+    with recording_k1_inputs() as k1_inputs, \
+            recording_k2_inputs() as k2_inputs:
+        eval_fn, launches = serve(
+            model, "mask_rcnn_gn_main_path", 90,
+            {"nms_batched": 3, "nms_global": 3,
+             "group_norm_relu": 3 * sum(per.values())}, 0.05, check_masks)
+        forms = k3_forms()
+    check(forms == {k: 3 * v for k, v in per.items()} and per["no_relu"],
+          f"mask_rcnn_gn: K3 by form {forms}, expected 3 x {per}")
+    k1 = k1_at_path_inputs(k1_inputs[0], "mask_rcnn_gn_rpn", name)
+    k2 = k2_at_path_inputs(k2_inputs[0], "mask_rcnn_gn_box_head", name)
+    images, sizes = e2e_rate(eval_fn, 20, "mask_rcnn_gn", name, dev)
+    phase_profile(model, eval_fn, 60, "mask_rcnn_gn", name, body=True)
+    # K3 at one request's shapes, and at the body's (ResNet + FPN) alone
+    with recording_k3_launches() as request_k3:
+        eval_fn(images, sizes)
+    with recording_k3_launches() as body_k3, torch.inference_mode():
+        x = device_normalize(images, sizes, model.cfg.INPUT.PIXEL_MEAN,
+                             model.cfg.INPUT.PIXEL_STD)
+        model.module.backbone(x.permute(0, 3, 1, 2).contiguous())
+        del x
+    torch.cuda.synchronize()
+    k3 = {}
+    for what, seen in (("request", request_k3), ("body", body_k3)):
+        totals, by_form, top = k3_cost(dev, seen, 45)
+        k3[what] = {**totals, "by_form": by_form, "costliest": top}
+    print(json.dumps({"kernel_detail": "group_norm_relu",
+                      "path": "mask_rcnn_gn", "dtype": "bfloat16",
+                      "B": BATCH, "per_request": k3, "card": name}))
+    del model, eval_fn, k1_inputs, k2_inputs
+    torch.cuda.empty_cache()
+    mask_rcnn_card_vs_cpu(dev, seeded_gn_mrcnn, "mask_rcnn_gn")
+    return {**launches, "k3_by_form": forms}, k1, k2, k3
+
+
+def seeded_rpn_only(kind, frozen_bn, dtype, device):
+    """The full-width RPN-only model of RPN_CONFIGS[``kind``] from seed 0
+    with ``frozen_bn`` (its calibrated FrozenBN)."""
+    return seeded_train_model(build_cfg(dtype, RPN_CONFIGS[kind]), device,
+                              frozen_bn)
+
+
+def check_proposals(dets):
+    """Each request's proposals: boxes (B, K, 4) finite and inside the
+    image, scores finite, labels = valid, K = FPN_POST_NMS_TOP_N_TEST
+    (2,000) at most, valid proposals on every image."""
+    for det in dets:
+        b, k = det["valid"].shape
+        boxes, valid = det["boxes"], det["valid"]
+        check(b == BATCH and k <= 2000 and tuple(boxes.shape) == (b, k, 4)
+              and bool(torch.isfinite(boxes).all())
+              and bool(torch.isfinite(det["scores"]).all())
+              and torch.equal(det["labels"], valid.to(torch.int32))
+              and bool(valid.any(dim=1).all()),
+              f"rpn_only: proposals {tuple(boxes.shape)}")
+        vb = boxes[valid]
+        check(bool((vb >= 0).all())
+              and bool((vb[:, 0::2] <= SIZE[1] - 1).all())
+              and bool((vb[:, 1::2] <= SIZE[0] - 1).all()),
+              "rpn_only: proposals outside the image")
+    return {"proposals": list(dets[0]["boxes"].shape)}
+
+
+def rpn_card_vs_cpu(dev, kind, frozen_bn):
+    """The f32 RPN-only model on the card against the CPU at
+    2 x 256 x 320 (TF32 off): the RPN's outputs within 1e-3 of their
+    largest magnitude; the card's proposals against ``select_proposals``
+    on the CPU from the card's own RPN outputs: each proposal's validity
+    and its place in the pick order equal, objectness equal, boxes within
+    RPN_BOX_TOL px. The seeded RPN's objectness logits crowd (their
+    gaps are printed beside the outputs' difference), so the two
+    devices' whole paths may order near-equal proposals apart; the share
+    of their slots that agree is printed, not held."""
+    from paa_tpu_torch.modeling.rpn import select_proposals
+    from paa_tpu_torch.ops.image_norm import device_normalize
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    images, sizes = request(99, 2, (256, 320), (256.0, 300.0))
+    side = {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        model = seeded_rpn_only(kind, frozen_bn, "float32", device)
+        anchors, counts = model.anchors_for((256, 320))
+        with torch.inference_mode():
+            x = device_normalize(images.to(device), sizes.to(device),
+                                 model.cfg.INPUT.PIXEL_MEAN,
+                                 model.cfg.INPUT.PIXEL_STD)
+            out = model.module(x.permute(0, 3, 1, 2).contiguous())
+            props = select_proposals(out, sizes.to(device), anchors, counts,
+                                     model.postprocess_config())
+        side[where] = ({k: v.cpu() for k, v in out.items()},
+                       [t.cpu() for t in props], anchors.cpu(), counts,
+                       model.postprocess_config())
+    (out_g, props_g, _, _, pp), (out_c, props_c, anchors, counts, _) = \
+        side["card"], side["cpu"]
+    rel = {k: float((out_g[k] - v).abs().max() / v.abs().max())
+           for k, v in out_c.items()}
+    with torch.inference_mode():
+        want = select_proposals(out_g, sizes, anchors, counts, pp)
+    box_err = float((props_g[0] - want[0]).abs().max())
+    valid = props_g[2]
+    check(all(v <= 1e-3 for v in rel.values())
+          and torch.equal(valid, want[2]) and int(valid.sum()) > 0
+          and torch.equal(props_g[1][valid], want[1][valid])
+          and box_err <= RPN_BOX_TOL,
+          f"{kind}_card_vs_cpu: RPN outputs {rel}, validity equal "
+          f"{torch.equal(valid, want[2])}, boxes {box_err} px")
+    top = out_c["objectness"].sort(dim=1, descending=True).values[:, :2000]
+    gaps = (top[:, :-1] - top[:, 1:]).flatten()
+    same = (props_c[2] == valid) & ((props_c[0] - props_g[0]).abs().amax(
+        dim=-1) <= RPN_BOX_TOL)
+    print(json.dumps({"phase": f"{kind}_card_vs_cpu", "ok": True,
+                      "hw": [256, 320], "proposals": int(valid.sum()),
+                      "rpn_outputs_rel_err": rel,
+                      "box_max_abs_err_px": box_err,
+                      "box_tolerance_px": RPN_BOX_TOL,
+                      "objectness_median_gap": float(gaps.median()),
+                      "objectness_max_abs_err": float(
+                          (out_g["objectness"] - out_c["objectness"]).abs()
+                          .max()),
+                      "end_to_end_slots_agreeing": float(
+                          same.float().mean())}))
+
+
+def phase_rpn_test_net(dev, name, kind, frozen_bn_state):
+    """``paa_tpu_torch.tools.test_net`` on the RPN-only config of ``kind``
+    over synth_coco_32 at full width in bf16 with cv2 blocked, from a
+    checkpoint of the seeded model with its calibrated FrozenBN (``--ckpt``):
+    exit 0, the box_proposal table (AR, ARs, ARm, ARl at 100 and 1,000
+    proposals per image) in box_proposals.json, its NMS kernel once per
+    batch."""
+    from paa_tpu_torch.tools import test_net
+
+    tmp = tempfile.mkdtemp(prefix=f"paa_{kind}_test_net_")
+    os.environ["PAA_TPU_TORCH_SYNTH_DIR"] = os.path.join(tmp, "synth")
+    out_dir = os.path.join(tmp, "out")
+    # the weights as utils/checkpoint.py's load_weights reads them
+    ckpt = os.path.join(tmp, "model_seeded.pth")
+    torch.save({"model": seeded_rpn_only(
+        kind, frozen_bn_state, "bfloat16", "cpu").module.state_dict(),
+        "extra": {}}, ckpt)
+    cv2 = sys.modules.get("cv2", False)
+    sys.modules["cv2"] = None  # import cv2 raises ImportError
+    try:
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        rc = test_net.main(["--config-file", RPN_CONFIGS[kind], "--ckpt",
+                            ckpt, *synth_opts(out_dir)])
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    finally:
+        if cv2 is False:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = cv2
+    check(rc == 0, f"{kind}_test_net: exit {rc}")
+    kernel = "nms_global" if kind == "rpn_c4" else "nms_batched"
+    batches = launches[kernel]
+    check(batches >= 4 and launches == {
+        "nms_batched": 0, "nms_global": 0, "group_norm_relu": 0,
+        kernel: batches}, f"{kind}_test_net: launches {launches}")
+    with open(os.path.join(out_dir, "inference", SYNTH_32[0],
+                           "box_proposals.json")) as f:
+        table = json.load(f)
+    check(list(table) == [f"AR{s}@{n}" for n in (100, 1000)
+                          for s in ("", "s", "m", "l")]
+          and all(math.isfinite(v) and 0.0 <= v <= 1.0
+                  for v in table.values()),
+          f"{kind}_test_net: box_proposal table {table}")
+    print(json.dumps({"phase": f"{kind}_test_net", "ok": True,
+                      "images": 32, "cv2": "blocked", "launches": launches,
+                      "wall_s": wall, "card": name}))
+    print(json.dumps({"box_proposal_table": "random weights, a synthetic "
+                      "dataset: not an accuracy", "path": kind, **table}))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def phase_rpn_only_serving(dev, name, kind, frozen_bn):
+    """Phases 50 and 51's serving: three 8 x 800 x 1344 bf16 requests of
+    the full-width RPN-only model of ``kind`` (calibrated FrozenBN): the
+    FPN model's five levels in one K1 launch a request (40 rows of
+    PRE_NMS_TOP_N_TEST 1,000, 1,000 picks each, 2,000 proposals an
+    image); the C4 model's 8 rows of 12,000 (PRE_NMS_TOP_N_TEST, above
+    K1's 8,192) in one K2 launch with POST_NMS_TOP_N_TEST 2,000 picks;
+    that kernel against its plain version on the first request's rows,
+    bit-equal, and timed there against its bound; img/s; a profile."""
+    model = seeded_rpn_only(kind, frozen_bn, "bfloat16", dev)
+    kernel = "nms_global" if kind == "rpn_c4" else "nms_batched"
+    expected = {"nms_batched": 0, "nms_global": 0, "group_norm_relu": 0,
+                kernel: 3}
+    with recording_k1_inputs() as k1_inputs, \
+            recording_k2_inputs() as k2_inputs:
+        eval_fn, launches = serve(model, f"{kind}_main_path", 100, expected,
+                                  None, check_proposals, detections=False)
+    rpn = model.cfg.MODEL.RPN
+    _, counts = model.anchors_for(HW)
+    n = min(rpn.PRE_NMS_TOP_N_TEST, max(counts))
+    args = (k2_inputs if kernel == "nms_global" else k1_inputs)[0]
+    want = (len(counts) * BATCH, n, min(rpn.POST_NMS_TOP_N_TEST, n))
+    got = (*args[1].shape, args[5])
+    check(got == want, f"{kind}: its NMS at {got}, expected {want}")
+    if kernel == "nms_global":
+        detail = k2_at_path_inputs(args, f"{kind}_rpn", name, reps=5)
+    else:
+        detail = k1_at_path_inputs(args, f"{kind}_rpn", name)
+    e2e_rate(eval_fn, 20, kind, name, dev)
+    phase_profile(model, eval_fn, 60, kind, name)
+    del model, eval_fn, k1_inputs, k2_inputs, args
+    torch.cuda.empty_cache()
+    return launches, detail
+
+
+def phase_gn_and_rpn_only(dev, name):
+    """Phases 45-51 (after phase 44): GN Mask R-CNN serving (45) and
+    training at B=16 with FREEZE_CONV_BODY_AT 2 (46); the f32 GN Mask
+    R-CNN on the card against the CPU, its detections and masks, and one
+    train step against the CPU and float64 with the proposal and ReLU
+    pins and the planted x1.05 (47); the scratch GN Faster R-CNN's
+    training at B=16, the whole body trainable, FPN2MLP with its fc GN
+    (48); test_net of the GN Mask R-CNN over synth_coco_32 with cv2
+    blocked (49); rpn_R_50_FPN_1x (50) and rpn_R_50_C4_1x (51): serving,
+    training at IMS_PER_BATCH (16; the C4 config sets none and takes the
+    default, 16), test_net to the box_proposal table, and for FPN its
+    f32 proposals on the card against the CPU. Returns the launch counts
+    by path (K3's by form) and the NMS kernels' and K3's details."""
+    launches, k1, k2 = {}, {}, {}
+    t0 = time.perf_counter()
+    (launches["mask_rcnn_gn"], k1["mask_rcnn_gn_rpn"],
+     k2["mask_rcnn_gn_box_head"], k3) = phase_gn_mask_rcnn_serving(dev, name)
+    for kind in GN_CONFIGS:
+        per = gn_launches_per_forward(seeded_train_model(
+            build_cfg("bfloat16", GN_CONFIGS[kind]), "cpu"))
+        launches[f"{kind}_train"], detail = phase_two_stage_train(
+            dev, name, kind, None, k3_per_step=sum(per.values()))
+        check(launches[f"{kind}_train"]["k3_by_form"]
+              == {k: TRAIN_STEPS * v for k, v in per.items()},
+              f"{kind}_train: K3 by form {launches[f'{kind}_train']}")
+        k1[f"{kind}_train_rpn"] = detail
+        if kind == "mask_rcnn_gn":
+            phase_two_stage_train_reference(
+                dev, None, GN_CONFIGS[kind], REFERENCE_ROIS,
+                "mask_rcnn_gn_train_card_vs_cpu")
+    per = gn_launches_per_forward(seeded_gn_mrcnn("bfloat16", "cpu"))
+    launches["mask_rcnn_gn_test_net"] = phase_mask_rcnn_test_net(
+        dev, name, GN_CONFIGS["mask_rcnn_gn"], "mask_rcnn_gn_test_net",
+        k3_per_batch=sum(per.values()), reference=False)
+    for kind in RPN_CONFIGS:
+        frozen_bn = calibrated_frozen_bn(RPN_CONFIGS[kind])
+        launches[kind], detail = phase_rpn_only_serving(dev, name, kind,
+                                                        frozen_bn)
+        (k2 if kind == "rpn_c4" else k1)[f"{kind}_rpn"] = detail
+        launches[f"{kind}_train"], _ = phase_two_stage_train(
+            dev, name, kind, frozen_bn)
+        launches[f"{kind}_test_net"] = phase_rpn_test_net(
+            dev, name, kind, frozen_bn)
+        if kind == "rpn_fpn":
+            rpn_card_vs_cpu(dev, kind, frozen_bn)
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "gn_and_rpn_only", "ok": True,
+                      "wall_s": time.perf_counter() - t0, "card": name}))
+    return launches, k1, k2, k3
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4842,7 +5318,7 @@ def main():
     phase_nms_global(dev)
     gn_err = phase_group_norm(dev)
     stamp("1-4 kernels against their plain versions")
-    with recording_k3_shapes() as k3_shapes:
+    with recording_k3_launches() as k3_launches:
         paa, paa_eval, paa_launches = phase_main_path(dev)
         phase_reference(dev)
         frcnn, frcnn_eval, frcnn_launches = phase_frcnn_main_path(dev)
@@ -4911,6 +5387,10 @@ def main():
         # Keypoint R-CNN and the C4 models: serving, training, test_net
         kp_c4_launches, k1_kp_c4, k2_kp_c4 = phase_keypoint_and_c4(dev, name)
         stamp("39-44 Keypoint R-CNN, C4")
+        # the GN baselines and the RPN-only models
+        gn_rpn_launches, k1_gn_rpn, k2_gn_rpn, k3_gn = \
+            phase_gn_and_rpn_only(dev, name)
+        stamp("45-51 GN Mask R-CNN, scratch GN Faster R-CNN, RPN-only")
         dcnv2_train_net_launches = phase_train_net_from_pkl(
             dev, name, "dcnv2_train_net_from_pkl")
         gate_launches = phase_ap_gate(dev, name)
@@ -4919,7 +5399,9 @@ def main():
         stamp("29, 17-18 train_net and the AP gate")
         phase_ddp_two_ranks(dev, name)
         stamp("19 two ranks")
-    phase_k3_at_path_shapes(dev, k3_shapes)
+    phase_k3_at_path_shapes(dev, {(shape, relu)
+                                  for shape, _, relu in k3_launches})
+    del k3_launches
     for kernel, key in ((k1, "nms_batched"), (k2, "nms_global"),
                         (k3, "group_norm_relu")):
         by_path = dict(kernel["launches_by_path"],
@@ -4940,8 +5422,16 @@ def main():
                         for path, runs in two_stage_launches.items()})
         by_path.update({path: runs[key]
                         for path, runs in kp_c4_launches.items()})
+        by_path.update({path: runs[key]
+                        for path, runs in gn_rpn_launches.items()})
         kernel.update(launches=sum(by_path.values()),
                       launches_by_path=by_path)
+    # K3's forms: only the GN paths launch GroupNorm alone
+    no_relu = sum(runs["k3_by_form"]["no_relu"]
+                  for runs in gn_rpn_launches.values() if "k3_by_form" in runs)
+    k3["launches_by_form"] = {"relu": k3["launches"] - no_relu,
+                              "no_relu": no_relu}
+    k3["gn_mask_rcnn_per_request"] = k3_gn
     # K1's time at each dense head's own candidates, beside PAA's
     fields = ("B", "N", "valid_candidates", "ms", "plain_ms", "bound_ms")
     k1["at_path_inputs"] = {head: {f: runs["k1"][f] for f in fields}
@@ -4953,10 +5443,16 @@ def main():
     # Keypoint R-CNN's RPN and box head rows, the C4 RPN's 8 x 6,000
     k1["at_path_inputs"].update({path: {f: detail[f] for f in fields}
                                  for path, detail in k1_kp_c4.items()})
+    # the GN Mask R-CNN's RPN rows and training RPN, the RPN-only FPN rows
+    k1["at_path_inputs"].update({path: {f: detail[f] for f in fields}
+                                 for path, detail in k1_gn_rpn.items()})
     # K2 at the C4 box head's 80,000 and the C4 training RPN's 12,000 with
-    # 2,000 picks, beside the Faster R-CNN box head's time
+    # 2,000 picks, beside the Faster R-CNN box head's time; the GN Mask
+    # R-CNN's box head and the RPN-only C4 model's 8 x 12,000 rows
     k2["at_path_inputs"] = {path: {f: detail[f] for f in fields}
                             for path, detail in k2_kp_c4.items()}
+    k2["at_path_inputs"].update({path: {f: detail[f] for f in fields}
+                                 for path, detail in k2_gn_rpn.items()})
     print(json.dumps({"phase": "script", "wall_s":
                       time.perf_counter() - t0, "card": name}))
     print(name)

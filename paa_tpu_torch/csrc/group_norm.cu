@@ -1,10 +1,14 @@
-// GroupNorm + ReLU for Hopper, sm_90a: the PAA head towers' 40 GN+ReLU.
+// GroupNorm (+ ReLU) for Hopper, sm_90a: the PAA head towers' 40
+// GN+ReLU, and the GroupNorm of the GN bodies, FPN and ROI heads.
 //
 // Replaces the TPU kernel paa_tpu/ops/fused_gn.py::fused_group_norm_relu
-// (body _gn_kernel, launched by _fused_forward): GroupNorm(G, eps) then
-// ReLU, statistics in float32 per (image, group) in two passes (the
-// mean, then the centred variance), the affine folded into a = w * rstd
-// and b = bias - mean * a, out = relu(x * a + b) in the input dtype.
+// (body _gn_kernel, launched by _fused_forward): GroupNorm(G, eps) then,
+// when asked (``relu``, the TPU kernel's own argument), ReLU; statistics
+// in float32 per (image, group) in two passes (the mean, then the
+// centred variance), the affine folded into a = w * rstd and
+// b = bias - mean * a, out = relu(x * a + b) (or x * a + b) in the input
+// dtype. The ReLU is a runtime flag read at the store, uniform over the
+// launch: one kernel serves both forms.
 //
 // What bounds it on the card: bytes. It must read x and write y once,
 // 2 * B * C * H * W * itemsize bytes, with about ten operations per
@@ -24,7 +28,8 @@
 // barrier every CTA reads the cs partials over distributed shared
 // memory and adds them in rank order, so all ranks hold the same mean;
 // the centred sum of squares (pass 2, from shared memory) goes the same
-// way and gives rstd; each CTA then writes relu(x * a + b) of its share
+// way and gives rstd; each CTA then writes relu(x * a + b) (or x * a + b)
+// of its share
 // from shared memory (pass 3). One read and one
 // write of device memory: the bound's bytes. A group that fits one
 // share takes one CTA, launched without a cluster, with a block sized to
@@ -90,7 +95,8 @@ template <typename Tr, bool kResident>
 __global__ void __launch_bounds__(kMaxThreads) gn_relu_kernel(
     const typename Tr::Raw* __restrict__ x, const float* __restrict__ weight,
     const float* __restrict__ bias, typename Tr::Raw* __restrict__ y,
-    int ge, int hw, int cpg, int num_groups, int share, float eps) {
+    int ge, int hw, int cpg, int num_groups, int share, float eps,
+    bool relu) {
   using Raw = typename Tr::Raw;
   constexpr int kVec = Tr::kVec;
   constexpr unsigned kAll = (1u << kVec) - 1u;
@@ -231,7 +237,7 @@ __global__ void __launch_bounds__(kMaxThreads) gn_relu_kernel(
 #pragma unroll
       for (int e = 0; e < kVec; ++e) {
         const float r = fmaf(v[e], a, b);
-        out.r[e] = Tr::store(r < 0.f ? 0.f : r);  // relu; NaN stays NaN
+        out.r[e] = Tr::store(relu && r < 0.f ? 0.f : r);  // NaN stays NaN
       }
       *reinterpret_cast<uint4*>(y + g) = out.u;
       continue;
@@ -242,7 +248,7 @@ __global__ void __launch_bounds__(kMaxThreads) gn_relu_kernel(
       if (!(mask >> e & 1u)) continue;
       if (rel0 + e < clo || rel0 + e >= chi) set_channel(rel0 + e);
       const float r = fmaf(v[e], a, b);
-      out.r[e] = Tr::store(r < 0.f ? 0.f : r);
+      out.r[e] = Tr::store(relu && r < 0.f ? 0.f : r);
     }
     if (mask == kAll) {
       *reinterpret_cast<uint4*>(y + g) = out.u;
@@ -304,6 +310,7 @@ struct Launch {
   int ge;      // elements per group
   int hw, cpg, num_groups, cs, share, threads, smem;
   float eps;
+  bool relu;
   cudaStream_t stream;
 };
 
@@ -321,7 +328,7 @@ cudaError_t launch(const Launch& l) {
   err = cudaLaunchKernelEx(&cfg, gn_relu_kernel<Tr, kResident>,
                            static_cast<const Raw*>(l.x), l.w, l.b,
                            static_cast<Raw*>(l.y), l.ge, l.hw, l.cpg,
-                           l.num_groups, l.share, l.eps);
+                           l.num_groups, l.share, l.eps, l.relu);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -359,15 +366,17 @@ extern "C" {
 
 // x, y (B, C, H, W) contiguous and 16-byte aligned, of the dtype code;
 // w, b (C,) float32. groups = B * G, ge = (C / G) * H * W; cs, share,
-// threads and smem as ops/group_norm.py::gn_plan chose them.
+// threads and smem as ops/group_norm.py::gn_plan chose them; relu 1
+// applies the ReLU, 0 stores the GroupNorm alone.
 // Returns the launch's CUDA error code.
 int paa_group_norm_relu(const void* x, const float* w, const float* b,
                         void* y, int dtype, int groups, int ge, int hw,
                         int cpg, int num_groups, int cs, int share,
                         int threads, int resident, int smem, float eps,
-                        void* stream) {
+                        int relu, void* stream) {
   const Launch l{x, w, b, y, groups, ge, hw, cpg, num_groups, cs, share,
-                 threads, smem, eps, static_cast<cudaStream_t>(stream)};
+                 threads, smem, eps, relu != 0,
+                 static_cast<cudaStream_t>(stream)};
   const cudaError_t err = by_type(dtype, resident, [&](auto tr, bool r) {
     using Tr = decltype(tr);
     return r ? launch<Tr, true>(l) : launch<Tr, false>(l);

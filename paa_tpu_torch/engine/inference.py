@@ -19,7 +19,11 @@ apart from the detections and are decoded there per kept box
 without cv2) into (K, 3) keypoints, rescaled to the original image; the
 keypoints table (OKS, 10 metrics) follows the bbox one under
 ``keypoints/...``. The seconds of the heatmaps' copy and decode are
-logged.
+logged. The RPN-only model's detections are its proposals: they are
+scored by box-proposal average recall instead (the reference's
+box_proposal table, ``coco_eval.box_proposal_table``: AR, ARs, ARm, ARl
+at 100 and 1,000 proposals per image, in original-image coordinates),
+logged and written to box_proposals.json.
 
 Data-parallel under a process group (utils/comm.py): the loader gives
 each rank every world-th whole batch (data/loader.py), so a batch keeps
@@ -32,8 +36,7 @@ TEST.BBOX_AUG.ENABLED dispatches to ``bbox_aug.inference_tta`` (test-time
 augmentation, one process), which evaluates through
 ``evaluate_predictions`` as this engine does.
 
-Not ported: the optimistic-DCN fallback (a TPU lowering) and the
-RPN-only model's proposal recall (ROADMAP item 10, after the GN heads).
+Not ported: the optimistic-DCN fallback (a TPU lowering).
 """
 
 from __future__ import annotations
@@ -50,7 +53,8 @@ import torch
 from ..data.loader import make_data_loader
 from ..evaluation import mask_rle
 from ..evaluation.coco_eval import (
-    COCOEvaluator, check_expected_results, format_results)
+    COCOEvaluator, box_proposal_table, check_expected_results,
+    format_results)
 from ..structures.keypoints import heatmaps_to_keypoints
 from ..structures.masks import paste_mask_in_image
 from ..utils import comm
@@ -129,7 +133,9 @@ def compute_on_dataset(model, loader, state=None):
 def inference(cfg, model, dataset, output_folder=None, logger=None,
               state=None):
     """Evaluate ``model`` on ``dataset``: the 12 COCO bbox metrics, and
-    for a model with masks the 12 segm ones under "segm/...".
+    for a model with masks the 12 segm ones under "segm/..."; for the
+    RPN-only model (``head_type`` "rpn") the box_proposal table
+    (``evaluate_proposals``) instead.
     ``state``, if given, is a state_dict loaded into the model first.
     With ``output_folder``, writes coco_results.json (the metrics) and
     bbox.json (the detections in COCO's results format) there. Under a
@@ -163,8 +169,34 @@ def inference(cfg, model, dataset, output_folder=None, logger=None,
         if not comm.is_main_process():
             return {}
         predictions = {k: v for part in parts for k, v in part.items()}
+    if model.head_type == "rpn":
+        return evaluate_proposals(dataset, predictions, output_folder,
+                                  logger)
     return evaluate_predictions(cfg, dataset, predictions, output_folder,
                                 logger)
+
+
+def evaluate_proposals(dataset, predictions, output_folder, logger):
+    """The box_proposal table of the RPN-only model's ``predictions``
+    ({image id: xywh boxes in pick order, ...}) on ``dataset``: AR at
+    100 and 1,000 proposals, all areas and small / medium / large; with
+    ``output_folder``, box_proposals.json written there."""
+    proposals = {}
+    for img_id, p in predictions.items():
+        xywh = np.asarray(p["boxes_xywh"], np.float64).reshape(-1, 4)
+        # back to xyxy with the +1 convention
+        proposals[img_id] = {"boxes": np.concatenate(
+            [xywh[:, :2], xywh[:, :2] + xywh[:, 2:] - 1.0], axis=1)}
+    results = box_proposal_table(proposals, dataset._raw_annotations,
+                                 [r.id for r in dataset.records])
+    logger.info("box_proposal:\n" + "\n".join(
+        f"{k}: {v:.4f}" for k, v in results.items()))
+    if output_folder:
+        os.makedirs(output_folder, exist_ok=True)
+        with open(os.path.join(output_folder, "box_proposals.json"),
+                  "w") as f:
+            json.dump(results, f, indent=2)
+    return results
 
 
 def evaluate_predictions(cfg, dataset, predictions, output_folder, logger):

@@ -25,8 +25,12 @@ keypoint similarity (``oks_iou``), ignores GTs without labelled
 keypoints, takes a detection's area from its keypoints' extent, matches
 through the same native matcher and summarizes 10 numbers.
 
-Not ported yet (ROADMAP item 10): ``evaluate_box_proposals`` (the
-RPN-only model).
+``evaluate_box_proposals`` scores the RPN-only model's proposals by
+average recall (the reference's box_proposal table,
+paa_core/data/datasets/evaluation/coco/coco_eval.py:189-300): each GT
+of an area range, greedily matched to its best-covering proposal among
+the first ``limit``, +1-convention IoU, recall averaged over the IoU
+thresholds 0.5:0.05:0.95.
 """
 
 from __future__ import annotations
@@ -387,3 +391,84 @@ def format_results(results, task="bbox"):
         if k not in METRICS and "/" not in k:
             lines.append(f"{k}: {results[k]:.4f}")
     return "\n".join(lines)
+
+
+# the box_proposal table's area ranges (the reference's, in px^2)
+PROPOSAL_AREAS = {
+    "all": (0.0, 1e10),
+    "small": (0.0, 32.0 ** 2),
+    "medium": (32.0 ** 2, 96.0 ** 2),
+    "large": (96.0 ** 2, 1e10),
+}
+# the box_proposal table: (metric suffix, area) at each proposal limit
+PROPOSAL_LIMITS = (100, 1000)
+PROPOSAL_METRICS = (("", "all"), ("s", "small"), ("m", "medium"),
+                    ("l", "large"))
+
+
+def evaluate_box_proposals(proposals, gt_by_image, image_ids,
+                           thresholds=None, area="all", limit=None):
+    """Proposal recall of one area range and limit.
+
+    proposals: {image id: {"boxes": (n, 4) xyxy in original-image
+    coordinates, in pick order (descending objectness)}}; gt_by_image:
+    {image id: [annotation dict with "bbox" xywh, "area", "iscrowd"]}.
+    Crowd GTs are left out; a GT's area is its annotation's "area" (its
+    box's w * h without one). Each image's first ``limit`` proposals
+    cover its GTs greedily: the GT with the best-covering proposal
+    takes it, both leave, repeated min(proposals, GTs) times. Returns
+    {"ar", "recalls" (per threshold), "thresholds", "num_pos"}."""
+    lo, hi = PROPOSAL_AREAS[area]
+    gt_overlaps = []
+    num_pos = 0
+    for img_id in image_ids:
+        anns = [a for a in gt_by_image.get(img_id, [])
+                if not a.get("iscrowd", 0)]
+        if not anns:
+            continue
+        g_xywh = np.asarray([a["bbox"] for a in anns], np.float64)
+        g_areas = np.asarray([a.get("area", b[2] * b[3])
+                              for a, b in zip(anns, g_xywh)])
+        keep = (g_areas >= lo) & (g_areas <= hi)
+        gt = np.stack([g_xywh[:, 0], g_xywh[:, 1],
+                       g_xywh[:, 0] + g_xywh[:, 2] - 1.0,
+                       g_xywh[:, 1] + g_xywh[:, 3] - 1.0], axis=1)[keep]
+        num_pos += len(gt)
+        if not len(gt):
+            continue
+        pred = proposals.get(img_id)
+        if pred is None or not len(pred["boxes"]):
+            continue
+        boxes = np.asarray(pred["boxes"], np.float64)[:limit]
+        a1 = (boxes[:, 2] - boxes[:, 0] + 1) * (boxes[:, 3] - boxes[:, 1] + 1)
+        a2 = (gt[:, 2] - gt[:, 0] + 1) * (gt[:, 3] - gt[:, 1] + 1)
+        lt = np.maximum(boxes[:, None, :2], gt[None, :, :2])
+        rb = np.minimum(boxes[:, None, 2:], gt[None, :, 2:])
+        wh = np.clip(rb - lt + 1, 0, None)
+        inter = wh[..., 0] * wh[..., 1]
+        overlaps = inter / (a1[:, None] + a2[None, :] - inter)
+        covered = np.zeros(len(gt))
+        for j in range(min(len(boxes), len(gt))):
+            gi = int(overlaps.max(axis=0).argmax())
+            bi = int(overlaps[:, gi].argmax())
+            covered[j] = overlaps[bi, gi]
+            overlaps[bi, :] = -1
+            overlaps[:, gi] = -1
+        gt_overlaps.append(covered)
+    gt_overlaps = (np.sort(np.concatenate(gt_overlaps)) if gt_overlaps
+                   else np.zeros((0,)))
+    if thresholds is None:
+        thresholds = np.arange(0.5, 0.95 + 1e-5, 0.05)
+    recalls = np.asarray([(gt_overlaps >= t).sum() / max(num_pos, 1)
+                          for t in thresholds])
+    return {"ar": float(recalls.mean()), "recalls": recalls,
+            "thresholds": thresholds, "num_pos": num_pos}
+
+
+def box_proposal_table(proposals, gt_by_image, image_ids):
+    """The reference's box_proposal table: {"AR@100", "ARs@100", ...,
+    "ARl@1000"}, ``evaluate_box_proposals`` at each PROPOSAL_LIMITS and
+    area."""
+    return {f"AR{suffix}@{limit}": evaluate_box_proposals(
+        proposals, gt_by_image, image_ids, area=area, limit=limit)["ar"]
+        for limit in PROPOSAL_LIMITS for suffix, area in PROPOSAL_METRICS}

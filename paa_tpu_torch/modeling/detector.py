@@ -1,6 +1,6 @@
 """Model assembly (port of paa_tpu/modeling/detector.py): the dense
-detectors (PAA, ATSS, FCOS, RetinaNet), and Faster R-CNN and Mask R-CNN
-through two_stage.py.
+detectors (PAA, ATSS, FCOS, RetinaNet), and Faster, Mask and Keypoint
+R-CNN and the RPN-only model through two_stage.py.
 
 A ``DetectionModel`` bundles the ``DenseDetector`` module (backbone +
 dense head) on its device with the anchor generator (FCOS: its points,
@@ -223,21 +223,18 @@ def _torch_dtype(name):
 def build_backbone(cfg, dtype=torch.float32):
     """ResNet + FPN in the wiring the body names: *-FPN-RETINANET (P3-P7,
     P6 from C5 with RETINANET.USE_C5, else from P5) or *-FPN (P2-P6, P6
-    pooled); no FPN GN or ReLU. The MobileNetV2 body is ROADMAP item 11."""
+    pooled); FPN.USE_GN and FPN.USE_RELU as set. The MobileNetV2 body is
+    ROADMAP item 11."""
     body = cfg.MODEL.BACKBONE.CONV_BODY
     if body.startswith("MNV2"):
         raise NotImplementedError(
             f"paa_tpu_torch has no {body} body yet: the MobileNetV2 body "
             f"(and SyncBatchNorm) is ROADMAP item 11")
     retina = body.endswith("FPN-RETINANET")
-    if not (retina or body.endswith("FPN")) or cfg.MODEL.FPN.USE_GN or \
-            cfg.MODEL.FPN.USE_RELU:
+    if not (retina or body.endswith("FPN")):
         raise NotImplementedError(
             f"paa_tpu_torch ports the *-FPN-RETINANET wiring and the *-FPN "
-            f"wiring (pooled P6), without FPN GN or ReLU, not {body} with "
-            f"FPN.USE_GN={cfg.MODEL.FPN.USE_GN}, "
-            f"FPN.USE_RELU={cfg.MODEL.FPN.USE_RELU}"
-        )
+            f"wiring (pooled P6), not {body}")
     r = cfg.MODEL.RESNETS
     in_channels_list = [r.RES2_OUT_CHANNELS * 2 ** i for i in range(4)]
     return ResNetFPNBackbone(
@@ -247,6 +244,8 @@ def build_backbone(cfg, dtype=torch.float32):
         dtype=dtype,
         retina=retina,
         p6_from_c5=retina and cfg.MODEL.RETINANET.USE_C5,
+        use_gn=cfg.MODEL.FPN.USE_GN,
+        use_relu=cfg.MODEL.FPN.USE_RELU,
     )
 
 
@@ -260,9 +259,9 @@ def build_detection_model(cfg, device=None, seed=0):
 
     PAA_ON, ATSS_ON, FCOS_ON or RETINANET_ON builds that dense detector
     (the first set, in that order); with none of them and RPN_ONLY off it
-    is the Faster R-CNN of two_stage.py (Mask R-CNN with MASK_ON), as in
-    the JAX package. The
-    RPN-only model raises."""
+    is the Faster R-CNN of two_stage.py (Mask R-CNN with MASK_ON,
+    Keypoint R-CNN with KEYPOINT_ON), with RPN_ONLY the RPN-only proposal
+    model of two_stage.py, as in the JAX package."""
     device = resolve_device(device)
     dtype = _torch_dtype(cfg.TPU.COMPUTE_DTYPE)
     head_type = dense_head_type(cfg)
@@ -279,13 +278,12 @@ def build_detection_model(cfg, device=None, seed=0):
             device=device,
             head_type=head_type,
         )
-    elif not cfg.MODEL.RPN_ONLY:
-        from .two_stage import build_faster_rcnn  # two_stage imports this
-
-        model = build_faster_rcnn(cfg, device, dtype=dtype)
     else:
-        raise NotImplementedError(
-            "paa_tpu_torch has no RPN-only model yet (ROADMAP item 10)")
+        # two_stage imports this module
+        from .two_stage import build_faster_rcnn, build_rpn_only
+
+        build = build_rpn_only if cfg.MODEL.RPN_ONLY else build_faster_rcnn
+        model = build(cfg, device, dtype=dtype)
     reset_parameters(model.module, torch.Generator().manual_seed(seed))
     model.module.to(device)
     return model

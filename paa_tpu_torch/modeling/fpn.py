@@ -11,6 +11,11 @@ configs use:
 
 Modules carry the flax names: ``fpn_inner{k}``/``fpn_layer{k}`` with k
 the index of C_k among C2..C5 counted from 1 (2..4 when C2 is skipped).
+With ``use_gn`` (FPN.USE_GN) each lateral and output conv drops its
+bias and a GroupNorm ``fpn_inner{k}_gn``/``fpn_layer{k}_gn`` follows it
+(K3 on the card), with ``use_relu`` (FPN.USE_RELU) then a ReLU (fused
+into K3 after a GN): the reference's conv_with_kaiming_uniform(use_gn,
+use_relu).
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv
+from .layers import Conv, GroupNorm32, gn_or_relu
 
 
 def _upsample_nearest(x, target_hw):
@@ -38,17 +43,22 @@ class FPN(nn.Module):
     else (P2, P3, P4, P5, P6) with the pooled P6."""
 
     def __init__(self, in_channels_list, out_channels=256,
-                 dtype=torch.float32, retina=True, p6_from_c5=False):
+                 dtype=torch.float32, retina=True, p6_from_c5=False,
+                 use_gn=False, use_relu=False):
         super().__init__()
         self.start = 1 if retina else 0
+        self.use_relu = use_relu
         used = in_channels_list[self.start:]
         for i, cin in enumerate(used):
             k = self.start + i + 1
-            self.add_module(f"fpn_inner{k}", Conv(
-                cin, out_channels, 1, bias=True, dtype=dtype))
-            self.add_module(f"fpn_layer{k}", Conv(
-                out_channels, out_channels, 3, padding=1, bias=True,
-                dtype=dtype))
+            for name, c, size in ((f"fpn_inner{k}", cin, 1),
+                                  (f"fpn_layer{k}", out_channels, 3)):
+                self.add_module(name, Conv(
+                    c, out_channels, size, padding=size // 2,
+                    bias=not use_gn, dtype=dtype))
+                if use_gn:
+                    self.add_module(f"{name}_gn", GroupNorm32(
+                        out_channels, relu=use_relu))
         self.num_used = len(used)
         self.retina = retina
         self.p6_from_c5 = p6_from_c5
@@ -59,18 +69,23 @@ class FPN(nn.Module):
             self.p7 = Conv(out_channels, out_channels, 3, stride=2,
                            padding=1, bias=True, dtype=dtype)
 
+    def _block(self, name, x):
+        """conv, then GN and ReLU as configured."""
+        return gn_or_relu(getattr(self, f"{name}_gn", None),
+                          getattr(self, name)(x), self.use_relu)
+
     def forward(self, features):
         used = list(features)[self.start:]
         n = self.num_used
         k0 = self.start + 1
-        laterals = [getattr(self, f"fpn_inner{k0 + i}")(f)
+        laterals = [self._block(f"fpn_inner{k0 + i}", f)
                     for i, f in enumerate(used)]
         merged = [None] * n
         merged[-1] = laterals[-1]
         for i in range(n - 2, -1, -1):
             top = _upsample_nearest(merged[i + 1], laterals[i].shape[2:])
             merged[i] = laterals[i] + top
-        results = [getattr(self, f"fpn_layer{k0 + i}")(m)
+        results = [self._block(f"fpn_layer{k0 + i}", m)
                    for i, m in enumerate(merged)]
         if not self.retina:
             # LastLevelMaxPool: max_pool2d(P5, 1, 2) keeps every other pixel
@@ -84,11 +99,13 @@ class ResNetFPNBackbone(nn.Module):
     """body + fpn (reference backbone.py:49-73)."""
 
     def __init__(self, resnet, in_channels_list, out_channels=256,
-                 dtype=torch.float32, retina=True, p6_from_c5=False):
+                 dtype=torch.float32, retina=True, p6_from_c5=False,
+                 use_gn=False, use_relu=False):
         super().__init__()
         self.resnet = resnet
         self.fpn = FPN(in_channels_list, out_channels, dtype=dtype,
-                       retina=retina, p6_from_c5=p6_from_c5)
+                       retina=retina, p6_from_c5=p6_from_c5, use_gn=use_gn,
+                       use_relu=use_relu)
 
     def forward(self, x):
         return self.fpn(self.resnet(x))

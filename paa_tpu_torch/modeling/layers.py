@@ -74,12 +74,14 @@ class Linear(nn.Module):
     """Fully connected layer in float32 (flax ``nn.Dense`` with no dtype,
     as the JAX package's box head uses it). Initialised as the JAX
     package does: kaiming-uniform (a=1, bound sqrt(3 / in_features)) by
-    default, normal(std) when ``normal_std`` is given; bias zero."""
+    default, normal(std) when ``normal_std`` is given; bias zero, none
+    with ``bias=False`` (the GN box heads' fc6/fc7)."""
 
-    def __init__(self, in_features, out_features, normal_std=None):
+    def __init__(self, in_features, out_features, normal_std=None,
+                 bias=True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.empty(out_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
         self.normal_std = normal_std
 
     def reset_parameters(self, generator):
@@ -90,7 +92,8 @@ class Linear(nn.Module):
             else:
                 self.weight.normal_(0.0, self.normal_std,
                                     generator=generator)
-            self.bias.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x):
         return F.linear(x.to(torch.float32), self.weight, self.bias)
@@ -155,21 +158,38 @@ class FrozenBatchNorm(nn.Module):
 
 
 class GroupNorm32(nn.Module):
-    """GroupNorm (32 groups, eps 1e-5) followed by ReLU, through the
-    group_norm_relu kernel on the card. The JAX package applies flax
-    GroupNorm and a separate relu here; tests/test_fused_gn.py pins the
-    two to the same numbers."""
+    """GroupNorm (32 groups, eps 1e-5, the reference's make_layers.py
+    group_norm) through the group_norm_relu kernel K3 on the card:
+    followed by ReLU with ``relu`` True (the towers, a GN body's bn1/bn2,
+    the ROI heads' GN before their ReLU: K3's fused form), alone with
+    ``relu`` False (a GN body's bn3 and downsample before the residual
+    add, FPN's GN without USE_RELU). The JAX package applies flax
+    GroupNorm and a separate relu; tests/test_fused_gn.py pins the two
+    to the same numbers. Its input is NCHW; a (R, C) input (the GN box
+    head's fc GN) is normalised as (R, C, 1, 1)."""
 
-    def __init__(self, features, num_groups=32, eps=1e-5):
+    def __init__(self, features, num_groups=32, eps=1e-5, relu=True):
         super().__init__()
         self.num_groups = num_groups
         self.eps = eps
+        self.relu = relu
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
+        if x.dim() == 2:
+            return self(x[:, :, None, None])[:, :, 0, 0]
         return group_norm_relu(x, self.weight, self.bias, self.num_groups,
-                               self.eps)
+                               self.eps, self.relu)
+
+
+def gn_or_relu(gn, x, relu=True):
+    """x through ``gn`` (a GroupNorm32, its ReLU fused or not), or with
+    none through a ReLU when ``relu``: make_layers.py's conv blocks, with
+    and without GN."""
+    if gn is not None:
+        return gn(x)
+    return F.relu(x) if relu else x
 
 
 class Scale(nn.Module):

@@ -1,20 +1,25 @@
 """ResNet / ResNeXt backbone (port of paa_tpu/modeling/resnet.py) with
-FrozenBatchNorm: the FPN bodies R-50, R-101 and R-152, ResNeXt grouped
-3x3 convs (NUM_GROUPS x WIDTH_PER_GROUP), the stride in the 1x1 or in
-the 3x3 (STRIDE_IN_1X1), a dilated res5 (RES5_DILATION) and deformable
-3x3 convs per stage (STAGE_WITH_DCN, v1 or modulated v2,
-DEFORMABLE_GROUPS; ops/dcn.py). The space-to-depth stem is a TPU
-lowering and is not ported; GroupNorm and SyncBN bodies and the C5
-bodies are not ported yet. Returns C2..C5 in NCHW, and for the C4
-bodies (R-50-C4, R-101-C4: three stages, the two-stage models' res5 is
-their box head) C4 alone.
+FrozenBatchNorm or GroupNorm: the FPN bodies R-50, R-101 and R-152,
+ResNeXt grouped 3x3 convs (NUM_GROUPS x WIDTH_PER_GROUP), the stride in
+the 1x1 or in the 3x3 (STRIDE_IN_1X1), a dilated res5 (RES5_DILATION)
+and deformable 3x3 convs per stage (STAGE_WITH_DCN, v1 or modulated v2,
+DEFORMABLE_GROUPS; ops/dcn.py). ``norm`` "gn" (TRANS_FUNC
+BottleneckWithGN; StemWithGN follows it, as in the JAX package) puts a
+``GroupNorm32`` in every norm's place under the same name (``bn1``,
+``downsample_bn``, ...): K3 with the ReLU fused where one follows (the
+stem's bn1, a block's bn1 and bn2), K3 alone before the residual add
+(bn3, downsample_bn). The space-to-depth stem is a TPU lowering and is
+not ported; SyncBN bodies and the C5 bodies are not ported yet. Returns
+C2..C5 in NCHW, and for the C4 bodies (R-50-C4, R-101-C4: three stages,
+the two-stage models' res5 is their box head) C4 alone.
 
 ``freeze_at`` (MODEL.BACKBONE.FREEZE_CONV_BODY_AT) freezes the stem
 (stage 0) and ``layer{i}_*`` for i < freeze_at, as the reference's
 ``_freeze_backbone`` does (resnet.py:134-143): their parameters do not
 require grad, the counterpart of the JAX package's "frozen" label
 (paa_tpu/solver/build.py:64-94) and ``stop_gradient`` in its train step.
-FrozenBatchNorm's tensors are buffers and never train.
+FrozenBatchNorm's tensors are buffers and never train; GroupNorm's
+affines are parameters and train outside the frozen stages.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import dcn  # ops/dcn.py imports .layers: bind the module
-from .layers import Conv, FrozenBatchNorm, max_pool_3x3_s2
+from .layers import Conv, FrozenBatchNorm, GroupNorm32, max_pool_3x3_s2
 
 # (block counts per stage, return_features per stage)
 STAGE_SPECS = {
@@ -39,17 +44,36 @@ STAGE_SPECS = {
 }
 
 
-class Stem(nn.Module):
-    """7x7/2 conv + FrozenBN + relu + 3x3/2 maxpool (resnet.py:345-364)."""
+def make_norm(norm, features, relu):
+    """The norm of a ResNet body: FrozenBatchNorm ("frozen_bn"), whose
+    ReLU the caller applies, or GroupNorm32 ("gn") with the ReLU fused
+    when ``relu``."""
+    if norm == "frozen_bn":
+        return FrozenBatchNorm(features)
+    if norm == "gn":
+        return GroupNorm32(features, relu=relu)
+    raise ValueError(norm)
 
-    def __init__(self, out_channels=64, dtype=torch.float32):
+
+def norm_relu(norm, x):
+    """norm(x) followed by a ReLU: F.relu after FrozenBatchNorm, none
+    after a GroupNorm32 that fused it."""
+    x = norm(x)
+    return x if isinstance(norm, GroupNorm32) else F.relu(x)
+
+
+class Stem(nn.Module):
+    """7x7/2 conv + norm + relu + 3x3/2 maxpool (resnet.py:345-364)."""
+
+    def __init__(self, out_channels=64, dtype=torch.float32,
+                 norm="frozen_bn"):
         super().__init__()
         self.conv1 = Conv(3, out_channels, 7, stride=2, padding=3,
                           dtype=dtype)
-        self.bn1 = FrozenBatchNorm(out_channels)
+        self.bn1 = make_norm(norm, out_channels, relu=True)
 
     def forward(self, x):
-        return max_pool_3x3_s2(F.relu(self.bn1(self.conv1(x))))
+        return max_pool_3x3_s2(norm_relu(self.bn1, self.conv1(x)))
 
 
 class Bottleneck(nn.Module):
@@ -60,13 +84,14 @@ class Bottleneck(nn.Module):
     def __init__(self, in_channels, bottleneck_channels, out_channels,
                  stride=1, num_groups=1, stride_in_1x1=True, dilation=1,
                  with_dcn=False, with_modulated_dcn=False,
-                 deformable_groups=1, dtype=torch.float32):
+                 deformable_groups=1, dtype=torch.float32,
+                 norm="frozen_bn"):
         super().__init__()
         stride = 1 if dilation > 1 else stride
         stride_1x1, stride_3x3 = (stride, 1) if stride_in_1x1 else (1, stride)
         self.conv1 = Conv(in_channels, bottleneck_channels, 1,
                           stride=stride_1x1, dtype=dtype)
-        self.bn1 = FrozenBatchNorm(bottleneck_channels)
+        self.bn1 = make_norm(norm, bottleneck_channels, relu=True)
         if with_dcn:
             self.conv2 = dcn.DeformConv(
                 bottleneck_channels, bottleneck_channels, 3,
@@ -78,19 +103,19 @@ class Bottleneck(nn.Module):
                               stride=stride_3x3, padding=dilation,
                               dtype=dtype, groups=num_groups,
                               dilation=dilation)
-        self.bn2 = FrozenBatchNorm(bottleneck_channels)
+        self.bn2 = make_norm(norm, bottleneck_channels, relu=True)
         self.conv3 = Conv(bottleneck_channels, out_channels, 1, dtype=dtype)
-        self.bn3 = FrozenBatchNorm(out_channels)
+        self.bn3 = make_norm(norm, out_channels, relu=False)
         if in_channels != out_channels:
             self.downsample_conv = Conv(in_channels, out_channels, 1,
                                         stride=stride, dtype=dtype)
-            self.downsample_bn = FrozenBatchNorm(out_channels)
+            self.downsample_bn = make_norm(norm, out_channels, relu=False)
         else:
             self.downsample_conv = None
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
+        out = norm_relu(self.bn1, self.conv1(x))
+        out = norm_relu(self.bn2, self.conv2(out))
         out = self.bn3(self.conv3(out))
         identity = x
         if self.downsample_conv is not None:
@@ -108,10 +133,11 @@ class ResNet(nn.Module):
                  res2_out_channels=256, stride_in_1x1=True,
                  stage_with_dcn=(False, False, False, False),
                  with_modulated_dcn=False, deformable_groups=1,
-                 res5_dilation=1, dtype=torch.float32, freeze_at=0):
+                 res5_dilation=1, dtype=torch.float32, freeze_at=0,
+                 norm="frozen_bn"):
         super().__init__()
         self.block_counts, self.return_features = STAGE_SPECS[body]
-        self.stem = Stem(stem_out_channels, dtype=dtype)
+        self.stem = Stem(stem_out_channels, dtype=dtype, norm=norm)
         in_channels = stem_out_channels
         for i, count in enumerate(self.block_counts):
             factor = 2 ** i
@@ -126,6 +152,7 @@ class ResNet(nn.Module):
                     with_dcn=i < len(stage_with_dcn) and stage_with_dcn[i],
                     with_modulated_dcn=with_modulated_dcn,
                     deformable_groups=deformable_groups, dtype=dtype,
+                    norm=norm,
                 ))
                 in_channels = out_channels
         frozen = [self.stem] if freeze_at >= 1 else []
@@ -146,18 +173,25 @@ class ResNet(nn.Module):
         return outputs
 
 
+# TRANS_FUNC -> the body's norm (the JAX package's resnet_from_cfg; the
+# stem follows it whatever STEM_FUNC says)
+NORMS = {"BottleneckWithFixedBatchNorm": "frozen_bn",
+         "BottleneckWithGN": "gn"}
+
+
 def resnet_from_cfg(cfg, dtype=torch.float32):
     r = cfg.MODEL.RESNETS
     unsupported = {
-        "TRANS_FUNC": r.TRANS_FUNC != "BottleneckWithFixedBatchNorm",
+        "TRANS_FUNC": r.TRANS_FUNC not in NORMS,
         "USE_SYNCBN": cfg.MODEL.USE_SYNCBN,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad or cfg.MODEL.BACKBONE.CONV_BODY not in STAGE_SPECS:
         raise NotImplementedError(
-            "paa_tpu_torch ports the FrozenBN ResNet FPN and C4 bodies "
-            f"{sorted(STAGE_SPECS)} only; unsupported: "
-            f"{bad or cfg.MODEL.BACKBONE.CONV_BODY}"
+            "paa_tpu_torch ports the FrozenBN and GN ResNet FPN and C4 "
+            f"bodies {sorted(STAGE_SPECS)} only; unsupported: "
+            f"{bad or cfg.MODEL.BACKBONE.CONV_BODY} (SyncBN is ROADMAP "
+            f"item 11)"
         )
     return ResNet(
         body=cfg.MODEL.BACKBONE.CONV_BODY,
@@ -172,4 +206,5 @@ def resnet_from_cfg(cfg, dtype=torch.float32):
         res5_dilation=r.RES5_DILATION,
         dtype=dtype,
         freeze_at=cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT,
+        norm=NORMS[r.TRANS_FUNC],
     )

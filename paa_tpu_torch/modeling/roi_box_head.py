@@ -6,7 +6,16 @@ paa_core/modeling/roi_heads/box_head/).
   sampling ratio 2) -> flatten in (7, 7, C) order -> FC + ReLU -> FC +
   ReLU, then the FPNPredictor: ``cls_score`` (C classes with background)
   and class-specific ``bbox_pred`` (C * 4). Float32 throughout, as the
-  JAX package's ``nn.Dense`` layers without a dtype compute.
+  JAX package's ``nn.Dense`` layers without a dtype compute. With
+  ``use_gn`` (ROI_BOX_HEAD.USE_GN, make_layers.py make_fc) fc6 and fc7
+  drop their bias and a GroupNorm ``fc6_gn``/``fc7_gn`` over (R, C, 1,
+  1) takes the ReLU's place (K3's fused form on the card).
+- ``FPNXconvBoxHead`` (FPNXconv1fcFeatureExtractor): the same pooler,
+  NUM_STACKED_CONVS 3x3 convs of CONV_HEAD_DIM (``xconv{i}``,
+  normal(0.01), DILATION, a bias only without GN) in the compute dtype,
+  each followed by GN + ReLU (``xconv{i}_gn``, K3 fused) or a ReLU, then
+  float32, the flatten in (7, 7, C) order, fc6 + ReLU (no GN) and the
+  FPNPredictor.
 - ``roi_box_postprocess`` (one image) and ``roi_box_postprocess_batched``
   (the eval path): softmax, per-class decode with BBOX_REG_WEIGHTS
   (10, 10, 5, 5), clip, the SCORE_THRESH threshold, class-aware NMS at
@@ -30,8 +39,6 @@ paa_core/modeling/roi_heads/box_head/).
   the (R, 2048, 7, 7) res5 features, which the C4 Mask R-CNN's mask
   predictor shares.
 
-Not ported yet: the GN and Xconv box heads and FPN GN (ROADMAP item 10,
-next).
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ from ..ops.nms import nms, nms_batched
 from ..ops.roi_align import multilevel_roi_align, roi_align
 from ..structures.boxes import box_iou, clip_to_image
 from .box_coder import decode_box, encode_box
-from .layers import Linear
+from .layers import Conv, GroupNorm32, Linear, gn_or_relu
 from .resnet import Bottleneck
 from .retinanet_head import smooth_l1
 from .rpn import balanced_sample, top_k_stable
@@ -54,36 +61,100 @@ from .rpn import balanced_sample, top_k_stable
 _REG_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
 
 
-class FPN2MLPBoxHead(nn.Module):
-    """Pooler + 2 FC + (cls, class-specific box deltas)."""
+class _FPNBoxHead(nn.Module):
+    """The FPN box heads' pooler, fc layers and FPNPredictor (made last,
+    by ``add_predictor``, so that it is initialised after the fcs)."""
 
-    def __init__(self, num_classes, in_channels=256, mlp_dim=1024,
-                 resolution=7, scales=(0.25, 0.125, 0.0625, 0.03125),
-                 sampling_ratio=2):
+    def __init__(self, num_classes, resolution, scales, sampling_ratio):
         super().__init__()
         self.num_classes = num_classes  # INCLUDING background
         self.resolution = resolution
         self.scales = tuple(scales)
         self.sampling_ratio = sampling_ratio
-        self.fc6 = Linear(in_channels * resolution * resolution, mlp_dim)
-        self.fc7 = Linear(mlp_dim, mlp_dim)
-        self.cls_score = Linear(mlp_dim, num_classes, normal_std=0.01)
-        self.bbox_pred = Linear(mlp_dim, num_classes * 4, normal_std=0.001)
+
+    def add_predictor(self, mlp_dim):
+        self.cls_score = Linear(mlp_dim, self.num_classes, normal_std=0.01)
+        self.bbox_pred = Linear(mlp_dim, self.num_classes * 4,
+                                normal_std=0.001)
+
+    def pool(self, features, proposals, proposal_batch_idx):
+        """(R, 7, 7, C): the flatten order of the JAX package's fc6."""
+        return multilevel_roi_align(
+            features, proposals, proposal_batch_idx,
+            (self.resolution, self.resolution), self.scales,
+            self.sampling_ratio)
+
+    def fc(self, name, x):
+        """make_fc: the Linear ``name``, then GN + ReLU (``{name}_gn``,
+        fused) or a ReLU."""
+        return gn_or_relu(getattr(self, f"{name}_gn", None),
+                          getattr(self, name)(x))
+
+    def predict(self, x):
+        r = x.shape[0]
+        return (self.cls_score(x),
+                self.bbox_pred(x).reshape(r, self.num_classes, 4))
+
+
+class FPN2MLPBoxHead(_FPNBoxHead):
+    """Pooler + 2 FC (with ``use_gn``: no bias, then GN) + (cls,
+    class-specific box deltas)."""
+
+    def __init__(self, num_classes, in_channels=256, mlp_dim=1024,
+                 resolution=7, scales=(0.25, 0.125, 0.0625, 0.03125),
+                 sampling_ratio=2, use_gn=False):
+        super().__init__(num_classes, resolution, scales, sampling_ratio)
+        self.fc6 = Linear(in_channels * resolution * resolution, mlp_dim,
+                          bias=not use_gn)
+        if use_gn:
+            self.fc6_gn = GroupNorm32(mlp_dim)
+        self.fc7 = Linear(mlp_dim, mlp_dim, bias=not use_gn)
+        if use_gn:
+            self.fc7_gn = GroupNorm32(mlp_dim)
+        self.add_predictor(mlp_dim)
 
     def forward(self, features, proposals, proposal_batch_idx):
         """features: the first len(scales) FPN maps (P2..P5), NCHW;
         proposals: (R, 4); proposal_batch_idx: (R,). Returns cls_logits
         (R, C) and box_deltas (R, C, 4), float32."""
-        x = multilevel_roi_align(
-            features, proposals, proposal_batch_idx,
-            (self.resolution, self.resolution), self.scales,
-            self.sampling_ratio,
-        )  # (R, 7, 7, C), the flatten order of the JAX package's fc6
-        r = x.shape[0]
-        x = F.relu(self.fc6(x.reshape(r, -1)))
-        x = F.relu(self.fc7(x))
-        return (self.cls_score(x),
-                self.bbox_pred(x).reshape(r, self.num_classes, 4))
+        x = self.pool(features, proposals, proposal_batch_idx)
+        x = self.fc("fc6", x.reshape(x.shape[0], -1))
+        return self.predict(self.fc("fc7", x))
+
+
+class FPNXconvBoxHead(_FPNBoxHead):
+    """Pooler + ``num_stacked_convs`` 3x3 convs (normal(0.01), dilation;
+    with ``use_gn`` no bias, then GN) + ReLU, then float32, fc6 + ReLU
+    and the FPNPredictor (roi_box_feature_extractors.py:86-145)."""
+
+    def __init__(self, num_classes, in_channels=256, mlp_dim=1024,
+                 conv_head_dim=256, num_stacked_convs=4, dilation=1,
+                 resolution=7, scales=(0.25, 0.125, 0.0625, 0.03125),
+                 sampling_ratio=2, use_gn=False, dtype=torch.float32):
+        super().__init__(num_classes, resolution, scales, sampling_ratio)
+        self.num_stacked_convs = num_stacked_convs
+        channels = in_channels
+        for i in range(1, num_stacked_convs + 1):
+            self.add_module(f"xconv{i}", Conv(
+                channels, conv_head_dim, 3, padding=dilation,
+                dilation=dilation, bias=not use_gn, dtype=dtype,
+                normal_std=0.01))
+            if use_gn:
+                self.add_module(f"xconv{i}_gn", GroupNorm32(conv_head_dim))
+            channels = conv_head_dim
+        self.fc6 = Linear(channels * resolution * resolution, mlp_dim)
+        self.add_predictor(mlp_dim)
+
+    def forward(self, features, proposals, proposal_batch_idx):
+        """As ``FPN2MLPBoxHead.forward``."""
+        # NCHW-contiguous, as K3 takes the GN's input
+        x = self.pool(features, proposals, proposal_batch_idx)
+        x = x.permute(0, 3, 1, 2).contiguous()
+        for i in range(1, self.num_stacked_convs + 1):
+            x = self.fc(f"xconv{i}", x)
+        # the JAX package's f32 cast, then its (7, 7, C) flatten
+        x = x.to(torch.float32).permute(0, 2, 3, 1)
+        return self.predict(self.fc("fc6", x.reshape(x.shape[0], -1)))
 
 
 class Res5ROIBoxHead(nn.Module):

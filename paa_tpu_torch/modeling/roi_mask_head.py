@@ -8,6 +8,14 @@ reference paa_core/modeling/roi_heads/mask_head/).
   C - 1 class channels): (R, C - 1, 28, 28) logits, NCHW. The JAX
   package emits the same C - 1 foreground channels, NHWC; the
   reference's channel 0 is dropped on import (utils/torch_import.py).
+  Its variants (roi_mask_feature_extractors.py, make_conv3x3): with
+  ``use_gn`` (ROI_MASK_HEAD.USE_GN) each ``mask_fcn{i}`` drops its bias
+  and a GroupNorm ``mask_fcn{i}_gn`` with the ReLU fused follows it (K3
+  on the card); ``dilation`` (DILATION) dilates the convs; without
+  ``use_deconv`` (PREDICTOR MaskRCNNConv1x1Predictor) the 1x1 conv reads
+  the 14x14 features directly: (R, C - 1, 14, 14). With one pooler
+  scale (the C4 models' unshared head on the stride-16 map) it pools
+  that single map.
 - ``crop_gt_masks_for_rois``: the 28x28 targets, cropped on the device
   from each matched GT's box-normalized bitmask (structures/masks.py) by
   ROIAlign of the roi mapped into the GT box's frame, then thresholded
@@ -21,9 +29,6 @@ reference paa_core/modeling/roi_heads/mask_head/).
   CONV_LAYERS[-1] channels + ReLU and a 1x1 conv to C - 1 class
   channels, both in the compute dtype, kaiming-normal fan-out:
   (R, C - 1, 14, 14) logits.
-
-Not ported yet: the GN and dilated mask heads, the 1x1 predictor and
-the C4 models' unshared mask head (ROADMAP item 10: the GN heads next).
 """
 
 from __future__ import annotations
@@ -34,19 +39,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.roi_align import align_on_own_maps, multilevel_roi_align
-from .layers import Conv, ConvTranspose
+from ..ops.roi_align import (
+    align_on_own_maps, multilevel_roi_align, roi_align)
+from .layers import Conv, ConvTranspose, GroupNorm32, gn_or_relu
 
 _LOGITS_STD = 0.001
 
 
 class MaskHead(nn.Module):
-    """MaskRCNNFPNFeatureExtractor + MaskRCNNC4Predictor."""
+    """MaskRCNNFPNFeatureExtractor (+ its GN and dilated variants) and
+    MaskRCNNC4Predictor, or with ``use_deconv`` False
+    MaskRCNNConv1x1Predictor."""
 
     def __init__(self, num_classes, in_channels=256,
                  conv_layers=(256, 256, 256, 256), resolution=14,
                  scales=(0.25, 0.125, 0.0625, 0.03125), sampling_ratio=2,
-                 dtype=torch.float32):
+                 dtype=torch.float32, use_gn=False, dilation=1,
+                 use_deconv=True):
         super().__init__()
         self.resolution = resolution
         self.scales = tuple(scales)
@@ -55,25 +64,36 @@ class MaskHead(nn.Module):
         channels = in_channels
         for i, out in enumerate(conv_layers):
             setattr(self, f"mask_fcn{i + 1}",
-                    Conv(channels, out, 3, padding=1, bias=True,
-                         dtype=dtype))
+                    Conv(channels, out, 3, padding=dilation,
+                         dilation=dilation, bias=not use_gn, dtype=dtype))
+            if use_gn:
+                setattr(self, f"mask_fcn{i + 1}_gn", GroupNorm32(out))
             channels = out
-        self.conv5_mask = ConvTranspose(channels, channels)
+        self.conv5_mask = (ConvTranspose(channels, channels) if use_deconv
+                           else None)
         self.mask_fcn_logits = Conv(channels, num_classes, 1, bias=True,
                                     dtype=dtype, normal_std=_LOGITS_STD)
 
     def forward(self, features, rois, roi_batch_idx):
-        """features: the first len(scales) FPN maps (P2..P5), NCHW; rois
-        (R, 4); roi_batch_idx (R,). Returns (R, C - 1, 28, 28) logits in
-        the compute dtype."""
-        x = multilevel_roi_align(
-            features, rois, roi_batch_idx,
-            (self.resolution, self.resolution), self.scales,
-            self.sampling_ratio,
-        ).permute(0, 3, 1, 2)
-        for i in range(self.num_layers):
-            x = F.relu(getattr(self, f"mask_fcn{i + 1}")(x))
-        return self.mask_fcn_logits(F.relu(self.conv5_mask(x)))
+        """features: the first len(scales) FPN maps (P2..P5), or the one
+        map of a single scale, NCHW; rois (R, 4); roi_batch_idx (R,).
+        Returns (R, C - 1, 28, 28) logits in the compute dtype (14 x 14
+        without the deconv)."""
+        out_size = (self.resolution, self.resolution)
+        if len(self.scales) == 1:
+            x = roi_align(features[0], rois, roi_batch_idx, out_size,
+                          self.scales[0], self.sampling_ratio)
+        else:
+            x = multilevel_roi_align(features, rois, roi_batch_idx,
+                                     out_size, self.scales,
+                                     self.sampling_ratio)
+        x = x.permute(0, 3, 1, 2).contiguous()  # NCHW, as K3 takes it
+        for i in range(1, self.num_layers + 1):
+            x = gn_or_relu(getattr(self, f"mask_fcn{i}_gn", None),
+                           getattr(self, f"mask_fcn{i}")(x))
+        if self.conv5_mask is not None:
+            x = F.relu(self.conv5_mask(x))
+        return self.mask_fcn_logits(x)
 
 
 class MaskRCNNC4Predictor(nn.Module):

@@ -1,19 +1,30 @@
-"""Faster R-CNN, Mask R-CNN and Keypoint R-CNN (port of
-paa_tpu/modeling/two_stage.py).
+"""Faster R-CNN, Mask R-CNN, Keypoint R-CNN and the RPN-only model (port
+of paa_tpu/modeling/two_stage.py).
 
-Two bodies:
+Two bodies, FrozenBN or GN (modeling/resnet.py):
 
-- FPN (``R-*-FPN``): the backbone's P2..P6 (P6 by LastLevelMaxPool),
-  the classic RPN over 5 levels (anchor sizes 32..512 at strides
-  4..64, 3 ratios), the FPN2MLP box head pooling from P2..P5 and, with
-  MODEL.MASK_ON, the mask head (modeling/roi_mask_head.py), with
-  MODEL.KEYPOINT_ON the keypoint head (modeling/roi_keypoint_head.py);
+- FPN (``R-*-FPN``): the backbone's P2..P6 (P6 by LastLevelMaxPool;
+  FPN.USE_GN / USE_RELU as set), the classic RPN over 5 levels (anchor
+  sizes 32..512 at strides 4..64, 3 ratios), the box head pooling from
+  P2..P5 (ROI_BOX_HEAD.FEATURE_EXTRACTOR FPN2MLPFeatureExtractor, with
+  USE_GN its fc GN, or FPNXconv1fcFeatureExtractor, its stacked convs
+  with or without GN) and, with MODEL.MASK_ON, the mask head
+  (modeling/roi_mask_head.py: GN, dilated, the deconv or the 1x1
+  predictor), with MODEL.KEYPOINT_ON the keypoint head
+  (modeling/roi_keypoint_head.py);
 - C4 (``R-50-C4``, ``R-101-C4``; ``_build_single_level_rcnn``): the
   body's stride-16 C4 map alone, a one-level RPN with all 5 sizes x 3
   ratios at stride 16 (its shared conv 1,024 wide, as the JAX package
   builds it), the res5 box head (``Res5ROIBoxHead``) and, with
   MASK_ON, the C4 mask predictor on the box head's res5 features
-  (``share_mask_extractor``).
+  (``share_mask_extractor``), or with SHARE_BOX_FEATURE_EXTRACTOR off
+  an unshared ``MaskHead`` pooling the stride-16 map.
+
+The RPN-only model (MODEL.RPN_ONLY, ``build_rpn_only``): the same
+bodies and RPN without ROI heads; it serves the RPN's proposals
+(``select_proposals``: boxes, objectness, ``labels`` = valid) and trains
+on ``rpn_loss`` alone; ``inference`` scores its proposals by
+box-proposal average recall.
 
 On the card a request launches K1 once (the RPN's NMS, all levels in
 one launch) and the box head's NMS over R * (C - 1) candidates per
@@ -39,10 +50,8 @@ JAX package's ``fold_in(PRNGKey(TPU.SEED), step)`` does. Losses are
 divided by this process's counts (no cross-rank normalizer, as in the
 JAX package); under DDP the gradients are averaged.
 
-Not ported yet (ROADMAP item 10, in this order): the Xconv and GN heads
-and FPN GN, the RPN-only model; also FBNet (item 11), the C4 keypoint
-variant (the JAX package builds Keypoint R-CNN on FPN only) and the C4
-models' unshared mask head. Building any of them raises.
+Not ported: FBNet (ROADMAP item 11) and the C4 keypoint variant (the
+JAX package builds Keypoint R-CNN on FPN only). Building either raises.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ from .detector import DetectionModel, build_backbone
 from .resnet import resnet_from_cfg
 from .roi_box_head import (
     FPN2MLPBoxHead,
+    FPNXconvBoxHead,
     Res5ROIBoxHead,
     ROIBoxConfig,
     roi_box_loss,
@@ -348,21 +358,28 @@ class TwoStageModel(DetectionModel):
         return det
 
 
+def _box_head(cfg, channels, dtype):
+    """The FPN box head of ``cfg``: FPNXconv1fcFeatureExtractor or
+    FPN2MLPFeatureExtractor, with their GN (ROI_BOX_HEAD.USE_GN), and
+    the FPNPredictor."""
+    bh = cfg.MODEL.ROI_BOX_HEAD
+    common = dict(num_classes=bh.NUM_CLASSES, in_channels=channels,
+                  mlp_dim=bh.MLP_HEAD_DIM, resolution=bh.POOLER_RESOLUTION,
+                  sampling_ratio=max(bh.POOLER_SAMPLING_RATIO, 1),
+                  use_gn=bh.USE_GN)
+    if bh.FEATURE_EXTRACTOR == "FPNXconv1fcFeatureExtractor":
+        return FPNXconvBoxHead(
+            conv_head_dim=bh.CONV_HEAD_DIM,
+            num_stacked_convs=bh.NUM_STACKED_CONVS, dilation=bh.DILATION,
+            dtype=dtype, **common)
+    return FPN2MLPBoxHead(**common)
+
+
 def _mask_head(cfg, channels, dtype):
-    """The FPN mask head of ``cfg`` (MaskRCNNFPNFeatureExtractor +
-    MaskRCNNC4Predictor), or raise on the variants not ported."""
+    """The FPN mask head of ``cfg`` (MaskRCNNFPNFeatureExtractor with its
+    GN and dilation, and MaskRCNNC4Predictor or with PREDICTOR
+    MaskRCNNConv1x1Predictor the 1x1 predictor)."""
     mh = cfg.MODEL.ROI_MASK_HEAD
-    unsupported = {
-        "ROI_MASK_HEAD.USE_GN": mh.USE_GN,
-        "ROI_MASK_HEAD.DILATION": mh.DILATION != 1,
-        "ROI_MASK_HEAD.PREDICTOR": mh.PREDICTOR != "MaskRCNNC4Predictor",
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"paa_tpu_torch ports the FPN mask head with the deconv "
-            f"predictor, no GN and no dilation; unsupported: {bad} "
-            f"(the GN heads are ROADMAP item 10)")
     scales = tuple(mh.POOLER_SCALES)
     if len(scales) != 4:  # a C4-style default: the FPN levels
         scales = FPN_POOLER_SCALES
@@ -370,7 +387,9 @@ def _mask_head(cfg, channels, dtype):
         num_classes=cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES - 1,
         in_channels=channels, conv_layers=tuple(mh.CONV_LAYERS),
         resolution=mh.POOLER_RESOLUTION, scales=scales,
-        sampling_ratio=max(mh.POOLER_SAMPLING_RATIO, 1), dtype=dtype)
+        sampling_ratio=max(mh.POOLER_SAMPLING_RATIO, 1), dtype=dtype,
+        use_gn=mh.USE_GN, dilation=mh.DILATION,
+        use_deconv=mh.PREDICTOR != "MaskRCNNConv1x1Predictor")
 
 
 def _keypoint_head(cfg, channels, dtype):
@@ -388,38 +407,25 @@ def _keypoint_head(cfg, channels, dtype):
 
 
 def build_faster_rcnn(cfg, device, dtype=torch.float32):
-    """The two-stage model of ``cfg`` on ``device``: the FPN2MLP Faster
-    R-CNN on an R-*-FPN body (with the mask head when MODEL.MASK_ON, the
-    keypoint head when MODEL.KEYPOINT_ON), or on an R-*-C4 body the res5
-    head model (``_build_single_level_rcnn``); parameters not yet
-    initialised (``build_detection_model`` seeds them)."""
+    """The two-stage model of ``cfg`` on ``device``: Faster R-CNN on an
+    R-*-FPN body with the box head of ROI_BOX_HEAD (``_box_head``), the
+    mask head when MODEL.MASK_ON, the keypoint head when
+    MODEL.KEYPOINT_ON, or on an R-*-C4 body the res5 head model
+    (``_build_single_level_rcnn``); parameters not yet initialised
+    (``build_detection_model`` seeds them)."""
     body = cfg.MODEL.BACKBONE.CONV_BODY
     if body.endswith("-C4"):
         return _build_single_level_rcnn(cfg, device, dtype)
-    bh = cfg.MODEL.ROI_BOX_HEAD
-    unsupported = {
-        "CONV_BODY": not body.endswith("-FPN"),
-        "FEATURE_EXTRACTOR": bh.FEATURE_EXTRACTOR != "FPN2MLPFeatureExtractor",
-        "ROI_BOX_HEAD.USE_GN": bh.USE_GN,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
+    if not body.endswith("-FPN"):
         raise NotImplementedError(
-            f"paa_tpu_torch ports the FPN2MLP Faster, Mask and Keypoint "
-            f"R-CNN on an R-*-FPN body and the R-*-C4 models; "
-            f"unsupported: {bad} ({body}, {bh.FEATURE_EXTRACTOR}); the "
-            f"Xconv/GN heads are ROADMAP item 10, FBNet item 11"
-        )
+            f"paa_tpu_torch ports the two-stage models on an R-*-FPN or "
+            f"R-*-C4 body, not {body} (FBNet is ROADMAP item 11)")
     channels = cfg.MODEL.RESNETS.BACKBONE_OUT_CHANNELS
     module = FasterRCNN(
         build_backbone(cfg, dtype=dtype),
         RPNHead(num_anchors=len(cfg.MODEL.RPN.ASPECT_RATIOS),
                 in_channels=channels, dtype=dtype),
-        FPN2MLPBoxHead(
-            num_classes=bh.NUM_CLASSES, in_channels=channels,
-            mlp_dim=bh.MLP_HEAD_DIM, resolution=bh.POOLER_RESOLUTION,
-            sampling_ratio=max(bh.POOLER_SAMPLING_RATIO, 1),
-        ),
+        _box_head(cfg, channels, dtype),
         _mask_head(cfg, channels, dtype) if cfg.MODEL.MASK_ON else None,
         (_keypoint_head(cfg, channels, dtype) if cfg.MODEL.KEYPOINT_ON
          else None),
@@ -441,47 +447,156 @@ def _build_single_level_rcnn(cfg, device, dtype):
     one RPN level at RPN.ANCHOR_STRIDE[0] with every ANCHOR_SIZES x
     ASPECT_RATIOS anchor (reference make_anchor_generator for a non-FPN
     RPN), the res5 box head pooling at 1 / stride (POOLER_RESOLUTION, at
-    least 14) and, with MASK_ON and SHARE_BOX_FEATURE_EXTRACTOR, the C4
-    mask predictor on the box head's res5 features."""
+    least 14) and, with MASK_ON, the C4 mask predictor on the box head's
+    res5 features (SHARE_BOX_FEATURE_EXTRACTOR) or else an unshared
+    ``MaskHead`` at its defaults (4 x 256 convs on 14 x 14 pools of the
+    stride-16 map, the deconv predictor), as the JAX package builds it
+    whatever ROI_MASK_HEAD's other settings."""
     r, bh = cfg.MODEL.RESNETS, cfg.MODEL.ROI_BOX_HEAD
-    unsupported = {
-        "KEYPOINT_ON": cfg.MODEL.KEYPOINT_ON,
-        "ROI_MASK_HEAD.SHARE_BOX_FEATURE_EXTRACTOR": (
-            cfg.MODEL.MASK_ON
-            and not cfg.MODEL.ROI_MASK_HEAD.SHARE_BOX_FEATURE_EXTRACTOR),
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
+    if cfg.MODEL.KEYPOINT_ON:
         raise NotImplementedError(
-            f"paa_tpu_torch ports the C4 Faster R-CNN and the C4 Mask "
-            f"R-CNN with the shared res5 extractor; unsupported: {bad} "
-            f"(the JAX package builds Keypoint R-CNN on FPN only)")
+            "paa_tpu_torch ports the C4 Faster and Mask R-CNN; the JAX "
+            "package builds Keypoint R-CNN on FPN only")
     stride = cfg.MODEL.RPN.ANCHOR_STRIDE[0]
     c4 = r.RES2_OUT_CHANNELS * 4
-    num_anchors = len(cfg.MODEL.RPN.ANCHOR_SIZES) * len(
-        cfg.MODEL.RPN.ASPECT_RATIOS)
     mask_head = None
-    if cfg.MODEL.MASK_ON:
+    share = cfg.MODEL.ROI_MASK_HEAD.SHARE_BOX_FEATURE_EXTRACTOR
+    if cfg.MODEL.MASK_ON and share:
         mask_head = MaskRCNNC4Predictor(
             bh.NUM_CLASSES - 1, in_channels=2048,
             dim_reduced=cfg.MODEL.ROI_MASK_HEAD.CONV_LAYERS[-1], dtype=dtype)
+    elif cfg.MODEL.MASK_ON:
+        mask_head = MaskHead(bh.NUM_CLASSES - 1, in_channels=c4,
+                             scales=(1.0 / stride,), dtype=dtype)
     module = FasterRCNN(
         SingleLevelBackbone(resnet_from_cfg(cfg, dtype=dtype)),
-        RPNHead(num_anchors=num_anchors, in_channels=c4, dtype=dtype,
-                out_channels=1024),
+        _c4_rpn_head(cfg, c4, dtype),
         Res5ROIBoxHead(
             bh.NUM_CLASSES, in_channels=c4,
             resolution=max(bh.POOLER_RESOLUTION, 14), scale=1.0 / stride,
             num_groups=r.NUM_GROUPS, width_per_group=r.WIDTH_PER_GROUP,
             dtype=dtype),
-        mask_head, share_mask_extractor=mask_head is not None,
+        mask_head, share_mask_extractor=cfg.MODEL.MASK_ON and share,
     )
     return TwoStageModel(
         cfg=cfg,
         module=module,
-        anchor_generator=AnchorGenerator(
-            (tuple(cfg.MODEL.RPN.ANCHOR_SIZES),),
-            cfg.MODEL.RPN.ASPECT_RATIOS, (stride,)),
+        anchor_generator=_c4_anchor_generator(cfg),
         strides=(stride,),
         device=device,
     )
+
+
+def _c4_rpn_head(cfg, in_channels, dtype):
+    """The one-level RPN head of a C4 body: every ANCHOR_SIZES x
+    ASPECT_RATIOS anchor per location, its shared conv 1,024 wide."""
+    num_anchors = len(cfg.MODEL.RPN.ANCHOR_SIZES) * len(
+        cfg.MODEL.RPN.ASPECT_RATIOS)
+    return RPNHead(num_anchors=num_anchors, in_channels=in_channels,
+                   dtype=dtype, out_channels=1024)
+
+
+def _c4_anchor_generator(cfg):
+    """All ANCHOR_SIZES x ASPECT_RATIOS on one level at
+    RPN.ANCHOR_STRIDE[0]."""
+    return AnchorGenerator((tuple(cfg.MODEL.RPN.ANCHOR_SIZES),),
+                           cfg.MODEL.RPN.ASPECT_RATIOS,
+                           (cfg.MODEL.RPN.ANCHOR_STRIDE[0],))
+
+
+class RPNOnly(nn.Module):
+    """backbone + RPN head: (B, 3, H, W) -> the RPN's outputs."""
+
+    def __init__(self, backbone, rpn_head):
+        super().__init__()
+        self.backbone = backbone
+        self.rpn_head = rpn_head
+
+    def forward(self, images):
+        return self.rpn_head(self.backbone(images))
+
+
+@dataclass
+class RPNOnlyModel(DetectionModel):
+    """The RPN-only proposal model (the reference's rpn_*.yaml configs:
+    GeneralizedRCNN with RPN_ONLY and no ROI heads). Its detections are
+    the proposals: FPN_POST_NMS_TOP_N_TEST (at most) per image in pick
+    order; ``inference`` scores them by box-proposal average recall
+    (evaluation/coco_eval.py ``evaluate_box_proposals``), not COCO AP."""
+
+    head_type: str = "rpn"
+
+    def postprocess_config(self):
+        return RPNConfig.from_cfg(self.cfg, is_train=False)
+
+    def make_bucket_train_step(self, hw, draws=None, return_aux=False):
+        """train_step(state, batch) -> metrics for padded inputs of shape
+        ``hw``: ``rpn_loss`` of the module's outputs, its sampler's
+        uniforms from ``draws(step)("rpn", shape)`` (default
+        ``seeded_draws``, as ``TwoStageModel``); ``return_aux`` adds the
+        sampled anchors "rpn_pos" and "rpn_neg"."""
+        anchors, _ = self.anchors_for(hw)
+        rc = RPNConfig.from_cfg(self.cfg, is_train=True)
+        if draws is None:
+            seed, rank = self.cfg.TPU.SEED, comm.get_rank()
+
+            def draws(step):
+                return seeded_draws(seed, step, self.device, rank)
+
+        def forward_loss(module, images, batch, step):
+            with record_function(SPAN_FORWARD):
+                outputs = module(images)
+            with record_function(SPAN_RPN_LOSS):
+                return rpn_loss(
+                    outputs, batch["gt_boxes"], batch["gt_labels"], anchors,
+                    rc, draws(step)("rpn", (images.shape[0],
+                                            anchors.shape[0])),
+                    image_sizes=batch["image_sizes"], return_aux=return_aux)
+
+        return make_train_step(
+            forward_loss, make_lr_schedule(self.cfg), self.device,
+            normalize=(self.cfg.INPUT.PIXEL_MEAN, self.cfg.INPUT.PIXEL_STD))
+
+    def detect(self, images, image_sizes):
+        """The proposals of normalized NCHW ``images``: {"boxes" (B, K,
+        4), "scores" (B, K) objectness logits, "labels" (B, K) int32, 1
+        where valid, "valid" (B, K)}, invalid slots zero, K =
+        min(FPN_POST_NMS_TOP_N_TEST, the levels' kept slots)."""
+        anchors, counts = self.anchors_for(images.shape[2:])
+        boxes, scores, valid = select_proposals(
+            self.module(images), image_sizes, anchors, counts,
+            self.postprocess_config())
+        return {"boxes": torch.where(valid[..., None], boxes, 0.0),
+                "scores": torch.where(valid, scores, 0.0),
+                "labels": valid.to(torch.int32), "valid": valid}
+
+
+def build_rpn_only(cfg, device, dtype=torch.float32):
+    """The RPN-only model of ``cfg`` (the JAX package's build_rpn_only):
+    on an R-*-FPN body the backbone of ``build_backbone`` (P2..P6, P6
+    pooled) and the RPN over its 5 levels; on an R-*-C4 body the C4 map
+    alone, one RPN level at ANCHOR_STRIDE[0] with every size x ratio
+    anchor and the shared conv 1,024 wide (as ``_build_single_level_rcnn``
+    builds it)."""
+    body = cfg.MODEL.BACKBONE.CONV_BODY
+    if body.endswith("-FPN"):
+        channels = cfg.MODEL.RESNETS.BACKBONE_OUT_CHANNELS
+        backbone = build_backbone(cfg, dtype=dtype)
+        rpn_head = RPNHead(num_anchors=len(cfg.MODEL.RPN.ASPECT_RATIOS),
+                           in_channels=channels, dtype=dtype)
+        anchors = AnchorGenerator(cfg.MODEL.RPN.ANCHOR_SIZES,
+                                  cfg.MODEL.RPN.ASPECT_RATIOS, RPN_STRIDES)
+        strides = RPN_STRIDES
+    elif body.endswith("-C4"):
+        backbone = SingleLevelBackbone(resnet_from_cfg(cfg, dtype=dtype))
+        rpn_head = _c4_rpn_head(cfg, cfg.MODEL.RESNETS.RES2_OUT_CHANNELS * 4,
+                                dtype)
+        anchors = _c4_anchor_generator(cfg)
+        strides = (cfg.MODEL.RPN.ANCHOR_STRIDE[0],)
+    else:
+        raise NotImplementedError(
+            f"paa_tpu_torch ports the RPN-only model on an R-*-FPN or "
+            f"R-*-C4 body, not {body}")
+    return RPNOnlyModel(cfg=cfg, module=RPNOnly(backbone, rpn_head),
+                        anchor_generator=anchors, strides=strides,
+                        device=device)

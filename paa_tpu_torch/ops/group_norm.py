@@ -1,12 +1,14 @@
-"""GroupNorm + ReLU for the head towers (port of the TPU kernel
+"""GroupNorm, optionally followed by ReLU (port of the TPU kernel
 paa_tpu/ops/fused_gn.py::fused_group_norm_relu, body ``_gn_kernel``).
 
 GroupNorm(G, eps) followed by ReLU, as the reference's towers apply it
 (make_layers.py group_norm -> nn.GroupNorm(32, C, eps=1e-5), then ReLU;
-rpn/paa/paa.py:33-44). Statistics are float32, per (image, group), in
-two passes: the mean, then the centred variance. The affine is folded
+rpn/paa/paa.py:33-44), or with ``relu=False`` GroupNorm alone (the TPU
+kernel's ``relu`` argument): the GN bodies' norms before a residual add,
+FPN's GN without USE_RELU. Statistics are float32, per (image, group),
+in two passes: the mean, then the centred variance. The affine is folded
 into a = scale * rsqrt(var + eps) and b = bias - mean * a, and the output
-relu(x * a + b) is cast back to the input dtype.
+relu(x * a + b) (or x * a + b) is cast back to the input dtype.
 
 ``group_norm_relu`` dispatches on the tensor's device: the plain PyTorch
 version for CPU tensors, the CUDA kernel K3 (csrc/group_norm.cu) for
@@ -50,7 +52,8 @@ MAX_THREADS = 512
 MIN_THREADS = 64
 
 
-def group_norm_relu_plain(x, weight, bias, num_groups=32, eps=1e-5):
+def group_norm_relu_plain(x, weight, bias, num_groups=32, eps=1e-5,
+                          relu=True):
     """The plain PyTorch version, following the JAX package's
     ``_gn_relu_reference``. x: (B, C, H, W); weight, bias: (C,).
 
@@ -59,7 +62,8 @@ def group_norm_relu_plain(x, weight, bias, num_groups=32, eps=1e-5):
     gradient where ``out`` is exactly 0 (``torch.relu`` gives 0 there).
     That happens in a group of zero variance with a zero bias, GN's
     initial value; GroupNormReLU's backward differentiates this
-    function, so both training paths take the same rule.
+    function, so both training paths take the same rule. With
+    ``relu=False`` it is GroupNorm alone, and its gradient GroupNorm's.
 
     It computes in float32, or in float64 for a float64 ``x`` (a
     float64 reference step, chip_smoke.py)."""
@@ -70,7 +74,9 @@ def group_norm_relu_plain(x, weight, bias, num_groups=32, eps=1e-5):
     var = (xf - mean).square().mean(dim=2, keepdim=True)
     xn = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, c, h, w)
     out = xn * weight.to(ct)[:, None, None] + bias.to(ct)[:, None, None]
-    return torch.maximum(out, out.new_zeros(())).to(x.dtype)
+    if relu:
+        out = torch.maximum(out, out.new_zeros(()))
+    return out.to(x.dtype)
 
 
 @dataclass(frozen=True)
@@ -121,7 +127,7 @@ def _lib():
     lib = _build.load("group_norm")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.paa_group_norm_relu.argtypes = (
-        [vp] * 4 + [ci] * 11 + [ctypes.c_float, vp])
+        [vp] * 4 + [ci] * 11 + [ctypes.c_float, ci, vp])
     lib.paa_group_norm_relu.restype = ci
     lib.paa_group_norm_max_active.argtypes = [ci] * 5
     lib.paa_group_norm_max_active.restype = ci
@@ -147,7 +153,7 @@ def gn_max_active_clusters(x, num_groups=32):
             plan.smem_bytes)
 
 
-def _group_norm_relu_cuda(x, weight, bias, num_groups, eps):
+def _group_norm_relu_cuda(x, weight, bias, num_groups, eps, relu=True):
     b, c, h, w = x.shape
     if not x.is_contiguous():
         raise ValueError(
@@ -177,13 +183,14 @@ def _group_norm_relu_cuda(x, weight, bias, num_groups, eps):
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
             _DTYPES[x.dtype], b * num_groups, ge, h * w, c // num_groups,
             num_groups, plan.cs, plan.share, plan.threads,
-            int(plan.resident), plan.smem_bytes, float(eps),
+            int(plan.resident), plan.smem_bytes, float(eps), int(relu),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
             f"group_norm_relu kernel launch failed: CUDA error {err}")
     group_norm_relu.launches += 1
+    group_norm_relu.launches_by_form[form(relu)] += 1
     return y
 
 
@@ -192,18 +199,20 @@ SPAN_BACKWARD = "group_norm_relu/backward"
 
 
 class GroupNormReLU(torch.autograd.Function):
-    """relu(GroupNorm(x)) with ``forward_fn`` (K3's launcher on the main
-    path; a CPU test passes the plain version) as the forward, and the
-    VJP of ``group_norm_relu_plain`` as the backward: it saves (x,
-    weight, bias) and recomputes the plain version under autograd.
-    Returns the gradient of x in x's dtype and those of weight and bias
-    in float32."""
+    """relu(GroupNorm(x)), or GroupNorm(x) with ``relu`` False, with
+    ``forward_fn`` (K3's launcher on the main path; a CPU test passes the
+    plain version) as the forward, and the VJP of
+    ``group_norm_relu_plain`` as the backward: it saves (x, weight, bias)
+    and recomputes the plain version under autograd. Returns the
+    gradient of x in x's dtype and those of weight and bias in
+    float32."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, num_groups, eps, forward_fn):
+    def forward(ctx, x, weight, bias, num_groups, eps, forward_fn,
+                relu=True):
         ctx.save_for_backward(x, weight, bias)
-        ctx.num_groups, ctx.eps = num_groups, eps
-        return forward_fn(x, weight, bias, num_groups, eps)
+        ctx.num_groups, ctx.eps, ctx.relu = num_groups, eps, relu
+        return forward_fn(x, weight, bias, num_groups, eps, relu)
 
     @staticmethod
     def backward(ctx, grad):
@@ -212,31 +221,42 @@ class GroupNormReLU(torch.autograd.Function):
         with record_function(SPAN_BACKWARD), torch.enable_grad():
             inputs = [t.detach().requires_grad_(w)
                       for t, w in zip(saved, wanted)]
-            y = group_norm_relu_plain(*inputs, ctx.num_groups, ctx.eps)
+            y = group_norm_relu_plain(*inputs, ctx.num_groups, ctx.eps,
+                                      ctx.relu)
             grads = iter(torch.autograd.grad(
                 y, [t for t in inputs if t.requires_grad], grad))
+        rest = len(ctx.needs_input_grad) - 3  # num_groups, eps, fn(, relu)
         return (*(next(grads) if w else None for w in wanted),
-                None, None, None)
+                *(None,) * rest)
 
 
-def group_norm_relu(x, weight, bias, num_groups=32, eps=1e-5):
-    """relu(GroupNorm(x)) for x (B, C, H, W) in float32, bfloat16 or
-    float16 and float32 weight, bias (C,); returns x's dtype.
+def form(relu):
+    """The key of a launch's form in ``group_norm_relu.launches_by_form``:
+    "relu" (GroupNorm + ReLU) or "no_relu" (GroupNorm alone)."""
+    return "relu" if relu else "no_relu"
+
+
+def group_norm_relu(x, weight, bias, num_groups=32, eps=1e-5, relu=True):
+    """relu(GroupNorm(x)), or GroupNorm(x) with ``relu`` False, for x
+    (B, C, H, W) in float32, bfloat16 or float16 and float32 weight,
+    bias (C,); returns x's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch K3
-    (csrc/group_norm.cu, counted in ``group_norm_relu.launches``) or
-    raise, through ``GroupNormReLU`` where autograd records."""
+    (csrc/group_norm.cu, counted in ``group_norm_relu.launches`` and by
+    form in ``group_norm_relu.launches_by_form``) or raise, through
+    ``GroupNormReLU`` where autograd records."""
     if x.shape[1] % num_groups:
         raise ValueError(f"{x.shape[1]} channels in {num_groups} groups")
     if x.device.type == "cpu":
-        return group_norm_relu_plain(x, weight, bias, num_groups, eps)
+        return group_norm_relu_plain(x, weight, bias, num_groups, eps, relu)
     if x.device.type != "cuda":
         raise ValueError(f"group_norm_relu: no kernel for {x.device}")
     if torch.is_grad_enabled() and (
             x.requires_grad or weight.requires_grad or bias.requires_grad):
         return GroupNormReLU.apply(x, weight, bias, num_groups, eps,
-                                   _group_norm_relu_cuda)
-    return _group_norm_relu_cuda(x, weight, bias, num_groups, eps)
+                                   _group_norm_relu_cuda, relu)
+    return _group_norm_relu_cuda(x, weight, bias, num_groups, eps, relu)
 
 
 group_norm_relu.launches = 0
+group_norm_relu.launches_by_form = {"relu": 0, "no_relu": 0}

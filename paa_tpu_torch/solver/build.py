@@ -16,6 +16,9 @@ reference paa_core/solver/build.py:7-37, lr_scheduler.py:10-52).
   GAMMA ** bisect_right(STEPS, i).
 - "frozen" parameters (FREEZE_CONV_BODY_AT stages; FrozenBatchNorm's
   tensors are buffers in the port) get no update: they join no group.
+  FrozenBatchNorm is told from GroupNorm by what the module holds, not
+  by its name: a GN body names its norms ``bn1``..``bn3`` and
+  ``downsample_bn`` as a FrozenBN body does, and their affines train.
 """
 
 from __future__ import annotations
@@ -25,8 +28,8 @@ from bisect import bisect_right
 
 import torch
 
-_FROZEN_BN_LEAVES = {"weight", "bias", "running_mean", "running_var"}
-_BN_MODULE = re.compile(r"^(bn\d|downsample_bn)$")
+# a module holding these buffers is a FrozenBatchNorm (modeling/layers.py)
+_FROZEN_BN_STATS = ("running_mean", "running_var")
 
 
 def make_lr_schedule(cfg):
@@ -50,13 +53,10 @@ def make_lr_schedule(cfg):
     return schedule
 
 
-def _label(name, freeze_at):
+def _label(name, freeze_at, frozen_bn):
     keys = name.split(".")
     leaf = keys[-1]
-    # FrozenBatchNorm tensors sit directly under a bnX module; GroupNorm
-    # affines (gnX.weight, gnX.bias) stay trainable
-    if len(keys) >= 2 and _BN_MODULE.match(keys[-2]) and \
-            leaf in _FROZEN_BN_LEAVES:
+    if name.rpartition(".")[0] in frozen_bn:
         return "frozen"
     # FREEZE_CONV_BODY_AT: stage 0 = stem, stage i = layer{i}
     for comp in keys:
@@ -72,9 +72,17 @@ def _label(name, freeze_at):
 
 def param_labels(names, freeze_at=2):
     """{name: 'weight' | 'bias' | 'dcn_offset' | 'dcn_offset_bias' |
-    'frozen'} for dotted tensor names (``module.named_parameters()``'s,
-    which carry the JAX package's flax scopes)."""
-    return {name: _label(name, freeze_at) for name in names}
+    'frozen'} for dotted tensor names (``module.named_parameters()``'s or
+    ``state_dict()``'s, which carry the JAX package's flax scopes). Every
+    tensor of a FrozenBatchNorm (a module whose running_mean and
+    running_var are among ``names``) is "frozen"; a GroupNorm's affine
+    under the same module name (a GN body's ``bn1``) is not."""
+    names = list(names)
+    have = set(names)
+    frozen_bn = {name.rpartition(".")[0] for name in names
+                 if all(name.rpartition(".")[0] + "." + s in have
+                        for s in _FROZEN_BN_STATS)}
+    return {name: _label(name, freeze_at, frozen_bn) for name in names}
 
 
 def make_optimizer(cfg, module):

@@ -20,9 +20,13 @@ mechanical; only the leaves change form:
   x[i] W[a];
 - a dense ``kernel`` (in, out) becomes ``Linear.weight`` (out, in). The
   box head's fc6 reads ROI features flattened in (7, 7, C) order in both
-  packages (ops/roi_align.py pools them channels-last), so its rows need
-  no other permutation;
-- GroupNorm's ``gn/scale`` and ``gn/bias`` become ``weight`` and ``bias``;
+  packages (ops/roi_align.py pools them channels-last; the Xconv head
+  flattens its NCHW convs' output in that order too), so its rows need
+  no other permutation; a dense layer without a bias (the GN box heads'
+  fc6/fc7) has none on either side;
+- GroupNorm's ``gn/scale`` and ``gn/bias`` become ``weight`` and ``bias``
+  (the heads' ``*_gn`` scopes, and a GN body's ``bnX`` and
+  ``downsample_bn``, which are GroupNorm32 in the port too);
 - FrozenBatchNorm's ``weight``, ``bias``, ``running_mean`` and
   ``running_var`` fill the buffers of the same names;
 - ``Scale``'s ``scale`` becomes a scalar.
@@ -68,9 +72,10 @@ def _leaves(mod, tree, path):
             tree["kernel"], (2, 3, 0, 1))[:, :, ::-1, ::-1])),
                 ("bias", tree["bias"])]
     if isinstance(mod, Linear):
-        keys(["kernel", "bias"])
-        return [("weight", np.transpose(tree["kernel"])),
-                ("bias", tree["bias"])]
+        has_bias = mod.bias is not None
+        keys(["kernel"] + (["bias"] if has_bias else []))
+        return [("weight", np.transpose(tree["kernel"]))] + (
+            [("bias", tree["bias"])] if has_bias else [])
     if isinstance(mod, FrozenBatchNorm):
         names = ["weight", "bias", "running_mean", "running_var"]
         keys(names)

@@ -7,11 +7,12 @@ paa_core/utils/{c2_model_loading,model_serialization,checkpoint}.py).
   R-50-FPN one, the dcnv2 and ResNeXt PAA ones) -> the port's module,
   for the R-50/R-101/R-152 and ResNeXt bodies with or without DCN, both
   FPN wirings (P6 from P5 or C5), the PAA, ATSS and FCOS heads (DCN
-  tower included), the RPN head, the FPN2MLP box head, the mask and
-  keypoint heads, and the C4 models (their body under
+  tower included), the RPN head, the FPN2MLP and Xconv box heads, the
+  mask and keypoint heads, the C4 models (their body under
   ``backbone.body``, the res5 box head ``roi_heads.box.
-  feature_extractor.head.layer4``, the C4 mask predictor). A RetinaNet
-  head's towers raise (``_check_tower_layout``).
+  feature_extractor.head.layer4``, the C4 mask predictor or the
+  unshared mask head), the GN models (below) and the RPN-only models. A
+  RetinaNet head's towers raise (``_check_tower_layout``).
 - ``load_c2_pickle(module, path)``: a Detectron ``.pkl`` (an ImageNet
   body, or a Caffe2Detectron detection model's FPN, RPN, box head, mask
   head and keypoint head). A C4 model takes the res5 blobs into its box
@@ -42,6 +43,16 @@ change more than the name:
   ``head.scaleN.scale`` shape ();
 - the towers' ``Sequential`` indices 3i and 3i + 1 are the conv and the
   GroupNorm of block i (3i + 2 is the parameter-free ReLU);
+- the GN layouts (make_layers.py): FPN's ``fpn_innerN``/``fpn_layerN``,
+  the box head's ``fc6``/``fc7`` and the mask head's ``mask_fcnN`` are
+  ``Sequential(layer, GroupNorm)`` with GN, so index 0 is the layer and
+  index 1 the port's ``*_gn``; the Xconv head's ``xconvs`` is one
+  ``Sequential`` of [conv, GroupNorm, ReLU] per block with GN (conv at
+  3i, GN at 3i + 1) and [conv, ReLU] without (conv at 2i): which, the
+  file says by an ``xconvs.1.weight`` (``load_torch_state_dict`` looks
+  before it maps). fc6's columns are permuted as FPN2MLP's. A GN body's
+  ``bnX.weight``/``bias`` (no running statistics) and Detectron's
+  ``_gn_s``/``_gn_b`` blobs land on its GroupNorm32 of the same name;
 - ``mask_fcn_logits`` has NUM_CLASSES output channels in the reference
   and C - 1 in the port (and the JAX package), which drop channel 0:
   the reference's loss and inference never read it. ``conv5_mask`` and
@@ -101,8 +112,10 @@ _RULES = [
     (r"roi_heads\.(?:box|mask)\.feature_extractor\.head\.layer4\.(\d+)\."
      r"downsample\.1\.(\w+)", (r"box_head.layer4_\1.downsample_bn.\2",),
      "copy"),
-    (r"backbone\.fpn\.(fpn_inner\d|fpn_layer\d)\.(weight|bias)",
+    (r"backbone\.fpn\.(fpn_inner\d|fpn_layer\d)(?:\.0)?\.(weight|bias)",
      (r"backbone.fpn.\1.\2",), "copy"),
+    (r"backbone\.fpn\.(fpn_inner\d|fpn_layer\d)\.1\.(weight|bias)",
+     (r"backbone.fpn.\1_gn.\2",), "copy"),
     (r"backbone\.fpn\.top_blocks\.(p6|p7)\.(weight|bias)",
      (r"backbone.fpn.\1.\2",), "copy"),
     # the PAA head and the RPN head share the reference's "rpn.head"
@@ -113,14 +126,18 @@ _RULES = [
      (r"head.\1.\2",), "copy"),
     (r"rpn\.head\.scales\.(\d+)\.scale", (r"head.scale\1.scale",), "scalar"),
     (r"rpn\.head\.conv\.(weight|bias)", (r"rpn_head.conv.\1",), "copy"),
-    (r"roi_heads\.box\.feature_extractor\.fc6\.weight",
+    (r"roi_heads\.box\.feature_extractor\.fc6(?:\.0)?\.weight",
      ("box_head.fc6.weight",), "fc_nchw"),
-    (r"roi_heads\.box\.feature_extractor\.fc(6|7)\.(weight|bias)",
+    (r"roi_heads\.box\.feature_extractor\.fc(6|7)(?:\.0)?\.(weight|bias)",
      (r"box_head.fc\1.\2",), "copy"),
+    (r"roi_heads\.box\.feature_extractor\.fc(6|7)\.1\.(weight|bias)",
+     (r"box_head.fc\1_gn.\2",), "copy"),
     (r"roi_heads\.box\.predictor\.(cls_score|bbox_pred)\.(weight|bias)",
      (r"box_head.\1.\2",), "copy"),
-    (r"roi_heads\.mask\.feature_extractor\.(mask_fcn\d)\.(weight|bias)",
-     (r"mask_head.\1.\2",), "copy"),
+    (r"roi_heads\.mask\.feature_extractor\.(mask_fcn\d)(?:\.0)?\."
+     r"(weight|bias)", (r"mask_head.\1.\2",), "copy"),
+    (r"roi_heads\.mask\.feature_extractor\.(mask_fcn\d)\.1\.(weight|bias)",
+     (r"mask_head.\1_gn.\2",), "copy"),
     (r"roi_heads\.mask\.predictor\.conv5_mask\.(weight|bias)",
      (r"mask_head.conv5_mask.\1",), "copy"),
     (r"roi_heads\.mask\.predictor\.mask_fcn_logits\.(weight|bias)",
@@ -135,15 +152,34 @@ _RULES = [(re.compile(p), t, k) for p, t, k in _RULES]
 # DFConv2d with ``.conv`` and ``.offset`` children
 _TOWER = re.compile(r"rpn\.head\.(cls_tower|bbox_tower)\.(\d+)\."
                     r"(?:(conv|offset)\.)?(weight|bias)")
+# the Xconv box head's stacked convs, one Sequential
+_XCONVS = re.compile(r"roi_heads\.box\.feature_extractor\.xconvs\.(\d+)\."
+                     r"(weight|bias)")
 
 
-def torch_name_to_port_keys(name):
+def xconvs_have_gn(names):
+    """Whether a file's ``xconvs`` Sequential is the GN layout ([conv,
+    GroupNorm, ReLU] per block): its index 1 then holds a weight (the
+    first GroupNorm's), which is a ReLU without GN."""
+    return any(n.endswith("feature_extractor.xconvs.1.weight")
+               for n in names)
+
+
+def torch_name_to_port_keys(name, xconv_gn=False):
     """[(port state-dict key, transform), ...] for a reference key, the
     likeliest first; [] when the port has no counterpart. An optional
     ``module.`` prefix (a DistributedDataParallel checkpoint) is
-    accepted."""
+    accepted. ``xconv_gn``: the file's ``xconvs`` are the GN layout
+    (``xconvs_have_gn``)."""
     if name.startswith("module."):
         name = name[len("module."):]
+    m = _XCONVS.fullmatch(name)
+    if m:
+        block, within = divmod(int(m.group(1)), 3 if xconv_gn else 2)
+        if within > int(xconv_gn):  # a ReLU
+            return []
+        sub = "_gn" if within else ""
+        return [(f"box_head.xconv{block + 1}{sub}.{m.group(2)}", "copy")]
     m = _TOWER.fullmatch(name)
     if m:
         tower, idx, child, leaf = m.groups()
@@ -251,8 +287,10 @@ def load_torch_state_dict(module, state_dict, logger=None):
     into ``module`` in place; returns (skipped, unwritten)."""
     writer = _Writer(module)
     _check_tower_layout(writer, state_dict)
+    xconv_gn = xconvs_have_gn(state_dict)
     skipped = [name for name, value in state_dict.items()
-               if not writer.write(torch_name_to_port_keys(name), value)]
+               if not writer.write(torch_name_to_port_keys(name, xconv_gn),
+                                   value)]
     unwritten = writer.unwritten()
     _report(logger, "torch import", len(state_dict) - len(skipped),
             skipped, unwritten)

@@ -37,8 +37,19 @@ share it.
   under ``roi_heads.mask.feature_extractor``:
   ``with_shared_mask_extractor``). FrozenBatchNorm has
   four tensors and no
-  ``num_batches_tracked``. The anchor generators' ``cell_anchors``
-  buffers, which the port computes, are left out.
+  ``num_batches_tracked``. The GN models (configs/gn_baselines,
+  make_layers.py): a GN body's ``bn*``/``downsample.1`` GroupNorms hold
+  ``weight`` and ``bias`` alone; with FPN.USE_GN ``fpn_inner{k}`` /
+  ``fpn_layer{k}`` are ``Sequential(conv, GroupNorm)`` (``.0.weight``,
+  no bias; ``.1.weight``/``.1.bias``), and so are the box head's
+  ``fc6``/``fc7`` with ROI_BOX_HEAD.USE_GN and the mask head's
+  ``mask_fcn{i}`` with ROI_MASK_HEAD.USE_GN; FPNXconv1fcFeatureExtractor
+  keeps its convs in one ``xconvs`` Sequential, [conv, GroupNorm, ReLU]
+  per block with GN and [conv (with bias), ReLU] without, then ``fc6``
+  over the NCHW-flattened conv output. The RPN-only model has the body,
+  the FPN (on an FPN body) and the RPN head alone. The anchor
+  generators' ``cell_anchors`` buffers, which the port computes, are
+  left out.
 - Detectron ImageNet pickles (``{"blobs": {...}}``): the body's
   ``conv1_w``, ``res_conv1_bn_{s,b}``, ``res{2..5}_{b}_branch2{a,b,c}_w``
   and ``_bn_{s,b}``, ``res{s}_0_branch1_*``, with BatchNorm folded into
@@ -53,8 +64,11 @@ BLOCKS = {"R-50": (3, 4, 6, 3), "R-101": (3, 4, 23, 3),
           "R-152": (3, 8, 36, 3)}
 
 
-def _bn(out, prefix, channels):
-    for leaf in ("weight", "bias", "running_mean", "running_var"):
+def _bn(out, prefix, channels, gn=False):
+    """A FrozenBatchNorm's four tensors, or a GroupNorm's two."""
+    leaves = ("weight", "bias") if gn else (
+        "weight", "bias", "running_mean", "running_var")
+    for leaf in leaves:
         out[f"{prefix}.{leaf}"] = (channels,)
 
 
@@ -69,42 +83,53 @@ def _dfconv(out, prefix, cin, cout, groups, dg, modulated, bias):
 
 
 def resnet_keys(blocks, stem_out=64, res2_out=256, width=64, groups=1,
-                stage_with_dcn=(False,) * 4, modulated=False, dg=1):
+                stage_with_dcn=(False,) * 4, modulated=False, dg=1,
+                gn=False):
     """The body's keys and shapes (either stride placement: it moves no
-    tensor)."""
+    tensor); ``gn``: GroupNorm in every norm's place."""
     out = OrderedDict()
     out["backbone.body.stem.conv1.weight"] = (stem_out, 3, 7, 7)
-    _bn(out, "backbone.body.stem.bn1", stem_out)
+    _bn(out, "backbone.body.stem.bn1", stem_out, gn)
     cin = stem_out
     for i, count in enumerate(blocks):
         mid, cout = groups * width * 2 ** i, res2_out * 2 ** i
         for b in range(count):
             p = f"backbone.body.layer{i + 1}.{b}"
             out[f"{p}.conv1.weight"] = (mid, cin, 1, 1)
-            _bn(out, f"{p}.bn1", mid)
+            _bn(out, f"{p}.bn1", mid, gn)
             if stage_with_dcn[i]:
                 _dfconv(out, f"{p}.conv2", mid, mid, groups, dg, modulated,
                         bias=False)
             else:
                 out[f"{p}.conv2.weight"] = (mid, mid // groups, 3, 3)
-            _bn(out, f"{p}.bn2", mid)
+            _bn(out, f"{p}.bn2", mid, gn)
             out[f"{p}.conv3.weight"] = (cout, mid, 1, 1)
-            _bn(out, f"{p}.bn3", cout)
+            _bn(out, f"{p}.bn3", cout, gn)
             if b == 0:
                 out[f"{p}.downsample.0.weight"] = (cout, cin, 1, 1)
-                _bn(out, f"{p}.downsample.1", cout)
+                _bn(out, f"{p}.downsample.1", cout, gn)
             cin = cout
     return out
 
 
-def fpn_keys(retina, res2_out, channels, p6_from_c5=False):
+def _layer(out, prefix, shape, gn):
+    """conv_with_kaiming_uniform / make_fc / make_conv3x3: the layer with
+    a bias, or with ``gn`` Sequential(layer without bias, GroupNorm)."""
+    if gn:
+        out[f"{prefix}.0.weight"] = shape
+        _bn(out, f"{prefix}.1", shape[0], gn=True)
+    else:
+        out[f"{prefix}.weight"] = shape
+        out[f"{prefix}.bias"] = (shape[0],)
+
+
+def fpn_keys(retina, res2_out, channels, p6_from_c5=False, gn=False):
     out = OrderedDict()
     for k in range(2 if retina else 1, 5):
         cin = res2_out * 2 ** (k - 1)
-        out[f"backbone.fpn.fpn_inner{k}.weight"] = (channels, cin, 1, 1)
-        out[f"backbone.fpn.fpn_inner{k}.bias"] = (channels,)
-        out[f"backbone.fpn.fpn_layer{k}.weight"] = (channels, channels, 3, 3)
-        out[f"backbone.fpn.fpn_layer{k}.bias"] = (channels,)
+        _layer(out, f"backbone.fpn.fpn_inner{k}", (channels, cin, 1, 1), gn)
+        _layer(out, f"backbone.fpn.fpn_layer{k}",
+               (channels, channels, 3, 3), gn)
     if retina:  # P6 from P5, or from C5 with RETINANET.USE_C5
         for p in ("p6", "p7"):
             cin = res2_out * 8 if p == "p6" and p6_from_c5 else channels
@@ -170,14 +195,28 @@ def rpn_head_keys(channels, num_anchors=3):
     return out
 
 
-def box_head_keys(channels, resolution, mlp, num_classes):
-    """``num_classes`` with the background."""
+def box_head_keys(channels, resolution, mlp, num_classes, gn=False,
+                  xconvs=None):
+    """``num_classes`` with the background; ``xconvs`` (count, width) for
+    FPNXconv1fcFeatureExtractor (its fc6 without GN), else FPN2MLP."""
     out = OrderedDict()
     p = "roi_heads.box.feature_extractor"
-    out[f"{p}.fc6.weight"] = (mlp, channels * resolution * resolution)
-    out[f"{p}.fc6.bias"] = (mlp,)
-    out[f"{p}.fc7.weight"] = (mlp, mlp)
-    out[f"{p}.fc7.bias"] = (mlp,)
+    if xconvs is None:
+        _layer(out, f"{p}.fc6", (mlp, channels * resolution * resolution),
+               gn)
+        _layer(out, f"{p}.fc7", (mlp, mlp), gn)
+    else:
+        count, width = xconvs
+        cin = channels
+        for i in range(count):
+            j = i * (3 if gn else 2)
+            out[f"{p}.xconvs.{j}.weight"] = (width, cin, 3, 3)
+            if gn:
+                _bn(out, f"{p}.xconvs.{j + 1}", width, gn=True)
+            else:
+                out[f"{p}.xconvs.{j}.bias"] = (width,)
+            cin = width
+        _layer(out, f"{p}.fc6", (mlp, cin * resolution * resolution), False)
     p = "roi_heads.box.predictor"
     out[f"{p}.cls_score.weight"] = (num_classes, mlp)
     out[f"{p}.cls_score.bias"] = (num_classes,)
@@ -186,18 +225,20 @@ def box_head_keys(channels, resolution, mlp, num_classes):
     return out
 
 
-def mask_head_keys(channels, conv_layers, num_classes):
-    """``num_classes`` with the background."""
+def mask_head_keys(channels, conv_layers, num_classes, gn=False,
+                   deconv=True):
+    """``num_classes`` with the background; ``deconv`` False for
+    MaskRCNNConv1x1Predictor."""
     out = OrderedDict()
     cin = channels
     for i, cout in enumerate(conv_layers):
-        p = f"roi_heads.mask.feature_extractor.mask_fcn{i + 1}"
-        out[f"{p}.weight"] = (cout, cin, 3, 3)
-        out[f"{p}.bias"] = (cout,)
+        _layer(out, f"roi_heads.mask.feature_extractor.mask_fcn{i + 1}",
+               (cout, cin, 3, 3), gn)
         cin = cout
     p = "roi_heads.mask.predictor"
-    out[f"{p}.conv5_mask.weight"] = (cin, cin, 2, 2)
-    out[f"{p}.conv5_mask.bias"] = (cin,)
+    if deconv:
+        out[f"{p}.conv5_mask.weight"] = (cin, cin, 2, 2)
+        out[f"{p}.conv5_mask.bias"] = (cin,)
     out[f"{p}.mask_fcn_logits.weight"] = (num_classes, cin, 1, 1)
     out[f"{p}.mask_fcn_logits.bias"] = (num_classes,)
     return out
@@ -256,20 +297,24 @@ def with_shared_mask_extractor(state):
 
 def layout(cfg):
     """The reference state dict's keys and shapes for the PAA, ATSS,
-    FCOS, RetinaNet, Faster R-CNN, Mask R-CNN or Keypoint R-CNN model of
-    ``cfg`` (either package's config), on an FPN or a C4 body (the C4
-    Mask R-CNN's shared extractor once: ``with_shared_mask_extractor``
-    adds its second listing)."""
+    FCOS, RetinaNet, Faster R-CNN, Mask R-CNN, Keypoint R-CNN or RPN-only
+    model of ``cfg`` (either package's config), on an FPN or a C4 body,
+    FrozenBN or GN, with the GN and Xconv heads (the C4 Mask R-CNN's
+    shared extractor once: ``with_shared_mask_extractor`` adds its
+    second listing)."""
     m = cfg.MODEL
     r = m.RESNETS
     body = m.BACKBONE.CONV_BODY
+    gn = r.TRANS_FUNC == "BottleneckWithGN"
     if body.endswith("-C4"):
         out = resnet_keys(BLOCKS[body[:-len("-C4")]][:3],
                           r.STEM_OUT_CHANNELS, r.RES2_OUT_CHANNELS,
-                          r.WIDTH_PER_GROUP, r.NUM_GROUPS)
+                          r.WIDTH_PER_GROUP, r.NUM_GROUPS, gn=gn)
         out.update(rpn_head_keys(4 * r.RES2_OUT_CHANNELS,
                                  len(m.RPN.ANCHOR_SIZES)
                                  * len(m.RPN.ASPECT_RATIOS)))
+        if m.RPN_ONLY:
+            return out
         out.update(res5_head_keys(r.RES2_OUT_CHANNELS, r.WIDTH_PER_GROUP,
                                   r.NUM_GROUPS, m.ROI_BOX_HEAD.NUM_CLASSES))
         if m.MASK_ON:
@@ -286,12 +331,13 @@ def layout(cfg):
     out = resnet_keys(BLOCKS[body.split("-FPN")[0]], r.STEM_OUT_CHANNELS,
                       r.RES2_OUT_CHANNELS, r.WIDTH_PER_GROUP, r.NUM_GROUPS,
                       r.STAGE_WITH_DCN, r.WITH_MODULATED_DCN,
-                      r.DEFORMABLE_GROUPS)
+                      r.DEFORMABLE_GROUPS, gn)
     channels = r.BACKBONE_OUT_CHANNELS
     dense = next((n for n in ("PAA", "ATSS", "FCOS", "RETINANET")
                   if m[f"{n}_ON"]), None)
     out.update(fpn_keys(retina, r.RES2_OUT_CHANNELS, channels,
-                        dense is not None and m.RETINANET.USE_C5))
+                        dense is not None and m.RETINANET.USE_C5,
+                        m.FPN.USE_GN))
     if dense == "RETINANET":
         h = m.RETINANET
         out.update(retinanet_head_keys(
@@ -311,13 +357,19 @@ def layout(cfg):
             h.USE_DCN_IN_TOWER, branch))
     else:
         out.update(rpn_head_keys(channels, len(m.RPN.ASPECT_RATIOS)))
+        if m.RPN_ONLY:
+            return out
         bh = m.ROI_BOX_HEAD
-        out.update(box_head_keys(channels, bh.POOLER_RESOLUTION,
-                                 bh.MLP_HEAD_DIM, bh.NUM_CLASSES))
+        xconv = bh.FEATURE_EXTRACTOR == "FPNXconv1fcFeatureExtractor"
+        out.update(box_head_keys(
+            channels, bh.POOLER_RESOLUTION, bh.MLP_HEAD_DIM, bh.NUM_CLASSES,
+            bh.USE_GN,
+            (bh.NUM_STACKED_CONVS, bh.CONV_HEAD_DIM) if xconv else None))
         if m.MASK_ON:
-            out.update(mask_head_keys(channels,
-                                      m.ROI_MASK_HEAD.CONV_LAYERS,
-                                      bh.NUM_CLASSES))
+            mh = m.ROI_MASK_HEAD
+            out.update(mask_head_keys(
+                channels, mh.CONV_LAYERS, bh.NUM_CLASSES, mh.USE_GN,
+                mh.PREDICTOR != "MaskRCNNConv1x1Predictor"))
         if m.KEYPOINT_ON:
             out.update(keypoint_head_keys(
                 channels, m.ROI_KEYPOINT_HEAD.CONV_LAYERS,

@@ -95,7 +95,28 @@ C4 = FRCNN_OVERRIDES + ["MODEL.RESNETS.RES2_OUT_CHANNELS", 256,
                         "MODEL.RESNETS.WIDTH_PER_GROUP", 8,
                         "MODEL.RESNETS.STEM_OUT_CHANNELS", 16,
                         "MODEL.ROI_MASK_HEAD.CONV_LAYERS", (32,)]
-FILES = {"krcnn": KRCNN,
+# the GN models (narrow as Faster R-CNN): the Xconv1fc GN Mask R-CNN with
+# 64-wide head convs; the scratch FPN2MLP one with its fc GN at MLP 256
+# (groups of 8); a GN-free Xconv head with the 1x1 mask predictor; the
+# RPN-only models (C4 at the config's width)
+GN_HEADS = ["MODEL.ROI_BOX_HEAD.CONV_HEAD_DIM", 64,
+            "MODEL.ROI_MASK_HEAD.CONV_LAYERS", (64, 64, 64, 64)]
+GN_FILES = {
+    "mrcnn_gn": (os.path.join(CONFIGS, "gn_baselines",
+                              "e2e_mask_rcnn_R_50_FPN_Xconv1fc_1x_gn.yaml"),
+                 FRCNN_OVERRIDES + GN_HEADS),
+    "frcnn_gn": (os.path.join(CONFIGS, "gn_baselines",
+                              "scratch_e2e_faster_rcnn_R_50_FPN_3x_gn.yaml"),
+                 FRCNN_OVERRIDES + ["MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM", 256]),
+    "mrcnn_xconv": (MRCNN_CONFIG, FRCNN_OVERRIDES + GN_HEADS + [
+        "MODEL.ROI_BOX_HEAD.FEATURE_EXTRACTOR",
+        "FPNXconv1fcFeatureExtractor",
+        "MODEL.ROI_MASK_HEAD.PREDICTOR", "MaskRCNNConv1x1Predictor"]),
+    "rpn_fpn": (os.path.join(CONFIGS, "rpn_R_50_FPN_1x.yaml"),
+                FRCNN_OVERRIDES),
+    "rpn_c4": (os.path.join(CONFIGS, "rpn_R_50_C4_1x.yaml"), []),
+}
+FILES = {**GN_FILES, "krcnn": KRCNN,
          "frcnn_c4": (os.path.join(CONFIGS, "e2e_faster_rcnn_R_50_C4_1x.yaml"),
                       C4),
          "mrcnn_c4": (os.path.join(CONFIGS, "e2e_mask_rcnn_R_50_C4_1x.yaml"),
@@ -664,3 +685,126 @@ def test_torch_name_to_port_keys(name, want):
 def test_c2_blob_to_torch_names_matches_jax(blob, want):
     assert ti.c2_blob_to_torch_names(blob) == want
     assert jti.c2_blob_to_torch_names(blob)[:1] == want[:1]
+
+
+# ---- the GN, Xconv and RPN-only layouts -------------------------------------
+
+@pytest.mark.parametrize("kind", ["mrcnn_gn", "frcnn_gn", "mrcnn_xconv",
+                                  "rpn_fpn"])
+def test_gn_xconv_and_rpn_only_import_lands_like_jax(kind):
+    """A seeded reference state dict of each layout (a GN body's bnX with
+    weight and bias alone, FPN and fc and mask_fcn Sequentials of (layer,
+    GroupNorm), the xconvs Sequential with and without GN, the 1x1 mask
+    predictor, the RPN-only model) fills every port tensor and skips
+    nothing, in both packages; the port's tensors equal those the JAX
+    package's importer writes, the Xconv head's fc6 columns permuted from
+    the NCHW flatten as FPN2MLP's."""
+    jcfg, cfg = _cfg(jax_get_cfg, kind), _cfg(get_cfg, kind)
+    state = rl.seeded_state_dict(rl.layout(cfg), seed=5)
+    jlogger, jlines = _logger()
+    tree = jti.load_torch_state_dict(
+        _jax_tree(jax_build(jcfg)), state, jlogger,
+        box_pooler_resolution=jcfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION)
+    assert f"matched {len(state)} tensors, skipped 0" in jlines[0]
+    model = build_detection_model(cfg, device="cpu", seed=1)
+    skipped, unwritten = ti.load_torch_state_dict(model.module, state)
+    assert skipped == [] and unwritten == []
+    want = _port_layout(model, tree)
+    got = model.module.state_dict()
+    for key, value in got.items():
+        torch.testing.assert_close(value, want[key], rtol=0, atol=0,
+                                   msg=key)
+    p = "roi_heads.box.feature_extractor"
+    if kind == "mrcnn_gn":
+        assert f"{p}.xconvs.4.weight" in state  # block 1's GN
+        np.testing.assert_array_equal(
+            got["box_head.xconv2_gn.weight"].numpy(),
+            state[f"{p}.xconvs.4.weight"])
+        np.testing.assert_array_equal(
+            got["backbone.fpn.fpn_layer3_gn.bias"].numpy(),
+            state["backbone.fpn.fpn_layer3.1.bias"])
+        np.testing.assert_array_equal(
+            got["mask_head.mask_fcn2_gn.weight"].numpy(),
+            state["roi_heads.mask.feature_extractor.mask_fcn2.1.weight"])
+        np.testing.assert_array_equal(
+            got["backbone.resnet.layer3_1.bn2.weight"].numpy(),
+            state["backbone.body.layer3.1.bn2.weight"])
+    if kind == "mrcnn_xconv":
+        np.testing.assert_array_equal(got["box_head.xconv3.weight"].numpy(),
+                                      state[f"{p}.xconvs.4.weight"])
+        assert model.module.mask_head.conv5_mask is None
+    if kind == "frcnn_gn":
+        np.testing.assert_array_equal(got["box_head.fc7_gn.weight"].numpy(),
+                                      state[f"{p}.fc7.1.weight"])
+    if kind in ("mrcnn_gn", "mrcnn_xconv"):
+        w = state[f"{p}.fc6.weight"]
+        fc6 = got["box_head.fc6.weight"].numpy()
+        for h, x, ch in ((0, 0, 0), (2, 5, 7), (6, 6, 63)):
+            np.testing.assert_array_equal(fc6[:, (h * 7 + x) * 64 + ch],
+                                          w[:, ch * 49 + h * 7 + x])
+    if kind == "mrcnn_gn":  # the imported model detects as JAX's
+        rng = np.random.RandomState(1)
+        images = rng.randint(0, 256, (2, *HW, 3)).astype(np.uint8)
+        sizes = np.asarray([[64.0, 96.0], [60.0, 90.0]], np.float32)
+        jdet = jax_build(jcfg).make_eval_fn({"params": tree})(
+            jnp.asarray(images), jnp.asarray(sizes))
+        det = model.make_eval_fn()(torch.from_numpy(images),
+                                   torch.from_numpy(sizes))
+        assert int(det["valid"].sum()) > 0
+        for k in ("labels", "valid"):
+            np.testing.assert_array_equal(det[k].numpy(),
+                                          np.asarray(jdet[k]), err_msg=k)
+        np.testing.assert_allclose(det["boxes"].numpy(),
+                                   np.asarray(jdet["boxes"]), rtol=0,
+                                   atol=1e-3)
+
+
+def test_rpn_only_c4_reference_checkpoint_import():
+    """The C4 RPN-only model at the config's width (C4 1,024 channels,
+    where the reference's RPN conv is the JAX package's fixed 1,024):
+    every port tensor written from the file's tensor of its name, nothing
+    skipped (the JAX package's importer does not reach a C4 body:
+    ROADMAP section 3)."""
+    cfg = _cfg(get_cfg, "rpn_c4")
+    state = rl.seeded_state_dict(rl.layout(cfg), seed=5)
+    model = build_detection_model(cfg, device="cpu", seed=1)
+    skipped, unwritten = ti.load_torch_state_dict(model.module, state)
+    assert skipped == [] and unwritten == []
+    got = model.module.state_dict()
+    for key, value in state.items():
+        np.testing.assert_array_equal(got[_c4_port_key(key)].numpy(), value,
+                                      err_msg=key)
+
+
+def test_c2_gn_pickle_lands_on_group_norm(tmp_path):
+    """A Detectron GN ImageNet pickle (``conv1_gn_{s,b}``,
+    ``res{s}_{b}_branch2{a,b,c}_gn_{s,b}``, ``res{s}_0_branch1_gn_{s,b}``:
+    the GroupNorm affine, nothing folded) lands on the GN body's
+    GroupNorms of the same place, as in the JAX package."""
+    jcfg, cfg = _cfg(jax_get_cfg, "mrcnn_gn"), _cfg(get_cfg, "mrcnn_gn")
+    body = {k: v for k, v in rl.seeded_state_dict(rl.layout(cfg), 7).items()
+            if k.startswith("backbone.body.")}
+    blobs = {}
+    for key, value in body.items():
+        name = rl.c2_body_name(key)
+        name = name.replace("res_conv1_bn_", "conv1_gn_").replace(
+            "_bn_", "_gn_")
+        blobs[name] = value
+    path = str(tmp_path / "R-50-GN.pkl")
+    with open(path, "wb") as f:
+        pickle.dump({"blobs": blobs}, f, protocol=2)
+    model = build_detection_model(cfg, device="cpu", seed=1)
+    skipped, _ = ti.load_c2_pickle(model.module, path)
+    assert skipped == []
+    resnet = model.module.backbone.resnet
+    np.testing.assert_array_equal(resnet.stem.bn1.weight.detach().numpy(),
+                                  blobs["conv1_gn_s"])
+    np.testing.assert_array_equal(
+        resnet.layer2_0.downsample_bn.bias.detach().numpy(),
+        blobs["res3_0_branch1_gn_b"])
+    tree = jti.load_c2_pickle(_jax_tree(jax_build(jcfg)), path)
+    want = _port_layout(model, tree)
+    for key, value in model.module.state_dict().items():
+        if key.startswith("backbone.resnet."):
+            torch.testing.assert_close(value, want[key], rtol=0, atol=0,
+                                       msg=key)

@@ -341,16 +341,20 @@ def test_nms_cluster_all_invalid_image(dev):
 # A group with (near) zero variance is left out: the folded affine
 # x * a + (b - mean * a) of the kernel, like the TPU kernel's, then
 # cancels two terms of size |x| * rsqrt(var + eps), a rounding effect.
-def _gn_check(dev, shape, dtype, num_groups=32, seed=None):
+def _gn_check(dev, shape, dtype, num_groups=32, seed=None, relu=True):
     gen = torch.Generator().manual_seed(shape[2] if seed is None else seed)
     x = (torch.randn(*shape, generator=gen) * 2 + 0.5).to(dev, dtype)
     c = shape[1]
     s = (torch.rand(c, generator=gen) + 0.5).to(dev)
     b = (torch.randn(c, generator=gen) * 0.3).to(dev)
     before = gn.group_norm_relu.launches
-    got = gn.group_norm_relu(x, s, b, num_groups).float()
+    forms = dict(gn.group_norm_relu.launches_by_form)
+    got = gn.group_norm_relu(x, s, b, num_groups, relu=relu).float()
     assert gn.group_norm_relu.launches == before + 1
-    want = gn.group_norm_relu_plain(x, s, b, num_groups).float()
+    forms[gn.form(relu)] += 1
+    assert gn.group_norm_relu.launches_by_form == forms
+    want = gn.group_norm_relu_plain(x, s, b, num_groups, relu=relu).float()
+    assert bool((got < 0).any()) != relu
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     else:
@@ -416,6 +420,43 @@ def test_group_norm_kernel_misaligned_groups(dev, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_group_norm_kernel_tower_shapes(dev, hw, dtype):
     _gn_check(dev, (8, 256, *hw), dtype)
+
+
+# K3's relu=False form (GroupNorm alone: a GN body's bn3 and downsample,
+# FPN's GN) at shapes of the GN paths, small: the stem's 2 channels per
+# group (non-resident at 800 x 1344), a res5 bn3, the Xconv head's
+# 7 x 7 and the fc GN's 1 x 1 (R rows as the batch), and the same with
+# the ReLU
+@pytest.mark.parametrize("shape", [
+    (1, 64, 400, 672), (2, 2048, 25, 42), (64, 256, 7, 7), (512, 1024, 1, 1),
+    (3, 64, 5, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu", [False, True])
+def test_group_norm_kernel_both_forms_at_gn_path_shapes(dev, shape, dtype,
+                                                        relu):
+    _gn_check(dev, shape, dtype, relu=relu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_function_no_relu_gradients_match_plain(dev, dtype):
+    """``relu=False`` through ``GroupNormReLU``: K3 once, gradients equal
+    autograd through the plain GroupNorm."""
+    shape = (2, 256, 25, 42)
+    gen = torch.Generator().manual_seed(11)
+    x = (torch.randn(*shape, generator=gen) * 1.5 + 0.4).to(dev, dtype)
+    w = (torch.rand(256, generator=gen) + 0.5).to(dev)
+    b = (torch.randn(256, generator=gen) * 0.2).to(dev)
+    up = torch.randn(*shape, generator=gen).to(dev, dtype)
+    ins = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    before = gn.group_norm_relu.launches_by_form["no_relu"]
+    y = gn.group_norm_relu(*ins, relu=False)
+    assert gn.group_norm_relu.launches_by_form["no_relu"] == before + 1
+    assert type(y.grad_fn).__name__ == "GroupNormReLUBackward"
+    y.backward(up)
+    refs = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    gn.group_norm_relu_plain(*refs, relu=False).backward(up)
+    for got, ref in zip(ins, refs):
+        assert torch.equal(got.grad, ref.grad)
 
 
 def test_group_norm_kernel_repeats_exactly(dev):

@@ -309,15 +309,13 @@ def test_seeded_build_inits_the_box_head_like_jax():
 @pytest.mark.parametrize("extra", [
     # Mask R-CNN and Keypoint R-CNN build on an FPN body, Faster and Mask
     # R-CNN on a C4 one (tests/test_torch_port_mask.py,
-    # tests/test_torch_port_keypoint.py, tests/test_torch_port_c4.py); a
-    # C4 Keypoint R-CNN, the C4 models' unshared mask head and the FBNet
-    # body do not build (the first in neither package)
+    # tests/test_torch_port_keypoint.py, tests/test_torch_port_c4.py), the
+    # Xconv and GN heads and the C4 unshared mask head
+    # (tests/test_torch_port_gn.py) and the RPN-only model
+    # (tests/test_torch_port_rpn_only.py); a C4 Keypoint R-CNN and the
+    # FBNet body do not build (the first in neither package)
     ["MODEL.KEYPOINT_ON", True, "MODEL.BACKBONE.CONV_BODY", "R-50-C4"],
-    ["MODEL.MASK_ON", True, "MODEL.BACKBONE.CONV_BODY", "R-50-C4",
-     "MODEL.ROI_MASK_HEAD.SHARE_BOX_FEATURE_EXTRACTOR", False],
-    ["MODEL.ROI_BOX_HEAD.FEATURE_EXTRACTOR", "FPNXconv1fcFeatureExtractor"],
     ["MODEL.BACKBONE.CONV_BODY", "FBNet"],
-    ["MODEL.RPN_ONLY", True],
 ])
 def test_unported_two_stage_configs_raise(extra):
     with pytest.raises(NotImplementedError):
