@@ -122,7 +122,12 @@ and prints no result line):
     256 x 320 (4 per rank) against the one-process step: positive mask
     and num_pos equal, updates within phase 13's limits; step times
     side by side. Then a two-rank eval of synth_coco_32 against one
-    process: the same detections and the 12 metrics.
+    process: the same detections and the 12 metrics. Then SyncBN
+    (MODEL.USE_SYNCBN): one float32 step of PAA-R50 with a SyncBatchNorm
+    in each body norm on a global batch of 16 at 256 x 320, two ranks
+    of 8 (batch statistics all-reduced) against one process of 16, the
+    ReLU decisions shared: normalized activations and running
+    statistics within 1e-4, losses and updates within phase 13's limits.
 
 20. (Run after phase 14's profile, with the earlier paths' models
     freed.) The X-152 dcnv2 main path:
@@ -187,7 +192,7 @@ and prints no result line):
 29. Phase 18 on the X-152 dcnv2 config, from a seeded Detectron
     X-101-32x8d pickle through its catalog:// MODEL.WEIGHT.
 30. K3 against its plain version, as phase 4, at every input shape and
-    form at which the paths of phases 5-51 launched it (the TTA buckets
+    form at which the paths of phases 5-58 launched it (the TTA buckets
     up to 1824 x 3008, the training ladder's, the GN body's stem at
     400 x 672 and the fc GN's (R, 1024, 1, 1) among them).
 
@@ -342,6 +347,38 @@ and prints no result line):
     (PRE_NMS_TOP_N_TEST, above K1's 8,192) on K2 with 2,000 picks, K2
     bit-equal there and timed against its bound and plain version;
     training at the default IMS_PER_BATCH 16; the box_proposal table.
+
+52. (Run after phase 51.) FCOS-MNV2
+    (configs/fcos/fcos_bn_bs16_MNV2_FPN_1x.yaml: the MobileNetV2 body,
+    its C3-C5 into FPN, 256 channels, P6/P7 from P5) through
+    ``phase_dense``: three 8 x 800 x 1344 bf16 requests (K1 once, K3 40
+    times in the towers), K1 at the first request's candidates, img/s, a
+    profile with the body and its depthwise convs in spans, the f32 model
+    on the card against the CPU, 10 do_train steps at IMS_PER_BATCH 16.
+53. FBNet Mask R-CNN (configs/e2e_mask_rcnn_fbnet_600.yaml, arch
+    "default", WIDTH_DIVISOR 8, FrozenBN calibrated in the trunk and the
+    heads' stages) serving at its test size, three 8 x 608 x 1024 bf16
+    requests: K1 at the RPN's 8 rows of 6,000 (200 picks), K2 at the box
+    head's 8 x 16,000, masks (8, 100, 12, 12); both kernels at those
+    inputs, img/s, a profile.
+54. Its f32 model and masks on the card against the CPU at 2 x 256 x
+    320, and its f32 train step against the CPU and float64 (phase 36's
+    checks, pins and planted x1.05).
+55. Its training at B=16 (one card's share of the config's 128 over 8
+    GPUs, BASE_LR scaled by 16 / 128) at 608 x 1024: K1 once per step
+    at the RPN's 16 rows of 6,000 (the config's PRE_NMS_TOP_N_TRAIN)
+    with 2,000 picks; ``test_net``
+    over synth_coco_32 with cv2 blocked, the bbox and segm tables.
+56. FBNet cham_v1a Faster R-CNN (depthwise 5 x 5 and 7 x 7) serving at
+    608 x 1024 (K2 at its box head) and xirb16d_dsmask Mask R-CNN at
+    320 x 640 (its mask stage 6 -> 3 -> 6 -> 12; K1 at its box head's
+    8 x 8,000).
+57. PAA-R50 with MODEL.USE_SYNCBN True: 10 do_train steps at B=16 on
+    batch statistics, timing and profile; then an eval request, every
+    SyncBatchNorm in eval mode on its running statistics.
+58. ``train_net`` 3 iterations with USE_SYNCBN over synth_coco_32; its
+    model_final holds the running statistics, and ``test_net --ckpt``
+    loads them (equal) and writes the AP table.
 
 Phase 13 also runs the step a third time on the CPU with the network in
 float64 (every convolution, FrozenBN and GroupNorm), the referee of the
@@ -892,9 +929,10 @@ def k3_forms():
     return dict(group_norm.group_norm_relu.launches_by_form)
 
 
-def check_detections(dets, what, min_score):
-    """Shapes, finiteness, boxes in the image, scores and labels in range
-    for every request; returns the valid detections per request."""
+def check_detections(dets, what, min_score, size=SIZE):
+    """Shapes, finiteness, boxes in the image (content ``size``), scores
+    and labels in range for every request; returns the valid detections
+    per request."""
     n_valid = []
     for det in dets:
         check(tuple(det["boxes"].shape) == (BATCH, 100, 4)
@@ -910,8 +948,8 @@ def check_detections(dets, what, min_score):
         # score voting averages clipped boxes: a few float32 ulps of slack
         slack = 1e-3
         check(bool((vb >= 0).all())
-              and bool((vb[:, 0::2] <= SIZE[1] - 1 + slack).all())
-              and bool((vb[:, 1::2] <= SIZE[0] - 1 + slack).all()),
+              and bool((vb[:, 0::2] <= size[1] - 1 + slack).all())
+              and bool((vb[:, 1::2] <= size[0] - 1 + slack).all()),
               f"{what}: boxes outside the image")
         s = det["scores"][valid]
         check(bool((s > min_score).all()) and bool((s <= 1).all()),
@@ -925,14 +963,14 @@ def check_detections(dets, what, min_score):
 
 
 def serve(model, what, seed, expected, min_score, extra_check=None,
-          detections=True):
-    """Three requests through make_eval_fn with the launch counts set to
-    0 just before and read just after; ``check_detections`` unless
-    ``detections`` is False (the RPN-only model's proposals);
-    ``extra_check(dets)``, if given, checks the three requests' outputs
-    further and returns fields to print."""
+          detections=True, hw=HW, size=SIZE):
+    """Three requests (B x ``hw``, content ``size``) through make_eval_fn
+    with the launch counts set to 0 just before and read just after;
+    ``check_detections`` unless ``detections`` is False (the RPN-only
+    model's proposals); ``extra_check(dets)``, if given, checks the three
+    requests' outputs further and returns fields to print."""
     eval_fn = model.make_eval_fn()
-    reqs = [request(seed + i, BATCH, HW, SIZE) for i in range(3)]
+    reqs = [request(seed + i, BATCH, hw, size) for i in range(3)]
     zero_launch_counts()
     times, dets = [], []
     for images, sizes in reqs:
@@ -945,11 +983,11 @@ def serve(model, what, seed, expected, min_score, extra_check=None,
     launches = launch_counts()
     check(launches == expected,
           f"{what}: launches {launches}, expected {expected}")
-    n_valid = (check_detections(dets, what, min_score) if detections
+    n_valid = (check_detections(dets, what, min_score, size) if detections
                else [int(d["valid"].sum()) for d in dets])
     extra = extra_check(dets) if extra_check else {}
     print(json.dumps({"phase": what, "ok": True, "requests": 3,
-                      "batch": BATCH, "hw": HW, "launches": launches,
+                      "batch": BATCH, "hw": hw, "launches": launches,
                       "valid_detections": n_valid, "request_s": times,
                       **extra}))
     return eval_fn, launches
@@ -1044,8 +1082,8 @@ def phase_frcnn_reference(dev):
                 "faster_rcnn_card_vs_cpu")
 
 
-def e2e_rate(eval_fn, seed, what, name, dev):
-    images, sizes = request(seed, BATCH, HW, SIZE)
+def e2e_rate(eval_fn, seed, what, name, dev, hw=HW, size=SIZE):
+    images, sizes = request(seed, BATCH, hw, size)
     eval_fn(images, sizes)
     torch.cuda.synchronize()
     reps = 5
@@ -1055,7 +1093,7 @@ def e2e_rate(eval_fn, seed, what, name, dev):
     torch.cuda.synchronize()
     e2e_s = (time.perf_counter() - t0) / reps
     print(json.dumps({"metric": "e2e_img_per_s", "path": what,
-                      "value": BATCH / e2e_s, "batch": BATCH, "hw": HW,
+                      "value": BATCH / e2e_s, "batch": BATCH, "hw": hw,
                       "dtype": "bfloat16", "request_ms": e2e_s * 1e3,
                       "card": name}))
     return images.to(dev), sizes.to(dev)
@@ -1270,12 +1308,12 @@ def phase_frcnn_timing(dev, model, eval_fn, launches, name):
     return k2, k1_rpn
 
 
-def train_batch(seed, bsz, hw, size, max_gt=MAX_GT):
+def train_batch(seed, bsz, hw, size, max_gt=MAX_GT, max_side=512):
     """A batch in the loader's contract: uint8 images (content ``size``)
     and 3-12 GT boxes per image (COCO averages about 7) in ``max_gt``
-    slots, sqrt(area) log-uniform in 16-512 px, aspect ratio log-uniform
-    in 1/2-2, inside the content, labels 1-80; the other slots padding
-    (label 0)."""
+    slots, sqrt(area) log-uniform in 16-``max_side`` px, aspect ratio
+    log-uniform in 1/2-2, inside the content, labels 1-80; the other
+    slots padding (label 0)."""
     images, sizes = request(seed, bsz, hw, size)
     rng = np.random.RandomState(seed + 1)
     boxes = np.zeros((bsz, max_gt, 4), np.float32)
@@ -1283,7 +1321,7 @@ def train_batch(seed, bsz, hw, size, max_gt=MAX_GT):
     h, w = size
     for b in range(bsz):
         n = rng.randint(3, 13)
-        side = np.exp(rng.uniform(np.log(16), np.log(512), n))
+        side = np.exp(rng.uniform(np.log(16), np.log(max_side), n))
         aspect = np.exp(rng.uniform(np.log(0.5), np.log(2.0), n))
         bw, bh = side * np.sqrt(aspect), side / np.sqrt(aspect)
         x1 = rng.uniform(0, w - 1 - bw)
@@ -1691,9 +1729,11 @@ def calibrated_frozen_bn(path):
     BatchNorm-folded ImageNet body the configs load does. With the seeded
     model's identity statistics P3-P7 reach ~1e3, which RetinaNet's
     plain towers (no norm) carry into its logits: its train steps
-    diverge to NaN by the fourth step, on the CPU as on the card. A C4
-    model's res5 (its box head) is calibrated on the batch's GT boxes.
-    Returns the buffers as a state-dict subset."""
+    diverge to NaN by the fourth step, on the CPU as on the card. A head
+    with FrozenBatchNorm is calibrated after the body: an FBNet RPN head
+    on the body's map, a C4 model's res5 (its box head) and FBNet's box
+    and mask heads on the batch's GT boxes. Returns the buffers as a
+    state-dict subset."""
     from paa_tpu_torch.modeling import build_detection_model
     from paa_tpu_torch.modeling.layers import FrozenBatchNorm
     from paa_tpu_torch.ops.image_norm import device_normalize
@@ -1712,14 +1752,21 @@ def calibrated_frozen_bn(path):
     batch = train_batch(98, 2, (256, 320), (256.0, 300.0))
     x = device_normalize(batch["images"], batch["image_sizes"],
                          model.cfg.INPUT.PIXEL_MEAN, model.cfg.INPUT.PIXEL_STD)
+    def frozen(name):
+        head = getattr(model.module, name, None)
+        return head is not None and any(isinstance(m, FrozenBatchNorm)
+                                        for m in head.modules())
+
     with torch.inference_mode():
         features = model.module.backbone(x.permute(0, 3, 1, 2).contiguous())
-        if hasattr(model.module, "box_head") and \
-                hasattr(model.module.box_head, "layer4_0"):
-            # a C4 model's res5 (its box head), on the batch's GT boxes
-            valid = batch["gt_labels"] > 0
-            model.module.box(features, batch["gt_boxes"][valid],
-                             valid.nonzero()[:, 0])
+        valid = batch["gt_labels"] > 0
+        rois = (batch["gt_boxes"][valid], valid.nonzero()[:, 0])
+        if frozen("rpn_head"):
+            model.module.rpn_head(features)
+        if frozen("box_head"):
+            model.module.box(features, *rois)
+        if frozen("mask_head"):
+            model.module.mask(features, *rois)
     for h in hooks:
         h.remove()
     return {k: v.clone() for k, v in model.module.state_dict().items()
@@ -1738,14 +1785,16 @@ def seeded_train_model(cfg, device, frozen_bn=None):
 
 
 def phase_train_main_path(dev, name, path=PAA_CONFIG,
-                          what="train_main_path", frozen_bn=None):
+                          what="train_main_path", frozen_bn=None, extra=()):
     """10 steps of do_train at full width on one batch of the config's
     SOLVER.IMS_PER_BATCH images (16; RetinaNet's 8); the launch counts
     set to 0 just before and read just after. ``frozen_bn``, if given,
-    replaces the seeded FrozenBN statistics."""
+    replaces the seeded FrozenBN statistics; ``extra`` overrides the
+    config."""
     from paa_tpu_torch.engine import do_train
 
-    cfg = build_cfg("bfloat16", path, ["SOLVER.MAX_ITER", TRAIN_STEPS])
+    cfg = build_cfg("bfloat16", path,
+                    ["SOLVER.MAX_ITER", TRAIN_STEPS, *extra])
     model = seeded_train_model(cfg, dev, frozen_bn)
     state = train_state(model)
     batch = train_batch(70, cfg.SOLVER.IMS_PER_BATCH, HW, SIZE)
@@ -2097,12 +2146,13 @@ def float64_referee(dev, cfg, batch, before, p_gpu, p_cpu, pos_cpu):
 def phase_train_timing(model, state, batch, name, what="paa_train"):
     """Step ms and img/s of the train step (CUDA events after 2 warm-up
     steps)."""
-    step = model.make_bucket_train_step(HW)
+    hw = tuple(batch["images"].shape[1:3])
+    step = model.make_bucket_train_step(hw)
     bsz = int(batch["images"].shape[0])
     ms = cuda_step_ms(lambda: step(state, batch), 5)
     out = {"step_ms": ms, "img_per_s": bsz / ms * 1e3}
     print(json.dumps({"metric": "train_step", "path": what,
-                      "batch": bsz, "hw": HW, "dtype": "bfloat16",
+                      "batch": bsz, "hw": hw, "dtype": "bfloat16",
                       **out, "card": name}))
     return out
 
@@ -2265,7 +2315,8 @@ SPAN_LABELS = {
     "dcn_sampling": "deform sampling (patch table, gather, corner "
                     "weighting)",
     "dcn_contraction": "deform contraction (grouped GEMM)",
-    "grouped_conv": "grouped conv (ResNeXt 3x3)",
+    "grouped_conv": "grouped conv (ResNeXt 3x3; MobileNetV2 and FBNet "
+                    "depthwise kxk)",
 }
 
 
@@ -2354,14 +2405,15 @@ def _profiled(model, eval_fn, images, sizes, reqs, body=False):
     return prof, wall_us
 
 
-def phase_profile(model, eval_fn, seed, what, name, body=False):
+def phase_profile(model, eval_fn, seed, what, name, body=False, hw=HW,
+                  size=SIZE):
     """Device time by kernel class over three requests (torch.profiler)
     and the device's idle share of that window (host clock). A kernel
     launched inside a span of SPAN_LABELS (the box head, the DCN steps,
     the grouped convs, with ``body`` the backbone; the innermost,
     matched through the trace's launch correlation) counts in the span's
     class, whatever its name."""
-    images, sizes = request(seed, BATCH, HW, SIZE)
+    images, sizes = request(seed, BATCH, hw, size)
     eval_fn(images, sizes)
     torch.cuda.synchronize()
     reqs = 3
@@ -2881,10 +2933,10 @@ def kink_crossings(dev, cfg, batch):
 # float64 record's value both within this share of the largest magnitude
 # of that call's record (float32 rounding moves an input by ~1e-6 of it)
 PIN_SHARE = 1e-3
-# the modules whose forward applies a ReLU: F.relu in the ResNet and the
-# FPN, group_norm_relu (K3 on the card) in the head's towers and the GN
-# models' norms (its relu=True form)
-RELU_CALLERS = ("Stem", "Bottleneck", "FPN", "GroupNorm32")
+# the modules whose forward applies a ReLU: F.relu in the ResNet, the FPN
+# and FBNet's blocks, group_norm_relu (K3 on the card) in the head's
+# towers and the GN models' norms (its relu=True form)
+RELU_CALLERS = ("Stem", "Bottleneck", "FPN", "GroupNorm32", "ConvNormRelu")
 
 
 @contextlib.contextmanager
@@ -3607,7 +3659,16 @@ def ddp_worker(job_path, out_path):
     results = inference(model.cfg, model, dataset,
                         output_folder=job["eval_dir"],
                         logger=logging.getLogger("chip_smoke.ddp"))
+    del model
+    sync = job["syncbn"]
+    rows = slice(rank, None, world)
+    s_metrics, _, _, s_after, s_probe, s_stats, s_calls = syncbn_ddp_step(
+        dev, {k: v[rows] for k, v in sync["batch"].items()}, sync["pins"],
+        rows)
     out = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "syncbn": {"metrics": s_metrics, "probe": s_probe,
+                      "stats": s_stats, "relu_calls": s_calls,
+                      "params": s_after if rank == 0 else None},
            "device": str(dev), "metrics": metrics,
            "pos_mask": pos_mask.numpy(), "step_ms": step_ms,
            "train_launches": train_launches, "results": results,
@@ -3692,7 +3753,19 @@ def phase_ddp_two_ranks(dev, name):
     batches, predictions gathered, the main rank evaluates) against one
     process, with the ground truth the one process's five best
     detections per image: detections matched as in phase 6, the 12
-    metrics within 1e-6."""
+    metrics within 1e-6.
+
+    SyncBN (MODEL.USE_SYNCBN, after the eval): the same float32 PAA-R50
+    with a SyncBatchNorm in each of the body's 53 norms, one step on a
+    global batch of SYNCBN_DDP_BATCH (16) at 256 x 320 in one process
+    against two ranks of 8 (``syncbn_ddp_step``; their batch statistics
+    all-reduced, the gradient through the sums), every rank's ReLUs
+    taking the one process's decisions on its rows (``pinned_relus``):
+    the probe SyncBatchNorm's normalized output
+    and every running statistic within SYNCBN_TOL of the one process's
+    (of each tensor's largest magnitude), the two ranks' statistics
+    equal (DDP's broadcast_buffers copies equal values), losses within
+    1e-4 relative, the update within phase 13's limits."""
     import logging
     import pickle
 
@@ -3725,10 +3798,19 @@ def phase_ddp_two_ranks(dev, name):
                             logger=logger)
     del model
     torch.cuda.empty_cache()
+    # SyncBN: one process's step on the global batch, its ReLU decisions
+    # recorded for the ranks
+    sync_batch = {k: torch.from_numpy(v.numpy()) for k, v in train_batch(
+        78, SYNCBN_DDP_BATCH, DDP_HW, DDP_SIZE, max_gt=20).items()}
+    pins = []
+    (s_metrics, _, s_before, s_after, s_probe, s_stats,
+     s_calls) = syncbn_ddp_step(dev, sync_batch, pins, None)
+    torch.cuda.empty_cache()
 
     job = {"device": str(dev), "batch": batch, "ann_file": ann,
            "img_dir": img_dir,
-           "eval_dir": os.path.join(tmp, "two")}
+           "eval_dir": os.path.join(tmp, "two"),
+           "syncbn": {"batch": sync_batch, "pins": pins}}
     job_path, out_path = os.path.join(tmp, "job.pkl"), os.path.join(
         tmp, "out.pkl")
     with open(job_path, "wb") as f:
@@ -3775,6 +3857,32 @@ def phase_ddp_two_ranks(dev, name):
     check(ranks[1]["results"] == {} and sorted(ap_err) == sorted(METRICS)
           and max(ap_err.values()) <= 1e-6 and one_results["AP"] > 0.1,
           f"ddp_two_ranks: AP {two_results} vs {one_results}")
+
+    # SyncBN: each rank's normalized activations are its rows of one
+    # process's, the running statistics and the update one process's
+    def share(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    probe_err = max(share(out["syncbn"]["probe"],
+                          s_probe[rank::DDP_WORLD])
+                    for rank, out in enumerate(ranks))
+    stats_err = max(share(out["syncbn"]["stats"][k], v)
+                    for out in ranks for k, v in s_stats.items())
+    s_loss_err = {k: max(abs(out["syncbn"]["metrics"][k] - v)
+                         / max(abs(v), 1e-12) for out in ranks)
+                  for k, v in s_metrics.items() if k != "num_pos"}
+    s_norm, s_share = update_errors(ranks[0]["syncbn"]["params"], s_after,
+                                    s_before)
+    # the body's 49 ReLUs, P7's, the towers' 8 GroupNorm+ReLU x 5 levels
+    check(all(out["syncbn"]["relu_calls"] == s_calls == 90 for out in ranks)
+          and probe_err <= SYNCBN_TOL and stats_err <= SYNCBN_TOL
+          and all(torch.equal(ranks[1]["syncbn"]["stats"][k], v)
+                  for k, v in ranks[0]["syncbn"]["stats"].items())
+          and max(s_loss_err.values()) <= 1e-4
+          and s_norm[0][1] <= UPDATE_NORM_TOL
+          and s_share[0][1] <= UPDATE_SHARE_TOL,
+          f"ddp_two_ranks syncbn: probe {probe_err}, statistics "
+          f"{stats_err}, losses {s_loss_err}, updates {s_norm} {s_share}")
     print(json.dumps({
         "phase": "ddp_two_ranks", "ok": True, "backend": "gloo",
         "why_not_nccl": "NCCL refuses two ranks on one device; NCCL "
@@ -3789,7 +3897,16 @@ def phase_ddp_two_ranks(dev, name):
         "one_process_launches": one_launches,
         "rank_train_launches": [out["train_launches"] for out in ranks],
         "ranks_wall_s": ranks_s, "ap_one": one_results,
-        "ap_abs_err": ap_err, **matched, "card": name}))
+        "ap_abs_err": ap_err, **matched,
+        "syncbn": {"global_batch": SYNCBN_DDP_BATCH,
+                   "per_rank": SYNCBN_DDP_BATCH // DDP_WORLD,
+                   "probe": SYNCBN_PROBE, "probe_rel_err": probe_err,
+                   "running_stats_rel_err": stats_err,
+                   "tolerance": SYNCBN_TOL, "loss_rel_err": s_loss_err,
+                   "worst_update_norm_err": s_norm,
+                   "worst_update_share": s_share,
+                   "relu_decisions_pinned": s_calls},
+        "card": name}))
     shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -3832,9 +3949,9 @@ def k1_at_path_inputs(args, what, name):
     return detail
 
 
-def phase_dense(dev, head, name):
+def phase_dense(dev, head, name, path=None, train_reference=True):
     """The serving, training and card-vs-CPU phases of PAA-R50, on the
-    config of DENSE_CONFIGS[``head``] at full width:
+    config of DENSE_CONFIGS[``head``] (or ``path``) at full width:
 
     - three 8 x 800 x 1344 bf16 requests (``phase_main_path``: K1 once
       and K3 40 times per request, none for RetinaNet), K1 held
@@ -3847,9 +3964,10 @@ def phase_dense(dev, head, name):
       step's ms, img/s and a profile split by span
       (``phase_train_main_path``, ``phase_train_timing``,
       ``phase_train_profile``);
-    - one f32 train step on the card against the CPU and float64
-      (``phase_train_reference``), with FCOS's centerness targets x1.05
-      planted in a third step, which must land beyond the limits.
+    - with ``train_reference``, one f32 train step on the card against
+      the CPU and float64 (``phase_train_reference``), with FCOS's
+      centerness targets x1.05 planted in a third step, which must land
+      beyond the limits.
 
     RetinaNet's 10 training steps take FrozenBN statistics calibrated on
     its seeded body (``calibrated_frozen_bn``): its towers have no norm.
@@ -3860,7 +3978,7 @@ def phase_dense(dev, head, name):
     2.8e-3 without.
 
     Returns the launch counts of the serving and training runs."""
-    path = DENSE_CONFIGS[head]
+    path = path or DENSE_CONFIGS[head]
     frozen_bn = calibrated_frozen_bn(path) if head == "retinanet" else None
     with recording_k1_inputs() as k1_inputs:
         model, eval_fn, serving = phase_main_path(dev, path,
@@ -3878,9 +3996,10 @@ def phase_dense(dev, head, name):
                         what=f"{head}_train_profile")
     del trained, state, batch
     torch.cuda.empty_cache()
-    phase_train_reference(dev, path, f"{head}_train_card_vs_cpu",
-                          _fcos_centerness_fault if head == "fcos"
-                          else None)
+    if train_reference:
+        phase_train_reference(dev, path, f"{head}_train_card_vs_cpu",
+                              _fcos_centerness_fault if head == "fcos"
+                              else None)
     return {"serving": serving, "training": training, "k1": k1}
 
 
@@ -3964,11 +4083,12 @@ def seeded_mrcnn(dtype, device, path=MRCNN_CONFIG):
     return model
 
 
-def check_masks(dets):
-    """Each request's "masks" (B, 100, 28, 28) float32 in [0, 1]."""
+def check_masks(dets, size=28):
+    """Each request's "masks" (B, 100, ``size``, ``size``) float32 in
+    [0, 1]."""
     for det in dets:
         m = det["masks"]
-        check(tuple(m.shape) == (BATCH, 100, 28, 28)
+        check(tuple(m.shape) == (BATCH, 100, size, size)
               and m.dtype == torch.float32
               and bool(torch.isfinite(m).all())
               and float(m.min()) >= 0 and float(m.max()) <= 1,
@@ -4046,9 +4166,9 @@ def box_octagon_masks(gt_boxes, gt_labels):
     return torch.from_numpy(np.stack(out))
 
 
-def two_stage_batch(seed, bsz, hw, size, masks):
+def two_stage_batch(seed, bsz, hw, size, masks, max_side=512):
     """``train_batch`` with, for Mask R-CNN, each GT's octagon mask."""
-    batch = train_batch(seed, bsz, hw, size)
+    batch = train_batch(seed, bsz, hw, size, max_side=max_side)
     if masks:
         batch["gt_masks"] = box_octagon_masks(batch["gt_boxes"],
                                               batch["gt_labels"])
@@ -4058,12 +4178,15 @@ def two_stage_batch(seed, bsz, hw, size, masks):
 def two_stage_config(kind):
     """The config of a two-stage path: Faster and Mask R-CNN R-50-FPN
     (TWO_STAGE_CONFIGS), Keypoint R-CNN, the C4 models (C4_CONFIGS), the
-    GN models (GN_CONFIGS) and the RPN-only ones (RPN_CONFIGS)."""
+    GN models (GN_CONFIGS), the RPN-only ones (RPN_CONFIGS) and the FBNet
+    ones (FBNET_CONFIGS)."""
     return {**TWO_STAGE_CONFIGS, "keypoint_rcnn": KRCNN_CONFIG,
-            **C4_CONFIGS, **GN_CONFIGS, **RPN_CONFIGS}[kind]
+            **C4_CONFIGS, **GN_CONFIGS, **RPN_CONFIGS,
+            **FBNET_CONFIGS}[kind]
 
 
-def phase_two_stage_train(dev, name, kind, frozen_bn, k3_per_step=0):
+def phase_two_stage_train(dev, name, kind, frozen_bn, k3_per_step=0,
+                          hw=HW, size=SIZE, extra=()):
     """Phases 35, 40, 42, 46, 48, 50 and 51: TRAIN_STEPS steps of
     do_train of the full-width bf16 model of ``two_stage_config(kind)``
     at its IMS_PER_BATCH (16; the C4 models' 8) on one repeated batch
@@ -4081,23 +4204,26 @@ def phase_two_stage_train(dev, name, kind, frozen_bn, k3_per_step=0):
     per step (the GN models' forward) and no other NMS (launch counts
     set to 0 just before and read just after); that NMS kernel against
     its plain version on the first step's rows, timed there; peak
-    memory; then the step's ms, img/s and a profile split by span.
-    Returns the launch counts (with K3's by form) and the NMS kernel's
-    detail (for the RPN-only model the step's)."""
+    memory; then the step's ms, img/s and a profile split by span. The
+    batch is B x ``hw`` (content ``size``; GTs up to 0.7 of its shorter
+    side); ``extra`` overrides the config. Returns the launch counts
+    (with K3's by form) and the NMS kernel's detail (for the RPN-only
+    model the step's)."""
     from paa_tpu_torch.engine import do_train
     from paa_tpu_torch.ops import nms
 
     what = f"{kind}_train"
     cfg = build_cfg("bfloat16", two_stage_config(kind),
-                    ["SOLVER.MAX_ITER", TRAIN_STEPS])
+                    ["SOLVER.MAX_ITER", TRAIN_STEPS, *extra])
     model = seeded_train_model(cfg, dev, frozen_bn)
     state = train_state(model)
     if cfg.MODEL.KEYPOINT_ON:
-        batch = keypoint_batch(70, cfg.SOLVER.IMS_PER_BATCH, HW, SIZE)
+        batch = keypoint_batch(70, cfg.SOLVER.IMS_PER_BATCH, hw, size)
     else:
-        batch = two_stage_batch(70, cfg.SOLVER.IMS_PER_BATCH, HW, SIZE,
-                                cfg.MODEL.MASK_ON)
-    _, counts = model.anchors_for(HW)
+        batch = two_stage_batch(70, cfg.SOLVER.IMS_PER_BATCH, hw, size,
+                                cfg.MODEL.MASK_ON,
+                                max_side=min(512, 0.7 * min(size)))
+    _, counts = model.anchors_for(hw)
     per_row = min(cfg.MODEL.RPN.PRE_NMS_TOP_N_TRAIN, max(counts))
     kernel = ("nms_global" if per_row > nms.k1_max_candidates(dev)
               else "nms_batched")
@@ -4136,7 +4262,7 @@ def phase_two_stage_train(dev, name, kind, frozen_bn, k3_per_step=0):
         f"{what}: the NMS saw a tensor under autograd")
     print(json.dumps({
         "phase": what, "ok": True, "batch": cfg.SOLVER.IMS_PER_BATCH,
-        "hw": HW, "max_gt": MAX_GT, "steps": TRAIN_STEPS,
+        "hw": hw, "max_gt": MAX_GT, "steps": TRAIN_STEPS,
         "dtype": "bfloat16", "launches": launches, "k3_by_form": forms,
         "frozen_bn": "calibrated" if frozen_bn else "none or seeded",
         "freeze_conv_body_at": cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT,
@@ -4153,7 +4279,7 @@ def phase_two_stage_train(dev, name, kind, frozen_bn, k3_per_step=0):
         detail = k1_at_path_inputs(args, f"{kind}_train_rpn", name)
     del k1_inputs, k2_inputs, args
     timing = phase_train_timing(model, state, batch, name, what)
-    profile = phase_train_profile(model, state, batch, name,
+    profile = phase_train_profile(model, state, batch, name, hw=hw,
                                   what=f"{kind}_train_profile")
     del model, state, batch
     torch.cuda.empty_cache()
@@ -5293,6 +5419,371 @@ def phase_gn_and_rpn_only(dev, name):
                       "wall_s": time.perf_counter() - t0, "card": name}))
     return launches, k1, k2, k3
 
+# ---- the mobile bodies and SyncBatchNorm -----------------------------------
+
+MNV2_CONFIG = os.path.join(ROOT, "configs", "fcos",
+                           "fcos_bn_bs16_MNV2_FPN_1x.yaml")
+FBNET_CONFIGS = {
+    "fbnet_mask_rcnn": os.path.join(ROOT, "configs",
+                                    "e2e_mask_rcnn_fbnet_600.yaml"),
+    "fbnet_chamv1a": os.path.join(ROOT, "configs",
+                                  "e2e_faster_rcnn_fbnet_chamv1a_600.yaml"),
+    "fbnet_dsmask": os.path.join(
+        ROOT, "configs", "e2e_mask_rcnn_fbnet_xirb16d_dsmask.yaml"),
+}
+# each FBNet config's padded input and content at its test size (600 /
+# 1,000 and 320 / 640: MIN_SIZE_TEST / MAX_SIZE_TEST, padded to 32)
+FBNET_HW = {
+    "fbnet_mask_rcnn": ((608, 1024), (600.0, 1000.0)),
+    "fbnet_chamv1a": ((608, 1024), (600.0, 1000.0)),
+    "fbnet_dsmask": ((320, 640), (320.0, 640.0)),
+}
+SYNCBN_OPTS = ["MODEL.USE_SYNCBN", True]
+# a SyncBatchNorm whose output the SyncBN checks read (stage 3's first)
+SYNCBN_PROBE = "backbone.resnet.layer3_0.bn2"
+# the SyncBN two-rank step (phase 19): the global batch and the limits of
+# the normalized activations and running statistics against one process,
+# each a share of the tensor's largest magnitude (float32 sums of the
+# ranks' partial sums, in another order than one process's)
+SYNCBN_DDP_BATCH, SYNCBN_TOL = 16, 1e-4
+
+
+def seeded_fbnet(kind, frozen_bn, dtype, device):
+    """The full-width FBNet model of FBNET_CONFIGS[``kind``] from seed 0
+    with ``frozen_bn`` (calibrated: the trunk and the RPN, box and mask
+    heads' stages), the 80 foreground cls_score biases from seed 1 in
+    [25, 35] (``seeded_frcnn``) and, for Mask R-CNN, the mask logits'
+    biases from seed 2 in [0.5, 1.5] (``seeded_mrcnn``)."""
+    model = seeded_train_model(build_cfg(dtype, FBNET_CONFIGS[kind]), device,
+                               frozen_bn)
+    with torch.no_grad():
+        bias = model.module.box_head.cls_score.bias
+        bias[1:].copy_(torch.empty(bias.numel() - 1).uniform_(
+            25.0, 35.0, generator=torch.Generator().manual_seed(1)))
+        if model.module.mask_head is not None:
+            bias = model.module.mask_head.mask_fcn_logits.bias
+            bias.copy_(torch.empty(bias.shape).uniform_(
+                0.5, 1.5, generator=torch.Generator().manual_seed(2)))
+    return model
+
+
+def phase_fbnet_serving(dev, name, kind, frozen_bn):
+    """Phases 53 and 56: full-width FBNet serving at the config's test size
+    (three 8-image bf16 requests, calibrated FrozenBN): K1 once per
+    request at the RPN's 8 rows of PRE_NMS_TOP_N_TEST (6,000) candidates
+    with POST_NMS_TOP_N_TEST picks, and the box head's NMS over those
+    picks x 80 classes per image: K1 at the 320 configs' 100 x 80 =
+    8,000 (within its 8,192), K2 at the _600 configs' 200 x 80 = 16,000;
+    for Mask R-CNN masks (8, 100, 12, 12). Both kernels against their
+    plain versions on the first request's inputs, img/s, and a profile
+    with the trunk ("body", its depthwise convs as "grouped conv") and
+    the box head in spans. Returns the launch counts and the kernels'
+    details."""
+    from paa_tpu_torch.ops import nms
+
+    hw, size = FBNET_HW[kind]
+    model = seeded_fbnet(kind, frozen_bn, "bfloat16", dev)
+    rpn = model.cfg.MODEL.RPN
+    _, counts = model.anchors_for(hw)
+    n = min(rpn.PRE_NMS_TOP_N_TEST, counts[0])
+    picks = min(rpn.POST_NMS_TOP_N_TEST, n)
+    box_n = min(picks, rpn.FPN_POST_NMS_TOP_N_TEST) * (
+        model.cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES - 1)
+    on_k2 = box_n > nms.k1_max_candidates(dev)
+    expected = {"nms_batched": 3 if on_k2 else 6,
+                "nms_global": 3 if on_k2 else 0, "group_norm_relu": 0}
+    masks = model.module.mask_head is not None
+    with recording_k1_inputs() as k1_inputs, \
+            recording_k2_inputs() as k2_inputs:
+        eval_fn, launches = serve(
+            model, f"{kind}_main_path", 90, expected, 0.05,
+            (lambda dets: check_masks(dets, 12)) if masks else None,
+            hw=hw, size=size)
+    box_args = k2_inputs[0] if on_k2 else k1_inputs[1]
+    got = [(*a[1].shape, a[5]) for a in (k1_inputs[0], box_args)]
+    want = [(BATCH, n, picks), (BATCH, box_n, 100)]
+    check(got == want, f"{kind}: the RPN's and the box head's NMS at {got},"
+                       f" expected {want}")
+    k1 = {f"{kind}_rpn": k1_at_path_inputs(k1_inputs[0], f"{kind}_rpn",
+                                           name)}
+    k2 = {}
+    if on_k2:
+        k2[f"{kind}_box_head"] = k2_at_path_inputs(
+            box_args, f"{kind}_box_head", name)
+    else:
+        k1[f"{kind}_box_head"] = k1_at_path_inputs(
+            box_args, f"{kind}_box_head", name)
+    e2e_rate(eval_fn, 20, kind, name, dev, hw, size)
+    phase_profile(model, eval_fn, 60, kind, name, body=True, hw=hw,
+                  size=size)
+    del model, eval_fn, k1_inputs, k2_inputs
+    torch.cuda.empty_cache()
+    return launches, k1, k2
+
+
+@contextlib.contextmanager
+def pinned_relus(record=None, pin=None, rows=slice(None)):
+    """Every ReLU of PAA-R50's forward, patched: the body's and FPN P7's
+    (``F.relu`` of modeling/resnet.py and fpn.py) and the head towers'
+    GroupNorm+ReLU (``layers.group_norm_relu``, through K3's relu=False
+    form and the decision after it). With ``record`` (a list) each
+    call's decisions (input <= 0) are appended to it on the CPU,
+    bit-packed; with ``pin`` (such a list) the k-th call takes the k-th
+    decisions on ``rows`` of the recorded batch. BatchNorm on batch
+    statistics centres every ReLU input of the body at 0, so float32 sums
+    in another order move elements across the kink, and each backward
+    through a norm spreads such an element over its channel or group: the
+    SyncBN steps compared across processes take one process's decisions.
+    Yields the number of calls."""
+    from paa_tpu_torch.modeling import fpn, layers, resnet
+
+    calls, gn_relu = [0], layers.group_norm_relu
+
+    def decide(x):
+        if record is not None:
+            below = x <= 0
+            record.append((tuple(below.shape), np.packbits(
+                below.cpu().numpy())))
+        else:
+            shape, bits = pin[calls[0]]
+            below = torch.from_numpy(np.unpackbits(
+                bits, count=int(np.prod(shape))).reshape(shape).astype(
+                bool))[rows].to(x.device)
+        calls[0] += 1
+        return torch.where(below, 0.0, x)
+
+    def pinned_gn(x, weight, bias, groups=32, eps=1e-5, relu=True):
+        y = gn_relu(x, weight, bias, groups, eps, False)
+        return decide(y) if relu else y
+
+    class Functional:
+        def __getattr__(self, attr):
+            return getattr(F, attr)
+
+        @staticmethod
+        def relu(x):
+            return decide(x)
+
+    resnet.F = fpn.F = Functional()
+    layers.group_norm_relu = pinned_gn
+    try:
+        yield calls
+    finally:
+        resnet.F = fpn.F = F
+        layers.group_norm_relu = gn_relu
+
+
+def syncbn_ddp_step(dev, batch, pins, rows=slice(None)):
+    """One float32 SyncBN PAA-R50 step (TF32 and cuDNN off, as the DDP
+    comparison runs) on ``batch`` with the body's ReLU decisions recorded
+    into ``pins`` (a list; ``rows`` None) or pinned from it on ``rows``:
+    (host metrics, the positive mask, the parameters before and after,
+    the SyncBatchNorm probe's output, every running statistic, on the
+    CPU, and the ReLU calls)."""
+    from paa_tpu_torch.modeling import build_detection_model
+
+    torch.backends.cudnn.enabled = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_detection_model(build_cfg("float32", PAA_CONFIG,
+                                            SYNCBN_OPTS), device=dev, seed=0)
+    seen = []
+    model.module.get_submodule(SYNCBN_PROBE).register_forward_hook(
+        lambda m, i, o: seen.append(o.detach().cpu()))
+    record = pins if rows is None else None
+    with pinned_relus(record=record, pin=None if record is not None
+                      else pins, rows=rows or slice(None)) as calls:
+        metrics, pos_mask, before, after = train_once(model, batch)
+    torch.backends.cudnn.enabled = True
+    stats = {k: v.detach().cpu().clone() for k, v in
+             model.module.state_dict().items() if "running" in k}
+    return metrics, pos_mask, before, after, seen[0], stats, calls[0]
+
+
+def phase_syncbn_train(dev, name):
+    """Phase 57: PAA-R50 with MODEL.USE_SYNCBN True (a trainable
+    SyncBatchNorm in each of the body's 53 norms, batch statistics in
+    training mode) at full width in bf16: 10 do_train steps at B=16
+    (K3 40 per step in the head), the step's ms, img/s and profile; then
+    an eval request on the trained model: every SyncBatchNorm in eval
+    mode, the running statistics unmoved by it and used (the probe's
+    output equals the running-statistics formula on its input), the
+    detections' shapes and finite values, and the running statistics
+    moved by the training from their init. Returns the training's launch
+    counts."""
+    from paa_tpu_torch.modeling.layers import SyncBatchNorm
+
+    trained, state, batch, launches = phase_train_main_path(
+        dev, name, PAA_CONFIG, "syncbn_train_main_path", extra=SYNCBN_OPTS)
+    norms = [m for m in trained.module.modules()
+             if isinstance(m, SyncBatchNorm)]
+    check(len(norms) == 53, f"syncbn: {len(norms)} SyncBatchNorm")
+    phase_train_timing(trained, state, batch, name, "syncbn_train")
+    phase_train_profile(trained, state, batch, name,
+                        what="syncbn_train_profile")
+    stats = {k: v.clone() for k, v in trained.module.state_dict().items()
+             if "running" in k}
+    moved = sum(not torch.equal(v, torch.zeros_like(v) if "mean" in k
+                                else torch.ones_like(v))
+                for k, v in stats.items())
+    seen = []
+    probe = trained.module.get_submodule(SYNCBN_PROBE)
+    hook = probe.register_forward_hook(
+        lambda m, i, o: seen.append((i[0].float(), o)))
+    images, sizes = request(95, BATCH, HW, SIZE)
+    det = trained.make_eval_fn()(images, sizes)
+    hook.remove()
+    x, y = seen[0]
+    scale = probe.weight * torch.rsqrt(probe.running_var + probe.eps)
+    want = (x - probe.running_mean[:, None, None]) * scale[:, None, None] \
+        + probe.bias[:, None, None]
+    err = float((y - want).abs().max() / want.abs().max())
+    check(not any(m.training for m in norms) and err <= 1e-5
+          and moved == len(stats)
+          and all(torch.equal(v, trained.module.state_dict()[k])
+                  for k, v in stats.items())
+          and tuple(det["boxes"].shape) == (BATCH, 100, 4)
+          and bool(torch.isfinite(det["boxes"]).all()),
+          f"syncbn eval: probe err {err}, {moved} of {len(stats)} statistics"
+          f" moved")
+    print(json.dumps({"phase": "syncbn_eval_after_train", "ok": True,
+                      "norms": len(norms), "statistics_moved": moved,
+                      "probe_rel_err": err,
+                      "valid_detections": int(det["valid"].sum()),
+                      "card": name}))
+    del trained, state, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_syncbn_train_net(dev, name):
+    """Phase 58: ``paa_tpu_torch.tools.train_net`` with MODEL.USE_SYNCBN
+    True on PAA-R50 at full width in bf16 over synth_coco_32 (seeded
+    weights, MODEL.WEIGHT empty), IMS_PER_BATCH 8, 3 iterations: finite
+    losses, K3 40 per step; its model_final holds every SyncBatchNorm's
+    running statistics, moved from their init. Then
+    ``paa_tpu_torch.tools.test_net --ckpt model_final``: the statistics
+    its model holds after the load equal the checkpoint's (test_net's
+    ``load_weights`` watched), exit 0, the 12 metrics, K1 once and K3 40
+    times per eval batch."""
+    from paa_tpu_torch.tools import test_net, train_net
+    from paa_tpu_torch.utils import checkpoint
+
+    tmp = tempfile.mkdtemp(prefix="paa_syncbn_train_net_")
+    os.environ["PAA_TPU_TORCH_SYNTH_DIR"] = os.path.join(tmp, "synth")
+    out_dir = os.path.join(tmp, "out")
+    opts = [*synth_opts(out_dir), "MODEL.USE_SYNCBN", "True",
+            "MODEL.WEIGHT", "", "SOLVER.IMS_PER_BATCH", "8",
+            "SOLVER.MAX_ITER", "3", "SOLVER.CHECKPOINT_PERIOD", "3"]
+    head = ["--config-file", PAA_CONFIG, "--device", str(dev)]
+    seen = {}
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    rc = train_net.main(head + ["--skip-test"] + opts,
+                        metric_hook=lambda i, m: seen.update({i: m}))
+    train_s = time.perf_counter() - t0
+    train_launches = launch_counts()
+    check(rc == 0 and sorted(seen) == [1, 2, 3] and all(
+        math.isfinite(v) for m in seen.values() for v in m.values())
+        and train_launches == {"nms_batched": 0, "nms_global": 0,
+                               "group_norm_relu": 3 * 40},
+        f"syncbn_train_net: rc {rc}, iterations {sorted(seen)}, "
+        f"launches {train_launches}")
+    final = os.path.join(out_dir, "model_final")
+    ckpt = torch.load(final, map_location="cpu", weights_only=True)["model"]
+    stats = {k: v for k, v in ckpt.items() if "running" in k}
+    moved = sum(not torch.equal(v, torch.zeros_like(v) if "mean" in k
+                                else torch.ones_like(v))
+                for k, v in stats.items())
+    check(len(stats) == 2 * 53 and moved == len(stats),
+          f"syncbn_train_net: {len(stats)} statistics, {moved} moved")
+    plain, loaded = checkpoint.load_weights, {}
+
+    def watched(module, path):
+        extra = plain(module, path)
+        loaded.update({k: v.detach().cpu().clone()
+                       for k, v in module.state_dict().items()
+                       if "running" in k})
+        return extra
+
+    checkpoint.load_weights = watched
+    try:
+        zero_launch_counts()
+        rc = test_net.main(head + ["--ckpt", final] + opts)
+        launches = launch_counts()
+    finally:
+        checkpoint.load_weights = plain
+    results = read_results(out_dir, SYNTH_32[0])
+    batches = launches["nms_batched"]
+    check(rc == 0 and sorted(loaded) == sorted(stats) and all(
+        torch.equal(loaded[k], v) for k, v in stats.items())
+        and sorted(results) == sorted(METRICS) and batches >= 4
+        and launches == {"nms_batched": batches, "nms_global": 0,
+                         "group_norm_relu": 40 * batches},
+        f"syncbn_test_net: rc {rc}, {len(loaded)} statistics loaded, "
+        f"launches {launches}, results {results}")
+    print(json.dumps({"phase": "syncbn_train_net", "ok": True,
+                      "losses": [seen[i]["loss"] for i in sorted(seen)],
+                      "train_s": train_s, "statistics": len(stats),
+                      "train_launches": train_launches,
+                      "test_net_launches": launches, "ap_table": results,
+                      "card": name}))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {k: train_launches[k] + launches[k] for k in launches}
+
+
+def phase_mobile_and_syncbn(dev, name):
+    """Phases 52-58 (after phase 51): FCOS-MNV2 (52: serving, the f32 model
+    on the card against the CPU, training at B=16, ``phase_dense``);
+    FBNet Mask R-CNN _600 (53: serving; 54: the f32 model and masks on
+    the card against the CPU, and the f32 train step against the CPU and
+    float64 with the proposals and ReLU decisions pinned, the planted
+    x1.05 beyond; 55: training at B=16, ``test_net`` over synth_coco_32
+    with cv2 blocked); FBNet cham_v1a and xirb16d_dsmask serving (56);
+    PAA-R50 with MODEL.USE_SYNCBN training and eval (57) and train_net /
+    test_net (58). Returns the launch counts by path and the NMS
+    kernels' details by path."""
+    launches, k1, k2 = {}, {}, {}
+    t0 = time.perf_counter()
+    mnv2 = phase_dense(dev, "fcos_mnv2", name, MNV2_CONFIG,
+                       train_reference=False)
+    launches.update(fcos_mnv2=mnv2["serving"],
+                    fcos_mnv2_train=mnv2["training"])
+    k1["fcos_mnv2"] = mnv2["k1"]
+    frozen_bn = {kind: calibrated_frozen_bn(path)
+                 for kind, path in FBNET_CONFIGS.items()}
+    for kind in FBNET_CONFIGS:
+        launches[kind], k1_kind, k2_kind = phase_fbnet_serving(
+            dev, name, kind, frozen_bn[kind])
+        k1.update(k1_kind)
+        k2.update(k2_kind)
+        if kind == "fbnet_mask_rcnn":
+            mask_rcnn_card_vs_cpu(
+                dev, lambda dtype, device: seeded_fbnet(
+                    kind, frozen_bn[kind], dtype, device), kind)
+    kind = "fbnet_mask_rcnn"
+    hw, size = FBNET_HW[kind]
+    # one card's share of the config's 128 images over 8 GPUs, at the
+    # linearly scaled learning rate (at the config's 0.06 the seeded
+    # model's losses swing and its RPN's boxes reach NaN by step 20)
+    cfg = build_cfg("bfloat16", FBNET_CONFIGS[kind])
+    launches[f"{kind}_train"], detail = phase_two_stage_train(
+        dev, name, kind, frozen_bn[kind], hw=hw, size=size,
+        extra=["SOLVER.IMS_PER_BATCH", 16, "SOLVER.BASE_LR",
+               cfg.SOLVER.BASE_LR * 16 / cfg.SOLVER.IMS_PER_BATCH])
+    (k2 if detail["kernel_detail"] == "nms_global" else k1)[
+        f"{kind}_train_rpn"] = detail
+    phase_two_stage_train_reference(dev, frozen_bn[kind],
+                                    FBNET_CONFIGS[kind], REFERENCE_ROIS,
+                                    f"{kind}_train_card_vs_cpu")
+    launches[f"{kind}_test_net"] = phase_mask_rcnn_test_net(
+        dev, name, FBNET_CONFIGS[kind], f"{kind}_test_net", reference=False)
+    launches["syncbn_train"] = phase_syncbn_train(dev, name)
+    launches["syncbn_train_net"] = phase_syncbn_train_net(dev, name)
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "mobile_and_syncbn", "ok": True,
+                      "wall_s": time.perf_counter() - t0, "card": name}))
+    return launches, k1, k2
+
 
 def main():
     if not torch.cuda.is_available():
@@ -5391,6 +5882,10 @@ def main():
         gn_rpn_launches, k1_gn_rpn, k2_gn_rpn, k3_gn = \
             phase_gn_and_rpn_only(dev, name)
         stamp("45-51 GN Mask R-CNN, scratch GN Faster R-CNN, RPN-only")
+        # the mobile bodies (FCOS-MNV2, FBNet) and SyncBN
+        mobile_launches, k1_mobile, k2_mobile = phase_mobile_and_syncbn(
+            dev, name)
+        stamp("52-58 FCOS-MNV2, FBNet, SyncBN")
         dcnv2_train_net_launches = phase_train_net_from_pkl(
             dev, name, "dcnv2_train_net_from_pkl")
         gate_launches = phase_ap_gate(dev, name)
@@ -5424,6 +5919,8 @@ def main():
                         for path, runs in kp_c4_launches.items()})
         by_path.update({path: runs[key]
                         for path, runs in gn_rpn_launches.items()})
+        by_path.update({path: runs[key]
+                        for path, runs in mobile_launches.items()})
         kernel.update(launches=sum(by_path.values()),
                       launches_by_path=by_path)
     # K3's forms: only the GN paths launch GroupNorm alone
@@ -5453,6 +5950,13 @@ def main():
                             for path, detail in k2_kp_c4.items()}
     k2["at_path_inputs"].update({path: {f: detail[f] for f in fields}
                                  for path, detail in k2_gn_rpn.items()})
+    # FCOS-MNV2's candidates; the FBNet RPNs' 8 rows of 6,000, the 320
+    # configs' box heads (8,000 per image) and the training RPN's rows on
+    # K1; the _600 box heads' 16,000 per image on K2
+    k1["at_path_inputs"].update({path: {f: detail[f] for f in fields}
+                                 for path, detail in k1_mobile.items()})
+    k2["at_path_inputs"].update({path: {f: detail[f] for f in fields}
+                                 for path, detail in k2_mobile.items()})
     print(json.dumps({"phase": "script", "wall_s":
                       time.perf_counter() - t0, "card": name}))
     print(name)

@@ -254,6 +254,7 @@ class TTAEngine:
         x = maybe_device_normalize(images, image_sizes,
                                    self.cfg.INPUT.PIXEL_MEAN,
                                    self.cfg.INPUT.PIXEL_STD)
+        model.module.eval()  # as make_eval_fn's calls
         out = model.module(x.permute(0, 3, 1, 2).contiguous())
         anchors, counts = model.anchors_for(x.shape[1:3])
         boxes, scores, labels, valid = paa_candidates(

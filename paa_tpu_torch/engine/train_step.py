@@ -23,8 +23,16 @@ positive count and the IoU sum over the ranks (modeling/paa_loss.py),
 DDP averages the gradients, and the logged losses are averaged over the
 ranks (the reference's ``reduce_loss_dict``). Frozen parameters do not
 require grad, so DDP's reducer leaves them out. ``broadcast_buffers``
-keeps its default: the only buffers are FrozenBatchNorm's, which never
-change, so rank 0's broadcast copies equal values.
+keeps its default, rank 0's buffers copied to every rank before each
+forward: FrozenBatchNorm's never change, and a SyncBatchNorm's running
+statistics (MODEL.USE_SYNCBN) are the same on every rank, since each
+rank moves them by the same all-reduced batch statistics, so the copy
+changes no value.
+
+Each step puts the module in training mode (a SyncBatchNorm normalizes
+by batch statistics and moves its running ones), as the JAX package
+applies its model with ``mutable=["batch_stats"]`` in its step; every
+eval entry point puts it back in eval mode (``make_eval_fn``).
 """
 
 from __future__ import annotations
@@ -108,6 +116,7 @@ def make_train_step(forward_loss, schedule, device, normalize=None):
 
     def train_step(state: TrainState, batch):
         state.module = _data_parallel(state.module)
+        state.module.train()
         with record_function(SPAN_INPUT):
             batch = {k: torch.as_tensor(v).to(device)
                      for k, v in batch.items()}

@@ -38,6 +38,7 @@ from .fcos_head import decode_ltrb, fcos_head_from_cfg
 from .fcos_loss import FCOSLossConfig, fcos_loss
 from .fpn import ResNetFPNBackbone
 from .layers import reset_parameters
+from .mobilenet import MobileNetV2
 from .paa_head import paa_head_from_cfg
 from .paa_inference import PostProcessConfig, paa_postprocess
 from .paa_loss import PAALossConfig, paa_loss
@@ -196,14 +197,16 @@ class DetectionModel:
         images: (B, H, W, 3) uint8 raw pixels (normalized on the device,
         padding re-zeroed) or float32 already normalized; image_sizes:
         (B, 2) (h, w) of the un-padded content. ``state``, if given, is a
-        state_dict loaded into the module first."""
+        state_dict loaded into the module first. Each call puts the module
+        in eval mode (a SyncBatchNorm normalizes by its running
+        statistics), whatever a train step did in between."""
         if state is not None:
             self.module.load_state_dict(state)
-        self.module.eval()
         mean, std = self.cfg.INPUT.PIXEL_MEAN, self.cfg.INPUT.PIXEL_STD
 
         @torch.inference_mode()
         def eval_fn(images, image_sizes):
+            self.module.eval()
             images = torch.as_tensor(images).to(self.device)
             image_sizes = torch.as_tensor(image_sizes).to(self.device)
             x = maybe_device_normalize(images, image_sizes, mean, std)
@@ -221,15 +224,19 @@ def _torch_dtype(name):
 
 
 def build_backbone(cfg, dtype=torch.float32):
-    """ResNet + FPN in the wiring the body names: *-FPN-RETINANET (P3-P7,
+    """Body + FPN in the wiring the body names: *-FPN-RETINANET (P3-P7,
     P6 from C5 with RETINANET.USE_C5, else from P5) or *-FPN (P2-P6, P6
-    pooled); FPN.USE_GN and FPN.USE_RELU as set. The MobileNetV2 body is
-    ROADMAP item 11."""
+    pooled); FPN.USE_GN and FPN.USE_RELU as set. MNV2-FPN-RETINANET is
+    the MobileNetV2 body (modeling/mobilenet.py) in the first wiring,
+    its C3-C5 of (32, 96, 320) channels into FPN and P6 from P5, without
+    the FPN's GN or ReLU, as the JAX package builds it."""
     body = cfg.MODEL.BACKBONE.CONV_BODY
-    if body.startswith("MNV2"):
-        raise NotImplementedError(
-            f"paa_tpu_torch has no {body} body yet: the MobileNetV2 body "
-            f"(and SyncBatchNorm) is ROADMAP item 11")
+    out_channels = cfg.MODEL.RESNETS.BACKBONE_OUT_CHANNELS
+    if body == "MNV2-FPN-RETINANET":
+        return ResNetFPNBackbone(
+            MobileNetV2(dtype=dtype), list(MobileNetV2.feature_channels()),
+            out_channels=out_channels, dtype=dtype, retina=True,
+            p6_from_c5=False)
     retina = body.endswith("FPN-RETINANET")
     if not (retina or body.endswith("FPN")):
         raise NotImplementedError(
@@ -240,7 +247,7 @@ def build_backbone(cfg, dtype=torch.float32):
     return ResNetFPNBackbone(
         resnet_from_cfg(cfg, dtype=dtype),
         in_channels_list,
-        out_channels=r.BACKBONE_OUT_CHANNELS,
+        out_channels=out_channels,
         dtype=dtype,
         retina=retina,
         p6_from_c5=retina and cfg.MODEL.RETINANET.USE_C5,

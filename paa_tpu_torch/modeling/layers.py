@@ -157,6 +157,69 @@ class FrozenBatchNorm(nn.Module):
                 + shift.to(x.dtype)[:, None, None])
 
 
+class SyncBatchNorm(nn.Module):
+    """Trainable BatchNorm on the global batch's statistics (MODEL.USE_SYNCBN;
+    the JAX package's SyncBatchNorm, flax ``nn.BatchNorm`` with momentum
+    0.9 and eps 1e-5). Not ``torch.nn.SyncBatchNorm``: flax differs from
+    it in three ways, which this module follows.
+
+    - Training mode: float32 sums of x and x^2 over (N, H, W) and the
+      element count on the local batch, summed over the ranks of a
+      process group with the gradient flowing back through the sum; mean
+      = E[x], var = max(E[x^2] - E[x]^2, 0) (flax's fast variance).
+    - The running statistics move by running = 0.9 * running + 0.1 *
+      batch, with the biased variance; there is no
+      ``num_batches_tracked``. Every rank sums the same numbers, so every
+      rank holds the same running statistics.
+    - Eval mode normalizes by the running statistics.
+
+    It computes in float32, or float64 for a float64 input, and so
+    returns (flax promotes to its float32 parameters); the next conv
+    casts the output to its compute dtype.
+    ``weight`` and ``bias`` are flax's ``bn/scale`` and ``bn/bias``;
+    ``running_mean`` and ``running_var`` its ``batch_stats`` ``bn/mean``
+    and ``bn/var``."""
+
+    def __init__(self, features, momentum=0.9, eps=1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def batch_stats(self, x):
+        """(mean, var) of ``x`` over (N, H, W) and the ranks."""
+        from ..utils import comm  # utils imports this module
+
+        c = x.shape[1]
+        sums = torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
+                          x.new_full((1,), x.numel() // c)])
+        if comm.get_world_size() > 1:
+            from torch.distributed.nn.functional import all_reduce
+
+            sums = all_reduce(sums)
+        mean = sums[:c] / sums[-1]
+        return mean, torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean,
+                                 min=0.0)
+
+    def forward(self, x):
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training:
+            mean, var = self.batch_stats(x)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[:, None, None]) * mul[:, None, None]
+                + self.bias[:, None, None])
+
+
 class GroupNorm32(nn.Module):
     """GroupNorm (32 groups, eps 1e-5, the reference's make_layers.py
     group_norm) through the group_norm_relu kernel K3 on the card:

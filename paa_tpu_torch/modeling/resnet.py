@@ -8,8 +8,12 @@ BottleneckWithGN; StemWithGN follows it, as in the JAX package) puts a
 ``GroupNorm32`` in every norm's place under the same name (``bn1``,
 ``downsample_bn``, ...): K3 with the ReLU fused where one follows (the
 stem's bn1, a block's bn1 and bn2), K3 alone before the residual add
-(bn3, downsample_bn). The space-to-depth stem is a TPU lowering and is
-not ported; SyncBN bodies and the C5 bodies are not ported yet. Returns
+(bn3, downsample_bn). MODEL.USE_SYNCBN (``norm`` "sync_bn", whatever
+TRANS_FUNC says, as in the JAX package) puts a trainable
+``SyncBatchNorm`` there instead: batch statistics over the global batch
+in training mode, its running statistics in eval mode. The
+space-to-depth stem is a TPU lowering and is not ported; the C5 bodies
+are not ported yet. Returns
 C2..C5 in NCHW, and for the C4 bodies (R-50-C4, R-101-C4: three stages,
 the two-stage models' res5 is their box head) C4 alone.
 
@@ -18,8 +22,9 @@ the two-stage models' res5 is their box head) C4 alone.
 ``_freeze_backbone`` does (resnet.py:134-143): their parameters do not
 require grad, the counterpart of the JAX package's "frozen" label
 (paa_tpu/solver/build.py:64-94) and ``stop_gradient`` in its train step.
-FrozenBatchNorm's tensors are buffers and never train; GroupNorm's
-affines are parameters and train outside the frozen stages.
+FrozenBatchNorm's tensors are buffers and never train; GroupNorm's and
+SyncBatchNorm's affines are parameters and train outside the frozen
+stages.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import dcn  # ops/dcn.py imports .layers: bind the module
-from .layers import Conv, FrozenBatchNorm, GroupNorm32, max_pool_3x3_s2
+from .layers import (
+    Conv, FrozenBatchNorm, GroupNorm32, SyncBatchNorm, max_pool_3x3_s2)
 
 # (block counts per stage, return_features per stage)
 STAGE_SPECS = {
@@ -45,19 +51,21 @@ STAGE_SPECS = {
 
 
 def make_norm(norm, features, relu):
-    """The norm of a ResNet body: FrozenBatchNorm ("frozen_bn"), whose
-    ReLU the caller applies, or GroupNorm32 ("gn") with the ReLU fused
-    when ``relu``."""
+    """The norm of a ResNet body: FrozenBatchNorm ("frozen_bn") or
+    SyncBatchNorm ("sync_bn"), whose ReLU the caller applies, or
+    GroupNorm32 ("gn") with the ReLU fused when ``relu``."""
     if norm == "frozen_bn":
         return FrozenBatchNorm(features)
+    if norm == "sync_bn":
+        return SyncBatchNorm(features)
     if norm == "gn":
         return GroupNorm32(features, relu=relu)
     raise ValueError(norm)
 
 
 def norm_relu(norm, x):
-    """norm(x) followed by a ReLU: F.relu after FrozenBatchNorm, none
-    after a GroupNorm32 that fused it."""
+    """norm(x) followed by a ReLU: F.relu after a batch norm, none after
+    a GroupNorm32 that fused it."""
     x = norm(x)
     return x if isinstance(norm, GroupNorm32) else F.relu(x)
 
@@ -181,18 +189,15 @@ NORMS = {"BottleneckWithFixedBatchNorm": "frozen_bn",
 
 def resnet_from_cfg(cfg, dtype=torch.float32):
     r = cfg.MODEL.RESNETS
-    unsupported = {
-        "TRANS_FUNC": r.TRANS_FUNC not in NORMS,
-        "USE_SYNCBN": cfg.MODEL.USE_SYNCBN,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad or cfg.MODEL.BACKBONE.CONV_BODY not in STAGE_SPECS:
+    if r.TRANS_FUNC not in NORMS or \
+            cfg.MODEL.BACKBONE.CONV_BODY not in STAGE_SPECS:
         raise NotImplementedError(
-            "paa_tpu_torch ports the FrozenBN and GN ResNet FPN and C4 "
-            f"bodies {sorted(STAGE_SPECS)} only; unsupported: "
-            f"{bad or cfg.MODEL.BACKBONE.CONV_BODY} (SyncBN is ROADMAP "
-            f"item 11)"
-        )
+            "paa_tpu_torch ports the FrozenBN, GN and SyncBN ResNet FPN and "
+            f"C4 bodies {sorted(STAGE_SPECS)} of TRANS_FUNC {sorted(NORMS)} "
+            f"only, not {cfg.MODEL.BACKBONE.CONV_BODY} with {r.TRANS_FUNC}")
+    # the reference converts the whole model to SyncBatchNorm
+    # (tools/train_net.py:35-38); the JAX package its ResNet bodies
+    norm = "sync_bn" if cfg.MODEL.USE_SYNCBN else NORMS[r.TRANS_FUNC]
     return ResNet(
         body=cfg.MODEL.BACKBONE.CONV_BODY,
         num_groups=r.NUM_GROUPS,
@@ -206,5 +211,5 @@ def resnet_from_cfg(cfg, dtype=torch.float32):
         res5_dilation=r.RES5_DILATION,
         dtype=dtype,
         freeze_at=cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT,
-        norm=NORMS[r.TRANS_FUNC],
+        norm=norm,
     )

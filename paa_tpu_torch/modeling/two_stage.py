@@ -1,7 +1,8 @@
 """Faster R-CNN, Mask R-CNN, Keypoint R-CNN and the RPN-only model (port
 of paa_tpu/modeling/two_stage.py).
 
-Two bodies, FrozenBN or GN (modeling/resnet.py):
+Three bodies: ResNet FPN and C4 (FrozenBN, GN or SyncBN;
+modeling/resnet.py) and FBNet (modeling/fbnet.py):
 
 - FPN (``R-*-FPN``): the backbone's P2..P6 (P6 by LastLevelMaxPool;
   FPN.USE_GN / USE_RELU as set), the classic RPN over 5 levels (anchor
@@ -18,7 +19,12 @@ Two bodies, FrozenBN or GN (modeling/resnet.py):
   builds it), the res5 box head (``Res5ROIBoxHead``) and, with
   MASK_ON, the C4 mask predictor on the box head's res5 features
   (``share_mask_extractor``), or with SHARE_BOX_FEATURE_EXTRACTOR off
-  an unshared ``MaskHead`` pooling the stride-16 map.
+  an unshared ``MaskHead`` pooling the stride-16 map;
+- FBNet (``FBNet``, the same single-level path): the arch's trunk
+  (modeling/fbnet.py) to one stride-16 map, a one-level RPN with all 5
+  sizes x 3 ratios whose head is the arch's "rpn" stages, the "bbox"
+  stages on 6 x 6 pools as the box head and, with MASK_ON, the "mask"
+  stages as an unshared mask head (M = 12 with the 1x1 predictor).
 
 The RPN-only model (MODEL.RPN_ONLY, ``build_rpn_only``): the same
 bodies and RPN without ROI heads; it serves the RPN's proposals
@@ -50,8 +56,8 @@ JAX package's ``fold_in(PRNGKey(TPU.SEED), step)`` does. Losses are
 divided by this process's counts (no cross-rank normalizer, as in the
 JAX package); under DDP the gradients are averaged.
 
-Not ported: FBNet (ROADMAP item 11) and the C4 keypoint variant (the
-JAX package builds Keypoint R-CNN on FPN only). Building either raises.
+Not ported: the C4 and FBNet keypoint variants (the JAX package builds
+Keypoint R-CNN on FPN only). Building one raises.
 """
 
 from __future__ import annotations
@@ -68,6 +74,9 @@ from ..solver import make_lr_schedule
 from ..utils import comm
 from .anchors import AnchorGenerator
 from .detector import DetectionModel, build_backbone
+from .fbnet import (
+    FBNetMaskHead, FBNetROIBoxHead, FBNetRPNHead, FBNetTrunk,
+    fbnet_trunk_stride)
 from .resnet import resnet_from_cfg
 from .roi_box_head import (
     FPN2MLPBoxHead,
@@ -414,12 +423,12 @@ def build_faster_rcnn(cfg, device, dtype=torch.float32):
     (``_build_single_level_rcnn``); parameters not yet initialised
     (``build_detection_model`` seeds them)."""
     body = cfg.MODEL.BACKBONE.CONV_BODY
-    if body.endswith("-C4"):
+    if body.endswith("-C4") or body == "FBNet":
         return _build_single_level_rcnn(cfg, device, dtype)
     if not body.endswith("-FPN"):
         raise NotImplementedError(
-            f"paa_tpu_torch ports the two-stage models on an R-*-FPN or "
-            f"R-*-C4 body, not {body} (FBNet is ROADMAP item 11)")
+            f"paa_tpu_torch ports the two-stage models on an R-*-FPN, "
+            f"R-*-C4 or FBNet body, not {body}")
     channels = cfg.MODEL.RESNETS.BACKBONE_OUT_CHANNELS
     module = FasterRCNN(
         build_backbone(cfg, dtype=dtype),
@@ -442,22 +451,37 @@ def build_faster_rcnn(cfg, device, dtype=torch.float32):
 
 
 def _build_single_level_rcnn(cfg, device, dtype):
-    """The C4 Faster / Mask R-CNN of ``cfg`` (the JAX package's
-    _build_single_level_rcnn without its FBNet branch): the R-*-C4 body,
-    one RPN level at RPN.ANCHOR_STRIDE[0] with every ANCHOR_SIZES x
-    ASPECT_RATIOS anchor (reference make_anchor_generator for a non-FPN
-    RPN), the res5 box head pooling at 1 / stride (POOLER_RESOLUTION, at
-    least 14) and, with MASK_ON, the C4 mask predictor on the box head's
-    res5 features (SHARE_BOX_FEATURE_EXTRACTOR) or else an unshared
-    ``MaskHead`` at its defaults (4 x 256 convs on 14 x 14 pools of the
-    stride-16 map, the deconv predictor), as the JAX package builds it
-    whatever ROI_MASK_HEAD's other settings."""
-    r, bh = cfg.MODEL.RESNETS, cfg.MODEL.ROI_BOX_HEAD
+    """The C4 or FBNet Faster / Mask R-CNN of ``cfg`` (the JAX package's
+    _build_single_level_rcnn): one RPN level at RPN.ANCHOR_STRIDE[0]
+    with every ANCHOR_SIZES x ASPECT_RATIOS anchor (reference
+    make_anchor_generator for a non-FPN RPN) on the body's one map, and
+    ``_c4_heads`` or ``_fbnet_heads``."""
     if cfg.MODEL.KEYPOINT_ON:
         raise NotImplementedError(
-            "paa_tpu_torch ports the C4 Faster and Mask R-CNN; the JAX "
-            "package builds Keypoint R-CNN on FPN only")
+            "paa_tpu_torch ports the C4 and FBNet Faster and Mask R-CNN; "
+            "the JAX package builds Keypoint R-CNN on FPN only")
     stride = cfg.MODEL.RPN.ANCHOR_STRIDE[0]
+    heads = (_fbnet_heads if cfg.MODEL.BACKBONE.CONV_BODY == "FBNet"
+             else _c4_heads)
+    return TwoStageModel(
+        cfg=cfg,
+        module=FasterRCNN(*heads(cfg, stride, dtype)),
+        anchor_generator=_c4_anchor_generator(cfg),
+        strides=(stride,),
+        device=device,
+    )
+
+
+def _c4_heads(cfg, stride, dtype):
+    """FasterRCNN's modules on an R-*-C4 body: the body to C4, the RPN
+    head (``_c4_rpn_head``), the res5 box head pooling at 1 / stride
+    (POOLER_RESOLUTION, at least 14) and, with MASK_ON, the C4 mask
+    predictor on the box head's res5 features
+    (SHARE_BOX_FEATURE_EXTRACTOR) or else an unshared ``MaskHead`` at
+    its defaults (4 x 256 convs on 14 x 14 pools of the stride-16 map,
+    the deconv predictor), as the JAX package builds it whatever
+    ROI_MASK_HEAD's other settings."""
+    r, bh = cfg.MODEL.RESNETS, cfg.MODEL.ROI_BOX_HEAD
     c4 = r.RES2_OUT_CHANNELS * 4
     mask_head = None
     share = cfg.MODEL.ROI_MASK_HEAD.SHARE_BOX_FEATURE_EXTRACTOR
@@ -468,7 +492,7 @@ def _build_single_level_rcnn(cfg, device, dtype):
     elif cfg.MODEL.MASK_ON:
         mask_head = MaskHead(bh.NUM_CLASSES - 1, in_channels=c4,
                              scales=(1.0 / stride,), dtype=dtype)
-    module = FasterRCNN(
+    return (
         SingleLevelBackbone(resnet_from_cfg(cfg, dtype=dtype)),
         _c4_rpn_head(cfg, c4, dtype),
         Res5ROIBoxHead(
@@ -476,14 +500,42 @@ def _build_single_level_rcnn(cfg, device, dtype):
             resolution=max(bh.POOLER_RESOLUTION, 14), scale=1.0 / stride,
             num_groups=r.NUM_GROUPS, width_per_group=r.WIDTH_PER_GROUP,
             dtype=dtype),
-        mask_head, share_mask_extractor=cfg.MODEL.MASK_ON and share,
+        mask_head, None, cfg.MODEL.MASK_ON and share,
     )
-    return TwoStageModel(
-        cfg=cfg,
-        module=module,
-        anchor_generator=_c4_anchor_generator(cfg),
-        strides=(stride,),
-        device=device,
+
+
+def _fbnet_heads(cfg, stride, dtype):
+    """FasterRCNN's modules on an FBNet body (MODEL.FBNET: ARCH,
+    SCALE_FACTOR, WIDTH_DIVISOR, BN_TYPE): the trunk, whose stride must
+    be RPN.ANCHOR_STRIDE[0]; the RPN head on the "rpn" stages; the box
+    head on ROI_BOX_HEAD.POOLER_RESOLUTION pools; with MASK_ON the
+    unshared mask head on ROI_MASK_HEAD.POOLER_RESOLUTION pools, its
+    deconv unless PREDICTOR is MaskRCNNConv1x1Predictor. Both heads pool
+    with sampling ratio 2, as the JAX package's."""
+    f = cfg.MODEL.FBNET
+    if fbnet_trunk_stride(f.ARCH) != stride:
+        raise ValueError(f"FBNet trunk stride {fbnet_trunk_stride(f.ARCH)}"
+                         f" != RPN.ANCHOR_STRIDE {stride}")
+    widths = dict(width_ratio=f.SCALE_FACTOR, width_divisor=f.WIDTH_DIVISOR,
+                  bn_type=f.BN_TYPE, dtype=dtype)
+    trunk = FBNetTrunk(f.ARCH, **widths)
+    c = trunk.out_channels
+    rpn = cfg.MODEL.RPN
+    mask_head = None
+    if cfg.MODEL.MASK_ON:
+        mh = cfg.MODEL.ROI_MASK_HEAD
+        mask_head = FBNetMaskHead(
+            f.ARCH, c, cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES - 1,
+            resolution=mh.POOLER_RESOLUTION, scale=1.0 / stride,
+            use_deconv=mh.PREDICTOR != "MaskRCNNConv1x1Predictor", **widths)
+    return (
+        SingleLevelBackbone(trunk),
+        FBNetRPNHead(f.ARCH, c, len(rpn.ANCHOR_SIZES)
+                     * len(rpn.ASPECT_RATIOS), **widths),
+        FBNetROIBoxHead(f.ARCH, c, cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES,
+                        resolution=cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION,
+                        scale=1.0 / stride, **widths),
+        mask_head,
     )
 
 

@@ -55,7 +55,11 @@ def _axis_samples(start, end, bins, sampling_ratio, size):
     pos = torch.minimum(torch.clamp(pos, min=0.0), size - 1)
     lo = torch.floor(pos)
     hi = torch.minimum(lo + 1, size - 1)
-    return lo.long(), hi.long(), pos - lo, keep
+    # a NaN position (a NaN roi, from a diverged RPN) reads pixel 0 with
+    # NaN weights, so its bin is NaN, as XLA's clamped gather gives the
+    # JAX package; a NaN index would read outside the table
+    return (lo.nan_to_num(0.0).long(), hi.nan_to_num(0.0).long(), pos - lo,
+            keep)
 
 
 def _align(table, row0, height, width, rois, scale, output_size,

@@ -16,9 +16,10 @@ reference paa_core/solver/build.py:7-37, lr_scheduler.py:10-52).
   GAMMA ** bisect_right(STEPS, i).
 - "frozen" parameters (FREEZE_CONV_BODY_AT stages; FrozenBatchNorm's
   tensors are buffers in the port) get no update: they join no group.
-  FrozenBatchNorm is told from GroupNorm by what the module holds, not
-  by its name: a GN body names its norms ``bn1``..``bn3`` and
-  ``downsample_bn`` as a FrozenBN body does, and their affines train.
+  A FrozenBatchNorm is told by its type, not by its name or its
+  tensors: a GN body names its norms ``bn1``..``bn3`` and
+  ``downsample_bn`` as a FrozenBN body does, and a SyncBatchNorm holds
+  the same four tensors as a FrozenBatchNorm; the affines of both train.
 """
 
 from __future__ import annotations
@@ -27,10 +28,6 @@ import re
 from bisect import bisect_right
 
 import torch
-
-# a module holding these buffers is a FrozenBatchNorm (modeling/layers.py)
-_FROZEN_BN_STATS = ("running_mean", "running_var")
-
 
 def make_lr_schedule(cfg):
     """schedule(i) -> the learning rate of update i (0-based)."""
@@ -70,18 +67,22 @@ def _label(name, freeze_at, frozen_bn):
     return "bias" if leaf == "bias" else "weight"
 
 
-def param_labels(names, freeze_at=2):
+def param_labels(module, freeze_at=2):
     """{name: 'weight' | 'bias' | 'dcn_offset' | 'dcn_offset_bias' |
-    'frozen'} for dotted tensor names (``module.named_parameters()``'s or
-    ``state_dict()``'s, which carry the JAX package's flax scopes). Every
-    tensor of a FrozenBatchNorm (a module whose running_mean and
-    running_var are among ``names``) is "frozen"; a GroupNorm's affine
-    under the same module name (a GN body's ``bn1``) is not."""
-    names = list(names)
-    have = set(names)
-    frozen_bn = {name.rpartition(".")[0] for name in names
-                 if all(name.rpartition(".")[0] + "." + s in have
-                        for s in _FROZEN_BN_STATS)}
+    'frozen'} for ``module``'s parameters and FrozenBatchNorm buffers:
+    the tensors of the JAX package's param tree, under dotted names that
+    carry its flax scopes. Every tensor of a FrozenBatchNorm is "frozen";
+    a GroupNorm's or SyncBatchNorm's affine under the same module name (a
+    GN or SyncBN body's ``bn1``) is not, as the JAX package labels
+    ``bn1/gn/scale`` and ``bn1/bn/scale``. A SyncBatchNorm's running
+    statistics (the JAX package's ``batch_stats``) get no label."""
+    from ..modeling.layers import FrozenBatchNorm  # modeling imports us
+
+    frozen_bn = {name for name, m in module.named_modules()
+                 if isinstance(m, FrozenBatchNorm)}
+    names = [name for name, _ in module.named_parameters()] + [
+        name for name, _ in module.named_buffers()
+        if name.rpartition(".")[0] in frozen_bn]
     return {name: _label(name, freeze_at, frozen_bn) for name in names}
 
 
@@ -91,7 +92,7 @@ def make_optimizer(cfg, module):
     schedule's rate."""
     s = cfg.SOLVER
     params = dict(module.named_parameters())
-    labels = param_labels(params, cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT)
+    labels = param_labels(module, cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT)
     settings = {  # label: (lr factor, weight decay)
         "weight": (1.0, s.WEIGHT_DECAY),
         "bias": (s.BIAS_LR_FACTOR, s.WEIGHT_DECAY_BIAS),

@@ -1,8 +1,9 @@
 """Carry the JAX package's parameters across into the port's modules.
 
-``load_jax_params(module, params)`` takes the flax param tree as nested
-dicts of numpy arrays (``model.init(...)["params"]`` after
-``np.asarray``) and fills the port's module. The port's submodules carry
+``load_jax_params(module, params, batch_stats=None)`` takes the flax
+param tree as nested dicts of numpy arrays (``model.init(...)["params"]``
+after ``np.asarray``), and the ``batch_stats`` tree of a SyncBN model
+beside it, and fills the port's module. The port's submodules carry
 the flax scope names (``backbone.resnet.stem.conv1``,
 ``head.cls_tower.gn0``, ``head.scale3``, ...), so the walk is
 mechanical; only the leaves change form:
@@ -29,6 +30,9 @@ mechanical; only the leaves change form:
   ``downsample_bn``, which are GroupNorm32 in the port too);
 - FrozenBatchNorm's ``weight``, ``bias``, ``running_mean`` and
   ``running_var`` fill the buffers of the same names;
+- SyncBatchNorm's ``bn/scale`` and ``bn/bias`` become ``weight`` and
+  ``bias``, and its ``bn/mean`` and ``bn/var`` of the ``batch_stats``
+  tree (MODEL.USE_SYNCBN) ``running_mean`` and ``running_var``;
 - ``Scale``'s ``scale`` becomes a scalar.
 
 It is strict: every leaf must be used, every port parameter and buffer
@@ -43,17 +47,19 @@ import numpy as np
 import torch
 
 from ..modeling.layers import (
-    Conv, ConvTranspose, FrozenBatchNorm, GroupNorm32, Linear, Scale)
+    Conv, ConvTranspose, FrozenBatchNorm, GroupNorm32, Linear, Scale,
+    SyncBatchNorm)
 from ..ops import dcn  # ops/dcn.py imports modeling: bind the module
 
 
-def _leaves(mod, tree, path):
-    """(port tensor name, numpy value) pairs for one leaf module."""
-    def keys(expected):
+def _leaves(mod, tree, stats, path):
+    """(port tensor name, numpy value) pairs for one leaf module; ``stats``
+    is its subtree of ``batch_stats`` (None where there is none)."""
+    def keys(expected, tree=tree, where=path):
         if set(tree) != set(expected):
             raise KeyError(
-                f"{path}: JAX leaves {sorted(tree)} vs port {sorted(expected)}"
-            )
+                f"{where}: JAX leaves {sorted(tree)} vs port "
+                f"{sorted(expected)}")
 
     if isinstance(mod, (Conv, dcn.DeformConv)):
         children = ["offset"] if isinstance(mod, dcn.DeformConv) else []
@@ -63,7 +69,7 @@ def _leaves(mod, tree, path):
         if mod.bias is not None:
             out.append(("bias", tree["bias"]))
         out += [(f"{c}.{name}", value) for c in children
-                for name, value in _leaves(mod.offset, tree[c],
+                for name, value in _leaves(mod.offset, tree[c], None,
                                            f"{path}/{c}")]
         return out
     if isinstance(mod, ConvTranspose):
@@ -80,6 +86,16 @@ def _leaves(mod, tree, path):
         names = ["weight", "bias", "running_mean", "running_var"]
         keys(names)
         return [(n, tree[n]) for n in names]
+    if isinstance(mod, SyncBatchNorm):
+        keys(["bn"])
+        keys(["scale", "bias"], tree["bn"], f"{path}/bn")
+        if stats is None:
+            raise KeyError(f"{path}: a SyncBatchNorm needs its batch_stats")
+        keys(["bn"], stats, f"batch_stats {path}")
+        keys(["mean", "var"], stats["bn"], f"batch_stats {path}/bn")
+        return [("weight", tree["bn"]["scale"]), ("bias", tree["bn"]["bias"]),
+                ("running_mean", stats["bn"]["mean"]),
+                ("running_var", stats["bn"]["var"])]
     if isinstance(mod, GroupNorm32):
         keys(["gn"])
         gn = tree["gn"]
@@ -92,16 +108,21 @@ def _leaves(mod, tree, path):
     return None
 
 
-def load_jax_params(module, params):
-    """Fill ``module`` from the flax param tree ``params``; see the module
-    docstring for the mapping. Returns ``module``."""
+def load_jax_params(module, params, batch_stats=None):
+    """Fill ``module`` from the flax param tree ``params`` and, for a
+    SyncBN model, its ``batch_stats`` tree; see the module docstring for
+    the mapping. Returns ``module``."""
     state = module.state_dict(keep_vars=True)
     filled = set()
 
-    def visit(mod, tree, prefix):
+    def visit(mod, tree, stats, prefix):
         path = prefix.rstrip(".") or "<root>"
-        leaves = _leaves(mod, tree, path)
+        leaves = _leaves(mod, tree, stats, path)
         if leaves is None:
+            for key in (stats or {}):
+                if key not in tree:
+                    raise KeyError(f"JAX batch_stats {prefix}{key} has no "
+                                   f"param subtree")
             for key, sub in tree.items():
                 child = mod._modules.get(key)
                 if child is None or not isinstance(sub, Mapping):
@@ -109,7 +130,7 @@ def load_jax_params(module, params):
                         f"JAX param {prefix}{key} has no counterpart in the "
                         f"port's {type(mod).__name__}"
                     )
-                visit(child, sub, f"{prefix}{key}.")
+                visit(child, sub, (stats or {}).get(key), f"{prefix}{key}.")
             return
         for name, value in leaves:
             target = state[prefix + name]
@@ -123,7 +144,7 @@ def load_jax_params(module, params):
                 target.copy_(torch.from_numpy(value))
             filled.add(prefix + name)
 
-    visit(module, params, "")
+    visit(module, params, batch_stats, "")
     missing = sorted(set(state) - filled)
     if missing:
         raise KeyError(f"port tensors without a JAX param: {missing}")

@@ -235,7 +235,7 @@ def test_dcnv2_param_labels_and_groups_match_jax():
     model = build_detection_model(cfg, device="cpu")
     load_jax_params(model.module, ids)
     state = model.module.state_dict()
-    got = param_labels(state, 2)
+    got = param_labels(model.module, 2)
     assert len(got) == len(leaves)
     for name, t in state.items():
         assert got[name] == want[int(t.flatten()[0])], name

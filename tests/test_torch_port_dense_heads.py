@@ -15,8 +15,8 @@ its IoU branch, against the JAX package on the CPU in float32.
   equal, boxes and scores within 1e-5 absolute (the same float32
   operations; boxes are below 100 px).
 - Every file of configs/atss, configs/fcos and configs/retinanet builds
-  at narrow width with the head, anchors and strides it names; the five
-  MobileNetV2 FCOS files raise, naming ROADMAP item 11.
+  at narrow width with the head, anchors and strides it names, the five
+  MobileNetV2 FCOS files on the MobileNetV2 body.
 - The reference checkpoint layout of the narrow ATSS and FCOS models
   (tests/reference_layout.py: GroupNorm towers, ``centerness``, P6 from
   C5 for RetinaNet) lands on the tensors the JAX package's import lands
@@ -57,6 +57,7 @@ from paa_tpu_torch.modeling.paa_head import paa_head_from_cfg
 from paa_tpu_torch.modeling.retinanet_head import retinanet_head_from_cfg
 from paa_tpu_torch.ops import dcn
 from paa_tpu_torch.solver import param_labels
+from paa_tpu_torch.modeling.mobilenet import MobileNetV2
 from paa_tpu_torch.utils import load_jax_params
 from paa_tpu_torch.utils import torch_import as ti
 from test_torch_port_model import _seeded_params
@@ -373,11 +374,9 @@ def test_every_dense_config_builds(path):
     cfg.merge_from_file(os.path.join(ROOT, path))
     cfg.merge_from_list(CONFIG_NARROW)
     cfg.freeze()
-    if "MNV2" in path:
-        with pytest.raises(NotImplementedError, match="item 11"):
-            build_detection_model(cfg, device="cpu")
-        return
     model = build_detection_model(cfg, device="cpu")
+    body = model.module.backbone.resnet
+    assert isinstance(body, MobileNetV2) == ("MNV2" in path)
     m = cfg.MODEL
     kind = ("atss" if m.ATSS_ON else "fcos" if m.FCOS_ON else "retinanet")
     assert model.head_type == kind
@@ -464,7 +463,7 @@ def test_param_labels_match_jax(kind, extra):
     model = build_detection_model(cfg, device="cpu")
     load_jax_params(model.module, ids)
     state = model.module.state_dict()
-    got = param_labels(state, 2)
+    got = param_labels(model.module, 2)
     assert len(got) == len(leaves)
     for name, t in state.items():
         assert got[name] == want[int(t.flatten()[0])], name

@@ -540,7 +540,7 @@ def _labels_by_name(path, freeze_at):
     model = build_detection_model(cfg, device="cpu")
     load_jax_params(model.module, ids)
     state = model.module.state_dict()
-    got = param_labels(state, freeze_at)
+    got = param_labels(model.module, freeze_at)
     assert len(got) == len(leaves)
     for name, t in state.items():
         assert got[name] == want[int(t.flatten()[0])], name
@@ -579,7 +579,7 @@ def test_scratch_gn_config_trains_the_whole_body():
     assert m.backbone.resnet.stem.bn1.weight.requires_grad
     assert isinstance(m.box_head, FPN2MLPBoxHead)
     assert m.box_head.fc6.bias is None and m.box_head.fc6_gn.relu
-    labels = param_labels(dict(m.named_parameters()), 0)
+    labels = param_labels(m, 0)
     assert "frozen" not in labels.values()
 
 

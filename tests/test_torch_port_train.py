@@ -312,7 +312,7 @@ def test_param_labels_match_jax(freeze_at):
     model = build_detection_model(cfg, device="cpu")
     load_jax_params(model.module, ids)
     state = model.module.state_dict()
-    got = param_labels(state, freeze_at)
+    got = param_labels(model.module, freeze_at)
     assert len(got) == len(leaves)
     for name, t in state.items():
         assert got[name] == want[int(t.flatten()[0])], name

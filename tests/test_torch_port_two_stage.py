@@ -196,6 +196,28 @@ def test_roi_align_single_level_matches_jax():
                                atol=1e-5)
 
 
+def test_roi_align_of_nan_and_infinite_rois_matches_jax():
+    """A NaN roi (a diverged RPN's proposal) pools NaN bins and an
+    infinite one zeros, as XLA's clamped gather gives the JAX package;
+    the other rois are untouched. A NaN index must not reach the gather
+    (on the card: a device-side assert that ends the process)."""
+    rng = np.random.RandomState(5)
+    feat = rng.normal(size=(2, 6, 8, 4)).astype(np.float32)
+    nan, inf = np.nan, np.inf
+    rois = np.asarray([[1, 1, 5, 4], [nan, 1, 5, 4], [inf, 1, 5, 4],
+                       [1, -inf, 5, nan], [0, 0, 7, 5]], np.float32)
+    bidx = np.asarray([0, 1, 0, 1, 1], np.int32)
+    want = np.asarray(jax_roi.roi_align(
+        jnp.asarray(feat), jnp.asarray(rois), jnp.asarray(bidx), (2, 2),
+        1.0, 2))
+    got = port_roi.roi_align(_t(feat).permute(0, 3, 1, 2), _t(rois),
+                             _t(bidx), (2, 2), 1.0, 2).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got[[1, 3]]).all() and not np.isnan(got[[0, 2, 4]]).any()
+    np.testing.assert_allclose(np.nan_to_num(got), np.nan_to_num(want),
+                               rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
 def test_multilevel_roi_align_matches_jax(dtype):
     """Every level gets rois (the sizes span 1/4 to 1/32), and bfloat16
@@ -308,18 +330,34 @@ def test_seeded_build_inits_the_box_head_like_jax():
 
 @pytest.mark.parametrize("extra", [
     # Mask R-CNN and Keypoint R-CNN build on an FPN body, Faster and Mask
-    # R-CNN on a C4 one (tests/test_torch_port_mask.py,
-    # tests/test_torch_port_keypoint.py, tests/test_torch_port_c4.py), the
-    # Xconv and GN heads and the C4 unshared mask head
-    # (tests/test_torch_port_gn.py) and the RPN-only model
-    # (tests/test_torch_port_rpn_only.py); a C4 Keypoint R-CNN and the
-    # FBNet body do not build (the first in neither package)
+    # R-CNN on a C4 or FBNet one (tests/test_torch_port_mask.py,
+    # tests/test_torch_port_keypoint.py, tests/test_torch_port_c4.py,
+    # tests/test_torch_port_fbnet.py), the Xconv and GN heads and the C4
+    # unshared mask head (tests/test_torch_port_gn.py) and the RPN-only
+    # model (tests/test_torch_port_rpn_only.py); Keypoint R-CNN on a C4 or
+    # FBNet body does not build, in neither package
     ["MODEL.KEYPOINT_ON", True, "MODEL.BACKBONE.CONV_BODY", "R-50-C4"],
-    ["MODEL.BACKBONE.CONV_BODY", "FBNet"],
+    ["MODEL.KEYPOINT_ON", True, "MODEL.BACKBONE.CONV_BODY", "FBNet",
+     "MODEL.RPN.ANCHOR_STRIDE", (16,)],
 ])
 def test_unported_two_stage_configs_raise(extra):
     with pytest.raises(NotImplementedError):
         build_detection_model(_cfg(get_cfg, extra), device="cpu")
+
+
+def test_fbnet_body_builds_at_its_stride():
+    """CONV_BODY FBNet builds the single-level model (its trunk's stride,
+    16, one RPN level of 15 anchors); at another RPN.ANCHOR_STRIDE it
+    raises, as the JAX package asserts."""
+    model = build_detection_model(_cfg(get_cfg, [
+        "MODEL.BACKBONE.CONV_BODY", "FBNet",
+        "MODEL.RPN.ANCHOR_STRIDE", (16,)]), device="cpu")
+    assert model.strides == (16,)
+    assert model.module.rpn_head.cls_logits.weight.shape[0] == 15
+    with pytest.raises(ValueError, match="stride"):
+        build_detection_model(_cfg(get_cfg, [
+            "MODEL.BACKBONE.CONV_BODY", "FBNet",
+            "MODEL.RPN.ANCHOR_STRIDE", (8,)]), device="cpu")
 
 
 def test_default_device_is_the_card():
