@@ -380,6 +380,30 @@ and prints no result line):
     model_final holds the running statistics, and ``test_net --ckpt``
     loads them (equal) and writes the AP table.
 
+59. (Run after phase 19.) Pascal VOC at full width:
+    configs/pascal_voc/e2e_faster_rcnn_R_50_C4_1x_1_gpu_voc.yaml (21
+    classes, RPN 6,000 / 300 test proposals, 128-512 anchors, B=1 as the
+    config; calibrated FrozenBN, phase 7's foreground bias lift) over
+    the synthetic catalog's voc_2007_test (16 PPM images of VOC's sizes
+    under .jpg names, difficult objects kept) through ``build_dataset``,
+    the loader and ``compute_on_dataset``, then ``do_voc_evaluation``:
+    a finite mAP and the 20-class table, K1 twice an image (the RPN's
+    1 x 6,000 with 300 picks, the box head's 1 x 6,000 with 100), K1
+    bit-equal to its plain version at both and timed.
+60. That eval path of the narrow C4 model in f32 on the card against the
+    CPU over 4 images whose ground truth is the CPU's first-pass
+    detections: detections matched, each class's AP within 1e-3.
+61. 4 do_train steps of the full-width VOC model from the loader over
+    voc_2007_train + voc_2007_val (a ConcatDataset; one image without a
+    GT): finite losses, K2 once a step at the training RPN's 1 x 12,000.
+62. The serving artifact: PAA-R50 exported at B=8 x 800 x 1344 bf16
+    (``serving.export_inference``), saved, loaded and served by a
+    process that imports torch and ``paa_tpu_torch.serving`` alone:
+    three requests, K1 3 and K3 120 launches, detections matched to the
+    live eval fn's; export seconds, artifact MB, artifact vs live img/s.
+63. ``roi_pool`` and ``deform_psroi_pool`` (with its gradients) on the
+    card against the CPU, timed.
+
 Phase 13 also runs the step a third time on the CPU with the network in
 float64 (every convolution, FrozenBN and GroupNorm), the referee of the
 two float32 steps, and phase 11 checks K3's Function at a group of zero
@@ -1720,7 +1744,7 @@ def gn_zero_variance_tie(dev):
     return got.tolist()
 
 
-def calibrated_frozen_bn(path):
+def calibrated_frozen_bn(path, extra=()):
     """FrozenBN statistics for the seeded body of ``path``: each
     FrozenBatchNorm's running mean and variance set, in forward order, to
     the per-channel mean and variance (at least 1e-5) of its input over a
@@ -1732,14 +1756,15 @@ def calibrated_frozen_bn(path):
     diverge to NaN by the fourth step, on the CPU as on the card. A head
     with FrozenBatchNorm is calibrated after the body: an FBNet RPN head
     on the body's map, a C4 model's res5 (its box head) and FBNet's box
-    and mask heads on the batch's GT boxes. Returns the buffers as a
-    state-dict subset."""
+    and mask heads on the batch's GT boxes. ``extra`` overrides the
+    config (a narrow body). Returns the buffers as a state-dict
+    subset."""
     from paa_tpu_torch.modeling import build_detection_model
     from paa_tpu_torch.modeling.layers import FrozenBatchNorm
     from paa_tpu_torch.ops.image_norm import device_normalize
 
-    model = build_detection_model(build_cfg("float32", path), device="cpu",
-                                  seed=0)
+    model = build_detection_model(build_cfg("float32", path, extra),
+                                  device="cpu", seed=0)
 
     def calibrate(module, inputs):
         x = inputs[0].to(torch.float32)
@@ -5785,6 +5810,439 @@ def phase_mobile_and_syncbn(dev, name):
     return launches, k1, k2
 
 
+# ---- phases 59-63: Pascal VOC, the serving artifact, the poolers ------------
+
+VOC_CONFIG = os.path.join(ROOT, "configs", "pascal_voc",
+                          "e2e_faster_rcnn_R_50_C4_1x_1_gpu_voc.yaml")
+VOC_IMAGES = 16  # the synthetic catalog's voc_2007_* tree
+VOC_TRAIN_STEPS = 4
+# tests/test_torch_port_c4.py's narrow C4 body (res5 and the RPN's conv
+# stay at their fixed widths), for the card-vs-CPU eval path
+VOC_NARROW = ["MODEL.RESNETS.RES2_OUT_CHANNELS", 32,
+              "MODEL.RESNETS.WIDTH_PER_GROUP", 8,
+              "MODEL.RESNETS.STEM_OUT_CHANNELS", 16]
+VOC_REF = VOC_NARROW + ["INPUT.MIN_SIZE_TEST", 256, "INPUT.MAX_SIZE_TEST",
+                        320, "TPU.TEST_BUCKETS", ((256, 320), (320, 256)),
+                        "TEST.IMS_PER_BATCH", 2]
+
+
+def seeded_voc(frozen_bn, dtype, device, extra=()):
+    """The VOC C4 Faster R-CNN (VOC_CONFIG: 21 classes, its RPN's 6,000
+    / 300 test proposals and 128-512 anchors) from seed 0 with
+    ``frozen_bn`` (calibrated) and the 20 foreground cls_score biases
+    from seed 1 in [25, 35], as ``seeded_frcnn``; ``extra`` overrides
+    the config (the synthetic catalog)."""
+    model = seeded_train_model(
+        build_cfg(dtype, VOC_CONFIG, ["PATHS_CATALOG", SYNTH_CATALOG,
+                                      *extra]), device, frozen_bn)
+    gen = torch.Generator().manual_seed(1)
+    bias = model.module.box_head.cls_score.bias
+    with torch.no_grad():
+        bias[1:].copy_(torch.empty(bias.numel() - 1).uniform_(
+            25.0, 35.0, generator=gen))
+    return model
+
+
+def voc_predictions(model, dataset):
+    """``compute_on_dataset`` over ``dataset`` with the model's config,
+    the boxes back to xyxy (the VOC evaluation's glue): (predictions,
+    model seconds, images)."""
+    from paa_tpu_torch.data.loader import make_data_loader
+    from paa_tpu_torch.engine.inference import compute_on_dataset
+    from paa_tpu_torch.evaluation import voc_eval
+
+    preds, model_s, n_images, _ = compute_on_dataset(
+        model, make_data_loader(model.cfg, dataset, is_train=False))
+    return voc_eval.predictions_from_xywh(preds), model_s, n_images
+
+
+def phase_voc_eval(dev, name, frozen_bn):
+    """Phase 59: the VOC eval path at full width: the synthetic catalog's
+    voc_2007_test (16 PPM images of VOC's sizes under .jpg names,
+    difficult objects kept) through ``build_dataset``, the loader
+    (800 x 1333 in (800, 1344) / (1344, 800), the config's
+    TEST.IMS_PER_BATCH 1), ``compute_on_dataset`` in bf16 and
+    ``do_voc_evaluation``: a finite mAP and the 20-class table (random
+    weights: not an accuracy), K1 twice an image (the RPN's 1 x 6,000
+    with 300 picks, the box head's 20 x 300 = 6,000 with 100 picks) and
+    no other kernel, K1 bit-equal to its plain version at both inputs
+    and timed there. Returns the launch counts and K1's details."""
+    import logging
+
+    from paa_tpu_torch.data.build import build_dataset
+    from paa_tpu_torch.data.voc import PascalVOCDataset
+    from paa_tpu_torch.evaluation import voc_eval
+
+    model = seeded_voc(frozen_bn, "bfloat16", dev)
+    cfg = model.cfg
+    dataset = build_dataset(cfg, cfg.DATASETS.TEST, is_train=False)
+    check(isinstance(dataset, PascalVOCDataset) and len(dataset) ==
+          VOC_IMAGES and dataset.keep_difficult,
+          f"voc_eval: dataset {type(dataset).__name__} of {len(dataset)}")
+    with recording_k1_inputs() as k1_inputs:
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        preds, model_s, n_images = voc_predictions(model, dataset)
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        result = voc_eval.do_voc_evaluation(
+            dataset, preds, logger=logging.getLogger("chip_smoke.voc"))
+    batches = -(-VOC_IMAGES // cfg.TEST.IMS_PER_BATCH)
+    expected = {"nms_batched": 2 * batches, "nms_global": 0,
+                "group_norm_relu": 0}
+    check(launches == expected and n_images == VOC_IMAGES,
+          f"voc_eval: launches {launches}, expected {expected}; "
+          f"{n_images} images")
+    check(result["ap"].shape == (21,) and math.isfinite(result["map"])
+          and all(len(p["labels"]) > 0 for p in preds.values()),
+          f"voc_eval: {result}")
+    rpn = cfg.MODEL.RPN
+    _, counts = model.anchors_for(tuple(cfg.TPU.TEST_BUCKETS[0]))
+    n = min(rpn.PRE_NMS_TOP_N_TEST, counts[0])
+    picks = min(rpn.POST_NMS_TOP_N_TEST, n)
+    want = {(1, n, picks), (1, picks * (cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES
+                                        - 1),
+                            cfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG)}
+    shapes = {(*a[1].shape, a[5]) for a in k1_inputs}
+    check(shapes == want, f"voc_eval: K1 at {shapes}, expected {want}")
+    k1 = {}
+    for what, max_out in (("voc_c4_rpn", picks), ("voc_c4_box_head", 100)):
+        args = next(a for a in k1_inputs if a[5] == max_out)
+        k1[what] = k1_at_path_inputs(args, what, name)
+    # a class without a GT has no AP (NaN): null in the table
+    table = {dataset.map_class_id_to_class_name(i):
+             None if math.isnan(ap) else float(ap)
+             for i, ap in enumerate(result["ap"]) if i}
+    print(json.dumps({"phase": "voc_eval", "ok": True, "config":
+                      os.path.relpath(VOC_CONFIG, ROOT),
+                      "images": n_images, "batch": cfg.TEST.IMS_PER_BATCH,
+                      "launches": launches, "mAP": result["map"],
+                      "ap_by_class": table, "model_s": model_s,
+                      "end_to_end_img_per_s": n_images / wall,
+                      "model_img_per_s": n_images / model_s, "card": name}))
+    del model, k1_inputs
+    torch.cuda.empty_cache()
+    return launches, k1
+
+
+def match_voc_predictions(card_preds, cpu_preds, what):
+    """``match_detections`` on two packages' VOC predictions ({index:
+    boxes xyxy, scores, labels}): each card detection has a CPU one of
+    its label within 0.5 px, 95% must, and the counts agree within
+    5%."""
+    matched = total = n_cpu = 0
+    for idx, g in card_preds.items():
+        c = cpu_preds[idx]
+        n_cpu += len(c["labels"])
+        for box, label in zip(g["boxes"], g["labels"]):
+            total += 1
+            same = c["labels"] == label
+            d = np.abs(c["boxes"][same] - box).max(axis=1) if same.any() \
+                else np.zeros(0)
+            matched += int(d.size > 0 and float(d.min()) <= 0.5)
+    check(total > 0 and abs(total - n_cpu) <= 0.05 * n_cpu
+          and matched >= 0.95 * total,
+          f"{what}: {matched}/{total} card detections matched, "
+          f"{n_cpu} on the CPU")
+    return {"detections": total, "matched": matched,
+            "cpu_detections": n_cpu}
+
+
+def phase_voc_card_vs_cpu(dev, name):
+    """Phase 60: the VOC eval path of the narrow C4 model (VOC_REF: the
+    CPU tests' body, 256 x 320 buckets, B=2) in float32 (TF32 off) on the
+    card and on the CPU from the same weights, over a 4-image synthetic
+    VOC tree whose ground truth is the CPU's three best detections of
+    each image on a first pass (``voc_ground_truth``; one image all
+    difficult). Detections matched as ``match_detections``; each class's
+    AP within 1e-3; the mAP above 0."""
+    from paa_tpu_torch.data.synth import synth_voc, voc_ground_truth
+    from paa_tpu_torch.data.voc import PascalVOCDataset
+    from paa_tpu_torch.evaluation import voc_eval
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="paa_voc_ref_")
+    root = synth_voc(os.path.join(tmp, "VOC2007"), 4, seed=5)
+    frozen_bn = calibrated_frozen_bn(VOC_CONFIG, VOC_NARROW)
+    models = {d: seeded_voc(frozen_bn, "float32", d, VOC_REF)
+              for d in (dev, "cpu")}
+    first, _, _ = voc_predictions(models["cpu"],
+                                  PascalVOCDataset(root, "test", True))
+    voc_ground_truth(PascalVOCDataset(root, "test", True), first)
+    dataset = PascalVOCDataset(root, "test", True)
+    preds, results = {}, {}
+    for device in (dev, "cpu"):
+        preds[device], _, _ = voc_predictions(models[device], dataset)
+        results[device] = voc_eval.do_voc_evaluation(dataset,
+                                                     preds[device])
+    matched = match_voc_predictions(preds[dev], preds["cpu"],
+                                    "voc_card_vs_cpu")
+    ap_card, ap_cpu = results[dev]["ap"], results["cpu"]["ap"]
+    check(np.array_equal(np.isnan(ap_card), np.isnan(ap_cpu))
+          and np.nanmax(np.abs(ap_card - ap_cpu)) <= 1e-3
+          and results["cpu"]["map"] > 0,
+          f"voc_card_vs_cpu: AP {ap_card} vs {ap_cpu}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"phase": "voc_card_vs_cpu", "ok": True,
+                      "images": len(dataset), "map_card":
+                      results[dev]["map"], "map_cpu": results["cpu"]["map"],
+                      "ap_abs_err": float(np.nanmax(np.abs(ap_card
+                                                           - ap_cpu))),
+                      **matched, "card": name}))
+
+
+def phase_voc_train(dev, name, frozen_bn):
+    """Phase 61: VOC_TRAIN_STEPS do_train steps of the full-width bf16
+    VOC C4 model (seed 0, calibrated FrozenBN) from the loader over its
+    DATASETS.TRAIN, the synthetic
+    voc_2007_train + voc_2007_val as one ConcatDataset (difficult
+    objects dropped: one image has no GT), at the config's
+    IMS_PER_BATCH 1 and BASE_LR 0.001: finite losses, K2 once a step
+    (the training RPN's 1 x 12,000, PRE_NMS_TOP_N_TRAIN, above K1's
+    8,192) and no other kernel, K2 bit-equal to its plain version at the
+    first step's rows and timed there. Returns the launch counts and the
+    NMS kernel's detail."""
+    from paa_tpu_torch.data.build import build_dataset
+    from paa_tpu_torch.data.concat import ConcatDataset
+    from paa_tpu_torch.data.loader import make_data_loader
+    from paa_tpu_torch.engine import do_train
+    from paa_tpu_torch.ops import nms
+
+    # the serving phases' foreground bias lift is left out: it puts the
+    # classifier's loss at ~15 and sends the box loss to NaN within 4
+    # steps
+    cfg = build_cfg("bfloat16", VOC_CONFIG, [
+        "PATHS_CATALOG", SYNTH_CATALOG, "SOLVER.MAX_ITER", VOC_TRAIN_STEPS])
+    model = seeded_train_model(cfg, dev, frozen_bn)
+    dataset = build_dataset(cfg, cfg.DATASETS.TRAIN, is_train=True)
+    check(isinstance(dataset, ConcatDataset) and len(dataset) ==
+          VOC_IMAGES and any(len(r.labels) == 0 for r in dataset.records),
+          f"voc_train: {type(dataset).__name__} of {len(dataset)}")
+    # the RPN's rows take K2 above K1's capacity, as phase 42's
+    per_row = min(cfg.MODEL.RPN.PRE_NMS_TOP_N_TRAIN,
+                  max(max(model.anchors_for(tuple(hw))[1])
+                      for hw in cfg.TPU.TRAIN_BUCKETS))
+    kernel = ("nms_global" if per_row > nms.k1_max_candidates(dev)
+              else "nms_batched")
+    state = train_state(model)
+    seen = {}
+    with recording_k1_inputs() as k1_inputs, \
+            recording_k2_inputs() as k2_inputs:
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        do_train(cfg, model, state, make_data_loader(cfg, dataset, True),
+                 metric_hook=lambda i, m: seen.update({i: m}))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    expected = {"nms_batched": 0, "nms_global": 0, "group_norm_relu": 0,
+                kernel: VOC_TRAIN_STEPS}
+    check(launches == expected,
+          f"voc_train: launches {launches}, expected {expected}")
+    check(sorted(seen) == list(range(1, VOC_TRAIN_STEPS + 1))
+          and all(math.isfinite(v) for m in seen.values()
+                  for v in m.values()), f"voc_train: {seen}")
+    print(json.dumps({"phase": "voc_train", "ok": True, "steps":
+                      VOC_TRAIN_STEPS, "batch": cfg.SOLVER.IMS_PER_BATCH,
+                      "rpn_rows": [1, per_row], "rpn_nms": kernel,
+                      "launches": launches, "losses": [
+                          seen[i]["loss"] for i in sorted(seen)],
+                      "do_train_s": wall, "card": name}))
+    del model, state
+    torch.cuda.empty_cache()
+    # the RPN's NMS at the first step's rows, against its plain version
+    if kernel == "nms_global":
+        detail = k2_at_path_inputs(k2_inputs[0], "voc_c4_train_rpn", name,
+                                   reps=5)
+    else:
+        detail = k1_at_path_inputs(k1_inputs[0], "voc_c4_train_rpn", name)
+    return launches, {"voc_c4_train_rpn": detail}
+
+
+# serves an artifact in a process of its own, with torch and
+# paa_tpu_torch.serving alone: argv artifact, requests, outputs
+ARTIFACT_SERVE = r"""
+import json, sys, time
+import torch
+from paa_tpu_torch.serving import load_exported
+from paa_tpu_torch.ops import group_norm, nms
+t0 = time.perf_counter()
+call, meta = load_exported(sys.argv[1])
+load_s = time.perf_counter() - t0
+reqs = torch.load(sys.argv[2])
+call(*reqs[0])
+torch.cuda.synchronize()
+nms.nms_batched.launches = nms._nms_global.launches = 0
+group_norm.group_norm_relu.launches = 0
+dets = []
+for images, sizes in reqs:
+    dets.append({k: v.cpu() for k, v in call(images, sizes).items()})
+launches = {"nms_batched": nms.nms_batched.launches,
+            "nms_global": nms._nms_global.launches,
+            "group_norm_relu": group_norm.group_norm_relu.launches}
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+for _ in range(5):
+    call(*reqs[0])
+torch.cuda.synchronize()
+request_s = (time.perf_counter() - t0) / 5
+torch.save(dets, sys.argv[3])
+loaded = sorted(m for m in sys.modules if m.startswith("paa_tpu"))
+print(json.dumps({"meta": meta, "load_s": load_s, "launches": launches,
+                  "request_s": request_s, "modules": loaded}))
+"""
+
+
+def phase_serving_artifact(dev, name):
+    """Phase 62: PAA-R50 at full width (bf16, phase 5's seeded weights
+    and cls bias) exported at B=8 x 800 x 1344 on the card
+    (``serving.export_inference``) and saved; a process that imports
+    torch and ``paa_tpu_torch.serving`` alone (no config, no model code)
+    loads it and serves three requests (float32 normalized images, as
+    the artifact takes them): K1 3 and K3 120 launches, every detection
+    matched to the live eval fn's on the same requests
+    (``match_detections``), whose launches are the same; export seconds,
+    artifact MB, and artifact vs live img/s. Returns the launch counts
+    by path."""
+    from paa_tpu_torch.ops.image_norm import device_normalize
+    from paa_tpu_torch.serving import export_inference, save_exported
+
+    model = seeded_model("bfloat16", dev)
+    tmp = tempfile.mkdtemp(prefix="paa_serving_")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exported, meta = export_inference(model, BATCH, HW)
+    export_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "paa_r50.paat")
+    save_exported(path, exported, meta)
+    del exported
+    artifact_mb = os.path.getsize(path) / 1e6
+    mean, std = model.cfg.INPUT.PIXEL_MEAN, model.cfg.INPUT.PIXEL_STD
+    reqs = []
+    for i in range(3):
+        images, sizes = request(90 + i, BATCH, HW, SIZE)
+        images, sizes = images.to(dev), sizes.to(dev)
+        reqs.append((device_normalize(images, sizes, mean, std), sizes))
+    torch.save(reqs, os.path.join(tmp, "requests.pt"))
+    eval_fn = model.make_eval_fn()
+    zero_launch_counts()
+    live = [{k: v.cpu() for k, v in eval_fn(*r).items()} for r in reqs]
+    torch.cuda.synchronize()
+    live_launches = launch_counts()
+    expected = {"nms_batched": 3, "nms_global": 0, "group_norm_relu": 120}
+    check(live_launches == expected,
+          f"serving_live: launches {live_launches}, expected {expected}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        eval_fn(*reqs[0])
+    torch.cuda.synchronize()
+    live_s = (time.perf_counter() - t0) / 5
+    del model, eval_fn
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, "-c", ARTIFACT_SERVE, path,
+         os.path.join(tmp, "requests.pt"), os.path.join(tmp, "served.pt")],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"serving_artifact: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(out["launches"] == expected,
+          f"serving_artifact: launches {out['launches']}, expected "
+          f"{expected}")
+    check(not [m for m in out["modules"] if m.startswith((
+        "paa_tpu_torch.modeling", "paa_tpu_torch.config",
+        "paa_tpu_torch.data"))] and "paa_tpu" not in out["modules"],
+        f"serving_artifact: the serving process loaded {out['modules']}")
+    served = torch.load(os.path.join(tmp, "served.pt"))
+    n_valid = check_detections(served, "serving_artifact", 0.05)
+    matched = [match_detections(s, l, "serving_artifact")
+               for s, l in zip(served, live)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({
+        "phase": "serving_artifact", "ok": True, "batch": BATCH, "hw": HW,
+        "dtype": "bfloat16", "meta": out["meta"], "export_s": export_s,
+        "artifact_mb": artifact_mb, "load_s": out["load_s"],
+        "launches": out["launches"], "live_launches": live_launches,
+        "valid_detections": n_valid, "matched": matched,
+        "artifact_img_per_s": BATCH / out["request_s"],
+        "live_img_per_s": BATCH / live_s, "card": name}))
+    return {"paa_artifact": out["launches"],
+            "paa_artifact_live": live_launches}
+
+
+def phase_poolers_card_vs_cpu(dev, name):
+    """Phase 63: ``roi_pool`` (128 rois over two 256 x 50 x 84 maps,
+    7 x 7 at 1/16, equal: a max) and ``deform_psroi_pool`` (R-FCN's
+    layout: 7 x 7 groups of 8 channels over 392 x 50 x 84, 100 rois, 2
+    classes' offsets, 4 x 4 samples a bin; the pooled values within 1e-5
+    of their largest, the gradients of the features and the offsets
+    within 1e-4 of theirs: the card's index adds run in another order)
+    on the card against the CPU, each timed on the card."""
+    from paa_tpu_torch.ops.deform_pool import deform_psroi_pool
+    from paa_tpu_torch.ops.roi_align import roi_pool
+
+    gen = torch.Generator().manual_seed(63)
+    xy = torch.rand(128, 2, generator=gen) * 1100
+    rois = torch.cat([xy, xy + 16 + torch.rand(128, 2, generator=gen) * 400],
+                     1)
+    bidx = torch.randint(0, 2, (128,), generator=gen)
+    feat = torch.randn(2, 256, 50, 84, generator=gen)
+    got = roi_pool(feat.to(dev), rois.to(dev), bidx.to(dev), (7, 7), 1 / 16)
+    want = roi_pool(feat, rois, bidx, (7, 7), 1 / 16)
+    check(torch.equal(got.cpu(), want), "roi_pool: card vs CPU")
+    pool_ms = cuda_ms(lambda: roi_pool(feat.to(dev), rois.to(dev),
+                                       bidx.to(dev), (7, 7), 1 / 16), 5)
+    kw = dict(spatial_scale=1 / 16, out_size=7, out_channels=8,
+              group_size=7, part_size=7, sample_per_part=4, trans_std=0.1)
+    feat = torch.randn(2, 8 * 49, 50, 84, generator=gen)
+    trans = torch.randn(100, 4, 7, 7, generator=gen)
+    up = torch.randn(100, 8, 7, 7, generator=gen)
+    out, grads = [], []
+    for device in (dev, "cpu"):
+        f = feat.to(device).requires_grad_()
+        t = trans.to(device).requires_grad_()
+        y = deform_psroi_pool(f, rois[:100].to(device),
+                              bidx[:100].to(device), t, **kw)
+        y.backward(up.to(device))
+        out.append(y.detach().cpu())
+        grads.append((f.grad.cpu(), t.grad.cpu()))
+    errs = {"pooled": float((out[0] - out[1]).abs().max()
+                            / out[1].abs().max())}
+    for key, g, w in zip(("d_features", "d_offsets"), *grads):
+        errs[key] = float((g - w).abs().max() / w.abs().max())
+    check(errs["pooled"] <= 1e-5 and errs["d_features"] <= 1e-4
+          and errs["d_offsets"] <= 1e-4, f"deform_psroi_pool: {errs}")
+    f, t = feat.to(dev), trans.to(dev)
+    deform_ms = cuda_ms(lambda: deform_psroi_pool(
+        f, rois[:100].to(dev), bidx[:100].to(dev), t, **kw), 5)
+    print(json.dumps({"phase": "poolers_card_vs_cpu", "ok": True,
+                      "roi_pool_ms": pool_ms, "deform_psroi_pool_ms":
+                      deform_ms, "rel_err": errs, "card": name}))
+
+
+def phase_voc_serving_poolers(dev, name):
+    """Phases 59-63 (after phase 19): the VOC eval path, its card-vs-CPU
+    check and training; the serving artifact; the poolers. Returns the
+    launch counts by path and K1's and K2's details by path."""
+    t0 = time.perf_counter()
+    frozen_bn = calibrated_frozen_bn(VOC_CONFIG)
+    launches = {}
+    launches["voc_c4_eval"], k1 = phase_voc_eval(dev, name, frozen_bn)
+    phase_voc_card_vs_cpu(dev, name)
+    launches["voc_c4_train"], train_rpn = phase_voc_train(dev, name,
+                                                          frozen_bn)
+    k2 = {}
+    (k2 if train_rpn["voc_c4_train_rpn"]["kernel_detail"] == "nms_global"
+     else k1).update(train_rpn)
+    launches.update(phase_serving_artifact(dev, name))
+    phase_poolers_card_vs_cpu(dev, name)
+    print(json.dumps({"phase": "voc_serving_poolers", "ok": True,
+                      "wall_s": time.perf_counter() - t0, "card": name}))
+    return launches, k1, k2
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5894,6 +6352,9 @@ def main():
         stamp("29, 17-18 train_net and the AP gate")
         phase_ddp_two_ranks(dev, name)
         stamp("19 two ranks")
+        # Pascal VOC, the serving artifact, the poolers
+        voc_launches, k1_voc, k2_voc = phase_voc_serving_poolers(dev, name)
+        stamp("59-63 VOC, the serving artifact, the poolers")
     phase_k3_at_path_shapes(dev, {(shape, relu)
                                   for shape, _, relu in k3_launches})
     del k3_launches
@@ -5921,6 +6382,8 @@ def main():
                         for path, runs in gn_rpn_launches.items()})
         by_path.update({path: runs[key]
                         for path, runs in mobile_launches.items()})
+        by_path.update({path: runs[key]
+                        for path, runs in voc_launches.items()})
         kernel.update(launches=sum(by_path.values()),
                       launches_by_path=by_path)
     # K3's forms: only the GN paths launch GroupNorm alone
@@ -5957,6 +6420,12 @@ def main():
                                  for path, detail in k1_mobile.items()})
     k2["at_path_inputs"].update({path: {f: detail[f] for f in fields}
                                  for path, detail in k2_mobile.items()})
+    # the VOC C4 model's RPN and box head rows (1 x 6,000 each), and its
+    # training RPN's 1 x 12,000 with 2,000 picks on K2
+    k1["at_path_inputs"].update({path: {f: detail[f] for f in fields}
+                                 for path, detail in k1_voc.items()})
+    k2["at_path_inputs"].update({path: {f: detail[f] for f in fields}
+                                 for path, detail in k2_voc.items()})
     print(json.dumps({"phase": "script", "wall_s":
                       time.perf_counter() - t0, "card": name}))
     print(name)

@@ -1,8 +1,8 @@
 """Dataset construction from the catalog (port of paa_tpu/data/build.py;
 reference data/build.py:17-58 build_dataset + paths_catalog
 indirection). ``cfg.PATHS_CATALOG`` names the catalog file, loaded as a
-module; its ``DatasetCatalog.get(name)`` gives the factory and its
-arguments."""
+module; its ``DatasetCatalog.get(name)`` gives the factory
+(COCODataset or PascalVOCDataset) and its arguments."""
 
 from __future__ import annotations
 
@@ -10,6 +10,10 @@ import importlib.util
 
 from .coco import COCODataset
 from .concat import ConcatDataset
+from .voc import PascalVOCDataset
+
+FACTORIES = {"COCODataset": COCODataset,
+             "PascalVOCDataset": PascalVOCDataset}
 
 
 def _load_paths_catalog(cfg):
@@ -28,15 +32,14 @@ def build_dataset(cfg, dataset_names, is_train=True):
     datasets = []
     for name in dataset_names:
         data = paths_catalog.DatasetCatalog.get(name)
-        if data["factory"] != "COCODataset":
-            raise NotImplementedError(
-                f"{name}: the {data['factory']} factory is not ported to "
-                f"paa_tpu_torch yet (Pascal VOC is ROADMAP item 11)")
         args = dict(data["args"])
-        args["remove_images_without_annotations"] = is_train
-        args["with_masks"] = cfg.MODEL.MASK_ON and is_train
-        args["with_keypoints"] = cfg.MODEL.KEYPOINT_ON and is_train
-        datasets.append(COCODataset(**args))
+        if data["factory"] == "COCODataset":
+            args["remove_images_without_annotations"] = is_train
+            args["with_masks"] = cfg.MODEL.MASK_ON and is_train
+            args["with_keypoints"] = cfg.MODEL.KEYPOINT_ON and is_train
+        elif data["factory"] == "PascalVOCDataset":
+            args["use_difficult"] = not is_train
+        datasets.append(FACTORIES[data["factory"]](**args))
 
     if len(datasets) == 1:
         return datasets[0]

@@ -12,12 +12,22 @@ with 17 keypoints inside it (a quarter of them unlabelled: v = 0 at
 R-CNN; images and boxes are the same as without. Everything comes from
 ``seed``. tools/synth_catalog.py serves such datasets through
 ``PATHS_CATALOG``.
+
+``synth_voc(root, n_images)`` writes a Pascal VOC tree (Annotations/
+*.xml, JPEGImages/, ImageSets/Main/{train,val,trainval,test}.txt) of
+the same kind of images at VOC's common sizes, binary PPM bytes under
+VOC's ``.jpg`` names (read by content, data/coco.py), with 1-5 objects
+per image among the 20 classes, some of them difficult, and one image
+whose every object is difficult. ``voc_ground_truth`` rewrites such a
+tree's annotations from a model's detections, so that an evaluation of
+seeded weights scores far from 0.
 """
 
 from __future__ import annotations
 
 import json
 import os
+from xml.sax.saxutils import escape
 
 import numpy as np
 
@@ -132,3 +142,105 @@ def synth_coco(root, n_images, seed=0, sizes=COCO_SIZES,
                        categories=categories), f)
     os.replace(tmp, ann_file)
     return ann_file, img_dir
+
+
+VOC_CLASSES = (
+    "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
+    "chair", "cow", "diningtable", "dog", "horse", "motorbike", "person",
+    "pottedplant", "sheep", "sofa", "train", "tvmonitor")
+# (width, height) of common VOC images
+VOC_SIZES = ((500, 375), (375, 500), (500, 333), (500, 400), (333, 500),
+             (500, 366))
+
+
+def _voc_xml(name, w, h, objects):
+    """A VOC annotation: ``objects`` as (class name, difficult, (xmin,
+    ymin, xmax, ymax)) in VOC's 1-based pixel coordinates."""
+    parts = [f"<annotation><folder>VOC2007</folder>"
+             f"<filename>{escape(name)}.jpg</filename><size>"
+             f"<width>{w}</width><height>{h}</height><depth>3</depth>"
+             f"</size><segmented>0</segmented>"]
+    for cls, difficult, box in objects:
+        coords = "".join(f"<{k}>{v}</{k}>" for k, v in zip(
+            ("xmin", "ymin", "xmax", "ymax"), box))
+        parts.append(f"<object><name>{cls}</name><pose>Unspecified</pose>"
+                     f"<truncated>0</truncated>"
+                     f"<difficult>{int(difficult)}</difficult>"
+                     f"<bndbox>{coords}</bndbox></object>")
+    parts.append("</annotation>")
+    return "".join(parts)
+
+
+def synth_voc(root, n_images, seed=0, sizes=VOC_SIZES, all_difficult=1):
+    """Write the VOC tree under ``root`` once: ``n_images`` images, the
+    ``test`` split all of them, ``train`` the first half, ``val`` the
+    rest and ``trainval`` both; image ``all_difficult`` has only
+    difficult objects. Returns ``root``."""
+    if os.path.exists(os.path.join(root, "ImageSets", "Main", "test.txt")):
+        return root
+    for sub in ("Annotations", "JPEGImages", os.path.join("ImageSets",
+                                                          "Main")):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    rng = np.random.RandomState(seed)
+    ids = []
+    for i in range(n_images):
+        w, h = sizes[i % len(sizes)]
+        n = rng.randint(1, 6)
+        side = np.exp(rng.uniform(np.log(24), np.log(0.7 * min(w, h)), n))
+        aspect = np.exp(rng.uniform(np.log(0.5), np.log(2.0), n))
+        bw = np.minimum(side * np.sqrt(aspect), w - 4).astype(int)
+        bh = np.minimum(side / np.sqrt(aspect), h - 4).astype(int)
+        x = (rng.uniform(0, 1, n) * (w - 1 - bw)).astype(int) + 1
+        y = (rng.uniform(0, 1, n) * (h - 1 - bh)).astype(int) + 1
+        classes = rng.randint(0, len(VOC_CLASSES), n)
+        difficult = rng.uniform(0, 1, n) < 0.2
+        if i == all_difficult:
+            difficult[:] = True
+        name = f"{i + 1:06d}"
+        ids.append(name)
+        xywh = np.stack([x - 1, y - 1, bw, bh], 1).astype(np.float64)
+        path = os.path.join(root, "JPEGImages", f"{name}.jpg")
+        # each file appears whole (ranks may write the same tree at once)
+        write_ppm(f"{path}.{os.getpid()}.tmp", synth_image(rng, w, h, xywh))
+        os.replace(f"{path}.{os.getpid()}.tmp", path)
+        objects = [(VOC_CLASSES[c], d, (int(x0), int(y0), int(x0 + bw0),
+                                       int(y0 + bh0)))
+                   for c, d, x0, y0, bw0, bh0 in zip(classes, difficult, x,
+                                                     y, bw, bh)]
+        with open(os.path.join(root, "Annotations", f"{name}.xml"),
+                  "w") as f:
+            f.write(_voc_xml(name, w, h, objects))
+    half = (n_images + 1) // 2
+    # the test split last: its presence marks a complete tree
+    for split, names in (("train", ids[:half]), ("val", ids[half:]),
+                         ("trainval", ids), ("test", ids)):
+        path = os.path.join(root, "ImageSets", "Main", f"{split}.txt")
+        with open(f"{path}.{os.getpid()}.tmp", "w") as f:
+            f.write("".join(f"{name}\n" for name in names))
+        os.replace(f"{path}.{os.getpid()}.tmp", path)
+    return root
+
+
+def voc_ground_truth(dataset, predictions, per_image=3, all_difficult=1):
+    """Rewrite the XML of every image of ``dataset`` (a PascalVOCDataset)
+    with its ``per_image`` best detections in ``predictions`` ({index:
+    boxes xyxy, scores, labels}, as ``do_voc_evaluation`` takes them) as
+    its objects, in VOC's 1-based integer corners inside the image: the
+    second of image 0 and every one of image ``all_difficult``
+    difficult."""
+    for idx, name in enumerate(dataset.ids):
+        p, r = predictions[idx], dataset.records[idx]
+        objects = []
+        for j, k in enumerate(np.argsort(-np.asarray(p["scores"]),
+                                         kind="stable")[:per_image]):
+            x1, y1, x2, y2 = np.round(np.asarray(p["boxes"][k]) + 1
+                                      ).astype(int)
+            objects.append((
+                dataset.map_class_id_to_class_name(int(p["labels"][k])),
+                idx == all_difficult or (idx == 0 and j == 1),
+                (max(x1, 1), max(y1, 1), min(x2, r.width),
+                 min(y2, r.height))))
+        path = os.path.join(dataset.root, "Annotations", f"{name}.xml")
+        with open(f"{path}.{os.getpid()}.tmp", "w") as f:
+            f.write(_voc_xml(name, r.width, r.height, objects))
+        os.replace(f"{path}.{os.getpid()}.tmp", path)

@@ -132,7 +132,8 @@ def compute_on_dataset(model, loader, state=None):
 
 def inference(cfg, model, dataset, output_folder=None, logger=None,
               state=None):
-    """Evaluate ``model`` on ``dataset``: the 12 COCO bbox metrics, and
+    """Evaluate ``model`` on a COCO-format ``dataset`` (any other raises
+    NotImplementedError naming the VOC path): the 12 COCO bbox metrics, and
     for a model with masks the 12 segm ones under "segm/..."; for the
     RPN-only model (``head_type`` "rpn") the box_proposal table
     (``evaluate_proposals``) instead.
@@ -142,6 +143,14 @@ def inference(cfg, model, dataset, output_folder=None, logger=None,
     process group every rank calls it; the main process returns the
     metrics and writes the files, the others return {}."""
     logger = logger or logging.getLogger("paa_tpu_torch.inference")
+    if not hasattr(dataset, "_raw_annotations"):
+        # the JAX package's inference evaluates COCO annotations only
+        raise NotImplementedError(
+            f"inference evaluates COCO-format datasets; "
+            f"{type(dataset).__name__} has no COCO annotations. For Pascal "
+            f"VOC run compute_on_dataset, then "
+            f"evaluation.voc_eval.predictions_from_xywh and "
+            f"evaluation.voc_eval.do_voc_evaluation")
     if cfg.TEST.BBOX_AUG.ENABLED:
         from .bbox_aug import inference_tta
 

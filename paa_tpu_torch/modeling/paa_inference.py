@@ -84,6 +84,8 @@ def _select_level_batched(cls_logits, box_regression, iou_pred, anchors,
     K) slots; otherwise the top K by fused score, ties to the lower
     index. The choice reads the largest count on the host: one sync per
     level, which eager PyTorch can afford where XLA needed a lax.cond.
+    Under ``torch.export`` (serving.py) the choice is ``torch.cond`` on
+    the device, as the JAX package's lax.cond, with the same tiers.
     """
     bsz, n, c = cls_logits.shape
     m_flat = n * c
@@ -92,43 +94,71 @@ def _select_level_batched(cls_logits, box_regression, iou_pred, anchors,
     logits = cls_logits.to(torch.float32).reshape(bsz, m_flat)
     cand = logits > _logit(pp.pre_nms_thresh).to(dev)
     total = cand.sum(dim=1)
-    max_cand = int(total.max())
     small = min(_SMALL_TIER, k)
 
-    if max_cand <= k:  # compaction: the first kk candidates, index order
-        kk = small if max_cand <= small else k
-        rank = torch.cumsum(cand, dim=1)
-        slot = torch.where(cand & (rank <= kk), rank - 1, kk)
-        flat_idx = torch.zeros(bsz, kk + 1, dtype=torch.int64, device=dev)
-        flat_idx.scatter_(
-            1, slot, torch.arange(m_flat, device=dev).expand(bsz, m_flat))
-        flat_idx = flat_idx[:, :kk]
-        score = _fuse(torch.sigmoid(logits.gather(1, flat_idx)),
-                      None if iou_pred is None
-                      else iou_pred.gather(1, flat_idx // c))
-        slot_valid = (torch.arange(1, kk + 1, device=dev)[None, :]
-                      <= total[:, None])
-        score = torch.where(slot_valid, score, -1.0)
-    else:  # top k in score order; a stable sort breaks ties like top_k
-        kk = k
+    def compaction(kk):  # the first kk candidates, index order
+        def tier(logits, cand, total, *iou):
+            rank = torch.cumsum(cand, dim=1)
+            slot = torch.where(cand & (rank <= kk), rank - 1, kk)
+            flat_idx = torch.zeros(bsz, kk + 1, dtype=torch.int64,
+                                   device=dev).scatter(
+                1, slot, torch.arange(m_flat, device=dev).expand(bsz,
+                                                                 m_flat))
+            flat_idx = flat_idx[:, :kk]
+            score = _fuse(torch.sigmoid(logits.gather(1, flat_idx)),
+                          iou[0].gather(1, flat_idx // c) if iou else None)
+            slot_valid = (torch.arange(1, kk + 1, device=dev)[None, :]
+                          <= total[:, None])
+            return pad(flat_idx, torch.where(slot_valid, score, -1.0))
+        return tier
+
+    def top_k(logits, cand, total, *iou):
+        # top k in score order; a stable sort breaks ties like top_k
         fused = _fuse(torch.sigmoid(logits).reshape(bsz, n, c),
-                      None if iou_pred is None else iou_pred[..., None])
+                      iou[0][..., None] if iou else None)
         masked = torch.where(cand, fused.reshape(bsz, m_flat), -1.0)
         score, flat_idx = torch.sort(masked, dim=1, descending=True,
                                      stable=True)
-        score, flat_idx = score[:, :k], flat_idx[:, :k]
+        return pad(flat_idx[:, :k], score[:, :k])
+
+    def pad(flat_idx, score):
+        """The k static slots (the ones past kk invalid) and a mask of
+        the padding, each a fresh dense tensor: torch.cond's branches
+        must agree in strides, also those of a batch of one."""
+        kk = flat_idx.shape[1]
+        dense = torch.contiguous_format
+        padded = torch.arange(k, device=dev)[None, :].expand(bsz, k) >= kk
+        return (torch.nn.functional.pad(flat_idx, (0, k - kk)).clone(
+                    memory_format=dense),
+                torch.nn.functional.pad(score, (0, k - kk), value=-1.0
+                                        ).clone(memory_format=dense),
+                padded.clone(memory_format=dense))
+
+    operands = (logits, cand, total,
+                *(() if iou_pred is None else (iou_pred,)))
+    if torch.compiler.is_exporting():
+        max_cand = total.max()
+
+        def above_small(*ops):
+            return torch.cond(max_cand <= k, compaction(k), top_k, ops)
+
+        flat_idx, score, padded = torch.cond(
+            max_cand <= small, compaction(small), above_small, operands)
+    else:
+        max_cand = int(total.max())
+        tier = (compaction(small) if max_cand <= small else
+                compaction(k) if max_cand <= k else top_k)
+        flat_idx, score, padded = tier(*operands)
 
     anchor_idx = flat_idx // c
     labels = (flat_idx % c + 1).to(torch.int32)
     reg_sel = box_regression.to(torch.float32).gather(
-        1, anchor_idx[..., None].expand(bsz, kk, 4))
+        1, anchor_idx[..., None].expand(bsz, k, 4))
     boxes = (decode_fn or decode_box)(reg_sel * reg_scale,
                                       anchors[anchor_idx])
-    if kk < k:  # pad to the static k slots; padding is invalid
-        pad = k - kk
-        boxes = torch.nn.functional.pad(boxes, (0, 0, 0, pad))
-        score = torch.nn.functional.pad(score, (0, pad), value=-1.0)
-        labels = torch.nn.functional.pad(labels, (0, pad))
+    # the padding slots hold zeros, as the JAX package pads them
+    boxes = torch.where(padded[..., None], 0.0, boxes)
+    labels = torch.where(padded, 0, labels)
     return boxes, score, labels, score > 0.0
 
 

@@ -25,6 +25,16 @@ tensor, split over a thread-block cluster of ``cs`` CTAs that hold it
 in shared memory, read once from device memory. ``gn_plan`` makes the
 launch's choices from the shape alone. The wrapper raises on any layout
 other than NCHW-contiguous.
+
+The forward is the ``torch.library`` custom op
+``paa_tpu_torch::group_norm_relu`` (one function for both devices: the
+plain version for CPU tensors, K3 for CUDA tensors), so that
+``torch.export`` records it as one node (serving.py); its fake
+implementation gives the output's shape, and its registered autograd
+is the same VJP of the plain version. ``group_norm_relu`` calls the op
+where autograd does not record; where it records, CPU tensors go
+through the plain version under autograd and CUDA tensors through
+``GroupNormReLU``, as before the op existed.
 """
 
 from __future__ import annotations
@@ -216,18 +226,58 @@ class GroupNormReLU(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        saved = ctx.saved_tensors
-        wanted = ctx.needs_input_grad[:3]
-        with record_function(SPAN_BACKWARD), torch.enable_grad():
-            inputs = [t.detach().requires_grad_(w)
-                      for t, w in zip(saved, wanted)]
-            y = group_norm_relu_plain(*inputs, ctx.num_groups, ctx.eps,
-                                      ctx.relu)
-            grads = iter(torch.autograd.grad(
-                y, [t for t in inputs if t.requires_grad], grad))
-        rest = len(ctx.needs_input_grad) - 3  # num_groups, eps, fn(, relu)
-        return (*(next(grads) if w else None for w in wanted),
-                *(None,) * rest)
+        return _plain_vjp(ctx, grad)
+
+
+def _plain_vjp(ctx, grad):
+    """The gradients of (x, weight, bias) and None for the other inputs:
+    the VJP of ``group_norm_relu_plain``, recomputed from the saved
+    (x, weight, bias)."""
+    saved = ctx.saved_tensors
+    wanted = ctx.needs_input_grad[:3]
+    with record_function(SPAN_BACKWARD), torch.enable_grad():
+        inputs = [t.detach().requires_grad_(w)
+                  for t, w in zip(saved, wanted)]
+        y = group_norm_relu_plain(*inputs, ctx.num_groups, ctx.eps,
+                                  ctx.relu)
+        grads = iter(torch.autograd.grad(
+            y, [t for t in inputs if t.requires_grad], grad))
+    rest = len(ctx.needs_input_grad) - 3  # num_groups, eps(, fn), relu
+    return (*(next(grads) if w else None for w in wanted),
+            *(None,) * rest)
+
+
+def _group_norm_relu_impl(x, weight, bias, num_groups, eps, relu):
+    """``paa_tpu_torch::group_norm_relu`` on either device."""
+    if x.device.type == "cpu":
+        return group_norm_relu_plain(x, weight, bias, num_groups, eps, relu)
+    return _group_norm_relu_cuda(x, weight, bias, num_groups, eps, relu)
+
+
+@torch.library.custom_op("paa_tpu_torch::group_norm_relu", mutates_args=(),
+                         device_types="cpu")
+def _group_norm_relu_op(x: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor, num_groups: int, eps: float,
+                        relu: bool) -> torch.Tensor:
+    return _group_norm_relu_impl(x, weight, bias, num_groups, eps, relu)
+
+
+_group_norm_relu_op.register_kernel("cuda")(_group_norm_relu_impl)
+
+
+@_group_norm_relu_op.register_fake
+def _(x, weight, bias, num_groups, eps, relu):
+    return torch.empty_like(x)
+
+
+def _setup_context(ctx, inputs, output):
+    x, weight, bias, num_groups, eps, relu = inputs
+    ctx.save_for_backward(x, weight, bias)
+    ctx.num_groups, ctx.eps, ctx.relu = num_groups, eps, relu
+
+
+_group_norm_relu_op.register_autograd(_plain_vjp,
+                                      setup_context=_setup_context)
 
 
 def form(relu):
@@ -244,18 +294,21 @@ def group_norm_relu(x, weight, bias, num_groups=32, eps=1e-5, relu=True):
     CPU tensors take the plain version; CUDA tensors launch K3
     (csrc/group_norm.cu, counted in ``group_norm_relu.launches`` and by
     form in ``group_norm_relu.launches_by_form``) or raise, through
-    ``GroupNormReLU`` where autograd records."""
+    ``GroupNormReLU`` where autograd records, else through the custom
+    op ``paa_tpu_torch::group_norm_relu``."""
     if x.shape[1] % num_groups:
         raise ValueError(f"{x.shape[1]} channels in {num_groups} groups")
-    if x.device.type == "cpu":
-        return group_norm_relu_plain(x, weight, bias, num_groups, eps, relu)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"group_norm_relu: no kernel for {x.device}")
     if torch.is_grad_enabled() and (
             x.requires_grad or weight.requires_grad or bias.requires_grad):
+        if x.device.type == "cpu":
+            return group_norm_relu_plain(x, weight, bias, num_groups, eps,
+                                         relu)
         return GroupNormReLU.apply(x, weight, bias, num_groups, eps,
                                    _group_norm_relu_cuda, relu)
-    return _group_norm_relu_cuda(x, weight, bias, num_groups, eps, relu)
+    return _group_norm_relu_op(x, weight, bias, int(num_groups), float(eps),
+                               bool(relu))
 
 
 group_norm_relu.launches = 0

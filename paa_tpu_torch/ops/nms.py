@@ -25,6 +25,15 @@ fallback between the two:
 csrc/nms_common.cuh (with K2's argmax and K1's sort key); each kernel's
 header says what bounds it.
 
+Both entry points are ``torch.library`` custom ops,
+``paa_tpu_torch::nms_batched`` and ``paa_tpu_torch::nms``, so that
+``torch.export`` records each as one node (serving.py): their fake
+implementation gives the static (B, max_out) outputs, and every check
+that reads a tensor's storage or pointer runs inside the op, at call
+time. Each op's implementation is one function for both devices, which
+takes the plain version for CPU tensors and launches the kernel for
+CUDA tensors.
+
 A valid NaN score ends its image before the first pick, as in the JAX
 package, where the step's max is then NaN. Slots without a pick hold
 (idx 0, score -1e30, valid False) in every entry point; the JAX package
@@ -37,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -284,17 +294,14 @@ def _nms_global(boxes, scores, labels, valid, iou_threshold, max_out,
     return keeps
 
 
-def nms_batched(boxes, scores, labels, valid, iou_threshold, max_out,
-                class_aware=True):
-    """Batched greedy NMS: boxes (B, N, 4) float32, scores (B, N) float32,
-    labels (B, N) int32, valid (B, N) bool -> keep_idx (int32),
-    keep_scores (float32), keep_valid (bool), each (B, max_out).
+_Keeps = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
-    CPU tensors take the plain version. CUDA tensors launch K1 (counted
-    in ``nms_batched.launches``) up to ``k1_max_candidates`` per image,
-    and K2 (``_nms_global``) above that: the shape alone chooses, as the
-    JAX package chunks images by a VMEM budget. A kernel that fails
-    raises; nothing falls back."""
+
+def _nms_batched_impl(boxes, scores, labels, valid, iou_threshold, max_out,
+                      class_aware):
+    """``paa_tpu_torch::nms_batched`` on either device: the plain version
+    for CPU tensors; for CUDA tensors K1 up to ``k1_max_candidates`` per
+    image, K2 (``_nms_global``) above that."""
     if _device_type(scores, "nms_batched") == "cpu":
         return nms_batched_plain(boxes, scores, labels, valid,
                                  iou_threshold, max_out, class_aware)
@@ -305,14 +312,76 @@ def nms_batched(boxes, scores, labels, valid, iou_threshold, max_out,
                              max_out, class_aware)
 
 
+@torch.library.custom_op("paa_tpu_torch::nms_batched", mutates_args=(),
+                         device_types="cpu")
+def _nms_batched_op(boxes: torch.Tensor, scores: torch.Tensor,
+                    labels: torch.Tensor, valid: torch.Tensor,
+                    iou_threshold: float, max_out: int,
+                    class_aware: bool) -> _Keeps:
+    return _nms_batched_impl(boxes, scores, labels, valid, iou_threshold,
+                             max_out, class_aware)
+
+
+def _nms_one_impl(boxes, scores, labels, valid, iou_threshold, max_out,
+                  class_aware):
+    """``paa_tpu_torch::nms`` on either device: one image as a batch of
+    one through ``_nms_global`` (K2, or the plain version on the CPU)."""
+    out = _nms_global(boxes[None], scores[None], labels[None], valid[None],
+                      iou_threshold, max_out, class_aware=class_aware)
+    return tuple(t[0] for t in out)
+
+
+@torch.library.custom_op("paa_tpu_torch::nms", mutates_args=(),
+                         device_types="cpu")
+def _nms_op(boxes: torch.Tensor, scores: torch.Tensor, labels: torch.Tensor,
+            valid: torch.Tensor, iou_threshold: float, max_out: int,
+            class_aware: bool) -> _Keeps:
+    return _nms_one_impl(boxes, scores, labels, valid, iou_threshold,
+                         max_out, class_aware)
+
+
+_nms_batched_op.register_kernel("cuda")(_nms_batched_impl)
+_nms_op.register_kernel("cuda")(_nms_one_impl)
+
+
+@_nms_batched_op.register_fake
+def _(boxes, scores, labels, valid, iou_threshold, max_out, class_aware):
+    return _empty_keeps(scores.shape[0], max_out, scores.device)
+
+
+@_nms_op.register_fake
+def _(boxes, scores, labels, valid, iou_threshold, max_out, class_aware):
+    keeps = _empty_keeps(1, max_out, scores.device)
+    return tuple(t[0] for t in keeps)
+
+
+def nms_batched(boxes, scores, labels, valid, iou_threshold, max_out,
+                class_aware=True):
+    """Batched greedy NMS: boxes (B, N, 4) float32, scores (B, N) float32,
+    labels (B, N) int32, valid (B, N) bool -> keep_idx (int32),
+    keep_scores (float32), keep_valid (bool), each (B, max_out).
+
+    CPU tensors take the plain version. CUDA tensors launch K1 (counted
+    in ``nms_batched.launches``) up to ``k1_max_candidates`` per image,
+    and K2 (``_nms_global``) above that: the shape alone chooses, as the
+    JAX package chunks images by a VMEM budget. A kernel that fails
+    raises; nothing falls back. The call is the custom op
+    ``paa_tpu_torch::nms_batched``."""
+    _device_type(scores, "nms_batched")
+    return _nms_batched_op(boxes, scores, labels, valid,
+                           float(iou_threshold), int(max_out),
+                           bool(class_aware))
+
+
 def nms(boxes, scores, labels, valid, iou_threshold, max_out,
         class_aware=True):
     """Single-image greedy NMS (the counterpart of paa_tpu's ``nms_auto``):
     boxes (N, 4), scores/labels/valid (N,) -> (max_out,) keeps. CUDA
-    tensors launch K2, CPU tensors take the plain version."""
-    out = _nms_global(boxes[None], scores[None], labels[None], valid[None],
-                      iou_threshold, max_out, class_aware=class_aware)
-    return tuple(t[0] for t in out)
+    tensors launch K2, CPU tensors take the plain version: the custom op
+    ``paa_tpu_torch::nms``."""
+    _device_type(scores, "nms")
+    return _nms_op(boxes, scores, labels, valid, float(iou_threshold),
+                   int(max_out), bool(class_aware))
 
 
 nms_batched.launches = 0

@@ -1,4 +1,5 @@
-"""ROIAlign and the FPN pooler (port of paa_tpu/ops/roi_align.py).
+"""ROIAlign, ROIPool and the FPN pooler (port of
+paa_tpu/ops/roi_align.py).
 
 The JAX package computes these in XLA, not in a Pallas kernel, so plain
 PyTorch is their port. Semantics are the legacy maskrcnn-benchmark
@@ -21,6 +22,11 @@ terms stay under ``CHUNK_BYTES``: the mask head's 14x14 pool of 8,192
 training rois at 256 channels would otherwise hold four 6.6 GB corner
 tensors (and their gradients). Each roi's numbers do not depend on the
 chunking.
+
+``roi_pool`` is the max ROI pooling of the reference's ROIPool_cuda.cu
+as the JAX package computes it: each bin of the rounded integer grid
+takes the max of its pixels, an empty bin 0. Nothing in the JAX package
+calls it.
 """
 
 from __future__ import annotations
@@ -191,3 +197,55 @@ def multilevel_roi_align(features, rois, roi_batch_idx, output_size=(7, 7),
     scale = torch.tensor(scales, dtype=torch.float32, device=dev)[levels]
     return _align(table, row0, sizes[levels, 0], sizes[levels, 1], rois,
                   scale, output_size, sampling_ratio)
+
+
+def roi_pool(features, rois, roi_batch_idx, output_size=(7, 7),
+             spatial_scale=1.0):
+    """Max ROI pooling. features: (B, C, H, W); rois: (R, 4) xyxy in
+    input coordinates; roi_batch_idx: (R,). Returns (R, ph, pw, C), as
+    ``roi_align``.
+
+    The roi's corners are rounded to the map's grid (half to even, as
+    ``jnp.round``), its extent ``max(end - start + 1, 1)`` cut into
+    ph x pw bins; bin (py, px) covers the rows floor(py * bin_h) +
+    start_h to ceil((py + 1) * bin_h) + start_h (exclusive), and the
+    columns alike, clipped to the map, with py * bin_h rounded as XLA
+    compiles the JAX package's (``bounds``). The max is taken over the
+    rows, then over the columns (the same max), in chunks of rois whose
+    (r, ph, C, H, W) mask stays under ``CHUNK_BYTES``."""
+    ph, pw = output_size
+    _, c, h, w = features.shape
+    dev = features.device
+    rois = rois.to(torch.float32)
+    start = torch.round(rois * spatial_scale)  # x1, y1, x2, y2
+
+    def bounds(lo, hi, bins, size):
+        extent = torch.clamp(hi - lo + 1, min=1.0)[:, None]
+        # i * (extent / bins) as XLA compiles it: extent times the
+        # float32 product of i and the float32 reciprocal of bins
+        recip = torch.tensor(1.0 / bins, dtype=torch.float32, device=dev)
+        i = torch.arange(bins + 1, dtype=torch.float32, device=dev) * recip
+        first = torch.clamp(torch.floor(extent * i[:-1]) + lo[:, None],
+                            0, size)
+        last = torch.clamp(torch.ceil(extent * i[1:]) + lo[:, None], 0,
+                           size)
+        pos = torch.arange(size, dtype=torch.float32, device=dev)
+        inside = (pos >= first[..., None]) & (pos < last[..., None])
+        return inside, last <= first  # (R, bins, size), (R, bins)
+
+    rows, empty_y = bounds(start[:, 1], start[:, 3], ph, h)
+    cols, empty_x = bounds(start[:, 0], start[:, 2], pw, w)
+    neg_inf = torch.tensor(float("-inf"), dtype=features.dtype, device=dev)
+    chunk = max(CHUNK_BYTES // max(ph * c * h * w * 4, 1), 1)
+    outs = []
+    for i in range(0, rois.shape[0], chunk):
+        feat = features[roi_batch_idx[i:i + chunk].long()]  # (r, C, H, W)
+        row_max = torch.where(rows[i:i + chunk, :, None, :, None],
+                              feat[:, None], neg_inf).amax(dim=3)
+        outs.append(torch.where(cols[i:i + chunk, None, :, None, :],
+                                row_max[:, :, None], neg_inf).amax(dim=-1))
+    out = (torch.cat(outs) if outs else
+           features.new_zeros((0, ph, pw, c)))
+    empty = empty_y[:, :, None] | empty_x[:, None, :]
+    return torch.where(empty[..., None], torch.zeros((), dtype=out.dtype,
+                                                     device=dev), out)

@@ -13,14 +13,17 @@ system's temporary directory). ``keypoints_synth_coco_<n>`` is the same
 images with one "person" category and 17 keypoints per box (Keypoint
 R-CNN); the reference's keypoint dataset names (``keypoints_coco_*``,
 config/paths_catalog.py) serve that dataset at 32 images, so that a
-keypoint config runs with its own DATASETS.
+keypoint config runs with its own DATASETS. The reference's Pascal VOC
+names (``voc_2007_train``, ``voc_2007_val``, ``voc_2007_test``, ... and
+``synth_voc_<n>_<split>``) serve one synthetic VOC tree (data/synth.py
+``synth_voc``, 16 images unless named) through PascalVOCDataset.
 """
 
 import os
 import re
 import tempfile
 
-from paa_tpu_torch.data.synth import synth_coco
+from paa_tpu_torch.data.synth import synth_coco, synth_voc
 
 
 class DatasetCatalog:
@@ -30,6 +33,16 @@ class DatasetCatalog:
 
     @staticmethod
     def get(name):
+        m = re.fullmatch(r"voc_20(07|12)_(train|val|trainval|test)", name)
+        if m:
+            name = f"synth_voc_16_{m.group(2)}"
+        m = re.fullmatch(r"synth_voc_(\d+)_(train|val|trainval|test)", name)
+        if m:
+            data_dir = synth_voc(os.path.join(
+                DatasetCatalog.DATA_DIR, f"synth_voc_{m.group(1)}"),
+                int(m.group(1)))
+            return dict(factory="PascalVOCDataset",
+                        args=dict(data_dir=data_dir, split=m.group(2)))
         if re.fullmatch(r"keypoints_coco_\w+", name):
             name = "keypoints_synth_coco_32"
         m = re.fullmatch(r"(keypoints_)?synth_coco_(\d+)", name)

@@ -2,14 +2,18 @@
 utils/{miscellaneous,collect_env,model_zoo}.py): the saved config, the
 environment dump of the start-up log (torch, CUDA and the GPUs), and the
 local weight cache of http(s) MODEL.WEIGHT urls, which reads no
-network. ``find_contours`` (a cv2 version shim that nothing in the JAX
-package calls; the reference's demo draws mask outlines with it) is not
-ported: the card machine has no cv2.
+network; ``mkdir`` and ``find_contours``, cv2's ``findContours`` across
+its versions (the reference's demo draws mask outlines with it), which
+imports cv2 inside the call: the machine with the card has no cv2.
 """
 
 from __future__ import annotations
 
 import os
+
+
+def mkdir(path):
+    os.makedirs(path, exist_ok=True)
 
 
 def save_config(cfg, path):
@@ -69,3 +73,18 @@ def cache_url(url: str, model_dir: str | None = None) -> str:
             f"weight url {url} is not cached; place the file at {cached} "
             f"(nothing is downloaded)")
     return cached
+
+
+def find_contours(mask):
+    """cv2.findContours(mask, RETR_EXTERNAL, CHAIN_APPROX_SIMPLE) across
+    cv2 versions (reference utils/cv2_util.py): (contours, hierarchy);
+    OpenCV 3 returned (image, contours, hierarchy). cv2's own algorithm:
+    it needs the cv2 package."""
+    import cv2
+
+    out = cv2.findContours(
+        mask, cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_SIMPLE
+    )
+    if len(out) == 3:
+        return out[1], out[2]
+    return out

@@ -656,3 +656,126 @@ def test_dcn_function_gradients_match_plain(dev, dtype, chunk_bytes,
         for g, w in zip(got, ref):
             torch.testing.assert_close(g, w, rtol=0,
                                        atol=1e-4 * float(w.abs().max()))
+
+
+# ---- the kernels as custom ops, and the serving artifact -------------------
+
+@pytest.mark.parametrize("relu", [True, False])
+def test_custom_ops_on_the_card_equal_plain(dev, relu):
+    """``paa_tpu_torch::nms_batched`` (K1; K2 above K1's capacity),
+    ``::nms`` (K2) and ``::group_norm_relu`` (K3) called as ops on CUDA
+    tensors: each launches its kernel once and equals its plain
+    version."""
+    from paa_tpu_torch.ops import group_norm as gn
+
+    ops = torch.ops.paa_tpu_torch
+    for n, counter in ((1000, nms.nms_batched), (9000, nms._nms_global)):
+        args = _nms_case(n, 2, n, dev)
+        before = counter.launches
+        got = ops.nms_batched(*args, 0.6, 50, relu)
+        assert counter.launches == before + 1
+        want = nms.nms_batched_plain(*args, 0.6, 50, relu)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    args = [t[1] for t in _nms_case(7, 2, 3000, dev)]
+    before = nms._nms_global.launches
+    got = ops.nms(*args, 0.5, 40, relu)
+    assert nms._nms_global.launches == before + 1
+    want = nms.nms_batched_plain(*(t[None] for t in args), 0.5, 40, relu)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w[0])
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 256, 25, 42, generator=gen).to(dev)
+    w = (torch.rand(256, generator=gen) + 0.5).to(dev)
+    b = torch.randn(256, generator=gen).to(dev)
+    before = gn.group_norm_relu.launches
+    with torch.no_grad():
+        got = ops.group_norm_relu(x, w, b, 32, 1e-5, relu)
+    assert gn.group_norm_relu.launches == before + 1
+    torch.testing.assert_close(
+        got, gn.group_norm_relu_plain(x, w, b, 32, 1e-5, relu), rtol=0,
+        atol=1e-5)
+
+
+def test_export_on_the_card_round_trips(dev, tmp_path):
+    """A slim PAA-R50 exported on the card, saved and loaded: the served
+    detections equal the live eval fn's (labels and valid equal, boxes
+    and scores within 1e-5), and a served call launches K1 once and K3
+    40 times."""
+    from paa_tpu_torch.config import get_cfg
+    from paa_tpu_torch.modeling import build_detection_model
+    from paa_tpu_torch.ops import group_norm as gn
+    from paa_tpu_torch.serving import (
+        export_inference, load_exported, save_exported)
+
+    cfg = get_cfg()
+    cfg.merge_from_list([
+        "MODEL.PAA_ON", True, "MODEL.RPN_ONLY", True,
+        "MODEL.BACKBONE.CONV_BODY", "R-50-FPN-RETINANET",
+        "MODEL.RETINANET.USE_C5", False,
+        "MODEL.RESNETS.BACKBONE_OUT_CHANNELS", 64])
+    cfg.freeze()
+    model = build_detection_model(cfg, device=dev, seed=0)
+    with torch.no_grad():
+        model.module.head.cls_logits.bias.fill_(-3.0)
+    exported, meta = export_inference(model, 2, (256, 320))
+    assert meta["device"] == "cuda"
+    save_exported(str(tmp_path / "m.paat"), exported, meta)
+    call, _ = load_exported(str(tmp_path / "m.paat"))
+    gen = torch.Generator().manual_seed(0)
+    images = (torch.rand(2, 256, 320, 3, generator=gen) * 4 - 2).to(dev)
+    sizes = torch.tensor([[256.0, 320.0], [240.0, 300.0]], device=dev)
+    live = model.make_eval_fn()(images, sizes)
+    before = (nms.nms_batched.launches, gn.group_norm_relu.launches)
+    served = call(images, sizes)
+    torch.cuda.synchronize()
+    assert (nms.nms_batched.launches - before[0],
+            gn.group_norm_relu.launches - before[1]) == (1, 40)
+    assert int(live["valid"].sum()) > 0
+    for k in ("labels", "valid"):
+        assert torch.equal(served[k], live[k]), k
+    for k in ("boxes", "scores"):
+        torch.testing.assert_close(served[k], live[k], rtol=0, atol=1e-5)
+
+
+def test_two_stage_export_on_the_card_round_trips(dev, tmp_path):
+    """Faster R-CNN R-50-FPN at full width (256 channels, 81 classes, the
+    RPN's 1,000 proposals) exported on the card at 2 x 256 x 320, its 80
+    foreground biases lifted as chip_smoke.py's ``seeded_frcnn`` does: a
+    served call launches K1 once (the RPN) and K2 once (the box head's
+    80,000 candidates an image), and its detections equal the live eval
+    fn's (labels and valid equal, boxes and scores within 1e-5)."""
+    import os
+
+    from paa_tpu_torch.config import get_cfg
+    from paa_tpu_torch.modeling import build_detection_model
+    from paa_tpu_torch.serving import (
+        export_inference, load_exported, save_exported)
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "configs", "e2e_faster_rcnn_R_50_FPN_1x.yaml"))
+    cfg.freeze()
+    model = build_detection_model(cfg, device=dev, seed=0)
+    gen = torch.Generator().manual_seed(1)
+    bias = model.module.box_head.cls_score.bias
+    with torch.no_grad():
+        bias[1:].copy_(torch.empty(bias.numel() - 1).uniform_(
+            25.0, 35.0, generator=gen).to(dev))
+    exported, meta = export_inference(model, 2, (256, 320))
+    save_exported(str(tmp_path / "frcnn.paat"), exported, meta)
+    call, _ = load_exported(str(tmp_path / "frcnn.paat"))
+    images = (torch.rand(2, 256, 320, 3, generator=gen) * 4 - 2).to(dev)
+    sizes = torch.tensor([[256.0, 320.0], [240.0, 300.0]], device=dev)
+    live = model.make_eval_fn()(images, sizes)
+    before = (nms.nms_batched.launches, nms._nms_global.launches)
+    served = call(images, sizes)
+    torch.cuda.synchronize()
+    assert (nms.nms_batched.launches - before[0],
+            nms._nms_global.launches - before[1]) == (1, 1)
+    assert int(live["valid"].sum()) > 0
+    for k in ("labels", "valid"):
+        assert torch.equal(served[k], live[k]), k
+    for k in ("boxes", "scores"):
+        torch.testing.assert_close(served[k], live[k], rtol=0, atol=1e-5)

@@ -270,11 +270,28 @@ def test_build_dataset_through_the_catalog(synth, tmp_path):
     assert len(build_dataset(cfg, ("a", "b"), is_train=False)) == 2
 
 
-def test_build_dataset_voc_waits(synth, tmp_path):
-    _, cfg = _cfgs(["PATHS_CATALOG",
-                    _catalog(tmp_path, *synth, "PascalVOCDataset")])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_dataset(cfg, ("voc_2007_test",), is_train=False)
+def test_build_dataset_voc_waits(tmp_path):
+    """The Pascal VOC factory, which raised until the VOC slice was
+    ported (hence the name), builds through a catalog: the eval dataset
+    with its difficult objects, a training name list concatenated."""
+    from paa_tpu_torch.data.synth import synth_voc
+    from paa_tpu_torch.data.voc import PascalVOCDataset
+
+    root = synth_voc(str(tmp_path / "VOC2007"), 4)
+    path = tmp_path / "catalog.py"
+    path.write_text(
+        "class DatasetCatalog:\n"
+        "    @staticmethod\n"
+        "    def get(name):\n"
+        "        return dict(factory='PascalVOCDataset', args=dict(\n"
+        f"            data_dir={root!r}, split=name.split('_')[-1]))\n")
+    _, cfg = _cfgs(["PATHS_CATALOG", str(path)])
+    test = build_dataset(cfg, ("voc_2007_test",), is_train=False)
+    assert isinstance(test, PascalVOCDataset) and test.keep_difficult
+    assert len(test) == 4 and len(test.records[1].labels) > 0
+    train = build_dataset(cfg, ("voc_2007_train", "voc_2007_val"),
+                          is_train=True)
+    assert len(train) == 4 and len(train.records[1].labels) == 0
 
 
 # ---- batches and loaders ---------------------------------------------------

@@ -5,9 +5,9 @@ tests/nms_cases.py and tests/reference_layout.py, nor the distributed
 tests' worker) names jax, flax or paa_tpu in an import. Nor does any
 import cv2 or PIL at module level (the machine with the card has
 neither): the eval path, Mask R-CNN's train step and eval to the segm
-table, and Keypoint R-CNN's train step and eval to the keypoints table
-(the heatmaps decoded without cv2), run on a PPM dataset with both
-blocked."""
+table, Keypoint R-CNN's train step and eval to the keypoints table
+(the heatmaps decoded without cv2), and a Pascal VOC evaluation to the
+mAP, run on a PPM dataset with both blocked."""
 
 import ast
 import os
@@ -76,7 +76,11 @@ def test_no_jax_or_paa_tpu_imports():
                    "structures/masks.py", "evaluation/mask_rle.py",
                    "modeling/roi_keypoint_head.py",
                    "structures/keypoints.py", "modeling/roi_box_head.py",
-                   "data/synth.py", "tools/synth_catalog.py"):
+                   "data/synth.py", "tools/synth_catalog.py",
+                   "data/voc.py", "evaluation/voc_eval.py", "serving.py",
+                   "tools/export_model.py", "ops/deform_pool.py",
+                   "structures/segmentation.py", "utils/registry.py",
+                   "utils/timer.py"):
         assert module in rel, module
     bad = [
         (os.path.relpath(p, ROOT), m)
@@ -289,6 +293,57 @@ def test_keypoint_path_runs_with_cv2_and_pil_blocked(tmp_path):
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
         text=True, timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"},
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_voc_path_runs_with_cv2_and_pil_blocked(tmp_path):
+    """Pascal VOC on the card machine's terms: with cv2, PIL and JAX
+    blocked, a synthetic VOC tree (PPM bytes under .jpg names) goes
+    through the catalog, the loader, ``compute_on_dataset`` and
+    ``do_voc_evaluation`` of a slim 21-class PAA model."""
+    code = (
+        "import math, sys\n"
+        "for m in ('cv2', 'PIL', 'jax', 'flax', 'paa_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from paa_tpu_torch.config import get_cfg\n"
+        "from paa_tpu_torch.data.build import build_dataset\n"
+        "from paa_tpu_torch.data.loader import make_data_loader\n"
+        "from paa_tpu_torch.engine.inference import compute_on_dataset\n"
+        "from paa_tpu_torch.evaluation import voc_eval\n"
+        "from paa_tpu_torch.modeling import build_detection_model\n"
+        "cfg = get_cfg()\n"
+        "cfg.merge_from_list(['MODEL.PAA_ON', True, 'MODEL.RPN_ONLY', True,\n"
+        "    'MODEL.BACKBONE.CONV_BODY', 'R-50-FPN-RETINANET',\n"
+        "    'MODEL.RETINANET.USE_C5', False, 'MODEL.PAA.NUM_CLASSES', 21,\n"
+        "    'MODEL.RESNETS.BACKBONE_OUT_CHANNELS', 32,\n"
+        "    'MODEL.RESNETS.WIDTH_PER_GROUP', 8,\n"
+        "    'MODEL.RESNETS.STEM_OUT_CHANNELS', 8,\n"
+        "    'MODEL.RESNETS.RES2_OUT_CHANNELS', 32,\n"
+        "    'TPU.COMPUTE_DTYPE', 'float32', 'INPUT.MIN_SIZE_TEST', 64,\n"
+        "    'INPUT.MAX_SIZE_TEST', 96, 'TPU.TEST_BUCKETS', ((96, 96),),\n"
+        "    'TEST.IMS_PER_BATCH', 2,\n"
+        "    'PATHS_CATALOG', 'paa_tpu_torch/tools/synth_catalog.py'])\n"
+        "cfg.freeze()\n"
+        "model = build_detection_model(cfg, device='cpu')\n"
+        "ds = build_dataset(cfg, ('synth_voc_4_test',), is_train=False)\n"
+        "preds, *_ = compute_on_dataset(\n"
+        "    model, make_data_loader(cfg, ds, is_train=False))\n"
+        "r = voc_eval.do_voc_evaluation(\n"
+        "    ds, voc_eval.predictions_from_xywh(preds))\n"
+        "assert r['ap'].shape == (21,) and len(preds) == 4, r\n"
+        "assert not math.isnan(r['map']) or not any(\n"
+        "    len(p['labels']) for p in preds.values())\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1",
+             "PAA_TPU_TORCH_SYNTH_DIR": str(tmp_path)},
     )
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.strip().endswith("ok")
