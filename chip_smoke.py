@@ -163,7 +163,7 @@ and prints no result line):
     backward at B=8 in bfloat16 with each, the Function's the lower.
 25. The X-152 dcnv2 training main path: the config at full width in
     bfloat16 with its SOLVER, weights from seed 0 and the offset convs
-    from seed 2, DCN_TRAIN_STEPS (5) steps of do_train on one repeated
+    from seed 2, DCN_TRAIN_STEPS (3) steps of do_train on one repeated
     batch of 8 (else 4, else 2: the largest that fits) uint8 800 x 1344
     images with 3-12 GTs in 100 slots: every loss finite, num_pos > 0, the
     last loss below the first, K3 40 launches per step and no NMS; one
@@ -403,6 +403,24 @@ and prints no result line):
     live eval fn's; export seconds, artifact MB, artifact vs live img/s.
 63. ``roi_pool`` and ``deform_psroi_pool`` (with its gradients) on the
     card against the CPU, timed.
+
+64. (Run after phase 63.) The overfit gate
+    (paa_tpu_torch/tools/quick_overfit.py ``run``): PAA-R50 at 128 FPN
+    channels, 2 tower convs and 3 classes in float32, its first 300 of
+    1,500 iterations at B=4 on 8 synthetic PPM images of class-coloured
+    rectangles through the loader and ``do_train``, then ``inference``
+    over them: first loss above 1.5, the last 20 iterations' mean below
+    0.6x the first; K3 20 times a forward, K1 twice in the eval; K1
+    bit-equal at the eval's input.
+65. The demo (paa_tpu_torch/demo/predictor.py ``COCODemo``): the flagship
+    config at full width in float32 with phase 5's weights and cls bias
+    on one 480 x 640 BGR image (padded to 800 x 1088): every card
+    detection matched on the CPU and back; ms per image on the host
+    clock; K1 1 and K3 40 launches a call.
+66. ``python -m paa_tpu_torch.tools.profile_train_step --batch 2 --steps
+    1`` in a process of its own: exit 0, its span table, device time in
+    the input, forward, backward and optimizer spans, K3's launches.
+    Phase 14's profile comes from the same module's ``profile_steps``.
 
 Phase 13 also runs the step a third time on the CPU with the network in
 float64 (every convolution, FrozenBN and GroupNorm), the referee of the
@@ -862,8 +880,13 @@ def seeded_model(dtype, device, path=PAA_CONFIG):
     an untrained net yields candidates."""
     from paa_tpu_torch.modeling import build_detection_model
 
-    model = build_detection_model(build_cfg(dtype, path),
-                                  device=device, seed=0)
+    return lift_cls_bias(build_detection_model(build_cfg(dtype, path),
+                                               device=device, seed=0))
+
+
+def lift_cls_bias(model):
+    """``model`` with its dense head's cls_logits bias drawn from seed 1
+    in [-3.5, -2.5], around the 0.05 threshold (logit -2.944)."""
     gen = torch.Generator().manual_seed(1)
     bias = model.module.head.cls_logits.bias
     with torch.no_grad():
@@ -929,11 +952,9 @@ def request(seed, bsz, hw, size):
 
 
 def launch_counts():
-    from paa_tpu_torch.ops import group_norm, nms
+    from paa_tpu_torch import ops
 
-    return {"nms_batched": nms.nms_batched.launches,
-            "nms_global": nms._nms_global.launches,
-            "group_norm_relu": group_norm.group_norm_relu.launches}
+    return ops.launch_counts()
 
 
 def zero_launch_counts():
@@ -1149,7 +1170,9 @@ def time_nms(entry, args, kernel_reps, what, real_n=None):
     return ious, got, {
         "max_abs_err": 0.0,
         "ms": cuda_ms(lambda: entry(*args), kernel_reps),
-        "plain_ms": cuda_ms(lambda: nms.nms_batched_plain(*args), 3, 1),
+        # one timed call: the plain versions take 15-1,500 ms a call at
+        # the paths' inputs, and repeating them cost ~60 s of the script
+        "plain_ms": cuda_ms(lambda: nms.nms_batched_plain(*args), 1, 0),
         "bound_ms": bound, "bound_by": by, "library_ms": None,
     }
 
@@ -1411,6 +1434,8 @@ def eval_idle_share(prof):
     spans' time)."""
     from torch.autograd import DeviceType
 
+    from paa_tpu_torch.tools.profile_train_step import union_us
+
     events = prof.events()
     spans = [(e.time_range.start, e.time_range.end) for e in events
              if e.device_type == DeviceType.CPU and e.name == EVAL_SPAN]
@@ -1419,8 +1444,8 @@ def eval_idle_share(prof):
                and not getattr(e, "is_user_annotation", False)]
     if not kernels or not spans:
         return "not measured"
-    busy = sum(_union_us([(max(a, s0), min(b, s1)) for a, b in kernels
-                          if b > s0 and a < s1]) for s0, s1 in spans)
+    busy = sum(union_us([(max(a, s0), min(b, s1)) for a, b in kernels
+                         if b > s0 and a < s1]) for s0, s1 in spans)
     return 1.0 - busy / sum(s1 - s0 for s0, s1 in spans)
 
 
@@ -2170,11 +2195,14 @@ def float64_referee(dev, cfg, batch, before, p_gpu, p_cpu, pos_cpu):
 
 def phase_train_timing(model, state, batch, name, what="paa_train"):
     """Step ms and img/s of the train step (CUDA events after 2 warm-up
-    steps)."""
+    steps, host time included: paa_tpu_torch/tools/profile_train_step.py's
+    ``step_ms``)."""
+    from paa_tpu_torch.tools.profile_train_step import step_ms
+
     hw = tuple(batch["images"].shape[1:3])
     step = model.make_bucket_train_step(hw)
     bsz = int(batch["images"].shape[0])
-    ms = cuda_step_ms(lambda: step(state, batch), 5)
+    ms = step_ms(lambda: step(state, batch), 5, model.device)
     out = {"step_ms": ms, "img_per_s": bsz / ms * 1e3}
     print(json.dumps({"metric": "train_step", "path": what,
                       "batch": bsz, "hw": hw, "dtype": "bfloat16",
@@ -2182,144 +2210,33 @@ def phase_train_timing(model, state, batch, name, what="paa_train"):
     return out
 
 
-def cuda_step_ms(fn, reps, warmup=2):
-    """ms per call of ``fn`` between CUDA events, host time included (no
-    device-side sleep: a train step's host gaps are part of it)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def phase_train_profile(model, state, batch, name, hw=HW,
                         what="train_profile"):
-    """torch.profiler over three train steps. Each kernel goes to the
-    innermost span around its launch (input: the batch's copy and
-    normalize; forward, assignment, losses, backward, K3's backward
-    recompute, the DCN backward's recompute and VJP, optimizer; for a
-    two-stage model the RPN loss, proposals, roi sampling, box head, box
-    loss, mask head, mask targets, mask loss, keypoint head and keypoint
-    loss; "other": outside every span), matched through the trace's
-    launch correlation.
-    Per span class: host ms in the span, the device window from its
-    first kernel's start to its last's end in each occurrence, the
-    device busy time in it and the windows' idle share; and the step's
-    device busy time, wall time and idle share."""
-    from torch.profiler import ProfilerActivity, profile
+    """torch.profiler over three train steps, through
+    paa_tpu_torch/tools/profile_train_step.py's ``profile_steps``: each
+    kernel goes to the innermost span around its launch (input: the
+    batch's copy and normalize; forward, assignment, losses, backward,
+    K3's backward recompute, the DCN backward's recompute and VJP,
+    optimizer; for a two-stage model the RPN loss, proposals, roi
+    sampling, box head, box loss, mask head, mask targets, mask loss,
+    keypoint head and keypoint loss; "other": outside every span),
+    matched through the trace's launch correlation.
+    Per span class: host ms in the span (and outside its nested spans),
+    the device window from its first kernel's start to its last's end in
+    each occurrence, the device busy time in it and the windows' idle
+    share; the step's device busy time, wall time and idle share, ms by
+    kernel class and the top kernels."""
+    from paa_tpu_torch.tools.profile_train_step import profile_steps
 
-    from paa_tpu_torch.engine import train_step as ts
-    from paa_tpu_torch.modeling import atss_loss, fcos_loss, retinanet_head
-    from paa_tpu_torch.modeling import paa_loss as pl
-    from paa_tpu_torch.modeling import two_stage as two
-    from paa_tpu_torch.ops import dcn
-    from paa_tpu_torch.ops import group_norm as gn
-
-    spans_named = {ts.SPAN_INPUT: "input", ts.SPAN_FORWARD: "forward",
-                   ts.SPAN_BACKWARD: "backward",
-                   gn.SPAN_BACKWARD: "gn_backward_recompute",
-                   dcn.SPAN_BACKWARD: "dcn_backward_recompute",
-                   ts.SPAN_OPTIMIZER: "optimizer"}
-    for span in (two.SPAN_RPN_LOSS, two.SPAN_PROPOSALS,
-                 two.SPAN_ROI_SAMPLING, two.SPAN_BOX_HEAD,
-                 two.SPAN_BOX_LOSS, two.SPAN_MASK_HEAD,
-                 two.SPAN_MASK_TARGETS, two.SPAN_MASK_LOSS,
-                 two.SPAN_KEYPOINT_HEAD, two.SPAN_KEYPOINT_LOSS):
-        spans_named[span] = span.split("/")[1]
-    for loss in (pl, atss_loss, fcos_loss, retinanet_head):
-        spans_named.update({loss.SPAN_ASSIGN: "assignment",
-                            loss.SPAN_LOSSES: "losses"})
-    step = model.make_bucket_train_step(hw)
-    step(state, batch)
-    torch.cuda.synchronize()
-    steps = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step(state, batch)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = trace_events(prof)
-    spans = [(e["ts"], e["ts"] + e["dur"], spans_named[e["name"]])
-             for e in events if e.get("cat") == "user_annotation"
-             and e.get("name") in spans_named]
-    launched = {e["args"]["correlation"]: e["ts"] for e in events
-                if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                and "correlation" in e.get("args", {})}
-    kernels = [e for e in events
-               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    if not kernels:
-        print(json.dumps({"phase": what,
-                          "device_time": "not measured", "card": name}))
+    result = profile_steps(model.make_bucket_train_step(hw), state, batch,
+                           model.device, steps=3, top=8)
+    if result.get("device_time") == "not measured":
+        print(json.dumps({"phase": what, "device_time": "not measured",
+                          "card": name}))
         return None
-
-    def span_of(t):
-        inside = [(b - a, a, label) for a, b, label in spans if a <= t <= b]
-        return min(inside)[1:] if inside else (None, "other")
-
-    per = {}  # (span occurrence start, label) -> kernel intervals
-    by_kernel_class = {}
-    for k in kernels:
-        at = launched.get(k.get("args", {}).get("correlation"))
-        occurrence = span_of(at) if at is not None else (None, "other")
-        per.setdefault(occurrence, []).append((k["ts"], k["ts"] + k["dur"]))
-        cls = kernel_class(k["name"])
-        by_kernel_class[cls] = (by_kernel_class.get(cls, 0.0)
-                                + k["dur"] / steps / 1e3)
-    classes = {}
-    for (_, label), iv in per.items():
-        c = classes.setdefault(label, {"window_us": 0.0, "busy_us": 0.0})
-        c["window_us"] += max(b for _, b in iv) - min(a for a, _ in iv)
-        c["busy_us"] += _union_us(iv)
-    host = {}
-    for a, b, label in spans:
-        host[label] = host.get(label, 0.0) + (b - a)
-    out = {}
-    for label, c in sorted(classes.items(), key=lambda kv: -kv[1]["busy_us"]):
-        out[label] = {"host_ms": host.get(label, 0.0) / steps / 1e3,
-                      "device_busy_ms": c["busy_us"] / steps / 1e3}
-        if label != "other":  # one occurrence per span, not per step
-            out[label].update(
-                device_window_ms=c["window_us"] / steps / 1e3,
-                idle_share=1.0 - c["busy_us"] / max(c["window_us"], 1e-9))
-    busy = _union_us([(k["ts"], k["ts"] + k["dur"]) for k in kernels])
-    result = {
-        "phase": what, "steps": steps,
-        "batch": int(batch["images"].shape[0]), "hw": list(hw),
-        "by_span": out, "device_busy_ms_per_step": busy / steps / 1e3,
-        "wall_ms_per_step": wall_us / steps / 1e3,
-        "device_idle_share": 1.0 - busy / wall_us,
-        "ms_per_step_by_kernel_class": dict(sorted(
-            by_kernel_class.items(), key=lambda kv: -kv[1]))}
+    result = {"phase": what, **result}
     print(json.dumps({**result, "card": name}))
     return result
-
-
-def trace_events(prof):
-    """The profile's events as its Chrome trace lists them (kernels carry
-    the correlation id of the runtime call that launched them)."""
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            trace = json.load(f)
-    return trace["traceEvents"] if isinstance(trace, dict) else trace
-
-
-def _union_us(intervals):
-    busy, end = 0.0, -math.inf
-    for a, b in sorted(intervals):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return busy
 
 
 BOX_SPAN = "box_head"  # record_function span around FasterRCNN.box
@@ -2343,27 +2260,6 @@ SPAN_LABELS = {
     "grouped_conv": "grouped conv (ResNeXt 3x3; MobileNetV2 and FBNet "
                     "depthwise kxk)",
 }
-
-
-def kernel_class(name):
-    n = name.lower()
-    classes = (
-        ("nms_batched (K1)", ("nms_batched",)),
-        ("nms_global (K2)", ("nms_global", "nms_cluster")),
-        ("group_norm_relu (K3)", ("gn_relu",)),
-        ("memcpy", ("memcpy", "memset")),
-        ("layout transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
-        ("convolution", ("conv", "xmma", "gemm", "fprop", "cudnn",
-                         "cutlass", "implicit")),
-        ("sort (top-k)", ("sort", "radix")),
-        ("gather/scatter/index", ("scatter", "gather", "index")),
-        ("reductions", ("reduce",)),
-        ("elementwise", ("elementwise", "vectorized", "unrolled")),
-    )
-    for label, keys in classes:
-        if any(k in n for k in keys):
-            return label
-    return "other"
 
 
 def _span(fn, name):
@@ -2437,7 +2333,11 @@ def phase_profile(model, eval_fn, seed, what, name, body=False, hw=HW,
     launched inside a span of SPAN_LABELS (the box head, the DCN steps,
     the grouped convs, with ``body`` the backbone; the innermost,
     matched through the trace's launch correlation) counts in the span's
-    class, whatever its name."""
+    class, whatever its name; the others by
+    paa_tpu_torch/tools/profile_train_step.py's ``kernel_class``."""
+    from paa_tpu_torch.tools.profile_train_step import (
+        kernel_class, trace_events, union_us)
+
     images, sizes = request(seed, BATCH, hw, size)
     eval_fn(images, sizes)
     torch.cuda.synchronize()
@@ -2473,7 +2373,7 @@ def phase_profile(model, eval_fn, seed, what, name, body=False, hw=HW,
             names = by_span.setdefault(span, {})
             names[k["name"]] = names.get(k["name"], 0.0) + ms
         intervals.append((k["ts"], k["ts"] + k["dur"]))
-    busy = _union_us(intervals)
+    busy = union_us(intervals)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {
         "phase": "profile", "path": what, "requests": reqs, "batch": BATCH,
@@ -2647,10 +2547,10 @@ def phase_dcnv2_timing(dev, model, eval_fn, name):
 
 # the X-152 dcnv2 training cell's batch: the largest of these that fits
 DCN_TRAIN_BATCHES = (8, 4, 2)
-# the X-152 training main path's steps (cut from TRAIN_STEPS' 10 to keep
-# the script near its time with phases 39-44 added; its loss falls
-# monotonically from the first step)
-DCN_TRAIN_STEPS = 5
+# the X-152 training main path's steps (cut from TRAIN_STEPS' 10 to 5 to
+# keep the script near its time with phases 39-44 added, and to 3 with
+# phases 64-66; its loss falls monotonically from the first step)
+DCN_TRAIN_STEPS = 3
 # DeformConv2dFunction against autograd through deform_conv2d on the
 # card, within this share of each gradient's largest magnitude: the
 # card's index_add (the row gather's backward) adds in no fixed order,
@@ -2783,7 +2683,7 @@ def seeded_dcnv2_train(cfg, device):
 
 def phase_dcnv2_train_main_path(dev, name):
     """The X-152 dcnv2 training main path at full width in bfloat16,
-    the config's SOLVER: DCN_TRAIN_STEPS (5) steps of do_train on one
+    the config's SOLVER: DCN_TRAIN_STEPS (3) steps of do_train on one
     repeated batch of uint8 800 x 1344 images (content 800 x 1333) with
     3-12 GTs
     in 100 slots, at the largest batch of DCN_TRAIN_BATCHES that fits;
@@ -2793,6 +2693,7 @@ def phase_dcnv2_train_main_path(dev, name):
     import gc
 
     from paa_tpu_torch.engine import do_train
+    from paa_tpu_torch.tools.profile_train_step import step_ms
 
     cfg = build_cfg("bfloat16", DCNV2_CONFIG,
                     ["SOLVER.MAX_ITER", DCN_TRAIN_STEPS])
@@ -2852,7 +2753,7 @@ def phase_dcnv2_train_main_path(dev, name):
         buckets["x".join(map(str, hw))] = {"loss": m["loss"],
                                            "num_pos": m["num_pos"]}
     step = model.make_bucket_train_step(HW)
-    ms = cuda_step_ms(lambda: step(state, batch), 3, warmup=1)
+    ms = step_ms(lambda: step(state, batch), 3, model.device, warmup=1)
     result = {"batch": bsz, "too_big": too_big, "peak_memory_gb": peak,
               "step_ms": ms, "img_per_s": bsz / ms * 1e3}
     n_gt = (batch["gt_labels"] > 0).sum(dim=1).tolist()
@@ -6243,6 +6144,176 @@ def phase_voc_serving_poolers(dev, name):
     return launches, k1, k2
 
 
+# the overfit gate's iterations in phase 64: the whole gate (1,500) took
+# 166 s of training on the card, beyond the script's room, so the phase
+# runs its first 300 (PERF.md §6, PR 16)
+GATE_ITERS = 300
+# the gate's K3 launches: 2 towers x 2 GroupNorm+ReLU x 5 levels a forward
+GATE_K3_PER_FORWARD = 20
+DEMO_IMAGE_HW = (480, 640)
+DEMO_REPS = 10
+# two detections of one label are the same within this many pixels
+DEMO_BOX_TOL, DEMO_SCORE_TOL = 0.5, 1e-3
+
+
+def phase_overfit_gate(dev, name):
+    """Phase 64: the overfit gate (paa_tpu_torch/tools/quick_overfit.py,
+    ``run``) on the card: PAA-R50 at 128 FPN channels, 2 tower convs and
+    3 classes in float32 trained GATE_ITERS iterations at B=4 on the 8
+    synthetic PPM images through the loader and ``do_train``, then
+    ``inference`` over them: a first loss above 1.5 (untrained) and the
+    last 20 iterations' mean below 0.6x the first (tests/test_overfit.py's
+    whole gate at 1,500 iterations is ``python -m
+    paa_tpu_torch.tools.quick_overfit --assert``). K3 20
+    launches a forward (GATE_K3_PER_FORWARD) in training and evaluation,
+    K1 once an eval batch (2), K2 none; K1 bit-equal to its plain version
+    at the eval's first batch, timed. Returns the launch counts and K1's
+    detail."""
+    from paa_tpu_torch.tools import quick_overfit
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            recording_k1_inputs() as k1_inputs:
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        r = quick_overfit.run(GATE_ITERS, tmp, device=dev)
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    eval_batches = 2  # 4 images in each of the two buckets
+    expected = {"nms_batched": eval_batches, "nms_global": 0,
+                "group_norm_relu": GATE_K3_PER_FORWARD * (
+                    GATE_ITERS + eval_batches)}
+    check(launches == expected,
+          f"overfit_gate: launches {launches}, expected {expected}")
+    gate = {"first_loss > 1.5": r["first_loss"] > 1.5,
+            "final_loss < 0.6 first_loss":
+                r["final_loss"] < 0.6 * r["first_loss"]}
+    check(all(gate.values()), f"overfit_gate: {gate}: {r}")
+    print(json.dumps({"phase": "overfit_gate", "ok": True,
+                      "iterations": GATE_ITERS, "gate": list(gate),
+                      **r, "ms_per_iteration": r["train_s"] / GATE_ITERS
+                      * 1e3, "wall_s": wall, "launches": launches,
+                      "card": name}))
+    detail = k1_at_path_inputs(k1_inputs[0], "overfit_gate_eval", name)
+    return launches, {"overfit_gate_eval": detail}
+
+
+def match_all_detections(got, want, what):
+    """Each detection of ``got`` (boxes, scores, labels) has one of
+    ``want`` of its label within DEMO_BOX_TOL px and DEMO_SCORE_TOL in
+    score, and each of ``want`` one of ``got``'s; only detections within
+    1e-4 of the lower of the two sides' last kept scores are exempt (a
+    tie there may swap which one is kept)."""
+    check(len(got[2]) and len(want[2]),
+          f"{what}: {len(got[2])} vs {len(want[2])} detections")
+    cut = max(float(got[1].min()), float(want[1].min())) + 1e-4
+    unmatched = []
+    for a, b in ((got, want), (want, got)):
+        for box, score, label in zip(*a):
+            if score < cut:
+                continue
+            same = b[2] == label
+            d = np.abs(b[0][same] - box).max(axis=1)
+            ok = d.size and d.min() <= DEMO_BOX_TOL and abs(
+                b[1][same][d.argmin()] - score) <= DEMO_SCORE_TOL
+            if not ok:
+                unmatched.append((box.tolist(), float(score), int(label)))
+    check(not unmatched, f"{what}: {len(got[2])} vs {len(want[2])} detections, "
+          f"unmatched {unmatched[:5]}")
+    return {"detections": len(got[2]), "other_side": len(want[2]),
+            "exempt_below_score": cut}
+
+
+def phase_demo(dev, name):
+    """Phase 65: the demo (paa_tpu_torch/demo/predictor.py, ``COCODemo``)
+    of the flagship config at full width in float32 (TF32 off, as the
+    phases after phase 4 run), weights from seed 0 and the cls bias of
+    phase 5 (``lift_cls_bias``), on one seeded 480 x 640 BGR image
+    (resized to 800 x 1067 and padded to 800 x 1088, a shape no bucket
+    has), at confidence threshold 0: the card's detections against the
+    same demo on the CPU, every one matched (``match_all_detections``);
+    ms per image on the host clock (resize, normalize, forward,
+    post-processing, detections on the host); K1 once and K3 40 times a
+    call; K1 bit-equal to its plain version at its input, timed. Returns
+    the launch counts of one call and K1's detail."""
+    from paa_tpu_torch.demo.predictor import COCODemo
+
+    image = np.random.RandomState(65).randint(
+        0, 256, (*DEMO_IMAGE_HW, 3)).astype(np.uint8)
+    cfg = build_cfg("float32", PAA_CONFIG)
+    out = {}
+    for side, device in (("card", dev), ("cpu", "cpu")):
+        demo = COCODemo(cfg, confidence_threshold=0.0, device=device)
+        lift_cls_bias(demo.model)
+        if side == "cpu":
+            out["cpu"] = demo.compute_prediction(image)
+            continue
+        with recording_k1_inputs() as k1_inputs:
+            zero_launch_counts()
+            out["card"] = demo.compute_prediction(image)
+            launches = launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(DEMO_REPS):
+            demo.compute_prediction(image)
+        ms = (time.perf_counter() - t0) / DEMO_REPS * 1e3
+        del demo
+        torch.cuda.empty_cache()
+    expected = {"nms_batched": 1, "nms_global": 0,
+                "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW)}
+    check(launches == expected,
+          f"demo: launches {launches}, expected {expected}")
+    matched = match_all_detections(out["card"], out["cpu"], "demo")
+    print(json.dumps({"phase": "demo", "ok": True,
+                      "image_hw": DEMO_IMAGE_HW, "dtype": "float32",
+                      "ms_per_image_host_clock": ms, "reps": DEMO_REPS,
+                      "launches": launches, **matched, "card": name}))
+    detail = k1_at_path_inputs(k1_inputs[0], "demo", name)
+    return launches, {"demo": detail}
+
+
+def phase_profile_train_step_cli(name):
+    """Phase 66: ``python -m paa_tpu_torch.tools.profile_train_step
+    --batch 2 --steps 1`` (PAA-R50, bf16, 800 x 1344) in a process of its
+    own: exit 0, its span table printed, and in its JSON line the four
+    spans of the train step with device time in each, the spans' host ms
+    outside their nested spans at most the wall, K3's launches (40 a
+    forward; no K1 or K2 in a PAA step). Phase 14's profile comes from
+    the same module's ``profile_steps``. Returns the launch counts the
+    process reported."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "paa_tpu_torch.tools.profile_train_step",
+         "--config-file", PAA_CONFIG, "--batch", "2", "--steps", "1"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"profile_train_step: exit {proc.returncode}: "
+          f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    r = json.loads(proc.stdout.strip().splitlines()[-1])
+    spans = r["by_span"]
+    four = ("input", "forward", "backward", "optimizer")
+    check("== spans" in proc.stdout and all(
+        spans.get(s, {}).get("device_busy_ms", 0) > 0 for s in four)
+        and sum(v["host_self_ms"] for v in spans.values() if
+                "host_self_ms" in v) <= r["wall_ms_per_step"],
+        f"profile_train_step: spans {spans}")
+    launches = r["launches"]
+    check(launches["group_norm_relu"] > 0 and launches["nms_batched"] ==
+          launches["nms_global"] == 0,
+          f"profile_train_step: launches {launches}")
+    print(json.dumps({"phase": "profile_train_step_cli", "ok": True,
+                      "process_s": wall, "device": r["device"],
+                      "step_ms": r["step_ms"], "img_per_s": r["img_per_s"],
+                      "tflop_per_s": r["tflop_per_s"],
+                      "share_of_bf16_peak": r.get("share_of_bf16_peak"),
+                      "device_busy_ms_per_step":
+                          r.get("device_busy_ms_per_step", "not measured"),
+                      "device_idle_share":
+                          r.get("device_idle_share", "not measured"),
+                      "by_span": spans, "launches": launches,
+                      "card": name}))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6355,6 +6426,12 @@ def main():
         # Pascal VOC, the serving artifact, the poolers
         voc_launches, k1_voc, k2_voc = phase_voc_serving_poolers(dev, name)
         stamp("59-63 VOC, the serving artifact, the poolers")
+        # the overfit gate, the demo, the train-step profiler's CLI
+        overfit_launches, k1_overfit = phase_overfit_gate(dev, name)
+        demo_launches, k1_demo = phase_demo(dev, name)
+        stamp("64-65 the overfit gate, the demo")
+        profile_cli_launches = phase_profile_train_step_cli(name)
+        stamp("66 the train-step profiler")
     phase_k3_at_path_shapes(dev, {(shape, relu)
                                   for shape, _, relu in k3_launches})
     del k3_launches
@@ -6384,6 +6461,9 @@ def main():
                         for path, runs in mobile_launches.items()})
         by_path.update({path: runs[key]
                         for path, runs in voc_launches.items()})
+        by_path.update(overfit_gate=overfit_launches[key],
+                       demo=demo_launches[key],
+                       profile_train_step=profile_cli_launches[key])
         kernel.update(launches=sum(by_path.values()),
                       launches_by_path=by_path)
     # K3's forms: only the GN paths launch GroupNorm alone
@@ -6426,6 +6506,11 @@ def main():
                                  for path, detail in k1_voc.items()})
     k2["at_path_inputs"].update({path: {f: detail[f] for f in fields}
                                  for path, detail in k2_voc.items()})
+    # the overfit gate's eval batches (4 x 64 x 96) and the demo's one
+    # 800 x 1088 image
+    k1["at_path_inputs"].update({path: {f: detail[f] for f in fields}
+                                 for path, detail in {**k1_overfit,
+                                                      **k1_demo}.items()})
     print(json.dumps({"phase": "script", "wall_s":
                       time.perf_counter() - t0, "card": name}))
     print(name)

@@ -11,9 +11,12 @@ Evaluates one checkpoint of the port (utils/checkpoint.py), or, with
 for new ``model_*`` checkpoints, evaluates each, tracks the best AP and
 optionally keeps only the best (``--keep_best_only``). With no
 checkpoint the model keeps its seeded initial weights (a dry run).
-Results and the AP table go to OUTPUT_DIR/inference/<dataset>/. Runs
-on the card unless ``--device cpu`` is given. TensorBoard scalars of the
-JAX package's CLI are not ported.
+Results and the AP table go to OUTPUT_DIR/inference/<dataset>/; the
+watcher also writes each checkpoint's metrics as TensorBoard scalars
+to OUTPUT_DIR, tagged ``{dataset}_{metric}`` at the checkpoint's
+iteration, when ``torch.utils.tensorboard`` imports (a soft
+dependency: skipped otherwise). Runs on the card unless ``--device
+cpu`` is given.
 """
 
 import argparse
@@ -30,10 +33,29 @@ def _ckpt_iteration(ckpt_path):
     return int(m.group(1)) if m else 0
 
 
-def eval_checkpoint(cfg, model, ckpt_path, logger):
+def _write_tb_scalars(output_dir, dataset_names, all_results, n_iter):
+    """TensorBoard scalars of one evaluated checkpoint (reference
+    tools/test_net.py:140-143): '{dataset}_{metric}' tags at the
+    checkpoint's iteration. Skipped when tensorboard is unavailable."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        return
+    writer = SummaryWriter(output_dir)
+    for name, results in zip(dataset_names, all_results):
+        if not isinstance(results, dict):
+            continue
+        for metric, value in results.items():
+            if isinstance(value, (int, float)):
+                writer.add_scalar(f"{name}_{metric}", float(value), n_iter)
+    writer.close()
+
+
+def eval_checkpoint(cfg, model, ckpt_path, logger, tb_iter=None):
     """Evaluate ``model`` (with the weights of ``ckpt_path``, if given)
     on every dataset of DATASETS.TEST; returns the results, one dict per
-    dataset."""
+    dataset. With ``tb_iter``, also writes them as TensorBoard scalars
+    at that iteration."""
     from paa_tpu_torch.data.build import build_dataset
     from paa_tpu_torch.engine.inference import inference
     from paa_tpu_torch.utils.checkpoint import load_weights
@@ -44,12 +66,16 @@ def eval_checkpoint(cfg, model, ckpt_path, logger):
     datasets = build_dataset(cfg, cfg.DATASETS.TEST, is_train=False)
     if not isinstance(datasets, list):
         datasets = [datasets]
-    return [
+    all_results = [
         inference(cfg, model, dataset, logger=logger,
                   output_folder=os.path.join(cfg.OUTPUT_DIR, "inference",
                                              name))
         for name, dataset in zip(cfg.DATASETS.TEST, datasets)
     ]
+    if tb_iter is not None:
+        _write_tb_scalars(cfg.OUTPUT_DIR, list(cfg.DATASETS.TEST),
+                          all_results, tb_iter)
+    return all_results
 
 
 def watch_dir(cfg, model, eval_dir, logger, poll_s=300,
@@ -63,7 +89,9 @@ def watch_dir(cfg, model, eval_dir, logger, poll_s=300,
             last_new = time.time()
             for _ in range(3):
                 try:
-                    results = eval_checkpoint(cfg, model, ckpt, logger)
+                    results = eval_checkpoint(
+                        cfg, model, ckpt, logger,
+                        tb_iter=_ckpt_iteration(ckpt))
                     break
                 except Exception as e:  # noqa: BLE001 - a checkpoint
                     # still being written; retried, then left out

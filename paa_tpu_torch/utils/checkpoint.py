@@ -8,7 +8,9 @@ optimizer's state (momentum buffers, groups), the update count and
 records ``name`` in the ``last_checkpoint`` file. ``load(state)`` with
 no path resumes from that file; otherwise it loads the given path.
 ``load_weights(module, path)`` restores only the module's weights, for
-evaluation.
+evaluation. A checkpoint whose optimizer state
+tools/remove_solver_states.py stripped loads through ``load_weights``;
+``load`` (a resume) raises ``SolverStateStripped`` on it.
 
 Under a process group only the main process writes, and a
 ``DistributedDataParallel`` module is saved as the module inside it, so
@@ -23,6 +25,10 @@ import os
 import torch
 
 from .comm import is_main_process, unwrap
+
+
+class SolverStateStripped(RuntimeError):
+    """A resume from a checkpoint that holds no optimizer state."""
 
 
 class Checkpointer:
@@ -74,6 +80,11 @@ class Checkpointer:
         module = unwrap(state.module)
         device = next(module.parameters()).device
         data = torch.load(path, map_location=device, weights_only=True)
+        if data.get("optimizer") is None:
+            raise SolverStateStripped(
+                f"{path} holds no optimizer state (stripped by "
+                f"tools/remove_solver_states.py): a resume needs a full "
+                f"checkpoint; load_weights reads this one for evaluation")
         module.load_state_dict(data["model"])
         state.optimizer.load_state_dict(data["optimizer"])
         state.step = data["step"]

@@ -80,7 +80,11 @@ def test_no_jax_or_paa_tpu_imports():
                    "data/voc.py", "evaluation/voc_eval.py", "serving.py",
                    "tools/export_model.py", "ops/deform_pool.py",
                    "structures/segmentation.py", "utils/registry.py",
-                   "utils/timer.py"):
+                   "utils/timer.py", "tools/quick_overfit.py",
+                   "tools/profile_train_step.py", "demo/predictor.py",
+                   "demo/demo.py", "demo/webcam.py",
+                   "tools/remove_solver_states.py",
+                   "tools/cityscapes/convert_cityscapes_to_coco.py"):
         assert module in rel, module
     bad = [
         (os.path.relpath(p, ROOT), m)
