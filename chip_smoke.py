@@ -66,9 +66,9 @@ and prints no result line):
     tolerances, gradients of x, weight and bias equal.
 12. The training main path: PAA-R50 at full width in bfloat16 (params
     and losses float32), weights from seed 0, through
-    ``make_bucket_train_step`` and ``do_train``: 10 SGD steps (the
-    config's lr 0.01, constant warmup 1/3, weight decay 1e-4, momentum
-    0.9) on one batch of 16 uint8 images of 800 x 1344 (content
+    ``make_bucket_train_step`` and ``do_train``: TRAIN_STEPS (5) SGD
+    steps (the config's lr 0.01, constant warmup 1/3, weight decay 1e-4,
+    momentum 0.9) on one batch of 16 uint8 images of 800 x 1344 (content
     800 x 1333) with 100 GT slots, 3-12 valid per image. Every loss
     finite, num_pos > 0, the last step's loss below the first's, K3
     launched 40 times per step and no NMS; peak device memory.
@@ -163,7 +163,7 @@ and prints no result line):
     backward at B=8 in bfloat16 with each, the Function's the lower.
 25. The X-152 dcnv2 training main path: the config at full width in
     bfloat16 with its SOLVER, weights from seed 0 and the offset convs
-    from seed 2, DCN_TRAIN_STEPS (3) steps of do_train on one repeated
+    from seed 2, DCN_TRAIN_STEPS (2) steps of do_train on one repeated
     batch of 8 (else 4, else 2: the largest that fits) uint8 800 x 1344
     images with 3-12 GTs in 100 slots: every loss finite, num_pos > 0, the
     last loss below the first, K3 40 launches per step and no NMS; one
@@ -181,7 +181,7 @@ and prints no result line):
     --dcnv2-step-readings SEED...`` runs these steps at other batches.
 27. Multi-scale testing of the X-152 dcnv2 config: ``inference`` with
     TEST.BBOX_AUG.ENABLED and the config's own 26 augmentations
-    (soft-vote) over TTA_IMAGES (2) 480 x 640 PPM images at full width in
+    (soft-vote) over TTA_IMAGES (1) 480 x 640 PPM images at full width in
     bfloat16: K1 once and K3 40 times per augmentation and batch, a
     detection per image, the 12 metrics; s/img, peak memory and the
     largest padded bucket.
@@ -209,20 +209,20 @@ and prints no result line):
     no K3 for RetinaNet); K1 against its plain version on the inputs
     the first request gave it (recorded), bit-equal, and timed there;
     img/s and a profile (phases 9-10); the f32 model on the card
-    against the CPU (phase 6); 10 do_train steps at the config's
-    IMS_PER_BATCH (16; RetinaNet 8) with K3 40 times per step for ATSS
+    against the CPU (phase 6); TRAIN_STEPS (5) do_train steps at the
+    config's IMS_PER_BATCH (16; RetinaNet 8) with K3 40 times per step for ATSS
     and FCOS, the step's ms, img/s and profile (phases 12, 14); the f32
     train step on the card against the CPU and float64 (phase 13), the
     assignment's labels equal, and for FCOS a third card step with its
     centerness targets x1.05, which must land beyond the limits.
-    RetinaNet's 10 steps take FrozenBN statistics calibrated on its
+    RetinaNet's steps take FrozenBN statistics calibrated on its
     seeded body (its towers have no norm; with the seed's identity
     statistics P3-P7 reach ~1e3 and its steps diverge); its one-step
     comparison keeps the seeded ones, as every head's.
 32. (Run after phase 28.) ATSS multi-scale testing as phase 27: the
     identity, 3 scales of the X-152 list (400, 1000, 1800, their scale
     ranges, MAX_SIZE 3000) and their flips, 8 augmentations, soft-vote,
-    TTA_IMAGES (2) images of 480 x 640: K1 once and K3 40 times per
+    TTA_IMAGES (1) images of 480 x 640: K1 once and K3 40 times per
     augmentation.
 33. ``paa_tpu_torch.tools.test_net`` on the FCOS config over
     synth_coco_32 at full width from the seeded weights: exit 0, the 12
@@ -282,9 +282,9 @@ and prints no result line):
     KP_HEATMAP_TOL.
 40. Keypoint R-CNN training at B=16 (phase 35's recipe, each GT a person
     with 17 keypoints, calibrated FrozenBN): K1 once per step at the
-    training RPN's 80 rows of 2,000; loss and loss_kp over 10 steps,
-    peak memory, ms per step and a profile with the keypoint head and
-    loss spans.
+    training RPN's 80 rows of 2,000; loss and loss_kp over TRAIN_STEPS
+    (5) steps, peak memory, ms per step and a profile with the keypoint head
+    and loss spans.
 41. C4 Faster and Mask R-CNN serving (configs/e2e_faster_rcnn_R_50_C4_1x
     and e2e_mask_rcnn_R_50_C4_1x: R-50 to C4, 1,024 channels at stride
     16, 15 anchors per location, the res5 box head on 14 x 14 pools, 81
@@ -323,8 +323,9 @@ and prints no result line):
     the f32 model on the card against the CPU, its masks compared.
 46. Its training at IMS_PER_BATCH 16, FREEZE_CONV_BODY_AT 2, seeded GN
     (no FrozenBN to calibrate): K1 once and K3 69 times per step, losses
-    over 10 steps that fall, peak memory, ms per step, and a profile with
-    the GN gradient's recompute (``group_norm_relu/backward``) in its span.
+    over TRAIN_STEPS (5) steps that fall, peak memory, ms per step, and
+    a profile with the GN gradient's recompute
+    (``group_norm_relu/backward``) in its span.
 47. One f32 GN Mask R-CNN train step on the card and on the CPU against
     float64 (phase 36's checks and pins, 128 rois per image), and the
     planted x1.05 beyond the limits.
@@ -338,9 +339,9 @@ and prints no result line):
 50. rpn_R_50_FPN_1x (calibrated FrozenBN): three 8 x 800 x 1344 requests
     (K1 once a request at the five levels' 40 rows of 1,000 with 1,000
     picks; 2,000 proposals an image), K1 bit-equal there and timed,
-    img/s, a profile; 10 training steps at B=16 (the RPN loss alone, no
-    NMS); ``test_net`` to the box_proposal table (AR at 100 and 1,000,
-    all areas) from a checkpoint of the seeded weights; the f32
+    img/s, a profile; TRAIN_STEPS training steps at B=16 (the RPN loss
+    alone, no NMS); ``test_net`` to the box_proposal table (AR at 100 and
+    1,000, all areas) from a checkpoint of the seeded weights; the f32
     proposals on the card against the CPU (validity and pick order
     equal, boxes within RPN_BOX_TOL px).
 51. rpn_R_50_C4_1x: serving at B=8, its RPN's 8 rows of 12,000
@@ -354,7 +355,8 @@ and prints no result line):
     ``phase_dense``: three 8 x 800 x 1344 bf16 requests (K1 once, K3 40
     times in the towers), K1 at the first request's candidates, img/s, a
     profile with the body and its depthwise convs in spans, the f32 model
-    on the card against the CPU, 10 do_train steps at IMS_PER_BATCH 16.
+    on the card against the CPU, TRAIN_STEPS (5) do_train steps at
+    IMS_PER_BATCH 16.
 53. FBNet Mask R-CNN (configs/e2e_mask_rcnn_fbnet_600.yaml, arch
     "default", WIDTH_DIVISOR 8, FrozenBN calibrated in the trunk and the
     heads' stages) serving at its test size, three 8 x 608 x 1024 bf16
@@ -373,7 +375,8 @@ and prints no result line):
     608 x 1024 (K2 at its box head) and xirb16d_dsmask Mask R-CNN at
     320 x 640 (its mask stage 6 -> 3 -> 6 -> 12; K1 at its box head's
     8 x 8,000).
-57. PAA-R50 with MODEL.USE_SYNCBN True: 10 do_train steps at B=16 on
+57. PAA-R50 with MODEL.USE_SYNCBN True: TRAIN_STEPS (5) do_train steps
+    at B=16 on
     batch statistics, timing and profile; then an eval request, every
     SyncBatchNorm in eval mode on its running statistics.
 58. ``train_net`` 3 iterations with USE_SYNCBN over synth_coco_32; its
@@ -406,7 +409,7 @@ and prints no result line):
 
 64. (Run after phase 63.) The overfit gate
     (paa_tpu_torch/tools/quick_overfit.py ``run``): PAA-R50 at 128 FPN
-    channels, 2 tower convs and 3 classes in float32, its first 300 of
+    channels, 2 tower convs and 3 classes in float32, its first 150 of
     1,500 iterations at B=4 on 8 synthetic PPM images of class-coloured
     rectangles through the loader and ``do_train``, then ``inference``
     over them: first loss above 1.5, the last 20 iterations' mean below
@@ -418,9 +421,24 @@ and prints no result line):
     detection matched on the CPU and back; ms per image on the host
     clock; K1 1 and K3 40 launches a call.
 66. ``python -m paa_tpu_torch.tools.profile_train_step --batch 2 --steps
-    1`` in a process of its own: exit 0, its span table, device time in
-    the input, forward, backward and optimizer spans, K3's launches.
-    Phase 14's profile comes from the same module's ``profile_steps``.
+    1`` in a process of its own, side by side with phase 67's: exit 0,
+    its span table, device time in the input, forward, backward and
+    optimizer spans, K3's launches. Phase 14's profile comes from the
+    same module's ``profile_steps``.
+67. The benchmark tools (``python -m paa_tpu_torch.tools.<name>``),
+    each in a process of its own, side by side with phase 66's, at
+    reduced depth: bench (PAA-R50, B=8, 3 iterations,
+    ``--cls-bias-lift``), bench_dcnv2 --train (R-101 dcnv2 at B=2, a
+    first and one timed step), bench_tta (2 images, one pass after the
+    first) and bench_loader (16 JPEGs, 1 and 4 threads): exit 0, the
+    last line's JSON with the JAX tool's keys, this card's name, value
+    > 0, the clocks at both ends of each timed window, K1/K3 launches
+    as each tool's calls need. Meanwhile, in the script's own process
+    at B=2: bench's timed call, bench_dcnv2's serving (R-101 dcnv2, 2
+    iterations) and one bench_tta pass, with the same checks, K1
+    bit-equal to its plain version at every input they gave it, and
+    their K3 shapes (B=2 at 800 x 1344, the R-50 TTA buckets) among
+    those that phase_k3_at_path_shapes holds.
 
 Phase 13 also runs the step a third time on the CPU with the network in
 float64 (every convolution, FrozenBN and GroupNorm), the referee of the
@@ -454,7 +472,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BATCH, HW, SIZE = 8, (800, 1344), (800.0, 1333.0)
 # training: SOLVER.IMS_PER_BATCH images, GT slots, steps of the main path
-TRAIN_BATCH, MAX_GT, TRAIN_STEPS = 16, 100, 10
+TRAIN_BATCH, MAX_GT, TRAIN_STEPS = 16, 100, 5
 TOWER_HW = [(100, 168), (50, 84), (25, 42), (13, 21), (7, 11)]
 SLEEP_CYCLES = 35_000_000  # ~20 ms at the H100's 1.755 GHz boost clock
 GN_PER_LEVEL = 8  # 2 towers x 4 GroupNorm+ReLU
@@ -824,17 +842,22 @@ def phase_group_norm(dev):
     return max(worst[f"{BATCH}x256x{h}x{w}"]["bf16"] for h, w in TOWER_HW)
 
 
-def phase_k3_at_path_shapes(dev, shapes):
+def phase_k3_at_path_shapes(dev, shapes, bench_shapes):
     """K3 against its plain version as phase_group_norm holds it (float32
     and bfloat16) at every input shape and form (``relu``) at which this
     process's paths launched it (``recording_k3_launches``), inputs from a
     seed on the card: the serving, eval and training forwards, each
-    bucket of the X-152 TTA list at B=4 up to 1824 x 3008 (P3 228 x 376)
-    and the training ladder's (1344, 800) among them; of the GN paths
-    (phases 45-49) the body's stem at 400 x 672 (2 channels a group,
-    streamed from device memory), its relu=False norms, the Xconv
-    head's 7 x 7 and the fc GN's 1 x 1 over the rois."""
+    bucket of the X-152 TTA list at B=TTA_IMAGES up to 1824 x 3008 (P3
+    228 x 376) and the training ladder's (1344, 800) among them; of the
+    GN paths (phases 45-49) the body's stem at 400 x 672 (2 channels a
+    group, streamed from device memory), its relu=False norms, the
+    Xconv head's 7 x 7 and the fc GN's 1 x 1 over the rois; the
+    benchmark tools' (phase 67, ``bench_shapes``: B=2 at 800 x 1344 and
+    the R-50 TTA buckets)."""
     sizes = {shape for shape, _ in shapes}
+    check(bench_shapes <= shapes,
+          f"k3_at_path_shapes: the benchmark tools' shapes were not "
+          f"recorded: {sorted(bench_shapes - shapes)}")
     check((TTA_IMAGES, 256, 228, 376) in sizes
           and any(shape[2:] == (168, 100) for shape in sizes),
           f"k3_at_path_shapes: the TTA's largest bucket or the (1344, "
@@ -879,20 +902,10 @@ def seeded_model(dtype, device, path=PAA_CONFIG):
     drawn from seed 1 around the 0.05 threshold (logit -2.944), so that
     an untrained net yields candidates."""
     from paa_tpu_torch.modeling import build_detection_model
+    from paa_tpu_torch.tools.bench_common import lift_cls_bias
 
     return lift_cls_bias(build_detection_model(build_cfg(dtype, path),
                                                device=device, seed=0))
-
-
-def lift_cls_bias(model):
-    """``model`` with its dense head's cls_logits bias drawn from seed 1
-    in [-3.5, -2.5], around the 0.05 threshold (logit -2.944)."""
-    gen = torch.Generator().manual_seed(1)
-    bias = model.module.head.cls_logits.bias
-    with torch.no_grad():
-        bias.copy_(torch.empty(bias.shape).uniform_(-3.5, -2.5,
-                                                    generator=gen))
-    return model
 
 
 def seed_offset_convs(module, seed):
@@ -1836,7 +1849,7 @@ def seeded_train_model(cfg, device, frozen_bn=None):
 
 def phase_train_main_path(dev, name, path=PAA_CONFIG,
                           what="train_main_path", frozen_bn=None, extra=()):
-    """10 steps of do_train at full width on one batch of the config's
+    """TRAIN_STEPS steps of do_train at full width on one batch of the config's
     SOLVER.IMS_PER_BATCH images (16; RetinaNet's 8); the launch counts
     set to 0 just before and read just after. ``frozen_bn``, if given,
     replaces the seeded FrozenBN statistics; ``extra`` overrides the
@@ -2548,16 +2561,17 @@ def phase_dcnv2_timing(dev, model, eval_fn, name):
 # the X-152 dcnv2 training cell's batch: the largest of these that fits
 DCN_TRAIN_BATCHES = (8, 4, 2)
 # the X-152 training main path's steps (cut from TRAIN_STEPS' 10 to 5 to
-# keep the script near its time with phases 39-44 added, and to 3 with
-# phases 64-66; its loss falls monotonically from the first step)
-DCN_TRAIN_STEPS = 3
+# keep the script near its time with phases 39-44 added, to 3 with
+# phases 64-66 and to 2 with phase 67; its loss falls monotonically from
+# the first step)
+DCN_TRAIN_STEPS = 2
 # DeformConv2dFunction against autograd through deform_conv2d on the
 # card, within this share of each gradient's largest magnitude: the
 # card's index_add (the row gather's backward) adds in no fixed order,
 # a few float32 roundings (~1e-6) or, in bfloat16, where every add
 # rounds to 8 bits, a few bfloat16 roundings (~1e-2)
 DCN_GRAD_LIMITS = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
-TTA_IMAGES = 2
+TTA_IMAGES = 1
 
 
 def dcn_layer_inputs(dev, c, hw, groups, tower, bsz, seed):
@@ -2683,7 +2697,7 @@ def seeded_dcnv2_train(cfg, device):
 
 def phase_dcnv2_train_main_path(dev, name):
     """The X-152 dcnv2 training main path at full width in bfloat16,
-    the config's SOLVER: DCN_TRAIN_STEPS (3) steps of do_train on one
+    the config's SOLVER: DCN_TRAIN_STEPS (2) steps of do_train on one
     repeated batch of uint8 800 x 1344 images (content 800 x 1333) with
     3-12 GTs
     in 100 slots, at the largest batch of DCN_TRAIN_BATCHES that fits;
@@ -3885,9 +3899,9 @@ def phase_dense(dev, head, name, path=None, train_reference=True):
       and timed there, img/s and a profile of three requests;
     - the f32 model on the card against the CPU at 2 x 256 x 320
       (``phase_reference``);
-    - 10 bf16 steps of do_train at the config's IMS_PER_BATCH (16; 8 for
-      RetinaNet) with K3 40 times per step for ATSS and FCOS, then the
-      step's ms, img/s and a profile split by span
+    - TRAIN_STEPS bf16 steps of do_train at the config's IMS_PER_BATCH
+      (16; 8 for RetinaNet) with K3 40 times per step for ATSS and FCOS,
+      then the step's ms, img/s and a profile split by span
       (``phase_train_main_path``, ``phase_train_timing``,
       ``phase_train_profile``);
     - with ``train_reference``, one f32 train step on the card against
@@ -3895,7 +3909,7 @@ def phase_dense(dev, head, name, path=None, train_reference=True):
       centerness targets x1.05 planted in a third step, which must land
       beyond the limits.
 
-    RetinaNet's 10 training steps take FrozenBN statistics calibrated on
+    RetinaNet's training steps take FrozenBN statistics calibrated on
     its seeded body (``calibrated_frozen_bn``): its towers have no norm.
     Its one-step comparison keeps the seeded statistics, as every head's:
     the calibrated ones centre the body's ReLU inputs at 0, where
@@ -5528,7 +5542,7 @@ def syncbn_ddp_step(dev, batch, pins, rows=slice(None)):
 def phase_syncbn_train(dev, name):
     """Phase 57: PAA-R50 with MODEL.USE_SYNCBN True (a trainable
     SyncBatchNorm in each of the body's 53 norms, batch statistics in
-    training mode) at full width in bf16: 10 do_train steps at B=16
+    training mode) at full width in bf16: TRAIN_STEPS do_train steps at B=16
     (K3 40 per step in the head), the step's ms, img/s and profile; then
     an eval request on the trained model: every SyncBatchNorm in eval
     mode, the running statistics unmoved by it and used (the probe's
@@ -6146,8 +6160,9 @@ def phase_voc_serving_poolers(dev, name):
 
 # the overfit gate's iterations in phase 64: the whole gate (1,500) took
 # 166 s of training on the card, beyond the script's room, so the phase
-# runs its first 300 (PERF.md §6, PR 16)
-GATE_ITERS = 300
+# runs its first 150 (at 150 the port's CPU run's last 20 iterations
+# average 0.37x the first loss, against the 0.6x checked)
+GATE_ITERS = 150
 # the gate's K3 launches: 2 towers x 2 GroupNorm+ReLU x 5 levels a forward
 GATE_K3_PER_FORWARD = 20
 DEMO_IMAGE_HW = (480, 640)
@@ -6236,6 +6251,7 @@ def phase_demo(dev, name):
     call; K1 bit-equal to its plain version at its input, timed. Returns
     the launch counts of one call and K1's detail."""
     from paa_tpu_torch.demo.predictor import COCODemo
+    from paa_tpu_torch.tools.bench_common import lift_cls_bias
 
     image = np.random.RandomState(65).randint(
         0, 256, (*DEMO_IMAGE_HW, 3)).astype(np.uint8)
@@ -6270,28 +6286,22 @@ def phase_demo(dev, name):
     return launches, {"demo": detail}
 
 
-def phase_profile_train_step_cli(name):
+def check_profile_train_step_cli(run, name, side_by_side):
     """Phase 66: ``python -m paa_tpu_torch.tools.profile_train_step
     --batch 2 --steps 1`` (PAA-R50, bf16, 800 x 1344) in a process of its
-    own: exit 0, its span table printed, and in its JSON line the four
-    spans of the train step with device time in each, the spans' host ms
-    outside their nested spans at most the wall, K3's launches (40 a
-    forward; no K1 or K2 in a PAA step). Phase 14's profile comes from
-    the same module's ``profile_steps``. Returns the launch counts the
-    process reported."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "paa_tpu_torch.tools.profile_train_step",
-         "--config-file", PAA_CONFIG, "--batch", "2", "--steps", "1"],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    check(proc.returncode == 0,
-          f"profile_train_step: exit {proc.returncode}: "
-          f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
-    r = json.loads(proc.stdout.strip().splitlines()[-1])
+    own, ``run`` its (exit code, stdout, stderr, seconds): exit 0, its
+    span table printed, and in its JSON line the four spans of the train
+    step with device time in each, the spans' host ms outside their
+    nested spans at most the wall, K3's launches (40 a forward; no K1 or
+    K2 in a PAA step). Phase 14's profile comes from the same module's
+    ``profile_steps``. Returns the launch counts the process reported."""
+    rc, stdout, stderr, wall = run
+    check(rc == 0, f"profile_train_step: exit {rc}: {stdout[-2000:]} "
+                   f"{stderr[-2000:]}")
+    r = json.loads(stdout.strip().splitlines()[-1])
     spans = r["by_span"]
     four = ("input", "forward", "backward", "optimizer")
-    check("== spans" in proc.stdout and all(
+    check("== spans" in stdout and all(
         spans.get(s, {}).get("device_busy_ms", 0) > 0 for s in four)
         and sum(v["host_self_ms"] for v in spans.values() if
                 "host_self_ms" in v) <= r["wall_ms_per_step"],
@@ -6301,7 +6311,8 @@ def phase_profile_train_step_cli(name):
           launches["nms_global"] == 0,
           f"profile_train_step: launches {launches}")
     print(json.dumps({"phase": "profile_train_step_cli", "ok": True,
-                      "process_s": wall, "device": r["device"],
+                      "process_s": wall, "side_by_side": side_by_side,
+                      "device": r["device"],
                       "step_ms": r["step_ms"], "img_per_s": r["img_per_s"],
                       "tflop_per_s": r["tflop_per_s"],
                       "share_of_bf16_peak": r.get("share_of_bf16_peak"),
@@ -6312,6 +6323,240 @@ def phase_profile_train_step_cli(name):
                       "by_span": spans, "launches": launches,
                       "card": name}))
     return launches
+
+
+# phase 66: the train-step profiler's CLI
+PROFILE_CLI = ["profile_train_step", "--config-file", PAA_CONFIG,
+               "--batch", "2", "--steps", "1"]
+# phase 67: the benchmark tools at reduced depth, each in a process of
+# its own (name: argv after ``-m paa_tpu_torch.tools.``), and the
+# kernels' launches each must report: bench 2 warm-up and 3 timed calls,
+# bench_dcnv2 --train a first and a timed step, bench_tta 2 passes of 6
+# augmentations; K3 40 times a forward
+BENCH_TOOLS = {
+    "bench": ["bench", "--batch", "8", "--iters", "3", "--cls-bias-lift"],
+    "bench_dcnv2_train": ["bench_dcnv2", "--batch", "2", "--iters", "1",
+                          "--train"],
+    "bench_tta": ["bench_tta", "--batch", "2", "--batches", "1"],
+    # 4 a batch: of 16 images one training bucket gets 14 (bench_loader
+    # exits with an error when no bucket gets a whole batch)
+    "bench_loader": ["bench_loader", "--images", "16", "--threads", "1,4",
+                     "--batches", "2", "--batch-size", "4"],
+}
+BENCH_FORWARDS = {"bench": 5, "bench_dcnv2_train": 2, "bench_tta": 12}
+BENCH_NMS = {"bench": 5, "bench_dcnv2_train": 0, "bench_tta": 12}
+# phase 67 in this process, at B=2: bench's timed call (2 warm-up calls
+# and 1 timed), bench_dcnv2's serving (2 and 2) and one bench_tta pass
+# (6 augmentations); each forward launches K1 once, K3 40 times
+BENCH_IN_PROCESS_FORWARDS = {"bench": 3, "bench_dcnv2": 4, "bench_tta": 6}
+DCNV2_R101_CONFIG = os.path.join(ROOT, "configs", "paa",
+                                 "paa_dcnv2_R_101_FPN_2x.yaml")
+
+
+def run_together(cmds, deadline_s, meanwhile=None):
+    """Runs each command of ``cmds`` ({name: argv}) in a process of its
+    own, all started together from the repo's root, calls
+    ``meanwhile()`` (if given) while they run, and waits for all.
+    Returns ({name: (exit code, stdout, stderr, seconds)}, what
+    ``meanwhile`` returned); a process still running after
+    ``deadline_s`` is killed, and every process is gone when this
+    returns or raises."""
+    with tempfile.TemporaryDirectory() as tmp:
+        procs, t0 = {}, time.perf_counter()
+        try:
+            for what, argv in cmds.items():
+                out = open(os.path.join(tmp, f"{what}.out"), "w+")
+                err = open(os.path.join(tmp, f"{what}.err"), "w+")
+                procs[what] = (subprocess.Popen(argv, cwd=ROOT, stdout=out,
+                                                stderr=err), out, err)
+            during = meanwhile() if meanwhile is not None else None
+            done = {}
+            for what, (proc, out, err) in procs.items():
+                left = deadline_s - (time.perf_counter() - t0)
+                try:
+                    rc = proc.wait(timeout=max(left, 1))
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    rc = proc.wait()
+                wall = time.perf_counter() - t0
+                out.seek(0)
+                err.seek(0)
+                done[what] = (rc, out.read(), err.read(), wall)
+        finally:
+            for proc, out, err in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                out.close()
+                err.close()
+    return done, during
+
+
+def check_tool_launches(what, got, forwards, nms_calls):
+    expected = {"nms_batched": nms_calls, "nms_global": 0,
+                "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW) * forwards}
+    check(got == expected, f"{what}: launches {got}, expected {expected}")
+
+
+def bench_tools_in_process(dev, name):
+    """Phase 67's paths in this process, so that K1 and K3 are held to
+    their plain versions at the inputs these paths give them: bench's
+    timed call (``bench.serve``: PAA-R50 with the lift, B=2, 1 timed
+    call), bench_dcnv2's serving (``bench_dcnv2.run``: R-101 dcnv2, B=2,
+    2 timed calls) and one bench_tta pass (``bench_tta.build_engine``:
+    its 2 raw images through 6 augmentations, 3 padded shapes). Each
+    launch count as its calls need (BENCH_IN_PROCESS_FORWARDS), bench's
+    NMS candidates > 0, a detection for each TTA image, the clocks read
+    at both ends of each timed window; then K1 bit-equal to its plain
+    version at every input these runs gave it (``recording_k1_inputs``).
+    K3's shapes, among them the B=2 towers at 800 x 1344 and the TTA's
+    buckets (all checked to be among them), are held by
+    ``phase_k3_at_path_shapes`` with the others'. Returns the launch
+    counts by path and the K3 shapes launched."""
+    from paa_tpu_torch.modeling import build_detection_model
+    from paa_tpu_torch.ops import launch_counts, nms
+    from paa_tpu_torch.tools import bench, bench_dcnv2, bench_tta
+    from paa_tpu_torch.tools.bench_common import lift_cls_bias
+
+    t0 = time.perf_counter()
+    runs = {}
+    with recording_k1_inputs() as k1_inputs, \
+            recording_k3_launches() as k3_seen:
+        model = lift_cls_bias(build_detection_model(
+            bench.bench_cfg(), device=dev, seed=0))
+        runs["bench"] = bench.serve(model, bench.HW, 2, 1, dev)
+        del model
+        runs["bench_dcnv2"] = bench_dcnv2.run(
+            bench_dcnv2.load_cfg(DCNV2_R101_CONFIG), bench.HW, 2, 2, dev)
+        engine = bench_tta.build_engine(dev)
+        before = launch_counts()
+        results = engine.detect_batch(bench_tta.raw_images(2))
+        runs["bench_tta"] = {
+            "launches": {k: v - before[k] for k, v in launch_counts().items()},
+            "detections": [len(r[0]) for r in results],
+            "input_shapes": sorted(engine.model._anchors)}
+        feature_shapes = engine.model.feature_shapes
+        del engine
+    torch.cuda.empty_cache()
+    for path, r in runs.items():
+        n = BENCH_IN_PROCESS_FORWARDS[path]
+        check_tool_launches(f"{path} in process", r["launches"], n, n)
+        if "clocks" in r:
+            check(all(isinstance(r["clocks"][end]["sm_mhz"], float)
+                      for end in ("start", "end")),
+                  f"{path} in process: clocks {r['clocks']}")
+    check(runs["bench"]["work_per_image"]["nms_candidates"] > 0
+          and runs["bench_dcnv2"]["value"] > 0,
+          f"bench tools in process: {runs['bench']['work_per_image']}, "
+          f"{runs['bench_dcnv2']['value']}")
+    check(min(runs["bench_tta"]["detections"]) > 0
+          and len(runs["bench_tta"]["input_shapes"]) == 3,
+          f"bench_tta in process: {runs['bench_tta']}")
+    for i, args in enumerate(k1_inputs):
+        same_keeps(nms.nms_batched(*args), nms.nms_batched_plain(*args),
+                   f"nms_batched at bench tools' input {i}")
+    k3_shapes = {(shape, relu) for shape, _, relu in k3_seen}
+    towers = {(2, 256, *fs) for hw in [bench.HW,
+                                       *runs["bench_tta"]["input_shapes"]]
+              for fs in feature_shapes(hw)}
+    check(towers <= {shape for shape, _ in k3_shapes},
+          f"bench tools in process: K3 not at every B=2 tower shape "
+          f"{sorted(towers)}: {sorted(k3_shapes)}")
+    print(json.dumps({
+        "phase": "bench_tools_in_process", "ok": True,
+        "k1_inputs_bit_equal": len(k1_inputs),
+        "k1_valid_candidates": [int(args[3].sum()) for args in k1_inputs],
+        "k3_shapes": sorted(k3_shapes),
+        **{f"{path}_launches": r["launches"] for path, r in runs.items()},
+        "bench_work_per_image": runs["bench"]["work_per_image"],
+        "bench_dcnv2_img_per_s": runs["bench_dcnv2"]["value"],
+        "tta_detections": runs["bench_tta"]["detections"],
+        "tta_input_shapes": runs["bench_tta"]["input_shapes"],
+        "wall_s": time.perf_counter() - t0, "card": name}))
+    return ({f"{path}_in_process": r["launches"] for path, r in runs.items()},
+            k3_shapes)
+
+
+def phase_cli_tools(dev, name):
+    """Phases 66 and 67: the train-step profiler's CLI (phase 66,
+    ``check_profile_train_step_cli``) and the benchmark tools (``python
+    -m paa_tpu_torch.tools.<tool>``): bench (B=8, 3 iterations, the
+    cls-bias lift), bench_dcnv2 --train (R-101 dcnv2 at B=2, a first and
+    one timed step), bench_tta (2 images, 1 pass after the first) and
+    bench_loader (16 JPEGs, 1 and 4 threads, 2 batches of 4), each in a
+    process of its own, the five started together (``run_together``),
+    and while they run ``bench_tools_in_process`` in this process (run
+    one after another, the processes took 106-142 s of the script,
+    mostly each one's start and first calls; side by side their timings
+    are a smoke reading, and the tools' numbers in PERF.md come from
+    runs alone). Each tool: exit 0, its last line one JSON object with
+    the JAX tool's keys, ``device.name`` this card's, ``value`` > 0; the
+    model tools' clocks read at both ends of the timed window, their
+    K1/K3 launches (BENCH_FORWARDS, BENCH_NMS; no K2), bench's NMS
+    candidates per image > 0 (the lift), a finite train loss, TTA's 3
+    padded input shapes for 6 augmentations and the X-152 bound 26 ->
+    13. Returns the profiler's launch counts, the launch counts of each
+    model tool's run (the processes' and this process's) and the K3
+    shapes launched here."""
+    card_name = name.split(",")[0].strip()
+    keys = {"bench": ("metric", "value", "unit", "vs_baseline", "batch",
+                      "first_call_s"),
+            "bench_dcnv2": ("metric", "value", "unit", "batch",
+                            "first_call_s"),
+            "bench_tta": ("metric", "value", "unit", "augs"),
+            "bench_loader": ("metric", "value", "unit", "stages_ms",
+                             "per_img_ms", "img_per_s_per_core", "loader",
+                             "host_cores")}
+    with tempfile.TemporaryDirectory() as tmp:
+        argvs = {path: argv + (["--root", tmp] if path == "bench_loader"
+                               else [])
+                 for path, argv in BENCH_TOOLS.items()}
+        argvs["profile_train_step"] = PROFILE_CLI
+        runs, (launches, k3_shapes) = run_together(
+            {path: [sys.executable, "-m", f"paa_tpu_torch.tools.{argv[0]}",
+                    *argv[1:]] for path, argv in argvs.items()}, 600,
+            meanwhile=lambda: bench_tools_in_process(dev, name))
+    side_by_side = list(argvs)
+    profile_launches = check_profile_train_step_cli(
+        runs.pop("profile_train_step"), name, side_by_side)
+    for path, argv in BENCH_TOOLS.items():
+        rc, stdout, stderr, wall = runs[path]
+        check(rc == 0, f"{path}: exit {rc}: {stdout[-2000:]} "
+                       f"{stderr[-2000:]}")
+        r = json.loads(stdout.strip().splitlines()[-1])
+        want = keys[argv[0]]
+        check(all(k in r for k in want) and r["value"] > 0
+              and r["device"]["name"] == card_name,
+              f"{path}: keys {sorted(r)} (want {want}), value "
+              f"{r.get('value')}, device {r.get('device')} on {card_name}")
+        summary = {k: r[k] for k in ("metric", "value", "unit",
+                                      "first_call_s", "first_pass_s",
+                                      "ms_per_call", "loss",
+                                      "work_per_image", "input_shapes",
+                                      "stages_ms", "loader", "host_cores",
+                                      "device", "clocks", "launches")
+                   if k in r}
+        if path in BENCH_FORWARDS:
+            check_tool_launches(path, r["launches"], BENCH_FORWARDS[path],
+                                BENCH_NMS[path])
+            check(all(isinstance(r["clocks"][end]["sm_mhz"], float)
+                      for end in ("start", "end")),
+                  f"{path}: clocks {r['clocks']}")
+            launches[path] = r["launches"]
+        if path == "bench":
+            check(r["work_per_image"]["nms_candidates"] > 0,
+                  f"bench: work {r['work_per_image']}")
+        if path == "bench_dcnv2_train":
+            check(math.isfinite(r["loss"]), f"{path}: loss {r['loss']}")
+        if path == "bench_tta":
+            check(r["input_shapes"] == 3 and r["augs"] == 6
+                  and r["x152_bound"] == {"augs": 26, "input_shapes": 13},
+                  f"bench_tta: {r}")
+        print(json.dumps({"phase": f"bench_tools_{path}", "ok": True,
+                          "argv": argv, "process_s": wall,
+                          "side_by_side": side_by_side, **summary,
+                          "card": name}))
+    return profile_launches, launches, k3_shapes
 
 
 def main():
@@ -6430,10 +6675,12 @@ def main():
         overfit_launches, k1_overfit = phase_overfit_gate(dev, name)
         demo_launches, k1_demo = phase_demo(dev, name)
         stamp("64-65 the overfit gate, the demo")
-        profile_cli_launches = phase_profile_train_step_cli(name)
-        stamp("66 the train-step profiler")
+        profile_cli_launches, bench_launches, bench_k3_shapes = \
+            phase_cli_tools(dev, name)
+        stamp("66-67 the train-step profiler, the benchmark tools")
     phase_k3_at_path_shapes(dev, {(shape, relu)
-                                  for shape, _, relu in k3_launches})
+                                  for shape, _, relu in k3_launches},
+                            bench_k3_shapes)
     del k3_launches
     for kernel, key in ((k1, "nms_batched"), (k2, "nms_global"),
                         (k3, "group_norm_relu")):
@@ -6464,6 +6711,8 @@ def main():
         by_path.update(overfit_gate=overfit_launches[key],
                        demo=demo_launches[key],
                        profile_train_step=profile_cli_launches[key])
+        by_path.update({path: runs[key]
+                        for path, runs in bench_launches.items()})
         kernel.update(launches=sum(by_path.values()),
                       launches_by_path=by_path)
     # K3's forms: only the GN paths launch GroupNorm alone

@@ -185,6 +185,15 @@ class DetectionLoader:
         oh, ow = get_resize_size((r.width, r.height), chosen, t.max_size)
         return self.assigner.assign(oh, ow)
 
+    def bucket_counts(self, epoch=0):
+        """{bucket: images of the dataset it gets} in ``epoch``: a batch
+        forms within one bucket."""
+        counts = {}
+        for idx in range(len(self.dataset)):
+            b = self._predicted_bucket(idx, epoch)
+            counts[b] = counts.get(b, 0) + 1
+        return counts
+
     def _draws(self, epoch, index):
         """Deterministic per-(epoch, sample) augmentation draws."""
         rng = np.random.RandomState(

@@ -315,9 +315,6 @@ def build(config_file, opts=(), device=None):
     ``device`` (None: the card) with weights from seed 0, and the train
     state."""
     from ..config import get_cfg
-    from ..engine import TrainState
-    from ..modeling import build_detection_model
-    from ..solver import make_optimizer
 
     cfg = get_cfg()
     if config_file:
@@ -327,9 +324,19 @@ def build(config_file, opts=(), device=None):
     if opts:
         cfg.merge_from_list(list(opts))
     cfg.freeze()
+    return (cfg, *model_and_state(cfg, device))
+
+
+def model_and_state(cfg, device=None):
+    """``cfg``'s model on ``device`` (None: the card) with weights from
+    seed 0, and its SGD train state."""
+    from ..engine import TrainState
+    from ..modeling import build_detection_model
+    from ..solver import make_optimizer
+
     model = build_detection_model(cfg, device=device)
-    return cfg, model, TrainState(model.module,
-                                  make_optimizer(cfg, model.module)[0])
+    return model, TrainState(model.module,
+                             make_optimizer(cfg, model.module)[0])
 
 
 def _print_tables(r, top):

@@ -84,7 +84,10 @@ def test_no_jax_or_paa_tpu_imports():
                    "tools/profile_train_step.py", "demo/predictor.py",
                    "demo/demo.py", "demo/webcam.py",
                    "tools/remove_solver_states.py",
-                   "tools/cityscapes/convert_cityscapes_to_coco.py"):
+                   "tools/cityscapes/convert_cityscapes_to_coco.py",
+                   "tools/bench.py", "tools/bench_dcnv2.py",
+                   "tools/bench_tta.py", "tools/bench_loader.py",
+                   "tools/bench_common.py"):
         assert module in rel, module
     bad = [
         (os.path.relpath(p, ROOT), m)
