@@ -2228,7 +2228,8 @@ def phase_train_profile(model, state, batch, name, hw=HW,
     """torch.profiler over three train steps, through
     paa_tpu_torch/tools/profile_train_step.py's ``profile_steps``: each
     kernel goes to the innermost span around its launch (input: the
-    batch's copy and normalize; forward, assignment, losses, backward,
+    batch's copy and normalize; forward: the body, FPN and head, the
+    DCN forward; assignment, losses, backward,
     K3's backward recompute, the DCN backward's recompute and VJP,
     optimizer; for a two-stage model the RPN loss, proposals, roi
     sampling, box head, box loss, mask head, mask targets, mask loss,
@@ -6290,8 +6291,9 @@ def check_profile_train_step_cli(run, name, side_by_side):
     """Phase 66: ``python -m paa_tpu_torch.tools.profile_train_step
     --batch 2 --steps 1`` (PAA-R50, bf16, 800 x 1344) in a process of its
     own, ``run`` its (exit code, stdout, stderr, seconds): exit 0, its
-    span table printed, and in its JSON line the four spans of the train
-    step with device time in each, the spans' host ms outside their
+    span table printed, and in its JSON line the input, the body (whose
+    span the forward's holds), the backward and the optimizer with
+    device time in each, the spans' host ms outside their
     nested spans at most the wall, K3's launches (40 a forward; no K1 or
     K2 in a PAA step). Phase 14's profile comes from the same module's
     ``profile_steps``. Returns the launch counts the process reported."""
@@ -6300,7 +6302,7 @@ def check_profile_train_step_cli(run, name, side_by_side):
                    f"{stderr[-2000:]}")
     r = json.loads(stdout.strip().splitlines()[-1])
     spans = r["by_span"]
-    four = ("input", "forward", "backward", "optimizer")
+    four = ("input", "body", "backward", "optimizer")
     check("== spans" in stdout and all(
         spans.get(s, {}).get("device_busy_ms", 0) > 0 for s in four)
         and sum(v["host_self_ms"] for v in spans.values() if

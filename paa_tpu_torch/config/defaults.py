@@ -400,8 +400,10 @@ _C.TPU.SPACE_TO_DEPTH = False
 # (266.3 -> 221.7 img/s e2e; see PERF.md) — XLA's fused GN lowering
 # wins there; kept for chip generations where the trade flips.
 _C.TPU.FUSED_GN = False
-# jax.profiler trace capture: when PROFILE_DIR is set, do_train records
-# a trace of steps [PROFILE_START, PROFILE_START + PROFILE_STEPS)
+# torch.profiler trace capture: when PROFILE_DIR is set, do_train traces
+# its steps [PROFILE_START, PROFILE_START + PROFILE_STEPS), counted from
+# 0, and writes their Chrome trace (host spans and the card's kernels on
+# one clock) into PROFILE_DIR
 _C.TPU.PROFILE_DIR = ""
 _C.TPU.PROFILE_START = 10
 _C.TPU.PROFILE_STEPS = 5

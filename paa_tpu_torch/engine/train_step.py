@@ -43,12 +43,16 @@ import torch
 from torch.nn.parallel import DistributedDataParallel
 from torch.profiler import record_function
 
-from ..ops.image_norm import maybe_device_normalize
+from ..ops.image_norm import SPAN_SYNC_H2D, maybe_device_normalize
 from ..solver import set_lr
 from ..utils import comm
 
-# the spans of a step that chip_smoke.py's profile reads (the loss has
-# its own, modeling/paa_loss.py)
+# the spans of a step, which tools/profile_train_step.py and
+# chip_smoke.py's profile read; of the benchmark's metrics,
+# train.input_ms reads the input span, and the backward span is the
+# breakdown's largest idle bucket. The forward opens the model's stage
+# spans (detector/body, detector/fpn, detector/head), the input the host
+# copy's sync/h2d_copy and the loss its own (modeling/paa_loss.py)
 SPAN_INPUT = "train_step/input"
 SPAN_FORWARD = "train_step/forward"
 SPAN_BACKWARD = "train_step/backward"
@@ -118,8 +122,9 @@ def make_train_step(forward_loss, schedule, device, normalize=None):
         state.module = _data_parallel(state.module)
         state.module.train()
         with record_function(SPAN_INPUT):
-            batch = {k: torch.as_tensor(v).to(device)
-                     for k, v in batch.items()}
+            with record_function(SPAN_SYNC_H2D):
+                batch = {k: torch.as_tensor(v).to(device)
+                         for k, v in batch.items()}
             images = batch["images"]
             if normalize is not None:
                 images = maybe_device_normalize(

@@ -12,16 +12,46 @@ FloatingPointError; the last step's are read once the loop ends.
 'images' (B, H, W, 3) uint8, 'image_sizes' (B, 2), 'gt_boxes'
 (B, MAX_GT, 4) float32, 'gt_labels' (B, MAX_GT) int32 with 0 for
 padding; other keys ('image_ids', 'orig_sizes') are not read.
+
+With TPU.PROFILE_DIR set, ``torch.profiler`` traces the steps
+[PROFILE_START, PROFILE_START + PROFILE_STEPS) of the call, counted from
+0, and writes one Chrome trace of them into PROFILE_DIR: the host's ops
+and the model's spans (engine/train_step.py, the stages, the host reads)
+with the card's kernels, on one clock.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import logging
 import math
 import time
 
+import torch
+
+from ..utils import comm
 from ..utils.metric_logger import MetricLogger
+
+
+def _profiler(cfg, device):
+    """The profiler of TPU.PROFILE_DIR's window (see the module's
+    docstring), or None when PROFILE_DIR is empty."""
+    if not cfg.TPU.PROFILE_DIR:
+        return None
+    from torch.profiler import (
+        ProfilerActivity, profile, schedule, tensorboard_trace_handler)
+
+    start = cfg.TPU.PROFILE_START
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(
+        activities=activities,
+        schedule=schedule(wait=max(start - 1, 0), warmup=min(start, 1),
+                          active=cfg.TPU.PROFILE_STEPS, repeat=1),
+        on_trace_ready=tensorboard_trace_handler(
+            cfg.TPU.PROFILE_DIR, worker_name=f"rank{comm.get_rank()}"))
 
 
 def do_train(cfg, model, state, batches, checkpointer=None, start_iter=0,
@@ -58,34 +88,48 @@ def do_train(cfg, model, state, batches, checkpointer=None, start_iter=0,
         if metric_hook is not None:
             metric_hook(it, host_metrics)
 
+    prof = _profiler(cfg, model.device)
+    # steps taken once the last traced step has run
+    window_end = cfg.TPU.PROFILE_START + cfg.TPU.PROFILE_STEPS
+    if prof is not None:
+        logger.info(f"tracing steps [{cfg.TPU.PROFILE_START}, {window_end})"
+                    f" into {cfg.TPU.PROFILE_DIR}")
     start_time = time.time()
     end = time.time()
     prev_metrics = None
     iteration = start_iter
-    for batch in batches:
-        data_time = time.time() - end
-        iteration += 1
-        step_fn = get_step(tuple(batch["images"].shape[1:3]))
-        metrics = step_fn(state, {k: batch[k] for k in model.train_batch_keys
-                                  if k in batch})
+    with prof if prof is not None else contextlib.nullcontext():
+        for batch in batches:
+            data_time = time.time() - end
+            iteration += 1
+            step_fn = get_step(tuple(batch["images"].shape[1:3]))
+            metrics = step_fn(state, {k: batch[k]
+                                      for k in model.train_batch_keys
+                                      if k in batch})
+            if prof is not None:
+                if iteration - start_iter == window_end and \
+                        model.device.type == "cuda":
+                    # the last traced step's kernels end inside the trace
+                    torch.cuda.synchronize(model.device)
+                prof.step()
 
-        batch_time = time.time() - end
-        end = time.time()
-        meters.update(time=batch_time, data=data_time)
-        if prev_metrics is not None:
-            read(iteration - 1, prev_metrics)
-        prev_metrics = metrics
+            batch_time = time.time() - end
+            end = time.time()
+            meters.update(time=batch_time, data=data_time)
+            if prev_metrics is not None:
+                read(iteration - 1, prev_metrics)
+            prev_metrics = metrics
 
-        if iteration % 20 == 0 or iteration == max_iter:
-            eta_seconds = meters.meters["time"].global_avg * (
-                max_iter - iteration)
-            eta = str(datetime.timedelta(seconds=int(eta_seconds)))
-            logger.info(f"eta: {eta}  iter: {iteration}  {meters}")
-        if checkpointer and iteration % checkpoint_period == 0:
-            checkpointer.save(f"model_{iteration:07d}", state,
-                              iteration=iteration)
-        if iteration >= max_iter:
-            break
+            if iteration % 20 == 0 or iteration == max_iter:
+                eta_seconds = meters.meters["time"].global_avg * (
+                    max_iter - iteration)
+                eta = str(datetime.timedelta(seconds=int(eta_seconds)))
+                logger.info(f"eta: {eta}  iter: {iteration}  {meters}")
+            if checkpointer and iteration % checkpoint_period == 0:
+                checkpointer.save(f"model_{iteration:07d}", state,
+                                  iteration=iteration)
+            if iteration >= max_iter:
+                break
 
     if prev_metrics is not None:  # the last step's, once the loop is done
         read(iteration, prev_metrics)

@@ -22,8 +22,9 @@ from typing import Any, Tuple
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
-from ..ops.image_norm import maybe_device_normalize
+from ..ops.image_norm import SPAN_SYNC_H2D, maybe_device_normalize
 from ..solver import make_lr_schedule
 from .anchors import (
     AnchorGenerator,
@@ -64,6 +65,11 @@ DENSE_HEADS = {
                   (retinanet_loss, RetinaNetLossConfig)),
 }
 
+# the span of the dense head (towers and predictors), in serving and in
+# the train step's forward; the benchmark's serve.head_ms,
+# train.head_backward_ms and train.backward_idle_ms read it
+SPAN_HEAD = "detector/head"
+
 
 def dense_head_type(cfg):
     """"paa", "atss", "fcos" or "retinanet" from the MODEL.*_ON flags (in
@@ -97,7 +103,9 @@ class DenseDetector(nn.Module):
         self.head = head
 
     def forward(self, images):
-        return self.head(self.backbone(images))
+        features = self.backbone(images)
+        with record_function(SPAN_HEAD):
+            return self.head(features)
 
 
 @dataclass
@@ -207,8 +215,9 @@ class DetectionModel:
         @torch.inference_mode()
         def eval_fn(images, image_sizes):
             self.module.eval()
-            images = torch.as_tensor(images).to(self.device)
-            image_sizes = torch.as_tensor(image_sizes).to(self.device)
+            with record_function(SPAN_SYNC_H2D):
+                images = torch.as_tensor(images).to(self.device)
+                image_sizes = torch.as_tensor(image_sizes).to(self.device)
             x = maybe_device_normalize(images, image_sizes, mean, std)
             return self.detect(x.permute(0, 3, 1, 2).contiguous(),
                                image_sizes)

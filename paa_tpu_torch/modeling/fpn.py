@@ -23,8 +23,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from .layers import Conv, GroupNorm32, gn_or_relu
+
+# the spans of the body and of the FPN, in serving and in the train
+# step's forward; the benchmark's serve.body_ms, train.body_backward_ms
+# and train.backward_idle_ms read them
+SPAN_BODY = "detector/body"
+SPAN_FPN = "detector/fpn"
 
 
 def _upsample_nearest(x, target_hw):
@@ -108,4 +115,7 @@ class ResNetFPNBackbone(nn.Module):
                        use_relu=use_relu)
 
     def forward(self, x):
-        return self.fpn(self.resnet(x))
+        with record_function(SPAN_BODY):
+            features = self.resnet(x)
+        with record_function(SPAN_FPN):
+            return self.fpn(features)

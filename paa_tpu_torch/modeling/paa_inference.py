@@ -21,6 +21,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.profiler import record_function
 
 from ..ops.nms import nms_batched
 from ..structures.boxes import box_iou, clip_to_image
@@ -29,6 +30,12 @@ from .box_coder import decode_box
 _SCORE_VOTING_SIGMA = 0.025  # reference inference.py:128
 _IOU_VOTE_MIN = 0.01  # reference inference.py:141
 _SMALL_TIER = 128
+# the span of the whole post-processing, which the benchmark's
+# serve.postprocess_ms and serve.postprocess_idle_ms read, and the one
+# around each level's host read of its largest candidate count
+# (serve.sync_idle_ms reads the idle gaps that open inside it)
+SPAN_POSTPROCESS = "detector/postprocess"
+SPAN_SYNC_TIER = "sync/select_tier"
 
 
 def _logit(th):
@@ -145,7 +152,8 @@ def _select_level_batched(cls_logits, box_regression, iou_pred, anchors,
         flat_idx, score, padded = torch.cond(
             max_cand <= small, compaction(small), above_small, operands)
     else:
-        max_cand = int(total.max())
+        with record_function(SPAN_SYNC_TIER):
+            max_cand = int(total.max())
         tier = (compaction(small) if max_cand <= small else
                 compaction(k) if max_cand <= k else top_k)
         flat_idx, score, padded = tier(*operands)
@@ -225,22 +233,23 @@ def paa_postprocess(outputs, image_sizes, anchors, level_counts, pp,
 
     Returns a dict of (B, detections_per_img, ...) tensors: boxes,
     scores, labels (int32) and valid (bool)."""
-    boxes, scores, labels, valid = paa_candidates(
-        outputs, image_sizes, anchors, level_counts, pp, decode_fn,
-        reg_scales)
-    keep_idx, keep_scores, keep_valid = nms_batched(
-        boxes, scores, labels, valid, pp.nms_thresh,
-        pp.detections_per_img, class_aware=True,
-    )
-    keep = keep_idx.to(torch.int64)
-    kept_boxes = boxes.gather(1, keep[..., None].expand(*keep.shape, 4))
-    kept_labels = labels.gather(1, keep)
-    if pp.score_voting:
-        kept_boxes = _score_vote(kept_boxes, kept_labels, keep_valid,
-                                 boxes, scores, labels, valid)
-    return {
-        "boxes": torch.where(keep_valid[..., None], kept_boxes, 0.0),
-        "scores": torch.where(keep_valid, keep_scores, 0.0),
-        "labels": torch.where(keep_valid, kept_labels, 0),
-        "valid": keep_valid,
-    }
+    with record_function(SPAN_POSTPROCESS):
+        boxes, scores, labels, valid = paa_candidates(
+            outputs, image_sizes, anchors, level_counts, pp, decode_fn,
+            reg_scales)
+        keep_idx, keep_scores, keep_valid = nms_batched(
+            boxes, scores, labels, valid, pp.nms_thresh,
+            pp.detections_per_img, class_aware=True,
+        )
+        keep = keep_idx.to(torch.int64)
+        kept_boxes = boxes.gather(1, keep[..., None].expand(*keep.shape, 4))
+        kept_labels = labels.gather(1, keep)
+        if pp.score_voting:
+            kept_boxes = _score_vote(kept_boxes, kept_labels, keep_valid,
+                                     boxes, scores, labels, valid)
+        return {
+            "boxes": torch.where(keep_valid[..., None], kept_boxes, 0.0),
+            "scores": torch.where(keep_valid, keep_scores, 0.0),
+            "labels": torch.where(keep_valid, kept_labels, 0),
+            "valid": keep_valid,
+        }

@@ -51,8 +51,12 @@ from torch.profiler import record_function
 from ..modeling.layers import Conv, init_conv_weight
 
 CHUNK_BYTES = 2 << 30  # gathered rows per chunk of images
-# the span of the backward's recompute and VJP, which chip_smoke.py's
-# train profile reads
+# the spans of the forward's sampling and contraction, and of the
+# backward's recompute and VJP, which chip_smoke.py's train profile and
+# tools/profile_train_step.py read; of the benchmark's metrics,
+# serve.dcn_forward_ms reads the first and train.dcn_backward_ms the
+# second
+SPAN_FORWARD = "deform_conv2d/forward"
 SPAN_BACKWARD = "deform_conv2d/backward"
 
 
@@ -198,7 +202,8 @@ class DeformConv2dFunction(torch.autograd.Function):
                 groups, deformable_groups):
         ctx.conv = (stride, padding, dilation, groups, deformable_groups)
         ctx.save_for_backward(x, offsets, mask, weight)
-        return deform_conv2d(x, offsets, mask, weight, *ctx.conv)
+        with record_function(SPAN_FORWARD):
+            return deform_conv2d(x, offsets, mask, weight, *ctx.conv)
 
     @staticmethod
     def backward(ctx, grad):

@@ -22,6 +22,7 @@ responsibility and never affect the fit.
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 _REG_COVAR = 1e-6
 _LOG_2PI = 1.8378770664093453
@@ -31,6 +32,9 @@ _LOG_2PI = 1.8378770664093453
 # the EM is host-bound, and stopping early saves more launches than the
 # syncs cost (PERF.md, the training findings)
 CHECK_EVERY = 10
+# the span around each of those reads; the benchmark's train.sync_idle_ms
+# reads the idle gaps that open inside it
+SPAN_SYNC_CONVERGED = "sync/gmm_converged"
 
 
 def _component_log_prob(x, means, variances, weights):
@@ -72,8 +76,11 @@ def gmm_fit_predict(values, valid, num_iters=100, tol=1e-3):
                             device=values.device)
 
     for it in range(num_iters):
-        if it and it % CHECK_EVERY == 0 and bool(converged.all()):
-            break
+        if it and it % CHECK_EVERY == 0:
+            with record_function(SPAN_SYNC_CONVERGED):
+                done = bool(converged.all())
+            if done:
+                break
         # E step; also the pre-update mean log-likelihood, which sklearn
         # tests for convergence after the M step
         log_prob = _component_log_prob(values, means, variances, weights)

@@ -13,6 +13,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# the span around the copy of a host batch to the device (pageable: the
+# host waits for it), in ``make_eval_fn``'s call and the train step's
+# input; the benchmark's serve.sync_idle_ms and train.sync_idle_ms read
+# the idle gaps that open inside it, as inside every ``sync/`` span
+SPAN_SYNC_H2D = "sync/h2d_copy"
+
 
 def device_normalize(images, image_sizes, pixel_mean, pixel_std):
     """(B, H, W, 3) uint8 + per-image valid (h, w) -> normalized float32

@@ -20,8 +20,10 @@ with ``torch.profiler``. It prints:
   card's published bf16 peak where the card is one whose peak it knows;
 - device-busy ms per step and the device's idle share of the wall;
 - per span of the step (engine/train_step.py's input, forward, backward
-  and optimizer; the loss's assignment and losses; K3's backward
-  recompute; the two-stage spans): host ms, host ms outside any span
+  and optimizer; the forward's body, FPN and head, and the DCN forward;
+  the loss's assignment and losses; K3's and the DCN's backward
+  recompute; the two-stage spans; the host reads ``sync/h2d_copy`` and
+  ``sync/gmm_converged``): host ms, host ms outside any span
   nested in it ("self"), and device-busy ms of the kernels launched in
   it (each kernel counts in the innermost span around its launch,
   matched through the trace's launch correlation; "other": outside
@@ -75,17 +77,23 @@ def kernel_class(name):
 def train_spans():
     """{record_function name: label} of every span a train step opens."""
     from ..engine import train_step as ts
-    from ..modeling import atss_loss, fcos_loss, retinanet_head
+    from ..modeling import atss_loss, detector, fcos_loss, fpn
     from ..modeling import paa_loss as pl
+    from ..modeling import retinanet_head
     from ..modeling import two_stage as two
-    from ..ops import dcn
+    from ..ops import dcn, gmm, image_norm
     from ..ops import group_norm as gn
 
     spans = {ts.SPAN_INPUT: "input", ts.SPAN_FORWARD: "forward",
+             fpn.SPAN_BODY: "body", fpn.SPAN_FPN: "fpn",
+             detector.SPAN_HEAD: "head",
+             dcn.SPAN_FORWARD: "dcn_forward",
              ts.SPAN_BACKWARD: "backward",
              gn.SPAN_BACKWARD: "gn_backward_recompute",
              dcn.SPAN_BACKWARD: "dcn_backward_recompute",
-             ts.SPAN_OPTIMIZER: "optimizer"}
+             ts.SPAN_OPTIMIZER: "optimizer",
+             image_norm.SPAN_SYNC_H2D: image_norm.SPAN_SYNC_H2D,
+             gmm.SPAN_SYNC_CONVERGED: gmm.SPAN_SYNC_CONVERGED}
     for span in (two.SPAN_RPN_LOSS, two.SPAN_PROPOSALS,
                  two.SPAN_ROI_SAMPLING, two.SPAN_BOX_HEAD,
                  two.SPAN_BOX_LOSS, two.SPAN_MASK_HEAD,
