@@ -8,7 +8,7 @@ and prints no result line):
 
 1. Build the CUDA kernels from paa_tpu_torch/csrc (one nvcc per source,
    in parallel, sm_90a): K1 nms_batched.cu, K2 nms_global.cu, K3
-   group_norm.cu.
+   group_norm.cu, K4 deform_im2col.cu.
 2. K1, the batched NMS kernel, against its plain PyTorch version on the
    card: B=8, N=5000 and 77, max_out=100, IoU 0.6, class-aware and
    class-agnostic, with exact score ties and all-invalid rows; the RPN's
@@ -138,11 +138,13 @@ and prints no result line):
     seed 1 in [-3.5, -2.5] and every DCN offset conv from seed 2 (as
     the CPU tests draw them: fractional offsets of a pixel or two),
     serves three 8 x 800 x 1344 requests through ``make_eval_fn``: the
-    checks of phase 5, K1 3 and K3 120 launches, peak device memory.
+    checks of phase 5, K1 3, K3 120 and K4 171 launches (47 body DCNs
+    and the two towers' at 5 levels a request), peak device memory.
 21. One ``DeformConv`` at the path's stage-3 (512 channels, 100 x 168,
     32 groups), stage-4 (1024, 50 x 84, 32 groups) and P3 tower (256,
     100 x 168, with bias) shapes, B=1, offset conv from a seed, on the
-    card against the CPU: float32 (TF32 off) within rtol = atol = 2e-4,
+    card (K4) against the CPU (the plain version): float32 (TF32 off)
+    within rtol = atol = 2e-4,
     bfloat16 within DCN_BF16_REL of the largest float32 output.
 22. The X-152 dcnv2 model in float32 on the card against the CPU at
     2 x 256 x 320, as phase 6.
@@ -166,7 +168,9 @@ and prints no result line):
     from seed 2, DCN_TRAIN_STEPS (2) steps of do_train on one repeated
     batch of 8 (else 4, else 2: the largest that fits) uint8 800 x 1344
     images with 3-12 GTs in 100 slots: every loss finite, num_pos > 0, the
-    last loss below the first, K3 40 launches per step and no NMS; one
+    last loss below the first, K3 40 and K4 57 launches per step (the
+    forward; the backward recomputes through the plain version) and no
+    NMS; one
     step at each of the ladder's buckets (800, 1344) and (1344, 800);
     peak memory, ms per step, img/s, and a torch.profiler split
     (forward, the DCN backward's recompute, K3's gradient recompute,
@@ -439,6 +443,16 @@ and prints no result line):
     bit-equal to its plain version at every input they gave it, and
     their K3 shapes (B=2 at 800 x 1344, the R-50 TTA buckets) among
     those that phase_k3_at_path_shapes holds.
+68. (Run after phase 23.) K4 against its plain version
+    (``_im2col_columns``) on the same card tensors at every layer shape
+    at which phase 20's path launched it: B=8 at 800 x 1344, the body's
+    res3, res4 and res5 and the towers' P3-P7, launched as often as a
+    forward needs (47 and 10); offsets normal(0, 2 px), the mask
+    uniform. float32 within 1e-6 of the largest column, bfloat16 within
+    one bfloat16 rounding (2^-8 relative) of the plain float32 columns
+    of the same values. K4's ms per shape in bfloat16, beside the plain
+    version's and its bytes bound; their sums per forward go into K4's
+    entry of the ``kernels`` line.
 
 Phase 13 also runs the step a third time on the CPU with the network in
 float64 (every convolution, FrozenBN and GroupNorm), the referee of the
@@ -453,6 +467,7 @@ before it; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits with 2.
 """
 
+import collections
 import contextlib
 import json
 import math
@@ -971,11 +986,12 @@ def launch_counts():
 
 
 def zero_launch_counts():
-    from paa_tpu_torch.ops import group_norm, nms
+    from paa_tpu_torch.ops import deform_sampling, group_norm, nms
 
     nms.nms_batched.launches = 0
     nms._nms_global.launches = 0
     group_norm.group_norm_relu.launches = 0
+    deform_sampling.deform_im2col.launches = 0
     group_norm.group_norm_relu.launches_by_form.update(relu=0, no_relu=0)
 
 
@@ -1051,6 +1067,28 @@ def serve(model, what, seed, expected, min_score, extra_check=None,
     return eval_fn, launches
 
 
+def dcn_per_forward(model):
+    """K4 launches of one forward: the body's deformable convs once each,
+    the head's (the towers' last conv) once per pyramid level; one chunk
+    of images each at the batches these phases run."""
+    from paa_tpu_torch.ops.dcn import DeformConv
+
+    def count(module):
+        return sum(isinstance(m, DeformConv) for m in module.modules())
+
+    head = count(model.module.head)
+    return count(model.module) - head + len(model.strides) * head
+
+
+def dcn_per_forward_of(path):
+    """``dcn_per_forward`` of the config at ``path``, built on the meta
+    device."""
+    from paa_tpu_torch.modeling import build_detection_model
+
+    return dcn_per_forward(build_detection_model(
+        build_cfg("bfloat16", path), device="meta"))
+
+
 def gn_per_forward(model):
     """K3 launches of one forward: the GroupNorm+ReLU layers of the
     model (its head's towers), once per pyramid level; 0 for RetinaNet's
@@ -1068,7 +1106,8 @@ def phase_main_path(dev, path=PAA_CONFIG, what="main_path"):
     eval_fn, launches = serve(
         model, what, 10,
         {"nms_batched": 3, "nms_global": 0,
-         "group_norm_relu": 3 * gn_per_forward(model)}, 0.0)
+         "group_norm_relu": 3 * gn_per_forward(model),
+         "deform_im2col": 3 * dcn_per_forward(model)}, 0.0)
     return model, eval_fn, launches
 
 
@@ -1076,7 +1115,8 @@ def phase_frcnn_main_path(dev):
     model = seeded_frcnn("bfloat16", dev)
     eval_fn, launches = serve(
         model, "faster_rcnn_main_path", 40,
-        {"nms_batched": 3, "nms_global": 3, "group_norm_relu": 0}, 0.05)
+        {"nms_batched": 3, "nms_global": 3, "group_norm_relu": 0,
+         "deform_im2col": 0}, 0.05)
     return model, eval_fn, launches
 
 
@@ -1499,7 +1539,8 @@ def phase_eval_main_path(dev, name):
     launches = launch_counts()
     batches = len(calls)
     expected = {"nms_batched": batches, "nms_global": 0,
-                "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW) * batches}
+                "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW) * batches,
+                "deform_im2col": 0}
     check(launches == expected and batches > 0,
           f"eval_main_path: launches {launches}, expected {expected}")
     check(sorted(results) == sorted(METRICS) and all(
@@ -1872,7 +1913,8 @@ def phase_train_main_path(dev, name, path=PAA_CONFIG,
     wall = time.perf_counter() - t0
     launches = launch_counts()
     expected = {"nms_batched": 0, "nms_global": 0,
-                "group_norm_relu": gn_per_forward(model) * TRAIN_STEPS}
+                "group_norm_relu": gn_per_forward(model) * TRAIN_STEPS,
+                "deform_im2col": dcn_per_forward(model) * TRAIN_STEPS}
     check(launches == expected,
           f"{what}: launches {launches}, expected {expected}")
     check(sorted(seen) == list(range(1, TRAIN_STEPS + 1)),
@@ -2268,8 +2310,8 @@ SPAN_LABELS = {
     "keypoint head": "keypoint head (ROIAlign 14x14, 8 convs, deconv, "
                      "bilinear x2)",
     "dcn_geometry": "deform geometry (corner rows and weights)",
-    "dcn_sampling": "deform sampling (patch table, gather, corner "
-                    "weighting)",
+    "dcn_sampling": "deform sampling (K4 and its transpose; the plain "
+                    "version: patch table, gather, corner weighting)",
     "dcn_contraction": "deform contraction (grouped GEMM)",
     "grouped_conv": "grouped conv (ResNeXt 3x3; MobileNetV2 and FBNet "
                     "depthwise kxk)",
@@ -2305,7 +2347,7 @@ def _profiled(model, eval_fn, images, sizes, reqs, body=False):
     from torch.profiler import ProfilerActivity, profile
 
     from paa_tpu_torch.modeling.layers import Conv
-    from paa_tpu_torch.ops import dcn
+    from paa_tpu_torch.ops import dcn, deform_sampling
 
     module = model.module
     box = getattr(module, "box", None)
@@ -2313,13 +2355,17 @@ def _profiled(model, eval_fn, images, sizes, reqs, body=False):
         module.box = _span(box, BOX_SPAN)
     if body:
         module.backbone.forward = _span(module.backbone.forward, BODY_SPAN)
-    steps = {"_geometry": "dcn_geometry", "_patch_table": "dcn_sampling",
-             "_sample_columns": "dcn_sampling",
-             "_contract": "dcn_contraction"}
-    plain = {attr: getattr(dcn, attr) for attr in steps}
+    steps = {(deform_sampling, "_geometry"): "dcn_geometry",
+             (deform_sampling, "_patch_table"): "dcn_sampling",
+             (deform_sampling, "_sample_columns"): "dcn_sampling",
+             (deform_sampling, "_deform_im2col_cuda"): "dcn_sampling",
+             (dcn, "_sample_columns"): "dcn_sampling",
+             (dcn, "_contract"): "dcn_contraction",
+             (dcn, "_contract_columns"): "dcn_contraction"}
+    plain = {step: getattr(*step) for step in steps}
     conv_forward = Conv.forward
-    for attr, span in steps.items():
-        setattr(dcn, attr, _span(plain[attr], span))
+    for (mod, attr), span in steps.items():
+        setattr(mod, attr, _span(plain[mod, attr], span))
     Conv.forward = _grouped_span(conv_forward)
     try:
         with profile(activities=[ProfilerActivity.CPU,
@@ -2334,8 +2380,8 @@ def _profiled(model, eval_fn, images, sizes, reqs, body=False):
             del module.box
         if body:
             del module.backbone.forward
-        for attr, fn in plain.items():
-            setattr(dcn, attr, fn)
+        for (mod, attr), fn in plain.items():
+            setattr(mod, attr, fn)
         Conv.forward = conv_forward
     return prof, wall_us
 
@@ -2432,13 +2478,14 @@ def phase_dcnv2_main_path(dev):
     width (32x8d ResNeXt, R-152 depth, modulated DCN in stages 3-5 and
     the towers' last conv) in bfloat16, weights from seed 0, cls bias
     from seed 1, offset convs from seed 2, serving three 8 x 800 x 1344
-    requests through make_eval_fn: K1 once and K3 40 times per request;
-    peak device memory over the three."""
+    requests through make_eval_fn: K1 once, K3 40 and K4 57 times per
+    request; peak device memory over the three."""
     model = seeded_dcnv2("bfloat16", dev)
     torch.cuda.reset_peak_memory_stats(dev)
     eval_fn, launches = serve(
         model, "dcnv2_x152_main_path", 70,
-        {"nms_batched": 3, "nms_global": 0, "group_norm_relu": 120}, 0.0)
+        {"nms_batched": 3, "nms_global": 0, "group_norm_relu": 120,
+         "deform_im2col": 3 * dcn_per_forward(model)}, 0.0)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     params = sum(p.numel() for p in model.module.parameters())
     print(json.dumps({"phase": "dcnv2_x152_main_path",
@@ -2501,29 +2548,33 @@ def phase_dcnv2_card_vs_cpu(dev):
 
 
 def offset_stats(model, images, sizes):
-    """Per DCN layer of one forward: the mean and largest |offset| and
-    the share of samples whose centre lies off the image (zero)."""
-    from paa_tpu_torch.ops import dcn
+    """Per DCN layer of one forward on the card (``deform_conv2d_columns``,
+    K4's path): the mean and largest |offset| and the share of samples
+    whose centre lies off the image (zero), by the plain geometry of the
+    layer's offsets, whose corners and weights K4 takes bit for bit
+    (tests/test_torch_port_cuda.py::
+    test_k4_corners_bit_exact_on_the_grid)."""
+    from paa_tpu_torch.ops import dcn, deform_sampling
 
-    plain, stats = dcn.deform_conv2d, []
+    plain, stats = dcn.deform_conv2d_columns, []
 
     def spy(x, offsets, mask, weight, stride, padding, dilation, groups,
             dg):
         h, w = x.shape[2:]
         kh, kw = weight.shape[2:]
-        _, _, cw = dcn._geometry(offsets, mask, h, w, kh, kw, stride,
-                                 padding, dilation, dg)
+        _, _, cw = deform_sampling._geometry(offsets, mask, h, w, kh, kw,
+                                             stride, padding, dilation, dg)
         stats.append((float(offsets.abs().mean()),
                       float(offsets.abs().max()),
                       float((cw.sum(-1) == 0).float().mean())))
         return plain(x, offsets, mask, weight, stride, padding, dilation,
                      groups, dg)
 
-    dcn.deform_conv2d = spy
+    dcn.deform_conv2d_columns = spy
     try:
         model.make_eval_fn()(images[:1], sizes[:1])
     finally:
-        dcn.deform_conv2d = plain
+        dcn.deform_conv2d_columns = plain
     backbone, tower = stats[:-10], stats[-10:]
     return {"layers": len(stats),
             "backbone_mean_abs_offset": sum(s[0] for s in backbone)
@@ -2625,6 +2676,103 @@ def dcn_layer_peak_gb(dev, fn, x, offsets, mask, weight, up, dtype, groups):
     del ins, upd
     torch.cuda.empty_cache()
     return peak / 2**30
+
+
+# the X-152 path's DCN layers at B=8, 800 x 1344: (channels, Ho, Wo,
+# groups) and how many a forward runs (47 in the body, the two towers'
+# at each level), as kernel_ab.py's K4_SHAPES
+K4_PATH_SHAPES = {
+    "res3": ((512, 100, 168, 32), 8), "res4": ((1024, 50, 84, 32), 36),
+    "res5": ((2048, 25, 42, 32), 3), "tower_p3": ((256, 100, 168, 1), 2),
+    "tower_p4": ((256, 50, 84, 1), 2), "tower_p5": ((256, 25, 42, 1), 2),
+    "tower_p6": ((256, 13, 21, 1), 2), "tower_p7": ((256, 7, 11, 1), 2)}
+
+
+def phase_k4_at_path_shapes(dev, launches, requests, name):
+    """Phase 68: K4 at every shape of ``launches``, those that
+    ``recording_k4_launches`` recorded over phase 20's ``requests``
+    requests, which must be K4_PATH_SHAPES's at B=8 in bfloat16, each as
+    often as the requests' forwards need. Returns K4's entry of the
+    ``kernels`` line (its launches by path still to come)."""
+    from paa_tpu_torch.ops import deform_sampling as ds
+
+    layers = {layer: what for what, (layer, _) in K4_PATH_SHAPES.items()}
+    keys = sorted(set(launches), key=str)
+    counts = collections.Counter(
+        layers.get((*k[0][1:], k[7])) for k in launches)
+    want = {what: requests * n for what, (_, n) in K4_PATH_SHAPES.items()}
+    check(dict(counts) == want and all(
+        k[0][0] == BATCH and k[1] == torch.bfloat16
+        and k[2:7] == (3, 3, 1, 1, 1) and k[8] == 1 for k in keys),
+        f"k4_at_path_shapes: launches {dict(counts)} at {keys}, expected "
+        f"{want}")
+    gen = torch.Generator(dev).manual_seed(19)
+    worst = {"f32": 0.0, "bf16": 0.0}
+    per_shape = {}
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+              "channels_last_copy_ms": 0.0}
+    for key in keys:
+        shape, _, kh, kw, stride, pad, dil, groups, dg, modulated = key
+        what = layers[(*shape[1:], groups)]
+        b, c, h, w = shape
+        ho = ds._out_size(h, kh, stride, pad, dil)
+        wo = ds._out_size(w, kw, stride, pad, dil)
+        x = torch.randn(shape, generator=gen, device=dev)
+        offsets = torch.randn(b, dg * kh * kw * 2, ho, wo, generator=gen,
+                              device=dev) * 2
+        mask = (torch.rand(b, dg * kh * kw, ho, wo, generator=gen,
+                           device=dev) if modulated else None)
+        args = (offsets, mask, kh, kw, stride, pad, dil, groups, dg)
+        got = ds.deform_im2col(x, *args)
+        plain = ds._im2col_columns(x, *args)
+        scale = float(plain.abs().max())
+        err = float((got - plain).abs().max()) / scale
+        check(err <= 1e-6, f"k4_at_path_shapes: {what} float32 off by "
+              f"{err} of the largest column")
+        worst["f32"] = max(worst["f32"], err)
+        del got, plain
+        x = x.to(torch.bfloat16)
+        got = ds.deform_im2col(x, *args).float()
+        plain = ds._im2col_columns(x.float(), *args)
+        scale = float(plain.abs().max())
+        # one rounding to bfloat16: half an ulp, 2^-8 of the value at most
+        excess = float(((got - plain).abs() - 2 ** -8 * plain.abs()).max())
+        check(excess <= 1e-6 * scale, f"k4_at_path_shapes: {what} "
+              f"bfloat16 beyond one rounding by {excess / scale} of the "
+              f"largest column")
+        worst["bf16"] = max(worst["bf16"],
+                            float((got - plain).abs().max()) / scale)
+        del got, plain
+        xl = x.contiguous(memory_format=torch.channels_last)
+        side = 4 * (offsets.numel() + (0 if mask is None else mask.numel()))
+        row = {
+            "ms": cuda_ms(lambda: ds.deform_im2col(xl, *args), 20),
+            "plain_ms": cuda_ms(lambda: ds._im2col_columns(x, *args), 3,
+                                warmup=1),
+            "bound_ms": 1e3 * (2 * x.numel() + side
+                               + 2 * b * ho * wo * kh * kw * c)
+            / HBM_BYTES_PER_S,
+            "channels_last_copy_ms": cuda_ms(lambda: x.contiguous(
+                memory_format=torch.channels_last), 20),
+        }
+        n = K4_PATH_SHAPES[what][1]
+        for k, v in row.items():
+            totals[k] += n * v
+        per_shape[what] = {"per_forward": n, **row,
+                           "share_of_bound": row["bound_ms"] / row["ms"]}
+        del x, xl, offsets, mask
+        torch.cuda.empty_cache()
+    totals["share_of_bound"] = totals["bound_ms"] / totals["ms"]
+    print(json.dumps({"phase": "k4_at_path_shapes", "ok": True,
+                      "B": BATCH, "shapes": len(keys),
+                      "launches": len(launches), "max_rel_err": worst,
+                      "per_forward": totals, "per_shape": per_shape,
+                      "card": name}))
+    return {"name": "deform_im2col", "route": "cuda",
+            "source": "paa_tpu_torch/csrc/deform_im2col.cu",
+            "replaces": "none: paa_tpu/ops/dcn.py's sampling is XLA",
+            "max_rel_err": worst, **totals, "bound_by": "bytes",
+            "at_path_shapes": per_shape}
 
 
 def phase_dcn_backward_card(dev, name):
@@ -2742,7 +2890,8 @@ def phase_dcnv2_train_main_path(dev, name):
     launches = launch_counts()
     expected = {"nms_batched": 0, "nms_global": 0,
                 "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW)
-                * DCN_TRAIN_STEPS}
+                * DCN_TRAIN_STEPS,
+                "deform_im2col": dcn_per_forward(model) * DCN_TRAIN_STEPS}
     check(launches == expected,
           f"dcnv2_train: launches {launches}, expected {expected}")
     check(sorted(seen) == list(range(1, DCN_TRAIN_STEPS + 1)),
@@ -2839,18 +2988,31 @@ def kink_crossings(dev, cfg, batch):
     the float32 forward at ``batch`` sit in another bilinear cell on the
     card than on the CPU (their top-left corner rows differ), over every
     DCN layer: each such sample's offsets' gradient differs by a jump,
-    not by rounding."""
-    from paa_tpu_torch.ops import dcn
+    not by rounding. The card's forward takes K4, whose corners are the
+    plain geometry's bit for bit (tests/test_torch_port_cuda.py::
+    test_k4_corners_bit_exact_on_the_grid): its corners are read by
+    running ``_geometry`` on the card on each layer's offsets."""
+    from paa_tpu_torch.ops import dcn, deform_sampling
     from paa_tpu_torch.ops.image_norm import device_normalize
 
-    corners, plain = [], dcn._geometry
+    corners = []
+    plain, columns = deform_sampling._geometry, dcn.deform_conv2d_columns
 
     def spy(*args):
         y0p, x0p, cw = plain(*args)
         corners[-1].append((y0p.cpu(), x0p.cpu()))
         return y0p, x0p, cw
 
-    dcn._geometry = spy
+    def card_spy(x, offsets, mask, weight, stride, padding, dilation,
+                 groups, dg):
+        deform_sampling._geometry(offsets, mask, *x.shape[2:],
+                                  *weight.shape[2:], stride, padding,
+                                  dilation, dg)
+        return columns(x, offsets, mask, weight, stride, padding, dilation,
+                       groups, dg)
+
+    deform_sampling._geometry = spy
+    dcn.deform_conv2d_columns = card_spy
     try:
         for device in (dev, "cpu"):
             corners.append([])
@@ -2862,7 +3024,8 @@ def kink_crossings(dev, cfg, batch):
                 model.module(x.permute(0, 3, 1, 2).contiguous())
             del model
     finally:
-        dcn._geometry = plain
+        deform_sampling._geometry = plain
+        dcn.deform_conv2d_columns = columns
     moved = sum(int(((yg != yc) | (xg != xc)).sum())
                 for (yg, xg), (yc, xc) in zip(*corners))
     total = sum(y.numel() for y, _ in corners[1])
@@ -3201,7 +3364,8 @@ def phase_tta(dev, name, what, cfg, model, n_augs):
     runs = len(shapes)
     check(runs == len(augs), f"{what}: {runs} model runs")
     expected = {"nms_batched": runs, "nms_global": 0,
-                "group_norm_relu": gn_per_forward(model) * runs}
+                "group_norm_relu": gn_per_forward(model) * runs,
+                "deform_im2col": dcn_per_forward(model) * runs}
     check(launches == expected,
           f"{what}: launches {launches}, expected {expected}")
     check(sorted(results) == sorted(METRICS) and all(
@@ -3257,7 +3421,7 @@ def phase_tta_card_vs_cpu(dev):
     out, launches = eval_card_vs_cpu(dev, cfg, 14, "tta_card_vs_cpu")
     runs = 6 * 2  # augmentations x batches
     check(launches == {"nms_batched": runs, "nms_global": 0,
-                       "group_norm_relu": 40 * runs},
+                       "group_norm_relu": 40 * runs, "deform_im2col": 0},
           f"tta_card_vs_cpu: launches {launches}")
     print(json.dumps({"phase": "tta_card_vs_cpu", "ok": True,
                       "augmentations": 6, "launches": launches, **out}))
@@ -3352,7 +3516,8 @@ def phase_ap_gate(dev, name):
     batches = sum(1 for _ in make_data_loader(
         cfg, COCODataset(ann_file, img_dir, False), is_train=False))
     expected = {"nms_batched": batches, "nms_global": 0,
-                "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW) * batches}
+                "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW) * batches,
+                "deform_im2col": 0}
     check(rc == 0 and launches == expected,
           f"ap_gate: first pass rc {rc}, launches {launches}, expected "
           f"{expected}")
@@ -3465,6 +3630,7 @@ def phase_train_net_from_pkl(dev, name, what):
     for key, value in want.items():
         check(torch.equal(on_card[key].cpu(), torch.from_numpy(value)),
               f"{what}: {key} is not its blob")
+    k4 = dcn_per_forward(model)
     del model, on_card
 
     out_dir = os.path.join(tmp, "out")
@@ -3487,7 +3653,8 @@ def phase_train_net_from_pkl(dev, name, what):
         pass
     first_launches = launch_counts()
     check(first_launches == {"nms_batched": 0, "nms_global": 0,
-                             "group_norm_relu": 3 * 40},
+                             "group_norm_relu": 3 * 40,
+                             "deform_im2col": 3 * k4},
           f"{what}: first run launches {first_launches}")
     check(sorted(seen) == [1, 2] and all(
         math.isfinite(v) for m in seen.values() for v in m.values())
@@ -3515,7 +3682,8 @@ def phase_train_net_from_pkl(dev, name, what):
     batches = launches["nms_batched"]
     check(rc == 0 and sorted(seen) == [3, 4] and launches == {
         "nms_batched": batches, "nms_global": 0,
-        "group_norm_relu": 40 * (2 + batches)} and batches > 0,
+        "group_norm_relu": 40 * (2 + batches),
+        "deform_im2col": k4 * (2 + batches)} and batches > 0,
         f"{what}: second run rc {rc}, iterations {sorted(seen)}, "
         f"launches {launches}")
     ckpt = torch.load(os.path.join(out_dir, "model_final"),
@@ -3971,7 +4139,7 @@ def phase_dense_test_net(dev, name, head="fcos"):
     gn = 0 if head == "retinanet" else GN_PER_LEVEL * len(TOWER_HW)
     check(batches >= 4 and launches == {
         "nms_batched": batches, "nms_global": 0,
-        "group_norm_relu": gn * batches},
+        "group_norm_relu": gn * batches, "deform_im2col": 0},
         f"{head}_test_net: launches {launches}")
     results = read_results(out_dir, SYNTH_32[0])
     check(sorted(results) == sorted(METRICS) and all(
@@ -4081,8 +4249,8 @@ def phase_mask_rcnn_serving(dev, name):
     with recording_k1_inputs() as k1_inputs:
         eval_fn, launches = serve(
             model, "mask_rcnn_main_path", 50,
-            {"nms_batched": 3, "nms_global": 3, "group_norm_relu": 0},
-            0.05, check_masks)
+            {"nms_batched": 3, "nms_global": 3, "group_norm_relu": 0,
+             "deform_im2col": 0}, 0.05, check_masks)
     k1 = k1_at_path_inputs(k1_inputs[0], "mask_rcnn_rpn", name)
     e2e_rate(eval_fn, 20, "mask_rcnn", name, dev)
     phase_profile(model, eval_fn, 60, "mask_rcnn", name)
@@ -4184,7 +4352,8 @@ def phase_two_stage_train(dev, name, kind, frozen_bn, k3_per_step=0,
         forms = k3_forms()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     expected = {"nms_batched": 0, "nms_global": 0,
-                "group_norm_relu": k3_per_step * TRAIN_STEPS}
+                "group_norm_relu": k3_per_step * TRAIN_STEPS,
+                "deform_im2col": 0}
     if not rpn_only:
         expected[kernel] = TRAIN_STEPS
     check(launches == expected,
@@ -4459,7 +4628,7 @@ def phase_mask_rcnn_test_net(dev, name, path=MRCNN_CONFIG,
     batches = launches["nms_batched"]
     check(batches >= 4 and launches == {
         "nms_batched": batches, "nms_global": batches,
-        "group_norm_relu": k3_per_batch * batches},
+        "group_norm_relu": k3_per_batch * batches, "deform_im2col": 0},
         f"{what}: launches {launches}")
     results = read_results(out_dir, SYNTH_32[0])
     segm = {k[5:]: v for k, v in results.items() if k.startswith("segm/")}
@@ -4766,8 +4935,8 @@ def phase_keypoint_rcnn_serving(dev, name):
     with recording_k1_inputs() as k1_inputs:
         eval_fn, launches = serve(
             model, "keypoint_rcnn_main_path", 70,
-            {"nms_batched": 6, "nms_global": 0, "group_norm_relu": 0},
-            0.05, check_keypoints)
+            {"nms_batched": 6, "nms_global": 0, "group_norm_relu": 0,
+             "deform_im2col": 0}, 0.05, check_keypoints)
     check([a[1].shape[0] for a in k1_inputs[:2]] == [5 * BATCH, BATCH]
           and k1_inputs[1][6] is True and k1_inputs[1][5] == 100,
           f"keypoint_rcnn: K1's inputs {[a[1].shape for a in k1_inputs]}")
@@ -4797,8 +4966,9 @@ def phase_c4_serving(dev, name, kind, frozen_bn):
             recording_k2_inputs() as k2_inputs:
         eval_fn, launches = serve(
             model, f"{kind}_main_path", 80,
-            {"nms_batched": 3, "nms_global": 3, "group_norm_relu": 0},
-            0.05, check_c4_masks if kind == "mask_rcnn_c4" else None)
+            {"nms_batched": 3, "nms_global": 3, "group_norm_relu": 0,
+             "deform_im2col": 0}, 0.05,
+            check_c4_masks if kind == "mask_rcnn_c4" else None)
     # one level: the RPN's rows are the images, PRE_NMS_TOP_N_TEST (6,000)
     # candidates, POST_NMS_TOP_N_TEST (1,000) picks; the box head's
     # candidates are those picks x 80 classes
@@ -4955,7 +5125,8 @@ def phase_keypoint_rcnn_test_net(dev, name):
     batches = launches["nms_batched"] // 2
     check(batches >= 4 and launches == {
         "nms_batched": 2 * batches, "nms_global": 0,
-        "group_norm_relu": 0}, f"keypoint_rcnn_test_net: launches {launches}")
+        "group_norm_relu": 0, "deform_im2col": 0},
+        f"keypoint_rcnn_test_net: launches {launches}")
     dataset = KP_DATASETS[0]
     results = read_results(out_dir, dataset)
     oks = {k[10:]: v for k, v in results.items()
@@ -5039,6 +5210,27 @@ def recording_k3_launches():
         gn._group_norm_relu_cuda = launch
 
 
+@contextlib.contextmanager
+def recording_k4_launches():
+    """Records (x's shape, dtype, kh, kw, stride, padding, dilation,
+    groups, deformable groups, modulated) of every K4 launch made while
+    it is open, in launch order (the launcher behind ``deform_im2col``,
+    wrapped): the list it yields fills as the paths run."""
+    from paa_tpu_torch.ops import deform_sampling as ds
+
+    seen, launch = [], ds._deform_im2col_cuda
+
+    def recorded(x, offsets, mask, *conv):
+        seen.append((tuple(x.shape), x.dtype, *conv, mask is not None))
+        return launch(x, offsets, mask, *conv)
+
+    ds._deform_im2col_cuda = recorded
+    try:
+        yield seen
+    finally:
+        ds._deform_im2col_cuda = launch
+
+
 def k3_cost(dev, launches, seed):
     """K3 at each distinct (shape, dtype, relu) of ``launches``, times
     its count: ms beside the plain version's, the bound (bytes: x read
@@ -5102,7 +5294,8 @@ def phase_gn_mask_rcnn_serving(dev, name):
         eval_fn, launches = serve(
             model, "mask_rcnn_gn_main_path", 90,
             {"nms_batched": 3, "nms_global": 3,
-             "group_norm_relu": 3 * sum(per.values())}, 0.05, check_masks)
+             "group_norm_relu": 3 * sum(per.values()), "deform_im2col": 0},
+            0.05, check_masks)
         forms = k3_forms()
     check(forms == {k: 3 * v for k, v in per.items()} and per["no_relu"],
           f"mask_rcnn_gn: K3 by form {forms}, expected 3 x {per}")
@@ -5257,7 +5450,8 @@ def phase_rpn_test_net(dev, name, kind, frozen_bn_state):
     batches = launches[kernel]
     check(batches >= 4 and launches == {
         "nms_batched": 0, "nms_global": 0, "group_norm_relu": 0,
-        kernel: batches}, f"{kind}_test_net: launches {launches}")
+        "deform_im2col": 0, kernel: batches},
+        f"{kind}_test_net: launches {launches}")
     with open(os.path.join(out_dir, "inference", SYNTH_32[0],
                            "box_proposals.json")) as f:
         table = json.load(f)
@@ -5287,7 +5481,7 @@ def phase_rpn_only_serving(dev, name, kind, frozen_bn):
     model = seeded_rpn_only(kind, frozen_bn, "bfloat16", dev)
     kernel = "nms_global" if kind == "rpn_c4" else "nms_batched"
     expected = {"nms_batched": 0, "nms_global": 0, "group_norm_relu": 0,
-                kernel: 3}
+                "deform_im2col": 0, kernel: 3}
     with recording_k1_inputs() as k1_inputs, \
             recording_k2_inputs() as k2_inputs:
         eval_fn, launches = serve(model, f"{kind}_main_path", 100, expected,
@@ -5432,7 +5626,8 @@ def phase_fbnet_serving(dev, name, kind, frozen_bn):
         model.cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES - 1)
     on_k2 = box_n > nms.k1_max_candidates(dev)
     expected = {"nms_batched": 3 if on_k2 else 6,
-                "nms_global": 3 if on_k2 else 0, "group_norm_relu": 0}
+                "nms_global": 3 if on_k2 else 0, "group_norm_relu": 0,
+                "deform_im2col": 0}
     masks = model.module.mask_head is not None
     with recording_k1_inputs() as k1_inputs, \
             recording_k2_inputs() as k2_inputs:
@@ -5626,7 +5821,8 @@ def phase_syncbn_train_net(dev, name):
     check(rc == 0 and sorted(seen) == [1, 2, 3] and all(
         math.isfinite(v) for m in seen.values() for v in m.values())
         and train_launches == {"nms_batched": 0, "nms_global": 0,
-                               "group_norm_relu": 3 * 40},
+                               "group_norm_relu": 3 * 40,
+                               "deform_im2col": 0},
         f"syncbn_train_net: rc {rc}, iterations {sorted(seen)}, "
         f"launches {train_launches}")
     final = os.path.join(out_dir, "model_final")
@@ -5659,7 +5855,8 @@ def phase_syncbn_train_net(dev, name):
         torch.equal(loaded[k], v) for k, v in stats.items())
         and sorted(results) == sorted(METRICS) and batches >= 4
         and launches == {"nms_batched": batches, "nms_global": 0,
-                         "group_norm_relu": 40 * batches},
+                         "group_norm_relu": 40 * batches,
+                         "deform_im2col": 0},
         f"syncbn_test_net: rc {rc}, {len(loaded)} statistics loaded, "
         f"launches {launches}, results {results}")
     print(json.dumps({"phase": "syncbn_train_net", "ok": True,
@@ -5805,7 +6002,7 @@ def phase_voc_eval(dev, name, frozen_bn):
             dataset, preds, logger=logging.getLogger("chip_smoke.voc"))
     batches = -(-VOC_IMAGES // cfg.TEST.IMS_PER_BATCH)
     expected = {"nms_batched": 2 * batches, "nms_global": 0,
-                "group_norm_relu": 0}
+                "group_norm_relu": 0, "deform_im2col": 0}
     check(launches == expected and n_images == VOC_IMAGES,
           f"voc_eval: launches {launches}, expected {expected}; "
           f"{n_images} images")
@@ -5953,7 +6150,7 @@ def phase_voc_train(dev, name, frozen_bn):
         wall = time.perf_counter() - t0
         launches = launch_counts()
     expected = {"nms_batched": 0, "nms_global": 0, "group_norm_relu": 0,
-                kernel: VOC_TRAIN_STEPS}
+                "deform_im2col": 0, kernel: VOC_TRAIN_STEPS}
     check(launches == expected,
           f"voc_train: launches {launches}, expected {expected}")
     check(sorted(seen) == list(range(1, VOC_TRAIN_STEPS + 1))
@@ -5982,7 +6179,7 @@ ARTIFACT_SERVE = r"""
 import json, sys, time
 import torch
 from paa_tpu_torch.serving import load_exported
-from paa_tpu_torch.ops import group_norm, nms
+from paa_tpu_torch.ops import deform_sampling, group_norm, nms
 t0 = time.perf_counter()
 call, meta = load_exported(sys.argv[1])
 load_s = time.perf_counter() - t0
@@ -5991,12 +6188,14 @@ call(*reqs[0])
 torch.cuda.synchronize()
 nms.nms_batched.launches = nms._nms_global.launches = 0
 group_norm.group_norm_relu.launches = 0
+deform_sampling.deform_im2col.launches = 0
 dets = []
 for images, sizes in reqs:
     dets.append({k: v.cpu() for k, v in call(images, sizes).items()})
 launches = {"nms_batched": nms.nms_batched.launches,
             "nms_global": nms._nms_global.launches,
-            "group_norm_relu": group_norm.group_norm_relu.launches}
+            "group_norm_relu": group_norm.group_norm_relu.launches,
+            "deform_im2col": deform_sampling.deform_im2col.launches}
 torch.cuda.synchronize()
 t0 = time.perf_counter()
 for _ in range(5):
@@ -6046,7 +6245,8 @@ def phase_serving_artifact(dev, name):
     live = [{k: v.cpu() for k, v in eval_fn(*r).items()} for r in reqs]
     torch.cuda.synchronize()
     live_launches = launch_counts()
-    expected = {"nms_batched": 3, "nms_global": 0, "group_norm_relu": 120}
+    expected = {"nms_batched": 3, "nms_global": 0, "group_norm_relu": 120,
+                "deform_im2col": 0}
     check(live_launches == expected,
           f"serving_live: launches {live_launches}, expected {expected}")
     torch.cuda.synchronize()
@@ -6197,7 +6397,7 @@ def phase_overfit_gate(dev, name):
     eval_batches = 2  # 4 images in each of the two buckets
     expected = {"nms_batched": eval_batches, "nms_global": 0,
                 "group_norm_relu": GATE_K3_PER_FORWARD * (
-                    GATE_ITERS + eval_batches)}
+                    GATE_ITERS + eval_batches), "deform_im2col": 0}
     check(launches == expected,
           f"overfit_gate: launches {launches}, expected {expected}")
     gate = {"first_loss > 1.5": r["first_loss"] > 1.5,
@@ -6275,7 +6475,8 @@ def phase_demo(dev, name):
         del demo
         torch.cuda.empty_cache()
     expected = {"nms_batched": 1, "nms_global": 0,
-                "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW)}
+                "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW),
+                "deform_im2col": 0}
     check(launches == expected,
           f"demo: launches {launches}, expected {expected}")
     matched = match_all_detections(out["card"], out["cpu"], "demo")
@@ -6395,8 +6596,12 @@ def run_together(cmds, deadline_s, meanwhile=None):
 
 
 def check_tool_launches(what, got, forwards, nms_calls):
+    """K1 ``nms_calls`` times; K3 40 times a forward; K4 only on
+    bench_dcnv2's R-101 dcnv2 path, ``dcn_per_forward`` times a forward."""
+    dcn = dcn_per_forward_of(DCNV2_R101_CONFIG) if "dcnv2" in what else 0
     expected = {"nms_batched": nms_calls, "nms_global": 0,
-                "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW) * forwards}
+                "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW) * forwards,
+                "deform_im2col": dcn * forwards}
     check(got == expected, f"{what}: launches {got}, expected {expected}")
 
 
@@ -6632,13 +6837,16 @@ def main():
         stamp("31 ATSS, FCOS, RetinaNet")
         # the X-152 dcnv2 path after the others' timings, so that its
         # model and its cached blocks are not resident while they are timed
-        dcnv2, dcnv2_eval, dcnv2_launches = phase_dcnv2_main_path(dev)
+        with recording_k4_launches() as k4_launches:
+            dcnv2, dcnv2_eval, dcnv2_launches = phase_dcnv2_main_path(dev)
         phase_dcn_card_vs_cpu(dev)
         phase_dcnv2_card_vs_cpu(dev)
         phase_dcnv2_timing(dev, dcnv2, dcnv2_eval, name)
         del dcnv2, dcnv2_eval
         torch.cuda.empty_cache()
-        stamp("20-23 X-152 dcnv2 serving")
+        k4 = phase_k4_at_path_shapes(dev, k4_launches, 3, name)
+        del k4_launches
+        stamp("20-23, 68 X-152 dcnv2 serving, K4 at its shapes")
         phase_dcn_backward_card(dev, name)
         dcnv2_train_launches, _ = phase_dcnv2_train_main_path(dev, name)
         phase_dcnv2_train_card_vs_cpu(dev)
@@ -6684,8 +6892,9 @@ def main():
                                   for shape, _, relu in k3_launches},
                             bench_k3_shapes)
     del k3_launches
+    k4["launches_by_path"] = {}
     for kernel, key in ((k1, "nms_batched"), (k2, "nms_global"),
-                        (k3, "group_norm_relu")):
+                        (k3, "group_norm_relu"), (k4, "deform_im2col")):
         by_path = dict(kernel["launches_by_path"],
                        paa_dcnv2_x152=dcnv2_launches[key],
                        paa_dcnv2_x152_tta=tta_launches[key])
@@ -6693,7 +6902,7 @@ def main():
             by_path.update(ap_gate=gate_launches[key],
                            train_net=train_net_launches[key],
                            dcnv2_train_net=dcnv2_train_net_launches[key])
-        if kernel is k3:
+        if kernel in (k3, k4):
             by_path.update(paa_dcnv2_x152_train=dcnv2_train_launches[key])
         for head, runs in dense.items():
             by_path.update({head: runs["serving"][key],
@@ -6765,7 +6974,7 @@ def main():
     print(json.dumps({"phase": "script", "wall_s":
                       time.perf_counter() - t0, "card": name}))
     print(name)
-    print(json.dumps({"kernels": [k1, k2, k3]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

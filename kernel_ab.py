@@ -35,7 +35,9 @@ data:
 
 Prints one JSON line. ``--k3-sweep`` times K3 alone at other launch
 shapes instead (see ``k3_sweep``); ``--k2-occupancy`` prints how many
-clusters of each size K2's cluster route runs at once. To compare
+clusters of each size K2's cluster route runs at once; ``--k4`` times
+K4 (the deformable im2col) at the X-152 path's DCN shapes (see
+``time_k4``). To compare
 checkouts A and B, run it in turns on one card (A, B, B, A); each run
 is its own process, since both checkouts name their package
 ``paa_tpu_torch``. The timing helpers come from this checkout's
@@ -184,6 +186,68 @@ def k3_sweep(gn, dev, card):
                           "per_launch": row, "card": card}))
 
 
+# the X-152 dcnv2 path's DCN layers at B=8, 800 x 1344: name, channels,
+# (Ho, Wo), groups and how many a forward runs (47 in the body, the two
+# towers' at each level)
+K4_SHAPES = [
+    ("res3", 512, (100, 168), 32, 8), ("res4", 1024, (50, 84), 32, 36),
+    ("res5", 2048, (25, 42), 32, 3), ("tower_p3", 256, (100, 168), 1, 2),
+    ("tower_p4", 256, (50, 84), 1, 2), ("tower_p5", 256, (25, 42), 1, 2),
+    ("tower_p6", 256, (13, 21), 1, 2), ("tower_p7", 256, (7, 11), 1, 2)]
+HBM_BYTES_PER_S = 3.35e12
+
+
+def time_k4(dcn, dev, card):
+    """K4 at each shape of K4_SHAPES in bfloat16, offsets normal(0, 2
+    px), mask uniform, from fixed seeds: device ms of K4 on a
+    channels-last x, of the channels-last copy of an NCHW x that precedes
+    it, of the product on its columns, of the whole path
+    (``deform_conv2d_columns``) and of the plain ``deform_conv2d``, with
+    K4's bytes bound (x, the offsets and the mask read once, the columns
+    written once, at 3.35 TB/s) and the whole layer's (x, offsets, mask,
+    weight read, output written). The path's output against the plain
+    version's in float32, as a share of its largest magnitude."""
+    out = {"card": card, "batch": 8}
+    for what, c, hw, groups, per_forward in K4_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn(8, c, *hw, device=dev, generator=gen).to(
+            torch.bfloat16)
+        offsets = torch.randn(8, 18, *hw, device=dev, generator=gen) * 2
+        mask = torch.rand(8, 9, *hw, device=dev, generator=gen)
+        weight = (torch.randn(c, c // groups, 3, 3, device=dev,
+                              generator=gen) * 0.05).to(torch.bfloat16)
+        conv = (1, 1, 1, groups, 1)
+        xl = x.contiguous(memory_format=torch.channels_last)
+        col = dcn.deform_im2col(xl, offsets, mask, 3, 3, *conv)
+        got = dcn.deform_conv2d_columns(x, offsets, mask, weight, *conv)
+        want = dcn.deform_conv2d(x.float(), offsets, mask, weight.float(),
+                                 *conv)
+        side = 2 * x.numel() + 4 * (offsets.numel() + mask.numel())
+        out[what] = {
+            "per_forward": per_forward,
+            "k4_ms": cuda_ms(lambda: dcn.deform_im2col(
+                xl, offsets, mask, 3, 3, *conv), 20),
+            "k4_bound_ms": (side + 2 * col.numel()) / HBM_BYTES_PER_S * 1e3,
+            "channels_last_copy_ms": cuda_ms(lambda: x.contiguous(
+                memory_format=torch.channels_last), 20),
+            "product_ms": cuda_ms(lambda: dcn._contract_columns(
+                col, weight, *hw), 20),
+            "path_ms": cuda_ms(lambda: dcn.deform_conv2d_columns(
+                x, offsets, mask, weight, *conv), 20),
+            "layer_bound_ms": (side + 2 * (x.numel() + weight.numel()))
+            / HBM_BYTES_PER_S * 1e3,
+            "plain_ms": cuda_ms(lambda: dcn.deform_conv2d(
+                x, offsets, mask, weight, *conv), 3, warmup=1),
+            "bf16_err_share": float((got.float() - want).abs().max()
+                                    / want.abs().max()),
+        }
+        del x, offsets, mask, weight, xl, col, got, want
+        torch.cuda.empty_cache()
+    out["path_ms_per_forward"] = sum(
+        out[w]["path_ms"] * n for w, *_, n in K4_SHAPES)
+    print(json.dumps(out))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=os.path.dirname(os.path.abspath(
@@ -196,6 +260,9 @@ def main():
                     help="print cudaOccupancyMaxActiveClusters of K2's "
                     "cluster route for each cluster size at full CTAs "
                     "(this checkout's ops.nms only)")
+    ap.add_argument("--k4", action="store_true",
+                    help="time K4 at the X-152 path's DCN shapes (this "
+                    "checkout's ops.dcn only)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -211,6 +278,11 @@ def main():
 
     if args.k3_sweep:
         k3_sweep(gn, dev, name)
+        return 0
+    if args.k4:
+        from paa_tpu_torch.ops import dcn
+
+        time_k4(dcn, dev, name)
         return 0
     if args.k2_occupancy:
         cap = nms.k2_capacity(dev)

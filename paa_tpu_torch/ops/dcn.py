@@ -8,17 +8,9 @@ The JAX package's ``onehot``, ``auto`` and ``optimistic`` modes
 function: ``auto`` computes what ``gather`` computes, and the port
 computes that. Tensors are NCHW; the steps are the JAX package's:
 
-1. geometry (``_geometry``): sample coordinates in float32 (bf16
-   positions lose whole pixels beyond ~256), the top-left corner of
-   each sample's 2x2 patch in the 1-padded frame, and the four bilinear
-   corner weights with the reference's center gate (the whole sample is
-   zero unless -1 < y < H and -1 < x < W) and the v2 mask folded in.
-   Corners outside the image land on the zero ring of the padding;
-2. sampling (``_sample_columns``): a patch table over the zero-extended
-   grid holds, for each (y, x), the four pixels (y-1..y, x-1..x) side
-   by side, so each sample is ONE row gather of 4C channels
-   (``index_select`` of rows; no index is expanded to the channel
-   width), then the corner weighting;
+1. geometry and 2. sampling: those of ops/deform_sampling.py
+   (``_sampling``: ``_geometry``, ``_patch_table``, ``_sample_columns``),
+   which also holds K4;
 3. contraction (``_contract``): the (B*Ho*Wo, K*C) columns against the
    weight, per conv group: the GEMM the reference host code runs.
 
@@ -37,6 +29,17 @@ chunk's VJP and frees it before the next. Its gradients are autograd's
 through ``deform_conv2d``, which stays as the plain version the tests
 hold it against.
 
+On CUDA tensors the forward takes K4 instead (``deform_conv2d_columns``):
+the hand-written kernel csrc/deform_im2col.cu computes steps 1-2 in one
+pass, writing the columns once in the layout the product reads, and
+``_contract_columns`` multiplies them by the weight into the NCHW
+output. It is the custom op ``paa_tpu_torch::deform_im2col``
+(``deform_sampling.deform_im2col``, launches counted in
+``deform_im2col.launches``); its plain version ``_im2col_columns`` takes
+the steps above and rearranges their columns into K4's layout. CPU
+tensors keep ``deform_conv2d``, and the backward recomputes through it
+on both.
+
 Offset channel layout as torch's deform_conv2d: per deformable group,
 per kernel tap (row-major), a (dy, dx) pair; the mask's dg*K channels
 follow all offsets in the offset conv's output and pass a sigmoid.
@@ -49,8 +52,11 @@ from torch import nn
 from torch.profiler import record_function
 
 from ..modeling.layers import Conv, init_conv_weight
+from .deform_sampling import (_out_size, _sample_columns, _sampling,
+                              deform_im2col)
 
-CHUNK_BYTES = 2 << 30  # gathered rows per chunk of images
+# gathered rows (the plain version) or columns (K4) per chunk of images
+CHUNK_BYTES = 2 << 30
 # the spans of the forward's sampling and contraction, and of the
 # backward's recompute and VJP, which chip_smoke.py's train profile and
 # tools/profile_train_step.py read; of the benchmark's metrics,
@@ -60,73 +66,14 @@ SPAN_FORWARD = "deform_conv2d/forward"
 SPAN_BACKWARD = "deform_conv2d/backward"
 
 
-def _out_size(size, k, s, p, d):
-    return (size + 2 * p - d * (k - 1) - 1) // s + 1
-
-
-def _geometry(offsets, mask, h, w, kh, kw, s, p, d, dg):
-    """Corner rows and weights of every sample.
-
-    offsets: (B, dg*K*2, Ho, Wo); mask: (B, dg*K, Ho, Wo) or None.
-    Returns y0p, x0p: (B, Ho, Wo, K, dg) int64, the top-left corner in
-    the 1-padded frame (0 is the zero row/col above/left of the image,
-    the bottom-right corner is (+1, +1)), and cw: (B, Ho, Wo, K, dg, 4)
-    float32 corner weights in the order (tl, tr, bl, br)."""
-    b, _, ho, wo = offsets.shape
-    k = kh * kw
-    f32 = torch.float32
-    dev = offsets.device
-    off = offsets.to(f32).view(b, dg, k, 2, ho, wo).permute(0, 4, 5, 2, 1, 3)
-    base_y = (torch.arange(ho, dtype=f32, device=dev) * s - p)
-    base_x = (torch.arange(wo, dtype=f32, device=dev) * s - p)
-    taps = torch.arange(k, dtype=f32, device=dev)
-    ky = torch.div(taps, kw, rounding_mode="floor") * d
-    kx = torch.remainder(taps, kw) * d
-    # (B, Ho, Wo, K, dg), summed in the JAX package's order
-    ys = (base_y[:, None, None, None] + ky[None, None, :, None]) + off[..., 0]
-    xs = (base_x[None, :, None, None] + kx[None, None, :, None]) + off[..., 1]
-    y0 = torch.floor(ys)
-    x0 = torch.floor(xs)
-    wy = ys - y0
-    wx = xs - x0
-    gate = ((ys > -1) & (ys < h) & (xs > -1) & (xs < w)).to(f32)
-    y0p = y0.clamp(-1, h - 1).long() + 1
-    x0p = x0.clamp(-1, w - 1).long() + 1
-    cw = torch.stack([(1 - wy) * (1 - wx), (1 - wy) * wx,
-                      wy * (1 - wx), wy * wx], dim=-1) * gate[..., None]
-    if mask is not None:
-        m = mask.to(f32).view(b, dg, k, ho, wo).permute(0, 3, 4, 2, 1)
-        cw = cw * m[..., None]
-    return y0p, x0p, cw
-
-
-def _images_per_chunk(x, ho, wo, k):
-    """Images per chunk: their gathered rows (Ho*Wo*K rows of 4C values
-    each) stay under CHUNK_BYTES, one image at least."""
+def _images_per_chunk(x, ho, wo, k, per_channel=4):
+    """Images per chunk: the Ho*Wo*K*C*``per_channel`` values an image
+    takes stay under CHUNK_BYTES, one image at least. The plain
+    version's gathered rows hold 4 values per channel (the four
+    corners), K4's columns 1."""
     b, c = x.shape[:2]
-    per_image = ho * wo * k * 4 * c * x.element_size()
+    per_image = ho * wo * k * per_channel * c * x.element_size()
     return max(1, min(b, CHUNK_BYTES // max(per_image, 1)))
-
-
-def _patch_table(x, dg):
-    """(B, C, H, W) -> ((B*(H+1)*(W+1)*dg, 4*C/dg) rows, H+1, W+1): row
-    ((b*(H+1) + y)*(W+1) + x)*dg + g holds deformable group g's channels
-    of the padded input at (y, x), (y, x+1), (y+1, x), (y+1, x+1)."""
-    b, c, h, w = x.shape
-    xp = nn.functional.pad(x, (1, 1, 1, 1)).permute(0, 2, 3, 1)
-    q = torch.stack([xp[:, :-1, :-1], xp[:, :-1, 1:],
-                     xp[:, 1:, :-1], xp[:, 1:, 1:]], dim=3)
-    q = q.view(b, h + 1, w + 1, 4, dg, c // dg).transpose(3, 4)
-    return q.contiguous().view(-1, 4 * (c // dg)), h + 1, w + 1
-
-
-def _sample_columns(table, rows, cw):
-    """Gather the 2x2 patch of every sample and weight its corners.
-
-    table: (R, 4*cg); rows: (N,) int64 into it; cw: (N, 4) in the
-    table's dtype. Returns (N, cg)."""
-    patches = table.index_select(0, rows).view(rows.shape[0], 4, -1)
-    return (patches * cw[:, :, None]).sum(dim=1)
 
 
 def _contract(col, weight, groups):
@@ -164,12 +111,7 @@ def deform_conv2d(x, offsets, mask, weight, stride=1, padding=1,
     if offsets.shape != (b, dg * k * 2, ho, wo):
         raise ValueError(f"offsets {tuple(offsets.shape)}, expected "
                          f"{(b, dg * k * 2, ho, wo)}")
-    y0p, x0p, cw = _geometry(offsets, mask, h, w, kh, kw, s, p, d, dg)
-    table, hp, wp = _patch_table(x, dg)
-    image = torch.arange(b, device=x.device).view(b, 1, 1, 1, 1)
-    group = torch.arange(dg, device=x.device)
-    rows = ((image * hp + y0p) * wp + x0p) * dg + group
-    cw = cw.to(x.dtype)
+    table, rows, cw = _sampling(x, offsets, mask, kh, kw, s, p, d, dg)
 
     step = _images_per_chunk(x, ho, wo, k)
     outs = []
@@ -183,11 +125,47 @@ def deform_conv2d(x, offsets, mask, weight, stride=1, padding=1,
     return out.view(b, ho, wo, o).permute(0, 3, 1, 2).contiguous()
 
 
+def _contract_columns(col, weight, ho, wo):
+    """K4's columns (B, groups, Ho*Wo, K*C/groups) x the weight (O,
+    C/groups, kh, kw) -> (B, O, Ho, Wo): per image and conv group g,
+    weight[g*O/groups:(g+1)*O/groups] as (O/groups, K*C/groups), taps
+    outer, times the group's columns transposed (deform_conv_cuda.cu's
+    GEMM), written as NCHW without a permute."""
+    b, groups, _, kc = col.shape
+    o, cg = weight.shape[:2]
+    w = (weight.view(groups, o // groups, cg, -1).transpose(2, 3)
+         .reshape(groups, o // groups, kc))
+    return torch.matmul(w, col.transpose(2, 3)).view(b, o, ho, wo)
+
+
+def deform_conv2d_columns(x, offsets, mask, weight, stride=1, padding=1,
+                          dilation=1, groups=1, deformable_groups=1):
+    """``deform_conv2d`` through ``deform_im2col``'s columns and
+    ``_contract_columns``, in chunks of images whose columns stay under
+    CHUNK_BYTES: one K4 launch per chunk on the card, where it is the
+    forward's main path."""
+    b, c, h, w = x.shape
+    _, _, kh, kw = weight.shape
+    ho = _out_size(h, kh, stride, padding, dilation)
+    wo = _out_size(w, kw, stride, padding, dilation)
+    step = _images_per_chunk(x, ho, wo, kh * kw, per_channel=1)
+    outs = []
+    for i in range(0, b, step):
+        j = i + step
+        col = deform_im2col(x[i:j], offsets[i:j],
+                            None if mask is None else mask[i:j], kh, kw,
+                            stride, padding, dilation, groups,
+                            deformable_groups)
+        outs.append(_contract_columns(col, weight, ho, wo))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
 class DeformConv2dFunction(torch.autograd.Function):
     """``deform_conv2d`` whose backward keeps only its inputs.
 
-    The forward is ``deform_conv2d`` itself, without a graph, and saves
-    (x, offsets, mask, weight). The backward takes the forward's chunks
+    The forward is ``deform_conv2d`` itself (``deform_conv2d_columns``,
+    K4, for CUDA tensors), without a graph, and saves (x, offsets, mask,
+    weight). The backward takes the forward's chunks
     of images again (``_images_per_chunk``); for each it recomputes
     ``deform_conv2d`` of the chunk's slices of x, offsets and mask (the
     chunk's own patch table, its rows based at the chunk's first image)
@@ -202,8 +180,9 @@ class DeformConv2dFunction(torch.autograd.Function):
                 groups, deformable_groups):
         ctx.conv = (stride, padding, dilation, groups, deformable_groups)
         ctx.save_for_backward(x, offsets, mask, weight)
+        forward = deform_conv2d_columns if x.is_cuda else deform_conv2d
         with record_function(SPAN_FORWARD):
-            return deform_conv2d(x, offsets, mask, weight, *ctx.conv)
+            return forward(x, offsets, mask, weight, *ctx.conv)
 
     @staticmethod
     def backward(ctx, grad):

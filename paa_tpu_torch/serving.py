@@ -5,10 +5,10 @@ paa_tpu/serving.py).
 images to detections (backbone, heads, anchors, the static-shape
 post-processing with its kernels), with ``torch.export`` at one static
 input shape. The weights go into the artifact, the anchors as
-constants, and the kernels K1, K2 and K3 as the custom ops of
+constants, and the kernels K1, K2, K3 and K4 as the custom ops of
 ``paa_tpu_torch.ops`` (``paa_tpu_torch::nms_batched``, ``::nms``,
-``::group_norm_relu``), so that the artifact calls the same kernels as
-the live model. The post-processing's data-dependent tier choice is a
+``::group_norm_relu``, ``::deform_im2col``), so that the artifact calls
+the same kernels as the live model. The post-processing's data-dependent tier choice is a
 ``torch.cond`` in the artifact (modeling/paa_inference.py).
 
 The file: the magic ``PAATORCH``, a little-endian u32 header length,

@@ -658,6 +658,307 @@ def test_dcn_function_gradients_match_plain(dev, dtype, chunk_bytes,
                                        atol=1e-4 * float(w.abs().max()))
 
 
+# ---- K4, the deformable im2col kernel ---------------------------------------
+
+# chip_smoke.py's DCN_BF16_REL: K4 and the product in bfloat16 against
+# the plain version in float32, a share of the output's largest magnitude
+DCN_BF16_REL = 1.5e-2
+
+# C/groups classes of the repo's DCN configs: (C, groups)
+K4_WIDTHS = {"cg8": (512, 64), "cg16": (512, 32), "cg32": (1024, 32),
+             "cg64": (2048, 32), "cg256": (256, 1), "cg512": (512, 1)}
+# (deformable groups, stride, dilation, modulated)
+K4_CONVS = {"v2": (1, 1, 1, True), "v1_dg2": (2, 1, 1, False),
+            "v2_dg2_stride2_dil2": (2, 2, 2, True)}
+
+
+def _k4_inputs(seed, b, c, hw, groups, dg, stride, dil, modulated):
+    """x, offsets, mask (or None) and weight, float32 on the CPU. The
+    offsets' whole parts put many samples off the image (a few far off)
+    and their fractions are 0, 2^-20, 1 - 2^-20 or uniform: corners on
+    the grid and next to it."""
+    gen = torch.Generator().manual_seed(seed)
+    ho = (hw[0] + 2 * dil - 2 * dil - 1) // stride + 1
+    wo = (hw[1] + 2 * dil - 2 * dil - 1) // stride + 1
+    shape = (b, dg * 18, ho, wo)
+    whole = torch.randint(-6, 6, shape, generator=gen).float()
+    whole[:, :, ::5, ::7] *= 20
+    frac = torch.rand(shape, generator=gen)
+    pick = torch.randint(0, 4, shape, generator=gen)
+    frac = torch.where(pick == 0, 0.0, frac)
+    frac = torch.where(pick == 1, 2.0 ** -20, frac)
+    frac = torch.where(pick == 2, 1 - 2.0 ** -20, frac)
+    x = torch.randn(b, c, *hw, generator=gen)
+    mask = (torch.rand(b, dg * 9, ho, wo, generator=gen)
+            if modulated else None)
+    weight = torch.randn(c, c // groups, 3, 3, generator=gen) * 0.05
+    return x, whole + frac, mask, weight
+
+
+@pytest.mark.parametrize("conv", sorted(K4_CONVS))
+@pytest.mark.parametrize("width", sorted(K4_WIDTHS))
+def test_k4_matches_plain(dev, width, conv):
+    """K4 and the product (``deform_conv2d_columns``) against the plain
+    ``deform_conv2d`` on the card: float32 within 1e-5 of the output's
+    largest magnitude, bfloat16 within DCN_BF16_REL of the float32 plain
+    output's; one K4 launch each."""
+    from paa_tpu_torch.ops import dcn
+
+    c, groups = K4_WIDTHS[width]
+    dg, stride, dil, modulated = K4_CONVS[conv]
+    x, offsets, mask, weight = (
+        None if t is None else t.to(dev) for t in _k4_inputs(
+            c + dg, 2, c, (13, 21), groups, dg, stride, dil, modulated))
+    args = (stride, dil, dil, groups, dg)
+    want = dcn.deform_conv2d(x, offsets, mask, weight, *args)
+    for dtype, share in ((torch.float32, 1e-5),
+                         (torch.bfloat16, DCN_BF16_REL)):
+        before = dcn.deform_im2col.launches
+        got = dcn.deform_conv2d_columns(x.to(dtype), offsets, mask,
+                                        weight.to(dtype), *args)
+        torch.cuda.synchronize()
+        assert dcn.deform_im2col.launches == before + 1
+        assert got.dtype == dtype and got.shape == want.shape
+        assert got.is_contiguous()
+        torch.testing.assert_close(got.float(), want, rtol=0,
+                                   atol=share * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last", "strided"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_columns_match_plain_columns(dev, dtype, layout):
+    """K4's columns against ``_im2col_columns`` (the plain steps in K4's
+    layout) on the same card tensors: float32 within 1e-6 of the largest
+    column (the plain version weights in float32 too and sums in another
+    order), bfloat16 within one bfloat16 rounding of both sides. x comes
+    NCHW or as a strided view (both copied to channels-last first) or
+    channels-last (read as it is)."""
+    from paa_tpu_torch.ops import deform_sampling as ds
+
+    x, offsets, mask, weight = (t.to(dev) for t in _k4_inputs(
+        7, 2, 64, (10, 12), 4, 2, 1, 1, True))
+    x = x.to(dtype)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    elif layout == "strided":
+        x = torch.cat([x, x], dim=1)[:, ::2]
+    got = ds.deform_im2col(x, offsets, mask, 3, 3, 1, 1, 1, 4, 2)
+    want = ds._im2col_columns(x, offsets, mask, 3, 3, 1, 1, 1, 4, 2)
+    share = 1e-6 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=share * float(want.float().abs().max()))
+
+
+def _on_grid_inputs(dg, modulated):
+    """x of small integers, and offsets whose fraction is 0, 2^-20, 1 -
+    2^-20 or -2^-20 along one axis and 0 along the other (whole parts
+    -8..8, so samples sit on the grid, next to it and off the image), on
+    the CPU; the mask powers of two. Each column value is then one or two
+    exact products whose sum float32 holds exactly, whatever the order."""
+    gen = torch.Generator().manual_seed(21)
+    b, c, hw = 2, 64, 12
+    x = torch.randint(-7, 8, (b, c, hw, hw), generator=gen).float()
+    shape = (b, dg, 9, 2, hw, hw)
+    whole = torch.randint(-8, 9, shape, generator=gen).float()
+    fracs = torch.tensor([0.0, 2.0 ** -20, 1 - 2.0 ** -20, -2.0 ** -20])
+    frac = fracs[torch.randint(0, 4, shape, generator=gen)]
+    axis = torch.randint(0, 2, (b, dg, 9, 1, hw, hw), generator=gen)
+    frac = torch.where(torch.arange(2).view(1, 1, 1, 2, 1, 1) == axis,
+                       frac, 0.0)
+    offsets = (whole + frac).view(b, dg * 18, hw, hw)
+    mask = (2.0 ** -torch.randint(0, 3, (b, dg * 9, hw, hw), generator=gen)
+            if modulated else None)
+    return x, offsets, mask
+
+
+@pytest.mark.parametrize("modulated", [True, False])
+@pytest.mark.parametrize("dg", [1, 2])
+def test_k4_corners_bit_exact_on_the_grid(dev, dg, modulated):
+    """K4 picks ``_geometry``'s corners and weights bit for bit: in
+    float32, on samples on and next to the integer grid, its columns
+    equal the plain version's on the card exactly, and those equal the
+    plain version's on the CPU (so the values are exact, and a corner
+    taken one pixel off would show). kink_crossings in chip_smoke.py
+    reads the plain geometry on the card for K4's on this ground."""
+    from paa_tpu_torch.ops import deform_sampling as ds
+
+    x, offsets, mask = _on_grid_inputs(dg, modulated)
+    args = (3, 3, 1, 1, 1, 4, dg)
+    on_cpu = ds._im2col_columns(x, offsets, mask, *args)
+    x, offsets, mask = (None if t is None else t.to(dev)
+                        for t in (x, offsets, mask))
+    got = ds.deform_im2col(x, offsets, mask, *args)
+    want = ds._im2col_columns(x, offsets, mask, *args)
+    assert torch.equal(want.cpu(), on_cpu)
+    assert torch.equal(got, want)
+    # many samples lie inside the image (0.42), many off the integer grid
+    assert float((want != 0).float().mean()) > 0.3
+    assert float((want != want.round()).float().mean()) > 0.2
+
+
+def test_k4_launches_once_per_chunk(dev, monkeypatch):
+    """One K4 launch per layer per chunk of images: the whole batch in
+    one chunk under CHUNK_BYTES, one image a chunk when CHUNK_BYTES holds
+    one image's columns; the output is the same."""
+    from paa_tpu_torch.ops import dcn
+
+    x, offsets, mask, weight = (t.to(dev) for t in _k4_inputs(
+        3, 3, 256, (12, 14), 8, 1, 1, 1, True))
+    before = dcn.deform_im2col.launches
+    whole = dcn.deform_conv2d_columns(x, offsets, mask, weight, 1, 1, 1, 8)
+    assert dcn.deform_im2col.launches == before + 1
+    monkeypatch.setattr(dcn, "CHUNK_BYTES", 12 * 14 * 9 * 256 * 4)
+    chunked = dcn.deform_conv2d_columns(x, offsets, mask, weight, 1, 1, 1,
+                                        8)
+    assert dcn.deform_im2col.launches == before + 1 + 3
+    torch.testing.assert_close(chunked, whole, rtol=0, atol=0)
+
+
+def test_deform_conv_on_the_card_launches_k4(dev):
+    """``DeformConv`` on CUDA tensors: one K4 launch a forward, without a
+    graph and where autograd records (the backward recomputes through
+    the plain version and launches none); the same output as the plain
+    version on the CPU within 1e-5 of its largest magnitude."""
+    from paa_tpu_torch.modeling.layers import reset_parameters
+    from paa_tpu_torch.ops import dcn
+
+    conv = dcn.DeformConv(64, 64, groups=4, bias=True)
+    gen = torch.Generator().manual_seed(11)
+    reset_parameters(conv, gen)
+    with torch.no_grad():
+        conv.offset.weight.normal_(0.0, 0.3, generator=gen)
+        conv.bias.normal_(0.0, 0.1, generator=gen)
+    x = torch.randn(2, 64, 15, 19, generator=gen)
+    with torch.no_grad():
+        want = conv(x)
+    conv.to(dev)
+    before = dcn.deform_im2col.launches
+    with torch.no_grad():
+        got = conv(x.to(dev))
+    assert dcn.deform_im2col.launches == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    xx = x.to(dev).requires_grad_()
+    conv(xx).sum().backward()
+    torch.cuda.synchronize()
+    assert dcn.deform_im2col.launches == before + 2
+    assert xx.grad is not None and conv.weight.grad is not None
+
+
+def test_k4_op_exports_through_its_fake(dev):
+    """A ``DeformConv`` exported on the card records K4 as one
+    ``paa_tpu_torch::deform_im2col`` node (traced through its fake); the
+    exported program launches it once and equals the live module."""
+    from paa_tpu_torch.modeling.layers import reset_parameters
+    from paa_tpu_torch.ops import dcn
+
+    conv = dcn.DeformConv(32, 32, groups=2)
+    gen = torch.Generator().manual_seed(12)
+    reset_parameters(conv, gen)
+    with torch.no_grad():
+        conv.offset.weight.normal_(0.0, 0.3, generator=gen)
+    conv.to(dev)
+    x = torch.randn(2, 32, 11, 13, generator=gen).to(dev)
+    with torch.no_grad():
+        exported = torch.export.export(conv, (x,))
+        targets = [str(n.target) for n in exported.graph.nodes
+                   if n.op == "call_function"]
+        assert targets.count("paa_tpu_torch.deform_im2col.default") == 1
+        before = dcn.deform_im2col.launches
+        got = exported.module()(x)
+        assert dcn.deform_im2col.launches == before + 1
+        want = conv(x)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+def test_k4_refuses_what_it_cannot_take(dev):
+    """The wrapper raises on a float64 x and on offsets on another
+    device; the launcher takes an offset conv's channel slice as it is
+    (its images' planes are contiguous)."""
+    from paa_tpu_torch.ops import deform_sampling as ds
+
+    x, offsets, mask, weight = (t.to(dev) for t in _k4_inputs(
+        5, 2, 32, (8, 9), 1, 1, 1, 1, True))
+    with pytest.raises(TypeError, match="float64"):
+        ds.deform_im2col(x.double(), offsets, mask, 3, 3)
+    with pytest.raises(ValueError, match="offsets on"):
+        ds.deform_im2col(x, offsets.cpu(), mask, 3, 3)
+    om = torch.cat([offsets, mask], dim=1)
+    sliced = ds.deform_im2col(x, om[:, :18], om[:, 18:], 3, 3)
+    torch.testing.assert_close(
+        sliced, ds.deform_im2col(x, offsets, mask, 3, 3), rtol=0, atol=0)
+
+
+# a process that serves an artifact with torch and paa_tpu_torch.serving
+# alone, as chip_smoke.py's serving phase does
+K4_SERVE = """
+import json, sys, torch
+from paa_tpu_torch.serving import load_exported
+from paa_tpu_torch.ops import deform_sampling
+call, meta = load_exported(sys.argv[1])
+out = call(*torch.load(sys.argv[2]))
+torch.cuda.synchronize()
+torch.save(out.cpu(), sys.argv[3])
+loaded = sorted(m for m in sys.modules if m.startswith("paa_tpu"))
+print(json.dumps({"launches": deform_sampling.deform_im2col.launches,
+                  "loaded": loaded}))
+"""
+
+
+def test_deform_conv_artifact_serves_without_model_code(dev, tmp_path):
+    """A ``DeformConv`` exported on the card and saved as a serving
+    artifact runs in a process that imports only torch and
+    ``paa_tpu_torch.serving``: one K4 launch, the live module's output,
+    and neither the model code nor ops/dcn.py loaded."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from paa_tpu_torch.modeling.layers import reset_parameters
+    from paa_tpu_torch.ops import dcn
+    from paa_tpu_torch.serving import save_exported
+
+    class Served(torch.nn.Module):
+        """The conv of two inputs, as an artifact's call takes them."""
+
+        def __init__(self, conv):
+            super().__init__()
+            self.conv = conv
+
+        def forward(self, x, scale):
+            return self.conv(x) * scale
+
+    conv = dcn.DeformConv(64, 64, groups=4, dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(13)
+    reset_parameters(conv, gen)
+    with torch.no_grad():
+        conv.offset.weight.normal_(0.0, 0.3, generator=gen)
+    module = Served(conv).to(dev)
+    inputs = (torch.randn(2, 64, 15, 19, generator=gen).to(dev),
+              torch.full((1,), 0.5, device=dev))
+    with torch.no_grad():
+        exported = torch.export.export(module, inputs)
+        want = module(*inputs)
+    path, saved, served = (str(tmp_path / f) for f in (
+        "conv.paat", "inputs.pt", "served.pt"))
+    save_exported(path, exported, {"device": "cuda"})
+    torch.save(inputs, saved)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", K4_SERVE, path, saved,
+                           served], cwd=root, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["launches"] == 1
+    assert not [m for m in out["loaded"] if m.startswith((
+        "paa_tpu_torch.modeling", "paa_tpu_torch.config",
+        "paa_tpu_torch.data", "paa_tpu_torch.ops.dcn"))]
+    torch.testing.assert_close(torch.load(served), want.cpu(), rtol=0,
+                               atol=0)
+
+
 # ---- the kernels as custom ops, and the serving artifact -------------------
 
 @pytest.mark.parametrize("relu", [True, False])

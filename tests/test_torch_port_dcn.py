@@ -17,7 +17,17 @@ the JAX package's (paa_tpu/ops/dcn.py), on the CPU, float32.
 - ``DeformConv`` filled from flax's ``DeformConv`` params through
   ``load_jax_params`` gives flax's output, with the offset conv drawn
   from a seed (at its zero init the layer is a conv with mask 0.5).
+- What surrounds K4 (ops/deform_sampling.py) in Python: its plain
+  version's columns against those ``deform_conv2d`` contracts, the
+  columns path against ``deform_conv2d``, the chunk count, the launch
+  plan, the layouts the wrapper refuses, and the custom op under
+  opcheck, in an export and in a serving artifact loaded without the
+  model code.
 """
+
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +36,8 @@ import pytest
 import torch
 
 from paa_tpu.ops import dcn as jdcn
-from paa_tpu_torch.ops import dcn
+from paa_tpu_torch.ops import dcn, deform_sampling
+from paa_tpu_torch.serving import save_exported
 from paa_tpu_torch.utils import load_jax_params
 from test_dcn_cuda_parity import ref_deform_conv_nchw
 
@@ -260,3 +271,255 @@ def test_deform_conv_init_and_strict_load():
               "offset": {"kernel": np.zeros((3, 3, 16, 27), np.float32)}}
     with pytest.raises(KeyError, match="offset"):
         load_jax_params(backbone, params)
+
+
+# ---- what surrounds K4 (csrc/deform_im2col.cu) in Python ------------------
+
+def _contracted_columns(monkeypatch, inputs, conv, dtype):
+    """The (N, K, C) columns ``deform_conv2d`` hands to ``_contract``."""
+    seen = []
+    plain = dcn._contract
+
+    def spy(col, weight, groups):
+        seen.append(col)
+        return plain(col, weight, groups)
+
+    monkeypatch.setattr(dcn, "_contract", spy)
+    port_forward(inputs, conv, dtype)
+    assert len(seen) == 1
+    return seen[0]
+
+
+def _im2col(inputs, conv, dtype=torch.float32):
+    x, offsets, mask, weight = inputs
+    k = weight.shape[-1]
+    return deform_sampling._im2col_columns(
+        _t(x, dtype), _t(offsets), _t(mask), k, k, conv["stride"],
+        conv["pad"], conv["dil"], conv["groups"], conv["dg"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_im2col_columns_are_the_contracted_columns(case, dtype,
+                                                   monkeypatch):
+    """``_im2col_columns`` (K4's plain version) emits, in K4's layout
+    (B, groups, Ho*Wo, K*C/groups), exactly the columns that
+    ``deform_conv2d`` contracts: same values, taps outer and each conv
+    group's channels inner."""
+    seed, kwargs = CASES[case]
+    inputs, conv = make_case(seed, **kwargs)
+    want = _contracted_columns(monkeypatch, inputs, conv, dtype)
+    got = _im2col(inputs, conv, dtype)
+    b, groups, n, kc = got.shape
+    k = inputs[3].shape[-1] ** 2
+    assert (b * n, k, groups * kc // k) == tuple(want.shape)
+    assert got.dtype == dtype
+    regrouped = got.view(b, groups, n, k, kc // k).permute(0, 2, 3, 1, 4)
+    assert torch.equal(regrouped.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("chunk_bytes", [None, 1])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_columns_path_matches_deform_conv2d(case, chunk_bytes, monkeypatch):
+    """``deform_conv2d_columns`` (K4's path; on the CPU through the
+    op's plain kernel) against ``deform_conv2d``: the same output within
+    1e-5 of its largest magnitude (the product sums in another order),
+    in one chunk or in chunks of one image."""
+    if chunk_bytes is not None:
+        monkeypatch.setattr(dcn, "CHUNK_BYTES", chunk_bytes)
+    seed, kwargs = CASES[case]
+    inputs, conv = make_case(seed, **kwargs)
+    x, offsets, mask, weight = (_t(a) for a in inputs)
+    args = (conv["stride"], conv["pad"], conv["dil"], conv["groups"],
+            conv["dg"])
+    want = dcn.deform_conv2d(x, offsets, mask, weight, *args)
+    before = deform_sampling.deform_im2col.launches
+    got = dcn.deform_conv2d_columns(x, offsets, mask, weight, *args)
+    # CPU: the plain version
+    assert deform_sampling.deform_im2col.launches == before
+    assert got.shape == want.shape and got.is_contiguous()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("per_channel,itemsize,want", [
+    (4, 2, 3),  # the plain version's rows at X-152's res3: 619 MB an image
+    (1, 2, 8),  # K4's columns there: 155 MB, all 8 images in one chunk
+    (1, 4, 6),  # float32 columns, 310 MB an image
+    (4, 4, 1),  # over CHUNK_BYTES an image: one image
+])
+def test_images_per_chunk_counts_rows_or_columns(per_channel, itemsize,
+                                                 want):
+    """Images per chunk from Ho*Wo*K*C*per_channel values an image under
+    CHUNK_BYTES (2 GiB): 4 per channel for the plain version's gathered
+    rows, 1 for K4's columns; at least one image, at most the batch."""
+    dtype = {2: torch.bfloat16, 4: torch.float32}[itemsize]
+    x = torch.empty(8, 512, 1, 1, dtype=dtype)
+    if per_channel == 4 and itemsize == 4:
+        x = torch.empty(8, 2048, 1, 1, dtype=dtype)
+    assert dcn._images_per_chunk(x, 100, 168, 9, per_channel) == want
+    if per_channel == 4:  # the default: the plain version's count
+        assert dcn._images_per_chunk(x, 100, 168, 9) == want
+
+
+# (C, groups, deformable groups, itemsize) -> (vec, lanes, rows, tile)
+K4_PLANS = {
+    "x152_res3": ((512, 32, 1, 2), (8, 8, 32, 28)),
+    "x152_res4": ((1024, 32, 1, 2), (8, 16, 16, 14)),
+    "x152_res5": ((2048, 32, 1, 2), (8, 256, 1, 7)),
+    "tower": ((256, 1, 1, 2), (8, 32, 8, 56)),
+    "x101_64x4d_res3": ((512, 64, 1, 2), (8, 4, 64, 28)),
+    "float32_res3": ((512, 32, 1, 4), (4, 16, 16, 14)),
+    "cg4_dg2": ((16, 4, 2, 2), (4, 2, 128, 85)),
+    "cdg8_float32": ((24, 1, 3, 4), (4, 6, 42, 56)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K4_PLANS))
+def test_im2col_plan(name):
+    """K4's launch from C, C/groups, C/dg and the itemsize alone: 16-byte
+    vectors or fewer, inside one conv group and one deformable group; a
+    warp's stores fill 128-byte lines of a conv group's columns (lanes
+    x vec x itemsize of a row, over rows); 256 threads at most; a block
+    of about 16,384 vectors whose samples fit 48 KB of shared memory."""
+    (c, groups, dg, itemsize), want = K4_PLANS[name]
+    plan = deform_sampling.im2col_plan(c, c // groups, c // dg, 9, dg,
+                                       itemsize)
+    assert (plan.vec, plan.lanes, plan.rows, plan.tile) == want
+    assert (c // groups) % plan.vec == 0 and (c // dg) % plan.vec == 0
+    assert plan.vec * itemsize <= 16
+    assert plan.lanes * plan.rows <= 256
+    assert plan.tile * 9 * dg * 32 <= 48 * 1024
+
+
+def _k4_case():
+    inputs, conv = make_case(5, C=8, O=8, groups=2, dg=2)
+    return [_t(a) for a in inputs[:3]]
+
+
+@pytest.mark.parametrize("bad,error,match", [
+    ("groups", ValueError, "channels in 3 groups"),
+    ("deformable_groups", ValueError, "deformable groups"),
+    ("float64", TypeError, "float64"),
+    ("int32", TypeError, "int32"),
+    ("offsets_shape", ValueError, "offsets"),
+    ("mask_shape", ValueError, "mask"),
+    ("offsets_device", ValueError, "offsets on meta"),
+    ("three_dims", ValueError, "shape"),
+    ("taps", ValueError, "shared memory"),
+])
+def test_deform_im2col_refuses_what_k4_cannot_take(bad, error, match):
+    """The wrapper raises, on either device, on a layout K4 does not
+    take: channels that the groups or deformable groups do not divide, a
+    dtype without a kernel path, offsets or a mask of another shape or
+    device, a tensor of other than 4 dims, more samples a position than
+    a block's shared memory holds. The columns' op is not called."""
+    x, offsets, mask = _k4_case()
+    kw = dict(groups=2, deformable_groups=2)
+    k = 3
+    if bad == "groups":
+        kw["groups"] = 3
+    elif bad == "deformable_groups":
+        kw["deformable_groups"] = 3
+    elif bad in ("float64", "int32"):
+        x = x.to(getattr(torch, bad))
+    elif bad == "offsets_shape":
+        offsets = offsets[:, :-2]
+    elif bad == "mask_shape":
+        mask = mask[:, :-1]
+    elif bad == "offsets_device":
+        offsets = offsets.to("meta")
+    elif bad == "three_dims":
+        x = x[0]
+    elif bad == "taps":  # 81 taps x 20 deformable groups x 32 B > 48 KB
+        k, kw["groups"], kw["deformable_groups"] = 9, 1, 20
+        x = torch.zeros(1, 20, 12, 12)
+        offsets = torch.zeros(1, 20 * 81 * 2, 4, 4)
+        mask = None
+    with pytest.raises(error, match=match):
+        deform_sampling.deform_im2col(x, offsets, mask, k, k, 1,
+                                      0 if k == 9 else 1, 1, **kw)
+
+
+def test_deform_im2col_op_exports_through_its_fake():
+    """``paa_tpu_torch::deform_im2col`` passes torch.library's op checks
+    (schema, fake against the real kernel), and a module on the columns
+    path exports with it as one node whose output equals the live
+    module's."""
+    x, offsets, mask = _k4_case()
+    torch.library.opcheck(torch.ops.paa_tpu_torch.deform_im2col.default,
+                          (x, offsets, mask, 3, 3, 1, 1, 1, 2, 2))
+    torch.library.opcheck(torch.ops.paa_tpu_torch.deform_im2col.default,
+                          (x, offsets, None, 3, 3, 1, 1, 1, 2, 2))
+    weight = torch.randn(8, 4, 3, 3, generator=torch.Generator()
+                         .manual_seed(0))
+
+    class Columns(torch.nn.Module):
+        def forward(self, x, offsets, mask):
+            return dcn.deform_conv2d_columns(x, offsets, mask, weight, 1, 1,
+                                             1, 2, 2)
+
+    exported = torch.export.export(Columns(), (x, offsets, mask))
+    targets = [str(n.target) for n in exported.graph.nodes
+               if n.op == "call_function"]
+    assert targets.count("paa_tpu_torch.deform_im2col.default") == 1
+    torch.testing.assert_close(exported.module()(x, offsets, mask),
+                               Columns()(x, offsets, mask), rtol=0, atol=0)
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# a process that serves an artifact with torch and paa_tpu_torch.serving
+# alone (tests/test_torch_port_serving.py's SERVE): serving's
+# ``from . import ops`` has to register the op
+SERVE_COLUMNS = """
+import sys, torch
+from paa_tpu_torch.serving import load_exported
+call, meta = load_exported(sys.argv[1], device="cpu")
+x, offset_mask = torch.load(sys.argv[2])
+out = call(x, offset_mask)
+loaded = sorted(m for m in sys.modules if m.startswith("paa_tpu"))
+torch.save({"out": out, "loaded": loaded}, sys.argv[3])
+"""
+
+
+class _ColumnsConv(torch.nn.Module):
+    """``deform_conv2d_columns`` of x with the offsets and the mask side
+    by side, as ``DeformConv``'s offset conv gives them."""
+
+    def __init__(self, weight):
+        super().__init__()
+        self.weight = torch.nn.Parameter(weight)
+
+    def forward(self, x, offset_mask):
+        n = offset_mask.shape[1] * 2 // 3
+        return dcn.deform_conv2d_columns(x, offset_mask[:, :n],
+                                         offset_mask[:, n:], self.weight,
+                                         1, 1, 1, 2, 2)
+
+
+def test_deform_im2col_artifact_serves_without_model_code(tmp_path):
+    """An artifact that holds ``paa_tpu_torch::deform_im2col``, written
+    by ``serving.save_exported``, loads and runs in a process that
+    imports only torch and ``paa_tpu_torch.serving``: the live module's
+    output, and neither the model code nor ops/dcn.py loaded."""
+    x, offsets, mask = _k4_case()
+    module = _ColumnsConv(torch.randn(
+        8, 4, 3, 3, generator=torch.Generator().manual_seed(1)))
+    offset_mask = torch.cat([offsets, mask], dim=1)
+    with torch.no_grad():
+        exported = torch.export.export(module, (x, offset_mask))
+        want = module(x, offset_mask)
+    path, inputs, served = (str(tmp_path / f) for f in (
+        "columns.paat", "inputs.pt", "served.pt"))
+    save_exported(path, exported, {"device": "cpu"})
+    torch.save((x, offset_mask), inputs)
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVE_COLUMNS, path, inputs, served],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    got = torch.load(served)
+    assert not [m for m in got["loaded"] if m.startswith((
+        "paa_tpu_torch.modeling", "paa_tpu_torch.config",
+        "paa_tpu_torch.data", "paa_tpu_torch.ops.dcn"))]
+    torch.testing.assert_close(got["out"], want, rtol=0, atol=0)

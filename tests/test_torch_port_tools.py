@@ -131,7 +131,7 @@ def test_profile_train_step_cli_on_the_cpu():
     assert "share_of_bf16_peak" not in result
     # on the CPU the kernels' plain versions run: no launch is counted
     assert result["launches"] == {"nms_batched": 0, "nms_global": 0,
-                                  "group_norm_relu": 0}
+                                  "group_norm_relu": 0, "deform_im2col": 0}
 
 
 def test_profile_steps_subtracts_nested_spans():
