@@ -3,6 +3,10 @@ that a cell, configuration, traffic mix or per-layer metric is added by
 adding files:
 
 - the configuration: the file its entry names (``configs/<name>.json``);
+- the detector family that the configuration's ``"family"`` key names:
+  ``benchmark/families/<family>.py``, whose functions give the runner
+  what depends on the model (the reference's weights' shapes and
+  FLOPs, the pools, what to capture, the comparisons, the control);
 - the traffic mix: ``benchmark/traffic/<traffic>.json``;
 - a per-layer metric: its reader ``benchmark/metrics/<metric>.py``;
 - the limits of the correctness check: ``benchmark/limits/<cell>.json``.
@@ -30,6 +34,7 @@ class Cell:
     per_layer: list
     limits: dict = field(default_factory=dict)
     root: str = REPO
+    family: object = None  # the module families/<family>.py
 
     @property
     def kind(self):
@@ -51,7 +56,8 @@ def _applies(metric, cell):
 
 def load_cell(name, root=REPO):
     """The cell ``name`` of ``root``'s BENCHMARK.json. Raises KeyError
-    for a name the file does not hold."""
+    for a name the file does not hold, ValueError for a configuration
+    whose ``family`` is missing or names no file of ``families/``."""
     bench = load_benchmark(root)
     work = {w["name"]: w for w in bench["workloads"]}
     if name not in work:
@@ -59,24 +65,39 @@ def load_cell(name, root=REPO):
                        f"{sorted(work)}")
     w = work[name]
     conf = {c["name"]: c for c in bench["configs"]}[w["config"]]
+    config = read_json(os.path.join(root, conf["file"]))
     limits_path = os.path.join(root, BENCH_DIR, "limits", f"{name}.json")
     return Cell(
-        name=name, chips=int(w["chips"]),
-        config=read_json(os.path.join(root, conf["file"])),
+        name=name, chips=int(w["chips"]), config=config,
         traffic=read_json(os.path.join(root, BENCH_DIR, "traffic",
                                        f"{w['traffic']}.json")),
         end_to_end=[m for m in bench["end_to_end"] if _applies(m, name)],
         per_layer=[m for m in bench["per_layer"] if _applies(m, name)],
         limits=(read_json(limits_path) if os.path.exists(limits_path)
                 else {}),
-        root=root)
+        root=root, family=load_family(config.get("family"), root))
+
+
+def _load(path, module_name):
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def load_family(name, root=REPO):
+    """The module ``families/<name>.py`` of ``root``. Raises ValueError,
+    naming the families there, for a missing or unknown name."""
+    folder = os.path.join(root, BENCH_DIR, "families")
+    found = sorted(f[:-3] for f in os.listdir(folder)
+                   if f.endswith(".py") and not f.startswith("_"))
+    if name not in found:
+        raise ValueError(f"configuration family {name!r} is not one of "
+                         f"the families in {folder}: {found}")
+    return _load(os.path.join(folder, f"{name}.py"), f"bench_family_{name}")
 
 
 def metric_reader(name, root=REPO):
     """The ``read(view)`` function of ``metrics/<name>.py``."""
     path = os.path.join(root, BENCH_DIR, "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(
-        f"bench_metric_{name.replace('.', '_')}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load(path, f"bench_metric_{name.replace('.', '_')}").read

@@ -1,6 +1,7 @@
 """The comparisons that decide ``correct``. Each returns numbers; the
 cell's limits file (``limits/<cell>.json``) gives each number its limit,
-and a number above its limit makes the run incorrect.
+and a number above its limit makes the run incorrect. A cell's family
+(``families/<family>.py``) chooses the comparisons; the PAA family's:
 
 Serving:
 - ``head_gap``: for each head output (cls_logits, box_regression,

@@ -29,6 +29,9 @@ NMS_IOU_OPS, NMS_LABEL_OPS = 15, 1
 # (box, label), and written per output slot (idx, score, valid)
 NMS_BYTES_ALL, NMS_BYTES_VALID, NMS_BYTES_OUT = 4 + 1, 16 + 4, 4 + 4 + 1
 
+# bytes of an element by the profiler's name of its type
+ITEMSIZE = {"c10::BFloat16": 2, "c10::Half": 2, "float": 4, "double": 8}
+
 
 def peaks(device_name):
     """The peaks of a card by its name, or None for a card not listed."""
@@ -165,6 +168,24 @@ def nms_bound_s(boxes, scores, labels, valid, keep_idx, keep_valid,
               + bsz * max_out * NMS_BYTES_OUT)
     ops = ious * NMS_IOU_OPS + (pairs * NMS_LABEL_OPS if aware else 0)
     return max(nbytes / peak["hbm_bytes_per_s"], ops / peak["f32_flops"])
+
+
+def deform_im2col_bytes(args):
+    """Least bytes of one ``paa_tpu_torch::deform_im2col`` op (K4) from
+    its recorded arguments (``record_shapes``): x, the offsets and the
+    mask (where given) read once, and the columns written once, (B,
+    groups, Ho*Wo, kh*kw*C/groups) in x's type, sized as the op's fake
+    sizes them."""
+    dims, types = args["Input Dims"], args["Input type"]
+    kh, kw, stride, padding, dilation, groups = (
+        int(v) for v in args["Concrete Inputs"][3:9])
+    b, c, h, w = dims[0]
+    ho = (h + 2 * padding - dilation * (kh - 1) - 1) // stride + 1
+    wo = (w + 2 * padding - dilation * (kw - 1) - 1) // stride + 1
+    read = sum(math.prod(d) * ITEMSIZE[t]
+               for d, t in zip(dims[:3], types[:3]) if d)
+    cols = b * groups * ho * wo * kh * kw * (c // groups)
+    return read + cols * ITEMSIZE[types[0]]
 
 
 def breakdown(view, top=10):

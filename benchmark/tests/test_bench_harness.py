@@ -16,8 +16,8 @@ import sys
 import pytest
 import torch
 
+from benchmark.families import paa
 from benchmark.harness import cells, main, program, weights as W
-from benchmark.harness.serve import reference_shapes
 from benchmark.tests import tiny
 
 CPU = torch.device("cpu")
@@ -116,7 +116,7 @@ def test_benchmark_json_follows_the_rules():
 
 def test_same_seed_same_inputs_and_weights():
     conf = tiny.narrow_config("paa_x152_dcnv2_2x")
-    shapes = reference_shapes(conf["reference"])
+    shapes = paa.state_shapes(conf)
     seed = 2**31 + 99
     a = W.make_weights(shapes, conf["weights"], seed, CPU)
     b = W.make_weights(shapes, conf["weights"], seed, CPU)
@@ -139,54 +139,159 @@ def test_same_seed_same_inputs_and_weights():
     assert counts[0] == counts[1] == counts[2]
 
 
-def test_added_cell_config_traffic_and_metric_found_by_name(root):
-    """A new cell of a new configuration under a new traffic mix, with a
-    new per-layer metric, each a file added beside the others: the
-    harness finds and runs them, editing none."""
+# A second family, in a file of its own: the PAA model judged on two of
+# its head outputs alone, captured by a hook on the submodule named
+# "head", and on two loss terms and the positives.
+FAMILY = '''
+import contextlib
+
+from benchmark.families import paa
+from benchmark.harness import checks
+
+HEADS = ("cls_logits", "iou_pred")
+STEP_RECORDS = ("loss_cls", "loss", "num_pos")
+state_shapes, flops, serve_pool, train_pool, reference_run = (
+    paa.state_shapes, paa.flops, paa.serve_pool, paa.train_pool,
+    paa.reference_run)
+
+
+@contextlib.contextmanager
+def capture(model):
+    heads = []
+    module = dict(model.module.named_modules())["head"]
+    hook = module.register_forward_hook(
+        lambda m, i, o: heads.append({k: o[k].cpu() for k in HEADS}))
+    try:
+        yield heads
+    finally:
+        hook.remove()
+
+
+def judge(cell, wts, pool, heads, calls, outputs, device):
+    ref = paa.reference_heads(cell, wts, pool, device, "float32", HEADS)
+    _, counts = paa.reference_anchors(cell.config["reference"],
+                                      cell.traffic["hw"], "cpu")
+    gap = checks.HeadGap(HEADS, len(counts))
+    for p, r in zip(heads, ref):
+        for k in HEADS:
+            for li, sl in enumerate(paa.level_slices(counts)):
+                gap.add(k, li, p[k][:, sl], r[k][:, sl])
+    return {"head_gap": gap.worst()}, {"head_gap_by_level": gap.values()}, 0
+
+
+def train_judge(records, grad, change, ref_run):
+    return paa.train_judge(records, grad, change, ref_run,
+                           ("loss_cls", "loss"))
+'''
+RUNNER = ("run.py", "control.py", *(f"harness/{f}" for f in sorted(
+    os.listdir(os.path.join(cells.HERE, "harness"))) if f.endswith(".py")))
+
+
+def _runner_bytes():
+    return {p: open(os.path.join(cells.HERE, p), "rb").read()
+            for p in RUNNER}
+
+
+def _add(root, cells_spec, metric=None):
+    """Adds files and entries to ``root``'s benchmark: [(cell, config,
+    traffic, limits)] and a per-layer metric (name, source, workloads)."""
     bench_dir = os.path.join(root, cells.BENCH_DIR)
-    before = {p: open(os.path.join(cells.HERE, p), "rb").read()
-              for p in ("harness/cells.py", "harness/main.py")}
-    conf = tiny.narrow_config("paa_r50_1x")
-    conf["name"] = "added_config"
-    with open(os.path.join(bench_dir, "configs", "added_config.json"),
-              "w") as f:
-        json.dump(conf, f)
-    with open(os.path.join(bench_dir, "traffic", "added_mix.json"),
-              "w") as f:
-        json.dump(dict(tiny.narrow_traffic("serve", batch=1, pool=3),
-                       reference_block=1), f)
-    with open(os.path.join(bench_dir, "metrics", "serve.calls_seen.py"),
-              "w") as f:
-        f.write("def read(view):\n    return float(view.calls)\n")
-    with open(os.path.join(bench_dir, "limits", "added.cell.json"),
-              "w") as f:
-        json.dump(_limits("paa_r50_1x.serve_b48"), f)
     path = os.path.join(root, "BENCHMARK.json")
     bench = cells.read_json(path)
-    bench["configs"].append({"name": "added_config", "source": "test",
-                             "file": f"{cells.BENCH_DIR}/configs/"
-                                     "added_config.json",
-                             "reduced": [], "why": "test"})
-    bench["workloads"].append({"name": "added.cell",
-                               "config": "added_config",
-                               "traffic": "added_mix", "chips": 1,
-                               "why": "test"})
-    bench["per_layer"].append({"name": "serve.calls_seen", "unit": "calls",
-                               "better": "higher", "source": "program_counter",
-                               "layer": "test", "moves": "serve_img_per_s",
-                               "workloads": ["added.cell"]})
-    for m in bench["end_to_end"]:
-        if m["name"] == "serve_img_per_s":
-            m["workloads"].append("added.cell")
+    for cell, conf, traffic, limits in cells_spec:
+        with open(os.path.join(bench_dir, "configs",
+                               f"{conf['name']}.json"), "w") as f:
+            json.dump(conf, f)
+        with open(os.path.join(bench_dir, "traffic", f"{cell}.mix.json"),
+                  "w") as f:
+            json.dump(traffic, f)
+        with open(os.path.join(bench_dir, "limits", f"{cell}.json"),
+                  "w") as f:
+            json.dump(limits, f)
+        if conf["name"] not in [c["name"] for c in bench["configs"]]:
+            bench["configs"].append({
+                "name": conf["name"], "source": "test",
+                "file": f"{cells.BENCH_DIR}/configs/{conf['name']}.json",
+                "reduced": [], "why": "test"})
+        bench["workloads"].append({"name": cell, "config": conf["name"],
+                                   "traffic": f"{cell}.mix", "chips": 1,
+                                   "why": "test"})
+        moves = f"{traffic['kind']}_img_per_s"
+        for m in bench["end_to_end"]:
+            if m["name"] == moves:
+                m["workloads"].append(cell)
+    if metric:
+        name, source, workloads = metric
+        with open(os.path.join(bench_dir, "metrics", f"{name}.py"),
+                  "w") as f:
+            f.write(source)
+        bench["per_layer"].append({
+            "name": name, "unit": "calls", "better": "higher",
+            "source": "program_counter", "layer": "test",
+            "moves": "serve_img_per_s", "workloads": workloads})
     with open(path, "w") as f:
         json.dump(bench, f)
+
+
+def test_added_cell_config_traffic_and_metric_found_by_name(root):
+    """New cells of new configurations under new traffic mixes, one of
+    them of a new detector family, with a new per-layer metric, each a
+    file added beside the others: the harness finds and runs them, its
+    runner (``harness/``, ``run.py``, ``control.py``) editing none."""
+    before = _runner_bytes()
+    conf = tiny.narrow_config("paa_r50_1x")
+    conf["name"] = "added_config"
+    other = dict(tiny.narrow_config("paa_r50_1x"), name="other_config",
+                 family="paa_two_heads")
+    with open(os.path.join(root, cells.BENCH_DIR, "families",
+                           "paa_two_heads.py"), "w") as f:
+        f.write(FAMILY)
+    serve_limits = _limits("paa_r50_1x.serve_b48")
+    _add(root, [
+        ("added.cell", conf, dict(tiny.narrow_traffic("serve", batch=1,
+                                                      pool=3),
+                                  reference_block=1), serve_limits),
+        ("other.serve", other, tiny.narrow_traffic("serve"),
+         {"head_gap": serve_limits["head_gap"]}),
+        ("other.train", other, tiny.narrow_traffic("train"),
+         _limits("paa_r50_1x.train_b16"))],
+        ("serve.calls_seen", "def read(view):\n"
+         "    return float(view.calls)\n", ["added.cell", "other.serve"]))
     cell = cells.load_cell("added.cell", root)
     assert cell.traffic["pool"] == 3 and cell.config["name"] == "added_config"
+    assert cells.load_cell("other.train", root).family.STEP_RECORDS == (
+        "loss_cls", "loss", "num_pos")
     rc, res, _ = _run(root, "added.cell", trace=True)
     assert rc == 0 and res["correct"]
     assert res["metrics"]["serve.calls_seen"]["value"] == 2.0
-    assert before == {p: open(os.path.join(cells.HERE, p), "rb").read()
-                      for p in before}
+
+    out, err = io.StringIO(), io.StringIO()
+    for name in ("other.serve", "other.train"):
+        assert main.run_cell(name, 2**31 + 5, 0.5, False, CPU, root=root,
+                             out=out, err=err) == 0
+    lines = [json.loads(x) for x in out.getvalue().strip().splitlines()]
+    serve_info, serve_res, train_info, train_res = lines
+    assert serve_res["correct"] and train_res["correct"]
+    assert list(serve_res["checks"]) == ["head_gap"]
+    assert set(serve_info["detail"]["head_gap_by_level"]) == {
+        f"{k}.P{l}" for k in ("cls_logits", "iou_pred") for l in range(3, 8)}
+    assert all(set(r) == {"loss_cls", "loss", "num_pos"}
+               for r in train_info["detail"]["losses"])
+    assert set(train_res["checks"]) == set(_limits("paa_r50_1x.train_b16"))
+    assert before == _runner_bytes()
+
+
+@pytest.mark.parametrize("family", [None, "no_such_family"])
+def test_missing_or_unknown_family_names_the_families(root, family):
+    conf = dict(tiny.narrow_config("paa_r50_1x"), name="orphan",
+                family=family)
+    if family is None:
+        del conf["family"]
+    _add(root, [("orphan.serve", conf, tiny.narrow_traffic("serve"),
+                 _limits("paa_r50_1x.serve_b48"))])
+    with pytest.raises(ValueError, match=r"\['paa'\]") as e:
+        cells.load_cell("orphan.serve", root)
+    assert repr(family) in str(e.value)
 
 
 @pytest.mark.parametrize("cell", ["n.serve_r50", "n.serve_x152",

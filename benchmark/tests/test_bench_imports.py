@@ -1,8 +1,9 @@
 """Nothing the benchmark runs imports JAX or the JAX package: a narrow
-run of the harness's CPU-side path in a fresh process loads no module
-whose top-level name, compared whole, is ``jax``, ``jaxlib``, ``flax``
-or ``paa_tpu`` (``paa_tpu_torch``, the program, is another name). And
-the plain reference imports nothing of the program."""
+run of the harness's CPU-side path in a fresh process, its detector
+family loaded, loads no module whose top-level name, compared whole, is
+``jax``, ``jaxlib``, ``flax`` or ``paa_tpu`` (``paa_tpu_torch``, the
+program, is another name). And the plain reference and the families
+that hold the program to it import nothing of the program."""
 
 import ast
 import os
@@ -32,6 +33,8 @@ for cell in ("n.serve", "n.train"):
                            err=io.StringIO())
         assert rc == 0, rc
         json.loads(out.getvalue().strip().splitlines()[-1])
+from benchmark.harness import cells
+assert cells.load_cell("n.serve", root).family.__name__ == "bench_family_paa"
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 """
 
@@ -68,6 +71,17 @@ def test_reference_imports_nothing_of_the_program():
     for path in _sources(ref):
         names = set(_imports(path))
         assert not names & (FORBIDDEN | {"paa_tpu_torch", "benchmark"}), \
+            path
+
+
+def test_families_import_nothing_of_the_program_or_jax():
+    """A family reaches the program only through what the runner hands
+    it (the model, its outputs); it imports neither the program nor
+    JAX."""
+    paths = list(_sources(os.path.join(cells.HERE, "families")))
+    assert any(p.endswith("paa.py") for p in paths)
+    for path in paths:
+        assert not set(_imports(path)) & (FORBIDDEN | {"paa_tpu_torch"}), \
             path
 
 

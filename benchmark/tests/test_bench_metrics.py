@@ -7,8 +7,8 @@ import math
 import pytest
 import torch
 
+from benchmark.families import paa
 from benchmark.harness import cells, tracemath
-from benchmark.harness.flops import reference_flops
 from benchmark.tests import tiny
 
 H100 = "NVIDIA H100 80GB HBM3"
@@ -38,7 +38,7 @@ def _host(name, ts, dur, tid=1, cat="cpu_op", **args):
 
 class _Cell:
     def __init__(self, traffic, config=None):
-        self.traffic, self.config = traffic, config
+        self.traffic, self.config, self.family = traffic, config, paa
 
 
 def _view(events, calls=2, window_us=1000.0, captures=None, name=H100,
@@ -77,6 +77,69 @@ def test_k3_reader_counts_input_and_output_once():
     assert got == pytest.approx(100 * nbytes / 3.35e12 / 50e-6)
     assert read(_view([])) is None  # nothing to read: no value, not 0
     assert read(_view(events, name="cpu")) is None
+
+
+K4 = "paa_tpu_torch::deform_im2col"
+
+
+def _k4_args(mask=True):
+    """A stride-2 grouped deformable conv's recorded arguments: x (2, 64,
+    20, 34) bf16, float32 offsets and mask at 10 x 17, 3x3, 32 groups."""
+    dims = [[2, 64, 20, 34], [2, 18, 10, 17], [2, 9, 10, 17] if mask
+            else [], [], [], [], [], [], [], []]
+    types = ["c10::BFloat16", "float", "float" if mask else ""] + \
+        ["Scalar"] * 7
+    concrete = ["", "", "", "3", "3", "2", "1", "1", "32", "1"]
+    return {"Input Dims": dims, "Input type": types,
+            "Concrete Inputs": concrete}
+
+
+def test_k4_reader_counts_inputs_and_columns_once():
+    """x, offsets and mask read once and the columns written once, over
+    the device time of every kernel launched inside the op (the
+    channels-last copy of x and the sampling)."""
+    read = cells.metric_reader("serve.k4_roofline")
+    cols = 2 * 32 * (10 * 17) * 9 * 2  # B, groups, Ho*Wo, K*C/groups
+    x, off, mask = 2 * 64 * 20 * 34 * 2, 2 * 18 * 170 * 4, 2 * 9 * 170 * 4
+    assert tracemath.deform_im2col_bytes(_k4_args()) == \
+        x + off + mask + cols * 2
+    assert tracemath.deform_im2col_bytes(_k4_args(mask=False)) == \
+        x + off + cols * 2
+    events = [_host(K4, 0, 10, **_k4_args()), _host(K4, 100, 10,
+                                                    **_k4_args(False)),
+              _launch(1, 7), _launch(2, 8), _launch(101, 9),
+              _kernel("copy_channels_last", 20, 30.0, 7),
+              _kernel("im2col_kernel", 50, 40.0, 8),
+              _kernel("im2col_kernel", 200, 30.0, 9)]
+    got = read(_view(events))
+    nbytes = 2 * (x + off + cols * 2) + mask
+    assert got == pytest.approx(100 * nbytes / 3.35e12 / 100e-6)
+    assert read(_view([])) is None  # no op ran: no value, not 0
+    assert read(_view(events, name="cpu")) is None
+
+
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_k4_bytes_from_the_ops_own_record(with_mask):
+    """The op's arguments as the profiler records them give the bytes of
+    its real inputs and of the columns it returns."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paa_tpu_torch.ops.deform_sampling import deform_im2col
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 8, 11, 13, generator=g).bfloat16()
+    off = torch.randn(2, 18, 6, 7, generator=g)
+    mask = torch.rand(2, 9, 6, 7, generator=g) if with_mask else None
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        cols = deform_im2col(x, off, mask, 3, 3, 2, 1, 1, 2, 1)
+    events = tracemath.load_trace(prof)
+    op = [e for e in events if e.get("name") == K4
+          and e.get("cat") == "cpu_op"]
+    want = sum(t.numel() * t.element_size() for t in (x, off, mask, cols)
+               if t is not None)
+    assert len(op) == 1
+    assert tracemath.deform_im2col_bytes(op[0]["args"]) == want
 
 
 def test_nms_bound_counts_greedy_work():
@@ -174,11 +237,17 @@ def test_idle_gaps_by_host_span():
                                   "bench/window": 20e-6})
 
 
+def _flops(conf, batch, hw, backward=False):
+    return paa.flops(_Cell({"batch": batch, "hw": list(hw)}, conf),
+                     backward)
+
+
 def test_reference_flops_scale_and_count_convs():
-    ref = tiny.narrow_config("paa_r50_1x")["reference"]
-    one = reference_flops(ref, 1, (64, 96))
-    assert reference_flops(ref, 2, (64, 96)) == 2 * one
-    both = reference_flops(ref, 1, (64, 96), backward=True)
+    conf = tiny.narrow_config("paa_r50_1x")
+    ref = conf["reference"]
+    one = _flops(conf, 1, (64, 96))
+    assert _flops(conf, 2, (64, 96)) == 2 * one
+    both = _flops(conf, 1, (64, 96), backward=True)
     assert 2 * one < both < 3 * one  # the frozen stem computes no grads
     # the stem's 7x7/2 conv alone: 2 * Cout * Cin * 49 * Ho * Wo
     stem = 2 * ref["body"]["stem_out"] * 3 * 49 * 32 * 48
@@ -189,10 +258,10 @@ def test_mfu_readers():
     conf = tiny.narrow_config("paa_r50_1x")
     tr = {"batch": 2, "hw": [64, 96]}
     view = _view([], calls=4, window_us=2e6, traffic=tr, config=conf)
-    flops = reference_flops(conf["reference"], 2, (64, 96))
+    flops = _flops(conf, 2, (64, 96))
     assert cells.metric_reader("serve.mfu")(view) == pytest.approx(
         100 * flops * 4 / 2.0 / 989e12)
-    train = reference_flops(conf["reference"], 2, (64, 96), backward=True)
+    train = _flops(conf, 2, (64, 96), backward=True)
     assert cells.metric_reader("train.mfu")(view) == pytest.approx(
         100 * train * 4 / 2.0 / 989e12)
     assert math.isfinite(cells.metric_reader("serve.mfu")(view))

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.harness import cells, checks, program, serve, train
+from benchmark.families import paa
+from benchmark.harness import cells, checks, program, train
 from benchmark.harness import weights as W
 from benchmark.reference import loss as ref_loss
 from benchmark.reference import model as ref_model
@@ -37,8 +38,8 @@ class _Cell:
 def _setup(name, seed=3):
     conf = tiny.narrow_config(name)
     tr = tiny.narrow_traffic("serve")
-    wts = W.make_weights(serve.reference_shapes(conf["reference"]),
-                         conf["weights"], seed, CPU)
+    wts = W.make_weights(paa.state_shapes(conf), conf["weights"], seed,
+                         CPU)
     return conf, tr, wts
 
 
@@ -130,8 +131,8 @@ def test_head_outputs_match_program(name, tol):
     model.make_eval_fn()(*pool[0])
     hook.remove()
     cell = _Cell(conf, tr)
-    ref_heads = serve.reference_heads(cell, wts, pool[:1], CPU, "float32")
-    for key in serve.HEAD_KEYS:
+    ref_heads = paa.reference_heads(cell, wts, pool[:1], CPU, "float32")
+    for key in paa.HEAD_KEYS:
         p, r = captured[0][key].float(), ref_heads[0][key]
         assert float((p - r).abs().max()) <= tol * float(r.std()) + 1e-6
 
@@ -146,11 +147,11 @@ def test_postprocess_matches_program(name):
     pool = W.image_pool(tr, 3, CPU)
     heads = []
     hook = model.module.register_forward_hook(
-        lambda m, i, o: heads.append({k: o[k] for k in serve.HEAD_KEYS}))
+        lambda m, i, o: heads.append({k: o[k] for k in paa.HEAD_KEYS}))
     eval_fn = model.make_eval_fn()
     outs = [eval_fn(*b) for b in pool]
     hook.remove()
-    dets = serve.reference_detections(_Cell(conf, tr), heads, pool, CPU)
+    dets = paa.reference_detections(_Cell(conf, tr), heads, pool, CPU)
     numbers, _ = checks.detections_gap(dets, [0, 1], outs, {})
     assert numbers["det_mismatch"] == 0
     assert numbers["det_box_gap_px"] < 1e-3
@@ -183,7 +184,7 @@ def test_loss_matches_program():
     tr = tiny.narrow_traffic("train")
     cell = _Cell(conf, tr)
     model = program.build_model(conf, wts, CPU)
-    b = train.pool_batches(cell, 3, CPU)[0]
+    b = paa.train_pool(cell, 3, CPU)[0]
     x = ref_model.normalize(b["images"], b["image_sizes"],
                             conf["reference"]["pixel_mean"],
                             conf["reference"]["pixel_std"])
@@ -213,15 +214,13 @@ def test_train_steps_match_program(name, change_tol):
     conf = tiny.narrow_config(name)
     tr = dict(tiny.narrow_traffic("train"), reference_block=2)
     cell = _Cell(conf, tr)
-    wts = W.make_weights(serve.reference_shapes(conf["reference"]),
-                         conf["weights"], 3, CPU)
+    wts = W.make_weights(paa.state_shapes(conf), conf["weights"], 3, CPU)
     model = program.build_model(conf, wts, CPU)
     state = program.train_state(model)
     step = model.make_bucket_train_step(tuple(tr["hw"]))
-    pool = train.pool_batches(cell, 3, CPU)
-    got = train.first_steps(step, state, pool, 2,
-                            conf["reference"]["solver"]["weight_decay"])
-    numbers, _ = train.judge(*got, train.reference_run(cell, wts, pool[:2],
-                                                        CPU))
+    pool = paa.train_pool(cell, 3, CPU)
+    got = train.first_steps(step, state, pool, 2, paa.STEP_RECORDS)
+    numbers, _ = paa.train_judge(*got, paa.reference_run(cell, wts,
+                                                         pool[:2], CPU))
     assert numbers["loss_gap"] < 1e-4 and numbers["num_pos_gap"] == 0
     assert numbers["grad_gap"] < 1e-3 and numbers["change_gap"] < change_tol
