@@ -97,18 +97,23 @@ RPN_STRIDES = (4, 8, 16, 32, 64)
 FPN_POOLER_SCALES = (0.25, 0.125, 0.0625, 0.03125)
 
 # the spans of a two-stage train step (beside engine/train_step.py's)
+# and, those marked, of inference (``TwoStageModel.detect``); the
+# benchmark's serve.proposals_ms, serve.box_head_ms,
+# serve.box_postprocess_ms, serve.mask_head_ms and
+# serve.two_stage_idle_ms read the inference ones
+SPAN_RPN_HEAD = "two_stage/rpn_head"  # inference
 SPAN_RPN_LOSS = "two_stage/rpn_loss"
-SPAN_PROPOSALS = "two_stage/proposals"
+SPAN_PROPOSALS = "two_stage/proposals"  # and inference
 SPAN_ROI_SAMPLING = "two_stage/roi_sampling"
-SPAN_BOX_HEAD = "two_stage/box_head"
+SPAN_BOX_HEAD = "two_stage/box_head"  # and inference
+SPAN_BOX_POSTPROCESS = "two_stage/box_postprocess"  # inference
 SPAN_BOX_LOSS = "two_stage/box_loss"
-SPAN_MASK_HEAD = "two_stage/mask_head"
+SPAN_MASK_HEAD = "two_stage/mask_head"  # and inference
 SPAN_MASK_TARGETS = "two_stage/mask_targets"
 SPAN_MASK_LOSS = "two_stage/mask_loss"
 SPAN_KEYPOINT_HEAD = "two_stage/keypoint_head"
 SPAN_KEYPOINT_LOSS = "two_stage/keypoint_loss"
-# the mask and keypoint heads at inference
-SPAN_MASK_EVAL = "mask head"
+# the keypoint head at inference
 SPAN_KEYPOINT_EVAL = "keypoint head"
 
 
@@ -332,27 +337,32 @@ class TwoStageModel(DetectionModel):
         slot); for Keypoint R-CNN "kp_heatmaps" (B, DETECTIONS_PER_IMG,
         K, 56, 56) float32 logits of each kept box."""
         anchors, counts = self.anchors_for(images.shape[2:])
-        features, rpn_out = self.module.backbone_rpn(images)
-        proposals, _, p_valid = select_proposals(
-            rpn_out, image_sizes, anchors, counts,
-            RPNConfig.from_cfg(self.cfg, is_train=False))
-        bsz, k = proposals.shape[:2]
-        batch_idx = torch.arange(bsz, device=proposals.device
-                                 ).repeat_interleave(k)
-        cls_logits, box_deltas = self.module.box(
-            features, proposals.reshape(-1, 4), batch_idx)
-        c = cls_logits.shape[-1]
-        det = roi_box_postprocess_batched(
-            cls_logits.reshape(bsz, k, c),
-            box_deltas.reshape(bsz, k, c, 4),
-            proposals, p_valid, image_sizes, self.postprocess_config(),
-        )
-        d = det["boxes"].shape[1]
-        det_rois = det["boxes"].reshape(-1, 4)
-        det_idx = torch.arange(bsz, device=proposals.device
-                               ).repeat_interleave(d)
+        features = self.module.backbone(images)
+        with record_function(SPAN_RPN_HEAD):
+            rpn_out = self.module.rpn_head(features)
+        with record_function(SPAN_PROPOSALS):
+            proposals, _, p_valid = select_proposals(
+                rpn_out, image_sizes, anchors, counts,
+                RPNConfig.from_cfg(self.cfg, is_train=False))
+            bsz, k = proposals.shape[:2]
+            batch_idx = torch.arange(bsz, device=proposals.device
+                                     ).repeat_interleave(k)
+        with record_function(SPAN_BOX_HEAD):
+            cls_logits, box_deltas = self.module.box(
+                features, proposals.reshape(-1, 4), batch_idx)
+        with record_function(SPAN_BOX_POSTPROCESS):
+            c = cls_logits.shape[-1]
+            det = roi_box_postprocess_batched(
+                cls_logits.reshape(bsz, k, c),
+                box_deltas.reshape(bsz, k, c, 4),
+                proposals, p_valid, image_sizes, self.postprocess_config(),
+            )
+            d = det["boxes"].shape[1]
+            det_rois = det["boxes"].reshape(-1, 4)
+            det_idx = torch.arange(bsz, device=proposals.device
+                                   ).repeat_interleave(d)
         if self.module.mask_head is not None:
-            with record_function(SPAN_MASK_EVAL):
+            with record_function(SPAN_MASK_HEAD):
                 logits = self.module.mask(features, det_rois, det_idx)
                 channel = (det["labels"].reshape(-1) - 1).clamp(min=0)
                 sel = logits[torch.arange(bsz * d, device=channel.device),

@@ -9,12 +9,16 @@ __all__ = ["deform_im2col", "group_norm_relu", "launch_counts",
 def launch_counts():
     """The kernels' launch counters in this process: K1
     (``nms_batched.launches``), K2 (``nms._nms_global.launches``), K3
-    (``group_norm_relu.launches``) and K4 (``deform_im2col.launches``).
-    Each wrapper adds one where it launches its kernel on the card; the
-    plain versions count nothing."""
+    (``group_norm_relu.launches``) and K4 (``deform_im2col.launches``):
+    each wrapper adds one where it launches its kernel on the card, the
+    plain versions count nothing; and ROIAlign's calls and rois
+    (``roi_align.COUNTS``), plain PyTorch on every device, counted
+    wherever it runs."""
+    from . import roi_align
     from .nms import _nms_global
 
     return {"nms_batched": nms_batched.launches,
             "nms_global": _nms_global.launches,
             "group_norm_relu": group_norm_relu.launches,
-            "deform_im2col": deform_im2col.launches}
+            "deform_im2col": deform_im2col.launches,
+            **roi_align.COUNTS}

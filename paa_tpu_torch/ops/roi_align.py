@@ -23,6 +23,11 @@ training rois at 256 channels would otherwise hold four 6.6 GB corner
 tensors (and their gradients). Each roi's numbers do not depend on the
 chunking.
 
+``roi_align`` and ``multilevel_roi_align`` run inside the span
+``roi_align/forward`` and count their calls and rois in ``COUNTS``
+(``ops.launch_counts``: "roi_align", "roi_align_rois"), on every
+device: ROIAlign has no kernel of its own.
+
 ``roi_pool`` is the max ROI pooling of the reference's ROIPool_cuda.cu
 as the JAX package computes it: each bin of the rounded integer grid
 takes the max of its pixels, an empty bin 0. Nothing in the JAX package
@@ -34,9 +39,28 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.profiler import record_function
 
 # the largest float32 corner tensor (R, Sy, Sx, C) of one chunk of rois
 CHUNK_BYTES = 1 << 30
+# the span of a pooler call; the benchmark's serve.roi_align_ms reads it
+SPAN_ROI_ALIGN = "roi_align/forward"
+# the pooler's calls and the rois they pooled, in this process
+COUNTS = {"roi_align": 0, "roi_align_rois": 0}
+
+
+def _count(rois):
+    COUNTS["roi_align"] += 1
+    COUNTS["roi_align_rois"] += rois.shape[0]
+
+
+def _constant(values, dtype, dev):
+    """``values`` as a tensor on ``dev``, without waiting for the work
+    queued there. ``torch.tensor(values, device=dev)`` copies and then
+    synchronizes the stream: a host read in the middle of the call. A
+    non-blocking copy from pageable memory is staged before it returns,
+    so the host tensor may go at once."""
+    return torch.tensor(values, dtype=dtype).to(dev, non_blocking=True)
 
 
 def _axis_samples(start, end, bins, sampling_ratio, size):
@@ -133,15 +157,17 @@ def roi_align(features, rois, roi_batch_idx, output_size=(7, 7),
     features: (B, C, H, W); rois: (R, 4) xyxy in input coordinates;
     roi_batch_idx: (R,) image index per roi. Returns (R, ph, pw, C)
     float32."""
+    _count(rois)
     _, _, h, w = features.shape
     r = rois.shape[0]
     dev = features.device
-    return _align(
-        _channels_last_rows(features), roi_batch_idx.long() * (h * w),
-        torch.full((r,), h, device=dev), torch.full((r,), w, device=dev),
-        rois, torch.tensor(spatial_scale, dtype=torch.float32, device=dev),
-        output_size, sampling_ratio,
-    )
+    with record_function(SPAN_ROI_ALIGN):
+        return _align(
+            _channels_last_rows(features), roi_batch_idx.long() * (h * w),
+            torch.full((r,), h, device=dev), torch.full((r,), w, device=dev),
+            rois, _constant(spatial_scale, torch.float32, dev),
+            output_size, sampling_ratio,
+        )
 
 
 def align_on_own_maps(maps, rois, output_size, sampling_ratio=2):
@@ -154,7 +180,7 @@ def align_on_own_maps(maps, rois, output_size, sampling_ratio=2):
     return _align(
         maps.reshape(r * h * w, 1), torch.arange(r, device=dev) * (h * w),
         torch.full((r,), h, device=dev), torch.full((r,), w, device=dev),
-        rois, torch.tensor(1.0, dtype=torch.float32, device=dev),
+        rois, _constant(1.0, torch.float32, dev),
         output_size, sampling_ratio)[..., 0]
 
 
@@ -182,21 +208,23 @@ def multilevel_roi_align(features, rois, roi_batch_idx, output_size=(7, 7),
     level alone gives the same numbers with a quarter of the gathers.
 
     features: one NCHW map per scale, same batch and channels."""
-    k_min = int(-math.log2(scales[0]))
-    k_max = int(-math.log2(scales[-1]))
-    rois = rois.to(torch.float32)
-    levels = fpn_level_for_rois(rois, k_min=k_min, k_max=k_max)
-    dev = rois.device
-    sizes = torch.tensor([tuple(f.shape[2:]) for f in features],
-                         device=dev)
-    pixels = sizes[:, 0] * sizes[:, 1]
-    offsets = torch.cumsum(pixels * features[0].shape[0], 0) - \
-        pixels * features[0].shape[0]
-    table = torch.cat([_channels_last_rows(f) for f in features])
-    row0 = offsets[levels] + roi_batch_idx.long() * pixels[levels]
-    scale = torch.tensor(scales, dtype=torch.float32, device=dev)[levels]
-    return _align(table, row0, sizes[levels, 0], sizes[levels, 1], rois,
-                  scale, output_size, sampling_ratio)
+    _count(rois)
+    with record_function(SPAN_ROI_ALIGN):
+        k_min = int(-math.log2(scales[0]))
+        k_max = int(-math.log2(scales[-1]))
+        rois = rois.to(torch.float32)
+        levels = fpn_level_for_rois(rois, k_min=k_min, k_max=k_max)
+        dev = rois.device
+        sizes = _constant([tuple(f.shape[2:]) for f in features],
+                          torch.int64, dev)
+        pixels = sizes[:, 0] * sizes[:, 1]
+        offsets = torch.cumsum(pixels * features[0].shape[0], 0) - \
+            pixels * features[0].shape[0]
+        table = torch.cat([_channels_last_rows(f) for f in features])
+        row0 = offsets[levels] + roi_batch_idx.long() * pixels[levels]
+        scale = _constant(scales, torch.float32, dev)[levels]
+        return _align(table, row0, sizes[levels, 0], sizes[levels, 1],
+                      rois, scale, output_size, sampling_ratio)
 
 
 def roi_pool(features, rois, roi_batch_idx, output_size=(7, 7),

@@ -204,7 +204,9 @@ def test_timed_call_matches_bench_py_s(narrow_pair, lift):
         float(np.asarray(want["valid"]).sum()) / 2
     assert r["launches"] == {"nms_batched": 0, "nms_global": 0,
                              "group_norm_relu": 0,
-                             "deform_im2col": 0}  # plain versions
+                             "deform_im2col": 0,  # plain versions
+                             "roi_align": 0,  # PAA pools no rois
+                             "roi_align_rois": 0}
 
 
 def test_tta_bucket_bound_equals_bench_tta_s(monkeypatch):

@@ -1080,3 +1080,29 @@ def test_two_stage_export_on_the_card_round_trips(dev, tmp_path):
         assert torch.equal(served[k], live[k]), k
     for k in ("boxes", "scores"):
         torch.testing.assert_close(served[k], live[k], rtol=0, atol=1e-5)
+
+
+def test_fpn_pooler_queues_without_a_host_sync(dev):
+    """The FPN pooler reaches the card with its level tables by
+    non-blocking copies: under CUDA's sync debug mode "error" a call
+    that copies and waits, or reads back, raises. Its pools equal the
+    CPU's (float32, positions rounded alike; 1e-5 for the card's fused
+    multiply-adds in the bilinear sums)."""
+    from paa_tpu_torch.ops.roi_align import multilevel_roi_align
+
+    gen = torch.Generator().manual_seed(0)
+    features = [torch.randn(2, 8, 64 // s, 96 // s, generator=gen)
+                for s in (1, 2, 4, 8)]
+    xy = torch.rand(40, 2, generator=gen) * torch.tensor([320.0, 200.0])
+    rois = torch.cat([xy, xy + 4 + torch.rand(40, 2, generator=gen) * 600],
+                     1)
+    batch_idx = torch.arange(40) % 2
+    want = multilevel_roi_align(features, rois, batch_idx)
+    args = ([f.to(dev) for f in features], rois.to(dev), batch_idx.to(dev))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = multilevel_roi_align(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)

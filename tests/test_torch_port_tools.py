@@ -129,9 +129,11 @@ def test_profile_train_step_cli_on_the_cpu():
     assert result["batch"] == 1 and result["hw"] == [64, 96]
     assert result["flops_per_step"] > 0 and result["dtype"] == "float32"
     assert "share_of_bf16_peak" not in result
-    # on the CPU the kernels' plain versions run: no launch is counted
+    # on the CPU the kernels' plain versions run: no launch is counted;
+    # ROIAlign's counters count on every device, and PAA pools no rois
     assert result["launches"] == {"nms_batched": 0, "nms_global": 0,
-                                  "group_norm_relu": 0, "deform_im2col": 0}
+                                  "group_norm_relu": 0, "deform_im2col": 0,
+                                  "roi_align": 0, "roi_align_rois": 0}
 
 
 def test_profile_steps_subtracts_nested_spans():

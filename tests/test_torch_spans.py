@@ -11,6 +11,11 @@ R-50's widths, float32) and 2 x 64 x 96 uint8 batches:
   ``train_step/input``; the GMM opens one ``sync/gmm_converged`` per
   convergence read;
 - a ``DeformConv`` forward opens ``deform_conv2d/forward``;
+- a narrow Mask R-CNN call opens ``two_stage/rpn_head``,
+  ``two_stage/proposals``, ``two_stage/box_head``,
+  ``two_stage/box_postprocess`` and ``two_stage/mask_head`` once each, in
+  order, ``roi_align/forward`` inside the box and mask heads, and
+  ``launch_counts()`` counts ROIAlign's two calls and their rois;
 - every backward op of a conv links to the forward op of its stage by
   the benchmark's link (the profiler's ``fwdbwd`` flow events,
   ``benchmark/harness/spans.py``): a torch upgrade that drops the link
@@ -214,6 +219,48 @@ def test_train_step_gmm_reads_are_its_host_reads(train_trace):
     reads = [e for e in events if e.get("name") == SCALAR_READ]
     assert len(reads) == len(got)
     assert all(any(_inside(r, s) for s in got) for r in reads)
+
+
+MASK_RCNN = ["MODEL.RESNETS.BACKBONE_OUT_CHANNELS", 32,
+             "MODEL.RESNETS.WIDTH_PER_GROUP", 8,
+             "MODEL.RESNETS.STEM_OUT_CHANNELS", 8,
+             "MODEL.RESNETS.RES2_OUT_CHANNELS", 32,
+             "MODEL.ROI_BOX_HEAD.NUM_CLASSES", 5,
+             "MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM", 32,
+             "MODEL.ROI_MASK_HEAD.CONV_LAYERS", (32, 32, 32, 32),
+             "MODEL.RPN.PRE_NMS_TOP_N_TEST", 50,
+             "MODEL.RPN.POST_NMS_TOP_N_TEST", 20,
+             "MODEL.RPN.FPN_POST_NMS_TOP_N_TEST", 40,
+             "MODEL.ROI_HEADS.DETECTIONS_PER_IMG", 10,
+             "TPU.COMPUTE_DTYPE", "float32"]
+TWO_STAGE = ["two_stage/rpn_head", "two_stage/proposals",
+             "two_stage/box_head", "two_stage/box_postprocess",
+             "two_stage/mask_head"]
+
+
+def test_mask_rcnn_call_opens_the_two_stage_spans_and_counts_rois():
+    from paa_tpu_torch.ops import launch_counts
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, "configs",
+                                     "e2e_mask_rcnn_R_50_FPN_1x.yaml"))
+    cfg.merge_from_list(MASK_RCNN)
+    cfg.freeze()
+    eval_fn = build_detection_model(cfg, device="cpu").make_eval_fn()
+    b = _batch()
+    before = launch_counts()
+    events = _traced(lambda: eval_fn(b["images"], b["image_sizes"]))
+    counts = {k: v - before[k] for k, v in launch_counts().items()}
+    assert [e["name"] for e in _spans(events, "two_stage/")] == TWO_STAGE
+    pools = _spans(events, "roi_align/forward")
+    heads = {e["name"]: e for e in _spans(events, "two_stage/")}
+    assert len(pools) == 2
+    assert _inside(pools[0], heads["two_stage/box_head"])
+    assert _inside(pools[1], heads["two_stage/mask_head"])
+    # 40 proposals and 10 detections an image, two images
+    assert counts["roi_align"] == 2
+    assert counts["roi_align_rois"] == 2 * 40 + 2 * 10
+    assert counts["nms_batched"] == counts["nms_global"] == 0  # plain
 
 
 @pytest.mark.parametrize("grad", [False, True])
