@@ -8,7 +8,7 @@ and prints no result line):
 
 1. Build the CUDA kernels from paa_tpu_torch/csrc (one nvcc per source,
    in parallel, sm_90a): K1 nms_batched.cu, K2 nms_global.cu, K3
-   group_norm.cu, K4 deform_im2col.cu.
+   group_norm.cu, K4 deform_im2col.cu, K5 deform_col2im.cu.
 2. K1, the batched NMS kernel, against its plain PyTorch version on the
    card: B=8, N=5000 and 77, max_out=100, IoU 0.6, class-aware and
    class-agnostic, with exact score ties and all-invalid rows; the RPN's
@@ -158,7 +158,8 @@ and prints no result line):
 
 24. (Run after phase 23, with the X-152 serving model freed.) The DCN
     backward that keeps only its inputs (ops/dcn.py's
-    DeformConv2dFunction) against autograd through deform_conv2d on the
+    DeformConv2dFunction: on the card the columns' gradient, K4 for the
+    weight's and K5) against autograd through deform_conv2d on the
     card at phase 21's shapes, B=2: the gradients of x, offsets, mask
     and weight in float32 (TF32 off) and bfloat16 within
     DCN_GRAD_LIMITS; the peak memory of one stage-3 layer's forward and
@@ -168,9 +169,9 @@ and prints no result line):
     from seed 2, DCN_TRAIN_STEPS (2) steps of do_train on one repeated
     batch of 8 (else 4, else 2: the largest that fits) uint8 800 x 1344
     images with 3-12 GTs in 100 slots: every loss finite, num_pos > 0, the
-    last loss below the first, K3 40 and K4 57 launches per step (the
-    forward; the backward recomputes through the plain version) and no
-    NMS; one
+    last loss below the first, K3 40, K4 114 (the forward's 57 and the
+    backward's columns for the weights' gradients) and K5 57 launches per
+    step and no NMS; one
     step at each of the ladder's buckets (800, 1344) and (1344, 800);
     peak memory, ms per step, img/s, and a torch.profiler split
     (forward, the DCN backward's recompute, K3's gradient recompute,
@@ -452,6 +453,16 @@ and prints no result line):
     one bfloat16 rounding (2^-8 relative) of the plain float32 columns
     of the same values. K4's ms per shape in bfloat16, beside the plain
     version's and its bytes bound; their sums per forward go into K4's
+    entry of the ``kernels`` line.
+69. (Run after phase 24.) K5 against its plain version
+    (``_col2im_grads``) on the same card tensors at every layer shape at
+    which phase 24's do_train launched it, which must be K4_PATH_SHAPES
+    at B=8 in bfloat16, once a layer a step: K5 once at B=8 in float32
+    and bfloat16, each two-image slice of its gradients within 1e-5 of
+    the plain version's largest magnitude on that slice; then at B=8 in
+    bfloat16 K5's ms beside its bytes bound,
+    the whole CUDA backward of a layer beside its own, and the plain
+    recompute it replaced; their sums per training step go into K5's
     entry of the ``kernels`` line.
 
 Phase 13 also runs the step a third time on the CPU with the network in
@@ -982,7 +993,7 @@ def request(seed, bsz, hw, size):
 # the kernels' launch counters of ops.launch_counts (ROIAlign's calls
 # and rois, the others, are not launches)
 KERNEL_COUNTERS = ("nms_batched", "nms_global", "group_norm_relu",
-                   "deform_im2col")
+                   "deform_im2col", "deform_col2im")
 
 
 def kernel_launches(counts):
@@ -1005,6 +1016,7 @@ def zero_launch_counts():
     nms._nms_global.launches = 0
     group_norm.group_norm_relu.launches = 0
     deform_sampling.deform_im2col.launches = 0
+    deform_sampling.deform_col2im.launches = 0
     group_norm.group_norm_relu.launches_by_form.update(relu=0, no_relu=0)
 
 
@@ -1120,7 +1132,8 @@ def phase_main_path(dev, path=PAA_CONFIG, what="main_path"):
         model, what, 10,
         {"nms_batched": 3, "nms_global": 0,
          "group_norm_relu": 3 * gn_per_forward(model),
-         "deform_im2col": 3 * dcn_per_forward(model)}, 0.0)
+         "deform_im2col": 3 * dcn_per_forward(model), "deform_col2im": 0},
+        0.0)
     return model, eval_fn, launches
 
 
@@ -1129,7 +1142,7 @@ def phase_frcnn_main_path(dev):
     eval_fn, launches = serve(
         model, "faster_rcnn_main_path", 40,
         {"nms_batched": 3, "nms_global": 3, "group_norm_relu": 0,
-         "deform_im2col": 0}, 0.05)
+         "deform_im2col": 0, "deform_col2im": 0}, 0.05)
     return model, eval_fn, launches
 
 
@@ -1553,7 +1566,7 @@ def phase_eval_main_path(dev, name):
     batches = len(calls)
     expected = {"nms_batched": batches, "nms_global": 0,
                 "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW) * batches,
-                "deform_im2col": 0}
+                "deform_im2col": 0, "deform_col2im": 0}
     check(launches == expected and batches > 0,
           f"eval_main_path: launches {launches}, expected {expected}")
     check(sorted(results) == sorted(METRICS) and all(
@@ -1927,7 +1940,8 @@ def phase_train_main_path(dev, name, path=PAA_CONFIG,
     launches = launch_counts()
     expected = {"nms_batched": 0, "nms_global": 0,
                 "group_norm_relu": gn_per_forward(model) * TRAIN_STEPS,
-                "deform_im2col": dcn_per_forward(model) * TRAIN_STEPS}
+                "deform_im2col": 2 * dcn_per_forward(model) * TRAIN_STEPS,
+                "deform_col2im": dcn_per_forward(model) * TRAIN_STEPS}
     check(launches == expected,
           f"{what}: launches {launches}, expected {expected}")
     check(sorted(seen) == list(range(1, TRAIN_STEPS + 1)),
@@ -2498,7 +2512,8 @@ def phase_dcnv2_main_path(dev):
     eval_fn, launches = serve(
         model, "dcnv2_x152_main_path", 70,
         {"nms_batched": 3, "nms_global": 0, "group_norm_relu": 120,
-         "deform_im2col": 3 * dcn_per_forward(model)}, 0.0)
+         "deform_im2col": 3 * dcn_per_forward(model), "deform_col2im": 0},
+        0.0)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     params = sum(p.numel() for p in model.module.parameters())
     print(json.dumps({"phase": "dcnv2_x152_main_path",
@@ -2631,10 +2646,11 @@ DCN_TRAIN_BATCHES = (8, 4, 2)
 # the first step)
 DCN_TRAIN_STEPS = 2
 # DeformConv2dFunction against autograd through deform_conv2d on the
-# card, within this share of each gradient's largest magnitude: the
-# card's index_add (the row gather's backward) adds in no fixed order,
-# a few float32 roundings (~1e-6) or, in bfloat16, where every add
-# rounds to 8 bits, a few bfloat16 roundings (~1e-2)
+# card, within this share of each gradient's largest magnitude: K5's
+# atomics and the plain version's index_add (the row gather's backward)
+# add in no fixed order, a few float32 roundings (~1e-6) or, in
+# bfloat16, where every add of the plain version rounds to 8 bits, a few
+# bfloat16 roundings (~1e-2)
 DCN_GRAD_LIMITS = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 TTA_IMAGES = 1
 
@@ -2789,9 +2805,10 @@ def phase_k4_at_path_shapes(dev, launches, requests, name):
 
 
 def phase_dcn_backward_card(dev, name):
-    """ops/dcn.py's DeformConv2dFunction (the backward that keeps only
-    x, offsets, mask and weight and recomputes each chunk of images)
-    against autograd through deform_conv2d on the card, at the X-152
+    """ops/dcn.py's DeformConv2dFunction (whose backward keeps only x,
+    offsets, mask and weight, and on the card takes
+    ``deform_conv2d_columns_backward``: the columns' gradient, K4's
+    columns for the weight's, K5 for the rest) against autograd through deform_conv2d on the card, at the X-152
     path's stage-3, stage-4 and P3 tower shapes, B=2, offsets from a
     seed: the gradients of x, offsets, mask and weight in float32 (TF32
     off) and bfloat16 within DCN_GRAD_LIMITS of each one's largest
@@ -2841,9 +2858,128 @@ def phase_dcn_backward_card(dev, name):
                           "chunk_images": dcn._images_per_chunk(
                               torch.empty(bsz, c, 1, 1,
                                           dtype=torch.bfloat16),
-                              *hw, 9),
+                              *hw, 9, per_channel=1),
                           **peaks},
                       "card": name}))
+
+
+def phase_k5_at_path_shapes(dev, launches, steps, name):
+    """Phase 69: K5 (the deformable col2im, the gradient of K4's
+    sampling) at every shape of ``launches``, those that
+    ``recording_k5_launches`` recorded over phase 24's ``steps`` steps of
+    do_train, which must be K4_PATH_SHAPES's at B=8 in bfloat16, each
+    layer once a step (one chunk a layer); offsets normal(0, 2 px), the
+    mask uniform. K5 called once at B=8 in float32 and in bfloat16,
+    each two-image slice of its gradients against its plain version
+    ``_col2im_grads`` on the same slice (each image's gradients depend
+    on that image alone), within 1e-5 of each gradient's largest
+    magnitude (both sum the same values in float32, in another order; in
+    bfloat16 dx also within one bfloat16 ulp of each value); then device
+    ms of K5 alone on a channels-last x, its bytes bound (dcol, x, the
+    offsets and the mask read once, dx and the offsets' and the mask's
+    gradients written once), the whole CUDA backward of the layer
+    (``deform_conv2d_columns_backward``: the columns' gradient, K4's
+    columns for the weight's, K5) and its bytes bound (the columns'
+    gradient and the columns each written and read, x and the upstream
+    gradient read twice, dx written), and the plain recompute under
+    autograd that it replaced (``_recompute_backward``). Returns K5's
+    entry of the ``kernels`` line (its launches by path still to
+    come)."""
+    from paa_tpu_torch.ops import dcn
+    from paa_tpu_torch.ops import deform_sampling as ds
+
+    layers = {layer: what for what, (layer, _) in K4_PATH_SHAPES.items()}
+    keys = sorted(set(launches), key=str)
+    counts = collections.Counter(
+        layers.get((*k[0][1:], k[7])) for k in launches)
+    want = {what: steps * n for what, (_, n) in K4_PATH_SHAPES.items()}
+    check(dict(counts) == want and all(
+        k[0][0] == BATCH and k[1] == torch.bfloat16
+        and k[2:7] == (3, 3, 1, 1, 1) and k[8] == 1 and k[9] for k in keys),
+        f"k5_at_path_shapes: launches {dict(counts)} at {keys}, expected "
+        f"{want}")
+    gen = torch.Generator(dev).manual_seed(23)
+    worst = {"f32": 0.0, "bf16": 0.0}
+    per_shape = {}
+    totals = collections.Counter()
+    for key in keys:
+        shape, _, kh, kw, stride, pad, dil, groups, dg, _ = key
+        what = layers[(*shape[1:], groups)]
+        b, c, h, w = shape
+        ho = ds._out_size(h, kh, stride, pad, dil)
+        wo = ds._out_size(w, kw, stride, pad, dil)
+        x = torch.randn(shape, generator=gen, device=dev)
+        offsets = torch.randn(b, dg * kh * kw * 2, ho, wo, generator=gen,
+                              device=dev) * 2
+        mask = torch.rand(b, dg * kh * kw, ho, wo, generator=gen,
+                          device=dev)
+        weight = torch.randn(c, c // groups, kh, kw, generator=gen,
+                             device=dev) * 0.05
+        up = torch.randn(b, c, ho, wo, generator=gen, device=dev)
+        conv = (stride, pad, dil, groups, dg)
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            xs = x.to(dtype)
+            dcol = dcn._columns_grad(up.to(dtype), weight.to(dtype), groups)
+            got = ds.deform_col2im(xs, offsets, mask, dcol, kh, kw, *conv)
+            for i in range(0, b, 2):
+                j = i + 2
+                plain = ds._col2im_grads(xs[i:j], offsets[i:j], mask[i:j],
+                                         dcol[i:j], kh, kw, *conv)
+                for grad, g, ref in zip(("dx", "doffsets", "dmask"), got,
+                                        plain):
+                    g, ref = g[i:j].float(), ref.float()
+                    # dx in bfloat16: the two float32 sums rounded once
+                    # each, one ulp apart at most
+                    rounding = (2 ** -7 * ref.abs() if grad == "dx"
+                                and dtype == torch.bfloat16 else 0)
+                    excess = float(((g - ref).abs() - rounding).max()
+                                   / ref.abs().max())
+                    check(excess <= 1e-5, f"k5_at_path_shapes: {what} "
+                          f"{tag} {grad} of images {i}-{j - 1} off by "
+                          f"{excess} of the largest gradient")
+                    worst[tag] = max(worst[tag], float(
+                        (g - ref).abs().max() / ref.abs().max()))
+                del plain
+            del xs, dcol, got
+        x, weight, up = (t.to(torch.bfloat16) for t in (x, weight, up))
+        xl = x.contiguous(memory_format=torch.channels_last)
+        dcol = dcn._columns_grad(up, weight, groups)
+        side = 4 * (offsets.numel() + mask.numel())
+        row = {
+            "ms": cuda_ms(lambda: ds.deform_col2im(
+                xl, offsets, mask, dcol, kh, kw, *conv), 10),
+            "bound_ms": 1e3 * (2 * dcol.numel() + 4 * x.numel() + 2 * side)
+            / HBM_BYTES_PER_S,
+            "backward_ms": cuda_ms(
+                lambda: dcn.deform_conv2d_columns_backward(
+                    x, offsets, mask, weight, up, *conv), 10),
+            "backward_bound_ms": 1e3 * (
+                8 * dcol.numel() + 4 * x.numel() + 4 * up.numel()
+                + 2 * x.numel() + 2 * side) / HBM_BYTES_PER_S,
+            "plain_ms": cuda_ms(lambda: dcn._recompute_backward(
+                x, offsets, mask, weight, up, conv, (True,) * 4), 2,
+                warmup=1),
+        }
+        n = K4_PATH_SHAPES[what][1]
+        for k, v in row.items():
+            totals[k] += n * v
+        per_shape[what] = {"per_step": n, **row,
+                           "share_of_bound": row["bound_ms"] / row["ms"]}
+        del x, xl, offsets, mask, weight, up, dcol
+        torch.cuda.empty_cache()
+    totals = dict(totals, share_of_bound=totals["bound_ms"] / totals["ms"])
+    plan = ds.col2im_plan(512, 16, 512, 3, 3, 1, 1, 1, 2)
+    print(json.dumps({"phase": "k5_at_path_shapes", "ok": True,
+                      "B": BATCH, "shapes": len(keys),
+                      "launches": len(launches), "max_rel_err": worst,
+                      "res3_plan": str(plan), "per_step": totals,
+                      "per_shape": per_shape, "card": name}))
+    return {"name": "deform_col2im", "route": "cuda",
+            "source": "paa_tpu_torch/csrc/deform_col2im.cu",
+            "replaces": "none: paa_tpu/ops/dcn.py's sampling gradient is "
+                        "XLA's",
+            "max_rel_err": worst, **totals, "bound_by": "bytes",
+            "at_path_shapes": per_shape}
 
 
 def seeded_dcnv2_train(cfg, device):
@@ -2865,7 +3001,9 @@ def phase_dcnv2_train_main_path(dev, name):
     in 100 slots, at the largest batch of DCN_TRAIN_BATCHES that fits;
     the launch counts set to 0 just before and read just after. Then one
     step at each of two buckets of the config's ladder, (800, 1344) and
-    (1344, 800), step timing, and a profile split by span."""
+    (1344, 800), step timing, and a profile split by span. Returns the
+    launch counts, the timing and profile, and K5's launches over
+    do_train (``recording_k5_launches``)."""
     import gc
 
     from paa_tpu_torch.engine import do_train
@@ -2885,8 +3023,9 @@ def phase_dcnv2_train_main_path(dev, name):
         t0 = time.perf_counter()
         fits = True
         try:
-            do_train(cfg, model, state, [batch] * DCN_TRAIN_STEPS,
-                     metric_hook=lambda i, m: seen.update({i: m}))
+            with recording_k5_launches() as k5_launches:
+                do_train(cfg, model, state, [batch] * DCN_TRAIN_STEPS,
+                         metric_hook=lambda i, m: seen.update({i: m}))
             torch.cuda.synchronize()
         except torch.cuda.OutOfMemoryError:
             fits = False
@@ -2904,7 +3043,9 @@ def phase_dcnv2_train_main_path(dev, name):
     expected = {"nms_batched": 0, "nms_global": 0,
                 "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW)
                 * DCN_TRAIN_STEPS,
-                "deform_im2col": dcn_per_forward(model) * DCN_TRAIN_STEPS}
+                "deform_im2col": 2 * dcn_per_forward(model)
+                * DCN_TRAIN_STEPS,
+                "deform_col2im": dcn_per_forward(model) * DCN_TRAIN_STEPS}
     check(launches == expected,
           f"dcnv2_train: launches {launches}, expected {expected}")
     check(sorted(seen) == list(range(1, DCN_TRAIN_STEPS + 1)),
@@ -2945,7 +3086,7 @@ def phase_dcnv2_train_main_path(dev, name):
     del model, state, batch, step
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, result
+    return launches, result, k5_launches
 
 
 def build_off_the_grid(cfg, device):
@@ -2959,13 +3100,12 @@ def build_off_the_grid(cfg, device):
 
 
 def _offsets_grad_x105(plain):
-    """deform_conv2d whose offsets' gradient is 1.05 times the right one
-    (its values unchanged): a fault in the DCN backward, which
-    DeformConv2dFunction's backward recomputes through the module's
-    deform_conv2d."""
-    def faulty(x, offsets, *args):
-        return plain(x, offsets.detach() + (offsets - offsets.detach())
-                     * 1.05, *args)
+    """deform_col2im whose offsets' gradient is 1.05 times the right one:
+    a fault in the DCN backward, which DeformConv2dFunction's backward
+    takes on the card through ops/dcn.py's deform_col2im (K5)."""
+    def faulty(*args):
+        dx, doffsets, dmask = plain(*args)
+        return dx, doffsets * 1.05, dmask
     return faulty
 
 
@@ -3166,14 +3306,14 @@ def dcnv2_steps_vs_float64(dev, cfg, seed, planted=False):
         runs.append(("card_pinned_planted", dev, True))
     for what, device, pin in runs:
         model = build_off_the_grid(cfg, device)
-        plain = dcn.deform_conv2d
+        plain = dcn.deform_col2im
         if what.endswith("planted"):
-            dcn.deform_conv2d = _offsets_grad_x105(plain)
+            dcn.deform_col2im = _offsets_grad_x105(plain)
         try:
             with relu_decisions(model.module, record, pin) as seen:
                 steps[what] = train_once(model, batch)
         finally:
-            dcn.deform_conv2d = plain
+            dcn.deform_col2im = plain
         del model
         m, pos = steps[what][:2]
         check(seen["calls"] == ref["calls"]
@@ -3378,7 +3518,8 @@ def phase_tta(dev, name, what, cfg, model, n_augs):
     check(runs == len(augs), f"{what}: {runs} model runs")
     expected = {"nms_batched": runs, "nms_global": 0,
                 "group_norm_relu": gn_per_forward(model) * runs,
-                "deform_im2col": dcn_per_forward(model) * runs}
+                "deform_im2col": dcn_per_forward(model) * runs,
+                "deform_col2im": 0}
     check(launches == expected,
           f"{what}: launches {launches}, expected {expected}")
     check(sorted(results) == sorted(METRICS) and all(
@@ -3434,7 +3575,8 @@ def phase_tta_card_vs_cpu(dev):
     out, launches = eval_card_vs_cpu(dev, cfg, 14, "tta_card_vs_cpu")
     runs = 6 * 2  # augmentations x batches
     check(launches == {"nms_batched": runs, "nms_global": 0,
-                       "group_norm_relu": 40 * runs, "deform_im2col": 0},
+                       "group_norm_relu": 40 * runs, "deform_im2col": 0,
+                       "deform_col2im": 0},
           f"tta_card_vs_cpu: launches {launches}")
     print(json.dumps({"phase": "tta_card_vs_cpu", "ok": True,
                       "augmentations": 6, "launches": launches, **out}))
@@ -3530,7 +3672,7 @@ def phase_ap_gate(dev, name):
         cfg, COCODataset(ann_file, img_dir, False), is_train=False))
     expected = {"nms_batched": batches, "nms_global": 0,
                 "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW) * batches,
-                "deform_im2col": 0}
+                "deform_im2col": 0, "deform_col2im": 0}
     check(rc == 0 and launches == expected,
           f"ap_gate: first pass rc {rc}, launches {launches}, expected "
           f"{expected}")
@@ -3667,7 +3809,8 @@ def phase_train_net_from_pkl(dev, name, what):
     first_launches = launch_counts()
     check(first_launches == {"nms_batched": 0, "nms_global": 0,
                              "group_norm_relu": 3 * 40,
-                             "deform_im2col": 3 * k4},
+                             "deform_im2col": 6 * k4,
+                             "deform_col2im": 3 * k4},
           f"{what}: first run launches {first_launches}")
     check(sorted(seen) == [1, 2] and all(
         math.isfinite(v) for m in seen.values() for v in m.values())
@@ -3696,7 +3839,8 @@ def phase_train_net_from_pkl(dev, name, what):
     check(rc == 0 and sorted(seen) == [3, 4] and launches == {
         "nms_batched": batches, "nms_global": 0,
         "group_norm_relu": 40 * (2 + batches),
-        "deform_im2col": k4 * (2 + batches)} and batches > 0,
+        "deform_im2col": k4 * (4 + batches), "deform_col2im": 2 * k4}
+        and batches > 0,
         f"{what}: second run rc {rc}, iterations {sorted(seen)}, "
         f"launches {launches}")
     ckpt = torch.load(os.path.join(out_dir, "model_final"),
@@ -4152,7 +4296,8 @@ def phase_dense_test_net(dev, name, head="fcos"):
     gn = 0 if head == "retinanet" else GN_PER_LEVEL * len(TOWER_HW)
     check(batches >= 4 and launches == {
         "nms_batched": batches, "nms_global": 0,
-        "group_norm_relu": gn * batches, "deform_im2col": 0},
+        "group_norm_relu": gn * batches, "deform_im2col": 0,
+        "deform_col2im": 0},
         f"{head}_test_net: launches {launches}")
     results = read_results(out_dir, SYNTH_32[0])
     check(sorted(results) == sorted(METRICS) and all(
@@ -4263,7 +4408,7 @@ def phase_mask_rcnn_serving(dev, name):
         eval_fn, launches = serve(
             model, "mask_rcnn_main_path", 50,
             {"nms_batched": 3, "nms_global": 3, "group_norm_relu": 0,
-             "deform_im2col": 0}, 0.05, check_masks)
+             "deform_im2col": 0, "deform_col2im": 0}, 0.05, check_masks)
     k1 = k1_at_path_inputs(k1_inputs[0], "mask_rcnn_rpn", name)
     e2e_rate(eval_fn, 20, "mask_rcnn", name, dev)
     phase_profile(model, eval_fn, 60, "mask_rcnn", name)
@@ -4366,7 +4511,7 @@ def phase_two_stage_train(dev, name, kind, frozen_bn, k3_per_step=0,
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     expected = {"nms_batched": 0, "nms_global": 0,
                 "group_norm_relu": k3_per_step * TRAIN_STEPS,
-                "deform_im2col": 0}
+                "deform_im2col": 0, "deform_col2im": 0}
     if not rpn_only:
         expected[kernel] = TRAIN_STEPS
     check(launches == expected,
@@ -4641,7 +4786,8 @@ def phase_mask_rcnn_test_net(dev, name, path=MRCNN_CONFIG,
     batches = launches["nms_batched"]
     check(batches >= 4 and launches == {
         "nms_batched": batches, "nms_global": batches,
-        "group_norm_relu": k3_per_batch * batches, "deform_im2col": 0},
+        "group_norm_relu": k3_per_batch * batches, "deform_im2col": 0,
+        "deform_col2im": 0},
         f"{what}: launches {launches}")
     results = read_results(out_dir, SYNTH_32[0])
     segm = {k[5:]: v for k, v in results.items() if k.startswith("segm/")}
@@ -4949,7 +5095,7 @@ def phase_keypoint_rcnn_serving(dev, name):
         eval_fn, launches = serve(
             model, "keypoint_rcnn_main_path", 70,
             {"nms_batched": 6, "nms_global": 0, "group_norm_relu": 0,
-             "deform_im2col": 0}, 0.05, check_keypoints)
+             "deform_im2col": 0, "deform_col2im": 0}, 0.05, check_keypoints)
     check([a[1].shape[0] for a in k1_inputs[:2]] == [5 * BATCH, BATCH]
           and k1_inputs[1][6] is True and k1_inputs[1][5] == 100,
           f"keypoint_rcnn: K1's inputs {[a[1].shape for a in k1_inputs]}")
@@ -4980,7 +5126,7 @@ def phase_c4_serving(dev, name, kind, frozen_bn):
         eval_fn, launches = serve(
             model, f"{kind}_main_path", 80,
             {"nms_batched": 3, "nms_global": 3, "group_norm_relu": 0,
-             "deform_im2col": 0}, 0.05,
+             "deform_im2col": 0, "deform_col2im": 0}, 0.05,
             check_c4_masks if kind == "mask_rcnn_c4" else None)
     # one level: the RPN's rows are the images, PRE_NMS_TOP_N_TEST (6,000)
     # candidates, POST_NMS_TOP_N_TEST (1,000) picks; the box head's
@@ -5138,7 +5284,7 @@ def phase_keypoint_rcnn_test_net(dev, name):
     batches = launches["nms_batched"] // 2
     check(batches >= 4 and launches == {
         "nms_batched": 2 * batches, "nms_global": 0,
-        "group_norm_relu": 0, "deform_im2col": 0},
+        "group_norm_relu": 0, "deform_im2col": 0, "deform_col2im": 0},
         f"keypoint_rcnn_test_net: launches {launches}")
     dataset = KP_DATASETS[0]
     results = read_results(out_dir, dataset)
@@ -5244,6 +5390,27 @@ def recording_k4_launches():
         ds._deform_im2col_cuda = launch
 
 
+@contextlib.contextmanager
+def recording_k5_launches():
+    """Records (x's shape, dtype, kh, kw, stride, padding, dilation,
+    groups, deformable groups, modulated) of every K5 launch made while
+    it is open, in launch order (the launcher behind ``deform_col2im``,
+    wrapped), as ``recording_k4_launches`` does K4's."""
+    from paa_tpu_torch.ops import deform_sampling as ds
+
+    seen, launch = [], ds._deform_col2im_cuda
+
+    def recorded(x, offsets, mask, dcol, *conv):
+        seen.append((tuple(x.shape), x.dtype, *conv, mask is not None))
+        return launch(x, offsets, mask, dcol, *conv)
+
+    ds._deform_col2im_cuda = recorded
+    try:
+        yield seen
+    finally:
+        ds._deform_col2im_cuda = launch
+
+
 def k3_cost(dev, launches, seed):
     """K3 at each distinct (shape, dtype, relu) of ``launches``, times
     its count: ms beside the plain version's, the bound (bytes: x read
@@ -5307,7 +5474,8 @@ def phase_gn_mask_rcnn_serving(dev, name):
         eval_fn, launches = serve(
             model, "mask_rcnn_gn_main_path", 90,
             {"nms_batched": 3, "nms_global": 3,
-             "group_norm_relu": 3 * sum(per.values()), "deform_im2col": 0},
+             "group_norm_relu": 3 * sum(per.values()), "deform_im2col": 0,
+             "deform_col2im": 0},
             0.05, check_masks)
         forms = k3_forms()
     check(forms == {k: 3 * v for k, v in per.items()} and per["no_relu"],
@@ -5463,7 +5631,7 @@ def phase_rpn_test_net(dev, name, kind, frozen_bn_state):
     batches = launches[kernel]
     check(batches >= 4 and launches == {
         "nms_batched": 0, "nms_global": 0, "group_norm_relu": 0,
-        "deform_im2col": 0, kernel: batches},
+        "deform_im2col": 0, "deform_col2im": 0, kernel: batches},
         f"{kind}_test_net: launches {launches}")
     with open(os.path.join(out_dir, "inference", SYNTH_32[0],
                            "box_proposals.json")) as f:
@@ -5494,7 +5662,7 @@ def phase_rpn_only_serving(dev, name, kind, frozen_bn):
     model = seeded_rpn_only(kind, frozen_bn, "bfloat16", dev)
     kernel = "nms_global" if kind == "rpn_c4" else "nms_batched"
     expected = {"nms_batched": 0, "nms_global": 0, "group_norm_relu": 0,
-                "deform_im2col": 0, kernel: 3}
+                "deform_im2col": 0, "deform_col2im": 0, kernel: 3}
     with recording_k1_inputs() as k1_inputs, \
             recording_k2_inputs() as k2_inputs:
         eval_fn, launches = serve(model, f"{kind}_main_path", 100, expected,
@@ -5640,7 +5808,7 @@ def phase_fbnet_serving(dev, name, kind, frozen_bn):
     on_k2 = box_n > nms.k1_max_candidates(dev)
     expected = {"nms_batched": 3 if on_k2 else 6,
                 "nms_global": 3 if on_k2 else 0, "group_norm_relu": 0,
-                "deform_im2col": 0}
+                "deform_im2col": 0, "deform_col2im": 0}
     masks = model.module.mask_head is not None
     with recording_k1_inputs() as k1_inputs, \
             recording_k2_inputs() as k2_inputs:
@@ -5835,7 +6003,7 @@ def phase_syncbn_train_net(dev, name):
         math.isfinite(v) for m in seen.values() for v in m.values())
         and train_launches == {"nms_batched": 0, "nms_global": 0,
                                "group_norm_relu": 3 * 40,
-                               "deform_im2col": 0},
+                               "deform_im2col": 0, "deform_col2im": 0},
         f"syncbn_train_net: rc {rc}, iterations {sorted(seen)}, "
         f"launches {train_launches}")
     final = os.path.join(out_dir, "model_final")
@@ -5869,7 +6037,7 @@ def phase_syncbn_train_net(dev, name):
         and sorted(results) == sorted(METRICS) and batches >= 4
         and launches == {"nms_batched": batches, "nms_global": 0,
                          "group_norm_relu": 40 * batches,
-                         "deform_im2col": 0},
+                         "deform_im2col": 0, "deform_col2im": 0},
         f"syncbn_test_net: rc {rc}, {len(loaded)} statistics loaded, "
         f"launches {launches}, results {results}")
     print(json.dumps({"phase": "syncbn_train_net", "ok": True,
@@ -6015,7 +6183,7 @@ def phase_voc_eval(dev, name, frozen_bn):
             dataset, preds, logger=logging.getLogger("chip_smoke.voc"))
     batches = -(-VOC_IMAGES // cfg.TEST.IMS_PER_BATCH)
     expected = {"nms_batched": 2 * batches, "nms_global": 0,
-                "group_norm_relu": 0, "deform_im2col": 0}
+                "group_norm_relu": 0, "deform_im2col": 0, "deform_col2im": 0}
     check(launches == expected and n_images == VOC_IMAGES,
           f"voc_eval: launches {launches}, expected {expected}; "
           f"{n_images} images")
@@ -6163,7 +6331,8 @@ def phase_voc_train(dev, name, frozen_bn):
         wall = time.perf_counter() - t0
         launches = launch_counts()
     expected = {"nms_batched": 0, "nms_global": 0, "group_norm_relu": 0,
-                "deform_im2col": 0, kernel: VOC_TRAIN_STEPS}
+                "deform_im2col": 0, "deform_col2im": 0,
+                kernel: VOC_TRAIN_STEPS}
     check(launches == expected,
           f"voc_train: launches {launches}, expected {expected}")
     check(sorted(seen) == list(range(1, VOC_TRAIN_STEPS + 1))
@@ -6202,13 +6371,15 @@ torch.cuda.synchronize()
 nms.nms_batched.launches = nms._nms_global.launches = 0
 group_norm.group_norm_relu.launches = 0
 deform_sampling.deform_im2col.launches = 0
+deform_sampling.deform_col2im.launches = 0
 dets = []
 for images, sizes in reqs:
     dets.append({k: v.cpu() for k, v in call(images, sizes).items()})
 launches = {"nms_batched": nms.nms_batched.launches,
             "nms_global": nms._nms_global.launches,
             "group_norm_relu": group_norm.group_norm_relu.launches,
-            "deform_im2col": deform_sampling.deform_im2col.launches}
+            "deform_im2col": deform_sampling.deform_im2col.launches,
+            "deform_col2im": deform_sampling.deform_col2im.launches}
 torch.cuda.synchronize()
 t0 = time.perf_counter()
 for _ in range(5):
@@ -6259,7 +6430,7 @@ def phase_serving_artifact(dev, name):
     torch.cuda.synchronize()
     live_launches = launch_counts()
     expected = {"nms_batched": 3, "nms_global": 0, "group_norm_relu": 120,
-                "deform_im2col": 0}
+                "deform_im2col": 0, "deform_col2im": 0}
     check(live_launches == expected,
           f"serving_live: launches {live_launches}, expected {expected}")
     torch.cuda.synchronize()
@@ -6410,7 +6581,8 @@ def phase_overfit_gate(dev, name):
     eval_batches = 2  # 4 images in each of the two buckets
     expected = {"nms_batched": eval_batches, "nms_global": 0,
                 "group_norm_relu": GATE_K3_PER_FORWARD * (
-                    GATE_ITERS + eval_batches), "deform_im2col": 0}
+                    GATE_ITERS + eval_batches), "deform_im2col": 0,
+                "deform_col2im": 0}
     check(launches == expected,
           f"overfit_gate: launches {launches}, expected {expected}")
     gate = {"first_loss > 1.5": r["first_loss"] > 1.5,
@@ -6489,7 +6661,7 @@ def phase_demo(dev, name):
         torch.cuda.empty_cache()
     expected = {"nms_batched": 1, "nms_global": 0,
                 "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW),
-                "deform_im2col": 0}
+                "deform_im2col": 0, "deform_col2im": 0}
     check(launches == expected,
           f"demo: launches {launches}, expected {expected}")
     matched = match_all_detections(out["card"], out["cpu"], "demo")
@@ -6610,11 +6782,14 @@ def run_together(cmds, deadline_s, meanwhile=None):
 
 def check_tool_launches(what, got, forwards, nms_calls):
     """K1 ``nms_calls`` times; K3 40 times a forward; K4 only on
-    bench_dcnv2's R-101 dcnv2 path, ``dcn_per_forward`` times a forward."""
+    bench_dcnv2's R-101 dcnv2 path, ``dcn_per_forward`` times a forward
+    and as often again in a training step's backward, beside K5."""
     dcn = dcn_per_forward_of(DCNV2_R101_CONFIG) if "dcnv2" in what else 0
+    backwards = forwards if "train" in what else 0
     expected = {"nms_batched": nms_calls, "nms_global": 0,
                 "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW) * forwards,
-                "deform_im2col": dcn * forwards}
+                "deform_im2col": dcn * (forwards + backwards),
+                "deform_col2im": dcn * backwards}
     got = kernel_launches(got)
     check(got == expected, f"{what}: launches {got}, expected {expected}")
 
@@ -6862,9 +7037,13 @@ def main():
         del k4_launches
         stamp("20-23, 68 X-152 dcnv2 serving, K4 at its shapes")
         phase_dcn_backward_card(dev, name)
-        dcnv2_train_launches, _ = phase_dcnv2_train_main_path(dev, name)
+        dcnv2_train_launches, _, k5_launches = phase_dcnv2_train_main_path(
+            dev, name)
+        k5 = phase_k5_at_path_shapes(dev, k5_launches, DCN_TRAIN_STEPS,
+                                     name)
+        del k5_launches
         phase_dcnv2_train_card_vs_cpu(dev)
-        stamp("24-26 X-152 dcnv2 training")
+        stamp("24-26, 69 X-152 dcnv2 training, K5 at its shapes")
         tta_launches = phase_dcnv2_x152_tta(dev, name)
         phase_tta_card_vs_cpu(dev)
         atss_tta_launches = phase_atss_tta(dev, name)
@@ -6906,9 +7085,10 @@ def main():
                                   for shape, _, relu in k3_launches},
                             bench_k3_shapes)
     del k3_launches
-    k4["launches_by_path"] = {}
+    k4["launches_by_path"] = k5["launches_by_path"] = {}
     for kernel, key in ((k1, "nms_batched"), (k2, "nms_global"),
-                        (k3, "group_norm_relu"), (k4, "deform_im2col")):
+                        (k3, "group_norm_relu"), (k4, "deform_im2col"),
+                        (k5, "deform_col2im")):
         by_path = dict(kernel["launches_by_path"],
                        paa_dcnv2_x152=dcnv2_launches[key],
                        paa_dcnv2_x152_tta=tta_launches[key])
@@ -6916,7 +7096,7 @@ def main():
             by_path.update(ap_gate=gate_launches[key],
                            train_net=train_net_launches[key],
                            dcnv2_train_net=dcnv2_train_net_launches[key])
-        if kernel in (k3, k4):
+        if kernel in (k3, k4, k5):
             by_path.update(paa_dcnv2_x152_train=dcnv2_train_launches[key])
         for head, runs in dense.items():
             by_path.update({head: runs["serving"][key],
@@ -6988,7 +7168,7 @@ def main():
     print(json.dumps({"phase": "script", "wall_s":
                       time.perf_counter() - t0, "card": name}))
     print(name)
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

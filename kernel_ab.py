@@ -37,7 +37,8 @@ Prints one JSON line. ``--k3-sweep`` times K3 alone at other launch
 shapes instead (see ``k3_sweep``); ``--k2-occupancy`` prints how many
 clusters of each size K2's cluster route runs at once; ``--k4`` times
 K4 (the deformable im2col) at the X-152 path's DCN shapes (see
-``time_k4``). To compare
+``time_k4``); ``--k5`` times K5 (the deformable col2im) with the whole
+CUDA backward of each layer (see ``time_k5``). To compare
 checkouts A and B, run it in turns on one card (A, B, B, A); each run
 is its own process, since both checkouts name their package
 ``paa_tpu_torch``. The timing helpers come from this checkout's
@@ -45,6 +46,7 @@ chip_smoke.py.
 """
 
 import argparse
+import collections
 import json
 import os
 import sys
@@ -248,6 +250,82 @@ def time_k4(dcn, dev, card):
     print(json.dumps(out))
 
 
+def time_k5(dcn, dev, card):
+    """K5 (the deformable col2im) at each shape of K4_SHAPES in bfloat16,
+    inputs as ``time_k4``'s and a columns' gradient from an upstream
+    gradient, from fixed seeds: device ms of K5, its bytes bound (dcol,
+    x, the offsets and the mask read once, dx and the offsets' and the
+    mask's gradients written once, at 3.35 TB/s), the whole CUDA backward of the layer
+    (``deform_conv2d_columns_backward``) and its bytes bound (the
+    columns' gradient written and read, the columns recomputed and read,
+    x read twice, the upstream gradient read twice, dx written once), the
+    plain recompute under autograd (``_recompute_backward``), and the
+    backward's other steps alone (``steps_ms``). K5's gradients against
+    its plain version on the first two images, as a share of each one's
+    largest magnitude (dx rounded to bfloat16 on both sides)."""
+    from paa_tpu_torch.ops import deform_sampling as ds
+
+    out = {"card": card, "batch": 8}
+    totals = collections.Counter()
+    for what, c, hw, groups, per_forward in K4_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn(8, c, *hw, device=dev, generator=gen).to(
+            torch.bfloat16)
+        offsets = torch.randn(8, 18, *hw, device=dev, generator=gen) * 2
+        mask = torch.rand(8, 9, *hw, device=dev, generator=gen)
+        weight = (torch.randn(c, c // groups, 3, 3, device=dev,
+                              generator=gen) * 0.05).to(torch.bfloat16)
+        up = torch.randn(8, c, *hw, device=dev, generator=gen).to(
+            torch.bfloat16)
+        conv = (1, 1, 1, groups, 1)
+        xl = x.contiguous(memory_format=torch.channels_last)
+        dcol = dcn._columns_grad(up, weight, groups)
+        args = (offsets, mask, dcol, 3, 3, *conv)
+        row = {"per_forward": per_forward}
+        got = ds.deform_col2im(xl[:2], offsets[:2], mask[:2], dcol[:2], 3, 3,
+                               *conv)
+        want = ds._col2im_grads(xl[:2], offsets[:2], mask[:2], dcol[:2], 3,
+                                3, *conv)
+        row["k5_err_share"] = max(float((g - w).abs().max() / w.abs().max())
+                                  for g, w in zip(got, want))
+        del got, want
+        row["k5_ms"] = cuda_ms(lambda: ds.deform_col2im(xl, *args), 10)
+        side = 4 * (offsets.numel() + mask.numel())
+        row["k5_bound_ms"] = (2 * dcol.numel() + 4 * x.numel() + 2 * side) \
+            / HBM_BYTES_PER_S * 1e3
+        row["backward_ms"] = cuda_ms(
+            lambda: dcn.deform_conv2d_columns_backward(
+                x, offsets, mask, weight, up, *conv), 10)
+        row["backward_bound_ms"] = (
+            8 * dcol.numel() + 4 * x.numel() + 4 * up.numel()
+            + 2 * x.numel() + 2 * side) / HBM_BYTES_PER_S * 1e3
+        row["plain_ms"] = cuda_ms(lambda: dcn._recompute_backward(
+            x, offsets, mask, weight, up, conv, (True,) * 4), 2, warmup=1)
+        # the backward's other steps
+        col = ds.deform_im2col(xl, offsets, mask, 3, 3, *conv)
+        row["steps_ms"] = {
+            "channels_last_copy": cuda_ms(lambda: x.contiguous(
+                memory_format=torch.channels_last), 10),
+            "k4": cuda_ms(lambda: ds.deform_im2col(
+                xl, offsets, mask, 3, 3, *conv), 10),
+            "weight_grad": cuda_ms(lambda: dcn._weight_grad(
+                up, col, groups), 10),
+            "columns_grad": cuda_ms(lambda: dcn._columns_grad(
+                up, weight, groups), 10),
+        }
+        del col
+        for k in ("k5_ms", "k5_bound_ms", "backward_ms",
+                  "backward_bound_ms", "plain_ms"):
+            totals[k] += per_forward * row[k]
+        for k, v in row["steps_ms"].items():
+            totals[k] += per_forward * v
+        out[what] = row
+        del x, offsets, mask, weight, up, xl, dcol
+        torch.cuda.empty_cache()
+    out["per_step"] = dict(totals)
+    print(json.dumps(out))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=os.path.dirname(os.path.abspath(
@@ -262,6 +340,10 @@ def main():
                     "(this checkout's ops.nms only)")
     ap.add_argument("--k4", action="store_true",
                     help="time K4 at the X-152 path's DCN shapes (this "
+                    "checkout's ops.dcn only)")
+    ap.add_argument("--k5", action="store_true",
+                    help="time K5, the CUDA backward and the plain "
+                    "recompute at the X-152 path's DCN shapes (this "
                     "checkout's ops.dcn only)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -283,6 +365,11 @@ def main():
         from paa_tpu_torch.ops import dcn
 
         time_k4(dcn, dev, name)
+        return 0
+    if args.k5:
+        from paa_tpu_torch.ops import dcn
+
+        time_k5(dcn, dev, name)
         return 0
     if args.k2_occupancy:
         cap = nms.k2_capacity(dev)

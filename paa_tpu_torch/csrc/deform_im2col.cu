@@ -19,8 +19,9 @@
 // floor(xs) and fractions; the centre gate -1 < ys < H && -1 < xs < W
 // (the whole sample is zero outside it); the four bilinear corner
 // weights, times the gate, times the v2 mask; corners off the image read
-// 0. With -fmad=false every sample's corners and weights are those of
-// _geometry bit for bit. Then for every channel c of the group, the
+// 0 (deform_geometry.cuh, shared with K5, deform_col2im.cu). With
+// -fmad=false every sample's corners and weights are those of _geometry
+// bit for bit. Then for every channel c of the group, the
 // weighted sum of the four corners in float32, rounded once to x's
 // dtype, is written to the columns.
 //
@@ -56,42 +57,16 @@
 // taps. The host side (ops/deform_sampling.py::im2col_plan) chooses V,
 // lanes, rows and the tile from C, C / groups, C / dg and K alone.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "deform_geometry.cuh"
 
 namespace {
 
+using deform::BF16;
+using deform::F32;
+using deform::Pack;
+using deform::Word;
+
 constexpr int kUnroll = 2;  // (position, tap) rows a thread loads at once
-
-// Element types by their bits.
-struct F32 {
-  using Raw = unsigned;
-  __device__ static float load(Raw r) { return __uint_as_float(r); }
-  __device__ static Raw store(float v) { return __float_as_uint(v); }
-};
-struct BF16 {
-  using Raw = unsigned short;
-  __device__ static float load(Raw r) {
-    return __bfloat162float(__ushort_as_bfloat16(r));
-  }
-  __device__ static Raw store(float v) {
-    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-  }
-};
-
-// One load or store of Bytes.
-template <int Bytes> struct Word;
-template <> struct Word<16> { using T = uint4; };
-template <> struct Word<8> { using T = uint2; };
-template <> struct Word<4> { using T = unsigned; };
-template <> struct Word<2> { using T = unsigned short; };
-
-// V elements as one word.
-template <typename Tr, int V>
-union Pack {
-  typename Word<sizeof(typename Tr::Raw) * V>::T word;
-  typename Tr::Raw raw[V];
-};
 
 // A sample's corners (tl, tr, bl, br): the element offset of the pixel in
 // its image (-1 off the image) and the weight.
@@ -138,33 +113,18 @@ __global__ void __launch_bounds__(256) im2col_kernel(const Params p) {
     const int ti = k / p.kw;
     const float dy = off[static_cast<long long>(2 * gk) * npos + pos];
     const float dx = off[static_cast<long long>(2 * gk + 1) * npos + pos];
-    const float ys =
-        static_cast<float>(oh * p.stride - p.pad + ti * p.dil) + dy;
-    const float xs =
-        static_cast<float>(ow * p.stride - p.pad + (k - ti * p.kw) * p.dil)
-        + dx;
-    const float y0 = floorf(ys);
-    const float x0 = floorf(xs);
-    const float wy = ys - y0;
-    const float wx = xs - x0;
-    const float gate = (ys > -1.0f && ys < static_cast<float>(p.h) &&
-                        xs > -1.0f && xs < static_cast<float>(p.w))
-                           ? 1.0f : 0.0f;
-    // the plain version's clamp into the 1-padded frame (a no-op where
-    // the gate is open; NaN goes to -1)
-    const int yc =
-        static_cast<int>(fminf(fmaxf(y0, -1.0f), static_cast<float>(p.h - 1)));
-    const int xc =
-        static_cast<int>(fminf(fmaxf(x0, -1.0f), static_cast<float>(p.w - 1)));
-    const float cw[4] = {(1.0f - wy) * (1.0f - wx), (1.0f - wy) * wx,
-                         wy * (1.0f - wx), wy * wx};
+    const deform::Coords g0 = deform::sample_coords(
+        dy, dx, oh, ow, ti, k - ti * p.kw, p.stride, p.pad, p.dil, p.h, p.w);
+    float cw[4];
+    deform::bilinear(g0.wy, g0.wx, cw);
+    const float gate = g0.gate;
     const float m = mask ? mask[static_cast<long long>(gk) * npos + pos]
                          : 1.0f;
     Sample s;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int y = yc + (q >> 1);
-      const int x = xc + (q & 1);
+      const int y = g0.yc + (q >> 1);
+      const int x = g0.xc + (q & 1);
       s.off[q] = (y >= 0 && y < p.h && x >= 0 && x < p.w)
                      ? (y * p.w + x) * p.c : -1;
       s.w[q] = mask ? (cw[q] * gate) * m : cw[q] * gate;

@@ -23,11 +23,23 @@ the counterpart of the JAX package's custom VJP (``sample_auto``,
 ops/dcn.py:528-554). Autograd through ``deform_conv2d`` would keep every
 chunk's gathered rows for the backward, those of every DCN layer of a
 train step at once; the Function keeps only its inputs (x, offsets,
-mask, weight) and recomputes each chunk's geometry, patch table,
-sampling and contraction inside its backward, where it takes the
-chunk's VJP and frees it before the next. Its gradients are autograd's
-through ``deform_conv2d``, which stays as the plain version the tests
-hold it against.
+mask, weight), and its backward takes one of two routes:
+
+- CUDA tensors (``deform_conv2d_columns_backward``): explicit gradients
+  by chunks of images whose columns stay under ``CHUNK_BYTES`` (one
+  chunk a layer at X-152's B=8). The columns' gradient is the output's
+  gradient times the weight (``_columns_grad``, the transpose of the
+  forward's product); the weight's is the output's gradient times K4's
+  columns, recomputed (``_weight_grad``); and K5, the hand-written
+  kernel csrc/deform_col2im.cu (``deform_sampling.deform_col2im``, op
+  ``paa_tpu_torch::deform_col2im``, launches counted in
+  ``deform_col2im.launches``), takes the columns' gradient back through
+  the sampling to x, the offsets and the mask;
+- CPU tensors (``_recompute_backward``): each chunk's geometry, patch
+  table, sampling and contraction recomputed under autograd and its VJP
+  taken, the chunk's gathered rows freed before the next. Its gradients
+  are autograd's through ``deform_conv2d``, which stays as the plain
+  version the tests hold both routes against.
 
 On CUDA tensors the forward takes K4 instead (``deform_conv2d_columns``):
 the hand-written kernel csrc/deform_im2col.cu computes steps 1-2 in one
@@ -37,8 +49,7 @@ output. It is the custom op ``paa_tpu_torch::deform_im2col``
 (``deform_sampling.deform_im2col``, launches counted in
 ``deform_im2col.launches``); its plain version ``_im2col_columns`` takes
 the steps above and rearranges their columns into K4's layout. CPU
-tensors keep ``deform_conv2d``, and the backward recomputes through it
-on both.
+tensors keep ``deform_conv2d``.
 
 Offset channel layout as torch's deform_conv2d: per deformable group,
 per kernel tap (row-major), a (dy, dx) pair; the mask's dg*K channels
@@ -53,7 +64,7 @@ from torch.profiler import record_function
 
 from ..modeling.layers import Conv, init_conv_weight
 from .deform_sampling import (_out_size, _sample_columns, _sampling,
-                              deform_im2col)
+                              deform_col2im, deform_im2col)
 
 # gathered rows (the plain version) or columns (K4) per chunk of images
 CHUNK_BYTES = 2 << 30
@@ -125,17 +136,45 @@ def deform_conv2d(x, offsets, mask, weight, stride=1, padding=1,
     return out.view(b, ho, wo, o).permute(0, 3, 1, 2).contiguous()
 
 
+def _group_weight(weight, groups):
+    """The weight (O, C/groups, kh, kw) as (groups, O/groups,
+    K*C/groups), taps outer: each conv group's matrix against K4's
+    columns."""
+    o, cg = weight.shape[:2]
+    return (weight.view(groups, o // groups, cg, -1).transpose(2, 3)
+            .reshape(groups, o // groups, -1))
+
+
 def _contract_columns(col, weight, ho, wo):
     """K4's columns (B, groups, Ho*Wo, K*C/groups) x the weight (O,
     C/groups, kh, kw) -> (B, O, Ho, Wo): per image and conv group g,
     weight[g*O/groups:(g+1)*O/groups] as (O/groups, K*C/groups), taps
     outer, times the group's columns transposed (deform_conv_cuda.cu's
     GEMM), written as NCHW without a permute."""
-    b, groups, _, kc = col.shape
-    o, cg = weight.shape[:2]
-    w = (weight.view(groups, o // groups, cg, -1).transpose(2, 3)
-         .reshape(groups, o // groups, kc))
+    b, groups = col.shape[:2]
+    o = weight.shape[0]
+    w = _group_weight(weight, groups)
     return torch.matmul(w, col.transpose(2, 3)).view(b, o, ho, wo)
+
+
+def _columns_grad(grad, weight, groups):
+    """The columns' gradient from the output's, grad (B, O, Ho, Wo):
+    per image and conv group, the group's output gradient transposed
+    times its weight matrix, (B, groups, Ho*Wo, K*C/groups) in K4's
+    layout (the transpose of ``_contract_columns``)."""
+    b, o = grad.shape[:2]
+    dout = grad.reshape(b, groups, o // groups, -1)
+    return torch.matmul(dout.transpose(2, 3), _group_weight(weight, groups))
+
+
+def _weight_grad(grad, col, groups):
+    """The weight's gradient in float32 from the output's, grad (B, O,
+    Ho, Wo), and K4's columns (B, groups, Ho*Wo, K*C/groups): per conv
+    group, the sum over the images of its output gradient times its
+    columns, as (groups, O/groups, K*C/groups), taps outer."""
+    b, o = grad.shape[:2]
+    dout = grad.reshape(b, groups, o // groups, -1)
+    return torch.matmul(dout, col).sum(0, dtype=torch.float32)
 
 
 def deform_conv2d_columns(x, offsets, mask, weight, stride=1, padding=1,
@@ -160,25 +199,120 @@ def deform_conv2d_columns(x, offsets, mask, weight, stride=1, padding=1,
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
+def deform_conv2d_columns_backward(x, offsets, mask, weight, grad, stride=1,
+                                   padding=1, dilation=1, groups=1,
+                                   deformable_groups=1,
+                                   wanted=(True, True, True, True)):
+    """The gradients of ``deform_conv2d_columns`` with respect to x, the
+    offsets, the mask and the weight (those ``wanted``, None for the
+    others) from the output's, ``grad``, without autograd, by chunks of
+    images whose columns stay under CHUNK_BYTES (one chunk a layer at
+    X-152's B=8): the weight's from K4's columns recomputed
+    (``_weight_grad``), the columns' gradient (``_columns_grad``), then
+    K5 (``deform_col2im``) for x's, the offsets' and the mask's, on one
+    channels-last copy of x that K4 and K5 share. One K4 launch (where
+    the weight's gradient is wanted) and one K5 launch a chunk on the
+    card, where it is the backward's main path; CPU tensors take both
+    ops' plain versions. Gradients come in their inputs' dtypes (dx
+    contiguous); the weight's is summed in float32 first."""
+    o, cg, kh, kw = weight.shape
+    ho, wo = grad.shape[2:]
+    conv = (stride, padding, dilation, groups, deformable_groups)
+    step = _images_per_chunk(x, ho, wo, kh * kw, per_channel=1)
+    xl = x.contiguous(memory_format=torch.channels_last)
+    dx, doffsets, dmask, dweight = [], [], [], None
+    for i in range(0, x.shape[0], step):
+        j = i + step
+        m = None if mask is None else mask[i:j]
+        if wanted[3]:
+            col = deform_im2col(xl[i:j], offsets[i:j], m, kh, kw, *conv)
+            g = _weight_grad(grad[i:j], col, groups)
+            dweight = g if dweight is None else dweight + g
+            del col
+        if any(wanted[:3]):
+            dcol = _columns_grad(grad[i:j], weight, groups)
+            gx, go, gm = deform_col2im(xl[i:j], offsets[i:j], m, dcol, kh,
+                                       kw, *conv)
+            del dcol
+            dx.append(gx)
+            doffsets.append(go)
+            dmask.append(gm)
+    def whole(parts):
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    dx = whole(dx) if wanted[0] else None
+    doffsets = whole(doffsets).to(offsets.dtype) if wanted[1] else None
+    dmask = whole(dmask).to(mask.dtype) if wanted[2] else None
+    if dweight is not None:
+        dweight = (dweight.view(groups, o // groups, kh * kw, cg)
+                   .transpose(2, 3).reshape(weight.shape).to(weight.dtype))
+    return dx, doffsets, dmask, dweight
+
+
+def _recompute_backward(x, offsets, mask, weight, grad, conv, wanted):
+    """The CPU's backward: per chunk of images (``_images_per_chunk``),
+    ``deform_conv2d`` of the chunk's slices of x, offsets and mask (the
+    chunk's own patch table, its rows based at the chunk's first image)
+    recomputed under autograd, and ``torch.autograd.grad`` of it against
+    those slices and the weight with the chunk's slice of ``grad``. The
+    weight's gradient sums over the chunks. Each chunk's gathered rows
+    live only while its VJP runs."""
+    kh, kw = weight.shape[2:]
+    step = _images_per_chunk(x, *grad.shape[2:], kh * kw)
+    parts = [[], [], []]  # the chunks' gradients of x, offsets, mask
+    dweight = None
+    with torch.enable_grad():
+        w = weight.detach().requires_grad_(wanted[3])
+        for i in range(0, x.shape[0], step):
+            j = i + step
+            ins = [None if t is None else
+                   t[i:j].detach().requires_grad_(want)
+                   for t, want in zip((x, offsets, mask), wanted)]
+            out = deform_conv2d(*ins, w, *conv)
+            leaves = [t for t in (*ins, w)
+                      if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(out, leaves, grad[i:j]))
+            for part, t in zip(parts, ins):
+                if t is not None and t.requires_grad:
+                    part.append(next(grads))
+            if wanted[3]:
+                g = next(grads)
+                dweight = g if dweight is None else dweight + g
+    dx, doffsets, dmask = (
+        (part[0] if len(part) == 1 else torch.cat(part)) if part
+        else None for part in parts)
+    return dx, doffsets, dmask, dweight
+
+
 class DeformConv2dFunction(torch.autograd.Function):
     """``deform_conv2d`` whose backward keeps only its inputs.
 
     The forward is ``deform_conv2d`` itself (``deform_conv2d_columns``,
     K4, for CUDA tensors), without a graph, and saves (x, offsets, mask,
-    weight). The backward takes the forward's chunks
-    of images again (``_images_per_chunk``); for each it recomputes
-    ``deform_conv2d`` of the chunk's slices of x, offsets and mask (the
-    chunk's own patch table, its rows based at the chunk's first image)
-    under autograd, and takes ``torch.autograd.grad`` of it against
-    those slices and the weight with the chunk's slice of the upstream
-    gradient. The weight's gradient sums over the chunks. Each chunk's
-    gathered rows live only while its VJP runs. Gradients come back in
-    their inputs' dtypes; a v1 conv (no mask) passes ``mask=None``."""
+    weight), on the card with x channels-last (one copy, read by K4 in
+    the forward and by K4 and K5 in the backward). The backward takes one of two routes, inside the span
+    SPAN_BACKWARD:
+
+    - CUDA tensors: ``deform_conv2d_columns_backward``, explicit
+      gradients by chunks of images (one a layer at X-152's B=8): the
+      columns' gradient and the weight's as products, K4's columns
+      recomputed for the latter, and K5 (csrc/deform_col2im.cu) for x's,
+      the offsets' and the mask's;
+    - CPU tensors: ``_recompute_backward``, autograd's VJP through
+      ``deform_conv2d`` recomputed chunk by chunk, the reference that the
+      tests hold the first route to.
+
+    Gradients come back in their inputs' dtypes; a v1 conv (no mask)
+    passes ``mask=None``."""
 
     @staticmethod
     def forward(ctx, x, offsets, mask, weight, stride, padding, dilation,
                 groups, deformable_groups):
         ctx.conv = (stride, padding, dilation, groups, deformable_groups)
+        if x.is_cuda:
+            # K4 (forward and backward) and K5 read x channels-last: one
+            # copy, kept for the backward
+            x = x.contiguous(memory_format=torch.channels_last)
         ctx.save_for_backward(x, offsets, mask, weight)
         forward = deform_conv2d_columns if x.is_cuda else deform_conv2d
         with record_function(SPAN_FORWARD):
@@ -188,31 +322,14 @@ class DeformConv2dFunction(torch.autograd.Function):
     def backward(ctx, grad):
         x, offsets, mask, weight = ctx.saved_tensors
         wanted = ctx.needs_input_grad[:4]
-        kh, kw = weight.shape[2:]
-        step = _images_per_chunk(x, *grad.shape[2:], kh * kw)
-        parts = [[], [], []]  # the chunks' gradients of x, offsets, mask
-        dweight = None
-        with record_function(SPAN_BACKWARD), torch.enable_grad():
-            w = weight.detach().requires_grad_(wanted[3])
-            for i in range(0, x.shape[0], step):
-                j = i + step
-                ins = [None if t is None else
-                       t[i:j].detach().requires_grad_(want)
-                       for t, want in zip((x, offsets, mask), wanted)]
-                out = deform_conv2d(*ins, w, *ctx.conv)
-                leaves = [t for t in (*ins, w)
-                          if t is not None and t.requires_grad]
-                grads = iter(torch.autograd.grad(out, leaves, grad[i:j]))
-                for part, t in zip(parts, ins):
-                    if t is not None and t.requires_grad:
-                        part.append(next(grads))
-                if wanted[3]:
-                    g = next(grads)
-                    dweight = g if dweight is None else dweight + g
-        dx, doffsets, dmask = (
-            (part[0] if len(part) == 1 else torch.cat(part)) if part
-            else None for part in parts)
-        return dx, doffsets, dmask, dweight, None, None, None, None, None
+        with record_function(SPAN_BACKWARD):
+            if x.is_cuda:
+                grads = deform_conv2d_columns_backward(
+                    x, offsets, mask, weight, grad, *ctx.conv, wanted=wanted)
+            else:
+                grads = _recompute_backward(x, offsets, mask, weight, grad,
+                                            ctx.conv, wanted)
+        return (*grads, None, None, None, None, None)
 
 
 class DeformConv(nn.Module):

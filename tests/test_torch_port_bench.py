@@ -205,6 +205,7 @@ def test_timed_call_matches_bench_py_s(narrow_pair, lift):
     assert r["launches"] == {"nms_batched": 0, "nms_global": 0,
                              "group_norm_relu": 0,
                              "deform_im2col": 0,  # plain versions
+                             "deform_col2im": 0,
                              "roi_align": 0,  # PAA pools no rois
                              "roi_align_rois": 0}
 

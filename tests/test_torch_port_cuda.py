@@ -634,9 +634,10 @@ def _dcn_grads(fn, x, offsets, mask, weight, up, dtype, groups=4):
 def test_dcn_function_gradients_match_plain(dev, dtype, chunk_bytes,
                                             monkeypatch):
     """ops/dcn.py's DeformConv2dFunction (the backward that keeps only
-    its inputs and recomputes each chunk) against autograd through
-    deform_conv2d on the card, and in float32 against the CPU: the
-    card's index_add is order-nondeterministic, so within 1e-5 of each
+    its inputs: on the card the columns' gradient, K4's columns and K5,
+    chunk by chunk) against autograd through deform_conv2d on the card,
+    and in float32 against the CPU: K5's atomics and the card's
+    index_add are order-nondeterministic, so within 1e-5 of each
     gradient's largest magnitude in float32 (1e-4 against the CPU) and
     2e-2 in bfloat16; chunks of one image with ``chunk_bytes``."""
     from paa_tpu_torch.ops import dcn
@@ -816,9 +817,10 @@ def test_k4_launches_once_per_chunk(dev, monkeypatch):
 
 def test_deform_conv_on_the_card_launches_k4(dev):
     """``DeformConv`` on CUDA tensors: one K4 launch a forward, without a
-    graph and where autograd records (the backward recomputes through
-    the plain version and launches none); the same output as the plain
-    version on the CPU within 1e-5 of its largest magnitude."""
+    graph and where autograd records, and one more in the backward (the
+    columns recomputed for the weight's gradient) beside one K5 launch;
+    the same output as the plain version on the CPU within 1e-5 of its
+    largest magnitude."""
     from paa_tpu_torch.modeling.layers import reset_parameters
     from paa_tpu_torch.ops import dcn
 
@@ -839,9 +841,11 @@ def test_deform_conv_on_the_card_launches_k4(dev):
     torch.testing.assert_close(got.cpu(), want, rtol=0,
                                atol=1e-5 * float(want.abs().max()))
     xx = x.to(dev).requires_grad_()
+    k5 = dcn.deform_col2im.launches
     conv(xx).sum().backward()
     torch.cuda.synchronize()
-    assert dcn.deform_im2col.launches == before + 2
+    assert dcn.deform_im2col.launches == before + 3
+    assert dcn.deform_col2im.launches == k5 + 1
     assert xx.grad is not None and conv.weight.grad is not None
 
 
@@ -888,6 +892,111 @@ def test_k4_refuses_what_it_cannot_take(dev):
     sliced = ds.deform_im2col(x, om[:, :18], om[:, 18:], 3, 3)
     torch.testing.assert_close(
         sliced, ds.deform_im2col(x, offsets, mask, 3, 3), rtol=0, atol=0)
+
+
+# ---- K5, the deformable col2im kernel ---------------------------------------
+
+def _k5_grad_inputs(seed, c, groups, dg, stride, dil, modulated, dtype):
+    """``_k4_inputs`` at B=2 and 13 x 21 on the card, x in ``dtype``, and
+    a columns' gradient dcol in K4's layout and x's dtype."""
+    x, offsets, mask, _ = (None if t is None else t.to("cuda")
+                           for t in _k4_inputs(seed, 2, c, (13, 21), groups,
+                                               dg, stride, dil, modulated))
+    ho, wo = offsets.shape[2:]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dcol = torch.randn(2, groups, ho * wo, 9 * (c // groups), generator=gen,
+                       device="cuda").to(dtype)
+    return x.to(dtype), offsets, mask, dcol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("conv", sorted(K4_CONVS))
+@pytest.mark.parametrize("width", sorted(K4_WIDTHS))
+def test_k5_matches_plain(dev, width, conv, dtype):
+    """K5 against its plain version ``_col2im_grads`` on the same card
+    tensors, at every conv-group width class and conv of K4's tests: dx,
+    the offsets' and the mask's gradients within 1e-5 of each one's
+    largest magnitude in float32 and in bfloat16 (both read the same
+    bfloat16 values and sum in float32; only the order of the adds
+    differs, K5's by atomics), dx in bfloat16 also within one bfloat16
+    ulp of each value (2^-7 of it: each side rounds its float32 sum
+    once); one K5 launch each."""
+    from paa_tpu_torch.ops import deform_sampling as ds
+
+    c, groups = K4_WIDTHS[width]
+    dg, stride, dil, modulated = K4_CONVS[conv]
+    x, offsets, mask, dcol = _k5_grad_inputs(c + dg, c, groups, dg, stride,
+                                             dil, modulated, dtype)
+    args = (3, 3, stride, dil, dil, groups, dg)
+    before = ds.deform_col2im.launches
+    got = ds.deform_col2im(x, offsets, mask, dcol, *args)
+    torch.cuda.synchronize()
+    assert ds.deform_col2im.launches == before + 1
+    want = ds._col2im_grads(x, offsets, mask, dcol, *args)
+    assert (got[2] is None) == (not modulated)
+    for name, g, w in zip(("dx", "doffsets", "dmask"), got, want):
+        if w is None:
+            continue
+        assert g.dtype == (dtype if name == "dx" else torch.float32)
+        assert g.shape == w.shape and g.is_contiguous()
+        g, w = g.float(), w.float()
+        rtol = 2 ** -7 if name == "dx" and dtype == torch.bfloat16 else 0
+        torch.testing.assert_close(g, w, rtol=rtol,
+                                   atol=1e-5 * float(w.abs().max()))
+    # samples on the image, off it and at its edge all took part
+    assert float((want[1] != 0).float().mean()) > 0.2
+
+
+def test_k5_launches_once_per_chunk(dev, monkeypatch):
+    """The card's backward of ``DeformConv2dFunction``: one K5 launch
+    (and one K4 launch, the columns recomputed for the weight) per layer
+    per chunk of images, the whole batch in one chunk under CHUNK_BYTES,
+    one image a chunk when CHUNK_BYTES holds one image's columns; none
+    where neither x, the offsets nor the mask wants a gradient. The
+    gradients are the same either way, within the float32 sums' order."""
+    from paa_tpu_torch.ops import dcn
+
+    x, offsets, mask, weight = (t.to(dev) for t in _k4_inputs(
+        3, 3, 256, (12, 14), 8, 1, 1, 1, True))
+    up = torch.randn(3, 256, 12, 14, device=dev)
+
+    def grads(*wanted):
+        ins = [t.clone().requires_grad_(w)
+               for t, w in zip((x, offsets, mask, weight), wanted)]
+        out = dcn.DeformConv2dFunction.apply(*ins, 1, 1, 1, 8, 1)
+        before = (dcn.deform_col2im.launches, dcn.deform_im2col.launches)
+        out.backward(up)
+        torch.cuda.synchronize()
+        return ([t.grad for t in ins],
+                (dcn.deform_col2im.launches - before[0],
+                 dcn.deform_im2col.launches - before[1]))
+
+    whole, launches = grads(True, True, True, True)
+    assert launches == (1, 1)
+    assert grads(False, False, False, True)[1] == (0, 1)
+    monkeypatch.setattr(dcn, "CHUNK_BYTES", 12 * 14 * 9 * 256 * 4)
+    chunked, launches = grads(True, True, True, True)
+    assert launches == (3, 3)
+    for g, w in zip(chunked, whole):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-5 * float(w.abs().max()))
+
+
+def test_k5_refuses_what_it_cannot_take(dev):
+    """The wrapper raises on a dcol of another dtype, shape or device
+    than K4's columns of x, as on what K4 refuses."""
+    from paa_tpu_torch.ops import deform_sampling as ds
+
+    x, offsets, mask, dcol = _k5_grad_inputs(5, 32, 1, 1, 1, 1, True,
+                                             torch.float32)
+    with pytest.raises(TypeError, match="dcol of torch.bfloat16"):
+        ds.deform_col2im(x, offsets, mask, dcol.bfloat16(), 3, 3)
+    with pytest.raises(ValueError, match="dcol"):
+        ds.deform_col2im(x, offsets, mask, dcol[:, :, 1:], 3, 3)
+    with pytest.raises(ValueError, match="dcol on cpu"):
+        ds.deform_col2im(x, offsets, mask, dcol.cpu(), 3, 3)
+    with pytest.raises(TypeError, match="float64"):
+        ds.deform_col2im(x.double(), offsets, mask, dcol.double(), 3, 3)
 
 
 # a process that serves an artifact with torch and paa_tpu_torch.serving

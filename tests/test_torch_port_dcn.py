@@ -467,6 +467,137 @@ def test_deform_im2col_op_exports_through_its_fake():
                                Columns()(x, offsets, mask), rtol=0, atol=0)
 
 
+# (C, groups, deformable groups, stride, itemsize) -> (vec, lanes, rows,
+# tile_h, tile_w, red)
+K5_PLANS = {
+    "x152_res3": ((512, 32, 1, 1, 2), (8, 8, 32, 4, 16, 8)),
+    "x152_res3_stride2": ((512, 32, 1, 2, 2), (8, 8, 32, 4, 16, 8)),
+    "x152_res4": ((1024, 32, 1, 1, 2), (8, 16, 16, 4, 16, 16)),
+    "x152_res5": ((2048, 32, 1, 1, 2), (8, 32, 8, 4, 16, 32)),
+    "tower": ((256, 1, 1, 1, 2), (8, 32, 8, 4, 16, 32)),
+    "x101_64x4d_res3": ((512, 64, 1, 1, 2), (8, 4, 64, 4, 16, 4)),
+    "float32_res3": ((512, 32, 1, 1, 4), (4, 16, 16, 4, 16, 16)),
+    "cg4_dg2": ((16, 4, 2, 1, 2), (4, 2, 128, 2, 16, 2)),
+    "cdg8_float32": ((24, 1, 3, 1, 4), (4, 6, 42, 1, 16, 1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K5_PLANS))
+def test_col2im_plan(name):
+    """K5's launch from C, C/groups, C/dg, the kernel, stride and
+    dilation and the itemsize alone: 16-byte vectors of x and dcol or
+    fewer, inside one conv group and one deformable group; a warp's
+    reads fill 128-byte lines of a conv group's dcol (lanes x vec x
+    itemsize of a row, over rows, as K4's stores), 32 lanes at most; 256
+    threads at most; a tile's samples, their sums and their corners'
+    entries in 48 KB, the window's bins in BINS_BYTES; sums by shuffles
+    over a power of two of lanes inside one deformable group."""
+    (c, groups, dg, stride, itemsize), want = K5_PLANS[name]
+    cg, cdg = c // groups, c // dg
+    plan = deform_sampling.col2im_plan(c, cg, cdg, 3, 3, stride, 1, dg,
+                                       itemsize)
+    assert (plan.vec, plan.lanes, plan.rows, plan.tile_h, plan.tile_w,
+            plan.red) == want
+    assert cg % plan.vec == 0 and cdg % plan.vec == 0
+    assert plan.vec * itemsize <= 16
+    span = max(1, 128 // (cg * itemsize))
+    assert plan.lanes == min(c // plan.vec, 32 // span)
+    assert plan.lanes * plan.rows <= 256
+    cap = plan.tile_h * plan.tile_w * 9 * dg
+    assert cap * 76 <= 48 * 1024
+    window = deform_sampling._window_size
+    bins = dg * (window(plan.tile_h, 3, stride, 1, plan.margin)
+                 * window(plan.tile_w, 3, stride, 1, plan.margin))
+    assert plan.smem == cap * 76 + (2 * bins + 1) * 4
+    assert (2 * bins + 1) * 4 <= deform_sampling.BINS_BYTES
+    assert plan.lanes % plan.red == 0 and (cdg // plan.vec) % plan.red == 0
+    assert plan.red & (plan.red - 1) == 0
+
+
+def test_col2im_plan_refuses_a_window_past_its_bins():
+    """A dilation whose window has more bins than BINS_BYTES hold is
+    refused, by shape; dilation 2, the largest the tests' convs take,
+    fits."""
+    with pytest.raises(ValueError, match="window"):
+        deform_sampling.col2im_plan(256, 256, 256, 3, 3, 1, 40, 1, 2)
+    assert deform_sampling.col2im_plan(256, 256, 256, 3, 3, 2, 2, 1, 2)
+
+
+@pytest.mark.parametrize("bad,error,match", [
+    ("dcol_dtype", TypeError, "dcol of torch.bfloat16"),
+    ("dcol_shape", ValueError, "dcol"),
+    ("dcol_device", ValueError, "dcol on meta"),
+    ("float64", TypeError, "float64"),
+    ("groups", ValueError, "channels in 3 groups"),
+    ("taps", ValueError, "shared memory"),
+    ("window", ValueError, "window"),
+])
+def test_deform_col2im_refuses_what_k5_cannot_take(bad, error, match):
+    """The wrapper raises, on either device, on a layout K5 does not
+    take: a columns' gradient of another dtype, shape or device than
+    K4's columns, a dilation whose window its bins cannot hold, and what
+    K4 refuses. The gradients' op is not called."""
+    x, offsets, mask = _k4_case()
+    dcol = deform_sampling.deform_im2col(x, offsets, mask, 3, 3, 1, 1, 1, 2,
+                                         2)
+    kw = dict(groups=2, deformable_groups=2)
+    k, conv = 3, [1, 1, 1]  # stride, padding, dilation
+    if bad == "dcol_dtype":
+        dcol = dcol.bfloat16()
+    elif bad == "dcol_shape":
+        dcol = dcol[:, :, 1:]
+    elif bad == "dcol_device":
+        dcol = dcol.to("meta")
+    elif bad == "float64":
+        x, dcol = x.double(), dcol.double()
+    elif bad == "groups":
+        kw["groups"] = 3
+    elif bad == "taps":  # 81 taps x 20 deformable groups of samples
+        k, kw["groups"], kw["deformable_groups"] = 9, 1, 20
+        x = torch.zeros(1, 20, 12, 12)
+        offsets = torch.zeros(1, 20 * 81 * 2, 4, 4)
+        dcol = torch.zeros(1, 1, 16, 81 * 20)
+        mask = None
+        conv[1] = 0
+    elif bad == "window":  # dilation 40: a window past BINS_BYTES
+        conv[1:] = 40, 40
+    with pytest.raises(error, match=match):
+        deform_sampling.deform_col2im(x, offsets, mask, dcol, k, k, *conv,
+                                      **kw)
+
+
+def test_deform_col2im_op_exports_through_its_fake():
+    """``paa_tpu_torch::deform_col2im`` passes torch.library's op checks
+    (schema, fake against the real kernel: dx float32 channels-last, the
+    offsets' and the mask's gradients float32, the mask's empty for a v1
+    conv), and a module that calls it exports with it as one node whose
+    outputs equal the live module's; on the CPU it launches nothing."""
+    x, offsets, mask = _k4_case()
+    dcol = torch.randn(1, 2, 42, 36, generator=torch.Generator()
+                       .manual_seed(2))
+    op = torch.ops.paa_tpu_torch.deform_col2im.default
+    torch.library.opcheck(op, (x, offsets, mask, dcol, 3, 3, 1, 1, 1, 2, 2))
+    torch.library.opcheck(op, (x, offsets, None, dcol, 3, 3, 1, 1, 1, 2, 2))
+    got = deform_sampling.deform_col2im(x, offsets, None, dcol, 3, 3, 1, 1, 1,
+                                        2, 2)
+    assert got[2] is None
+
+    class Gradients(torch.nn.Module):
+        def forward(self, x, offsets, mask, dcol):
+            return deform_sampling.deform_col2im(x, offsets, mask, dcol, 3,
+                                                 3, 1, 1, 1, 2, 2)
+
+    before = deform_sampling.deform_col2im.launches
+    exported = torch.export.export(Gradients(), (x, offsets, mask, dcol))
+    targets = [str(n.target) for n in exported.graph.nodes
+               if n.op == "call_function"]
+    assert targets.count("paa_tpu_torch.deform_col2im.default") == 1
+    for g, w in zip(exported.module()(x, offsets, mask, dcol),
+                    Gradients()(x, offsets, mask, dcol)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert deform_sampling.deform_col2im.launches == before
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # a process that serves an artifact with torch and paa_tpu_torch.serving
 # alone (tests/test_torch_port_serving.py's SERVE): serving's

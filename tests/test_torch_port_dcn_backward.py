@@ -11,6 +11,14 @@ batch whose chunks are forced below one image each (``CHUNK_BYTES``
 patched), so that the backward recomputes chunk by chunk and sums the
 weight's gradient over the chunks.
 
+On the card the Function takes explicit gradients instead
+(``deform_conv2d_columns_backward``: the columns' gradient and the
+weight's as products, K5 for x, the offsets and the mask); K5's plain
+version ``_col2im_grads`` and that route, run here through both ops'
+plain versions, are held against autograd through ``deform_conv2d``:
+modulated and v1, groups 1 and 4, deformable groups 1 and 2, strided,
+dilated, samples off the image and exactly on the integer grid.
+
 Tolerances:
 - the forward equals ``deform_conv2d`` bit for bit (it is that call);
 - against the plain version, float32 and bfloat16: the gradients of x,
@@ -20,6 +28,12 @@ Tolerances:
   weight's within 1e-5 in float32 and 1e-2 in bfloat16 (its gradient
   sums the chunks' in another order, and in bfloat16 each chunk's sum
   is rounded before the chunks are added);
+- K5's plain version against autograd, float64 and float32: within
+  1e-6 of each gradient's largest magnitude (the geometry is float32 in
+  both; the sums' order differs); the card's route against the
+  recompute: as the Function's above, and 1e-2 in bfloat16 (it sums the
+  sampling's gradient in float32 from bfloat16 columns' gradients, the
+  recompute in bfloat16);
 - against ``jax.grad``: within 1e-4 of each gradient's largest
   magnitude, as tests/test_torch_port_dcn.py holds the plain version's
   (float32 sums in different orders; offsets kept off the integer grid,
@@ -37,6 +51,7 @@ import torch
 from paa_tpu.ops import dcn as jdcn
 from paa_tpu_torch.modeling.layers import reset_parameters
 from paa_tpu_torch.ops import dcn
+from paa_tpu_torch.ops import deform_sampling as ds
 
 # name: (B, C, H, W, O, stride, dilation, groups, dg, modulated, scale)
 CASES = {
@@ -232,3 +247,90 @@ def test_deform_conv_without_grad_takes_the_plain_version(mode):
                                  conv.weight, 1, 1, 1, 2, 1)
     assert y.grad_fn is None and numels == []
     assert torch.equal(y, want + conv.bias[:, None, None])
+
+
+# K5's cases. name: (B, C, H, W, O, stride, dilation, groups, dg,
+# modulated, scale of the offsets' whole parts, on the integer grid)
+K5_CASES = {
+    "v2_groups4": (2, 8, 7, 8, 8, 1, 1, 4, 1, True, 2, False),
+    "v1_groups1": (2, 4, 7, 8, 4, 1, 1, 1, 1, False, 2, False),
+    "v2_dg2": (2, 8, 7, 8, 8, 1, 1, 1, 2, True, 2, False),
+    "v1_groups4_dg2": (2, 8, 6, 9, 8, 1, 1, 4, 2, False, 2, False),
+    "stride2": (2, 4, 9, 10, 6, 2, 1, 1, 1, True, 2, False),
+    "dilation2": (2, 4, 9, 10, 6, 1, 2, 1, 1, True, 2, False),
+    "off_the_image": (2, 4, 6, 7, 4, 1, 1, 1, 1, True, 8, False),
+    "on_the_grid": (2, 8, 7, 8, 8, 1, 1, 4, 2, True, 3, True),
+}
+
+
+def make_k5_case(name, dtype):
+    """Inputs of ``name`` in ``dtype`` (x, offsets, mask, weight and an
+    upstream gradient) and the conv's arguments. Off the grid the
+    offsets' fractional parts stay in [0.1, 0.9]; on it they are 0, so
+    every sample's corners sit on pixels and the gradients are the
+    floor corners' one-sided ones."""
+    b, c, h, w, o, s, d, g, dg, modulated, scale, on_grid = K5_CASES[name]
+    rng = np.random.RandomState(100 + sorted(K5_CASES).index(name))
+    ho = (h - 1) // s + 1
+    wo = (w - 1) // s + 1
+    shape = (b, dg * 18, ho, wo)
+    frac = 0.0 if on_grid else rng.uniform(0.1, 0.9, shape)
+    offsets = frac + rng.randint(-scale, scale + 1, shape)
+    mask = rng.uniform(0.1, 1.0, (b, dg * 9, ho, wo)) if modulated else None
+    arrays = (rng.normal(0, 1, (b, c, h, w)), offsets, mask,
+              rng.normal(0, 0.2, (o, c // g, 3, 3)),
+              rng.normal(0, 1, (b, o, ho, wo)))
+    return ([None if a is None else torch.tensor(a, dtype=dtype)
+             for a in arrays], (s, d, d, g, dg))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", sorted(K5_CASES))
+def test_col2im_plain_matches_autograd(case, dtype):
+    """K5's plain version, given the columns' gradient that
+    ``_columns_grad`` takes from the output's, against autograd through
+    ``deform_conv2d``: x's, the offsets' and the mask's gradients."""
+    (x, offsets, mask, weight, up), conv = make_k5_case(case, dtype)
+    leaves = [t.clone().requires_grad_() for t in (x, offsets, mask)
+              if t is not None]
+    out = dcn.deform_conv2d(*leaves[:2], leaves[2] if mask is not None
+                            else None, weight, *conv)
+    want = torch.autograd.grad(out, leaves, up)
+    dcol = dcn._columns_grad(up, weight, conv[3])
+    got = ds._col2im_grads(x, offsets, mask, dcol, 3, 3, *conv)
+    assert (got[2] is None) == (mask is None)
+    assert all(t.is_contiguous() for t in got if t is not None)
+    for g, w in zip([t for t in got if t is not None], want):
+        assert g.dtype == w.dtype
+        _close(g, w, 1e-6)
+    if K5_CASES[case][-1]:
+        assert float((want[1] != 0).float().mean()) > 0.3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(K5_CASES))
+def test_columns_backward_matches_recompute(case, dtype):
+    """The card's backward route (``deform_conv2d_columns_backward``),
+    here through K4's and K5's plain versions, against the CPU's
+    recompute under autograd: each wanted gradient in its input's dtype
+    (dx also in x's layout), None for the others; the weight's summed in
+    float32."""
+    (x, offsets, mask, weight, up), conv = make_k5_case(case, torch.float32)
+    x, weight, up = (t.to(dtype) for t in (x, weight, up))
+    modulated = mask is not None
+    for wanted in ((True, True, modulated, True), (False, True, False, True),
+                   (True, False, False, False)):
+        got = dcn.deform_conv2d_columns_backward(
+            x, offsets, mask, weight, up, *conv, wanted=wanted)
+        want = dcn._recompute_backward(x, offsets, mask, weight, up, conv,
+                                       wanted)
+        for name, g, w in zip(("x", "offsets", "mask", "weight"), got, want):
+            if w is None:
+                assert g is None, name
+                continue
+            assert g.dtype == w.dtype, name
+            if name == "x":  # the recompute's comes channels-last
+                assert g.is_contiguous()
+            share = 1e-2 if dtype == torch.bfloat16 else (
+                1e-5 if name == "weight" else 1e-6)
+            _close(g, w, share)

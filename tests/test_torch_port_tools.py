@@ -133,6 +133,7 @@ def test_profile_train_step_cli_on_the_cpu():
     # ROIAlign's counters count on every device, and PAA pools no rois
     assert result["launches"] == {"nms_batched": 0, "nms_global": 0,
                                   "group_norm_relu": 0, "deform_im2col": 0,
+                                  "deform_col2im": 0,
                                   "roi_align": 0, "roi_align_rois": 0}
 
 
