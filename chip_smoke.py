@@ -3,8 +3,13 @@
 
     python3 chip_smoke.py
 
+It checks and does not measure: the benchmark (BENCHMARK.json,
+benchmark/) times and traces the cells end to end and by layer, and
+kernel_ab.py times each kernel alone beside its bound and plain version.
+
 Phases, each of which raises on failure (the script then exits non-zero
-and prints no result line):
+and prints no result line); the numbers of phases that timed or profiled
+(9's timing, 10, 14, 23) are not reused:
 
 1. Build the CUDA kernels from paa_tpu_torch/csrc (one nvcc per source,
    in parallel, sm_90a): K1 nms_batched.cu, K2 nms_global.cu, K3
@@ -27,8 +32,8 @@ and prints no result line):
    and an all-invalid image. All three outputs bit-equal.
 4. K3, the GroupNorm+ReLU kernel, in both its forms (the ReLU fused,
    and relu=False: GroupNorm alone), against its plain version at the
-   five tower shapes of an 8 x 800 x 1344 batch, at shapes whose launch takes
-   each cluster size from 1 to 4, 8 and 16 and the streaming
+   five tower shapes of an 8 x 800 x 1344 batch, at shapes whose launch
+   takes each cluster size from 1 to 4, 8 and 16 and the streaming
    instantiation, and with groups that start off 16-byte boundaries:
    float32 (TF32 off) within 1e-5, bfloat16 within one bf16 ulp (plus
    1e-6 near zero). Phase 30 holds it so at every other shape of the
@@ -49,16 +54,10 @@ and prints no result line):
    once for the RPN and K2 once for the box head per request).
 8. The Faster R-CNN in float32 on the card against the CPU at a small
    input, as phase 6.
-9. Timing on the card (CUDA events): end-to-end img/s of each path, and
-   per forward each kernel's time at the path's own inputs beside its
-   plain version's, its bound and, where one PyTorch call computes the
-   same function, that call's time; for K1 the tiles its sweep ran and
-   the most picks in a row; for K2 and K3 the cluster size chosen and
-   cudaOccupancyMaxActiveClusters for it.
-10. A torch.profiler window of three requests of each path: device time
-    per request by kernel class (the Faster R-CNN box head's kernels by
-    a span around ``module.box``, matched through the trace's launch
-    correlation), and the device's idle share.
+9. K1 against its plain version on the inputs that the first request
+   of phase 5 (PAA's candidates) and of phase 7 (the Faster R-CNN RPN's
+   rows) gave it, and K2 on that request's box head candidates (at least
+   1,000 an image above the score threshold): bit-equal.
 11. Training, K3's gradient: the autograd Function around K3 (forward
     K3, backward the VJP of the plain version, recomputed) against
     autograd through the plain version at the towers' shapes of a
@@ -71,17 +70,13 @@ and prints no result line):
     momentum 0.9) on one batch of 16 uint8 images of 800 x 1344 (content
     800 x 1333) with 100 GT slots, 3-12 valid per image. Every loss
     finite, num_pos > 0, the last step's loss below the first's, K3
-    launched 40 times per step and no NMS; peak device memory.
+    launched 40 times per step and no NMS.
 13. One training step in float32 (TF32 off) on the card and on the CPU
     at 2 x 256 x 320 from the same weights and batch: losses, num_pos,
     the positive mask and the updated parameters agree; the same step
     on the card with a fault planted in K3's gradient does not.
-14. Timing and a profile of the train step: step ms and img/s (CUDA
-    events after 2 warm-up steps); torch.profiler over three
-    steps with device busy, wall and idle share per span (forward,
-    assignment, losses, backward, K3's backward recompute, optimizer).
 
-15. (Run after phase 8.) PAA-R50 COCO-style evaluation, dataset to AP
+15. (Run after phase 9.) PAA-R50 COCO-style evaluation, dataset to AP
     table, at full width: 32 PPM images at COCO's common sizes (written
     to a temporary directory, 3-12 boxes each over the 80 sparse
     category ids) through the port's ``inference``: the bucketed loader
@@ -89,11 +84,10 @@ and prints no result line):
     short tails padded with image_id -1), make_eval_fn in bfloat16 with
     the serving cell's seeded weights and cls bias (K3 40 and K1 once
     per batch), the COCO evaluator, coco_results.json and bbox.json.
-    Checks the launch counts of the run, the 12 metrics, a detection
-    for every real image and none for padding; prints the loader's,
-    the model calls' and the end-to-end img/s, the device's idle share
-    inside the model calls (torch.profiler) and the AP table (random
-    weights: not an accuracy).
+    Checks that the loader's batches hold every image once, the launch
+    counts of the run (per batch of the loader), the 12 metrics, a
+    detection for every real image and none for padding; prints the AP
+    table (random weights: not an accuracy).
 16. The same eval path in float32 (TF32 off) on the card and on the CPU
     from the same weights: four PPM images at MIN_SIZE_TEST 256 in the
     buckets (256, 320) / (320, 256), against ground truth made of the
@@ -120,8 +114,8 @@ and prints no result line):
     two ranks on one device), started as torchrun starts them. One
     float32 DDP step of full-width PAA-R50 on a global batch of 8 at
     256 x 320 (4 per rank) against the one-process step: positive mask
-    and num_pos equal, updates within phase 13's limits; step times
-    side by side. Then a two-rank eval of synth_coco_32 against one
+    and num_pos equal, updates within phase 13's limits. Then a two-rank
+    eval of synth_coco_32 against one
     process: the same detections and the 12 metrics. Then SyncBN
     (MODEL.USE_SYNCBN): one float32 step of PAA-R50 with a SyncBatchNorm
     in each body norm on a global batch of 16 at 256 x 320, two ranks
@@ -129,8 +123,8 @@ and prints no result line):
     ReLU decisions shared: normalized activations and running
     statistics within 1e-4, losses and updates within phase 13's limits.
 
-20. (Run after phase 14's profile, with the earlier paths' models
-    freed.) The X-152 dcnv2 main path:
+20. (Run after phase 31, with the earlier paths' models freed.) The
+    X-152 dcnv2 main path:
     configs/paa/paa_dcnv2_X_152_32x8d_FPN_2x.yaml at full width (32x8d
     ResNeXt at R-152 depth, modulated DCN as conv2 of every block of
     stages 3-5 and as the towers' last conv, 256 FPN channels, 80
@@ -139,7 +133,7 @@ and prints no result line):
     the CPU tests draw them: fractional offsets of a pixel or two),
     serves three 8 x 800 x 1344 requests through ``make_eval_fn``: the
     checks of phase 5, K1 3, K3 120 and K4 171 launches (47 body DCNs
-    and the two towers' at 5 levels a request), peak device memory.
+    and the two towers' at 5 levels a request).
 21. One ``DeformConv`` at the path's stage-3 (512 channels, 100 x 168,
     32 groups), stage-4 (1024, 50 x 84, 32 groups) and P3 tower (256,
     100 x 168, with bias) shapes, B=1, offset conv from a seed, on the
@@ -148,15 +142,8 @@ and prints no result line):
     bfloat16 within DCN_BF16_REL of the largest float32 output.
 22. The X-152 dcnv2 model in float32 on the card against the CPU at
     2 x 256 x 320, as phase 6.
-23. Its img/s and ms per request with
-    cuDNN's TF32 off (as the phases after phase 4 run) and with torch's
-    default (on; the offset convs are the path's only float32 convs),
-    the offsets at full width (mean and largest, share of samples off
-    the image), and, with the default, a torch.profiler window of three
-    requests with the DCN steps (geometry, sampling, contraction) and
-    the grouped convs split out by spans around them.
 
-24. (Run after phase 23, with the X-152 serving model freed.) The DCN
+24. (Run after phase 68, with the X-152 serving model freed.) The DCN
     backward that keeps only its inputs (ops/dcn.py's
     DeformConv2dFunction: on the card the columns' gradient, K4 for the
     weight's and K5) against autograd through deform_conv2d on the
@@ -171,11 +158,8 @@ and prints no result line):
     images with 3-12 GTs in 100 slots: every loss finite, num_pos > 0, the
     last loss below the first, K3 40, K4 114 (the forward's 57 and the
     backward's columns for the weights' gradients) and K5 57 launches per
-    step and no NMS; one
-    step at each of the ladder's buckets (800, 1344) and (1344, 800);
-    peak memory, ms per step, img/s, and a torch.profiler split
-    (forward, the DCN backward's recompute, K3's gradient recompute,
-    the rest of backward, assignment, losses, optimizer).
+    step and no NMS; one step at each of the ladder's buckets
+    (800, 1344) and (1344, 800).
 26. One float32 train step (TF32 off) of that model on the card against
     the CPU and against a float64 step on the CPU at 2 x 256 x 320, each
     float32 step with the backbone's and the FPN's ReLU decisions that
@@ -188,8 +172,7 @@ and prints no result line):
     TEST.BBOX_AUG.ENABLED and the config's own 26 augmentations
     (soft-vote) over TTA_IMAGES (1) 480 x 640 PPM images at full width in
     bfloat16: K1 once and K3 40 times per augmentation and batch, a
-    detection per image, the 12 metrics; s/img, peak memory and the
-    largest padded bucket.
+    detection per image, the 12 metrics.
 28. The TTA path in float32 on the card against the CPU with full-width
     PAA-R50 at a reduced list (the identity at 256, scales 192 and 320
     with scale ranges, all flipped): detections matched as in phase 6,
@@ -201,7 +184,7 @@ and prints no result line):
     up to 1824 x 3008, the training ladder's, the GN body's stem at
     400 x 672 and the fc GN's (R, 1024, 1, 1) among them).
 
-31. (Run after phase 14's profile, before phase 20.) The dense detectors
+31. (Run after phase 13, before phase 20.) The dense detectors
     beside PAA at full width (256 FPN channels, 80 classes), bfloat16,
     weights from seed 0 and the cls bias from seed 1, each through the
     phases of PAA-R50 (``phase_dense``): ATSS
@@ -212,14 +195,13 @@ and prints no result line):
     per location, P6 from C5, plain towers). Three 8 x 800 x 1344
     requests (phase 5's checks; K1 once and K3 40 times per request,
     no K3 for RetinaNet); K1 against its plain version on the inputs
-    the first request gave it (recorded), bit-equal, and timed there;
-    img/s and a profile (phases 9-10); the f32 model on the card
-    against the CPU (phase 6); TRAIN_STEPS (5) do_train steps at the
-    config's IMS_PER_BATCH (16; RetinaNet 8) with K3 40 times per step for ATSS
-    and FCOS, the step's ms, img/s and profile (phases 12, 14); the f32
-    train step on the card against the CPU and float64 (phase 13), the
-    assignment's labels equal, and for FCOS a third card step with its
-    centerness targets x1.05, which must land beyond the limits.
+    the first request gave it (recorded), bit-equal; the f32 model on
+    the card against the CPU (phase 6); TRAIN_STEPS (5) do_train steps
+    at the config's IMS_PER_BATCH (16; RetinaNet 8) with K3 40 times per
+    step for ATSS and FCOS (phase 12); the f32 train step on the card
+    against the CPU and float64 (phase 13), the assignment's labels
+    equal, and for FCOS a third card step with its centerness targets
+    x1.05, which must land beyond the limits.
     RetinaNet's steps take FrozenBN statistics calibrated on its
     seeded body (its towers have no norm; with the seed's identity
     statistics P3-P7 reach ~1e3 and its steps diverge); its one-step
@@ -241,8 +223,8 @@ and prints no result line):
     [0.5, 1.5]) in bfloat16, three 8 x 800 x 1344 requests: phase 7's
     checks, K1 3 and K2 3 launches, masks (8, 100, 28, 28) float32 in
     [0, 1]; K1 against its plain version on the RPN's rows of the first
-    request; img/s; a profile with the mask head in its own span; the
-    f32 model on the card against the CPU at 2 x 256 x 320 (phase 8),
+    request; the f32 model on the card against the CPU at 2 x 256 x 320
+    (phase 8),
     and the masks of the detections at the same box within
     MASK_PROB_TOL.
 35. Faster R-CNN and Mask R-CNN training at full width in bfloat16: 10
@@ -252,9 +234,7 @@ and prints no result line):
     finite losses that fall, num_pos > 0, K1 once per step at the
     training RPN's rows (80 rows of up to 2,000 candidates, 2,000
     picks), held bit-equal to its plain version on the first step's
-    rows and timed there; peak memory, ms per step, img/s, and a
-    profile split by the two-stage spans (RPN loss, proposals, roi
-    sampling, box head, box loss, mask head, mask targets, mask loss).
+    rows.
 36. One float32 Mask R-CNN train step on the card and on the CPU
     against a float64 CPU step at 2 x 256 x 320 (128 rois per image,
     phase 35's calibrated FrozenBN), the same draws injected, and the
@@ -280,16 +260,14 @@ and prints no result line):
     1,000, class-aware, 100 picks; 1,000 x 1 candidates fit K1), the
     heatmaps (8, 100, 17, 56, 56) float32, the first image's detections
     decoded on the host with every keypoint inside its box within 1 px;
-    K1 against its plain version at both recorded inputs; img/s; a
-    profile with the keypoint head in its own span; the f32 model on the
-    card against the CPU (phase 8) and its detect with 20 detections per
+    K1 against its plain version at both recorded inputs; the f32 model
+    on the card against the CPU (phase 8) and its detect with 20 detections per
     image against the CPU and float64: heatmaps at the same box within
     KP_HEATMAP_TOL.
 40. Keypoint R-CNN training at B=16 (phase 35's recipe, each GT a person
     with 17 keypoints, calibrated FrozenBN): K1 once per step at the
-    training RPN's 80 rows of 2,000; loss and loss_kp over TRAIN_STEPS
-    (5) steps, peak memory, ms per step and a profile with the keypoint head
-    and loss spans.
+    training RPN's 80 rows of 2,000; finite losses that fall over
+    TRAIN_STEPS (5) steps.
 41. C4 Faster and Mask R-CNN serving (configs/e2e_faster_rcnn_R_50_C4_1x
     and e2e_mask_rcnn_R_50_C4_1x: R-50 to C4, 1,024 channels at stride
     16, 15 anchors per location, the res5 box head on 14 x 14 pools, 81
@@ -298,19 +276,17 @@ and prints no result line):
     requests each: K1 3 (the RPN's 8 rows of 6,000, 1,000 picks) and K2
     3 (the box head's 80,000 per image) launches, masks (8, 100, 14,
     14); both kernels against their plain versions at the first
-    request's inputs; img/s and a profile (res5 in the box head span).
+    request's inputs.
 42. C4 Faster and Mask R-CNN training at the configs' IMS_PER_BATCH 8:
     the RPN's 8 rows of 12,000 candidates (of 63,000 anchors) with 2,000
     picks go to K2's cluster route, once per step; K2 held bit-equal to
-    its plain version there and timed against its bound; losses, peak
-    memory, ms per step, profile.
+    its plain version there; finite losses that fall.
 43. One f32 C4 Mask R-CNN train step on the card and on the CPU against
     float64 (phase 36 at 64 rois per image).
 44. ``paa_tpu_torch.tools.test_net`` on Keypoint R-CNN over the 32-image
     synthetic person-keypoint COCO (its DATASETS.TEST, served by
     tools/synth_catalog.py) with cv2 blocked: exit 0, the bbox and
-    keypoints (OKS) tables, K1 twice per batch, the seconds of the
-    heatmaps' copy to the host and of their decode. Then K1 and K2
+    keypoints (OKS) tables, K1 twice per batch. Then K1 and K2
     against their plain versions at every input phases 39-44 gave them.
 
 45. (Run after phase 44.) GN Mask R-CNN serving:
@@ -322,52 +298,48 @@ and prints no result line):
     foreground and mask biases of phase 34, three 8 x 800 x 1344
     requests: K1 3, K2 3 and K3 69 launches a request (28 relu=False),
     masks; K1 and K2 against their plain versions at the first request's
-    inputs; img/s; a profile with the body, box head and mask head in
-    spans; K3 at one request's own shapes and forms, and at the body's
-    alone, against its bound, plain version and F.group_norm (+ F.relu);
-    the f32 model on the card against the CPU, its masks compared.
+    inputs; the f32 model on the card against the CPU, its masks
+    compared.
 46. Its training at IMS_PER_BATCH 16, FREEZE_CONV_BODY_AT 2, seeded GN
-    (no FrozenBN to calibrate): K1 once and K3 69 times per step, losses
-    over TRAIN_STEPS (5) steps that fall, peak memory, ms per step, and
-    a profile with the GN gradient's recompute
-    (``group_norm_relu/backward``) in its span.
+    (no FrozenBN to calibrate): K1 once and K3 69 times per step (each
+    GroupNorm in its form), losses over TRAIN_STEPS (5) steps that
+    fall.
 47. One f32 GN Mask R-CNN train step on the card and on the CPU against
     float64 (phase 36's checks and pins, 128 rois per image), and the
     planted x1.05 beyond the limits.
 48. scratch_e2e_faster_rcnn_R_50_FPN_3x_gn training at B=16 with the
     whole GN body trainable (FREEZE_CONV_BODY_AT 0) and FPN2MLP's fc GN
-    over (R, 1024, 1, 1): K3 63 times a step, losses, peak memory, ms,
-    the GN recompute span.
+    over (R, 1024, 1, 1): K3 63 times a step (each GroupNorm in its
+    form), losses that fall.
 49. ``paa_tpu_torch.tools.test_net`` on the GN Mask R-CNN over
     synth_coco_32 with cv2 blocked: exit 0, the bbox and segm tables,
     K1, K2 and 69 K3 launches per batch.
 50. rpn_R_50_FPN_1x (calibrated FrozenBN): three 8 x 800 x 1344 requests
     (K1 once a request at the five levels' 40 rows of 1,000 with 1,000
-    picks; 2,000 proposals an image), K1 bit-equal there and timed,
-    img/s, a profile; TRAIN_STEPS training steps at B=16 (the RPN loss
+    picks; 2,000 proposals an image), K1 bit-equal there; TRAIN_STEPS
+    training steps at B=16 (the RPN loss
     alone, no NMS); ``test_net`` to the box_proposal table (AR at 100 and
     1,000, all areas) from a checkpoint of the seeded weights; the f32
     proposals on the card against the CPU (validity and pick order
     equal, boxes within RPN_BOX_TOL px).
 51. rpn_R_50_C4_1x: serving at B=8, its RPN's 8 rows of 12,000
     (PRE_NMS_TOP_N_TEST, above K1's 8,192) on K2 with 2,000 picks, K2
-    bit-equal there and timed against its bound and plain version;
-    training at the default IMS_PER_BATCH 16; the box_proposal table.
+    bit-equal there; training at the default IMS_PER_BATCH 16; the
+    box_proposal table.
 
 52. (Run after phase 51.) FCOS-MNV2
     (configs/fcos/fcos_bn_bs16_MNV2_FPN_1x.yaml: the MobileNetV2 body,
     its C3-C5 into FPN, 256 channels, P6/P7 from P5) through
     ``phase_dense``: three 8 x 800 x 1344 bf16 requests (K1 once, K3 40
-    times in the towers), K1 at the first request's candidates, img/s, a
-    profile with the body and its depthwise convs in spans, the f32 model
-    on the card against the CPU, TRAIN_STEPS (5) do_train steps at
+    times in the towers), K1 at the first request's candidates, the f32
+    model on the card against the CPU, TRAIN_STEPS (5) do_train steps at
     IMS_PER_BATCH 16.
 53. FBNet Mask R-CNN (configs/e2e_mask_rcnn_fbnet_600.yaml, arch
     "default", WIDTH_DIVISOR 8, FrozenBN calibrated in the trunk and the
     heads' stages) serving at its test size, three 8 x 608 x 1024 bf16
     requests: K1 at the RPN's 8 rows of 6,000 (200 picks), K2 at the box
-    head's 8 x 16,000, masks (8, 100, 12, 12); both kernels at those
-    inputs, img/s, a profile.
+    head's 8 x 16,000, masks (8, 100, 12, 12); both kernels bit-equal to
+    their plain versions at those inputs.
 54. Its f32 model and masks on the card against the CPU at 2 x 256 x
     320, and its f32 train step against the CPU and float64 (phase 36's
     checks, pins and planted x1.05).
@@ -381,8 +353,7 @@ and prints no result line):
     320 x 640 (its mask stage 6 -> 3 -> 6 -> 12; K1 at its box head's
     8 x 8,000).
 57. PAA-R50 with MODEL.USE_SYNCBN True: TRAIN_STEPS (5) do_train steps
-    at B=16 on
-    batch statistics, timing and profile; then an eval request, every
+    at B=16 on batch statistics; then an eval request, every
     SyncBatchNorm in eval mode on its running statistics.
 58. ``train_net`` 3 iterations with USE_SYNCBN over synth_coco_32; its
     model_final holds the running statistics, and ``test_net --ckpt``
@@ -397,7 +368,7 @@ and prints no result line):
     the loader and ``compute_on_dataset``, then ``do_voc_evaluation``:
     a finite mAP and the 20-class table, K1 twice an image (the RPN's
     1 x 6,000 with 300 picks, the box head's 1 x 6,000 with 100), K1
-    bit-equal to its plain version at both and timed.
+    bit-equal to its plain version at both.
 60. That eval path of the narrow C4 model in f32 on the card against the
     CPU over 4 images whose ground truth is the CPU's first-pass
     detections: detections matched, each class's AP within 1e-3.
@@ -408,9 +379,9 @@ and prints no result line):
     (``serving.export_inference``), saved, loaded and served by a
     process that imports torch and ``paa_tpu_torch.serving`` alone:
     three requests, K1 3 and K3 120 launches, detections matched to the
-    live eval fn's; export seconds, artifact MB, artifact vs live img/s.
+    live eval fn's.
 63. ``roi_pool`` and ``deform_psroi_pool`` (with its gradients) on the
-    card against the CPU, timed.
+    card against the CPU.
 
 64. (Run after phase 63.) The overfit gate
     (paa_tpu_torch/tools/quick_overfit.py ``run``): PAA-R50 at 128 FPN
@@ -423,13 +394,12 @@ and prints no result line):
 65. The demo (paa_tpu_torch/demo/predictor.py ``COCODemo``): the flagship
     config at full width in float32 with phase 5's weights and cls bias
     on one 480 x 640 BGR image (padded to 800 x 1088): every card
-    detection matched on the CPU and back; ms per image on the host
-    clock; K1 1 and K3 40 launches a call.
+    detection matched on the CPU and back; K1 1 and K3 40 launches a
+    call.
 66. ``python -m paa_tpu_torch.tools.profile_train_step --batch 2 --steps
     1`` in a process of its own, side by side with phase 67's: exit 0,
     its span table, device time in the input, forward, backward and
-    optimizer spans, K3's launches. Phase 14's profile comes from the
-    same module's ``profile_steps``.
+    optimizer spans, K3's launches.
 67. The benchmark tools (``python -m paa_tpu_torch.tools.<name>``),
     each in a process of its own, side by side with phase 66's, at
     reduced depth: bench (PAA-R50, B=8, 3 iterations,
@@ -444,26 +414,22 @@ and prints no result line):
     bit-equal to its plain version at every input they gave it, and
     their K3 shapes (B=2 at 800 x 1344, the R-50 TTA buckets) among
     those that phase_k3_at_path_shapes holds.
-68. (Run after phase 23.) K4 against its plain version
+68. (Run after phase 22.) K4 against its plain version
     (``_im2col_columns``) on the same card tensors at every layer shape
     at which phase 20's path launched it: B=8 at 800 x 1344, the body's
     res3, res4 and res5 and the towers' P3-P7, launched as often as a
     forward needs (47 and 10); offsets normal(0, 2 px), the mask
     uniform. float32 within 1e-6 of the largest column, bfloat16 within
     one bfloat16 rounding (2^-8 relative) of the plain float32 columns
-    of the same values. K4's ms per shape in bfloat16, beside the plain
-    version's and its bytes bound; their sums per forward go into K4's
-    entry of the ``kernels`` line.
+    of the same values; the largest errors go into K4's entry of the
+    ``kernels`` line.
 69. (Run after phase 24.) K5 against its plain version
     (``_col2im_grads``) on the same card tensors at every layer shape at
     which phase 24's do_train launched it, which must be K4_PATH_SHAPES
     at B=8 in bfloat16, once a layer a step: K5 once at B=8 in float32
     and bfloat16, each two-image slice of its gradients within 1e-5 of
-    the plain version's largest magnitude on that slice; then at B=8 in
-    bfloat16 K5's ms beside its bytes bound,
-    the whole CUDA backward of a layer beside its own, and the plain
-    recompute it replaced; their sums per training step go into K5's
-    entry of the ``kernels`` line.
+    the plain version's largest magnitude on that slice; the largest
+    errors go into K5's entry of the ``kernels`` line.
 
 Phase 13 also runs the step a third time on the CPU with the network in
 float64 (every convolution, FrozenBN and GroupNorm), the referee of the
@@ -471,10 +437,11 @@ two float32 steps, and phase 11 checks K3's Function at a group of zero
 variance with a zero bias (the ReLU input exactly 0: half the upstream
 gradient, as the JAX package's custom VJP gives).
 
-The script's wall time comes on a line of its own; the line before the
-last is the ``kernels`` JSON, which lists each kernel's launches per
-path; the card's name and power limit (nvidia-smi) come on a line
-before it; the last line is
+The line before the last is the ``kernels`` JSON: each kernel's largest
+error against its plain version over the phases that compare them (0.0
+where they must be bit-equal) and its launches a call or a step on the
+main paths, as phases 5, 7, 12, 20 and 25 assert them; the card's name
+and power limit (nvidia-smi) come on a line before it; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits with 2.
 """
 
@@ -493,14 +460,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and non-tensor f32
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 BATCH, HW, SIZE = 8, (800, 1344), (800.0, 1333.0)
 # training: SOLVER.IMS_PER_BATCH images, GT slots, steps of the main path
 TRAIN_BATCH, MAX_GT, TRAIN_STEPS = 16, 100, 5
 TOWER_HW = [(100, 168), (50, 84), (25, 42), (13, 21), (7, 11)]
-SLEEP_CYCLES = 35_000_000  # ~20 ms at the H100's 1.755 GHz boost clock
 GN_PER_LEVEL = 8  # 2 towers x 4 GroupNorm+ReLU
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PAA_CONFIG = os.path.join(ROOT, "configs", "paa", "paa_R_50_FPN_1x.yaml")
@@ -522,12 +485,6 @@ DENSE_CONFIGS = {
 # the float32 output's largest magnitude (tests/test_torch_port_dcn.py's
 # BF16_REL)
 DCN_BF16_REL = 1.5e-2
-# an IoU and its compare: 2 x (min, max, sub, add, max), mul, add, sub,
-# div, compare; and a label compare
-NMS_IOU_OPS, NMS_LABEL_OPS = 15, 1
-# bytes read of every candidate (score, valid), of a valid one besides
-# (box, label), and written per output slot (idx, score, valid)
-NMS_BYTES_ALL, NMS_BYTES_VALID, NMS_BYTES_OUT = 4 + 1, 16 + 4, 4 + 4 + 1
 # the COCO evaluator's 12 bbox metrics
 METRICS = ("AP", "AP50", "AP75", "APs", "APm", "APl",
            "AR1", "AR10", "AR100", "ARs", "ARm", "ARl")
@@ -545,25 +502,6 @@ def card():
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps, warmup=2):
-    """Device ms per call of ``fn`` over ``reps`` calls. Where ``fn``
-    waits for the device itself, its waits count."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    # queue the calls behind a device-side sleep (~20 ms), so that the
-    # host's launch time between them does not show in the device's time
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def nms_case(seed, bsz, n, dev):
@@ -588,48 +526,6 @@ def same_keeps(got, want, what):
                                      "keep_valid")):
         check(g.dtype == w.dtype and torch.equal(g, w),
               f"{what}: kernel != plain in {name}")
-
-
-def nms_bound(args, got, real_n=None):
-    """Least time for the NMS of this input, and the IoUs it needs.
-    Greedy's i-th pick is the i-th live candidate (valid, score > -5e29)
-    in (score desc, index asc) order that no earlier pick suppresses, so
-    the function needs no argmax: only, for each live candidate up to
-    the last pick of a row that fills max_out (every live candidate of a
-    row that ends short of it), a test against each kept box ranked
-    ahead of it: a label compare when class-aware, and an IoU for the
-    same label. A row with a valid NaN score needs none. Ops against the
-    f32 peak. Bytes against HBM: every real candidate's score and valid
-    flag, the box and label of the valid ones, the outputs. ``real_n``
-    (per row) leaves out padding added to a row; invalid, it adds no
-    operations."""
-    _, scores, labels, valid, _, max_out, aware = args
-    bsz, n = scores.shape
-    live = (valid & (scores > -5e29)
-            & ~(valid & scores.isnan()).any(dim=1, keepdim=True))
-    order = torch.where(live, scores, float("-inf")).sort(
-        dim=1, descending=True, stable=True).indices
-    rank = torch.empty_like(order).scatter_(
-        1, order, torch.arange(n, device=scores.device).expand(bsz, n))
-    pairs = ious = 0
-    for b in range(bsz):
-        kept = got[0][b][got[2][b]].long()
-        kept_rank = rank[b, kept]
-        last = kept_rank[-1] if len(kept) == max_out else n
-        cand = live[b] & (rank[b] <= last)
-        ahead = kept_rank[None, :] < rank[b][cand][:, None]
-        pairs += int(ahead.sum())
-        if aware:
-            ahead &= labels[b][cand][:, None] == labels[b, kept][None, :]
-        ious += int(ahead.sum())
-    if real_n is None:
-        real_n = [n] * bsz
-    nbytes = (sum(real_n) * NMS_BYTES_ALL + int(valid.sum()) * NMS_BYTES_VALID
-              + bsz * max_out * NMS_BYTES_OUT)
-    ops = ious * NMS_IOU_OPS + (pairs * NMS_LABEL_OPS if aware else 0)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), (
-        "bytes" if t_bytes >= t_ops else "operations"), ious
 
 
 def rpn_case(seed, dev, rows=5 * BATCH, n=1000):
@@ -865,7 +761,7 @@ def phase_group_norm(dev):
                       "resident_cluster_sizes": cs_seen,
                       "plans_cs_resident": sorted(plans),
                       "max_abs_err": worst}))
-    return max(worst[f"{BATCH}x256x{h}x{w}"]["bf16"] for h, w in TOWER_HW)
+    return {k: max(e[k] for e in worst.values()) for k in ("f32", "bf16")}
 
 
 def phase_k3_at_path_shapes(dev, shapes, bench_shapes):
@@ -879,7 +775,7 @@ def phase_k3_at_path_shapes(dev, shapes, bench_shapes):
     group, streamed from device memory), its relu=False norms, the
     Xconv head's 7 x 7 and the fc GN's 1 x 1 over the rois; the
     benchmark tools' (phase 67, ``bench_shapes``: B=2 at 800 x 1344 and
-    the R-50 TTA buckets)."""
+    the R-50 TTA buckets). Returns the largest errors."""
     sizes = {shape for shape, _ in shapes}
     check(bench_shapes <= shapes,
           f"k3_at_path_shapes: the benchmark tools' shapes were not "
@@ -910,6 +806,7 @@ def phase_k3_at_path_shapes(dev, shapes, bench_shapes):
                       "no_relu_shapes": sum(not r for _, r in shapes),
                       "largest": largest, "max_abs_err": worst}))
     torch.cuda.empty_cache()
+    return worst
 
 
 def build_cfg(dtype, path, extra=()):
@@ -940,7 +837,7 @@ def seed_offset_convs(module, seed):
     uniform at 0.02 of the kaiming bound, the bias normal(0, 1.5), so
     fractional offsets of a pixel or two (at their zero init a DCN layer
     is a plain conv with a mask of 0.5)."""
-    from paa_tpu_torch.ops.dcn import DeformConv
+    from paa_tpu_torch.modeling.layers import DeformConv
 
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -1017,15 +914,13 @@ def zero_launch_counts():
     group_norm.group_norm_relu.launches = 0
     deform_sampling.deform_im2col.launches = 0
     deform_sampling.deform_col2im.launches = 0
-    group_norm.group_norm_relu.launches_by_form.update(relu=0, no_relu=0)
 
 
-def k3_forms():
-    """K3's launches by form since the counts were last set to 0:
-    {"relu": GroupNorm + ReLU, "no_relu": GroupNorm alone}."""
-    from paa_tpu_torch.ops import group_norm
-
-    return dict(group_norm.group_norm_relu.launches_by_form)
+def k3_forms(launches):
+    """K3's launches of ``recording_k3_launches`` by form: {"relu":
+    GroupNorm + ReLU, "no_relu": GroupNorm alone}."""
+    relu = sum(r for _, _, r in launches)
+    return {"relu": relu, "no_relu": len(launches) - relu}
 
 
 def check_detections(dets, what, min_score, size=SIZE):
@@ -1067,18 +962,12 @@ def serve(model, what, seed, expected, min_score, extra_check=None,
     with the launch counts set to 0 just before and read just after;
     ``check_detections`` unless ``detections`` is False (the RPN-only
     model's proposals); ``extra_check(dets)``, if given, checks the three
-    requests' outputs further and returns fields to print."""
+    requests' outputs further and returns fields to print. Returns the
+    launch counts."""
     eval_fn = model.make_eval_fn()
     reqs = [request(seed + i, BATCH, hw, size) for i in range(3)]
     zero_launch_counts()
-    times, dets = [], []
-    for images, sizes in reqs:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        det = eval_fn(images, sizes)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        dets.append(det)
+    dets = [eval_fn(images, sizes) for images, sizes in reqs]
     launches = launch_counts()
     check(launches == expected,
           f"{what}: launches {launches}, expected {expected}")
@@ -1087,16 +976,15 @@ def serve(model, what, seed, expected, min_score, extra_check=None,
     extra = extra_check(dets) if extra_check else {}
     print(json.dumps({"phase": what, "ok": True, "requests": 3,
                       "batch": BATCH, "hw": hw, "launches": launches,
-                      "valid_detections": n_valid, "request_s": times,
-                      **extra}))
-    return eval_fn, launches
+                      "valid_detections": n_valid, **extra}))
+    return launches
 
 
 def dcn_per_forward(model):
     """K4 launches of one forward: the body's deformable convs once each,
     the head's (the towers' last conv) once per pyramid level; one chunk
     of images each at the batches these phases run."""
-    from paa_tpu_torch.ops.dcn import DeformConv
+    from paa_tpu_torch.modeling.layers import DeformConv
 
     def count(module):
         return sum(isinstance(m, DeformConv) for m in module.modules())
@@ -1126,24 +1014,22 @@ def gn_per_forward(model):
 
 def phase_main_path(dev, path=PAA_CONFIG, what="main_path"):
     """Three full-width requests of the dense model of ``path`` (PAA-R50
-    by default): K1 once and K3 ``gn_per_forward`` times per request."""
+    by default): K1 once and K3 ``gn_per_forward`` times per request.
+    Returns the launch counts."""
     model = seeded_model("bfloat16", dev, path)
-    eval_fn, launches = serve(
+    return serve(
         model, what, 10,
         {"nms_batched": 3, "nms_global": 0,
          "group_norm_relu": 3 * gn_per_forward(model),
          "deform_im2col": 3 * dcn_per_forward(model), "deform_col2im": 0},
         0.0)
-    return model, eval_fn, launches
 
 
 def phase_frcnn_main_path(dev):
-    model = seeded_frcnn("bfloat16", dev)
-    eval_fn, launches = serve(
-        model, "faster_rcnn_main_path", 40,
+    return serve(
+        seeded_frcnn("bfloat16", dev), "faster_rcnn_main_path", 40,
         {"nms_batched": 3, "nms_global": 3, "group_norm_relu": 0,
          "deform_im2col": 0, "deform_col2im": 0}, 0.05)
-    return model, eval_fn, launches
 
 
 def match_detections(gpu, cpu, what):
@@ -1206,232 +1092,22 @@ def phase_frcnn_reference(dev):
                 "faster_rcnn_card_vs_cpu")
 
 
-def e2e_rate(eval_fn, seed, what, name, dev, hw=HW, size=SIZE):
-    images, sizes = request(seed, BATCH, hw, size)
-    eval_fn(images, sizes)
-    torch.cuda.synchronize()
-    reps = 5
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        eval_fn(images, sizes)
-    torch.cuda.synchronize()
-    e2e_s = (time.perf_counter() - t0) / reps
-    print(json.dumps({"metric": "e2e_img_per_s", "path": what,
-                      "value": BATCH / e2e_s, "batch": BATCH, "hw": hw,
-                      "dtype": "bfloat16", "request_ms": e2e_s * 1e3,
-                      "card": name}))
-    return images.to(dev), sizes.to(dev)
-
-
-def k1_tiles(args, got):
-    """The tiles of 32 sorted candidates K1's sweep ran on this input, as
-    the kernel counts them (summed over rows, and the most in a row), and
-    the most picks in a row. One more launch, outside the main path's
-    counted run."""
-    from paa_tpu_torch.ops import nms
-
-    tiles = torch.zeros(args[1].shape[0], dtype=torch.int32,
-                        device=args[1].device)
-    nms._nms_batched_cuda(*args, tiles=tiles)
-    return {"tiles_swept": int(tiles.sum()),
-            "most_tiles_in_a_row": int(tiles.max()),
-            "most_picks_in_a_row": int(got[2].sum(dim=1).max())}
-
-
-def time_nms(entry, args, kernel_reps, what, real_n=None):
-    """A kernel against its plain version on one input: bit-equal, then
-    both timed; returns the timing fields of a kernels entry."""
-    from paa_tpu_torch.ops import nms
-
-    got = entry(*args)
-    same_keeps(got, nms.nms_batched_plain(*args), what)
-    bound, by, ious = nms_bound(args, got, real_n)
-    return ious, got, {
-        "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: entry(*args), kernel_reps),
-        # one timed call: the plain versions take 15-1,500 ms a call at
-        # the paths' inputs, and repeating them cost ~60 s of the script
-        "plain_ms": cuda_ms(lambda: nms.nms_batched_plain(*args), 1, 0),
-        "bound_ms": bound, "bound_by": by, "library_ms": None,
-    }
-
-
-def phase_timing(dev, model, eval_fn, launches, gn_err, name):
-    from paa_tpu_torch.modeling.paa_inference import paa_candidates
-    from paa_tpu_torch.ops import nms
-    from paa_tpu_torch.ops.image_norm import device_normalize
-
-    images, sizes = e2e_rate(eval_fn, 20, "paa", name, dev)
-
-    # NMS at the main path's own candidates
-    with torch.inference_mode():
-        x = device_normalize(images, sizes, model.cfg.INPUT.PIXEL_MEAN,
-                             model.cfg.INPUT.PIXEL_STD)
-        outputs = model.module(x.permute(0, 3, 1, 2).contiguous())
-        anchors, counts = model.anchors_for(HW)
-        cand = paa_candidates(outputs, sizes, anchors, counts,
-                              model.postprocess_config())
-    args = (*cand, 0.6, 100, True)
-    ious, got, timing = time_nms(nms.nms_batched, args, 20,
-                                 "nms_batched on the PAA candidates")
-    k1 = {
-        "name": "nms_batched", "route": "cuda",
-        "source": "paa_tpu_torch/csrc/nms_batched.cu",
-        "replaces": "paa_tpu/ops/nms_pallas.py:191",
-        "launches": launches["nms_batched"], **timing,
-    }
-    print(json.dumps({"kernel_detail": "nms_batched", "path": "paa",
-                      "B": cand[1].shape[0], "N": cand[1].shape[1],
-                      "route": "sort + tile sweep", **k1_tiles(args, got),
-                      "ious_needed": ious, "valid_picks": int(got[2].sum()),
-                      "card": name}))
-
-    totals, per_level = gn_forward_cost(dev, BATCH, 5)
-    k3 = {
-        "name": "group_norm_relu", "route": "cuda",
-        "source": "paa_tpu_torch/csrc/group_norm.cu",
-        "replaces": "paa_tpu/ops/fused_gn.py:146",
-        "launches": launches["group_norm_relu"], "max_abs_err": gn_err,
-        "ms": totals["ms"], "plain_ms": totals["plain_ms"],
-        "bound_ms": totals["bound_ms"], "bound_by": "bytes",
-        "library_ms": totals["library_ms"],
-    }
-    print(json.dumps({"kernel_detail": "group_norm_relu", "dtype":
-                      "bfloat16", "B": BATCH,
-                      "per_launch_by_level": per_level, "card": name}))
-    train, per_level = gn_forward_cost(dev, TRAIN_BATCH, 6, backward=True)
-    k3["training"] = {"B": TRAIN_BATCH, **train}
-    print(json.dumps({"kernel_detail": "group_norm_relu", "dtype":
-                      "bfloat16", "B": TRAIN_BATCH, "path": "paa_train",
-                      "per_launch_by_level": per_level, "card": name}))
-    return k1, k3
-
-
-def gn_forward_cost(dev, bsz, seed, backward=False):
-    """K3 per forward of the towers at batch ``bsz`` (8 launches at each
-    level's shape, bfloat16): its ms beside the plain version's, the
-    bound (bytes: x read once, y written once, the affine) and
-    ``F.group_norm`` + ``F.relu``; with ``backward`` also the ms of the
-    gradient's recompute (the plain version's VJP, for x, weight and
-    bias). Returns (totals, per level)."""
-    from paa_tpu_torch.ops import group_norm as gn
-
-    gen = torch.Generator().manual_seed(seed)
-    s = (torch.rand(256, generator=gen) + 0.5).to(dev)
-    b = (torch.randn(256, generator=gen) * 0.2).to(dev)
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-              "bound_ms": 0.0}
-    per_level = {}
-    for h, w in TOWER_HW:
-        x = torch.randn(bsz, 256, h, w, generator=gen).to(
-            dev, torch.bfloat16)
-        level = {
-            "ms": cuda_ms(lambda: gn.group_norm_relu(x, s, b), 50),
-            "plain_ms": cuda_ms(lambda: gn.group_norm_relu_plain(x, s, b),
-                                20),
-            "library_ms": cuda_ms(lambda: F.relu(F.group_norm(
-                x, 32, s.to(x.dtype), b.to(x.dtype), 1e-5)), 50),
-            "bound_ms": 1e3 * (2 * x.numel() * x.element_size()
-                               + 2 * 256 * 4) / HBM_BYTES_PER_S,
-        }
-        if backward:
-            ins = [t.detach().requires_grad_(True) for t in (x, s, b)]
-            up = torch.randn_like(x)
-
-            def vjp():
-                with torch.enable_grad():
-                    torch.autograd.grad(gn.group_norm_relu_plain(*ins),
-                                        ins, up)
-
-            level["backward_recompute_ms"] = cuda_ms(vjp, 10)
-        for k, v in level.items():
-            totals[k] = totals.get(k, 0.0) + GN_PER_LEVEL * v
-        plan = gn.gn_plan(bsz, 256, h * w, 32, x.element_size())
-        per_level[f"{h}x{w}"] = {**level, "cs": plan.cs,
-                                 "threads": plan.threads,
-                                 "max_active_clusters":
-                                     gn.gn_max_active_clusters(x)}
-    return totals, per_level
-
-
-def phase_frcnn_timing(dev, model, eval_fn, launches, name):
-    """End to end, then K2 on the box head's own candidates and K1 on
-    the RPN's own NMS rows of one request."""
-    from paa_tpu_torch.modeling.roi_box_head import box_head_candidates
-    from paa_tpu_torch.modeling.rpn import (
-        RPNConfig, rpn_nms_input, select_proposals)
-    from paa_tpu_torch.ops import nms
-    from paa_tpu_torch.ops.image_norm import device_normalize
-
-    images, sizes = e2e_rate(eval_fn, 50, "faster_rcnn", name, dev)
-    cfg, module = model.cfg, model.module
-    rc = RPNConfig.from_cfg(cfg)
-    bc = model.postprocess_config()
-    with torch.inference_mode():
-        x = device_normalize(images, sizes, cfg.INPUT.PIXEL_MEAN,
-                             cfg.INPUT.PIXEL_STD)
-        features, rpn = module.backbone_rpn(x.permute(0, 3, 1, 2)
-                                            .contiguous())
-        anchors, counts = model.anchors_for(HW)
-        (boxes, scores, labels, valid, max_out), level_boxes, _ = \
-            rpn_nms_input(rpn, sizes, anchors, counts, rc)
-        proposals, _, p_valid = select_proposals(rpn, sizes, anchors,
-                                                 counts, rc)
-        k = proposals.shape[1]
-        cls, deltas = module.box(
-            features, proposals.reshape(-1, 4),
-            torch.arange(BATCH, device=dev).repeat_interleave(k))
-        cand = box_head_candidates(
-            cls.reshape(BATCH, k, -1), deltas.reshape(BATCH, k, -1, 4),
-            proposals, p_valid, sizes, bc)
-    per_image = [int(v) for v in cand[3].sum(dim=1)]
+def phase_nms_at_main_path_inputs(paa_k1, rpn_k1, box_k2):
+    """Phase 9: K1 against its plain version on the inputs that the first
+    request of phase 5 (PAA's candidates) and of phase 7 (the Faster
+    R-CNN RPN's rows) gave it, and K2 on that request's box head
+    candidates, at least 1,000 an image above the score threshold (the
+    seeded foreground bias); all three outputs bit-equal."""
+    per_image = box_k2[3].sum(dim=1).tolist()
     check(min(per_image) >= 1000,
-          f"box head: candidates above {bc.score_thresh} per image "
-          f"{per_image}, expected at least 1000")
-
-    before = (nms.nms_batched.launches, nms._nms_global.launches)
-    args = (*cand, bc.nms_thresh, bc.detections_per_img, True)
-    ious, got, timing = time_nms(nms.nms_batched, args, 20,
-                                 "nms_batched (K2) on the box head's "
-                                 "candidates")
-    check(nms.nms_batched.launches == before[0]
-          and nms._nms_global.launches > before[1],
-          "box head NMS did not route to K2")
-    k2 = {
-        "name": "nms_global", "route": "cuda",
-        "source": "paa_tpu_torch/csrc/nms_global.cu",
-        "replaces": "paa_tpu/ops/nms_pallas.py:238",
-        "launches": launches["nms_global"], **timing,
-    }
-    n = cand[1].shape[1]
-    print(json.dumps({"kernel_detail": "nms_global", "path": "faster_rcnn",
-                      "B": BATCH, "N": n,
-                      "steps": int((got[2].sum(dim=1) + 1).clamp(
-                          max=args[5]).sum()), "ious_needed": ious,
-                      "route": nms.k2_plan(n, nms.k2_capacity(dev)),
-                      "max_active_clusters":
-                          nms.k2_max_active_clusters(dev, n),
-                      "valid_picks": int(got[2].sum()),
-                      "candidates_per_image": per_image,
-                      "proposals_per_image": [int(v) for v in
-                                              p_valid.sum(dim=1)],
-                      "cls_logit_std_across_classes": float(
-                          cls.std(dim=1).mean()),
-                      "card": name}))
-
-    rpn_args = (boxes, scores, labels, valid, rc.nms_thresh, max_out, False)
-    real_n = [lb.shape[1] for lb in level_boxes for _ in range(BATCH)]
-    ious, got, k1_rpn = time_nms(nms.nms_batched, rpn_args, 10,
-                                 "nms_batched (K1) on the RPN rows", real_n)
-    print(json.dumps({"kernel_detail": "nms_batched", "path": "faster_rcnn",
-                      "rows": scores.shape[0], "N": scores.shape[1],
-                      "max_out": max_out, "route": "sort + tile sweep",
-                      **k1_tiles(rpn_args, got), "ious_needed": ious,
-                      "real_n_per_level": real_n[::BATCH],
-                      "valid_per_row": [int(v) for v in valid.sum(dim=1)],
-                      "valid_picks": int(got[2].sum()), **k1_rpn,
-                      "card": name}))
-    return k2, k1_rpn
+          f"box head: candidates per image {per_image}, expected at least "
+          f"1000")
+    shapes = [k1_at_path_inputs(paa_k1, "paa"),
+              k1_at_path_inputs(rpn_k1, "faster_rcnn_rpn"),
+              k2_at_path_inputs(box_k2, "faster_rcnn_box_head")]
+    print(json.dumps({"phase": "nms_at_main_path_inputs", "ok": True,
+                      "shapes": shapes,
+                      "box_head_candidates_per_image": per_image}))
 
 
 def train_batch(seed, bsz, hw, size, max_gt=MAX_GT, max_side=512):
@@ -1468,7 +1144,6 @@ def train_state(model):
 
 
 EVAL_IMAGES = 32
-EVAL_SPAN = "eval_fn"  # record_function span around each model call
 
 
 def synth_dataset(root, n_images, seed):
@@ -1483,68 +1158,21 @@ def synth_dataset(root, n_images, seed):
                        remove_images_without_annotations=False)
 
 
-def timed_eval_calls(model):
-    """Make ``model.make_eval_fn`` time each call (host clock, the card
-    synchronized) inside an EVAL_SPAN span; returns the list it fills."""
-    from torch.profiler import record_function
-
-    make, calls = model.make_eval_fn, []
-
-    def make_timed(state=None):
-        fn = make(state)
-
-        def timed(images, sizes):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with record_function(EVAL_SPAN):
-                out = fn(images, sizes)
-                torch.cuda.synchronize()
-            calls.append(time.perf_counter() - t0)
-            return out
-        return timed
-
-    model.make_eval_fn = make_timed
-    return calls
-
-
-def eval_idle_share(prof):
-    """The device's idle share inside the EVAL_SPAN spans of a profile:
-    1 - (kernel time within the spans, overlaps counted once) / (the
-    spans' time)."""
-    from torch.autograd import DeviceType
-
-    from paa_tpu_torch.tools.profile_train_step import union_us
-
-    events = prof.events()
-    spans = [(e.time_range.start, e.time_range.end) for e in events
-             if e.device_type == DeviceType.CPU and e.name == EVAL_SPAN]
-    kernels = [(e.time_range.start, e.time_range.end) for e in events
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    if not kernels or not spans:
-        return "not measured"
-    busy = sum(union_us([(max(a, s0), min(b, s1)) for a, b in kernels
-                         if b > s0 and a < s1]) for s0, s1 in spans)
-    return 1.0 - busy / sum(s1 - s0 for s0, s1 in spans)
-
-
 def read_bbox_json(folder):
     with open(os.path.join(folder, "bbox.json")) as f:
         return json.load(f)
 
 
-def phase_eval_main_path(dev, name):
+def phase_eval_main_path(dev):
     """PAA-R50 COCO-style evaluation, dataset to AP table, at full width:
     32 PPM images through the port's ``inference`` (the bucketed loader
     at 800 x 1333 in (800, 1344) / (1344, 800), raw uint8 batches of 8
     with the short tails padded by image_id -1, make_eval_fn in bfloat16
     with K3 and K1, the COCO evaluator), with the serving cell's seeded
     weights and cls bias; the launch counts set to 0 just before and
-    read just after. Then the loader alone, and a profiled run for the
-    device's idle share during the model calls."""
+    read just after: K1 once and K3 40 times per batch of the loader,
+    whose batches hold every image once."""
     import logging
-
-    from torch.profiler import ProfilerActivity, profile
 
     from paa_tpu_torch.data.loader import make_data_loader
     from paa_tpu_torch.engine.inference import inference
@@ -1553,17 +1181,15 @@ def phase_eval_main_path(dev, name):
     dataset = synth_dataset(os.path.join(tmp, "coco"), EVAL_IMAGES, 11)
     model = seeded_model("bfloat16", dev)
     cfg = model.cfg
-    logger = logging.getLogger("chip_smoke.eval")
+    loaded = list(make_data_loader(cfg, dataset, is_train=False))
+    n_loaded = sum(int((b["image_ids"] >= 0).sum()) for b in loaded)
+    check(n_loaded == EVAL_IMAGES, f"eval_main_path: loader gave {n_loaded}")
+    batches = len(loaded)
     out_dir = os.path.join(tmp, "inference")
-    calls = timed_eval_calls(model)
-
     zero_launch_counts()
-    t0 = time.perf_counter()
     results = inference(cfg, model, dataset, output_folder=out_dir,
-                        logger=logger)
-    e2e_s = time.perf_counter() - t0
+                        logger=logging.getLogger("chip_smoke.eval"))
     launches = launch_counts()
-    batches = len(calls)
     expected = {"nms_batched": batches, "nms_global": 0,
                 "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW) * batches,
                 "deform_im2col": 0, "deform_col2im": 0}
@@ -1587,81 +1213,16 @@ def phase_eval_main_path(dev, name):
               and d["bbox"][2] > 0 and d["bbox"][3] > 0
               and 0 < d["score"] <= 1 for d in dets),
           "eval_main_path: malformed detection")
-    cold = {"e2e_img_per_s": EVAL_IMAGES / e2e_s,
-            "model_img_per_s": EVAL_IMAGES / sum(calls),
-            "model_call_ms": [c * 1e3 for c in calls]}
-    # steady state: the same path again, every shape seen once
-    del calls[:]
-    t0 = time.perf_counter()
-    inference(cfg, model, dataset, logger=logger)
-    e2e_s = time.perf_counter() - t0
-    model_s = sum(calls)
-    call_ms = [c * 1e3 for c in calls]
-
-    # the loader alone, then a profiled run of the whole path
-    t0 = time.perf_counter()
-    loaded = list(make_data_loader(cfg, dataset, is_train=False))
-    loader_s = time.perf_counter() - t0
-    n_loaded = sum(int((b["image_ids"] >= 0).sum()) for b in loaded)
-    check(n_loaded == EVAL_IMAGES, f"eval_main_path: loader gave {n_loaded}")
-    # the model calls alone, on the batches loaded above
-    eval_fn = model.make_eval_fn()
-    del calls[:]
-    for b in loaded:
-        eval_fn(torch.from_numpy(b["images"]),
-                torch.from_numpy(b["image_sizes"]))
-    alone_s = sum(calls)
-    stages = loader_stages(cfg, dataset)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        inference(cfg, model, dataset, logger=logger)
-    idle = eval_idle_share(prof)
-    del model.make_eval_fn
     print(json.dumps({"phase": "eval_main_path", "ok": True,
                       "images": EVAL_IMAGES, "batches": batches,
                       "batch": cfg.TEST.IMS_PER_BATCH,
                       "buckets": [list(b) for b in cfg.TPU.TEST_BUCKETS],
                       "dtype": "bfloat16", "launches": launches,
-                      "detections": len(dets),
-                      "loader_img_per_s": EVAL_IMAGES / loader_s,
-                      "model_img_per_s": EVAL_IMAGES / model_s,
-                      "e2e_img_per_s": EVAL_IMAGES / e2e_s,
-                      "model_call_ms": call_ms, "first_run": cold,
-                      "model_alone_img_per_s": EVAL_IMAGES / alone_s,
-                      "device_idle_share_in_model_calls": idle,
-                      "loader_stage_ms_per_image": stages,
-                      "card": name}))
+                      "detections": len(dets)}))
     print(json.dumps({"ap_table": "random weights (seed 0, cls bias seed "
                       "1), a synthetic dataset: not an accuracy",
                       **results}))
     shutil.rmtree(tmp, ignore_errors=True)
-    return launches
-
-
-def loader_stages(cfg, dataset):
-    """ms per image of the loader's stages, one thread, host clock:
-    decode (the PPM read), resize (EvalTransform) and batch assembly
-    (make_batch into the padded uint8 bucket)."""
-    from paa_tpu_torch.data.loader import BucketAssigner, make_batch
-    from paa_tpu_torch.data.transforms import build_transforms
-
-    transform = build_transforms(cfg, is_train=False, defer_normalize=True)
-    assigner = BucketAssigner(cfg.TPU.TEST_BUCKETS)
-    spent = {"decode": 0.0, "resize": 0.0, "batch": 0.0}
-    for i, r in enumerate(dataset.records):
-        t0 = time.perf_counter()
-        img = dataset.load_image(i)
-        t1 = time.perf_counter()
-        img, boxes = transform(img, r.boxes)
-        t2 = time.perf_counter()
-        make_batch([{"image": img, "boxes": boxes, "labels": r.labels,
-                     "image_id": r.id, "orig_size": (r.height, r.width)}],
-                   assigner.assign(*img.shape[:2]), cfg.TPU.MAX_GT,
-                   device_normalize=True)
-        t3 = time.perf_counter()
-        for k, dt in zip(spent, (t1 - t0, t2 - t1, t3 - t2)):
-            spent[k] += dt
-    return {k: v * 1e3 / len(dataset) for k, v in spent.items()}
 
 
 def _detections_by_image(dets, image_ids):
@@ -1914,13 +1475,13 @@ def seeded_train_model(cfg, device, frozen_bn=None):
     return model
 
 
-def phase_train_main_path(dev, name, path=PAA_CONFIG,
-                          what="train_main_path", frozen_bn=None, extra=()):
+def phase_train_main_path(dev, path=PAA_CONFIG, what="train_main_path",
+                          frozen_bn=None, extra=()):
     """TRAIN_STEPS steps of do_train at full width on one batch of the config's
     SOLVER.IMS_PER_BATCH images (16; RetinaNet's 8); the launch counts
     set to 0 just before and read just after. ``frozen_bn``, if given,
     replaces the seeded FrozenBN statistics; ``extra`` overrides the
-    config."""
+    config. Returns the trained model and the launch counts."""
     from paa_tpu_torch.engine import do_train
 
     cfg = build_cfg("bfloat16", path,
@@ -1929,14 +1490,9 @@ def phase_train_main_path(dev, name, path=PAA_CONFIG,
     state = train_state(model)
     batch = train_batch(70, cfg.SOLVER.IMS_PER_BATCH, HW, SIZE)
     seen = {}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
     zero_launch_counts()
-    t0 = time.perf_counter()
     do_train(cfg, model, state, [batch] * TRAIN_STEPS,
              metric_hook=lambda i, m: seen.update({i: m}))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     launches = launch_counts()
     expected = {"nms_batched": 0, "nms_global": 0,
                 "group_norm_relu": gn_per_forward(model) * TRAIN_STEPS,
@@ -1959,11 +1515,8 @@ def phase_train_main_path(dev, name, path=PAA_CONFIG,
         "hw": HW, "max_gt": MAX_GT, "gt_per_image": n_gt,
         "steps": TRAIN_STEPS, "dtype": "bfloat16", "launches": launches,
         "losses": {k: [seen[i][k] for i in sorted(seen)]
-                   for k in seen[1]},
-        "do_train_s": wall,
-        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 2**30,
-        "card": name}))
-    return model, state, batch, launches
+                   for k in seen[1]}}))
+    return model, launches
 
 
 def _assigned_labels(loss, outputs, gt_boxes, gt_labels, anchors, counts,
@@ -2213,10 +1766,10 @@ def in_float64(model):
     inputs; the box head's FCs, the loss, the GMM, the parameters and SGD
     stay float32)."""
     from paa_tpu_torch.modeling import layers
-    from paa_tpu_torch.ops.dcn import DeformConv
 
     for m in model.module.modules():
-        if isinstance(m, (layers.Conv, layers.ConvTranspose, DeformConv)):
+        if isinstance(m, (layers.Conv, layers.ConvTranspose,
+                          layers.DeformConv)):
             m.dtype = torch.float64
     return model
 
@@ -2275,250 +1828,19 @@ def float64_referee(dev, cfg, batch, before, p_gpu, p_cpu, pos_cpu):
     return out
 
 
-def phase_train_timing(model, state, batch, name, what="paa_train"):
-    """Step ms and img/s of the train step (CUDA events after 2 warm-up
-    steps, host time included: paa_tpu_torch/tools/profile_train_step.py's
-    ``step_ms``)."""
-    from paa_tpu_torch.tools.profile_train_step import step_ms
-
-    hw = tuple(batch["images"].shape[1:3])
-    step = model.make_bucket_train_step(hw)
-    bsz = int(batch["images"].shape[0])
-    ms = step_ms(lambda: step(state, batch), 5, model.device)
-    out = {"step_ms": ms, "img_per_s": bsz / ms * 1e3}
-    print(json.dumps({"metric": "train_step", "path": what,
-                      "batch": bsz, "hw": hw, "dtype": "bfloat16",
-                      **out, "card": name}))
-    return out
-
-
-def phase_train_profile(model, state, batch, name, hw=HW,
-                        what="train_profile"):
-    """torch.profiler over three train steps, through
-    paa_tpu_torch/tools/profile_train_step.py's ``profile_steps``: each
-    kernel goes to the innermost span around its launch (input: the
-    batch's copy and normalize; forward: the body, FPN and head, the
-    DCN forward; assignment, losses, backward,
-    K3's backward recompute, the DCN backward's recompute and VJP,
-    optimizer; for a two-stage model the RPN loss, proposals, roi
-    sampling, box head, box loss, mask head, mask targets, mask loss,
-    keypoint head and keypoint loss; "other": outside every span),
-    matched through the trace's launch correlation.
-    Per span class: host ms in the span (and outside its nested spans),
-    the device window from its first kernel's start to its last's end in
-    each occurrence, the device busy time in it and the windows' idle
-    share; the step's device busy time, wall time and idle share, ms by
-    kernel class and the top kernels."""
-    from paa_tpu_torch.tools.profile_train_step import profile_steps
-
-    result = profile_steps(model.make_bucket_train_step(hw), state, batch,
-                           model.device, steps=3, top=8)
-    if result.get("device_time") == "not measured":
-        print(json.dumps({"phase": what, "device_time": "not measured",
-                          "card": name}))
-        return None
-    result = {"phase": what, **result}
-    print(json.dumps({**result, "card": name}))
-    return result
-
-
-BOX_SPAN = "box_head"  # record_function span around FasterRCNN.box
-BOX_LABEL = "box head (ROIAlign + f32 MLP; C4: ROIAlign 14x14 + res5)"
-# record_function spans around the DCN steps and grouped convs (set up
-# by _profiled), and the class their kernels count in
-BODY_SPAN = "body"  # span around the backbone, where a phase asks for it
-SPAN_LABELS = {
-    BOX_SPAN: BOX_LABEL,
-    BODY_SPAN: "body (ResNet + FPN; GN: K3 in every norm)",
-    # modeling/two_stage.py's span around Mask R-CNN's mask head
-    "two_stage/mask_head": "mask head (ROIAlign 14x14, 4 convs, deconv, "
-                           "1x1; C4: res5, deconv, 1x1)",
-    # and around Keypoint R-CNN's keypoint head
-    "keypoint head": "keypoint head (ROIAlign 14x14, 8 convs, deconv, "
-                     "bilinear x2)",
-    "dcn_geometry": "deform geometry (corner rows and weights)",
-    "dcn_sampling": "deform sampling (K4 and its transpose; the plain "
-                    "version: patch table, gather, corner weighting)",
-    "dcn_contraction": "deform contraction (grouped GEMM)",
-    "grouped_conv": "grouped conv (ResNeXt 3x3; MobileNetV2 and FBNet "
-                    "depthwise kxk)",
-}
-
-
-def _span(fn, name):
-    from torch.profiler import record_function
-
-    def traced(*args, **kwargs):
-        with record_function(name):
-            return fn(*args, **kwargs)
-    return traced
-
-
-def _grouped_span(forward):
-    from torch.profiler import record_function
-
-    def traced(self, x):
-        if self.groups == 1:
-            return forward(self, x)
-        with record_function("grouped_conv"):
-            return forward(self, x)
-    return traced
-
-
-def _profiled(model, eval_fn, images, sizes, reqs, body=False):
-    """``reqs`` requests under torch.profiler, with the two-stage box
-    head (``module.box``, when the model has one), the DCN steps of
-    ops/dcn.py, the grouped convs and with ``body`` the backbone inside
-    the spans of SPAN_LABELS. Returns the profile and the window's wall
-    time in microseconds."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from paa_tpu_torch.modeling.layers import Conv
-    from paa_tpu_torch.ops import dcn, deform_sampling
-
-    module = model.module
-    box = getattr(module, "box", None)
-    if box is not None:
-        module.box = _span(box, BOX_SPAN)
-    if body:
-        module.backbone.forward = _span(module.backbone.forward, BODY_SPAN)
-    steps = {(deform_sampling, "_geometry"): "dcn_geometry",
-             (deform_sampling, "_patch_table"): "dcn_sampling",
-             (deform_sampling, "_sample_columns"): "dcn_sampling",
-             (deform_sampling, "_deform_im2col_cuda"): "dcn_sampling",
-             (dcn, "_sample_columns"): "dcn_sampling",
-             (dcn, "_contract"): "dcn_contraction",
-             (dcn, "_contract_columns"): "dcn_contraction"}
-    plain = {step: getattr(*step) for step in steps}
-    conv_forward = Conv.forward
-    for (mod, attr), span in steps.items():
-        setattr(mod, attr, _span(plain[mod, attr], span))
-    Conv.forward = _grouped_span(conv_forward)
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reqs):
-                eval_fn(images, sizes)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-    finally:
-        if box is not None:
-            del module.box
-        if body:
-            del module.backbone.forward
-        for (mod, attr), fn in plain.items():
-            setattr(mod, attr, fn)
-        Conv.forward = conv_forward
-    return prof, wall_us
-
-
-def phase_profile(model, eval_fn, seed, what, name, body=False, hw=HW,
-                  size=SIZE):
-    """Device time by kernel class over three requests (torch.profiler)
-    and the device's idle share of that window (host clock). A kernel
-    launched inside a span of SPAN_LABELS (the box head, the DCN steps,
-    the grouped convs, with ``body`` the backbone; the innermost,
-    matched through the trace's launch correlation) counts in the span's
-    class, whatever its name; the others by
-    paa_tpu_torch/tools/profile_train_step.py's ``kernel_class``."""
-    from paa_tpu_torch.tools.profile_train_step import (
-        kernel_class, trace_events, union_us)
-
-    images, sizes = request(seed, BATCH, hw, size)
-    eval_fn(images, sizes)
-    torch.cuda.synchronize()
-    reqs = 3
-    prof, wall_us = _profiled(model, eval_fn, images, sizes, reqs, body)
-    events = trace_events(prof)
-    spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-             if e.get("cat") == "user_annotation"
-             and e.get("name") in SPAN_LABELS]
-    launched = {e["args"]["correlation"]: e["ts"] for e in events
-                if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                and "correlation" in e.get("args", {})}
-    kernels = [e for e in events
-               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    if not kernels:
-        print(json.dumps({"phase": "profile", "path": what,
-                          "device_time": "not measured", "card": name}))
-        return None
-
-    def span_of(t):
-        inside = [(b - a, span) for a, b, span in spans if a <= t <= b]
-        return min(inside)[1] if inside else None
-
-    by_class, by_name, by_span, intervals = {}, {}, {}, []
-    for k in kernels:
-        ms = k["dur"] / reqs / 1e3
-        at = launched.get(k.get("args", {}).get("correlation"))
-        span = span_of(at) if at is not None else None
-        label = SPAN_LABELS[span] if span else kernel_class(k["name"])
-        by_class[label] = by_class.get(label, 0.0) + ms
-        by_name[k["name"]] = by_name.get(k["name"], 0.0) + ms
-        if span:
-            names = by_span.setdefault(span, {})
-            names[k["name"]] = names.get(k["name"], 0.0) + ms
-        intervals.append((k["ts"], k["ts"] + k["dur"]))
-    busy = union_us(intervals)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    out = {
-        "phase": "profile", "path": what, "requests": reqs, "batch": BATCH,
-        "ms_per_request_by_class": dict(sorted(
-            by_class.items(), key=lambda kv: -kv[1])),
-        "device_busy_ms_per_request": busy / reqs / 1e3,
-        "wall_ms_per_request": wall_us / reqs / 1e3,
-        "device_idle_share": 1.0 - busy / wall_us,
-        "top_kernels_ms": {k[:100]: v for k, v in top},
-    }
-    if BOX_SPAN in {span for _, _, span in spans}:
-        box_by_name = by_span.get(BOX_SPAN, {})
-        out["box_head"] = "not measured" if not box_by_name else {
-            "kernels_ms": {k[:100]: v for k, v in sorted(
-                box_by_name.items(), key=lambda kv: -kv[1])[:6]},
-            "gemm_ms": sum(v for k, v in box_by_name.items()
-                           if "gemm" in k.lower()),
-        }
-    if BODY_SPAN in by_span:  # the body's kernels by their own class
-        body_by_class = {}
-        for k, v in by_span[BODY_SPAN].items():
-            cls = kernel_class(k)
-            body_by_class[cls] = body_by_class.get(cls, 0.0) + v
-        out["body_ms_by_class"] = dict(sorted(
-            body_by_class.items(), key=lambda kv: -kv[1]))
-    dcn_spans = sorted(s for s in by_span if s.startswith("dcn_"))
-    if dcn_spans:
-        dcn_ms = sum(by_class[SPAN_LABELS[s]] for s in dcn_spans)
-        out["dcn"] = {
-            "ms_per_request": dcn_ms,
-            "share_of_kernel_time": dcn_ms / sum(by_class.values()),
-            "kernels_ms": {s: {k[:80]: v for k, v in sorted(
-                by_span[s].items(), key=lambda kv: -kv[1])[:4]}
-                for s in dcn_spans},
-        }
-    print(json.dumps({**out, "card": name}))
-    return out
-
-
 def phase_dcnv2_main_path(dev):
     """The X-152 dcnv2 main path: paa_dcnv2_X_152_32x8d_FPN_2x at full
     width (32x8d ResNeXt, R-152 depth, modulated DCN in stages 3-5 and
     the towers' last conv) in bfloat16, weights from seed 0, cls bias
     from seed 1, offset convs from seed 2, serving three 8 x 800 x 1344
     requests through make_eval_fn: K1 once, K3 40 and K4 57 times per
-    request; peak device memory over the three."""
+    request. Returns the launch counts."""
     model = seeded_dcnv2("bfloat16", dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    eval_fn, launches = serve(
+    return serve(
         model, "dcnv2_x152_main_path", 70,
         {"nms_batched": 3, "nms_global": 0, "group_norm_relu": 120,
          "deform_im2col": 3 * dcn_per_forward(model), "deform_col2im": 0},
         0.0)
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    params = sum(p.numel() for p in model.module.parameters())
-    print(json.dumps({"phase": "dcnv2_x152_main_path",
-                      "peak_memory_gb": peak, "params_m": params / 1e6}))
-    return model, eval_fn, launches
 
 
 DCN_SHAPES = [  # name, channels, (H, W), groups, head tower conv
@@ -2535,7 +1857,7 @@ def phase_dcn_card_vs_cpu(dev):
     bfloat16 on the card within DCN_BF16_REL of the CPU's float32
     output's largest magnitude."""
     from paa_tpu_torch.modeling.layers import reset_parameters
-    from paa_tpu_torch.ops.dcn import DeformConv
+    from paa_tpu_torch.modeling.layers import DeformConv
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2575,67 +1897,6 @@ def phase_dcnv2_card_vs_cpu(dev):
                 "dcnv2_card_vs_cpu")
 
 
-def offset_stats(model, images, sizes):
-    """Per DCN layer of one forward on the card (``deform_conv2d_columns``,
-    K4's path): the mean and largest |offset| and the share of samples
-    whose centre lies off the image (zero), by the plain geometry of the
-    layer's offsets, whose corners and weights K4 takes bit for bit
-    (tests/test_torch_port_cuda.py::
-    test_k4_corners_bit_exact_on_the_grid)."""
-    from paa_tpu_torch.ops import dcn, deform_sampling
-
-    plain, stats = dcn.deform_conv2d_columns, []
-
-    def spy(x, offsets, mask, weight, stride, padding, dilation, groups,
-            dg):
-        h, w = x.shape[2:]
-        kh, kw = weight.shape[2:]
-        _, _, cw = deform_sampling._geometry(offsets, mask, h, w, kh, kw,
-                                             stride, padding, dilation, dg)
-        stats.append((float(offsets.abs().mean()),
-                      float(offsets.abs().max()),
-                      float((cw.sum(-1) == 0).float().mean())))
-        return plain(x, offsets, mask, weight, stride, padding, dilation,
-                     groups, dg)
-
-    dcn.deform_conv2d_columns = spy
-    try:
-        model.make_eval_fn()(images[:1], sizes[:1])
-    finally:
-        dcn.deform_conv2d_columns = plain
-    backbone, tower = stats[:-10], stats[-10:]
-    return {"layers": len(stats),
-            "backbone_mean_abs_offset": sum(s[0] for s in backbone)
-            / len(backbone),
-            "backbone_max_abs_offset": max(s[1] for s in backbone),
-            "backbone_off_image_share": sum(s[2] for s in backbone)
-            / len(backbone),
-            "tower_mean_abs_offset": sum(s[0] for s in tower) / len(tower),
-            "tower_off_image_share": sum(s[2] for s in tower) / len(tower)}
-
-
-def phase_dcnv2_timing(dev, model, eval_fn, name):
-    """img/s and ms per request of the X-152 dcnv2 path (host clock around
-    synchronized requests, as e2e_rate), its offsets at full width and
-    its profile. The DCN offset convs are the path's only float32
-    convolutions, so cuDNN's TF32 switch moves them: the path is timed
-    with it off, as the phases after phase 4 run, and with torch's
-    default (on), as a user serving the model runs it; the profile is
-    taken with the default."""
-    tf32 = torch.backends.cudnn.allow_tf32
-    try:
-        torch.backends.cudnn.allow_tf32 = False
-        e2e_rate(eval_fn, 80, "paa_dcnv2_x152 (cuDNN TF32 off)", name, dev)
-        torch.backends.cudnn.allow_tf32 = True
-        images, sizes = e2e_rate(eval_fn, 80, "paa_dcnv2_x152", name, dev)
-        print(json.dumps({"phase": "dcnv2_x152_offsets",
-                          **offset_stats(model, images, sizes),
-                          "card": name}))
-        phase_profile(model, eval_fn, 90, "paa_dcnv2_x152", name)
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
-
-
 # ---- training and test-time augmentation of the X-152 dcnv2 config -----
 
 # the X-152 dcnv2 training cell's batch: the largest of these that fits
@@ -2660,7 +1921,7 @@ def dcn_layer_inputs(dev, c, hw, groups, tower, bsz, seed):
     and the mask that its offset conv (drawn from a seed as in phase 20)
     gives on x, its weight and an upstream gradient, float32 on ``dev``."""
     from paa_tpu_torch.modeling.layers import reset_parameters
-    from paa_tpu_torch.ops.dcn import DeformConv
+    from paa_tpu_torch.modeling.layers import DeformConv
 
     conv = DeformConv(c, c, groups=groups, bias=tower,
                       normal_std=0.01 if tower else None)
@@ -2717,12 +1978,11 @@ K4_PATH_SHAPES = {
     "tower_p6": ((256, 13, 21, 1), 2), "tower_p7": ((256, 7, 11, 1), 2)}
 
 
-def phase_k4_at_path_shapes(dev, launches, requests, name):
+def phase_k4_at_path_shapes(dev, launches, requests):
     """Phase 68: K4 at every shape of ``launches``, those that
     ``recording_k4_launches`` recorded over phase 20's ``requests``
     requests, which must be K4_PATH_SHAPES's at B=8 in bfloat16, each as
-    often as the requests' forwards need. Returns K4's entry of the
-    ``kernels`` line (its launches by path still to come)."""
+    often as the requests' forwards need. Returns the largest errors."""
     from paa_tpu_torch.ops import deform_sampling as ds
 
     layers = {layer: what for what, (layer, _) in K4_PATH_SHAPES.items()}
@@ -2737,9 +1997,6 @@ def phase_k4_at_path_shapes(dev, launches, requests, name):
         f"{want}")
     gen = torch.Generator(dev).manual_seed(19)
     worst = {"f32": 0.0, "bf16": 0.0}
-    per_shape = {}
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-              "channels_last_copy_ms": 0.0}
     for key in keys:
         shape, _, kh, kw, stride, pad, dil, groups, dg, modulated = key
         what = layers[(*shape[1:], groups)]
@@ -2771,50 +2028,26 @@ def phase_k4_at_path_shapes(dev, launches, requests, name):
               f"largest column")
         worst["bf16"] = max(worst["bf16"],
                             float((got - plain).abs().max()) / scale)
-        del got, plain
-        xl = x.contiguous(memory_format=torch.channels_last)
-        side = 4 * (offsets.numel() + (0 if mask is None else mask.numel()))
-        row = {
-            "ms": cuda_ms(lambda: ds.deform_im2col(xl, *args), 20),
-            "plain_ms": cuda_ms(lambda: ds._im2col_columns(x, *args), 3,
-                                warmup=1),
-            "bound_ms": 1e3 * (2 * x.numel() + side
-                               + 2 * b * ho * wo * kh * kw * c)
-            / HBM_BYTES_PER_S,
-            "channels_last_copy_ms": cuda_ms(lambda: x.contiguous(
-                memory_format=torch.channels_last), 20),
-        }
-        n = K4_PATH_SHAPES[what][1]
-        for k, v in row.items():
-            totals[k] += n * v
-        per_shape[what] = {"per_forward": n, **row,
-                           "share_of_bound": row["bound_ms"] / row["ms"]}
-        del x, xl, offsets, mask
+        del got, plain, x, offsets, mask
         torch.cuda.empty_cache()
-    totals["share_of_bound"] = totals["bound_ms"] / totals["ms"]
     print(json.dumps({"phase": "k4_at_path_shapes", "ok": True,
                       "B": BATCH, "shapes": len(keys),
-                      "launches": len(launches), "max_rel_err": worst,
-                      "per_forward": totals, "per_shape": per_shape,
-                      "card": name}))
-    return {"name": "deform_im2col", "route": "cuda",
-            "source": "paa_tpu_torch/csrc/deform_im2col.cu",
-            "replaces": "none: paa_tpu/ops/dcn.py's sampling is XLA",
-            "max_rel_err": worst, **totals, "bound_by": "bytes",
-            "at_path_shapes": per_shape}
+                      "launches": len(launches), "max_rel_err": worst}))
+    return worst
 
 
-def phase_dcn_backward_card(dev, name):
+def phase_dcn_backward_card(dev):
     """ops/dcn.py's DeformConv2dFunction (whose backward keeps only x,
     offsets, mask and weight, and on the card takes
     ``deform_conv2d_columns_backward``: the columns' gradient, K4's
-    columns for the weight's, K5 for the rest) against autograd through deform_conv2d on the card, at the X-152
-    path's stage-3, stage-4 and P3 tower shapes, B=2, offsets from a
-    seed: the gradients of x, offsets, mask and weight in float32 (TF32
-    off) and bfloat16 within DCN_GRAD_LIMITS of each one's largest
-    magnitude. Then the peak memory of one stage-3 layer's forward and
-    backward in bfloat16 at the training cell's first batch (8) with
-    each: the Function's must be the lower."""
+    columns for the weight's, K5 for the rest) against autograd through
+    deform_conv2d on the card, at the X-152 path's stage-3, stage-4 and
+    P3 tower shapes, B=2, offsets from a seed: the gradients of x,
+    offsets, mask and weight in float32 (TF32 off) and bfloat16 within
+    DCN_GRAD_LIMITS of each one's largest magnitude. Then the peak
+    memory of one stage-3 layer's forward and backward in bfloat16 at the
+    training cell's first batch (8) with each: the Function's must be
+    the lower."""
     from paa_tpu_torch.ops import dcn
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2859,11 +2092,10 @@ def phase_dcn_backward_card(dev, name):
                               torch.empty(bsz, c, 1, 1,
                                           dtype=torch.bfloat16),
                               *hw, 9, per_channel=1),
-                          **peaks},
-                      "card": name}))
+                          **peaks}}))
 
 
-def phase_k5_at_path_shapes(dev, launches, steps, name):
+def phase_k5_at_path_shapes(dev, launches, steps):
     """Phase 69: K5 (the deformable col2im, the gradient of K4's
     sampling) at every shape of ``launches``, those that
     ``recording_k5_launches`` recorded over phase 24's ``steps`` steps of
@@ -2874,17 +2106,8 @@ def phase_k5_at_path_shapes(dev, launches, steps, name):
     ``_col2im_grads`` on the same slice (each image's gradients depend
     on that image alone), within 1e-5 of each gradient's largest
     magnitude (both sum the same values in float32, in another order; in
-    bfloat16 dx also within one bfloat16 ulp of each value); then device
-    ms of K5 alone on a channels-last x, its bytes bound (dcol, x, the
-    offsets and the mask read once, dx and the offsets' and the mask's
-    gradients written once), the whole CUDA backward of the layer
-    (``deform_conv2d_columns_backward``: the columns' gradient, K4's
-    columns for the weight's, K5) and its bytes bound (the columns'
-    gradient and the columns each written and read, x and the upstream
-    gradient read twice, dx written), and the plain recompute under
-    autograd that it replaced (``_recompute_backward``). Returns K5's
-    entry of the ``kernels`` line (its launches by path still to
-    come)."""
+    bfloat16 dx also within one bfloat16 ulp of each value). Returns the
+    largest errors."""
     from paa_tpu_torch.ops import dcn
     from paa_tpu_torch.ops import deform_sampling as ds
 
@@ -2900,8 +2123,6 @@ def phase_k5_at_path_shapes(dev, launches, steps, name):
         f"{want}")
     gen = torch.Generator(dev).manual_seed(23)
     worst = {"f32": 0.0, "bf16": 0.0}
-    per_shape = {}
-    totals = collections.Counter()
     for key in keys:
         shape, _, kh, kw, stride, pad, dil, groups, dg, _ = key
         what = layers[(*shape[1:], groups)]
@@ -2941,45 +2162,12 @@ def phase_k5_at_path_shapes(dev, launches, steps, name):
                         (g - ref).abs().max() / ref.abs().max()))
                 del plain
             del xs, dcol, got
-        x, weight, up = (t.to(torch.bfloat16) for t in (x, weight, up))
-        xl = x.contiguous(memory_format=torch.channels_last)
-        dcol = dcn._columns_grad(up, weight, groups)
-        side = 4 * (offsets.numel() + mask.numel())
-        row = {
-            "ms": cuda_ms(lambda: ds.deform_col2im(
-                xl, offsets, mask, dcol, kh, kw, *conv), 10),
-            "bound_ms": 1e3 * (2 * dcol.numel() + 4 * x.numel() + 2 * side)
-            / HBM_BYTES_PER_S,
-            "backward_ms": cuda_ms(
-                lambda: dcn.deform_conv2d_columns_backward(
-                    x, offsets, mask, weight, up, *conv), 10),
-            "backward_bound_ms": 1e3 * (
-                8 * dcol.numel() + 4 * x.numel() + 4 * up.numel()
-                + 2 * x.numel() + 2 * side) / HBM_BYTES_PER_S,
-            "plain_ms": cuda_ms(lambda: dcn._recompute_backward(
-                x, offsets, mask, weight, up, conv, (True,) * 4), 2,
-                warmup=1),
-        }
-        n = K4_PATH_SHAPES[what][1]
-        for k, v in row.items():
-            totals[k] += n * v
-        per_shape[what] = {"per_step": n, **row,
-                           "share_of_bound": row["bound_ms"] / row["ms"]}
-        del x, xl, offsets, mask, weight, up, dcol
+        del x, offsets, mask, weight, up
         torch.cuda.empty_cache()
-    totals = dict(totals, share_of_bound=totals["bound_ms"] / totals["ms"])
-    plan = ds.col2im_plan(512, 16, 512, 3, 3, 1, 1, 1, 2)
     print(json.dumps({"phase": "k5_at_path_shapes", "ok": True,
                       "B": BATCH, "shapes": len(keys),
-                      "launches": len(launches), "max_rel_err": worst,
-                      "res3_plan": str(plan), "per_step": totals,
-                      "per_shape": per_shape, "card": name}))
-    return {"name": "deform_col2im", "route": "cuda",
-            "source": "paa_tpu_torch/csrc/deform_col2im.cu",
-            "replaces": "none: paa_tpu/ops/dcn.py's sampling gradient is "
-                        "XLA's",
-            "max_rel_err": worst, **totals, "bound_by": "bytes",
-            "at_path_shapes": per_shape}
+                      "launches": len(launches), "max_rel_err": worst}))
+    return worst
 
 
 def seeded_dcnv2_train(cfg, device):
@@ -2993,21 +2181,18 @@ def seeded_dcnv2_train(cfg, device):
     return model
 
 
-def phase_dcnv2_train_main_path(dev, name):
+def phase_dcnv2_train_main_path(dev):
     """The X-152 dcnv2 training main path at full width in bfloat16,
     the config's SOLVER: DCN_TRAIN_STEPS (2) steps of do_train on one
     repeated batch of uint8 800 x 1344 images (content 800 x 1333) with
-    3-12 GTs
-    in 100 slots, at the largest batch of DCN_TRAIN_BATCHES that fits;
-    the launch counts set to 0 just before and read just after. Then one
-    step at each of two buckets of the config's ladder, (800, 1344) and
-    (1344, 800), step timing, and a profile split by span. Returns the
-    launch counts, the timing and profile, and K5's launches over
-    do_train (``recording_k5_launches``)."""
+    3-12 GTs in 100 slots, at the largest batch of DCN_TRAIN_BATCHES
+    that fits; the launch counts set to 0 just before and read just
+    after. Then one step at each of two buckets of the config's ladder,
+    (800, 1344) and (1344, 800). Returns the launch counts and K5's
+    launches over do_train (``recording_k5_launches``)."""
     import gc
 
     from paa_tpu_torch.engine import do_train
-    from paa_tpu_torch.tools.profile_train_step import step_ms
 
     cfg = build_cfg("bfloat16", DCNV2_CONFIG,
                     ["SOLVER.MAX_ITER", DCN_TRAIN_STEPS])
@@ -3017,10 +2202,7 @@ def phase_dcnv2_train_main_path(dev, name):
         state = train_state(model)
         batch = train_batch(71, bsz, HW, SIZE)
         seen = {}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
         zero_launch_counts()
-        t0 = time.perf_counter()
         fits = True
         try:
             with recording_k5_launches() as k5_launches:
@@ -3037,8 +2219,6 @@ def phase_dcnv2_train_main_path(dev, name):
         torch.cuda.empty_cache()
     else:
         check(False, f"dcnv2_train: no batch of {DCN_TRAIN_BATCHES} fits")
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
     launches = launch_counts()
     expected = {"nms_batched": 0, "nms_global": 0,
                 "group_norm_relu": GN_PER_LEVEL * len(TOWER_HW)
@@ -3070,23 +2250,18 @@ def phase_dcnv2_train_main_path(dev, name):
               f"dcnv2_train: bucket {hw}: {m}, K3 {got}")
         buckets["x".join(map(str, hw))] = {"loss": m["loss"],
                                            "num_pos": m["num_pos"]}
-    step = model.make_bucket_train_step(HW)
-    ms = step_ms(lambda: step(state, batch), 3, model.device, warmup=1)
-    result = {"batch": bsz, "too_big": too_big, "peak_memory_gb": peak,
-              "step_ms": ms, "img_per_s": bsz / ms * 1e3}
     n_gt = (batch["gt_labels"] > 0).sum(dim=1).tolist()
     print(json.dumps({
         "phase": "dcnv2_x152_train_main_path", "ok": True, "hw": HW,
-        "max_gt": MAX_GT, "gt_per_image": n_gt, "steps": DCN_TRAIN_STEPS,
+        "batch": bsz, "too_big": too_big, "max_gt": MAX_GT,
+        "gt_per_image": n_gt, "steps": DCN_TRAIN_STEPS,
         "dtype": "bfloat16", "launches": launches,
         "losses": {k: [seen[i][k] for i in sorted(seen)] for k in seen[1]},
-        "do_train_s": wall, "buckets": buckets, **result, "card": name}))
-    result["profile"] = phase_train_profile(
-        model, state, batch, name, HW, "dcnv2_x152_train_profile")
+        "buckets": buckets}))
     del model, state, batch, step
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, result, k5_launches
+    return launches, k5_launches
 
 
 def build_off_the_grid(cfg, device):
@@ -3121,7 +2296,7 @@ def seed_offsets_off_the_grid(module, seed):
     of them is ~1e-5: next to a bias of 1 or more (a float32 ulp of
     1.2e-7 to 2.4e-7) the update itself would round by a few percent.
     The kernel still receives its gradient and trains."""
-    from paa_tpu_torch.ops.dcn import DeformConv
+    from paa_tpu_torch.modeling.layers import DeformConv
 
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -3391,7 +2566,6 @@ def phase_dcnv2_train_card_vs_cpu(dev):
     must land beyond the limits of the float64 step and of the pinned
     CPU step."""
     cfg = build_cfg("float32", DCNV2_CONFIG)
-    t0 = time.perf_counter()
     crossings = kink_crossings(dev, cfg,
                                train_batch(99, 2, (256, 320), (256.0, 300.0)))
     out = dcnv2_steps_vs_float64(dev, cfg, 99, planted=True)
@@ -3407,8 +2581,7 @@ def phase_dcnv2_train_card_vs_cpu(dev):
               f"({pair}): {readings[pair]}")
     print(json.dumps({"phase": "dcnv2_train_card_vs_cpu", "ok": True,
                       "hw": [256, 320], **out,
-                      "seeded_offset_convs_kink_crossings": crossings,
-                      "wall_s": time.perf_counter() - t0}))
+                      "seeded_offset_convs_kink_crossings": crossings}))
 
 
 def dcnv2_step_readings(seeds):
@@ -3423,7 +2596,6 @@ def dcnv2_step_readings(seeds):
     cfg = build_cfg("float32", DCNV2_CONFIG)
     print(card())
     for seed in seeds:
-        t0 = time.perf_counter()
         try:
             out = dcnv2_steps_vs_float64(dev, cfg, seed, planted=True)
             out["within_limits"] = {pair: within_update_limits(r) for pair, r
@@ -3431,20 +2603,19 @@ def dcnv2_step_readings(seeds):
         except RuntimeError as e:
             out = {"batch_seed": seed, "failed": str(e)}
         print(json.dumps({"phase": "dcnv2_step_readings", **out,
-                          "limits": [UPDATE_NORM_TOL, UPDATE_SHARE_TOL],
-                          "wall_s": time.perf_counter() - t0}), flush=True)
+                          "limits": [UPDATE_NORM_TOL, UPDATE_SHARE_TOL]}),
+              flush=True)
     return 0
 
 
-def phase_dcnv2_x152_tta(dev, name):
+def phase_dcnv2_x152_tta(dev):
     """Multi-scale testing of the X-152 dcnv2 config: ``phase_tta`` with
     the config's own list (the identity, its flip and 12 scales up to
     1800 with MAX_SIZE 3000, each flipped: 26 augmentations; soft-vote
     at VOTE_TH 0.66), the weights and cls bias of phase 20."""
     cfg = build_cfg("bfloat16", DCNV2_CONFIG, [
         "TEST.BBOX_AUG.ENABLED", True, "TEST.IMS_PER_BATCH", TTA_IMAGES])
-    return phase_tta(dev, name, "dcnv2_x152_tta", cfg,
-                     seeded_dcnv2("bfloat16", dev), 26)
+    phase_tta("dcnv2_x152_tta", cfg, seeded_dcnv2("bfloat16", dev), 26)
 
 
 # ATSS's TTA: three scales of the X-152 config's list (its smallest, its
@@ -3460,24 +2631,21 @@ ATSS_TTA = ["TEST.BBOX_AUG.ENABLED", True, "TEST.IMS_PER_BATCH", TTA_IMAGES,
             "TEST.BBOX_AUG.MERGE_TYPE", "soft-vote"]
 
 
-def phase_atss_tta(dev, name):
+def phase_atss_tta(dev):
     """``phase_tta`` of atss_R_50_FPN_1x at ATSS_TTA's 8 augmentations,
     serving's seeded weights and cls bias."""
     path = DENSE_CONFIGS["atss"]
-    return phase_tta(dev, name, "atss_tta",
-                     build_cfg("bfloat16", path, ATSS_TTA),
-                     seeded_model("bfloat16", dev, path), 8)
+    phase_tta("atss_tta", build_cfg("bfloat16", path, ATSS_TTA),
+              seeded_model("bfloat16", dev, path), 8)
 
 
-def phase_tta(dev, name, what, cfg, model, n_augs):
+def phase_tta(what, cfg, model, n_augs):
     """Multi-scale testing: ``inference`` with TEST.BBOX_AUG.ENABLED over
     TTA_IMAGES PPM images of 480 x 640 in one batch, full width,
     bfloat16, ``cfg``'s ``n_augs`` augmentations; the launch counts set
     to 0 just before and read just after: K1 once and K3
     ``gn_per_forward`` times per augmentation and batch. A detection for
-    every image and the 12 metrics written; s/img (and the model calls'
-    share, host clock around each synchronized call), peak memory and
-    the largest padded bucket."""
+    every image and the 12 metrics written."""
     import logging
 
     from paa_tpu_torch.data.coco import COCODataset
@@ -3492,7 +2660,6 @@ def phase_tta(dev, name, what, cfg, model, n_augs):
                           remove_images_without_annotations=False)
     augs = bbox_aug.build_aug_list(cfg)
     check(len(augs) == n_augs, f"{what}: {len(augs)} augmentations")
-    calls = timed_eval_calls(model)
     shapes, plain = [], bbox_aug.aug_batch
 
     def recorded(*args):
@@ -3503,14 +2670,9 @@ def phase_tta(dev, name, what, cfg, model, n_augs):
     bbox_aug.aug_batch = recorded
     out_dir = os.path.join(tmp, "inference")
     try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
         zero_launch_counts()
-        t0 = time.perf_counter()
         results = inference(cfg, model, dataset, output_folder=out_dir,
                             logger=logging.getLogger("chip_smoke.tta"))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     finally:
         bbox_aug.aug_batch = plain
     launches = launch_counts()
@@ -3535,28 +2697,17 @@ def phase_tta(dev, name, what, cfg, model, n_augs):
           f"{what}: detections per image {per_image}")
     check(all(all(map(math.isfinite, d["bbox"])) and 0 < d["score"] <= 1
               for d in dets), f"{what}: malformed detection")
-    largest = max(shapes, key=lambda hw: hw[0] * hw[1])
-    pixels = sum(TTA_IMAGES * h * w for h, w in shapes)
     print(json.dumps({"phase": what, "ok": True,
                       "images": TTA_IMAGES, "image_hw": [480, 640],
                       "augmentations": len(augs),
                       "batches": runs // len(augs), "launches": launches,
-                      "detections": len(dets),
-                      "s_per_image": wall / TTA_IMAGES, "wall_s": wall,
-                      "model_calls_s": sum(calls),
-                      "model_call_ms": [c * 1e3 for c in calls],
-                      "peak_memory_gb":
-                          torch.cuda.max_memory_allocated(dev) / 2**30,
-                      "largest_bucket": list(largest),
-                      "padded_mpixels_per_image": pixels / TTA_IMAGES / 1e6,
-                      "card": name}))
+                      "detections": len(dets)}))
     print(json.dumps({"ap_table": f"random weights, {len(augs)} "
                       "augmentations, a synthetic dataset: not an accuracy",
                       **results}))
     del model
     torch.cuda.empty_cache()
     shutil.rmtree(tmp, ignore_errors=True)
-    return launches
 
 
 def phase_tta_card_vs_cpu(dev):
@@ -3602,7 +2753,7 @@ def read_results(out_dir, dataset):
         return json.load(f)
 
 
-def phase_ap_gate(dev, name):
+def phase_ap_gate(dev):
     """The AP-gate runbook (paa_tpu_torch/tools/reproduce_ap.py) on the
     card from a seeded reference-format checkpoint of full-width
     PAA-R50: {"model": state_dict} with paa_core's key names
@@ -3636,12 +2787,8 @@ def phase_ap_gate(dev, name):
     torch.save({"model": {k: torch.from_numpy(v) for k, v in state.items()}},
                weights)
     logger = logging.getLogger("chip_smoke.ap_gate")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     model, skipped, unwritten = reproduce_ap.load_model(cfg, weights, logger,
                                                         dev)
-    torch.cuda.synchronize()
-    import_s = time.perf_counter() - t0
     check(skipped == [] and unwritten == [],
           f"ap_gate: skipped {skipped[:5]}, unwritten {unwritten[:5]}")
     on_card = model.module.state_dict()
@@ -3696,14 +2843,10 @@ def phase_ap_gate(dev, name):
                   "gate_at_ap_plus_0.1": 1, "weights_missing": 2}
           and ap > 0.1, f"ap_gate: exit codes {rcs}, AP {ap}")
     print(json.dumps({"phase": "ap_gate", "ok": True,
-                      "weights_mb": os.path.getsize(weights) / 2**20,
-                      "tensors": len(state), "import_s": import_s,
-                      "first_pass_ap": first["AP"], "gt": n_gt,
-                      "gate_ap": ap, "exit_codes": rcs,
-                      "launches": launches, "batches": batches,
-                      "card": name}))
+                      "tensors": len(state), "first_pass_ap": first["AP"],
+                      "gt": n_gt, "gate_ap": ap, "exit_codes": rcs,
+                      "launches": launches, "batches": batches}))
     shutil.rmtree(tmp, ignore_errors=True)
-    return launches
 
 
 class Preempted(Exception):
@@ -3721,7 +2864,7 @@ TRAIN_NET_CASES = {
 }
 
 
-def phase_train_net_from_pkl(dev, name, what):
+def phase_train_net_from_pkl(dev, what):
     """python -m paa_tpu_torch.tools.train_net from ImageNet weights, for
     each case of TRAIN_NET_CASES (``what``): a seeded Detectron pickle of
     the body at the real shapes (BatchNorm folded, the 1000-way
@@ -3771,12 +2914,8 @@ def phase_train_net_from_pkl(dev, name, what):
         want[torch_name_to_port_keys(key)[0][0]] = value
     logger = logging.getLogger("chip_smoke.train_net")
     model = build_detection_model(cfg, device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     skipped, unwritten = load_pretrained_into(cfg, model.module,
                                               cfg.MODEL.WEIGHT, logger)
-    torch.cuda.synchronize()
-    import_s = time.perf_counter() - t0
     on_card = model.module.state_dict()
     stats = {k for k in want if "running" in k}
     check(sorted(skipped) == ["pred_b", "pred_w"]
@@ -3792,10 +2931,9 @@ def phase_train_net_from_pkl(dev, name, what):
     head = ["--config-file", config, "--device", str(dev)]
     opts = [*synth_opts(out_dir), "SOLVER.IMS_PER_BATCH", "8",
             "SOLVER.MAX_ITER", "4", "SOLVER.CHECKPOINT_PERIOD", "2"]
-    seen, stamps, preempt = {}, {}, [True]
+    seen, preempt = {}, [True]
 
     def hook(it, metrics):
-        stamps[it] = time.perf_counter()
         seen[it] = metrics
         if preempt[0] and it == 2:
             raise Preempted
@@ -3826,7 +2964,6 @@ def phase_train_net_from_pkl(dev, name, what):
     for key in frozen + sorted(stats):
         check(torch.equal(ckpt["model"][key], torch.from_numpy(want[key])),
               f"{what}: {key} moved from its blob")
-    iteration_ms = (stamps[2] - stamps[1]) * 1e3
     first = dict(seen)
 
     seen.clear()
@@ -3848,41 +2985,18 @@ def phase_train_net_from_pkl(dev, name, what):
     check(ckpt["extra"] == {"iteration": 4} and ckpt["step"] == 4
           and sorted(results) == sorted(METRICS),
           f"{what}: final {ckpt['extra']}, results {results}")
-    print(json.dumps({"phase": what, "ok": True,
-                      "pkl_mb": os.path.getsize(pkl) / 2**20,
-                      "blobs": len(blobs), "import_s": import_s,
+    print(json.dumps({"phase": what, "ok": True, "blobs": len(blobs),
                       "batch": 8, "losses": {
                           k: [m[k] for _, m in sorted({**first, **seen}
                                                       .items())]
                           for k in seen[3]},
-                      "iteration_ms": iteration_ms,
                       "first_run_launches": first_launches,
                       "launches": launches, "eval_batches": batches,
-                      "ap_table": results, "card": name}))
+                      "ap_table": results}))
     shutil.rmtree(tmp, ignore_errors=True)
-    return {k: first_launches[k] + launches[k] for k in launches}
 
 
 DDP_WORLD, DDP_BATCH, DDP_HW, DDP_SIZE = 2, 8, (256, 320), (256.0, 300.0)
-DDP_TIMED_STEPS = 3
-
-
-def _ddp_train_steps(model, batch, timed):
-    """The first train step of ``model`` on ``batch`` (host metrics, the
-    positive mask, the parameters before and after it on the CPU), then
-    ``timed`` more steps: ms per step (host clock around synchronized
-    steps)."""
-    metrics, pos_mask, before, after = train_once(model, batch)
-    state = train_state(model)
-    step = model.make_bucket_train_step(tuple(batch["images"].shape[1:3]))
-    step(state, batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(timed):
-        step(state, batch)
-    torch.cuda.synchronize()
-    return (metrics, pos_mask, before, after,
-            (time.perf_counter() - t0) * 1e3 / timed)
 
 
 def _ddp_model(dev):
@@ -3899,8 +3013,8 @@ def _ddp_model(dev):
 def ddp_worker(job_path, out_path):
     """One rank of phase_ddp_two_ranks (``chip_smoke.py --ddp-worker JOB
     OUT``, launched with torchrun's environment): gloo on the one card;
-    the first step and the timed steps on its interleaved share of the
-    global batch, then the eval of the job's dataset."""
+    the first step on its interleaved share of the global batch, then
+    the eval of the job's dataset and the SyncBN step."""
     import logging
     import pickle
 
@@ -3915,10 +3029,7 @@ def ddp_worker(job_path, out_path):
     dev = comm.init_distributed(job["device"], backend="gloo")
     rank, world = comm.get_rank(), comm.get_world_size()
     batch = {k: v[rank::world] for k, v in job["batch"].items()}
-    zero_launch_counts()
-    metrics, pos_mask, _, after, step_ms = _ddp_train_steps(
-        _ddp_model(dev), batch, DDP_TIMED_STEPS)
-    train_launches = launch_counts()
+    metrics, pos_mask, _, after = train_once(_ddp_model(dev), batch)
     torch.backends.cudnn.enabled = True
     model = seeded_model("bfloat16", dev)
     dataset = COCODataset(job["ann_file"], job["img_dir"], False)
@@ -3936,8 +3047,7 @@ def ddp_worker(job_path, out_path):
                       "stats": s_stats, "relu_calls": s_calls,
                       "params": s_after if rank == 0 else None},
            "device": str(dev), "metrics": metrics,
-           "pos_mask": pos_mask.numpy(), "step_ms": step_ms,
-           "train_launches": train_launches, "results": results,
+           "pos_mask": pos_mask.numpy(), "results": results,
            "digests": {n: [float(p.double().sum()),
                            float(p.double().abs().sum())]
                        for n, p in after.items()}}
@@ -3994,7 +3104,7 @@ def run_ddp_workers(job_path, out_path, deadline_s=600):
             for i, (p, log) in enumerate(zip(procs, logs))))
 
 
-def phase_ddp_two_ranks(dev, name):
+def phase_ddp_two_ranks(dev):
     """Data parallelism over torch.distributed: two ranks on the one card
     with the gloo backend over CUDA tensors (NCCL refuses two ranks on
     one device; NCCL across cards waits for a machine with more than
@@ -4012,7 +3122,7 @@ def phase_ddp_two_ranks(dev, name):
     otherwise than an 8-image one, and the GMM's two-candidate
     foreground ties flip on one-ulp changes of the candidate losses
     (ROADMAP.md section 3); PyTorch's own convolutions compute each
-    image alike at any batch size. Then 3 more steps of each are timed.
+    image alike at any batch size.
 
     Eval: synth_coco_32 (800 x 1333, B=8, bf16, the serving cell's
     seeded weights) through ``inference`` on both ranks (round-robin
@@ -4042,11 +3152,8 @@ def phase_ddp_two_ranks(dev, name):
     tmp = tempfile.mkdtemp(prefix="paa_ddp_")
     batch = {k: v.numpy() for k, v in train_batch(
         77, DDP_BATCH, DDP_HW, DDP_SIZE, max_gt=20).items()}
-    zero_launch_counts()
-    one_metrics, one_mask, before, one_after, one_ms = _ddp_train_steps(
-        _ddp_model(dev), {k: torch.from_numpy(v) for k, v in batch.items()},
-        DDP_TIMED_STEPS)
-    one_launches = launch_counts()
+    one_metrics, one_mask, before, one_after = train_once(
+        _ddp_model(dev), {k: torch.from_numpy(v) for k, v in batch.items()})
     torch.backends.cudnn.enabled = True
 
     logger = logging.getLogger("chip_smoke.ddp")
@@ -4081,9 +3188,7 @@ def phase_ddp_two_ranks(dev, name):
         tmp, "out.pkl")
     with open(job_path, "wb") as f:
         pickle.dump(job, f)
-    t0 = time.perf_counter()
     run_ddp_workers(job_path, out_path)
-    ranks_s = time.perf_counter() - t0
     ranks = []
     for rank in range(DDP_WORLD):
         with open(f"{out_path}.{rank}", "rb") as f:
@@ -4157,12 +3262,7 @@ def phase_ddp_two_ranks(dev, name):
         "dtype": "float32", "cudnn": False,
         "num_pos": one_metrics["num_pos"], "loss_rel_err": loss_err,
         "worst_update_norm_err": worst_norm,
-        "worst_update_share": worst_share,
-        "one_process_step_ms": one_ms,
-        "two_rank_step_ms": [out["step_ms"] for out in ranks],
-        "one_process_launches": one_launches,
-        "rank_train_launches": [out["train_launches"] for out in ranks],
-        "ranks_wall_s": ranks_s, "ap_one": one_results,
+        "worst_update_share": worst_share, "ap_one": one_results,
         "ap_abs_err": ap_err, **matched,
         "syncbn": {"global_batch": SYNCBN_DDP_BATCH,
                    "per_rank": SYNCBN_DDP_BATCH // DDP_WORLD,
@@ -4171,8 +3271,7 @@ def phase_ddp_two_ranks(dev, name):
                    "tolerance": SYNCBN_TOL, "loss_rel_err": s_loss_err,
                    "worst_update_norm_err": s_norm,
                    "worst_update_share": s_share,
-                   "relu_decisions_pinned": s_calls},
-        "card": name}))
+                   "relu_decisions_pinned": s_calls}}))
     shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -4196,40 +3295,29 @@ def recording_k1_inputs():
         nms._nms_batched_cuda = launch
 
 
-def k1_at_path_inputs(args, what, name):
+def k1_at_path_inputs(args, what):
     """K1 against its plain version on the inputs a path's request gave it
     (``recording_k1_inputs``): keep_idx, keep_scores and keep_valid
-    bit-equal; both timed, with the bound (``time_nms``)."""
+    bit-equal. Returns the input's (rows, candidates, max_out)."""
     from paa_tpu_torch.ops import nms
 
-    ious, got, timing = time_nms(nms.nms_batched, args, 20,
-                                 f"nms_batched on the {what} candidates")
-    detail = {"kernel_detail": "nms_batched", "path": what,
-              "B": args[1].shape[0], "N": args[1].shape[1],
-              "max_out": args[5],
-              "iou_threshold": args[4], "valid_candidates":
-              int(args[3].sum()), **k1_tiles(args, got),
-              "ious_needed": ious, "valid_picks": int(got[2].sum()),
-              **timing, "card": name}
-    print(json.dumps(detail))
-    return detail
+    same_keeps(nms.nms_batched(*args), nms.nms_batched_plain(*args),
+               f"nms_batched on the {what} candidates")
+    return (*args[1].shape, args[5])
 
 
-def phase_dense(dev, head, name, path=None, train_reference=True):
+def phase_dense(dev, head, path=None, train_reference=True):
     """The serving, training and card-vs-CPU phases of PAA-R50, on the
     config of DENSE_CONFIGS[``head``] (or ``path``) at full width:
 
     - three 8 x 800 x 1344 bf16 requests (``phase_main_path``: K1 once
       and K3 40 times per request, none for RetinaNet), K1 held
-      bit-equal to its plain version on the first request's own inputs
-      and timed there, img/s and a profile of three requests;
+      bit-equal to its plain version on the first request's own inputs;
     - the f32 model on the card against the CPU at 2 x 256 x 320
       (``phase_reference``);
     - TRAIN_STEPS bf16 steps of do_train at the config's IMS_PER_BATCH
-      (16; 8 for RetinaNet) with K3 40 times per step for ATSS and FCOS,
-      then the step's ms, img/s and a profile split by span
-      (``phase_train_main_path``, ``phase_train_timing``,
-      ``phase_train_profile``);
+      (16; 8 for RetinaNet) with K3 40 times per step for ATSS and FCOS
+      (``phase_train_main_path``);
     - with ``train_reference``, one f32 train step on the card against
       the CPU and float64 (``phase_train_reference``), with FCOS's
       centerness targets x1.05 planted in a third step, which must land
@@ -4241,35 +3329,24 @@ def phase_dense(dev, head, name, path=None, train_reference=True):
     the calibrated ones centre the body's ReLU inputs at 0, where
     float32 and float64 decide apart, so that the CPU's own f32 step
     misses float64 by 2.1e-2 of a tensor's update norm with them and
-    2.8e-3 without.
-
-    Returns the launch counts of the serving and training runs."""
+    2.8e-3 without."""
     path = path or DENSE_CONFIGS[head]
     frozen_bn = calibrated_frozen_bn(path) if head == "retinanet" else None
     with recording_k1_inputs() as k1_inputs:
-        model, eval_fn, serving = phase_main_path(dev, path,
-                                                  f"{head}_main_path")
-    k1 = k1_at_path_inputs(k1_inputs[0], head, name)
-    e2e_rate(eval_fn, 20, head, name, dev)
-    phase_profile(model, eval_fn, 30, head, name)
-    del model, eval_fn, k1_inputs
+        phase_main_path(dev, path, f"{head}_main_path")
+    k1_at_path_inputs(k1_inputs[0], head)
+    del k1_inputs
     torch.cuda.empty_cache()
     phase_reference(dev, path, f"{head}_card_vs_cpu")
-    trained, state, batch, training = phase_train_main_path(
-        dev, name, path, f"{head}_train_main_path", frozen_bn)
-    phase_train_timing(trained, state, batch, name, f"{head}_train")
-    phase_train_profile(trained, state, batch, name,
-                        what=f"{head}_train_profile")
-    del trained, state, batch
+    phase_train_main_path(dev, path, f"{head}_train_main_path", frozen_bn)
     torch.cuda.empty_cache()
     if train_reference:
         phase_train_reference(dev, path, f"{head}_train_card_vs_cpu",
                               _fcos_centerness_fault if head == "fcos"
                               else None)
-    return {"serving": serving, "training": training, "k1": k1}
 
 
-def phase_dense_test_net(dev, name, head="fcos"):
+def phase_dense_test_net(dev, head="fcos"):
     """``python -m paa_tpu_torch.tools.test_net`` (its ``main``, in this
     process) on the config of DENSE_CONFIGS[``head``] over synth_coco_32
     at full width in bf16 from the seeded weights (a dry run; the class
@@ -4285,11 +3362,9 @@ def phase_dense_test_net(dev, name, head="fcos"):
     out_dir = os.path.join(tmp, "out")
     node = DENSE_HEADS[head][0]
     zero_launch_counts()
-    t0 = time.perf_counter()
     rc = test_net.main(["--config-file", DENSE_CONFIGS[head],
                         *synth_opts(out_dir),
                         f"MODEL.{node}.INFERENCE_TH", "0.005"])
-    wall = time.perf_counter() - t0
     launches = launch_counts()
     check(rc == 0, f"{head}_test_net: exit {rc}")
     batches = launches["nms_batched"]
@@ -4308,12 +3383,10 @@ def phase_dense_test_net(dev, name, head="fcos"):
           f"{head}_test_net: images with detections")
     print(json.dumps({"phase": f"{head}_test_net", "ok": True,
                       "images": 32, "launches": launches,
-                      "detections": len(dets), "wall_s": wall,
-                      "card": name}))
+                      "detections": len(dets)}))
     print(json.dumps({"ap_table": "random weights, a synthetic dataset: "
                       "not an accuracy", **results}))
     shutil.rmtree(tmp, ignore_errors=True)
-    return launches
 
 
 # ---- two-stage training and Mask R-CNN -------------------------------------
@@ -4396,26 +3469,20 @@ def mask_rcnn_card_vs_cpu(dev, build=seeded_mrcnn, what="mask_rcnn"):
                       "max_abs_err": worst, "tolerance": MASK_PROB_TOL}))
 
 
-def phase_mask_rcnn_serving(dev, name):
+def phase_mask_rcnn_serving(dev):
     """Phase 34: full-width Mask R-CNN serving (three 8 x 800 x 1344 bf16
     requests: K1 3, K2 3, masks (8, 100, 28, 28) in [0, 1]), K1 against
-    its plain version on the first request's RPN rows, img/s, a profile
-    with the mask head in its own span, and the f32 model on the card
-    against the CPU with the masks compared. Returns the launch counts
-    and the K1 detail."""
+    its plain version on the first request's RPN rows, and the f32 model
+    on the card against the CPU with the masks compared."""
     model = seeded_mrcnn("bfloat16", dev)
     with recording_k1_inputs() as k1_inputs:
-        eval_fn, launches = serve(
-            model, "mask_rcnn_main_path", 50,
-            {"nms_batched": 3, "nms_global": 3, "group_norm_relu": 0,
-             "deform_im2col": 0, "deform_col2im": 0}, 0.05, check_masks)
-    k1 = k1_at_path_inputs(k1_inputs[0], "mask_rcnn_rpn", name)
-    e2e_rate(eval_fn, 20, "mask_rcnn", name, dev)
-    phase_profile(model, eval_fn, 60, "mask_rcnn", name)
-    del model, eval_fn, k1_inputs
+        serve(model, "mask_rcnn_main_path", 50,
+              {"nms_batched": 3, "nms_global": 3, "group_norm_relu": 0,
+               "deform_im2col": 0, "deform_col2im": 0}, 0.05, check_masks)
+    k1_at_path_inputs(k1_inputs[0], "mask_rcnn_rpn")
+    del model, k1_inputs
     torch.cuda.empty_cache()
     mask_rcnn_card_vs_cpu(dev)
-    return launches, k1
 
 
 def box_octagon_masks(gt_boxes, gt_labels):
@@ -4452,8 +3519,8 @@ def two_stage_config(kind):
             **FBNET_CONFIGS}[kind]
 
 
-def phase_two_stage_train(dev, name, kind, frozen_bn, k3_per_step=0,
-                          hw=HW, size=SIZE, extra=()):
+def phase_two_stage_train(dev, kind, frozen_bn, k3_per_step=0, hw=HW,
+                          size=SIZE, extra=()):
     """Phases 35, 40, 42, 46, 48, 50 and 51: TRAIN_STEPS steps of
     do_train of the full-width bf16 model of ``two_stage_config(kind)``
     at its IMS_PER_BATCH (16; the C4 models' 8) on one repeated batch
@@ -4470,12 +3537,11 @@ def phase_two_stage_train(dev, name, kind, frozen_bn, k3_per_step=0,
     model, which trains on the RPN loss alone), K3 ``k3_per_step`` times
     per step (the GN models' forward) and no other NMS (launch counts
     set to 0 just before and read just after); that NMS kernel against
-    its plain version on the first step's rows, timed there; peak
-    memory; then the step's ms, img/s and a profile split by span. The
-    batch is B x ``hw`` (content ``size``; GTs up to 0.7 of its shorter
-    side); ``extra`` overrides the config. Returns the launch counts
-    (with K3's by form) and the NMS kernel's detail (for the RPN-only
-    model the step's)."""
+    its plain version on the first step's rows. The batch is B x ``hw``
+    (content ``size``; GTs up to 0.7 of its shorter side); ``extra``
+    overrides the config. Returns K3's launches by form (``k3_forms``)
+    and the NMS kernel's name and input (rows, candidates, max_out),
+    both None for the RPN-only model."""
     from paa_tpu_torch.engine import do_train
     from paa_tpu_torch.ops import nms
 
@@ -4496,19 +3562,14 @@ def phase_two_stage_train(dev, name, kind, frozen_bn, k3_per_step=0,
               else "nms_batched")
     rpn_only = model.head_type == "rpn"
     seen = {}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
     with recording_k1_inputs() as k1_inputs, \
-            recording_k2_inputs() as k2_inputs:
+            recording_k2_inputs() as k2_inputs, \
+            recording_k3_launches() as k3_launches:
         zero_launch_counts()
-        t0 = time.perf_counter()
         do_train(cfg, model, state, [batch] * TRAIN_STEPS,
                  metric_hook=lambda i, m: seen.update({i: m}))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
         launches = launch_counts()
-        forms = k3_forms()
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    forms = k3_forms(k3_launches)
     expected = {"nms_batched": 0, "nms_global": 0,
                 "group_norm_relu": k3_per_step * TRAIN_STEPS,
                 "deform_im2col": 0, "deform_col2im": 0}
@@ -4528,33 +3589,23 @@ def phase_two_stage_train(dev, name, kind, frozen_bn, k3_per_step=0,
     check(args is None or not any(
         isinstance(a, torch.Tensor) and a.requires_grad for a in args),
         f"{what}: the NMS saw a tensor under autograd")
+    if rpn_only:
+        kernel = key = None
+    elif kernel == "nms_global":
+        key = k2_at_path_inputs(args, f"{kind}_train_rpn")
+    else:
+        key = k1_at_path_inputs(args, f"{kind}_train_rpn")
     print(json.dumps({
         "phase": what, "ok": True, "batch": cfg.SOLVER.IMS_PER_BATCH,
         "hw": hw, "max_gt": MAX_GT, "steps": TRAIN_STEPS,
         "dtype": "bfloat16", "launches": launches, "k3_by_form": forms,
         "frozen_bn": "calibrated" if frozen_bn else "none or seeded",
         "freeze_conv_body_at": cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT,
-        "rpn_nms": None if rpn_only else kernel,
-        "rpn_nms_rows": None if rpn_only else list(args[1].shape),
-        "rpn_nms_max_out": None if rpn_only else args[5],
-        "losses": {k: [seen[i][k] for i in sorted(seen)] for k in seen[1]},
-        "do_train_s": wall, "peak_memory_gb": peak, "card": name}))
-    if rpn_only:
-        detail = {"kernel_detail": None, "path": f"{kind}_train"}
-    elif kernel == "nms_global":
-        detail = k2_at_path_inputs(args, f"{kind}_train_rpn", name, reps=5)
-    else:
-        detail = k1_at_path_inputs(args, f"{kind}_train_rpn", name)
-    del k1_inputs, k2_inputs, args
-    timing = phase_train_timing(model, state, batch, name, what)
-    profile = phase_train_profile(model, state, batch, name, hw=hw,
-                                  what=f"{kind}_train_profile")
-    del model, state, batch
+        "rpn_nms": kernel, "rpn_nms_input": key,
+        "losses": {k: [seen[i][k] for i in sorted(seen)] for k in seen[1]}}))
+    del model, state, batch, k1_inputs, k2_inputs, args
     torch.cuda.empty_cache()
-    return {**launches, "k3_by_form": forms}, {
-        **detail, "peak_memory_gb": peak, **timing,
-        "losses": [seen[i]["loss"] for i in sorted(seen)],
-        "profile": profile}
+    return forms, (kernel, key)
 
 
 def fixed_draws(device, seed=97):
@@ -4748,7 +3799,7 @@ def phase_two_stage_train_reference(dev, frozen_bn, path=MRCNN_CONFIG,
         "planted_faults": planted}))
 
 
-def phase_mask_rcnn_test_net(dev, name, path=MRCNN_CONFIG,
+def phase_mask_rcnn_test_net(dev, path=MRCNN_CONFIG,
                              what="mask_rcnn_test_net", k3_per_batch=0,
                              reference=True):
     """Phases 37 and 49: ``paa_tpu_torch.tools.test_net`` (its ``main``,
@@ -4770,12 +3821,10 @@ def phase_mask_rcnn_test_net(dev, name, path=MRCNN_CONFIG,
     sys.modules["cv2"] = None  # import cv2 raises ImportError
     try:
         zero_launch_counts()
-        t0 = time.perf_counter()
         # every candidate above 0: 100 detections and masks per image
         rc = test_net.main(["--config-file", path,
                             *synth_opts(out_dir),
                             "MODEL.ROI_HEADS.SCORE_THRESH", "0.0"])
-        wall = time.perf_counter() - t0
         launches = launch_counts()
     finally:
         if cv2 is False:
@@ -4801,13 +3850,12 @@ def phase_mask_rcnn_test_net(dev, name, path=MRCNN_CONFIG,
           f"{what}: images with detections")
     print(json.dumps({"phase": what, "ok": True,
                       "images": 32, "cv2": "blocked", "launches": launches,
-                      "detections": len(dets), "wall_s": wall,
-                      "card": name}))
+                      "detections": len(dets)}))
     print(json.dumps({"ap_table": "random weights, a synthetic dataset: "
                       "not an accuracy", "path": what, **results}))
     shutil.rmtree(tmp, ignore_errors=True)
     if not reference:
-        return launches
+        return
     cfg = build_cfg("float32", MRCNN_CONFIG, [
         "INPUT.MIN_SIZE_TEST", 256, "INPUT.MAX_SIZE_TEST", 320,
         "TPU.TEST_BUCKETS", ((256, 320), (320, 256)),
@@ -4816,17 +3864,15 @@ def phase_mask_rcnn_test_net(dev, name, path=MRCNN_CONFIG,
                               build=seeded_mrcnn)
     print(json.dumps({"phase": "mask_rcnn_eval_card_vs_cpu", "ok": True,
                       **out}))
-    return launches
 
 
-def phase_k1_at_recorded_inputs(inputs, name,
-                                what="k1_at_recorded_inputs",
+def phase_k1_at_recorded_inputs(inputs, what="k1_at_recorded_inputs",
                                 required=None):
     """Phase 38 (and after phase 44): K1 against its plain version,
     bit-equal, at every distinct input shape (rows, candidates, max_out)
     at which phases 34-37 (39-44) launched it (recorded): the
     ``required`` shapes among them, by default training RPN rows of
-    2,000 picks; returns the shapes checked."""
+    2,000 picks."""
     from paa_tpu_torch.ops import nms
 
     shapes = {}
@@ -4844,32 +3890,24 @@ def phase_k1_at_recorded_inputs(inputs, name,
         check(set(required) <= set(shapes),
               f"{what}: {required} not among {list(shapes)}")
     print(json.dumps({"phase": what, "ok": True,
-                      "shapes": [list(k) for k in shapes], "card": name}))
-    return list(shapes)
+                      "shapes": [list(k) for k in shapes]}))
 
 
-def phase_two_stage(dev, name):
+def phase_two_stage(dev):
     """Phases 34-38 (after phase 33): Mask R-CNN serving, Faster R-CNN
     and Mask R-CNN training, the f32 Mask R-CNN step against the CPU and
     float64, Mask R-CNN's test_net with cv2 blocked, and K1 at every
-    input those runs gave it. Returns the launch counts by path and
-    K1's details at the training RPN's rows."""
+    input those runs gave it."""
     with recording_k1_inputs() as k1_inputs:
-        serving, k1_serving = phase_mask_rcnn_serving(dev, name)
+        phase_mask_rcnn_serving(dev)
         frozen_bn = calibrated_frozen_bn(FRCNN_CONFIG)
-        training = {kind: phase_two_stage_train(dev, name, kind, frozen_bn)
-                    for kind in TWO_STAGE_CONFIGS}
+        for kind in TWO_STAGE_CONFIGS:
+            phase_two_stage_train(dev, kind, frozen_bn)
         phase_two_stage_train_reference(dev, frozen_bn)
-        test_net_launches = phase_mask_rcnn_test_net(dev, name)
-    phase_k1_at_recorded_inputs(k1_inputs, name)
+        phase_mask_rcnn_test_net(dev)
+    phase_k1_at_recorded_inputs(k1_inputs)
     del k1_inputs
     torch.cuda.empty_cache()
-    launches = {"mask_rcnn": serving, "mask_rcnn_test_net": test_net_launches,
-                **{f"{kind}_train": runs[0]
-                   for kind, runs in training.items()}}
-    k1 = {"mask_rcnn_rpn": k1_serving,
-          **{f"{kind}_train_rpn": runs[1] for kind, runs in training.items()}}
-    return launches, k1
 
 
 # ---- Keypoint R-CNN and the C4 two-stage bodies ----------------------------
@@ -4935,12 +3973,10 @@ def check_keypoints(dets):
         check(tuple(m.shape) == (BATCH, 100, 17, 56, 56)
               and m.dtype == torch.float32 and bool(torch.isfinite(m).all()),
               f"keypoint_rcnn: kp_heatmaps {tuple(m.shape)} {m.dtype}")
-    t0 = time.perf_counter()
     valid = dets[0]["valid"][0].cpu()
     boxes = dets[0]["boxes"][0].cpu()[valid][:KP_DECODED].numpy()
     kps = heatmaps_to_keypoints(
         dets[0]["kp_heatmaps"][0].cpu()[valid][:KP_DECODED], boxes)
-    decode_s = time.perf_counter() - t0
     x, y, score = kps[..., 0], kps[..., 1], kps[..., 2]
     # a box under a pixel wide (x2 < x1 + 1, the +1 convention's width
     # below 1) is decoded over one pixel from x1, as the reference does
@@ -4955,7 +3991,7 @@ def check_keypoints(dets):
           f"keypoint_rcnn: {int((~inside).sum())} keypoints outside their "
           f"box of {inside.size}")
     return {"kp_heatmaps": list(dets[0]["kp_heatmaps"].shape),
-            "keypoints_decoded": int(inside.size), "decode_s": decode_s,
+            "keypoints_decoded": int(inside.size),
             "mean_box_px": [float((boxes[:, 2] - boxes[:, 0]).mean()),
                             float((boxes[:, 3] - boxes[:, 1]).mean())]}
 
@@ -4999,25 +4035,15 @@ def recording_k2_inputs():
         nms._nms_global = launch
 
 
-def k2_at_path_inputs(args, what, name, reps=10):
+def k2_at_path_inputs(args, what):
     """K2 against its plain version on the inputs a path gave it
     (``recording_k2_inputs``): keep_idx, keep_scores and keep_valid
-    bit-equal; both timed, with the bound (``time_nms``)."""
+    bit-equal. Returns the input's (rows, candidates, max_out)."""
     from paa_tpu_torch.ops import nms
 
-    ious, got, timing = time_nms(nms._nms_global, args, reps,
-                                 f"nms_global on the {what} candidates")
-    n = args[1].shape[1]
-    detail = {"kernel_detail": "nms_global", "path": what,
-              "B": args[1].shape[0], "N": n, "max_out": args[5],
-              "iou_threshold": args[4], "class_aware": args[6],
-              "route": nms.k2_plan(n, nms.k2_capacity(args[1].device)),
-              "max_active_clusters": nms.k2_max_active_clusters(
-                  args[1].device, n),
-              "valid_candidates": int(args[3].sum()), "ious_needed": ious,
-              "valid_picks": int(got[2].sum()), **timing, "card": name}
-    print(json.dumps(detail))
-    return detail
+    same_keeps(nms._nms_global(*args), nms.nms_batched_plain(*args),
+               f"nms_global on the {what} candidates")
+    return (*args[1].shape, args[5])
 
 
 def keypoint_rcnn_card_vs_cpu(dev):
@@ -5081,53 +4107,46 @@ def keypoint_rcnn_card_vs_cpu(dev):
                       "tolerance": KP_HEATMAP_TOL, **out}))
 
 
-def phase_keypoint_rcnn_serving(dev, name):
+def phase_keypoint_rcnn_serving(dev):
     """Phase 39: full-width Keypoint R-CNN serving (three 8 x 800 x 1344
     bf16 requests: K1 twice per request, the RPN's 40 rows of 1,000 and
     the box head's 8 rows of 1,000 class-aware with 100 picks; heatmaps
     (8, 100, 17, 56, 56), keypoints inside their boxes), K1 against its
-    plain version on the first request's inputs at both, img/s, a
-    profile with the keypoint head in its own span, and the f32 model on
-    the card against the CPU and float64 with the heatmaps compared.
-    Returns the launch counts and K1's details."""
+    plain version on the first request's inputs at both, and the f32
+    model on the card against the CPU and float64 with the heatmaps
+    compared. Returns K1's inputs (rows, candidates, max_out)."""
     model = seeded_krcnn("bfloat16", dev)
     with recording_k1_inputs() as k1_inputs:
-        eval_fn, launches = serve(
-            model, "keypoint_rcnn_main_path", 70,
-            {"nms_batched": 6, "nms_global": 0, "group_norm_relu": 0,
-             "deform_im2col": 0, "deform_col2im": 0}, 0.05, check_keypoints)
+        serve(model, "keypoint_rcnn_main_path", 70,
+              {"nms_batched": 6, "nms_global": 0, "group_norm_relu": 0,
+               "deform_im2col": 0, "deform_col2im": 0}, 0.05,
+              check_keypoints)
     check([a[1].shape[0] for a in k1_inputs[:2]] == [5 * BATCH, BATCH]
           and k1_inputs[1][6] is True and k1_inputs[1][5] == 100,
           f"keypoint_rcnn: K1's inputs {[a[1].shape for a in k1_inputs]}")
-    k1 = {"keypoint_rcnn_rpn": k1_at_path_inputs(
-              k1_inputs[0], "keypoint_rcnn_rpn", name),
-          "keypoint_rcnn_box_head": k1_at_path_inputs(
-              k1_inputs[1], "keypoint_rcnn_box_head", name)}
-    e2e_rate(eval_fn, 20, "keypoint_rcnn", name, dev)
-    phase_profile(model, eval_fn, 60, "keypoint_rcnn", name)
-    del model, eval_fn, k1_inputs
+    keys = [k1_at_path_inputs(k1_inputs[0], "keypoint_rcnn_rpn"),
+            k1_at_path_inputs(k1_inputs[1], "keypoint_rcnn_box_head")]
+    del model, k1_inputs
     torch.cuda.empty_cache()
     keypoint_rcnn_card_vs_cpu(dev)
-    return launches, k1
+    return keys
 
 
-def phase_c4_serving(dev, name, kind, frozen_bn):
+def phase_c4_serving(dev, kind, frozen_bn):
     """Phase 41: full-width C4 Faster or Mask R-CNN serving (three
     8 x 800 x 1344 bf16 requests, calibrated FrozenBN: K1 once per
     request at the RPN's 8 rows of 6,000 with 1,000 picks, K2 once at the
     box head's 80,000 candidates per image; for Mask R-CNN masks
     (8, 100, 14, 14)), K1 and K2 against their plain versions on the
-    first request's inputs, img/s and a profile (the res5 box head in the
-    "box head" span). Returns the launch counts and the kernels'
-    details."""
+    first request's inputs. Returns K1's and K2's inputs (rows,
+    candidates, max_out)."""
     model = seeded_c4(kind, frozen_bn, "bfloat16", dev)
     with recording_k1_inputs() as k1_inputs, \
             recording_k2_inputs() as k2_inputs:
-        eval_fn, launches = serve(
-            model, f"{kind}_main_path", 80,
-            {"nms_batched": 3, "nms_global": 3, "group_norm_relu": 0,
-             "deform_im2col": 0, "deform_col2im": 0}, 0.05,
-            check_c4_masks if kind == "mask_rcnn_c4" else None)
+        serve(model, f"{kind}_main_path", 80,
+              {"nms_batched": 3, "nms_global": 3, "group_norm_relu": 0,
+               "deform_im2col": 0, "deform_col2im": 0}, 0.05,
+              check_c4_masks if kind == "mask_rcnn_c4" else None)
     # one level: the RPN's rows are the images, PRE_NMS_TOP_N_TEST (6,000)
     # candidates, POST_NMS_TOP_N_TEST (1,000) picks; the box head's
     # candidates are those picks x 80 classes
@@ -5140,13 +4159,11 @@ def phase_c4_serving(dev, name, kind, frozen_bn):
                                    - 1), 100)]
     got = [(*a[1].shape, a[5]) for a in (k1_inputs[0], k2_inputs[0])]
     check(got == want, f"{kind}: K1 and K2 at {got}, expected {want}")
-    k1 = k1_at_path_inputs(k1_inputs[0], f"{kind}_rpn", name)
-    k2 = k2_at_path_inputs(k2_inputs[0], f"{kind}_box_head", name)
-    e2e_rate(eval_fn, 20, kind, name, dev)
-    phase_profile(model, eval_fn, 60, kind, name)
-    del model, eval_fn, k1_inputs, k2_inputs
+    keys = (k1_at_path_inputs(k1_inputs[0], f"{kind}_rpn"),
+            k2_at_path_inputs(k2_inputs[0], f"{kind}_box_head"))
+    del model, k1_inputs, k2_inputs
     torch.cuda.empty_cache()
-    return launches, k1, k2
+    return keys
 
 
 def keypoint_batch(seed, bsz, hw, size):
@@ -5169,7 +4186,7 @@ def keypoint_batch(seed, bsz, hw, size):
             "gt_keypoints": torch.from_numpy(kps)}
 
 
-def phase_keypoint_and_c4(dev, name):
+def phase_keypoint_and_c4(dev):
     """Phases 39-44 (after phase 38): Keypoint R-CNN serving (39) and
     training (40, ``phase_two_stage_train``: B=16, K1 once per step at
     the training RPN's 80 rows of 2,000); C4 Faster and Mask R-CNN
@@ -5179,47 +4196,37 @@ def phase_keypoint_and_c4(dev, name):
     CPU and float64 (43, ``phase_two_stage_train_reference``); Keypoint
     R-CNN ``test_net`` over a synthetic person-keypoint COCO with cv2
     blocked (44); then K1 and K2 at every input those runs gave them,
-    bit-equal to their plain versions. Returns the launch counts by path
-    and the kernels' details by path."""
-    launches, k1, k2 = {}, {}, {}
-    t0 = time.perf_counter()
+    bit-equal to their plain versions, the inputs the phases held
+    among them."""
+    k1, k2 = [], []
     with recording_k1_inputs() as k1_inputs, \
             recording_k2_inputs() as k2_inputs:
-        launches["keypoint_rcnn"], k1_kp = phase_keypoint_rcnn_serving(
-            dev, name)
-        k1.update(k1_kp)
+        k1 += phase_keypoint_rcnn_serving(dev)
         fpn_bn = calibrated_frozen_bn(KRCNN_CONFIG)
         c4_bn = calibrated_frozen_bn(C4_CONFIGS["faster_rcnn_c4"])
         for kind in C4_CONFIGS:
-            launches[kind], k1[f"{kind}_rpn"], k2[f"{kind}_box_head"] = \
-                phase_c4_serving(dev, name, kind, c4_bn)
+            rpn, box_head = phase_c4_serving(dev, kind, c4_bn)
+            k1.append(rpn)
+            k2.append(box_head)
         # the training RPN's rows go to K1 or K2 by their length
         for kind, frozen_bn in (("keypoint_rcnn", fpn_bn),
                                 *((kind, c4_bn) for kind in C4_CONFIGS)):
-            launches[f"{kind}_train"], detail = phase_two_stage_train(
-                dev, name, kind, frozen_bn)
-            (k2 if detail["kernel_detail"] == "nms_global" else k1)[
-                f"{kind}_train_rpn"] = detail
+            _, (kernel, key) = phase_two_stage_train(dev, kind, frozen_bn)
+            (k2 if kernel == "nms_global" else k1).append(key)
         phase_two_stage_train_reference(
             dev, c4_bn, C4_CONFIGS["mask_rcnn_c4"], C4_REFERENCE_ROIS,
             "mask_rcnn_c4_train_card_vs_cpu")
-        launches["keypoint_rcnn_test_net"] = phase_keypoint_rcnn_test_net(
-            dev, name)
-    phase_k1_at_recorded_inputs(
-        k1_inputs, name, "k1_at_recorded_inputs_kp_c4",
-        [(d["B"], d["N"], d["max_out"]) for d in k1.values()])
-    shapes = phase_k2_at_recorded_inputs(k2_inputs, name)
-    want = {(d["B"], d["N"], d["max_out"]) for d in k2.values()}
-    check(want <= set(shapes),
-          f"k2_at_recorded_inputs: {want} not among {shapes}")
+        phase_keypoint_rcnn_test_net(dev)
+    phase_k1_at_recorded_inputs(k1_inputs, "k1_at_recorded_inputs_kp_c4",
+                                k1)
+    shapes = phase_k2_at_recorded_inputs(k2_inputs)
+    check(set(k2) <= set(shapes),
+          f"k2_at_recorded_inputs: {k2} not among {shapes}")
     del k1_inputs, k2_inputs
     torch.cuda.empty_cache()
-    print(json.dumps({"phase": "keypoint_and_c4", "ok": True,
-                      "wall_s": time.perf_counter() - t0, "card": name}))
-    return launches, k1, k2
 
 
-def phase_k2_at_recorded_inputs(inputs, name):
+def phase_k2_at_recorded_inputs(inputs):
     """K2 against its plain version, bit-equal, at every distinct input
     shape (rows, candidates, max_out) at which phases 39-44 launched it
     (recorded; the C4 box head's 80,000 per image and the C4 training
@@ -5236,11 +4243,11 @@ def phase_k2_at_recorded_inputs(inputs, name):
         same_keeps(nms._nms_global(*args), nms.nms_batched_plain(*args),
                    f"nms_global at {key}")
     print(json.dumps({"phase": "k2_at_recorded_inputs", "ok": True,
-                      "shapes": [list(k) for k in shapes], "card": name}))
+                      "shapes": [list(k) for k in shapes]}))
     return list(shapes)
 
 
-def phase_keypoint_rcnn_test_net(dev, name):
+def phase_keypoint_rcnn_test_net(dev):
     """Phase 44: ``paa_tpu_torch.tools.test_net`` (its ``main``, in this
     process) on Keypoint R-CNN over the synthetic person-keypoint COCO
     of 32 PPM images (the config's own DATASETS.TEST,
@@ -5248,9 +4255,7 @@ def phase_keypoint_rcnn_test_net(dev, name):
     width in bf16 from the seeded weights, with cv2 blocked (the
     heatmaps' cubic resize runs without it): exit 0, the bbox and
     keypoints tables, a detection on every image, K1 twice per batch
-    (RPN and box head); the seconds of the heatmaps' copy to the host and
-    of their decode there (``compute_on_dataset``'s host times)."""
-    from paa_tpu_torch.engine import inference as port_inference
+    (RPN and box head)."""
     from paa_tpu_torch.tools import test_net
 
     tmp = tempfile.mkdtemp(prefix="paa_kp_test_net_")
@@ -5258,24 +4263,13 @@ def phase_keypoint_rcnn_test_net(dev, name):
     out_dir = os.path.join(tmp, "out")
     cv2 = sys.modules.get("cv2", False)
     sys.modules["cv2"] = None  # import cv2 raises ImportError
-    plain, host = port_inference.compute_on_dataset, {}
-
-    def timed(*args, **kwargs):
-        out = plain(*args, **kwargs)
-        host.update(out[3], model_s=out[1], images=out[2])
-        return out
-
-    port_inference.compute_on_dataset = timed
     try:
         zero_launch_counts()
-        t0 = time.perf_counter()
         rc = test_net.main(["--config-file", KRCNN_CONFIG,
                             *synth_opts(out_dir),
                             "DATASETS.TEST", str(KP_DATASETS)])
-        wall = time.perf_counter() - t0
         launches = launch_counts()
     finally:
-        port_inference.compute_on_dataset = plain
         if cv2 is False:
             del sys.modules["cv2"]
         else:
@@ -5299,12 +4293,10 @@ def phase_keypoint_rcnn_test_net(dev, name):
           "keypoint_rcnn_test_net: images with detections")
     print(json.dumps({"phase": "keypoint_rcnn_test_net", "ok": True,
                       "images": 32, "cv2": "blocked", "launches": launches,
-                      "detections": len(dets), "wall_s": wall,
-                      "host_s": host, "card": name}))
+                      "detections": len(dets)}))
     print(json.dumps({"ap_table": "random weights, a synthetic dataset: "
                       "not an accuracy", **results}))
     shutil.rmtree(tmp, ignore_errors=True)
-    return launches
 
 
 # ---- the GN baselines and the RPN-only model --------------------------------
@@ -5324,9 +4316,6 @@ RPN_CONFIGS = {
 # the f32 RPN-only proposals on the card against the CPU's from the same
 # RPN outputs: boxes within this many px
 RPN_BOX_TOL = 1e-2
-# the reps of each K3 timing at the GN paths' shapes (kernel, plain,
-# library): some 35 distinct shapes a request
-GN_COST_REPS = (20, 5, 20)
 
 
 def seeded_gn_mrcnn(dtype, device):
@@ -5411,99 +4400,32 @@ def recording_k5_launches():
         ds._deform_col2im_cuda = launch
 
 
-def k3_cost(dev, launches, seed):
-    """K3 at each distinct (shape, dtype, relu) of ``launches``, times
-    its count: ms beside the plain version's, the bound (bytes: x read
-    once, y written once, the affine) and ``F.group_norm`` (+ ``F.relu``
-    in the relu form). Returns the totals, the totals by form and the
-    five costliest shapes."""
-    from paa_tpu_torch.ops import group_norm as gn
-
-    gen = torch.Generator().manual_seed(seed)
-    counts = {}
-    for key in launches:
-        counts[key] = counts.get(key, 0) + 1
-    totals, by_form, rows = {}, {}, []
-    reps_k, reps_p, reps_l = GN_COST_REPS
-    for (shape, dtype, relu), n in counts.items():
-        c = shape[1]
-        x = torch.randn(shape, generator=gen).to(dev, dtype)
-        s = (torch.rand(c, generator=gen) + 0.5).to(dev)
-        b = (torch.randn(c, generator=gen) * 0.2).to(dev)
-
-        def library():
-            y = F.group_norm(x, 32, s.to(dtype), b.to(dtype), 1e-5)
-            return F.relu(y) if relu else y
-
-        row = {
-            "ms": cuda_ms(lambda: gn.group_norm_relu(x, s, b, relu=relu),
-                          reps_k),
-            "plain_ms": cuda_ms(lambda: gn.group_norm_relu_plain(
-                x, s, b, relu=relu), reps_p, 1),
-            "library_ms": cuda_ms(library, reps_l),
-            "bound_ms": 1e3 * (2 * x.numel() * x.element_size()
-                               + 2 * c * 4) / HBM_BYTES_PER_S,
-        }
-        for out in (totals, by_form.setdefault(gn.form(relu), {})):
-            for k, v in row.items():
-                out[k] = out.get(k, 0.0) + n * v
-            out["launches"] = out.get("launches", 0) + n
-        rows.append({"shape": list(shape), "dtype": str(dtype)[6:],
-                     "relu": relu, "launches": n, **row})
-        del x
-    rows.sort(key=lambda r: -r["launches"] * r["ms"])
-    return totals, by_form, rows[:5]
-
-
-def phase_gn_mask_rcnn_serving(dev, name):
+def phase_gn_mask_rcnn_serving(dev):
     """Phase 45: full-width GN Mask R-CNN serving (three 8 x 800 x 1344
     bf16 requests: K1 once (the RPN's 40 rows of 1,000), K2 once (the box
     head's 80,000 per image) and K3 once per GroupNorm per request, by
     form: the body's bn3 and downsample and the FPN's GN without ReLU;
     masks (8, 100, 28, 28)); K1 and K2 against their plain versions on
-    the first request's inputs; img/s; a profile with the body, box head
-    and mask head in spans; K3 at the request's own shapes and forms
-    against its bound, plain version and F.group_norm (+ F.relu).
-    Returns the launch counts (K3's by form) and the kernels' details."""
-    from paa_tpu_torch.ops.image_norm import device_normalize
-
+    the first request's inputs; the f32 model on the card against the
+    CPU, its masks compared."""
     model = seeded_gn_mrcnn("bfloat16", dev)
     per = gn_launches_per_forward(model)
     with recording_k1_inputs() as k1_inputs, \
-            recording_k2_inputs() as k2_inputs:
-        eval_fn, launches = serve(
-            model, "mask_rcnn_gn_main_path", 90,
-            {"nms_batched": 3, "nms_global": 3,
-             "group_norm_relu": 3 * sum(per.values()), "deform_im2col": 0,
-             "deform_col2im": 0},
-            0.05, check_masks)
-        forms = k3_forms()
+            recording_k2_inputs() as k2_inputs, \
+            recording_k3_launches() as k3_launches:
+        serve(model, "mask_rcnn_gn_main_path", 90,
+              {"nms_batched": 3, "nms_global": 3,
+               "group_norm_relu": 3 * sum(per.values()), "deform_im2col": 0,
+               "deform_col2im": 0},
+              0.05, check_masks)
+    forms = k3_forms(k3_launches)
     check(forms == {k: 3 * v for k, v in per.items()} and per["no_relu"],
           f"mask_rcnn_gn: K3 by form {forms}, expected 3 x {per}")
-    k1 = k1_at_path_inputs(k1_inputs[0], "mask_rcnn_gn_rpn", name)
-    k2 = k2_at_path_inputs(k2_inputs[0], "mask_rcnn_gn_box_head", name)
-    images, sizes = e2e_rate(eval_fn, 20, "mask_rcnn_gn", name, dev)
-    phase_profile(model, eval_fn, 60, "mask_rcnn_gn", name, body=True)
-    # K3 at one request's shapes, and at the body's (ResNet + FPN) alone
-    with recording_k3_launches() as request_k3:
-        eval_fn(images, sizes)
-    with recording_k3_launches() as body_k3, torch.inference_mode():
-        x = device_normalize(images, sizes, model.cfg.INPUT.PIXEL_MEAN,
-                             model.cfg.INPUT.PIXEL_STD)
-        model.module.backbone(x.permute(0, 3, 1, 2).contiguous())
-        del x
-    torch.cuda.synchronize()
-    k3 = {}
-    for what, seen in (("request", request_k3), ("body", body_k3)):
-        totals, by_form, top = k3_cost(dev, seen, 45)
-        k3[what] = {**totals, "by_form": by_form, "costliest": top}
-    print(json.dumps({"kernel_detail": "group_norm_relu",
-                      "path": "mask_rcnn_gn", "dtype": "bfloat16",
-                      "B": BATCH, "per_request": k3, "card": name}))
-    del model, eval_fn, k1_inputs, k2_inputs
+    k1_at_path_inputs(k1_inputs[0], "mask_rcnn_gn_rpn")
+    k2_at_path_inputs(k2_inputs[0], "mask_rcnn_gn_box_head")
+    del model, k1_inputs, k2_inputs
     torch.cuda.empty_cache()
     mask_rcnn_card_vs_cpu(dev, seeded_gn_mrcnn, "mask_rcnn_gn")
-    return {**launches, "k3_by_form": forms}, k1, k2, k3
 
 
 def seeded_rpn_only(kind, frozen_bn, dtype, device):
@@ -5595,7 +4517,7 @@ def rpn_card_vs_cpu(dev, kind, frozen_bn):
                           same.float().mean())}))
 
 
-def phase_rpn_test_net(dev, name, kind, frozen_bn_state):
+def phase_rpn_test_net(dev, kind, frozen_bn_state):
     """``paa_tpu_torch.tools.test_net`` on the RPN-only config of ``kind``
     over synth_coco_32 at full width in bf16 with cv2 blocked, from a
     checkpoint of the seeded model with its calibrated FrozenBN (``--ckpt``):
@@ -5616,10 +4538,8 @@ def phase_rpn_test_net(dev, name, kind, frozen_bn_state):
     sys.modules["cv2"] = None  # import cv2 raises ImportError
     try:
         zero_launch_counts()
-        t0 = time.perf_counter()
         rc = test_net.main(["--config-file", RPN_CONFIGS[kind], "--ckpt",
                             ckpt, *synth_opts(out_dir)])
-        wall = time.perf_counter() - t0
         launches = launch_counts()
     finally:
         if cv2 is False:
@@ -5642,15 +4562,14 @@ def phase_rpn_test_net(dev, name, kind, frozen_bn_state):
                   for v in table.values()),
           f"{kind}_test_net: box_proposal table {table}")
     print(json.dumps({"phase": f"{kind}_test_net", "ok": True,
-                      "images": 32, "cv2": "blocked", "launches": launches,
-                      "wall_s": wall, "card": name}))
+                      "images": 32, "cv2": "blocked",
+                      "launches": launches}))
     print(json.dumps({"box_proposal_table": "random weights, a synthetic "
                       "dataset: not an accuracy", "path": kind, **table}))
     shutil.rmtree(tmp, ignore_errors=True)
-    return launches
 
 
-def phase_rpn_only_serving(dev, name, kind, frozen_bn):
+def phase_rpn_only_serving(dev, kind, frozen_bn):
     """Phases 50 and 51's serving: three 8 x 800 x 1344 bf16 requests of
     the full-width RPN-only model of ``kind`` (calibrated FrozenBN): the
     FPN model's five levels in one K1 launch a request (40 rows of
@@ -5658,15 +4577,15 @@ def phase_rpn_only_serving(dev, name, kind, frozen_bn):
     image); the C4 model's 8 rows of 12,000 (PRE_NMS_TOP_N_TEST, above
     K1's 8,192) in one K2 launch with POST_NMS_TOP_N_TEST 2,000 picks;
     that kernel against its plain version on the first request's rows,
-    bit-equal, and timed there against its bound; img/s; a profile."""
+    bit-equal."""
     model = seeded_rpn_only(kind, frozen_bn, "bfloat16", dev)
     kernel = "nms_global" if kind == "rpn_c4" else "nms_batched"
     expected = {"nms_batched": 0, "nms_global": 0, "group_norm_relu": 0,
                 "deform_im2col": 0, "deform_col2im": 0, kernel: 3}
     with recording_k1_inputs() as k1_inputs, \
             recording_k2_inputs() as k2_inputs:
-        eval_fn, launches = serve(model, f"{kind}_main_path", 100, expected,
-                                  None, check_proposals, detections=False)
+        serve(model, f"{kind}_main_path", 100, expected, None,
+              check_proposals, detections=False)
     rpn = model.cfg.MODEL.RPN
     _, counts = model.anchors_for(HW)
     n = min(rpn.PRE_NMS_TOP_N_TEST, max(counts))
@@ -5675,17 +4594,14 @@ def phase_rpn_only_serving(dev, name, kind, frozen_bn):
     got = (*args[1].shape, args[5])
     check(got == want, f"{kind}: its NMS at {got}, expected {want}")
     if kernel == "nms_global":
-        detail = k2_at_path_inputs(args, f"{kind}_rpn", name, reps=5)
+        k2_at_path_inputs(args, f"{kind}_rpn")
     else:
-        detail = k1_at_path_inputs(args, f"{kind}_rpn", name)
-    e2e_rate(eval_fn, 20, kind, name, dev)
-    phase_profile(model, eval_fn, 60, kind, name)
-    del model, eval_fn, k1_inputs, k2_inputs, args
+        k1_at_path_inputs(args, f"{kind}_rpn")
+    del model, k1_inputs, k2_inputs, args
     torch.cuda.empty_cache()
-    return launches, detail
 
 
-def phase_gn_and_rpn_only(dev, name):
+def phase_gn_and_rpn_only(dev):
     """Phases 45-51 (after phase 44): GN Mask R-CNN serving (45) and
     training at B=16 with FREEZE_CONV_BODY_AT 2 (46); the f32 GN Mask
     R-CNN on the card against the CPU, its detections and masks, and one
@@ -5696,44 +4612,34 @@ def phase_gn_and_rpn_only(dev, name):
     blocked (49); rpn_R_50_FPN_1x (50) and rpn_R_50_C4_1x (51): serving,
     training at IMS_PER_BATCH (16; the C4 config sets none and takes the
     default, 16), test_net to the box_proposal table, and for FPN its
-    f32 proposals on the card against the CPU. Returns the launch counts
-    by path (K3's by form) and the NMS kernels' and K3's details."""
-    launches, k1, k2 = {}, {}, {}
-    t0 = time.perf_counter()
-    (launches["mask_rcnn_gn"], k1["mask_rcnn_gn_rpn"],
-     k2["mask_rcnn_gn_box_head"], k3) = phase_gn_mask_rcnn_serving(dev, name)
+    f32 proposals on the card against the CPU. The GN trainings' K3
+    launches by form: each GroupNorm once a step in its form."""
+    phase_gn_mask_rcnn_serving(dev)
     for kind in GN_CONFIGS:
         per = gn_launches_per_forward(seeded_train_model(
             build_cfg("bfloat16", GN_CONFIGS[kind]), "cpu"))
-        launches[f"{kind}_train"], detail = phase_two_stage_train(
-            dev, name, kind, None, k3_per_step=sum(per.values()))
-        check(launches[f"{kind}_train"]["k3_by_form"]
-              == {k: TRAIN_STEPS * v for k, v in per.items()},
-              f"{kind}_train: K3 by form {launches[f'{kind}_train']}")
-        k1[f"{kind}_train_rpn"] = detail
+        forms, _ = phase_two_stage_train(dev, kind, None,
+                                         k3_per_step=sum(per.values()))
+        check(forms == {k: TRAIN_STEPS * v for k, v in per.items()},
+              f"{kind}_train: K3 by form {forms}, expected {TRAIN_STEPS} "
+              f"x {per}")
         if kind == "mask_rcnn_gn":
             phase_two_stage_train_reference(
                 dev, None, GN_CONFIGS[kind], REFERENCE_ROIS,
                 "mask_rcnn_gn_train_card_vs_cpu")
     per = gn_launches_per_forward(seeded_gn_mrcnn("bfloat16", "cpu"))
-    launches["mask_rcnn_gn_test_net"] = phase_mask_rcnn_test_net(
-        dev, name, GN_CONFIGS["mask_rcnn_gn"], "mask_rcnn_gn_test_net",
+    phase_mask_rcnn_test_net(
+        dev, GN_CONFIGS["mask_rcnn_gn"], "mask_rcnn_gn_test_net",
         k3_per_batch=sum(per.values()), reference=False)
     for kind in RPN_CONFIGS:
         frozen_bn = calibrated_frozen_bn(RPN_CONFIGS[kind])
-        launches[kind], detail = phase_rpn_only_serving(dev, name, kind,
-                                                        frozen_bn)
-        (k2 if kind == "rpn_c4" else k1)[f"{kind}_rpn"] = detail
-        launches[f"{kind}_train"], _ = phase_two_stage_train(
-            dev, name, kind, frozen_bn)
-        launches[f"{kind}_test_net"] = phase_rpn_test_net(
-            dev, name, kind, frozen_bn)
+        phase_rpn_only_serving(dev, kind, frozen_bn)
+        phase_two_stage_train(dev, kind, frozen_bn)
+        phase_rpn_test_net(dev, kind, frozen_bn)
         if kind == "rpn_fpn":
             rpn_card_vs_cpu(dev, kind, frozen_bn)
     torch.cuda.empty_cache()
-    print(json.dumps({"phase": "gn_and_rpn_only", "ok": True,
-                      "wall_s": time.perf_counter() - t0, "card": name}))
-    return launches, k1, k2, k3
+
 
 # ---- the mobile bodies and SyncBatchNorm -----------------------------------
 
@@ -5783,7 +4689,7 @@ def seeded_fbnet(kind, frozen_bn, dtype, device):
     return model
 
 
-def phase_fbnet_serving(dev, name, kind, frozen_bn):
+def phase_fbnet_serving(dev, kind, frozen_bn):
     """Phases 53 and 56: full-width FBNet serving at the config's test size
     (three 8-image bf16 requests, calibrated FrozenBN): K1 once per
     request at the RPN's 8 rows of PRE_NMS_TOP_N_TEST (6,000) candidates
@@ -5791,10 +4697,7 @@ def phase_fbnet_serving(dev, name, kind, frozen_bn):
     picks x 80 classes per image: K1 at the 320 configs' 100 x 80 =
     8,000 (within its 8,192), K2 at the _600 configs' 200 x 80 = 16,000;
     for Mask R-CNN masks (8, 100, 12, 12). Both kernels against their
-    plain versions on the first request's inputs, img/s, and a profile
-    with the trunk ("body", its depthwise convs as "grouped conv") and
-    the box head in spans. Returns the launch counts and the kernels'
-    details."""
+    plain versions on the first request's inputs."""
     from paa_tpu_torch.ops import nms
 
     hw, size = FBNET_HW[kind]
@@ -5812,30 +4715,19 @@ def phase_fbnet_serving(dev, name, kind, frozen_bn):
     masks = model.module.mask_head is not None
     with recording_k1_inputs() as k1_inputs, \
             recording_k2_inputs() as k2_inputs:
-        eval_fn, launches = serve(
-            model, f"{kind}_main_path", 90, expected, 0.05,
-            (lambda dets: check_masks(dets, 12)) if masks else None,
-            hw=hw, size=size)
+        serve(model, f"{kind}_main_path", 90, expected, 0.05,
+              (lambda dets: check_masks(dets, 12)) if masks else None,
+              hw=hw, size=size)
     box_args = k2_inputs[0] if on_k2 else k1_inputs[1]
     got = [(*a[1].shape, a[5]) for a in (k1_inputs[0], box_args)]
     want = [(BATCH, n, picks), (BATCH, box_n, 100)]
     check(got == want, f"{kind}: the RPN's and the box head's NMS at {got},"
                        f" expected {want}")
-    k1 = {f"{kind}_rpn": k1_at_path_inputs(k1_inputs[0], f"{kind}_rpn",
-                                           name)}
-    k2 = {}
-    if on_k2:
-        k2[f"{kind}_box_head"] = k2_at_path_inputs(
-            box_args, f"{kind}_box_head", name)
-    else:
-        k1[f"{kind}_box_head"] = k1_at_path_inputs(
-            box_args, f"{kind}_box_head", name)
-    e2e_rate(eval_fn, 20, kind, name, dev, hw, size)
-    phase_profile(model, eval_fn, 60, kind, name, body=True, hw=hw,
-                  size=size)
-    del model, eval_fn, k1_inputs, k2_inputs
+    k1_at_path_inputs(k1_inputs[0], f"{kind}_rpn")
+    (k2_at_path_inputs if on_k2 else k1_at_path_inputs)(
+        box_args, f"{kind}_box_head")
+    del model, k1_inputs, k2_inputs
     torch.cuda.empty_cache()
-    return launches, k1, k2
 
 
 @contextlib.contextmanager
@@ -5916,27 +4808,23 @@ def syncbn_ddp_step(dev, batch, pins, rows=slice(None)):
     return metrics, pos_mask, before, after, seen[0], stats, calls[0]
 
 
-def phase_syncbn_train(dev, name):
+def phase_syncbn_train(dev):
     """Phase 57: PAA-R50 with MODEL.USE_SYNCBN True (a trainable
     SyncBatchNorm in each of the body's 53 norms, batch statistics in
-    training mode) at full width in bf16: TRAIN_STEPS do_train steps at B=16
-    (K3 40 per step in the head), the step's ms, img/s and profile; then
-    an eval request on the trained model: every SyncBatchNorm in eval
-    mode, the running statistics unmoved by it and used (the probe's
-    output equals the running-statistics formula on its input), the
-    detections' shapes and finite values, and the running statistics
-    moved by the training from their init. Returns the training's launch
-    counts."""
+    training mode) at full width in bf16: TRAIN_STEPS do_train steps at
+    B=16 (K3 40 per step in the head); then an eval request on the
+    trained model: every SyncBatchNorm in eval mode, the running
+    statistics unmoved by it and used (the probe's output equals the
+    running-statistics formula on its input), the detections' shapes and
+    finite values, and the running statistics moved by the training from
+    their init."""
     from paa_tpu_torch.modeling.layers import SyncBatchNorm
 
-    trained, state, batch, launches = phase_train_main_path(
-        dev, name, PAA_CONFIG, "syncbn_train_main_path", extra=SYNCBN_OPTS)
+    trained, _ = phase_train_main_path(
+        dev, PAA_CONFIG, "syncbn_train_main_path", extra=SYNCBN_OPTS)
     norms = [m for m in trained.module.modules()
              if isinstance(m, SyncBatchNorm)]
     check(len(norms) == 53, f"syncbn: {len(norms)} SyncBatchNorm")
-    phase_train_timing(trained, state, batch, name, "syncbn_train")
-    phase_train_profile(trained, state, batch, name,
-                        what="syncbn_train_profile")
     stats = {k: v.clone() for k, v in trained.module.state_dict().items()
              if "running" in k}
     moved = sum(not torch.equal(v, torch.zeros_like(v) if "mean" in k
@@ -5965,14 +4853,12 @@ def phase_syncbn_train(dev, name):
     print(json.dumps({"phase": "syncbn_eval_after_train", "ok": True,
                       "norms": len(norms), "statistics_moved": moved,
                       "probe_rel_err": err,
-                      "valid_detections": int(det["valid"].sum()),
-                      "card": name}))
-    del trained, state, batch
+                      "valid_detections": int(det["valid"].sum())}))
+    del trained
     torch.cuda.empty_cache()
-    return launches
 
 
-def phase_syncbn_train_net(dev, name):
+def phase_syncbn_train_net(dev):
     """Phase 58: ``paa_tpu_torch.tools.train_net`` with MODEL.USE_SYNCBN
     True on PAA-R50 at full width in bf16 over synth_coco_32 (seeded
     weights, MODEL.WEIGHT empty), IMS_PER_BATCH 8, 3 iterations: finite
@@ -5994,10 +4880,8 @@ def phase_syncbn_train_net(dev, name):
     head = ["--config-file", PAA_CONFIG, "--device", str(dev)]
     seen = {}
     zero_launch_counts()
-    t0 = time.perf_counter()
     rc = train_net.main(head + ["--skip-test"] + opts,
                         metric_hook=lambda i, m: seen.update({i: m}))
-    train_s = time.perf_counter() - t0
     train_launches = launch_counts()
     check(rc == 0 and sorted(seen) == [1, 2, 3] and all(
         math.isfinite(v) for m in seen.values() for v in m.values())
@@ -6042,15 +4926,13 @@ def phase_syncbn_train_net(dev, name):
         f"launches {launches}, results {results}")
     print(json.dumps({"phase": "syncbn_train_net", "ok": True,
                       "losses": [seen[i]["loss"] for i in sorted(seen)],
-                      "train_s": train_s, "statistics": len(stats),
+                      "statistics": len(stats),
                       "train_launches": train_launches,
-                      "test_net_launches": launches, "ap_table": results,
-                      "card": name}))
+                      "test_net_launches": launches, "ap_table": results}))
     shutil.rmtree(tmp, ignore_errors=True)
-    return {k: train_launches[k] + launches[k] for k in launches}
 
 
-def phase_mobile_and_syncbn(dev, name):
+def phase_mobile_and_syncbn(dev):
     """Phases 52-58 (after phase 51): FCOS-MNV2 (52: serving, the f32 model
     on the card against the CPU, training at B=16, ``phase_dense``);
     FBNet Mask R-CNN _600 (53: serving; 54: the f32 model and masks on
@@ -6059,22 +4941,12 @@ def phase_mobile_and_syncbn(dev, name):
     x1.05 beyond; 55: training at B=16, ``test_net`` over synth_coco_32
     with cv2 blocked); FBNet cham_v1a and xirb16d_dsmask serving (56);
     PAA-R50 with MODEL.USE_SYNCBN training and eval (57) and train_net /
-    test_net (58). Returns the launch counts by path and the NMS
-    kernels' details by path."""
-    launches, k1, k2 = {}, {}, {}
-    t0 = time.perf_counter()
-    mnv2 = phase_dense(dev, "fcos_mnv2", name, MNV2_CONFIG,
-                       train_reference=False)
-    launches.update(fcos_mnv2=mnv2["serving"],
-                    fcos_mnv2_train=mnv2["training"])
-    k1["fcos_mnv2"] = mnv2["k1"]
+    test_net (58)."""
+    phase_dense(dev, "fcos_mnv2", MNV2_CONFIG, train_reference=False)
     frozen_bn = {kind: calibrated_frozen_bn(path)
                  for kind, path in FBNET_CONFIGS.items()}
     for kind in FBNET_CONFIGS:
-        launches[kind], k1_kind, k2_kind = phase_fbnet_serving(
-            dev, name, kind, frozen_bn[kind])
-        k1.update(k1_kind)
-        k2.update(k2_kind)
+        phase_fbnet_serving(dev, kind, frozen_bn[kind])
         if kind == "fbnet_mask_rcnn":
             mask_rcnn_card_vs_cpu(
                 dev, lambda dtype, device: seeded_fbnet(
@@ -6085,23 +4957,18 @@ def phase_mobile_and_syncbn(dev, name):
     # linearly scaled learning rate (at the config's 0.06 the seeded
     # model's losses swing and its RPN's boxes reach NaN by step 20)
     cfg = build_cfg("bfloat16", FBNET_CONFIGS[kind])
-    launches[f"{kind}_train"], detail = phase_two_stage_train(
-        dev, name, kind, frozen_bn[kind], hw=hw, size=size,
+    phase_two_stage_train(
+        dev, kind, frozen_bn[kind], hw=hw, size=size,
         extra=["SOLVER.IMS_PER_BATCH", 16, "SOLVER.BASE_LR",
                cfg.SOLVER.BASE_LR * 16 / cfg.SOLVER.IMS_PER_BATCH])
-    (k2 if detail["kernel_detail"] == "nms_global" else k1)[
-        f"{kind}_train_rpn"] = detail
     phase_two_stage_train_reference(dev, frozen_bn[kind],
                                     FBNET_CONFIGS[kind], REFERENCE_ROIS,
                                     f"{kind}_train_card_vs_cpu")
-    launches[f"{kind}_test_net"] = phase_mask_rcnn_test_net(
-        dev, name, FBNET_CONFIGS[kind], f"{kind}_test_net", reference=False)
-    launches["syncbn_train"] = phase_syncbn_train(dev, name)
-    launches["syncbn_train_net"] = phase_syncbn_train_net(dev, name)
+    phase_mask_rcnn_test_net(dev, FBNET_CONFIGS[kind], f"{kind}_test_net",
+                             reference=False)
+    phase_syncbn_train(dev)
+    phase_syncbn_train_net(dev)
     torch.cuda.empty_cache()
-    print(json.dumps({"phase": "mobile_and_syncbn", "ok": True,
-                      "wall_s": time.perf_counter() - t0, "card": name}))
-    return launches, k1, k2
 
 
 # ---- phases 59-63: Pascal VOC, the serving artifact, the poolers ------------
@@ -6140,17 +5007,17 @@ def seeded_voc(frozen_bn, dtype, device, extra=()):
 def voc_predictions(model, dataset):
     """``compute_on_dataset`` over ``dataset`` with the model's config,
     the boxes back to xyxy (the VOC evaluation's glue): (predictions,
-    model seconds, images)."""
+    images)."""
     from paa_tpu_torch.data.loader import make_data_loader
     from paa_tpu_torch.engine.inference import compute_on_dataset
     from paa_tpu_torch.evaluation import voc_eval
 
-    preds, model_s, n_images, _ = compute_on_dataset(
+    preds, _, n_images, _ = compute_on_dataset(
         model, make_data_loader(model.cfg, dataset, is_train=False))
-    return voc_eval.predictions_from_xywh(preds), model_s, n_images
+    return voc_eval.predictions_from_xywh(preds), n_images
 
 
-def phase_voc_eval(dev, name, frozen_bn):
+def phase_voc_eval(dev, frozen_bn):
     """Phase 59: the VOC eval path at full width: the synthetic catalog's
     voc_2007_test (16 PPM images of VOC's sizes under .jpg names,
     difficult objects kept) through ``build_dataset``, the loader
@@ -6159,8 +5026,7 @@ def phase_voc_eval(dev, name, frozen_bn):
     ``do_voc_evaluation``: a finite mAP and the 20-class table (random
     weights: not an accuracy), K1 twice an image (the RPN's 1 x 6,000
     with 300 picks, the box head's 20 x 300 = 6,000 with 100 picks) and
-    no other kernel, K1 bit-equal to its plain version at both inputs
-    and timed there. Returns the launch counts and K1's details."""
+    no other kernel, K1 bit-equal to its plain version at both inputs."""
     import logging
 
     from paa_tpu_torch.data.build import build_dataset
@@ -6175,9 +5041,7 @@ def phase_voc_eval(dev, name, frozen_bn):
           f"voc_eval: dataset {type(dataset).__name__} of {len(dataset)}")
     with recording_k1_inputs() as k1_inputs:
         zero_launch_counts()
-        t0 = time.perf_counter()
-        preds, model_s, n_images = voc_predictions(model, dataset)
-        wall = time.perf_counter() - t0
+        preds, n_images = voc_predictions(model, dataset)
         launches = launch_counts()
         result = voc_eval.do_voc_evaluation(
             dataset, preds, logger=logging.getLogger("chip_smoke.voc"))
@@ -6199,10 +5063,9 @@ def phase_voc_eval(dev, name, frozen_bn):
                             cfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG)}
     shapes = {(*a[1].shape, a[5]) for a in k1_inputs}
     check(shapes == want, f"voc_eval: K1 at {shapes}, expected {want}")
-    k1 = {}
     for what, max_out in (("voc_c4_rpn", picks), ("voc_c4_box_head", 100)):
-        args = next(a for a in k1_inputs if a[5] == max_out)
-        k1[what] = k1_at_path_inputs(args, what, name)
+        k1_at_path_inputs(next(a for a in k1_inputs if a[5] == max_out),
+                          what)
     # a class without a GT has no AP (NaN): null in the table
     table = {dataset.map_class_id_to_class_name(i):
              None if math.isnan(ap) else float(ap)
@@ -6211,12 +5074,9 @@ def phase_voc_eval(dev, name, frozen_bn):
                       os.path.relpath(VOC_CONFIG, ROOT),
                       "images": n_images, "batch": cfg.TEST.IMS_PER_BATCH,
                       "launches": launches, "mAP": result["map"],
-                      "ap_by_class": table, "model_s": model_s,
-                      "end_to_end_img_per_s": n_images / wall,
-                      "model_img_per_s": n_images / model_s, "card": name}))
+                      "ap_by_class": table}))
     del model, k1_inputs
     torch.cuda.empty_cache()
-    return launches, k1
 
 
 def match_voc_predictions(card_preds, cpu_preds, what):
@@ -6242,7 +5102,7 @@ def match_voc_predictions(card_preds, cpu_preds, what):
             "cpu_detections": n_cpu}
 
 
-def phase_voc_card_vs_cpu(dev, name):
+def phase_voc_card_vs_cpu(dev):
     """Phase 60: the VOC eval path of the narrow C4 model (VOC_REF: the
     CPU tests' body, 256 x 320 buckets, B=2) in float32 (TF32 off) on the
     card and on the CPU from the same weights, over a 4-image synthetic
@@ -6261,13 +5121,13 @@ def phase_voc_card_vs_cpu(dev, name):
     frozen_bn = calibrated_frozen_bn(VOC_CONFIG, VOC_NARROW)
     models = {d: seeded_voc(frozen_bn, "float32", d, VOC_REF)
               for d in (dev, "cpu")}
-    first, _, _ = voc_predictions(models["cpu"],
+    first, _ = voc_predictions(models["cpu"],
                                   PascalVOCDataset(root, "test", True))
     voc_ground_truth(PascalVOCDataset(root, "test", True), first)
     dataset = PascalVOCDataset(root, "test", True)
     preds, results = {}, {}
     for device in (dev, "cpu"):
-        preds[device], _, _ = voc_predictions(models[device], dataset)
+        preds[device], _ = voc_predictions(models[device], dataset)
         results[device] = voc_eval.do_voc_evaluation(dataset,
                                                      preds[device])
     matched = match_voc_predictions(preds[dev], preds["cpu"],
@@ -6283,10 +5143,10 @@ def phase_voc_card_vs_cpu(dev, name):
                       results[dev]["map"], "map_cpu": results["cpu"]["map"],
                       "ap_abs_err": float(np.nanmax(np.abs(ap_card
                                                            - ap_cpu))),
-                      **matched, "card": name}))
+                      **matched}))
 
 
-def phase_voc_train(dev, name, frozen_bn):
+def phase_voc_train(dev, frozen_bn):
     """Phase 61: VOC_TRAIN_STEPS do_train steps of the full-width bf16
     VOC C4 model (seed 0, calibrated FrozenBN) from the loader over its
     DATASETS.TRAIN, the synthetic
@@ -6295,8 +5155,7 @@ def phase_voc_train(dev, name, frozen_bn):
     IMS_PER_BATCH 1 and BASE_LR 0.001: finite losses, K2 once a step
     (the training RPN's 1 x 12,000, PRE_NMS_TOP_N_TRAIN, above K1's
     8,192) and no other kernel, K2 bit-equal to its plain version at the
-    first step's rows and timed there. Returns the launch counts and the
-    NMS kernel's detail."""
+    first step's rows."""
     from paa_tpu_torch.data.build import build_dataset
     from paa_tpu_torch.data.concat import ConcatDataset
     from paa_tpu_torch.data.loader import make_data_loader
@@ -6324,11 +5183,8 @@ def phase_voc_train(dev, name, frozen_bn):
     with recording_k1_inputs() as k1_inputs, \
             recording_k2_inputs() as k2_inputs:
         zero_launch_counts()
-        t0 = time.perf_counter()
         do_train(cfg, model, state, make_data_loader(cfg, dataset, True),
                  metric_hook=lambda i, m: seen.update({i: m}))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
         launches = launch_counts()
     expected = {"nms_batched": 0, "nms_global": 0, "group_norm_relu": 0,
                 "deform_im2col": 0, "deform_col2im": 0,
@@ -6342,29 +5198,24 @@ def phase_voc_train(dev, name, frozen_bn):
                       VOC_TRAIN_STEPS, "batch": cfg.SOLVER.IMS_PER_BATCH,
                       "rpn_rows": [1, per_row], "rpn_nms": kernel,
                       "launches": launches, "losses": [
-                          seen[i]["loss"] for i in sorted(seen)],
-                      "do_train_s": wall, "card": name}))
+                          seen[i]["loss"] for i in sorted(seen)]}))
     del model, state
     torch.cuda.empty_cache()
     # the RPN's NMS at the first step's rows, against its plain version
     if kernel == "nms_global":
-        detail = k2_at_path_inputs(k2_inputs[0], "voc_c4_train_rpn", name,
-                                   reps=5)
+        k2_at_path_inputs(k2_inputs[0], "voc_c4_train_rpn")
     else:
-        detail = k1_at_path_inputs(k1_inputs[0], "voc_c4_train_rpn", name)
-    return launches, {"voc_c4_train_rpn": detail}
+        k1_at_path_inputs(k1_inputs[0], "voc_c4_train_rpn")
 
 
 # serves an artifact in a process of its own, with torch and
 # paa_tpu_torch.serving alone: argv artifact, requests, outputs
 ARTIFACT_SERVE = r"""
-import json, sys, time
+import json, sys
 import torch
 from paa_tpu_torch.serving import load_exported
 from paa_tpu_torch.ops import deform_sampling, group_norm, nms
-t0 = time.perf_counter()
 call, meta = load_exported(sys.argv[1])
-load_s = time.perf_counter() - t0
 reqs = torch.load(sys.argv[2])
 call(*reqs[0])
 torch.cuda.synchronize()
@@ -6380,20 +5231,13 @@ launches = {"nms_batched": nms.nms_batched.launches,
             "group_norm_relu": group_norm.group_norm_relu.launches,
             "deform_im2col": deform_sampling.deform_im2col.launches,
             "deform_col2im": deform_sampling.deform_col2im.launches}
-torch.cuda.synchronize()
-t0 = time.perf_counter()
-for _ in range(5):
-    call(*reqs[0])
-torch.cuda.synchronize()
-request_s = (time.perf_counter() - t0) / 5
 torch.save(dets, sys.argv[3])
 loaded = sorted(m for m in sys.modules if m.startswith("paa_tpu"))
-print(json.dumps({"meta": meta, "load_s": load_s, "launches": launches,
-                  "request_s": request_s, "modules": loaded}))
+print(json.dumps({"meta": meta, "launches": launches, "modules": loaded}))
 """
 
 
-def phase_serving_artifact(dev, name):
+def phase_serving_artifact(dev):
     """Phase 62: PAA-R50 at full width (bf16, phase 5's seeded weights
     and cls bias) exported at B=8 x 800 x 1344 on the card
     (``serving.export_inference``) and saved; a process that imports
@@ -6401,22 +5245,16 @@ def phase_serving_artifact(dev, name):
     loads it and serves three requests (float32 normalized images, as
     the artifact takes them): K1 3 and K3 120 launches, every detection
     matched to the live eval fn's on the same requests
-    (``match_detections``), whose launches are the same; export seconds,
-    artifact MB, and artifact vs live img/s. Returns the launch counts
-    by path."""
+    (``match_detections``), whose launches are the same."""
     from paa_tpu_torch.ops.image_norm import device_normalize
     from paa_tpu_torch.serving import export_inference, save_exported
 
     model = seeded_model("bfloat16", dev)
     tmp = tempfile.mkdtemp(prefix="paa_serving_")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     exported, meta = export_inference(model, BATCH, HW)
-    export_s = time.perf_counter() - t0
     path = os.path.join(tmp, "paa_r50.paat")
     save_exported(path, exported, meta)
     del exported
-    artifact_mb = os.path.getsize(path) / 1e6
     mean, std = model.cfg.INPUT.PIXEL_MEAN, model.cfg.INPUT.PIXEL_STD
     reqs = []
     for i in range(3):
@@ -6427,18 +5265,11 @@ def phase_serving_artifact(dev, name):
     eval_fn = model.make_eval_fn()
     zero_launch_counts()
     live = [{k: v.cpu() for k, v in eval_fn(*r).items()} for r in reqs]
-    torch.cuda.synchronize()
     live_launches = launch_counts()
     expected = {"nms_batched": 3, "nms_global": 0, "group_norm_relu": 120,
                 "deform_im2col": 0, "deform_col2im": 0}
     check(live_launches == expected,
           f"serving_live: launches {live_launches}, expected {expected}")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        eval_fn(*reqs[0])
-    torch.cuda.synchronize()
-    live_s = (time.perf_counter() - t0) / 5
     del model, eval_fn
     torch.cuda.empty_cache()
     proc = subprocess.run(
@@ -6462,24 +5293,19 @@ def phase_serving_artifact(dev, name):
     shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({
         "phase": "serving_artifact", "ok": True, "batch": BATCH, "hw": HW,
-        "dtype": "bfloat16", "meta": out["meta"], "export_s": export_s,
-        "artifact_mb": artifact_mb, "load_s": out["load_s"],
+        "dtype": "bfloat16", "meta": out["meta"],
         "launches": out["launches"], "live_launches": live_launches,
-        "valid_detections": n_valid, "matched": matched,
-        "artifact_img_per_s": BATCH / out["request_s"],
-        "live_img_per_s": BATCH / live_s, "card": name}))
-    return {"paa_artifact": out["launches"],
-            "paa_artifact_live": live_launches}
+        "valid_detections": n_valid, "matched": matched}))
 
 
-def phase_poolers_card_vs_cpu(dev, name):
+def phase_poolers_card_vs_cpu(dev):
     """Phase 63: ``roi_pool`` (128 rois over two 256 x 50 x 84 maps,
     7 x 7 at 1/16, equal: a max) and ``deform_psroi_pool`` (R-FCN's
     layout: 7 x 7 groups of 8 channels over 392 x 50 x 84, 100 rois, 2
     classes' offsets, 4 x 4 samples a bin; the pooled values within 1e-5
     of their largest, the gradients of the features and the offsets
     within 1e-4 of theirs: the card's index adds run in another order)
-    on the card against the CPU, each timed on the card."""
+    on the card against the CPU."""
     from paa_tpu_torch.ops.deform_pool import deform_psroi_pool
     from paa_tpu_torch.ops.roi_align import roi_pool
 
@@ -6492,8 +5318,6 @@ def phase_poolers_card_vs_cpu(dev, name):
     got = roi_pool(feat.to(dev), rois.to(dev), bidx.to(dev), (7, 7), 1 / 16)
     want = roi_pool(feat, rois, bidx, (7, 7), 1 / 16)
     check(torch.equal(got.cpu(), want), "roi_pool: card vs CPU")
-    pool_ms = cuda_ms(lambda: roi_pool(feat.to(dev), rois.to(dev),
-                                       bidx.to(dev), (7, 7), 1 / 16), 5)
     kw = dict(spatial_scale=1 / 16, out_size=7, out_channels=8,
               group_size=7, part_size=7, sample_per_part=4, trans_std=0.1)
     feat = torch.randn(2, 8 * 49, 50, 84, generator=gen)
@@ -6514,33 +5338,19 @@ def phase_poolers_card_vs_cpu(dev, name):
         errs[key] = float((g - w).abs().max() / w.abs().max())
     check(errs["pooled"] <= 1e-5 and errs["d_features"] <= 1e-4
           and errs["d_offsets"] <= 1e-4, f"deform_psroi_pool: {errs}")
-    f, t = feat.to(dev), trans.to(dev)
-    deform_ms = cuda_ms(lambda: deform_psroi_pool(
-        f, rois[:100].to(dev), bidx[:100].to(dev), t, **kw), 5)
     print(json.dumps({"phase": "poolers_card_vs_cpu", "ok": True,
-                      "roi_pool_ms": pool_ms, "deform_psroi_pool_ms":
-                      deform_ms, "rel_err": errs, "card": name}))
+                      "rel_err": errs}))
 
 
-def phase_voc_serving_poolers(dev, name):
+def phase_voc_serving_poolers(dev):
     """Phases 59-63 (after phase 19): the VOC eval path, its card-vs-CPU
-    check and training; the serving artifact; the poolers. Returns the
-    launch counts by path and K1's and K2's details by path."""
-    t0 = time.perf_counter()
+    check and training; the serving artifact; the poolers."""
     frozen_bn = calibrated_frozen_bn(VOC_CONFIG)
-    launches = {}
-    launches["voc_c4_eval"], k1 = phase_voc_eval(dev, name, frozen_bn)
-    phase_voc_card_vs_cpu(dev, name)
-    launches["voc_c4_train"], train_rpn = phase_voc_train(dev, name,
-                                                          frozen_bn)
-    k2 = {}
-    (k2 if train_rpn["voc_c4_train_rpn"]["kernel_detail"] == "nms_global"
-     else k1).update(train_rpn)
-    launches.update(phase_serving_artifact(dev, name))
-    phase_poolers_card_vs_cpu(dev, name)
-    print(json.dumps({"phase": "voc_serving_poolers", "ok": True,
-                      "wall_s": time.perf_counter() - t0, "card": name}))
-    return launches, k1, k2
+    phase_voc_eval(dev, frozen_bn)
+    phase_voc_card_vs_cpu(dev)
+    phase_voc_train(dev, frozen_bn)
+    phase_serving_artifact(dev)
+    phase_poolers_card_vs_cpu(dev)
 
 
 # the overfit gate's iterations in phase 64: the whole gate (1,500) took
@@ -6551,12 +5361,11 @@ GATE_ITERS = 150
 # the gate's K3 launches: 2 towers x 2 GroupNorm+ReLU x 5 levels a forward
 GATE_K3_PER_FORWARD = 20
 DEMO_IMAGE_HW = (480, 640)
-DEMO_REPS = 10
 # two detections of one label are the same within this many pixels
 DEMO_BOX_TOL, DEMO_SCORE_TOL = 0.5, 1e-3
 
 
-def phase_overfit_gate(dev, name):
+def phase_overfit_gate(dev):
     """Phase 64: the overfit gate (paa_tpu_torch/tools/quick_overfit.py,
     ``run``) on the card: PAA-R50 at 128 FPN channels, 2 tower convs and
     3 classes in float32 trained GATE_ITERS iterations at B=4 on the 8
@@ -6567,16 +5376,13 @@ def phase_overfit_gate(dev, name):
     paa_tpu_torch.tools.quick_overfit --assert``). K3 20
     launches a forward (GATE_K3_PER_FORWARD) in training and evaluation,
     K1 once an eval batch (2), K2 none; K1 bit-equal to its plain version
-    at the eval's first batch, timed. Returns the launch counts and K1's
-    detail."""
+    at the eval's first batch."""
     from paa_tpu_torch.tools import quick_overfit
 
     with tempfile.TemporaryDirectory() as tmp, \
             recording_k1_inputs() as k1_inputs:
         zero_launch_counts()
-        t0 = time.perf_counter()
         r = quick_overfit.run(GATE_ITERS, tmp, device=dev)
-        wall = time.perf_counter() - t0
         launches = launch_counts()
     eval_batches = 2  # 4 images in each of the two buckets
     expected = {"nms_batched": eval_batches, "nms_global": 0,
@@ -6591,11 +5397,10 @@ def phase_overfit_gate(dev, name):
     check(all(gate.values()), f"overfit_gate: {gate}: {r}")
     print(json.dumps({"phase": "overfit_gate", "ok": True,
                       "iterations": GATE_ITERS, "gate": list(gate),
-                      **r, "ms_per_iteration": r["train_s"] / GATE_ITERS
-                      * 1e3, "wall_s": wall, "launches": launches,
-                      "card": name}))
-    detail = k1_at_path_inputs(k1_inputs[0], "overfit_gate_eval", name)
-    return launches, {"overfit_gate_eval": detail}
+                      **{k: r[k] for k in ("first_loss", "final_loss", "ap",
+                                           "ap50")},
+                      "launches": launches}))
+    k1_at_path_inputs(k1_inputs[0], "overfit_gate_eval")
 
 
 def match_all_detections(got, want, what):
@@ -6624,7 +5429,7 @@ def match_all_detections(got, want, what):
             "exempt_below_score": cut}
 
 
-def phase_demo(dev, name):
+def phase_demo(dev):
     """Phase 65: the demo (paa_tpu_torch/demo/predictor.py, ``COCODemo``)
     of the flagship config at full width in float32 (TF32 off, as the
     phases after phase 4 run), weights from seed 0 and the cls bias of
@@ -6632,10 +5437,8 @@ def phase_demo(dev, name):
     (resized to 800 x 1067 and padded to 800 x 1088, a shape no bucket
     has), at confidence threshold 0: the card's detections against the
     same demo on the CPU, every one matched (``match_all_detections``);
-    ms per image on the host clock (resize, normalize, forward,
-    post-processing, detections on the host); K1 once and K3 40 times a
-    call; K1 bit-equal to its plain version at its input, timed. Returns
-    the launch counts of one call and K1's detail."""
+    K1 once and K3 40 times a call; K1 bit-equal to its plain version at
+    its input."""
     from paa_tpu_torch.demo.predictor import COCODemo
     from paa_tpu_torch.tools.bench_common import lift_cls_bias
 
@@ -6653,10 +5456,6 @@ def phase_demo(dev, name):
             zero_launch_counts()
             out["card"] = demo.compute_prediction(image)
             launches = launch_counts()
-        t0 = time.perf_counter()
-        for _ in range(DEMO_REPS):
-            demo.compute_prediction(image)
-        ms = (time.perf_counter() - t0) / DEMO_REPS * 1e3
         del demo
         torch.cuda.empty_cache()
     expected = {"nms_batched": 1, "nms_global": 0,
@@ -6667,23 +5466,19 @@ def phase_demo(dev, name):
     matched = match_all_detections(out["card"], out["cpu"], "demo")
     print(json.dumps({"phase": "demo", "ok": True,
                       "image_hw": DEMO_IMAGE_HW, "dtype": "float32",
-                      "ms_per_image_host_clock": ms, "reps": DEMO_REPS,
-                      "launches": launches, **matched, "card": name}))
-    detail = k1_at_path_inputs(k1_inputs[0], "demo", name)
-    return launches, {"demo": detail}
+                      "launches": launches, **matched}))
+    k1_at_path_inputs(k1_inputs[0], "demo")
 
 
-def check_profile_train_step_cli(run, name, side_by_side):
+def check_profile_train_step_cli(run):
     """Phase 66: ``python -m paa_tpu_torch.tools.profile_train_step
     --batch 2 --steps 1`` (PAA-R50, bf16, 800 x 1344) in a process of its
-    own, ``run`` its (exit code, stdout, stderr, seconds): exit 0, its
-    span table printed, and in its JSON line the input, the body (whose
-    span the forward's holds), the backward and the optimizer with
-    device time in each, the spans' host ms outside their
-    nested spans at most the wall, K3's launches (40 a forward; no K1 or
-    K2 in a PAA step). Phase 14's profile comes from the same module's
-    ``profile_steps``. Returns the launch counts the process reported."""
-    rc, stdout, stderr, wall = run
+    own, ``run`` its (exit code, stdout, stderr): exit 0, its span table
+    printed, and in its JSON line the input, the body (whose span the
+    forward's holds), the backward and the optimizer with device time in
+    each, the spans' host ms outside their nested spans at most the
+    wall, K3's launches (40 a forward; no K1 or K2 in a PAA step)."""
+    rc, stdout, stderr = run
     check(rc == 0, f"profile_train_step: exit {rc}: {stdout[-2000:]} "
                    f"{stderr[-2000:]}")
     r = json.loads(stdout.strip().splitlines()[-1])
@@ -6699,18 +5494,8 @@ def check_profile_train_step_cli(run, name, side_by_side):
           launches["nms_global"] == 0,
           f"profile_train_step: launches {launches}")
     print(json.dumps({"phase": "profile_train_step_cli", "ok": True,
-                      "process_s": wall, "side_by_side": side_by_side,
-                      "device": r["device"],
-                      "step_ms": r["step_ms"], "img_per_s": r["img_per_s"],
-                      "tflop_per_s": r["tflop_per_s"],
-                      "share_of_bf16_peak": r.get("share_of_bf16_peak"),
-                      "device_busy_ms_per_step":
-                          r.get("device_busy_ms_per_step", "not measured"),
-                      "device_idle_share":
-                          r.get("device_idle_share", "not measured"),
-                      "by_span": spans, "launches": launches,
-                      "card": name}))
-    return launches
+                      "device": r["device"], "spans": sorted(spans),
+                      "launches": launches}))
 
 
 # phase 66: the train-step profiler's CLI
@@ -6745,10 +5530,9 @@ def run_together(cmds, deadline_s, meanwhile=None):
     """Runs each command of ``cmds`` ({name: argv}) in a process of its
     own, all started together from the repo's root, calls
     ``meanwhile()`` (if given) while they run, and waits for all.
-    Returns ({name: (exit code, stdout, stderr, seconds)}, what
-    ``meanwhile`` returned); a process still running after
-    ``deadline_s`` is killed, and every process is gone when this
-    returns or raises."""
+    Returns ({name: (exit code, stdout, stderr)}, what ``meanwhile``
+    returned); a process still running after ``deadline_s`` is killed,
+    and every process is gone when this returns or raises."""
     with tempfile.TemporaryDirectory() as tmp:
         procs, t0 = {}, time.perf_counter()
         try:
@@ -6766,10 +5550,9 @@ def run_together(cmds, deadline_s, meanwhile=None):
                 except subprocess.TimeoutExpired:
                     proc.kill()
                     rc = proc.wait()
-                wall = time.perf_counter() - t0
                 out.seek(0)
                 err.seek(0)
-                done[what] = (rc, out.read(), err.read(), wall)
+                done[what] = (rc, out.read(), err.read())
         finally:
             for proc, out, err in procs.values():
                 if proc.poll() is None:
@@ -6794,7 +5577,7 @@ def check_tool_launches(what, got, forwards, nms_calls):
     check(got == expected, f"{what}: launches {got}, expected {expected}")
 
 
-def bench_tools_in_process(dev, name):
+def bench_tools_in_process(dev):
     """Phase 67's paths in this process, so that K1 and K3 are held to
     their plain versions at the inputs these paths give them: bench's
     timed call (``bench.serve``: PAA-R50 with the lift, B=2, 1 timed
@@ -6807,14 +5590,13 @@ def bench_tools_in_process(dev, name):
     version at every input these runs gave it (``recording_k1_inputs``).
     K3's shapes, among them the B=2 towers at 800 x 1344 and the TTA's
     buckets (all checked to be among them), are held by
-    ``phase_k3_at_path_shapes`` with the others'. Returns the launch
-    counts by path and the K3 shapes launched."""
+    ``phase_k3_at_path_shapes`` with the others'. Returns the K3 shapes
+    launched."""
     from paa_tpu_torch.modeling import build_detection_model
     from paa_tpu_torch.ops import nms
     from paa_tpu_torch.tools import bench, bench_dcnv2, bench_tta
     from paa_tpu_torch.tools.bench_common import lift_cls_bias
 
-    t0 = time.perf_counter()
     runs = {}
     with recording_k1_inputs() as k1_inputs, \
             recording_k3_launches() as k3_seen:
@@ -6864,13 +5646,9 @@ def bench_tools_in_process(dev, name):
         "k1_valid_candidates": [int(args[3].sum()) for args in k1_inputs],
         "k3_shapes": sorted(k3_shapes),
         **{f"{path}_launches": r["launches"] for path, r in runs.items()},
-        "bench_work_per_image": runs["bench"]["work_per_image"],
-        "bench_dcnv2_img_per_s": runs["bench_dcnv2"]["value"],
         "tta_detections": runs["bench_tta"]["detections"],
-        "tta_input_shapes": runs["bench_tta"]["input_shapes"],
-        "wall_s": time.perf_counter() - t0, "card": name}))
-    return ({f"{path}_in_process": r["launches"] for path, r in runs.items()},
-            k3_shapes)
+        "tta_input_shapes": runs["bench_tta"]["input_shapes"]}))
+    return k3_shapes
 
 
 def phase_cli_tools(dev, name):
@@ -6883,17 +5661,14 @@ def phase_cli_tools(dev, name):
     process of its own, the five started together (``run_together``),
     and while they run ``bench_tools_in_process`` in this process (run
     one after another, the processes took 106-142 s of the script,
-    mostly each one's start and first calls; side by side their timings
-    are a smoke reading, and the tools' numbers in PERF.md come from
-    runs alone). Each tool: exit 0, its last line one JSON object with
-    the JAX tool's keys, ``device.name`` this card's, ``value`` > 0; the
-    model tools' clocks read at both ends of the timed window, their
-    K1/K3 launches (BENCH_FORWARDS, BENCH_NMS; no K2), bench's NMS
+    mostly each one's start and first calls). Each tool: exit 0, its
+    last line one JSON object with the JAX tool's keys, ``device.name``
+    this card's (``name``: nvidia-smi's name and power limit), ``value``
+    > 0; the model tools' clocks read at both ends of the timed window,
+    their K1/K3 launches (BENCH_FORWARDS, BENCH_NMS; no K2), bench's NMS
     candidates per image > 0 (the lift), a finite train loss, TTA's 3
     padded input shapes for 6 augmentations and the X-152 bound 26 ->
-    13. Returns the profiler's launch counts, the launch counts of each
-    model tool's run (the processes' and this process's) and the K3
-    shapes launched here."""
+    13. Returns the K3 shapes launched in this process."""
     card_name = name.split(",")[0].strip()
     keys = {"bench": ("metric", "value", "unit", "vs_baseline", "batch",
                       "first_call_s"),
@@ -6908,15 +5683,13 @@ def phase_cli_tools(dev, name):
                                else [])
                  for path, argv in BENCH_TOOLS.items()}
         argvs["profile_train_step"] = PROFILE_CLI
-        runs, (launches, k3_shapes) = run_together(
+        runs, k3_shapes = run_together(
             {path: [sys.executable, "-m", f"paa_tpu_torch.tools.{argv[0]}",
                     *argv[1:]] for path, argv in argvs.items()}, 600,
-            meanwhile=lambda: bench_tools_in_process(dev, name))
-    side_by_side = list(argvs)
-    profile_launches = check_profile_train_step_cli(
-        runs.pop("profile_train_step"), name, side_by_side)
+            meanwhile=lambda: bench_tools_in_process(dev))
+    check_profile_train_step_cli(runs.pop("profile_train_step"))
     for path, argv in BENCH_TOOLS.items():
-        rc, stdout, stderr, wall = runs[path]
+        rc, stdout, stderr = runs[path]
         check(rc == 0, f"{path}: exit {rc}: {stdout[-2000:]} "
                        f"{stderr[-2000:]}")
         r = json.loads(stdout.strip().splitlines()[-1])
@@ -6925,20 +5698,12 @@ def phase_cli_tools(dev, name):
               and r["device"]["name"] == card_name,
               f"{path}: keys {sorted(r)} (want {want}), value "
               f"{r.get('value')}, device {r.get('device')} on {card_name}")
-        summary = {k: r[k] for k in ("metric", "value", "unit",
-                                      "first_call_s", "first_pass_s",
-                                      "ms_per_call", "loss",
-                                      "work_per_image", "input_shapes",
-                                      "stages_ms", "loader", "host_cores",
-                                      "device", "clocks", "launches")
-                   if k in r}
         if path in BENCH_FORWARDS:
             check_tool_launches(path, r["launches"], BENCH_FORWARDS[path],
                                 BENCH_NMS[path])
             check(all(isinstance(r["clocks"][end]["sm_mhz"], float)
                       for end in ("start", "end")),
                   f"{path}: clocks {r['clocks']}")
-            launches[path] = r["launches"]
         if path == "bench":
             check(r["work_per_image"]["nms_candidates"] > 0,
                   f"bench: work {r['work_per_image']}")
@@ -6949,10 +5714,30 @@ def phase_cli_tools(dev, name):
                   and r["x152_bound"] == {"augs": 26, "input_shapes": 13},
                   f"bench_tta: {r}")
         print(json.dumps({"phase": f"bench_tools_{path}", "ok": True,
-                          "argv": argv, "process_s": wall,
-                          "side_by_side": side_by_side, **summary,
-                          "card": name}))
-    return profile_launches, launches, k3_shapes
+                          "argv": argv,
+                          **{k: r[k] for k in ("metric", "unit", "launches")
+                             if k in r}}))
+    return k3_shapes
+
+
+# the kernels of the ``kernels`` line: op name and CUDA source
+KERNELS = (("nms_batched", "nms_batched.cu"), ("nms_global", "nms_global.cu"),
+           ("group_norm_relu", "group_norm.cu"),
+           ("deform_im2col", "deform_im2col.cu"),
+           ("deform_col2im", "deform_col2im.cu"))
+
+
+def kernels_line(errors, per):
+    """The ``kernels`` JSON: each kernel's largest error against its plain
+    version in the phases that compare them (``errors``; 0.0 where they
+    must be bit-equal) and its launches a call or a step on each main
+    path of ``per`` ({path: launch counts a call or step}, as the
+    phases asserted them) that launches it."""
+    return {"kernels": [
+        {"name": k, "source": f"paa_tpu_torch/csrc/{src}",
+         "max_err": errors[k],
+         "launches": {path: n[k] for path, n in per.items() if n[k]}}
+        for k, src in KERNELS]}
 
 
 def main():
@@ -6963,212 +5748,81 @@ def main():
 
     dev = torch.device("cuda", 0)
     name = card()
-    t0 = time.perf_counter()
-    built = _build.build_all()
-    print(json.dumps({"phase": "build", "nvcc_s": built,
-                      "build_s": time.perf_counter() - t0,
-                      "torch": torch.__version__,
+    _build.build_all()
+    print(json.dumps({"phase": "build", "torch": torch.__version__,
                       "cuda": torch.version.cuda}))
-
-    def stamp(done):
-        """The script's seconds so far, after the phases ``done``."""
-        print(json.dumps({"stamp": done,
-                          "elapsed_s": time.perf_counter() - t0}))
-
     phase_nms(dev)
     phase_nms_global(dev)
-    gn_err = phase_group_norm(dev)
-    stamp("1-4 kernels against their plain versions")
+    k3_err = phase_group_norm(dev)
     with recording_k3_launches() as k3_launches:
-        paa, paa_eval, paa_launches = phase_main_path(dev)
+        with recording_k1_inputs() as paa_k1:
+            paa = phase_main_path(dev)
         phase_reference(dev)
-        frcnn, frcnn_eval, frcnn_launches = phase_frcnn_main_path(dev)
+        with recording_k1_inputs() as frcnn_k1, \
+                recording_k2_inputs() as frcnn_k2:
+            frcnn = phase_frcnn_main_path(dev)
         phase_frcnn_reference(dev)
-        eval_launches = phase_eval_main_path(dev, name)
+        phase_nms_at_main_path_inputs(paa_k1[0], frcnn_k1[0], frcnn_k2[0])
+        del paa_k1, frcnn_k1, frcnn_k2
+        phase_eval_main_path(dev)
         phase_eval_card_vs_cpu(dev)
         phase_gn_grad(dev)
-        trained, state, batch, train_launches = phase_train_main_path(
-            dev, name)
+        _, paa_train = phase_train_main_path(dev)
         phase_train_reference(dev)
-        stamp("5-8, 11-13, 15-16 PAA and Faster R-CNN serving, eval, "
-              "training")
-        k1, k3 = phase_timing(dev, paa, paa_eval, paa_launches, gn_err, name)
-        k2, k1_rpn = phase_frcnn_timing(dev, frcnn, frcnn_eval,
-                                        frcnn_launches, name)
-        phase_train_timing(trained, state, batch, name)
-        # K1 serves every inference path: its launches are the main
-        # paths' runs, its times those at PAA's candidates, with the RPN's
-        # beside them
-        by_path = {"paa": paa_launches["nms_batched"],
-                   "faster_rcnn": frcnn_launches["nms_batched"],
-                   "paa_eval": eval_launches["nms_batched"]}
-        k1.update(launches=sum(by_path.values()), launches_by_path=by_path,
-                  faster_rcnn_rpn=k1_rpn)
-        by_path = {"faster_rcnn": frcnn_launches["nms_global"]}
-        k2.update(launches=sum(by_path.values()), launches_by_path=by_path)
-        # K3 serves PAA's serving, eval and training paths: its times are
-        # per serving forward (B=8), with the training forward's (B=16)
-        # beside
-        by_path = {"paa": paa_launches["group_norm_relu"],
-                   "paa_train": train_launches["group_norm_relu"],
-                   "paa_eval": eval_launches["group_norm_relu"]}
-        k3.update(launches=sum(by_path.values()), launches_by_path=by_path)
-        phase_profile(paa, paa_eval, 30, "paa", name)
-        phase_profile(frcnn, frcnn_eval, 60, "faster_rcnn", name)
-        phase_train_profile(trained, state, batch, name)
-        del paa, paa_eval, frcnn, frcnn_eval, trained, state, batch
-        torch.cuda.empty_cache()
-        stamp("9-10, 14 timing and profiles")
         # ATSS, FCOS and RetinaNet through PAA-R50's serving, training and
         # card-vs-CPU phases
-        dense = {head: phase_dense(dev, head, name)
-                 for head in DENSE_CONFIGS}
-        stamp("31 ATSS, FCOS, RetinaNet")
-        # the X-152 dcnv2 path after the others' timings, so that its
-        # model and its cached blocks are not resident while they are timed
+        for head in DENSE_CONFIGS:
+            phase_dense(dev, head)
         with recording_k4_launches() as k4_launches:
-            dcnv2, dcnv2_eval, dcnv2_launches = phase_dcnv2_main_path(dev)
+            dcnv2 = phase_dcnv2_main_path(dev)
         phase_dcn_card_vs_cpu(dev)
         phase_dcnv2_card_vs_cpu(dev)
-        phase_dcnv2_timing(dev, dcnv2, dcnv2_eval, name)
-        del dcnv2, dcnv2_eval
-        torch.cuda.empty_cache()
-        k4 = phase_k4_at_path_shapes(dev, k4_launches, 3, name)
+        k4_err = phase_k4_at_path_shapes(dev, k4_launches, 3)
         del k4_launches
-        stamp("20-23, 68 X-152 dcnv2 serving, K4 at its shapes")
-        phase_dcn_backward_card(dev, name)
-        dcnv2_train_launches, _, k5_launches = phase_dcnv2_train_main_path(
-            dev, name)
-        k5 = phase_k5_at_path_shapes(dev, k5_launches, DCN_TRAIN_STEPS,
-                                     name)
+        phase_dcn_backward_card(dev)
+        dcnv2_train, k5_launches = phase_dcnv2_train_main_path(dev)
+        k5_err = phase_k5_at_path_shapes(dev, k5_launches, DCN_TRAIN_STEPS)
         del k5_launches
         phase_dcnv2_train_card_vs_cpu(dev)
-        stamp("24-26, 69 X-152 dcnv2 training, K5 at its shapes")
-        tta_launches = phase_dcnv2_x152_tta(dev, name)
+        phase_dcnv2_x152_tta(dev)
         phase_tta_card_vs_cpu(dev)
-        atss_tta_launches = phase_atss_tta(dev, name)
-        test_net_launches = phase_dense_test_net(dev, name)
-        stamp("27-28, 32-33 TTA and FCOS test_net")
+        phase_atss_tta(dev)
+        phase_dense_test_net(dev)
         # Mask R-CNN serving, two-stage training, Mask R-CNN's test_net
-        two_stage_launches, k1_two_stage = phase_two_stage(dev, name)
-        stamp("34-38 Mask R-CNN, two-stage training")
+        phase_two_stage(dev)
         # Keypoint R-CNN and the C4 models: serving, training, test_net
-        kp_c4_launches, k1_kp_c4, k2_kp_c4 = phase_keypoint_and_c4(dev, name)
-        stamp("39-44 Keypoint R-CNN, C4")
+        phase_keypoint_and_c4(dev)
         # the GN baselines and the RPN-only models
-        gn_rpn_launches, k1_gn_rpn, k2_gn_rpn, k3_gn = \
-            phase_gn_and_rpn_only(dev, name)
-        stamp("45-51 GN Mask R-CNN, scratch GN Faster R-CNN, RPN-only")
+        phase_gn_and_rpn_only(dev)
         # the mobile bodies (FCOS-MNV2, FBNet) and SyncBN
-        mobile_launches, k1_mobile, k2_mobile = phase_mobile_and_syncbn(
-            dev, name)
-        stamp("52-58 FCOS-MNV2, FBNet, SyncBN")
-        dcnv2_train_net_launches = phase_train_net_from_pkl(
-            dev, name, "dcnv2_train_net_from_pkl")
-        gate_launches = phase_ap_gate(dev, name)
-        train_net_launches = phase_train_net_from_pkl(
-            dev, name, "train_net_from_pkl")
-        stamp("29, 17-18 train_net and the AP gate")
-        phase_ddp_two_ranks(dev, name)
-        stamp("19 two ranks")
+        phase_mobile_and_syncbn(dev)
+        phase_train_net_from_pkl(dev, "dcnv2_train_net_from_pkl")
+        phase_ap_gate(dev)
+        phase_train_net_from_pkl(dev, "train_net_from_pkl")
+        phase_ddp_two_ranks(dev)
         # Pascal VOC, the serving artifact, the poolers
-        voc_launches, k1_voc, k2_voc = phase_voc_serving_poolers(dev, name)
-        stamp("59-63 VOC, the serving artifact, the poolers")
-        # the overfit gate, the demo, the train-step profiler's CLI
-        overfit_launches, k1_overfit = phase_overfit_gate(dev, name)
-        demo_launches, k1_demo = phase_demo(dev, name)
-        stamp("64-65 the overfit gate, the demo")
-        profile_cli_launches, bench_launches, bench_k3_shapes = \
-            phase_cli_tools(dev, name)
-        stamp("66-67 the train-step profiler, the benchmark tools")
-    phase_k3_at_path_shapes(dev, {(shape, relu)
-                                  for shape, _, relu in k3_launches},
-                            bench_k3_shapes)
+        phase_voc_serving_poolers(dev)
+        phase_overfit_gate(dev)
+        phase_demo(dev)
+        # the train-step profiler's CLI, the benchmark tools
+        bench_k3_shapes = phase_cli_tools(dev, name)
+    path_err = phase_k3_at_path_shapes(
+        dev, {(shape, relu) for shape, _, relu in k3_launches},
+        bench_k3_shapes)
     del k3_launches
-    k4["launches_by_path"] = k5["launches_by_path"] = {}
-    for kernel, key in ((k1, "nms_batched"), (k2, "nms_global"),
-                        (k3, "group_norm_relu"), (k4, "deform_im2col"),
-                        (k5, "deform_col2im")):
-        by_path = dict(kernel["launches_by_path"],
-                       paa_dcnv2_x152=dcnv2_launches[key],
-                       paa_dcnv2_x152_tta=tta_launches[key])
-        if kernel is not k2:
-            by_path.update(ap_gate=gate_launches[key],
-                           train_net=train_net_launches[key],
-                           dcnv2_train_net=dcnv2_train_net_launches[key])
-        if kernel in (k3, k4, k5):
-            by_path.update(paa_dcnv2_x152_train=dcnv2_train_launches[key])
-        for head, runs in dense.items():
-            by_path.update({head: runs["serving"][key],
-                            f"{head}_train": runs["training"][key]})
-        by_path.update(atss_tta=atss_tta_launches[key],
-                       fcos_test_net=test_net_launches[key])
-        by_path.update({path: runs[key]
-                        for path, runs in two_stage_launches.items()})
-        by_path.update({path: runs[key]
-                        for path, runs in kp_c4_launches.items()})
-        by_path.update({path: runs[key]
-                        for path, runs in gn_rpn_launches.items()})
-        by_path.update({path: runs[key]
-                        for path, runs in mobile_launches.items()})
-        by_path.update({path: runs[key]
-                        for path, runs in voc_launches.items()})
-        by_path.update(overfit_gate=overfit_launches[key],
-                       demo=demo_launches[key],
-                       profile_train_step=profile_cli_launches[key])
-        by_path.update({path: runs[key]
-                        for path, runs in bench_launches.items()})
-        kernel.update(launches=sum(by_path.values()),
-                      launches_by_path=by_path)
-    # K3's forms: only the GN paths launch GroupNorm alone
-    no_relu = sum(runs["k3_by_form"]["no_relu"]
-                  for runs in gn_rpn_launches.values() if "k3_by_form" in runs)
-    k3["launches_by_form"] = {"relu": k3["launches"] - no_relu,
-                              "no_relu": no_relu}
-    k3["gn_mask_rcnn_per_request"] = k3_gn
-    # K1's time at each dense head's own candidates, beside PAA's
-    fields = ("B", "N", "valid_candidates", "ms", "plain_ms", "bound_ms")
-    k1["at_path_inputs"] = {head: {f: runs["k1"][f] for f in fields}
-                            for head, runs in dense.items()}
-    # and at the two-stage RPN's rows: serving, and training's up to
-    # 2,000 candidates with 2,000 picks
-    k1["at_path_inputs"].update({path: {f: detail[f] for f in fields}
-                                 for path, detail in k1_two_stage.items()})
-    # Keypoint R-CNN's RPN and box head rows, the C4 RPN's 8 x 6,000
-    k1["at_path_inputs"].update({path: {f: detail[f] for f in fields}
-                                 for path, detail in k1_kp_c4.items()})
-    # the GN Mask R-CNN's RPN rows and training RPN, the RPN-only FPN rows
-    k1["at_path_inputs"].update({path: {f: detail[f] for f in fields}
-                                 for path, detail in k1_gn_rpn.items()})
-    # K2 at the C4 box head's 80,000 and the C4 training RPN's 12,000 with
-    # 2,000 picks, beside the Faster R-CNN box head's time; the GN Mask
-    # R-CNN's box head and the RPN-only C4 model's 8 x 12,000 rows
-    k2["at_path_inputs"] = {path: {f: detail[f] for f in fields}
-                            for path, detail in k2_kp_c4.items()}
-    k2["at_path_inputs"].update({path: {f: detail[f] for f in fields}
-                                 for path, detail in k2_gn_rpn.items()})
-    # FCOS-MNV2's candidates; the FBNet RPNs' 8 rows of 6,000, the 320
-    # configs' box heads (8,000 per image) and the training RPN's rows on
-    # K1; the _600 box heads' 16,000 per image on K2
-    k1["at_path_inputs"].update({path: {f: detail[f] for f in fields}
-                                 for path, detail in k1_mobile.items()})
-    k2["at_path_inputs"].update({path: {f: detail[f] for f in fields}
-                                 for path, detail in k2_mobile.items()})
-    # the VOC C4 model's RPN and box head rows (1 x 6,000 each), and its
-    # training RPN's 1 x 12,000 with 2,000 picks on K2
-    k1["at_path_inputs"].update({path: {f: detail[f] for f in fields}
-                                 for path, detail in k1_voc.items()})
-    k2["at_path_inputs"].update({path: {f: detail[f] for f in fields}
-                                 for path, detail in k2_voc.items()})
-    # the overfit gate's eval batches (4 x 64 x 96) and the demo's one
-    # 800 x 1088 image
-    k1["at_path_inputs"].update({path: {f: detail[f] for f in fields}
-                                 for path, detail in {**k1_overfit,
-                                                      **k1_demo}.items()})
-    print(json.dumps({"phase": "script", "wall_s":
-                      time.perf_counter() - t0, "card": name}))
+    errors = {"nms_batched": 0.0, "nms_global": 0.0,
+              "group_norm_relu": {k: max(v, path_err[k])
+                                  for k, v in k3_err.items()},
+              "deform_im2col": k4_err, "deform_col2im": k5_err}
+    per = {"paa serving, a call": (paa, 3),
+           "paa training, a step": (paa_train, TRAIN_STEPS),
+           "faster_rcnn serving, a call": (frcnn, 3),
+           "x152 serving, a call": (dcnv2, 3),
+           "x152 training, a step": (dcnv2_train, DCN_TRAIN_STEPS)}
     print(name)
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
+    print(json.dumps(kernels_line(errors, {
+        path: {k: v // n for k, v in launches.items()}
+        for path, (launches, n) in per.items()})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's K1 (batched NMS), K2 (box-head NMS) and K3
-(GroupNorm+ReLU) of one checkout on an NVIDIA GPU, to compare two
-designs on one card.
+"""Time each kernel of the PyTorch port alone on an NVIDIA GPU, beside
+its bound, its plain version and any library call that computes the
+same function: K1 (batched NMS), K2 (box-head NMS) and K3
+(GroupNorm+ReLU) by default, K4 and K5 (the deformable im2col and
+col2im) on request. PERF.md's kernel table comes from its lines.
 
     python3 kernel_ab.py [--repo PATH] [--tag NAME]
 
 Imports ``paa_tpu_torch`` from PATH (default: this file's directory),
-builds its kernels there, and times them with CUDA events (each run of
-calls queued behind a device-side sleep, so that host launch time does
-not show) on inputs made from fixed seeds, so two checkouts see the same
-data:
+builds its kernels there, and times them with CUDA events (``cuda_ms``:
+each run of calls queued behind a device-side sleep, so that host launch
+time does not show) on inputs made from fixed seeds, so two checkouts
+see the same data. A bound is the least time of a kernel's work at the
+H100's peaks (3.35 TB/s of HBM, 67 TFLOP/s of non-tensor float32):
+its bytes read and written once, or for NMS the IoUs greedy needs
+(``nms_bound``), whichever takes longer.
 
 - K1 through ``ops.nms._nms_batched_cuda`` at two batches, each checked
   bit-equal to ``nms_batched_plain`` first: PAA-like, 8 images of 5
@@ -20,18 +25,23 @@ data:
   sorted by objectness, 1,000 picks at IoU 0.7, class-agnostic. Where
   the candidates sit comes from a smooth random objectness over the
   image, so they cluster as a random network's do (~410 picks per RPN
-  row; the RPN of ``chip_smoke.py``'s Faster R-CNN cell makes ~465).
+  row; a seeded Faster R-CNN's RPN makes ~465). Each beside its bound
+  and its plain version.
 - K2 through ``ops.nms._nms_global``: a batch shaped like the Faster
   R-CNN box head's, 8 images of 1,000 rois x 80 classes = 80,000
   candidates, of which one class per roi is valid (1,000 per image),
   boxes jittered around 100 objects per image, 100 picks at IoU 0.5,
-  class-aware; checked bit-equal to ``nms_batched_plain`` first.
+  class-aware; checked bit-equal to ``nms_batched_plain`` first, then
+  timed beside its bound and its plain version.
 - K3 through ``ops.group_norm.group_norm_relu`` at the five PAA tower
-  shapes of an 8 x 800 x 1344 batch in bfloat16: per launch (the input
-  stays in L2 where it fits, as the convolution that writes it leaves
-  it) and per forward (8 launches per level), device time only, beside
-  ``copy_`` of the same tensor (the card's rate for the same bytes);
-  and the host time of one call.
+  shapes of an 8 x 800 x 1344 batch in bfloat16 (``gn_forward_cost``):
+  per launch (the input stays in L2 where it fits, as the convolution
+  that writes it leaves it) and per forward (8 launches per level),
+  device time only, beside its plain version, ``F.group_norm`` +
+  ``F.relu``, its bytes bound and ``copy_`` of the same tensor (the
+  card's rate for the same bytes); the same at the training batch of 16
+  with the gradient's recompute (the plain version's VJP); and the host
+  time of one call.
 
 Prints one JSON line. ``--k3-sweep`` times K3 alone at other launch
 shapes instead (see ``k3_sweep``); ``--k2-occupancy`` prints how many
@@ -41,8 +51,7 @@ K4 (the deformable im2col) at the X-152 path's DCN shapes (see
 CUDA backward of each layer (see ``time_k5``). To compare
 checkouts A and B, run it in turns on one card (A, B, B, A); each run
 is its own process, since both checkouts name their package
-``paa_tpu_torch``. The timing helpers come from this checkout's
-chip_smoke.py.
+``paa_tpu_torch``. The timing helpers are this checkout's.
 """
 
 import argparse
@@ -54,10 +63,98 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from chip_smoke import GN_PER_LEVEL, TOWER_HW, card, cuda_ms
+from chip_smoke import GN_PER_LEVEL, TOWER_HW, card
 
 HW = (800, 1344)
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and non-tensor f32
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+SLEEP_CYCLES = 35_000_000  # ~20 ms at the H100's 1.755 GHz boost clock
+# an IoU and its compare: 2 x (min, max, sub, add, max), mul, add, sub,
+# div, compare; and a label compare
+NMS_IOU_OPS, NMS_LABEL_OPS = 15, 1
+# bytes read of every candidate (score, valid), of a valid one besides
+# (box, label), and written per output slot (idx, score, valid)
+NMS_BYTES_ALL, NMS_BYTES_VALID, NMS_BYTES_OUT = 4 + 1, 16 + 4, 4 + 4 + 1
+
+
+def cuda_ms(fn, reps, warmup=2):
+    """Device ms per call of ``fn`` over ``reps`` calls. Where ``fn``
+    waits for the device itself, its waits count."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # queue the calls behind a device-side sleep (~20 ms), so that the
+    # host's launch time between them does not show in the device's time
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def nms_bound(args, got, real_n=None):
+    """Least time for the NMS of this input, and the IoUs it needs.
+    Greedy's i-th pick is the i-th live candidate (valid, score > -5e29)
+    in (score desc, index asc) order that no earlier pick suppresses, so
+    the function needs no argmax: only, for each live candidate up to
+    the last pick of a row that fills max_out (every live candidate of a
+    row that ends short of it), a test against each kept box ranked
+    ahead of it: a label compare when class-aware, and an IoU for the
+    same label. A row with a valid NaN score needs none. Ops against the
+    f32 peak. Bytes against HBM: every real candidate's score and valid
+    flag, the box and label of the valid ones, the outputs. ``real_n``
+    (per row) leaves out padding added to a row; invalid, it adds no
+    operations. Returns (ms, "bytes" or "operations", IoUs)."""
+    _, scores, labels, valid, _, max_out, aware = args
+    bsz, n = scores.shape
+    live = (valid & (scores > -5e29)
+            & ~(valid & scores.isnan()).any(dim=1, keepdim=True))
+    order = torch.where(live, scores, float("-inf")).sort(
+        dim=1, descending=True, stable=True).indices
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(n, device=scores.device).expand(bsz, n))
+    pairs = ious = 0
+    for b in range(bsz):
+        kept = got[0][b][got[2][b]].long()
+        kept_rank = rank[b, kept]
+        last = kept_rank[-1] if len(kept) == max_out else n
+        cand = live[b] & (rank[b] <= last)
+        ahead = kept_rank[None, :] < rank[b][cand][:, None]
+        pairs += int(ahead.sum())
+        if aware:
+            ahead &= labels[b][cand][:, None] == labels[b, kept][None, :]
+        ious += int(ahead.sum())
+    if real_n is None:
+        real_n = [n] * bsz
+    nbytes = (sum(real_n) * NMS_BYTES_ALL + int(valid.sum()) * NMS_BYTES_VALID
+              + bsz * max_out * NMS_BYTES_OUT)
+    ops = ious * NMS_IOU_OPS + (pairs * NMS_LABEL_OPS if aware else 0)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), (
+        "bytes" if t_bytes >= t_ops else "operations"), ious
+
+
+def nms_timing(entry, plain, args, reps, real_n=None):
+    """``entry`` (a kernel's launcher) on ``args`` after a bit-equality
+    check against ``plain``: its device ms, the plain version's (one
+    call: 15-1,500 ms at these inputs), the bound and what sets it."""
+    got = entry(*args)
+    want = plain(*args)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise RuntimeError(f"{entry.__name__} differs from its plain "
+                           "version")
+    bound, by, ious = nms_bound(args, got, real_n)
+    return got, {"ms": cuda_ms(lambda: entry(*args), reps),
+                 "plain_ms": cuda_ms(lambda: plain(*args), 1, 0),
+                 "bound_ms": bound, "bound_by": by, "ious_needed": ious,
+                 "valid_picks": int(got[2].sum())}
 
 
 def box_head_batch(dev, bsz=8, rois=1000, classes=80, objects=100, seed=0):
@@ -147,19 +244,59 @@ def k1_batches(dev, seed=0):
 
 
 def time_k1(nms, dev):
-    """K1's device ms at both batches, after a bit-equality check."""
+    """K1 at both batches (``nms_timing``; the padding of the RPN rows'
+    short levels left out of the bound)."""
     res = {}
     for what, args in k1_batches(dev):
-        got = nms._nms_batched_cuda(*args)
-        want = nms.nms_batched_plain(*args)
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise RuntimeError(f"K1 differs from its plain version ({what})")
-        res[what] = {
-            "ms": cuda_ms(lambda: nms._nms_batched_cuda(*args), 30),
-            "rows": args[1].shape[0], "n": args[1].shape[1],
-            "valid_picks": int(got[2].sum()),
-            "most_picks_in_a_row": int(got[2].sum(dim=1).max())}
+        got, timing = nms_timing(nms._nms_batched_cuda,
+                                 nms.nms_batched_plain, args, 30,
+                                 args[3].sum(dim=1).tolist())
+        res[what] = {**timing, "rows": args[1].shape[0],
+                     "n": args[1].shape[1],
+                     "most_picks_in_a_row": int(got[2].sum(dim=1).max())}
     return res
+
+
+def gn_forward_cost(gn, dev, bsz, seed, backward=False):
+    """K3 per forward of the towers at batch ``bsz`` (GN_PER_LEVEL
+    launches at each level's shape, bfloat16): its ms beside the plain
+    version's, ``F.group_norm`` + ``F.relu``, the bound (bytes: x read
+    once, y written once, the affine) and ``copy_`` of the same tensor;
+    with ``backward`` also the ms of the gradient's recompute (the plain
+    version's VJP, for x, weight and bias). Returns the totals, the
+    levels' rows and the last level's (x, weight, bias)."""
+    gen = torch.Generator().manual_seed(seed)
+    s = (torch.rand(256, generator=gen) + 0.5).to(dev)
+    b = (torch.randn(256, generator=gen) * 0.2).to(dev)
+    totals, per_level = {}, {}
+    for h, w in TOWER_HW:
+        x = torch.randn(bsz, 256, h, w, generator=gen).to(
+            dev, torch.bfloat16)
+        y = torch.empty_like(x)  # the same bytes moved by a plain copy
+        level = {
+            "ms": cuda_ms(lambda: gn.group_norm_relu(x, s, b), 50),
+            "plain_ms": cuda_ms(lambda: gn.group_norm_relu_plain(x, s, b),
+                                20),
+            "library_ms": cuda_ms(lambda: F.relu(F.group_norm(
+                x, 32, s.to(x.dtype), b.to(x.dtype), 1e-5)), 50),
+            "bound_ms": 1e3 * (2 * x.numel() * x.element_size()
+                               + 2 * 256 * 4) / HBM_BYTES_PER_S,
+            "copy_ms": cuda_ms(lambda: y.copy_(x), 50),
+        }
+        if backward:
+            ins = [t.detach().requires_grad_(True) for t in (x, s, b)]
+            up = torch.randn_like(x)
+
+            def vjp():
+                with torch.enable_grad():
+                    torch.autograd.grad(gn.group_norm_relu_plain(*ins),
+                                        ins, up)
+
+            level["backward_recompute_ms"] = cuda_ms(vjp, 10)
+        for k, v in level.items():
+            totals[k] = totals.get(k, 0.0) + GN_PER_LEVEL * v
+        per_level[f"{h}x{w}"] = level
+    return totals, per_level, (x, s, b)
 
 
 def k3_sweep(gn, dev, card):
@@ -196,7 +333,6 @@ K4_SHAPES = [
     ("res5", 2048, (25, 42), 32, 3), ("tower_p3", 256, (100, 168), 1, 2),
     ("tower_p4", 256, (50, 84), 1, 2), ("tower_p5", 256, (25, 42), 1, 2),
     ("tower_p6", 256, (13, 21), 1, 2), ("tower_p7", 256, (7, 11), 1, 2)]
-HBM_BYTES_PER_S = 3.35e12
 
 
 def time_k4(dcn, dev, card):
@@ -382,25 +518,11 @@ def main():
         return 0
 
     k1 = time_k1(nms, dev)
-    cand = box_head_batch(dev)
-    nms_args = (*cand, 0.5, 100, True)
-    got = nms._nms_global(*nms_args)
-    want = nms.nms_batched_plain(*nms_args)
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise RuntimeError("K2 differs from its plain version")
-    k2_ms = cuda_ms(lambda: nms._nms_global(*nms_args), 30)
-
-    gen = torch.Generator().manual_seed(5)
-    s = (torch.rand(256, generator=gen) + 0.5).to(dev)
-    b = (torch.randn(256, generator=gen) * 0.2).to(dev)
-    per_level, copy_ms, total = {}, {}, 0.0
-    for h, w in TOWER_HW:
-        x = torch.randn(8, 256, h, w, generator=gen).to(dev, torch.bfloat16)
-        ms = cuda_ms(lambda: gn.group_norm_relu(x, s, b), 50)
-        per_level[f"{h}x{w}"] = ms
-        total += GN_PER_LEVEL * ms
-        y = torch.empty_like(x)  # the same bytes moved by a plain copy
-        copy_ms[f"{h}x{w}"] = cuda_ms(lambda: y.copy_(x), 50)
+    _, k2 = nms_timing(nms._nms_global, nms.nms_batched_plain,
+                       (*box_head_batch(dev), 0.5, 100, True), 30)
+    k3, k3_per_launch, (x, s, b) = gn_forward_cost(gn, dev, 8, 5)
+    k3_train, k3_train_per_launch, _ = gn_forward_cost(gn, dev, 16, 6,
+                                                       backward=True)
     # host time of one K3 call at P7, where the kernel is shortest
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -410,9 +532,9 @@ def main():
     torch.cuda.synchronize()
     print(json.dumps({
         "tag": args.tag, "repo": args.repo, "card": name, "k1": k1,
-        "k2_ms": k2_ms, "k2_valid_picks": int(got[2].sum()),
-        "k3_ms_per_forward": total, "k3_ms_per_launch": per_level,
-        "copy_ms_per_launch": copy_ms,
+        "k2": k2, "k3_per_forward": k3, "k3_per_launch": k3_per_launch,
+        "k3_train_per_forward": k3_train,
+        "k3_train_per_launch": k3_train_per_launch,
         "k3_host_us_per_call": host_us,
     }))
     return 0

@@ -47,12 +47,12 @@ from ..ops.image_norm import SPAN_SYNC_H2D, maybe_device_normalize
 from ..solver import set_lr
 from ..utils import comm
 
-# the spans of a step, which tools/profile_train_step.py and
-# chip_smoke.py's profile read; of the benchmark's metrics,
-# train.input_ms reads the input span, and the backward span is the
-# breakdown's largest idle bucket. The forward opens the model's stage
-# spans (detector/body, detector/fpn, detector/head), the input the host
-# copy's sync/h2d_copy and the loss its own (modeling/paa_loss.py)
+# the spans of a step, which tools/profile_train_step.py reads; of the
+# benchmark's metrics, train.input_ms reads the input span, and the
+# backward span is the breakdown's largest idle bucket. The forward
+# opens the model's stage spans (detector/body, detector/fpn,
+# detector/head), the input the host copy's sync/h2d_copy and the loss
+# its own (modeling/paa_loss.py)
 SPAN_INPUT = "train_step/input"
 SPAN_FORWARD = "train_step/forward"
 SPAN_BACKWARD = "train_step/backward"

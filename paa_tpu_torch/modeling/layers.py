@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dcn import DeformConv2dFunction
 from ..ops.group_norm import group_norm_relu
 
 
@@ -68,6 +69,65 @@ class Conv(nn.Module):
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), bias,
                         self.stride, self.padding, self.dilation,
                         self.groups)
+
+
+class DeformConv(nn.Module):
+    """Offset conv + deformable sampling + weight contraction (port of
+    the JAX package's ``DeformConv``, ops/dcn.py:557-629; DFConv2d).
+
+    ``offset`` is a float32 conv with bias, zero-initialised (DFConv2d),
+    whose dg*K*2 offset channels are followed, when ``modulated``, by
+    dg*K mask logits through a sigmoid: in the JAX package it has no
+    compute dtype, so it runs in its float32 parameters' precision.
+    ``weight`` (O, C/groups, kh, kw) and the optional ``bias`` compute
+    in ``dtype``. Initialised as the JAX module: kaiming-uniform (a=1)
+    by default (the backbone), normal(std) when ``normal_std`` is given
+    (the head tower); bias zero. The sampling and contraction go
+    through ops/dcn.py's ``DeformConv2dFunction``, which records no graph
+    where no gradient is wanted."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
+                 padding=1, dilation=1, groups=1, deformable_groups=1,
+                 modulated=True, bias=False, dtype=torch.float32,
+                 normal_std=None):
+        super().__init__()
+        k = kernel_size * kernel_size
+        self.n_offsets = deformable_groups * k * 2
+        self.offset = Conv(
+            in_channels,
+            self.n_offsets + (deformable_groups * k if modulated else 0),
+            kernel_size, stride=stride, padding=padding, bias=True,
+            dilation=dilation, zero_init=True)
+        self.weight = nn.Parameter(torch.empty(
+            out_channels, in_channels // groups, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.groups = groups
+        self.deformable_groups = deformable_groups
+        self.modulated = modulated
+        self.dtype = dtype
+        self.normal_std = normal_std
+
+    def reset_parameters(self, generator):
+        """The sampled conv's weight and bias; ``offset`` is a ``Conv``
+        and is reset on its own (to zero)."""
+        with torch.no_grad():
+            init_conv_weight(self.weight, self.normal_std, generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x):
+        offset_mask = self.offset(x)
+        offsets = offset_mask[:, :self.n_offsets]
+        mask = (torch.sigmoid(offset_mask[:, self.n_offsets:])
+                if self.modulated else None)
+        out = DeformConv2dFunction.apply(
+            x.to(self.dtype), offsets, mask, self.weight.to(self.dtype),
+            self.stride, self.padding, self.dilation, self.groups,
+            self.deformable_groups)
+        if self.bias is not None:
+            out = out + self.bias.to(out.dtype)[:, None, None]
+        return out
 
 
 class Linear(nn.Module):
@@ -275,8 +335,6 @@ def reset_parameters(module, generator):
     """Initialise every ``Conv``, ``ConvTranspose``, ``Linear`` and
     ``DeformConv`` under ``module`` from ``generator``, in module order;
     norms and scales keep their constructor values."""
-    from ..ops.dcn import DeformConv  # ops/dcn.py imports this module
-
     for m in module.modules():
         if isinstance(m, (Conv, ConvTranspose, Linear, DeformConv)):
             m.reset_parameters(generator)

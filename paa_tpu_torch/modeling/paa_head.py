@@ -20,8 +20,7 @@ import math
 import torch
 from torch import nn
 
-from ..ops import dcn  # ops/dcn.py imports .layers: bind the module
-from .layers import Conv, GroupNorm32, Scale
+from .layers import Conv, DeformConv, GroupNorm32, Scale
 
 _HEAD_STD = 0.01
 
@@ -37,7 +36,7 @@ class ConvTower(nn.Module):
         self.num_convs = num_convs
         for i in range(num_convs):
             last = use_dcn_last and i == num_convs - 1
-            conv = dcn.DeformConv if last else Conv
+            conv = DeformConv if last else Conv
             self.add_module(f"conv{i}", conv(
                 channels, channels, 3, padding=1, bias=True, dtype=dtype,
                 normal_std=_HEAD_STD))

@@ -48,9 +48,9 @@ from .box_coder import decode_box, encode_box
 from .matcher import match_anchors
 
 INF = 1e8
-# the spans of a train step that chip_smoke.py's profile and
-# tools/profile_train_step.py read; the benchmark's train.assignment_ms
-# reads the first (the GMM's host reads in it open sync/gmm_converged)
+# the spans of a train step that tools/profile_train_step.py reads; the
+# benchmark's train.assignment_ms reads the first (the GMM's host reads
+# in it open sync/gmm_converged)
 SPAN_ASSIGN = "paa_loss/assignment"
 SPAN_LOSSES = "paa_loss/losses"
 

@@ -33,9 +33,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import dcn  # ops/dcn.py imports .layers: bind the module
 from .layers import (
-    Conv, FrozenBatchNorm, GroupNorm32, SyncBatchNorm, max_pool_3x3_s2)
+    Conv, DeformConv, FrozenBatchNorm, GroupNorm32, SyncBatchNorm,
+    max_pool_3x3_s2)
 
 # (block counts per stage, return_features per stage)
 STAGE_SPECS = {
@@ -101,7 +101,7 @@ class Bottleneck(nn.Module):
                           stride=stride_1x1, dtype=dtype)
         self.bn1 = make_norm(norm, bottleneck_channels, relu=True)
         if with_dcn:
-            self.conv2 = dcn.DeformConv(
+            self.conv2 = DeformConv(
                 bottleneck_channels, bottleneck_channels, 3,
                 stride=stride_3x3, padding=dilation, dilation=dilation,
                 groups=num_groups, deformable_groups=deformable_groups,

@@ -111,10 +111,8 @@ SPAN_BOX_LOSS = "two_stage/box_loss"
 SPAN_MASK_HEAD = "two_stage/mask_head"  # and inference
 SPAN_MASK_TARGETS = "two_stage/mask_targets"
 SPAN_MASK_LOSS = "two_stage/mask_loss"
-SPAN_KEYPOINT_HEAD = "two_stage/keypoint_head"
+SPAN_KEYPOINT_HEAD = "two_stage/keypoint_head"  # and inference
 SPAN_KEYPOINT_LOSS = "two_stage/keypoint_loss"
-# the keypoint head at inference
-SPAN_KEYPOINT_EVAL = "keypoint head"
 
 
 @dataclass
@@ -370,7 +368,7 @@ class TwoStageModel(DetectionModel):
                 det["masks"] = torch.sigmoid(sel.to(torch.float32)).reshape(
                     bsz, d, *sel.shape[-2:])
         if self.module.keypoint_head is not None:
-            with record_function(SPAN_KEYPOINT_EVAL):
+            with record_function(SPAN_KEYPOINT_HEAD):
                 heat = self.module.keypoint(features, det_rois, det_idx)
                 det["kp_heatmaps"] = heat.to(torch.float32).reshape(
                     bsz, d, *heat.shape[1:])

@@ -18,12 +18,13 @@ The gathered rows of a layer take B*Ho*Wo*K*4C values (5 GB at stage 3
 of X-152-32x8d at B=8 in bf16), so steps 2-3 run over chunks of images
 whose gathered rows stay under ``CHUNK_BYTES``.
 
-Under autograd, ``DeformConv`` goes through ``DeformConv2dFunction``:
-the counterpart of the JAX package's custom VJP (``sample_auto``,
-ops/dcn.py:528-554). Autograd through ``deform_conv2d`` would keep every
-chunk's gathered rows for the backward, those of every DCN layer of a
-train step at once; the Function keeps only its inputs (x, offsets,
-mask, weight), and its backward takes one of two routes:
+Under autograd, the ``DeformConv`` module (modeling/layers.py) goes
+through ``DeformConv2dFunction``: the counterpart of the JAX package's
+custom VJP (``sample_auto``, ops/dcn.py:528-554). Autograd through
+``deform_conv2d`` would keep every chunk's gathered rows for the
+backward, those of every DCN layer of a train step at once; the
+Function keeps only its inputs (x, offsets, mask, weight), and its
+backward takes one of two routes:
 
 - CUDA tensors (``deform_conv2d_columns_backward``): explicit gradients
   by chunks of images whose columns stay under ``CHUNK_BYTES`` (one
@@ -59,20 +60,17 @@ follow all offsets in the offset conv's output and pass a sigmoid.
 from __future__ import annotations
 
 import torch
-from torch import nn
 from torch.profiler import record_function
 
-from ..modeling.layers import Conv, init_conv_weight
 from .deform_sampling import (_out_size, _sample_columns, _sampling,
                               deform_col2im, deform_im2col)
 
 # gathered rows (the plain version) or columns (K4) per chunk of images
 CHUNK_BYTES = 2 << 30
 # the spans of the forward's sampling and contraction, and of the
-# backward's recompute and VJP, which chip_smoke.py's train profile and
-# tools/profile_train_step.py read; of the benchmark's metrics,
-# serve.dcn_forward_ms reads the first and train.dcn_backward_ms the
-# second
+# backward's recompute and VJP, which tools/profile_train_step.py reads;
+# of the benchmark's metrics, serve.dcn_forward_ms reads the first and
+# train.dcn_backward_ms the second
 SPAN_FORWARD = "deform_conv2d/forward"
 SPAN_BACKWARD = "deform_conv2d/backward"
 
@@ -330,63 +328,3 @@ class DeformConv2dFunction(torch.autograd.Function):
                 grads = _recompute_backward(x, offsets, mask, weight, grad,
                                             ctx.conv, wanted)
         return (*grads, None, None, None, None, None)
-
-
-class DeformConv(nn.Module):
-    """Offset conv + deformable sampling + weight contraction (port of
-    the JAX package's ``DeformConv``, ops/dcn.py:557-629; DFConv2d).
-
-    ``offset`` is a float32 conv with bias, zero-initialised (DFConv2d),
-    whose dg*K*2 offset channels are followed, when ``modulated``, by
-    dg*K mask logits through a sigmoid: in the JAX package it has no
-    compute dtype, so it runs in its float32 parameters' precision.
-    ``weight`` (O, C/groups, kh, kw) and the optional ``bias`` compute
-    in ``dtype``. Initialised as the JAX module: kaiming-uniform (a=1)
-    by default (the backbone), normal(std) when ``normal_std`` is given
-    (the head tower); bias zero. The sampling and contraction go
-    through ``DeformConv2dFunction``, which records no graph where no
-    gradient is wanted."""
-
-    def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
-                 padding=1, dilation=1, groups=1, deformable_groups=1,
-                 modulated=True, bias=False, dtype=torch.float32,
-                 normal_std=None):
-        super().__init__()
-        k = kernel_size * kernel_size
-        self.n_offsets = deformable_groups * k * 2
-        self.offset = Conv(
-            in_channels,
-            self.n_offsets + (deformable_groups * k if modulated else 0),
-            kernel_size, stride=stride, padding=padding, bias=True,
-            dilation=dilation, zero_init=True)
-        self.weight = nn.Parameter(torch.empty(
-            out_channels, in_channels // groups, kernel_size, kernel_size))
-        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
-        self.stride, self.padding, self.dilation = stride, padding, dilation
-        self.groups = groups
-        self.deformable_groups = deformable_groups
-        self.modulated = modulated
-        self.dtype = dtype
-        self.normal_std = normal_std
-
-    def reset_parameters(self, generator):
-        """The sampled conv's weight and bias; ``offset`` is a ``Conv``
-        and is reset on its own (to zero)."""
-        with torch.no_grad():
-            init_conv_weight(self.weight, self.normal_std, generator)
-            if self.bias is not None:
-                self.bias.zero_()
-
-    def forward(self, x):
-        offset_mask = self.offset(x)
-        offsets = offset_mask[:, :self.n_offsets]
-        mask = (torch.sigmoid(offset_mask[:, self.n_offsets:])
-                if self.modulated else None)
-        out = DeformConv2dFunction.apply(
-            x.to(self.dtype), offsets, mask, self.weight.to(self.dtype),
-            self.stride, self.padding, self.dilation, self.groups,
-            self.deformable_groups)
-        if self.bias is not None:
-            out = out + self.bias.to(out.dtype)[:, None, None]
-        return out
-

@@ -2,8 +2,8 @@
 PyTorch steps, and K4, the CUDA kernel csrc/deform_im2col.cu that takes
 them in one pass on the card.
 
-This module imports no model code (ops/dcn.py does, for ``DeformConv``),
-so that ``from paa_tpu_torch import ops`` registers the custom op
+Like every module of ops/, it imports no model code, so that ``from
+paa_tpu_torch import ops`` registers the custom op
 ``paa_tpu_torch::deform_im2col`` in a process that loads a serving
 artifact without the model (serving.py).
 

@@ -76,7 +76,7 @@ def group_norm_relu_plain(x, weight, bias, num_groups=32, eps=1e-5,
     ``relu=False`` it is GroupNorm alone, and its gradient GroupNorm's.
 
     It computes in float32, or in float64 for a float64 ``x`` (a
-    float64 reference step, chip_smoke.py)."""
+    float64 reference step)."""
     b, c, h, w = x.shape
     ct = torch.promote_types(x.dtype, torch.float32)
     xf = x.to(ct).reshape(b, num_groups, (c // num_groups) * h * w)
@@ -200,11 +200,11 @@ def _group_norm_relu_cuda(x, weight, bias, num_groups, eps, relu=True):
         raise RuntimeError(
             f"group_norm_relu kernel launch failed: CUDA error {err}")
     group_norm_relu.launches += 1
-    group_norm_relu.launches_by_form[form(relu)] += 1
     return y
 
 
-# the span of the backward's recompute, which chip_smoke.py's profile reads
+# the span of the backward's recompute, which tools/profile_train_step.py
+# and the benchmark's train.gn_backward_ms read
 SPAN_BACKWARD = "group_norm_relu/backward"
 
 
@@ -280,22 +280,15 @@ _group_norm_relu_op.register_autograd(_plain_vjp,
                                       setup_context=_setup_context)
 
 
-def form(relu):
-    """The key of a launch's form in ``group_norm_relu.launches_by_form``:
-    "relu" (GroupNorm + ReLU) or "no_relu" (GroupNorm alone)."""
-    return "relu" if relu else "no_relu"
-
-
 def group_norm_relu(x, weight, bias, num_groups=32, eps=1e-5, relu=True):
     """relu(GroupNorm(x)), or GroupNorm(x) with ``relu`` False, for x
     (B, C, H, W) in float32, bfloat16 or float16 and float32 weight,
     bias (C,); returns x's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch K3
-    (csrc/group_norm.cu, counted in ``group_norm_relu.launches`` and by
-    form in ``group_norm_relu.launches_by_form``) or raise, through
-    ``GroupNormReLU`` where autograd records, else through the custom
-    op ``paa_tpu_torch::group_norm_relu``."""
+    (csrc/group_norm.cu, counted in ``group_norm_relu.launches``) or
+    raise, through ``GroupNormReLU`` where autograd records, else through
+    the custom op ``paa_tpu_torch::group_norm_relu``."""
     if x.shape[1] % num_groups:
         raise ValueError(f"{x.shape[1]} channels in {num_groups} groups")
     if x.device.type not in ("cpu", "cuda"):
@@ -312,4 +305,3 @@ def group_norm_relu(x, weight, bias, num_groups=32, eps=1e-5, relu=True):
 
 
 group_norm_relu.launches = 0
-group_norm_relu.launches_by_form = {"relu": 0, "no_relu": 0}

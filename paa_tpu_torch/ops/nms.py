@@ -214,16 +214,6 @@ def k2_plan(n, capacity):
     return ("cluster", cs) if cs <= K2_MAX_CLUSTER else ("scratch", 1)
 
 
-def k2_max_active_clusters(device, n):
-    """cudaOccupancyMaxActiveClusters of K2's cluster route at ``n``
-    candidates per image: how many images run at once."""
-    route, cs = k2_plan(n, k2_capacity(device))
-    if route != "cluster":
-        return 0
-    with torch.cuda.device(device):
-        return _k2_lib().paa_nms_cluster_max_active(cs, n)
-
-
 def _nms_batched_cuda(boxes, scores, labels, valid, iou_threshold, max_out,
                       class_aware, tiles=None):
     """K1: csrc/nms_batched.cu, one CTA per image, which sorts its live

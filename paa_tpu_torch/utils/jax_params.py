@@ -47,9 +47,8 @@ import numpy as np
 import torch
 
 from ..modeling.layers import (
-    Conv, ConvTranspose, FrozenBatchNorm, GroupNorm32, Linear, Scale,
-    SyncBatchNorm)
-from ..ops import dcn  # ops/dcn.py imports modeling: bind the module
+    Conv, ConvTranspose, DeformConv, FrozenBatchNorm, GroupNorm32, Linear,
+    Scale, SyncBatchNorm)
 
 
 def _leaves(mod, tree, stats, path):
@@ -61,8 +60,8 @@ def _leaves(mod, tree, stats, path):
                 f"{where}: JAX leaves {sorted(tree)} vs port "
                 f"{sorted(expected)}")
 
-    if isinstance(mod, (Conv, dcn.DeformConv)):
-        children = ["offset"] if isinstance(mod, dcn.DeformConv) else []
+    if isinstance(mod, (Conv, DeformConv)):
+        children = ["offset"] if isinstance(mod, DeformConv) else []
         keys(["kernel"] + (["bias"] if mod.bias is not None else [])
              + children)
         out = [("weight", np.transpose(tree["kernel"], (3, 2, 0, 1)))]

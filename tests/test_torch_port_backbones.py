@@ -41,8 +41,8 @@ from paa_tpu.modeling.resnet import STAGE_SPECS as JAX_STAGE_SPECS
 from paa_tpu.ops import dcn as jdcn
 from paa_tpu_torch.config import get_cfg
 from paa_tpu_torch.modeling import build_detection_model
+from paa_tpu_torch.modeling.layers import DeformConv
 from paa_tpu_torch.modeling.resnet import STAGE_SPECS
-from paa_tpu_torch.ops.dcn import DeformConv
 from paa_tpu_torch.utils import load_jax_params
 from test_torch_port_model import OVERRIDES, _seeded_params
 

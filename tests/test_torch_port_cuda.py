@@ -348,11 +348,8 @@ def _gn_check(dev, shape, dtype, num_groups=32, seed=None, relu=True):
     s = (torch.rand(c, generator=gen) + 0.5).to(dev)
     b = (torch.randn(c, generator=gen) * 0.3).to(dev)
     before = gn.group_norm_relu.launches
-    forms = dict(gn.group_norm_relu.launches_by_form)
     got = gn.group_norm_relu(x, s, b, num_groups, relu=relu).float()
     assert gn.group_norm_relu.launches == before + 1
-    forms[gn.form(relu)] += 1
-    assert gn.group_norm_relu.launches_by_form == forms
     want = gn.group_norm_relu_plain(x, s, b, num_groups, relu=relu).float()
     assert bool((got < 0).any()) != relu
     if dtype == torch.float32:
@@ -448,9 +445,9 @@ def test_group_norm_function_no_relu_gradients_match_plain(dev, dtype):
     b = (torch.randn(256, generator=gen) * 0.2).to(dev)
     up = torch.randn(*shape, generator=gen).to(dev, dtype)
     ins = [t.clone().requires_grad_(True) for t in (x, w, b)]
-    before = gn.group_norm_relu.launches_by_form["no_relu"]
+    before = gn.group_norm_relu.launches
     y = gn.group_norm_relu(*ins, relu=False)
-    assert gn.group_norm_relu.launches_by_form["no_relu"] == before + 1
+    assert gn.group_norm_relu.launches == before + 1
     assert type(y.grad_fn).__name__ == "GroupNormReLUBackward"
     y.backward(up)
     refs = [t.clone().requires_grad_(True) for t in (x, w, b)]
@@ -821,10 +818,10 @@ def test_deform_conv_on_the_card_launches_k4(dev):
     columns recomputed for the weight's gradient) beside one K5 launch;
     the same output as the plain version on the CPU within 1e-5 of its
     largest magnitude."""
-    from paa_tpu_torch.modeling.layers import reset_parameters
+    from paa_tpu_torch.modeling.layers import DeformConv, reset_parameters
     from paa_tpu_torch.ops import dcn
 
-    conv = dcn.DeformConv(64, 64, groups=4, bias=True)
+    conv = DeformConv(64, 64, groups=4, bias=True)
     gen = torch.Generator().manual_seed(11)
     reset_parameters(conv, gen)
     with torch.no_grad():
@@ -853,10 +850,10 @@ def test_k4_op_exports_through_its_fake(dev):
     """A ``DeformConv`` exported on the card records K4 as one
     ``paa_tpu_torch::deform_im2col`` node (traced through its fake); the
     exported program launches it once and equals the live module."""
-    from paa_tpu_torch.modeling.layers import reset_parameters
+    from paa_tpu_torch.modeling.layers import DeformConv, reset_parameters
     from paa_tpu_torch.ops import dcn
 
-    conv = dcn.DeformConv(32, 32, groups=2)
+    conv = DeformConv(32, 32, groups=2)
     gen = torch.Generator().manual_seed(12)
     reset_parameters(conv, gen)
     with torch.no_grad():
@@ -1025,8 +1022,7 @@ def test_deform_conv_artifact_serves_without_model_code(dev, tmp_path):
     import subprocess
     import sys
 
-    from paa_tpu_torch.modeling.layers import reset_parameters
-    from paa_tpu_torch.ops import dcn
+    from paa_tpu_torch.modeling.layers import DeformConv, reset_parameters
     from paa_tpu_torch.serving import save_exported
 
     class Served(torch.nn.Module):
@@ -1039,7 +1035,7 @@ def test_deform_conv_artifact_serves_without_model_code(dev, tmp_path):
         def forward(self, x, scale):
             return self.conv(x) * scale
 
-    conv = dcn.DeformConv(64, 64, groups=4, dtype=torch.bfloat16)
+    conv = DeformConv(64, 64, groups=4, dtype=torch.bfloat16)
     gen = torch.Generator().manual_seed(13)
     reset_parameters(conv, gen)
     with torch.no_grad():

@@ -36,6 +36,7 @@ import pytest
 import torch
 
 from paa_tpu.ops import dcn as jdcn
+from paa_tpu_torch.modeling.layers import DeformConv
 from paa_tpu_torch.ops import dcn, deform_sampling
 from paa_tpu_torch.serving import save_exported
 from paa_tpu_torch.utils import load_jax_params
@@ -241,7 +242,7 @@ def test_deform_conv_module_matches_flax(groups, stride, modulated, bias):
     params = _jax_deform_conv_params(flax_mod, jnp.asarray(x), rng)
     want = np.asarray(flax_mod.apply({"params": params}, jnp.asarray(x)))
 
-    port = dcn.DeformConv(c, o, stride=stride, groups=groups,
+    port = DeformConv(c, o, stride=stride, groups=groups,
                           modulated=modulated, bias=bias)
     load_jax_params(port, params)
     with torch.no_grad():
@@ -257,12 +258,12 @@ def test_deform_conv_init_and_strict_load():
     strict."""
     from paa_tpu_torch.modeling.layers import reset_parameters
 
-    port = dcn.DeformConv(16, 8, groups=4, bias=True, normal_std=0.01)
+    port = DeformConv(16, 8, groups=4, bias=True, normal_std=0.01)
     reset_parameters(port, torch.Generator().manual_seed(0))
     assert not port.offset.weight.any() and not port.offset.bias.any()
     assert not port.bias.any()
     assert 0.005 < float(port.weight.detach().std()) < 0.02
-    backbone = dcn.DeformConv(16, 8, groups=4)
+    backbone = DeformConv(16, 8, groups=4)
     reset_parameters(backbone, torch.Generator().manual_seed(0))
     bound = np.sqrt(3.0 / (4 * 9))
     assert float(backbone.weight.abs().max()) <= bound

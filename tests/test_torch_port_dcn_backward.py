@@ -49,7 +49,7 @@ import pytest
 import torch
 
 from paa_tpu.ops import dcn as jdcn
-from paa_tpu_torch.modeling.layers import reset_parameters
+from paa_tpu_torch.modeling.layers import DeformConv, reset_parameters
 from paa_tpu_torch.ops import dcn
 from paa_tpu_torch.ops import deform_sampling as ds
 
@@ -179,7 +179,7 @@ def _saved_numels(fn):
 
 
 def _module(groups=2, modulated=True, bias=True):
-    conv = dcn.DeformConv(8, 8, groups=groups, modulated=modulated,
+    conv = DeformConv(8, 8, groups=groups, modulated=modulated,
                           bias=bias)
     gen = torch.Generator().manual_seed(5)
     reset_parameters(conv, gen)

@@ -46,8 +46,8 @@ from paa_tpu_torch.data import coco, loader
 from paa_tpu_torch.data.synth import synth_coco
 from paa_tpu_torch.engine import TrainState
 from paa_tpu_torch.modeling import build_detection_model
+from paa_tpu_torch.modeling.layers import DeformConv
 from paa_tpu_torch.modeling.paa_loss import PAALossConfig, paa_loss
-from paa_tpu_torch.ops import dcn
 from paa_tpu_torch.solver import make_optimizer, param_labels
 from paa_tpu_torch.utils import load_jax_params
 from test_torch_port_backbones import (  # noqa: F401
@@ -151,7 +151,7 @@ def test_dcn_layers_train_through_the_function(runs):
     model, out = runs
     grads = out[0]["port"]["grads"]
     convs = {n: m for n, m in model.module.named_modules()
-             if isinstance(m, dcn.DeformConv)}
+             if isinstance(m, DeformConv)}
     assert len(convs) == 4 + 6 + 3 + 2
     for n in convs:
         for leaf in ("weight", "offset.weight", "offset.bias"):

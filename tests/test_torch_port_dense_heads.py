@@ -53,9 +53,9 @@ from paa_tpu_torch.config import get_cfg
 from paa_tpu_torch.modeling import build_detection_model
 from paa_tpu_torch.modeling.atss_head import atss_head_from_cfg
 from paa_tpu_torch.modeling.fcos_head import fcos_head_from_cfg
+from paa_tpu_torch.modeling.layers import DeformConv
 from paa_tpu_torch.modeling.paa_head import paa_head_from_cfg
 from paa_tpu_torch.modeling.retinanet_head import retinanet_head_from_cfg
-from paa_tpu_torch.ops import dcn
 from paa_tpu_torch.solver import param_labels
 from paa_tpu_torch.modeling.mobilenet import MobileNetV2
 from paa_tpu_torch.utils import load_jax_params
@@ -137,7 +137,7 @@ def test_head_matches_jax(case):
     if case in ("atss_point", "fcos_norm", "fcos_norm_ctr_on_reg"):
         assert (got["box_regression"] >= 0).all()  # the ReLU
     if case == "atss_dcn":
-        assert isinstance(head.cls_tower.conv1, dcn.DeformConv)
+        assert isinstance(head.cls_tower.conv1, DeformConv)
 
 
 # ---- post-processing ------------------------------------------------------
@@ -385,7 +385,7 @@ def test_every_dense_config_builds(path):
     assert model.strides == tuple(
         node.FPN_STRIDES if kind == "fcos" else node.ANCHOR_STRIDES)
     if kind != "retinanet":
-        assert isinstance(head.cls_tower.conv3, dcn.DeformConv) == \
+        assert isinstance(head.cls_tower.conv3, DeformConv) == \
             node.USE_DCN_IN_TOWER
     p6 = model.module.backbone.fpn.p6
     assert p6.weight.shape[1] == (64 * 8 if m.RETINANET.USE_C5 else 32)

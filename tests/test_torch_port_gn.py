@@ -138,10 +138,10 @@ def test_plain_no_relu_matches_jax_kernel_and_vjp():
     for g, w in zip(got, wgrads):
         _close(g, w, 1e-5)
     # the wrapper on a CPU tensor takes the plain version of either form
-    before = dict(gn.group_norm_relu.launches_by_form)
+    before = gn.group_norm_relu.launches
     direct = gn.group_norm_relu(_nchw(x), _t(s), _t(b), relu=False)
     assert torch.equal(direct, y.detach())
-    assert gn.group_norm_relu.launches_by_form == before
+    assert gn.group_norm_relu.launches == before
 
 
 def test_no_relu_gradient_has_no_half_rule():

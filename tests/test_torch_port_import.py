@@ -7,9 +7,11 @@ import cv2 or PIL at module level (the machine with the card has
 neither): the eval path, Mask R-CNN's train step and eval to the segm
 table, Keypoint R-CNN's train step and eval to the keypoints table
 (the heatmaps decoded without cv2), and a Pascal VOC evaluation to the
-mAP, run on a PPM dataset with both blocked."""
+mAP, run on a PPM dataset with both blocked. And the ops layer imports
+nothing from the model code."""
 
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -94,6 +96,52 @@ def test_no_jax_or_paa_tpu_imports():
         for p in sources for m in _imported_modules(p) if _forbidden(m)
     ]
     assert not bad, bad
+
+
+def _absolute_imports(path, package):
+    """Every module that ``path`` (a module of ``package``) imports,
+    inside functions too, relative imports resolved: ``from ..x import
+    y`` names both ``package-parent.x`` and ``package-parent.x.y``."""
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                parent = package.split(".")[:len(package.split("."))
+                                           - node.level + 1]
+                base = ".".join(parent + ([base] if base else []))
+            yield base
+            yield from (f"{base}.{a.name}" for a in node.names)
+
+
+def test_ops_import_nothing_from_modeling():
+    """The ops layer sits under the model code: no module of
+    paa_tpu_torch/ops imports paa_tpu_torch.modeling, at module level or
+    inside a function, so that a serving artifact's process loads the
+    kernels' custom ops without the model."""
+    ops = sorted(glob.glob(os.path.join(PKG, "ops", "*.py")))
+    assert len(ops) > 10
+    bad = [(os.path.relpath(p, ROOT), m) for p in ops
+           for m in _absolute_imports(p, "paa_tpu_torch.ops")
+           if m == "paa_tpu_torch.modeling"
+           or m.startswith("paa_tpu_torch.modeling.")]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("source,package,expected", [
+    ("from ..modeling.layers import Conv", "paa_tpu_torch.ops",
+     "paa_tpu_torch.modeling.layers"),
+    ("from .. import modeling", "paa_tpu_torch.ops",
+     "paa_tpu_torch.modeling"),
+    ("from .dcn import x", "paa_tpu_torch.ops", "paa_tpu_torch.ops.dcn"),
+])
+def test_absolute_imports_resolves_relative_imports(tmp_path, source,
+                                                    package, expected):
+    path = tmp_path / "m.py"
+    path.write_text(f"def f():\n    {source}\n")
+    assert expected in set(_absolute_imports(str(path), package))
 
 
 def test_no_module_level_cv2_or_pil_imports():

@@ -37,9 +37,8 @@ from paa_tpu_torch.config import get_cfg
 from paa_tpu_torch.engine import TrainState
 from paa_tpu_torch.engine.trainer import do_train
 from paa_tpu_torch.modeling import build_detection_model
-from paa_tpu_torch.modeling.layers import Conv
+from paa_tpu_torch.modeling.layers import Conv, DeformConv
 from paa_tpu_torch.ops import gmm
-from paa_tpu_torch.ops.dcn import DeformConv
 from paa_tpu_torch.solver import make_optimizer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
